@@ -1,0 +1,198 @@
+"""Convolution primitives — counterpart of gan_class_transfer2_tpu/ops/conv.py.
+
+NHWC activations and HWIO kernels at every public function, as in the JAX
+package; inside, each op views its operands as NCHW / OIHW for
+``torch.nn.functional``. Transposed-conv kernels are stored HWIO in dataflow
+orientation (I = the op's input channels), as in the JAX package.
+
+``conv_impl`` selects per op:
+
+  * ``lax`` / ``auto`` — ``torch.nn.functional`` (cuDNN on the card);
+  * ``shuffle``        — the pixel-shuffle reformulations below;
+  * ``pallas``         — the hand-written CUDA k4/s2 down conv
+                         (ops/fused_down_conv.py) for the shapes its
+                         ``supported`` gate admits, the plain conv otherwise:
+                         the JAX package's shape gate, not a device fallback.
+
+Float32 compute is IEEE float32, as the JAX package's ``Precision.HIGHEST``;
+models/unet.py turns cuDNN's TF32 off around a float32 forward.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from . import fused_down_conv
+
+
+def same_pads(in_size: int, k: int, s: int):
+    """TF 'SAME' padding (lo, hi) for a strided conv."""
+    out = -(-in_size // s)
+    total = max((out - 1) * s + k - in_size, 0)
+    lo = total // 2
+    return lo, total - lo
+
+
+def _nchw(x):
+    return x.permute(0, 3, 1, 2)
+
+
+def _nhwc(y):
+    return y.permute(0, 2, 3, 1)
+
+
+def _conv_strided_raw(x, kernel, stride: int):
+    """Plain TF-SAME strided conv (no bias/act), NHWC/HWIO. Odd inputs get
+    asymmetric pads such as (1, 2), which ``F.conv2d``'s symmetric
+    ``padding=`` cannot express, so those go through an explicit ``F.pad``."""
+    kh, kw = kernel.shape[0], kernel.shape[1]
+    ph = same_pads(x.shape[1], kh, stride)
+    pw = same_pads(x.shape[2], kw, stride)
+    w = kernel.to(x.dtype).permute(3, 2, 0, 1)
+    xn = _nchw(x)
+    if ph[0] == ph[1] and pw[0] == pw[1]:
+        return _nhwc(F.conv2d(xn, w, stride=stride, padding=(ph[0], pw[0])))
+    xn = F.pad(xn, (pw[0], pw[1], ph[0], ph[1]))
+    return _nhwc(F.conv2d(xn, w, stride=stride))
+
+
+def _epilogue(y, bias, relu):
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    if relu:
+        y = torch.relu(y)
+    return y
+
+
+def conv2d(x, kernel, bias=None, stride: int = 1, relu: bool = False):
+    """TF-SAME conv. kernel HWIO."""
+    return _epilogue(_conv_strided_raw(x, kernel, stride), bias, relu)
+
+
+def _convt_raw(x, kernel, stride: int):
+    """TF Conv2DTranspose 'SAME' (the exact adjoint of the SAME strided conv
+    with the io-swapped kernel). ``F.conv_transpose2d`` takes (in, out, kh, kw)
+    weights and flips them itself, so the HWIO dataflow kernel maps straight
+    onto it; asymmetric SAME pads are cut from the full output."""
+    kh, kw = kernel.shape[0], kernel.shape[1]
+    out_h, out_w = x.shape[1] * stride, x.shape[2] * stride
+    ph = same_pads(out_h, kh, stride)
+    pw = same_pads(out_w, kw, stride)
+    if kh < stride or kw < stride:
+        raise ValueError(f"transposed conv needs kernel >= stride, got {kh}x{kw}/{stride}")
+    w = kernel.to(x.dtype).permute(2, 3, 0, 1)
+    xn = _nchw(x)
+    if ph[0] == ph[1] and pw[0] == pw[1]:
+        y = F.conv_transpose2d(xn, w, stride=stride, padding=(ph[0], pw[0]))
+    else:
+        y = F.conv_transpose2d(xn, w, stride=stride)
+        y = y[:, :, ph[0] : ph[0] + out_h, pw[0] : pw[0] + out_w]
+    return _nhwc(y)
+
+
+def conv2d_transpose(x, kernel, bias=None, stride: int = 2, relu: bool = False):
+    """TF Conv2DTranspose 'SAME'; kernel HWIO with I = this op's input
+    channels. Output spatial = input · stride."""
+    return _epilogue(_convt_raw(x, kernel, stride), bias, relu)
+
+
+# --------------------------------------------------------------------------
+# Pixel-shuffle reformulations (k=4, s=2)
+# --------------------------------------------------------------------------
+
+
+def space_to_depth(x, block: int = 2):
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // block, block, w // block, block, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(
+        b, h // block, w // block, block * block * c
+    )
+
+
+def depth_to_space(x, block: int = 2):
+    b, h, w, c = x.shape
+    o = c // (block * block)
+    x = x.reshape(b, h, w, block, block, o)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h * block, w * block, o)
+
+
+def _transpose_shuffle_kernel(kernel):
+    """Repack a k4/s2 transposed-conv kernel (4,4,I,O) into a 3×3 kernel
+    (3,3,I,4·O) so that pad1 → conv3x3 → depth_to_space equals
+    conv2d_transpose (derivation in the JAX copy)."""
+    kf = torch.flip(kernel, (0, 1))
+    i_ch, o_ch = kernel.shape[2], kernel.shape[3]
+    out = kernel.new_zeros((3, 3, i_ch, 4, o_ch))
+    for a in (0, 1):
+        for b in (0, 1):
+            for ti in (0, 1):
+                for tj in (0, 1):
+                    out[a + ti, b + tj, :, 2 * a + b, :] = kf[a + 2 * ti, b + 2 * tj]
+    return out.reshape(3, 3, i_ch, 4 * o_ch)
+
+
+def conv2d_transpose_shuffle(x, kernel, bias=None, relu: bool = False):
+    """k=4, s=2 transposed conv as pad-1 → 3×3/s1 conv → depth_to_space."""
+    if kernel.shape[0] != 4 or kernel.shape[1] != 4:
+        raise ValueError(f"shuffle transposed conv needs a 4x4 kernel, got {tuple(kernel.shape)}")
+    k = _transpose_shuffle_kernel(kernel).to(x.dtype).permute(3, 2, 0, 1)
+    y = _nhwc(F.conv2d(_nchw(x), k, padding=1))
+    return _epilogue(depth_to_space(y, 2), bias, relu)
+
+
+def _down_shuffle_kernel(kernel):
+    """Repack a k4/s2 conv kernel (4,4,I,O) into a 2×2 kernel (2,2,4·I,O)
+    over the space-to-depth'd padded input."""
+    i_ch, o_ch = kernel.shape[2], kernel.shape[3]
+    out = kernel.new_zeros((2, 2, 2, 2, i_ch, o_ch))  # (ti, tj, a, b, I, O)
+    for ti in (0, 1):
+        for tj in (0, 1):
+            for a in (0, 1):
+                for b in (0, 1):
+                    out[ti, tj, a, b] = kernel[2 * ti + a, 2 * tj + b]
+    return out.reshape(2, 2, 4 * i_ch, o_ch)
+
+
+def conv2d_down_shuffle(x, kernel, bias=None, relu: bool = False):
+    """k=4, s=2 SAME conv as pad-1 → space_to_depth → 2×2/s1 conv. Even
+    spatial dims only: TF-SAME pads odd inputs (1, 2), which this
+    reformulation cannot express."""
+    if kernel.shape[0] != 4 or kernel.shape[1] != 4:
+        raise ValueError(f"shuffle down conv needs a 4x4 kernel, got {tuple(kernel.shape)}")
+    if x.shape[1] % 2 or x.shape[2] % 2:
+        raise ValueError(
+            f"impl='shuffle' needs even spatial dims, got "
+            f"{x.shape[1]}x{x.shape[2]} — use impl='lax'"
+        )
+    k = _down_shuffle_kernel(kernel).to(x.dtype).permute(3, 2, 0, 1)
+    xs = space_to_depth(F.pad(x, (0, 0, 1, 1, 1, 1)), 2)
+    y = _nhwc(F.conv2d(_nchw(xs), k))
+    return _epilogue(y, bias, relu)
+
+
+# --------------------------------------------------------------------------
+# Dispatch
+# --------------------------------------------------------------------------
+
+
+def down_conv(x, kernel, bias, impl: str = "auto", relu: bool = True):
+    """DownShuffle op (reference train.py:158-169): 4×4/s2 SAME conv + ReLU."""
+    if impl == "pallas" and bias is not None:
+        if fused_down_conv.supported(tuple(x.shape), tuple(kernel.shape)):
+            return fused_down_conv.down_conv_fused(x.contiguous(), kernel, bias, relu)
+        return conv2d(x, kernel, bias, stride=2, relu=relu)
+    if impl == "shuffle":
+        return conv2d_down_shuffle(x, kernel, bias, relu=relu)
+    return conv2d(x, kernel, bias, stride=2, relu=relu)
+
+
+def up_conv(x, kernel, bias, impl: str = "auto", relu: bool = True):
+    """UpShuffle op (reference train.py:145-156): 4×4/s2 transposed conv + ReLU."""
+    if impl == "shuffle":
+        return conv2d_transpose_shuffle(x, kernel, bias, relu=relu)
+    return conv2d_transpose(x, kernel, bias, stride=2, relu=relu)
+
+
+def dense(x, kernel, bias=None):
+    return _epilogue(torch.matmul(x, kernel.to(x.dtype)), bias, False)

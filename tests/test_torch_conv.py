@@ -1,0 +1,191 @@
+"""Port parity: gan_class_transfer2_tpu_torch.ops (conv, fused_down_conv,
+image) against the TF goldens in tests/golden/conv_golden.npz and against
+the JAX functions, on the same numpy inputs.
+
+Tolerances: 1e-4 against the TF goldens (the bound test_conv.py holds the
+JAX package to); 1e-5 between the two packages' float32 convs (both IEEE
+float32 with different summation orders, over at most a few hundred terms);
+1e-5 for the B4 plain version against the Pallas kernel in interpret mode
+(the bound test_conv.py uses for that kernel)."""
+
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from gan_class_transfer2_tpu.ops import conv as jconv  # noqa: E402
+from gan_class_transfer2_tpu.ops import image as jimage  # noqa: E402
+from gan_class_transfer2_tpu.ops import pallas_conv  # noqa: E402
+from gan_class_transfer2_tpu_torch.ops import conv  # noqa: E402
+from gan_class_transfer2_tpu_torch.ops import fused_down_conv as fdc  # noqa: E402
+from gan_class_transfer2_tpu_torch.ops import image  # noqa: E402
+
+torch.set_num_threads(1)
+
+GOLDEN = np.load(os.path.join(os.path.dirname(__file__), "golden", "conv_golden.npz"))
+
+
+def T(a):
+    return torch.from_numpy(np.asarray(a, dtype=np.float32))
+
+
+def _rand(seed, *shapes):
+    r = np.random.default_rng(seed)
+    return [r.normal(size=s).astype(np.float32) for s in shapes]
+
+
+@pytest.mark.parametrize(
+    "x, k, b, stride, y",
+    [
+        ("x", "k_conv", "b_conv", 2, "y_conv"),
+        ("x", "k3", "b3", 1, "y_conv3"),
+        ("x7", "k_conv", None, 2, "y_conv7"),  # odd input: TF-SAME pads (1, 2)
+    ],
+)
+def test_conv2d_matches_tf_golden(x, k, b, stride, y):
+    out = conv.conv2d(T(GOLDEN[x]), T(GOLDEN[k]), T(GOLDEN[b]) if b else None, stride=stride)
+    np.testing.assert_allclose(out.numpy(), GOLDEN[y], atol=1e-4)
+
+
+def test_conv2d_transpose_matches_tf_golden():
+    k = GOLDEN["k_convt_tf"].transpose(0, 1, 3, 2)  # TF (kh,kw,out,in) -> HWIO
+    out = conv.conv2d_transpose(T(GOLDEN["x"]), T(k), T(GOLDEN["b_convt"]), stride=2)
+    np.testing.assert_allclose(out.numpy(), GOLDEN["y_convt"], atol=1e-4)
+
+
+def test_shuffle_variants_match_tf_golden():
+    x = T(GOLDEN["x"])
+    down = conv.conv2d_down_shuffle(x, T(GOLDEN["k_conv"]), T(GOLDEN["b_conv"]))
+    np.testing.assert_allclose(down.numpy(), GOLDEN["y_conv"], atol=1e-4)
+    k = GOLDEN["k_convt_tf"].transpose(0, 1, 3, 2)
+    up = conv.conv2d_transpose_shuffle(x, T(k), T(GOLDEN["b_convt"]))
+    np.testing.assert_allclose(up.numpy(), GOLDEN["y_convt"], atol=1e-4)
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 8, 3), (1, 7, 7, 5), (1, 4, 6, 7)])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("ksize", [3, 4])
+def test_conv2d_and_transpose_match_jax(shape, stride, ksize):
+    x, k, b = _rand(0, shape, (ksize, ksize, shape[-1], 6), (6,))
+    y = conv.conv2d(T(x), T(k), T(b), stride=stride, relu=True)
+    y_ref = jconv.conv2d(jnp.asarray(x), jnp.asarray(k), jnp.asarray(b), stride=stride, relu=True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), atol=1e-5)
+    if stride == 2:
+        yt = conv.conv2d_transpose(T(x), T(k), T(b), stride=2, relu=True)
+        yt_ref = jconv.conv2d_transpose(jnp.asarray(x), jnp.asarray(k), jnp.asarray(b), stride=2,
+                                        relu=True)
+        np.testing.assert_allclose(yt.numpy(), np.asarray(yt_ref), atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 8, 3), (1, 4, 4, 7)])
+def test_shuffle_variants_match_jax(shape):
+    x, k, b = _rand(1, shape, (4, 4, shape[-1], 6), (6,))
+    up = conv.conv2d_transpose_shuffle(T(x), T(k), T(b), relu=True)
+    up_ref = jconv.conv2d_transpose_shuffle(jnp.asarray(x), jnp.asarray(k), jnp.asarray(b),
+                                            relu=True)
+    np.testing.assert_allclose(up.numpy(), np.asarray(up_ref), atol=1e-5)
+    down = conv.conv2d_down_shuffle(T(x), T(k), T(b), relu=True)
+    down_ref = jconv.conv2d_down_shuffle(jnp.asarray(x), jnp.asarray(k), jnp.asarray(b),
+                                         relu=True)
+    np.testing.assert_allclose(down.numpy(), np.asarray(down_ref), atol=1e-5)
+    # and each reformulation equals the plain op
+    np.testing.assert_allclose(
+        up.numpy(), conv.conv2d_transpose(T(x), T(k), T(b), relu=True).numpy(), atol=1e-5)
+    np.testing.assert_allclose(
+        down.numpy(), conv.conv2d(T(x), T(k), T(b), stride=2, relu=True).numpy(), atol=1e-5)
+
+
+def test_shuffle_down_rejects_odd_spatial_dims():
+    x, k = _rand(2, (1, 7, 7, 4), (4, 4, 4, 8))
+    with pytest.raises(ValueError, match="even spatial"):
+        conv.conv2d_down_shuffle(T(x), T(k))
+
+
+def test_space_depth_roundtrip():
+    (x,) = _rand(3, (2, 8, 8, 3))
+    np.testing.assert_array_equal(
+        conv.depth_to_space(conv.space_to_depth(T(x), 2), 2).numpy(), x)
+    np.testing.assert_array_equal(conv.space_to_depth(T(x), 2).numpy(),
+                                  np.asarray(jconv.space_to_depth(jnp.asarray(x), 2)))
+
+
+def test_dense_matches_jax():
+    x, k, b = _rand(4, (2, 4, 4, 7), (7, 3), (3,))
+    np.testing.assert_allclose(
+        conv.dense(T(x), T(k), T(b)).numpy(),
+        np.asarray(jconv.dense(jnp.asarray(x), jnp.asarray(k), jnp.asarray(b))), atol=1e-5)
+
+
+@pytest.mark.parametrize("x_shape, o", [((2, 16, 16, 128), 256), ((1, 16, 16, 256), 256)])
+def test_fused_down_conv_plain_matches_pallas_interpret(x_shape, o):
+    """B4's plain version against the Pallas kernel run in interpret mode
+    (as test_conv.py runs it); (1,16,16,256)→256 is the ntile=128 branch.
+    On the CPU the wrapper takes the plain version and launches nothing."""
+    r = np.random.default_rng(0)
+    x = r.normal(size=x_shape).astype(np.float32)
+    k = (r.normal(size=(4, 4, x_shape[-1], o)) * 0.05).astype(np.float32)
+    b = r.normal(size=(o,)).astype(np.float32)
+    assert fdc.supported(x.shape, k.shape) and pallas_conv.supported(x.shape, k.shape)
+    ref = np.asarray(pallas_conv.down_conv_fused(
+        jnp.asarray(x), jnp.asarray(k), jnp.asarray(b), True, True))
+    before = fdc.down_conv_fused.launches
+    np.testing.assert_allclose(fdc.down_conv_plain(T(x), T(k), T(b)).numpy(), ref, atol=1e-5)
+    np.testing.assert_allclose(fdc.down_conv_fused(T(x), T(k), T(b)).numpy(), ref, atol=1e-5)
+    via_dispatch = conv.down_conv(T(x), T(k), T(b), impl="pallas")
+    np.testing.assert_allclose(via_dispatch.numpy(), ref, atol=1e-5)
+    assert fdc.down_conv_fused.launches == before == 0
+
+
+@pytest.mark.parametrize(
+    "x_shape, k_shape",
+    [
+        ((2, 256, 256, 3), (4, 4, 3, 128)),  # stem: C=3
+        ((2, 8, 8, 512), (4, 4, 512, 512)),  # bottleneck
+        ((2, 128, 128, 128), (4, 4, 128, 256)),
+        ((1, 16, 16, 256), (4, 4, 256, 192)),  # o not a multiple of the 128 tile
+        ((1, 16, 16, 256), (4, 4, 256, 256)),
+        ((1, 16, 16, 128), (4, 4, 128, 256)),
+        ((1, 18, 16, 128), (4, 4, 128, 256)),
+        ((1, 17, 16, 128), (4, 4, 128, 256)),  # odd H
+        ((1, 16, 16, 128), (3, 3, 128, 256)),  # not k4
+    ],
+)
+def test_supported_gate_matches_jax(x_shape, k_shape):
+    assert fdc.supported(x_shape, k_shape) == pallas_conv.supported(x_shape, k_shape)
+
+
+def test_plain_version_casts_operands_like_the_kernel():
+    """bf16 input: weight and bias are rounded to bf16 first, the sum is
+    float32, the result is bf16 — the kernel's arithmetic."""
+    r = np.random.default_rng(5)
+    x = torch.from_numpy(r.normal(size=(1, 16, 16, 128)).astype(np.float32)).bfloat16()
+    k, b = T(r.normal(size=(4, 4, 128, 128)) * 0.05), T(r.normal(size=(128,)))
+    y = fdc.down_conv_plain(x, k, b)
+    assert y.dtype == torch.bfloat16 and y.is_contiguous()
+    ref = fdc.down_conv_plain(x.float(), k.bfloat16().float(), b.bfloat16().float())
+    np.testing.assert_array_equal(y.float().numpy(), ref.bfloat16().float().numpy())
+
+
+def test_down_conv_dispatch_routes_unsupported_shapes_to_conv2d():
+    x, k, b = _rand(6, (1, 16, 16, 8), (4, 4, 8, 16), (16,))
+    y = conv.down_conv(T(x), T(k), T(b), impl="pallas")
+    np.testing.assert_allclose(
+        y.numpy(), conv.conv2d(T(x), T(k), T(b), stride=2, relu=True).numpy(), atol=0)
+
+
+@pytest.mark.parametrize("shape, window", [((2, 16, 16, 3), 4), ((1, 7, 9, 2), 4), ((1, 6, 6, 1), 3)])
+def test_image_ops_match_jax(shape, window):
+    x, d = _rand(7, shape, (shape[1], shape[2], 8, shape[3]))
+    np.testing.assert_allclose(image.avg_pool(T(x), window).numpy(),
+                               np.asarray(jimage.avg_pool(jnp.asarray(x), window)), rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_array_equal(image.upsample_nearest(T(x), 2).numpy(),
+                                  np.asarray(jimage.upsample_nearest(jnp.asarray(x), 2)))
+    np.testing.assert_array_equal(image.roll2d(T(x), 1, 2).numpy(),
+                                  np.asarray(jimage.roll2d(jnp.asarray(x), 1, 2)))
+    np.testing.assert_array_equal(image.vq_quantise(T(x), T(d)).numpy(),
+                                  np.asarray(jimage.vq_quantise(jnp.asarray(x), jnp.asarray(d))))

@@ -1,0 +1,197 @@
+"""The port as a package: weight round trips against the JAX package's
+formats, the CLI surface on the CPU, the device rule, the import boundary,
+and (on a card only) the CUDA kernel against its plain version.
+
+The JAX package is imported inside the tests that compare against it, so
+that the card test also runs where JAX is not installed:
+``python -m pytest --noconftest -m cuda tests/test_torch_port.py``."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from gan_class_transfer2_tpu_torch import cli  # noqa: E402
+from gan_class_transfer2_tpu_torch.config import tiny_test_config  # noqa: E402
+from gan_class_transfer2_tpu_torch.models import unet  # noqa: E402
+from gan_class_transfer2_tpu_torch.ops import fused_down_conv as fdc  # noqa: E402
+from gan_class_transfer2_tpu_torch.utils import png, weights  # noqa: E402
+
+torch.set_num_threads(1)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TINY = ["--size", "16", "--pixel-size", "4", "--max-size", "8", "--octaves", "2",
+        "--steps", "4"]
+
+
+@pytest.fixture
+def ref():
+    """The JAX package's pieces these tests compare against."""
+    import types
+
+    import jax
+    import jax.numpy as jnp
+
+    from gan_class_transfer2_tpu.config import tiny_test_config
+    from gan_class_transfer2_tpu.models import unet as junet
+    from gan_class_transfer2_tpu.sample import sampler
+    from gan_class_transfer2_tpu.utils import tf_import
+
+    def params(jcfg):
+        return jax.tree_util.tree_map(np.asarray, junet.init_unet(jax.random.PRNGKey(0), jcfg))
+
+    return types.SimpleNamespace(jax=jax, jnp=jnp, tiny=tiny_test_config, params=params,
+                                 sampler=sampler, tf_import=tf_import)
+
+
+@pytest.mark.parametrize("overrides", [dict(), dict(skip_mode="residual", block_depth=1)])
+def test_jax_params_round_trip(ref, overrides):
+    jcfg, cfg = ref.tiny(**overrides), tiny_test_config(**overrides)
+    params = ref.params(jcfg)
+    back = weights.to_jax_params(weights.from_jax_params(cfg, params, device="cpu"))
+    tree = ref.jax.tree_util
+    assert tree.tree_structure(back) == tree.tree_structure(params)
+    for a, b in zip(tree.tree_leaves(back), tree.tree_leaves(params)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("overrides", [dict(), dict(skip_mode="residual", block_depth=1)])
+def test_flat_weights_match_the_jax_keras_order(ref, overrides):
+    """export_flat_weights lists what the JAX package's export lists, in the
+    same order, and import_flat_weights takes it back."""
+    jcfg, cfg = ref.tiny(**overrides), tiny_test_config(**overrides)
+    params = ref.params(jcfg)
+    model = weights.from_jax_params(cfg, params, device="cpu")
+    flat = weights.export_flat_weights(model)
+    jflat = ref.tf_import.export_flat_weights(jcfg, params)
+    assert len(flat) == len(jflat)
+    for a, b in zip(flat, jflat):
+        np.testing.assert_array_equal(a, np.asarray(b))
+    again = weights.import_flat_weights(unet.Denoiser(cfg), jflat)
+    for a, b in zip(again.state_dict().values(), model.state_dict().values()):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="order mismatch"):
+        weights.import_flat_weights(unet.Denoiser(cfg), jflat[:-1])
+
+
+def test_cli_sample_writes_pngs_that_match_the_jax_sampler(ref, tmp_path):
+    """The user path: JAX weights exported as the JAX CLI's npz, sampled by
+    the port's CLI on the CPU. The init batch is the JAX CLI's
+    (default_rng(seed).normal), so the PNGs equal the JAX sampler's images
+    up to one uint8 level (rounding at a level boundary)."""
+    jcfg = ref.tiny(steps=4, sample_stride=2)
+    params = ref.params(jcfg)
+    npz = tmp_path / "w.npz"
+    weights.save_flat_npz(npz, ref.tf_import.export_flat_weights(jcfg, params))
+    out = tmp_path / "samples"
+    rc = cli.main(["sample", "--device", "cpu", *TINY, "--sample-stride", "2",
+                   "--weights", str(npz), "--num", "3", "--out", str(out), "--seed", "5"])
+    assert rc == 0
+    assert sorted(os.listdir(out)) == [f"sample_{i}.png" for i in range(3)]
+    init = np.random.default_rng(5).normal(size=(3, 16, 16, 3)).astype(np.float32)
+    images = ref.sampler.sample(jcfg, params, ref.jnp.asarray(init), snapshots=False).images
+    images = np.asarray(images)
+    from PIL import Image
+
+    for i in range(3):
+        got = png.read_png(out / f"sample_{i}.png")
+        assert got.shape == (16, 16, 3)
+        np.testing.assert_array_equal(got, np.asarray(Image.open(out / f"sample_{i}.png")))
+        diff = np.abs(got.astype(int) - png.to_uint8(images[i]).astype(int))
+        assert diff.max() <= 1
+
+
+def test_cli_sample_without_weights_warns(tmp_path, capsys):
+    rc = cli.main(["sample", "--device", "cpu", *TINY, "--num", "2", "--out",
+                   str(tmp_path / "s")])
+    assert rc == 0
+    assert "randomly initialised" in capsys.readouterr().err
+    assert len(os.listdir(tmp_path / "s")) == 2
+
+
+def test_cli_edit_writes_each_edit(tmp_path):
+    from PIL import Image
+
+    arr = np.random.default_rng(0).integers(0, 256, (20, 18, 3), dtype=np.uint8)
+    Image.fromarray(arr).save(tmp_path / "in.png")
+    rc = cli.main(["edit", "--device", "cpu", *TINY, "--input", str(tmp_path / "in.png"),
+                   "--out", str(tmp_path / "e"), "--edits", "pixelate", "shift"])
+    assert rc == 0
+    assert sorted(os.listdir(tmp_path / "e")) == [
+        "pixelate.png", "reconstruction.png", "shift.png"]
+    np.testing.assert_array_equal(
+        cli.decode_image(tmp_path / "in.png", 16),
+        arr[2:18, 1:17].astype(np.float32) / 128.0 - 1.0)
+
+
+def test_device_cuda_without_a_card_raises(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(["sample", *TINY, "--num", "1", "--out", str(tmp_path / "s")])
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(["sample", "--device", "cuda", *TINY, "--out", str(tmp_path / "s")])
+
+
+def test_wrapper_refuses_devices_without_a_kernel():
+    x = torch.empty((1, 16, 16, 128), device="meta")
+    k = torch.empty((4, 4, 128, 128), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        fdc.down_conv_fused(x, k, torch.empty((128,), device="meta"))
+
+
+def test_png_round_trip(tmp_path):
+    arr = np.random.default_rng(1).integers(0, 256, (5, 7, 3), dtype=np.uint8)
+    png.write_png(tmp_path / "a.png", arr)
+    np.testing.assert_array_equal(png.read_png(tmp_path / "a.png"), arr)
+
+
+def test_port_imports_no_jax():
+    """Every module of the port imports without jax and without any module
+    of the JAX package (whose name is a prefix of the port's)."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import gan_class_transfer2_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "assert 'gan_class_transfer2_tpu_torch.cli' in names, names\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'gan_class_transfer2_tpu')\n"
+        "       or m.startswith(('jax.', 'jaxlib.', 'gan_class_transfer2_tpu.'))]\n"
+        "assert not bad, bad\n"
+        "print(len(names))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert int(out.stdout.strip()) >= 15
+
+
+@pytest.mark.cuda
+def test_fused_down_conv_kernel_matches_plain_on_card():
+    """The CUDA kernel against its plain version, at one tile-ragged shape
+    and one full-width shape, in both dtypes, and its launch count.
+    Tolerances relative to max|y|: 1e-4 in float32 (summation order over
+    16·C terms), 2e-2 in bfloat16 (one bf16 output rounding is ~4e-3)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    torch.backends.cudnn.allow_tf32 = False
+    r = np.random.default_rng(0)
+    for (bsz, h, c, o) in ((3, 18, 128, 64), (4, 32, 512, 512)):
+        x = torch.from_numpy(r.normal(size=(bsz, h, h, c)).astype(np.float32)).cuda()
+        k = torch.from_numpy((r.normal(size=(4, 4, c, o)) / np.sqrt(16 * c)).astype(np.float32))
+        b = torch.from_numpy(r.normal(size=(o,)).astype(np.float32))
+        k, b = k.cuda(), b.cuda()
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            before = fdc.down_conv_fused.launches
+            with torch.inference_mode():
+                y = fdc.down_conv_fused(x.to(dtype), k, b)
+                ref = fdc.down_conv_plain(x.to(dtype), k, b)
+            torch.cuda.synchronize()
+            assert fdc.down_conv_fused.launches == before + 1
+            err = (y.float() - ref.float()).abs().max().item()
+            assert err <= tol * ref.float().abs().max().item(), (bsz, h, c, o, dtype, err)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        fdc.down_conv_fused(x.requires_grad_(), k, b)

@@ -1,0 +1,141 @@
+"""Port parity: the Denoiser U-Net of gan_class_transfer2_tpu_torch against
+gan_class_transfer2_tpu.models.unet, with the same weights carried across by
+utils/weights.py, on the same numpy inputs.
+
+Tolerances: 2e-4 against the Keras golden (the bound
+test_reference_parity.py holds the JAX package to); 1e-5 against the JAX
+forward at tiny widths (both IEEE float32, summation order only); 1e-4 at
+the 128-channel config whose k4/s2 sums run over 2048 terms."""
+
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from gan_class_transfer2_tpu.config import tiny_test_config as jax_tiny  # noqa: E402
+from gan_class_transfer2_tpu.models import unet as junet  # noqa: E402
+from gan_class_transfer2_tpu_torch.config import Config, tiny_test_config  # noqa: E402
+from gan_class_transfer2_tpu_torch.models import api, unet  # noqa: E402
+from gan_class_transfer2_tpu_torch.ops import fused_down_conv  # noqa: E402
+from gan_class_transfer2_tpu_torch.utils import weights  # noqa: E402
+
+torch.set_num_threads(1)
+
+
+def jax_params(jcfg, seed=0):
+    """JAX-initialised params with random biases, as numpy."""
+    params = junet.init_unet(jax.random.PRNGKey(seed), jcfg)
+    r = np.random.default_rng(seed)
+
+    def leaf(path, p):
+        p = np.asarray(p)
+        if getattr(path[-1], "key", None) == "bias":
+            return (r.normal(size=p.shape) * 0.1).astype(np.float32)
+        return p
+
+    return jax.tree_util.tree_map_with_path(leaf, params)
+
+
+def test_default_config_param_count():
+    assert unet.param_count(unet.Denoiser(Config().validate())) == 41_691_660
+
+
+def test_forward_parity_against_golden_npz():
+    path = os.path.join(os.path.dirname(__file__), "golden", "forward_parity.npz")
+    data = np.load(path)
+    cfg = tiny_test_config(size=32, pixel_size=8, max_size=32, octaves=3)
+    model = weights.import_flat_weights(unet.Denoiser(cfg), weights.load_flat_npz(path))
+    with torch.inference_mode():
+        y = api.apply_denoiser(cfg, model, torch.from_numpy(data["x"]))
+    np.testing.assert_allclose(y.numpy(), data["y"], atol=2e-4)
+
+
+@pytest.mark.parametrize(
+    "overrides",
+    [
+        dict(),
+        dict(skip_mode="residual"),
+        dict(skip_mode="none"),
+        dict(block_depth=1),
+        dict(block_depth=1, concat_elision=False),
+        dict(per_step_output=True),
+        dict(conv_impl="shuffle"),
+    ],
+    ids=["concat", "residual", "none", "depth1", "depth1-no-elision", "per-step", "shuffle"],
+)
+def test_from_jax_params_forward_parity(overrides):
+    jcfg, cfg = jax_tiny(**overrides), tiny_test_config(**overrides)
+    params = jax_params(jcfg)
+    model = weights.from_jax_params(cfg, params, device="cpu")
+    r = np.random.default_rng(1)
+    x = r.uniform(-1, 1, (2, cfg.size, cfg.size, 3)).astype(np.float32)
+    t = np.array([3, 7], np.int32)
+    ref = np.asarray(junet.unet_apply(jcfg, params, jnp.asarray(x), jnp.asarray(t)))
+    with torch.inference_mode():
+        y = api.apply_denoiser(cfg, model, torch.from_numpy(x), torch.from_numpy(t))
+    assert y.shape == ref.shape
+    np.testing.assert_allclose(y.numpy(), ref, atol=1e-5)
+
+
+def test_pallas_impl_runs_the_fused_down_conv_path(monkeypatch):
+    """A config wide enough for the kernel's gate (C = 128 into a 16² down
+    conv): the port routes that conv to fused_down_conv (its plain version
+    on the CPU, launching nothing) and matches the JAX forward."""
+    kw = dict(size=32, pixel_size=128, max_size=256, octaves=2, conv_impl="pallas")
+    jcfg, cfg = jax_tiny(**kw), tiny_test_config(**kw)
+    assert fused_down_conv.supported((1, 16, 16, 128), (4, 4, 128, 256))
+    params = jax_params(jcfg)
+    model = weights.from_jax_params(cfg, params, device="cpu")
+    x = np.random.default_rng(2).uniform(-1, 1, (1, 32, 32, 3)).astype(np.float32)
+    ref = np.asarray(junet.unet_apply(jcfg.replace(conv_impl="lax"), params, jnp.asarray(x)))
+    calls = []
+    real = fused_down_conv.down_conv_plain
+    monkeypatch.setattr(fused_down_conv, "down_conv_plain",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    with torch.inference_mode():
+        y = api.apply_denoiser(cfg, model, torch.from_numpy(x))
+    assert len(calls) == 1 and fused_down_conv.down_conv_fused.launches == 0
+    np.testing.assert_allclose(y.numpy(), ref, atol=1e-4)
+
+
+def test_bf16_compute_casts_params_at_apply():
+    cfg = tiny_test_config(compute_dtype="bfloat16")
+    model = api.init_denoiser(cfg, device="cpu")
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    x = torch.from_numpy(np.random.default_rng(3).uniform(-1, 1, (1, 16, 16, 3)).astype(np.float32))
+    with torch.inference_mode():
+        y = api.apply_denoiser(cfg, model, x)
+        y32 = api.apply_denoiser(cfg.replace(compute_dtype="float32"), model, x)
+    assert y.dtype == torch.bfloat16
+    np.testing.assert_allclose(y.float().numpy(), y32.numpy(), atol=5e-2)
+
+
+def test_init_is_seeded_glorot():
+    cfg = tiny_test_config()
+    a = api.init_denoiser(cfg, device="cpu")
+    b = api.init_denoiser(cfg, device="cpu")
+    c = api.init_denoiser(cfg, torch.Generator().manual_seed(1), device="cpu")
+    for pa, pb in zip(a.parameters(), b.parameters()):
+        assert torch.equal(pa, pb)
+    assert not torch.equal(a.octaves[0].down.kernel, c.octaves[0].down.kernel)
+    k = a.octaves[1].up.kernel.detach()  # transposed conv: TF fans on (kh, kw, out, in)
+    kh, kw, i, o = k.shape
+    limit = (6.0 / (kh * kw * o + kh * kw * i)) ** 0.5
+    assert k.abs().max() <= limit and k.abs().max() > 0.9 * limit
+    assert not any(layer.bias.detach().any() for layer in (a.head, a.octaves[0].down))
+
+
+def test_refused_features_name_the_missing_piece():
+    with pytest.raises(NotImplementedError, match="conditional"):
+        tiny_test_config(num_classes=2)
+    with pytest.raises(NotImplementedError, match="instance norm"):
+        tiny_test_config(g_norm="instance")
+    with pytest.raises(NotImplementedError, match="d_norm"):
+        tiny_test_config(d_norm="batch")
+    with pytest.raises(ValueError, match="unknown norm"):
+        tiny_test_config(g_norm="layer")

@@ -1,9 +1,14 @@
-"""Command-line interface of the port — counterpart of the ``sample`` and
-``edit`` commands of gan_class_transfer2_tpu/cli.py, with the same flag names
-for the Config fields they read:
+"""Command-line interface of the port — counterpart of the ``sample``,
+``edit`` and ``bench`` commands of gan_class_transfer2_tpu/cli.py, with the
+same flag names for the Config fields they read:
 
     python -m gan_class_transfer2_tpu_torch.cli sample --weights w.npz --out samples/
     python -m gan_class_transfer2_tpu_torch.cli edit --input photo.png --weights w.npz
+    python -m gan_class_transfer2_tpu_torch.cli bench --batch-size 16 --bench-steps 10
+
+``bench`` trains ``--bench-steps`` steps (after 3 untimed ones) on a
+synthetic batch resident on the device and prints one JSON line with the
+JAX package's keys (img/s, step ms, MFU).
 
 ``--device`` is ``cuda`` (the default) or ``cpu``; ``cuda`` without a card
 raises. ``--weights`` is a flat Keras-order ``.npz`` as the JAX CLI's
@@ -25,12 +30,18 @@ import torch
 
 from .config import Config
 
-# the Config fields that sample and edit read
+# the Config fields that sample, edit and bench read
 _FIELDS = (
     "size", "pixel_size", "max_size", "block_depth", "octaves", "skip_mode",
     "per_step_output", "steps", "schedule", "parameterization",
     "bits_per_pixel", "sample_stride", "compute_dtype", "conv_impl",
     "concat_elision", "seed",
+    # training
+    "batch_size", "optimizer", "moment_dtype", "learning_rate", "warm_up",
+    "lr_schedule", "inverse_time_decay_steps", "adam_eps", "momentum", "nesterov",
+    "weight_decay", "ema_decay", "grad_clip_norm", "grad_accum", "loss",
+    "prediction_weighting", "loss_scale", "dynamic_loss_scale",
+    "loss_scale_growth_interval", "fused_diffusion", "steps_per_epoch", "epochs",
 )
 
 
@@ -44,6 +55,8 @@ def _add_config_args(p: argparse.ArgumentParser):
                            default=None, metavar="BOOL")
         elif isinstance(default, int):
             p.add_argument(flag, type=int, default=None)
+        elif isinstance(default, float):
+            p.add_argument(flag, type=float, default=None)
         else:
             p.add_argument(flag, type=str, default=None)
 
@@ -60,13 +73,16 @@ def config_from_args(args) -> Config:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="gan_class_transfer2_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
-    for cmd in ("sample", "edit"):
+    for cmd in ("sample", "edit", "bench"):
         p = sub.add_parser(cmd)
         p.add_argument("--config", type=str, default=None, help="config JSON")
         p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+        _add_config_args(p)
+        if cmd == "bench":
+            p.add_argument("--bench-steps", type=int, default=30)
+            continue
         p.add_argument("--weights", type=str, default=None, metavar="FILE.npz",
                        help="flat Keras-order weights (JAX CLI export-weights)")
-        _add_config_args(p)
         if cmd == "sample":
             p.add_argument("--out", type=str, default="samples")
             p.add_argument("--num", type=int, default=6)
@@ -79,6 +95,11 @@ def main(argv=None) -> int:
     cfg = config_from_args(args)
     if args.command == "sample":
         return _sample(cfg, args)
+    if args.command == "bench":
+        from .utils.benchmark import run_benchmark
+
+        print(run_benchmark(cfg, steps=args.bench_steps, device=args.device).to_json())
+        return 0
     return _edit(cfg, args)
 
 

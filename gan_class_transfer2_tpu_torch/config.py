@@ -7,7 +7,8 @@ repeated here. Comments that explain a field's meaning live beside the JAX
 copy; this copy adds what the port does differently:
 
   * ``validate`` refuses the features the port does not have yet
-    (``num_classes > 0``, ``g_norm``/``d_norm`` other than ``"none"``) with a
+    (``num_classes > 0``, ``g_norm``/``d_norm`` other than ``"none"``,
+    ``zero1``, meshes and pipeline stages beyond one card) with a
     NotImplementedError that names the missing piece, instead of ignoring them.
   * ``conv_impl="pallas"`` selects the hand-written CUDA down-conv kernel
     (ops/fused_down_conv.py), the port's counterpart of the Pallas kernel.
@@ -278,6 +279,23 @@ class Config:
                     "(ops/norm.py, instance norm kernel B3) are not ported to "
                     "PyTorch yet"
                 )
+        if self.zero1:
+            raise NotImplementedError(
+                "zero1: the sharded optimizer state (parallel/mesh.py) is not "
+                "ported to PyTorch yet; the port trains on one card"
+            )
+        for name in ("mesh_data", "mesh_model", "mesh_slice"):
+            if getattr(self, name) > 1:
+                raise NotImplementedError(
+                    f"{name}={getattr(self, name)}: device meshes (parallel/mesh.py) "
+                    "are not ported to PyTorch yet; the port trains on one card "
+                    "(mesh_data=0 or 1)"
+                )
+        if self.pipeline_stages > 1:
+            raise NotImplementedError(
+                f"pipeline_stages={self.pipeline_stages}: pipeline parallelism "
+                "(parallel/pipeline.py) is not ported to PyTorch yet"
+            )
         return self
 
     # --------------------------------------------------------- serialization

@@ -201,25 +201,32 @@ def unet_head(cfg, model, h, t, dtype):
 
 
 @contextlib.contextmanager
-def _ieee_fp32(dtype, device):
-    """float32 convs in IEEE float32 (the JAX package's Precision.HIGHEST):
-    cuDNN would otherwise run them in TF32 on the card."""
+def ieee_fp32(dtype, device):
+    """float32 convs and matmuls in IEEE float32 (the JAX package's
+    Precision.HIGHEST): on the card cuDNN would otherwise run float32 convs in
+    TF32. The flags are process-wide and read when a conv or matmul runs,
+    forward or backward, so a caller that differentiates holds this context
+    from the loss forward through ``backward()`` (the train step does);
+    ``unet_apply`` holds it around its own forward. Setting process-wide flags
+    is sound for a single-threaded trainer or sampler; a threaded server
+    would need them per call."""
     if dtype != torch.float32 or device.type != "cuda":
         yield
         return
-    prev = torch.backends.cudnn.allow_tf32
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = prev
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def unet_apply(cfg, model: Denoiser, x, t=None):
     """Forward pass. ``x``: (B, H, W, C) in [-1, 1). ``t``: (B,) timesteps,
     ignored unless ``cfg.per_step_output``."""
     dtype = DTYPES[cfg.compute_dtype]
-    with _ieee_fp32(dtype, x.device):
+    with ieee_fp32(dtype, x.device):
         h = _conv_relu(model.pre_block, x.to(dtype), dtype)
 
         def rec(i, h):

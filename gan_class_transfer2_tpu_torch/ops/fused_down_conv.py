@@ -5,14 +5,19 @@ Three pieces, as for every kernel of the port:
 
   * ``supported`` — the JAX package's shape gate, kept identical, so both
     packages route the same convs to their kernel;
-  * ``down_conv_fused`` — the wrapper of the hand-written CUDA kernel in
-    csrc/down_conv.cu, with its launch counter ``down_conv_fused.launches``;
-  * ``down_conv_plain`` — the same function in plain PyTorch. The wrapper
+  * ``down_conv_fused`` — the op: ``DownConv``, an ``autograd.Function``
+    whose forward is the wrapper of the hand-written CUDA kernel in
+    csrc/down_conv.cu (``_forward``, launch counter
+    ``down_conv_fused.launches``);
+  * ``down_conv_plain`` — the same forward in plain PyTorch. The wrapper
     takes it only for a tensor on the CPU; a CUDA tensor launches the kernel
     or raises.
 
-The forward only: training, with the kernel's backward as an
-``autograd.Function``, is a later slice of the port.
+The backward follows pallas_conv.py:149-165, where it is XLA convs outside
+any Pallas kernel; here they are cuDNN's (``torch.nn.grad``) on the card:
+the ReLU mask from the saved output, ``db`` the float32 sum over (B, H, W),
+``dx`` the adjoint of the strided conv, ``dK`` its weight gradient, both
+with the TF-SAME pad (1, 1) of even inputs.
 """
 
 from __future__ import annotations
@@ -85,22 +90,13 @@ def _entry(dtype):
     return fn
 
 
-def down_conv_fused(x, kernel, bias, relu: bool = True):
-    """relu(conv_k4s2_SAME(x, kernel) + bias): x (B,H,W,C) NHWC, kernel
-    (4,4,C,O) HWIO, bias (O,). A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel on the current stream or raises."""
+def _forward(x, kernel, bias, relu: bool):
+    """The forward: the plain version for a CPU tensor, the kernel on the
+    current stream for a CUDA tensor (or an exception)."""
     if x.device.type == "cpu":
         return down_conv_plain(x, kernel, bias, relu)
     if x.device.type != "cuda":
         raise ValueError(f"down_conv_fused: no kernel for device {x.device}")
-    if torch.is_grad_enabled() and (
-        x.requires_grad or kernel.requires_grad or bias.requires_grad
-    ):
-        raise NotImplementedError(
-            "down_conv_fused has no backward yet: gradients through the CUDA "
-            "down conv come with the training slice of the port; run under "
-            "torch.inference_mode() or use conv_impl='lax'"
-        )
     if x.dtype not in _ENTRY:
         raise TypeError(f"down_conv_fused: float32 or bfloat16 only, got {x.dtype}")
     if kernel.device != x.device or bias.device != x.device:
@@ -136,6 +132,39 @@ def down_conv_fused(x, kernel, bias, relu: bool = True):
         raise RuntimeError(f"down_conv kernel launch failed: CUDA error {err}")
     down_conv_fused.launches += 1
     return y
+
+
+class DownConv(torch.autograd.Function):
+    """B4 with the backward of pallas_conv.py:149-165."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, bias, relu):
+        y = _forward(x, kernel, bias, relu)
+        ctx.relu = relu
+        ctx.save_for_backward(x, kernel, bias, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, kernel, bias, y = ctx.saved_tensors
+        if ctx.relu:
+            g = torch.where(y > 0, g, torch.zeros_like(g))
+        db = g.float().sum((0, 1, 2)).to(bias.dtype)
+        gn = g.permute(0, 3, 1, 2)  # NCHW views of the NHWC memory
+        xn = x.permute(0, 3, 1, 2)
+        w = kernel.to(x.dtype).permute(3, 2, 0, 1)  # OIHW
+        dx = torch.nn.grad.conv2d_input(xn.shape, w, gn, stride=2, padding=1)
+        dk = torch.nn.grad.conv2d_weight(xn, w.shape, gn, stride=2, padding=1)
+        return (dx.permute(0, 2, 3, 1).to(x.dtype), dk.permute(2, 3, 1, 0).to(kernel.dtype),
+                db, None)
+
+
+def down_conv_fused(x, kernel, bias, relu: bool = True):
+    """relu(conv_k4s2_SAME(x, kernel) + bias): x (B,H,W,C) NHWC, kernel
+    (4,4,C,O) HWIO, bias (O,), differentiable in all three. A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel on the
+    current stream or raises."""
+    return DownConv.apply(x, kernel, bias, relu)
 
 
 down_conv_fused.launches = 0

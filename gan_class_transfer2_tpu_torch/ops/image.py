@@ -1,8 +1,10 @@
 """Image ops of the noise-space edits — counterpart of
-gan_class_transfer2_tpu/ops/image.py (reference train.py:415-430). NHWC.
-``dct2d_weighted`` (a training loss) comes with the training slice."""
+gan_class_transfer2_tpu/ops/image.py (reference train.py:415-430), and the
+weighted DCT of the ``dct`` training loss. NHWC."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -45,3 +47,28 @@ def vq_quantise(x, dictionary):
     return torch.gather(book, 3, idx[..., None, None].expand(*idx.shape, 1, x.shape[-1]))[
         ..., 0, :
     ]
+
+
+def _dct_matrix(n: int, dtype, device):
+    """The orthonormal DCT-II as an (n, n) matrix D, X = D·x (scipy's
+    ``dct(norm="ortho")``), built in float64 and rounded once."""
+    k = torch.arange(n, dtype=torch.float64)[:, None]
+    i = torch.arange(n, dtype=torch.float64)[None, :]
+    d = torch.cos(math.pi * (2 * i + 1) * k / (2 * n)) * math.sqrt(2.0 / n)
+    d[0] /= math.sqrt(2.0)
+    return d.to(dtype=dtype, device=device)
+
+
+def dct2d_weighted(x):
+    """Frequency-weighted 2-D DCT-II (ortho) over the spatial dims
+    (reference train.py:254-260), as a product with the DCT matrix. The
+    reference quirk is kept: the result comes back (B, W, H, C), spatial axes
+    transposed (see the JAX copy)."""
+    size_h, size_w = x.shape[1], x.shape[2]
+    wh = 1.0 / torch.arange(1, size_h + 1, dtype=x.dtype, device=x.device)
+    ww = 1.0 / torch.arange(1, size_w + 1, dtype=x.dtype, device=x.device)
+    x = x.permute(0, 3, 1, 2)  # B C H W
+    x = torch.matmul(x, _dct_matrix(size_w, x.dtype, x.device).T) * ww
+    x = x.transpose(2, 3)  # B C W H
+    x = torch.matmul(x, _dct_matrix(size_h, x.dtype, x.device).T) * wh
+    return x.permute(0, 2, 3, 1)  # B W H C

@@ -1,0 +1,511 @@
+"""The diffusion training step — counterpart of
+gan_class_transfer2_tpu/train/trainer.py (reference train.py:217-280).
+
+One step: draw ``t ~ U[1, T]`` per sample and ``ε ~ N(0, 1)`` (or, on the
+``x`` path, let the fused diffusion kernel B1 draw ε itself), noise the batch,
+predict, take the float32 loss, differentiate, apply the optimizer (the fused
+Adam kernel B2 under ``optimizer="adam_fused"``) and blend the EMA.
+
+What differs from the JAX package, and why:
+
+  * PyTorch runs eagerly, so nothing is jitted or donated. The model's
+    parameters are updated in place (no second copy of 41.7 M floats);
+    optimizer states are new tensors each step, so that dynamic loss scaling
+    can keep the old ones when it skips an update.
+  * ``jax.random`` keys become a ``torch.Generator``. Draws are made on the
+    generator's device and moved to the batch's: a generator on the batch's
+    device is the rule (``make_train_step``), and a CPU generator makes a
+    card run draw what a CPU run draws.
+  * The optimizers are plain functions on lists of tensors, one per
+    parameter in ``model.parameters()`` order, in optax's form: the
+    ``GradientTransformation``s below mirror optax's ``adam``,
+    ``scale_by_learning_rate``, ``sgd``, ``rmsprop``, ``clip_by_global_norm``,
+    ``add_decayed_weights`` and ``MultiSteps``, with state ``NamedTuple``s of
+    the same names and fields, so a state carries to and from optax
+    (utils/weights.py). ``torch.optim`` is not used: its RMSprop has α = 0.99
+    and ε outside the square root where optax has 0.9 and ε inside, its
+    ``clip_grad_norm_`` adds 1e-6 to the norm, and its Adam is optax's form,
+    not the Keras form of ``adam_tf``.
+  * Counts that only depend on the step number (``MultiSteps``' mini-steps)
+    are Python ints; counts that dynamic loss scaling may hold back (Adam's,
+    the schedule's) are int32 tensors on the parameters' device, so a step
+    never waits for the card.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple, Optional
+
+import torch
+
+from ..core import diffusion
+from ..core.schedule import make_lr_schedule
+from ..models import api as model_api
+from ..models import unet
+from ..ops import adam_kernel, fused_diffusion
+from ..ops import image as image_ops
+
+
+class ScaleState(NamedTuple):
+    """Dynamic loss-scaling state (TF LossScaleOptimizer semantics,
+    reference train.py:82-83): halve on non-finite grads and skip the
+    update; double after ``growth_interval`` consecutive finite steps."""
+
+    scale: torch.Tensor  # float32 scalar
+    good_steps: torch.Tensor  # int32 scalar
+
+
+class TrainState(NamedTuple):
+    step: int
+    model: unet.Denoiser  # the params, updated in place by the step
+    opt_state: Any
+    ema_params: Optional[list]  # one tensor per parameter, or None
+    scale_state: Optional[ScaleState] = None
+
+
+# ------------------------------------------------------------- optimizers
+
+
+class GradientTransformation(NamedTuple):
+    init: Callable  # params -> state
+    update: Callable  # (updates, state, params) -> (updates, state)
+
+
+class EmptyState(NamedTuple):
+    pass
+
+
+class ScaleByAdamState(NamedTuple):
+    count: torch.Tensor
+    mu: list
+    nu: list
+
+
+class ScaleByScheduleState(NamedTuple):
+    count: torch.Tensor
+
+
+class TraceState(NamedTuple):
+    trace: list
+
+
+class ScaleByRmsState(NamedTuple):
+    nu: list
+
+
+class MultiStepsState(NamedTuple):
+    mini_step: int
+    gradient_step: int
+    inner_opt_state: Any
+    acc_grads: list
+    skip_state: tuple = ()
+
+
+def _count0(params):
+    return torch.zeros((), dtype=torch.int32, device=params[0].device)
+
+
+def _zeros(params, dtype=None):
+    return [torch.zeros_like(p, dtype=dtype) for p in params]
+
+
+def identity() -> GradientTransformation:
+    return GradientTransformation(lambda params: EmptyState(), lambda u, s, params=None: (u, s))
+
+
+def chain(*txs) -> GradientTransformation:
+    """optax.chain: the updates pass through each transform in turn."""
+
+    def init(params):
+        return tuple(tx.init(params) for tx in txs)
+
+    def update(updates, state, params=None):
+        new = []
+        for tx, s in zip(txs, state):
+            updates, s = tx.update(updates, s, params)
+            new.append(s)
+        return updates, tuple(new)
+
+    return GradientTransformation(init, update)
+
+
+def scale_by_schedule(step_size_fn) -> GradientTransformation:
+    def update(updates, state, params=None):
+        step_size = step_size_fn(state.count)
+        updates = [step_size.to(g.dtype) * g for g in updates]
+        return updates, ScaleByScheduleState(state.count + 1)
+
+    return GradientTransformation(lambda params: ScaleByScheduleState(_count0(params)), update)
+
+
+def scale_by_learning_rate(lr) -> GradientTransformation:
+    return scale_by_schedule(lambda count: -1 * lr(count))
+
+
+def scale_by_adam(b1=0.9, b2=0.999, eps=1e-8) -> GradientTransformation:
+    """optax.scale_by_adam: bias-corrected moments, eps after √ν̂."""
+
+    def init(params):
+        return ScaleByAdamState(_count0(params), _zeros(params), _zeros(params))
+
+    def update(updates, state, params=None):
+        mu = [(1 - b1) * g + b1 * m for g, m in zip(updates, state.mu)]
+        nu = [(1 - b2) * g**2 + b2 * v for g, v in zip(updates, state.nu)]
+        count = state.count + 1
+        t = count.to(torch.float32)
+        bc1, bc2 = 1 - torch.pow(b1, t), 1 - torch.pow(b2, t)
+        out = [(m / bc1.to(m.dtype)) / (torch.sqrt(v / bc2.to(v.dtype)) + eps)
+               for m, v in zip(mu, nu)]
+        return out, ScaleByAdamState(count, mu, nu)
+
+    return GradientTransformation(init, update)
+
+
+def scale_by_adam_tf(b1=0.9, b2=0.999, eps=1e-7, moment_dtype=None) -> GradientTransformation:
+    """Keras/TF Adam (trainer.py:77-141): eps after √v, not √v̂, with the bias
+    correction folded into ``α = √(1−β₂ᵗ)/(1−β₁ᵗ)``; math in float32 whatever
+    the moments' storage dtype."""
+
+    def init(params):
+        return ScaleByAdamState(_count0(params), _zeros(params, moment_dtype),
+                                _zeros(params, moment_dtype))
+
+    def update(updates, state, params=None):
+        count = state.count + 1
+        t = count.to(torch.float32)
+        f32 = torch.float32
+        mu32 = [b1 * m.to(f32) + (1.0 - b1) * g.to(f32) for m, g in zip(state.mu, updates)]
+        nu32 = [b2 * v.to(f32) + (1.0 - b2) * torch.square(g.to(f32))
+                for v, g in zip(state.nu, updates)]
+        alpha = torch.sqrt(1.0 - torch.pow(b2, t)) / (1.0 - torch.pow(b1, t))
+        out = [(alpha * m / (torch.sqrt(v) + eps)).to(g.dtype)
+               for m, v, g in zip(mu32, nu32, updates)]
+        mu = [m.to(o.dtype) for m, o in zip(mu32, state.mu)]
+        nu = [v.to(o.dtype) for v, o in zip(nu32, state.nu)]
+        return out, ScaleByAdamState(count, mu, nu)
+
+    return GradientTransformation(init, update)
+
+
+def trace(decay: float, nesterov: bool = False) -> GradientTransformation:
+    """optax.trace: ``t' = g + decay·t``; Nesterov returns ``g + decay·t'``."""
+
+    def update(updates, state, params=None):
+        new = [g + decay * t for g, t in zip(updates, state.trace)]
+        out = [g + decay * t for g, t in zip(updates, new)] if nesterov else new
+        return out, TraceState(new)
+
+    return GradientTransformation(lambda params: TraceState(_zeros(params)), update)
+
+
+def scale_by_rms(decay: float = 0.9, eps: float = 1e-8) -> GradientTransformation:
+    """optax.scale_by_rms as optax.rmsprop uses it: no bias correction,
+    eps inside the square root: ``g·rsqrt(ν + eps)``."""
+
+    def update(updates, state, params=None):
+        nu = [(1 - decay) * g**2 + decay * v for g, v in zip(updates, state.nu)]
+        return [torch.rsqrt(v + eps) * g for v, g in zip(nu, updates)], ScaleByRmsState(nu)
+
+    return GradientTransformation(lambda params: ScaleByRmsState(_zeros(params)), update)
+
+
+def sign() -> GradientTransformation:
+    """Per-variable sign(g) (reference train.py:47-48)."""
+    return GradientTransformation(lambda params: EmptyState(),
+                                  lambda u, s, params=None: ([torch.sign(g) for g in u], s))
+
+
+def add_decayed_weights(weight_decay: float) -> GradientTransformation:
+    return GradientTransformation(
+        lambda params: EmptyState(),
+        lambda u, s, params: ([g + weight_decay * p for g, p in zip(u, params)], s))
+
+
+def clip_by_global_norm(max_norm: float) -> GradientTransformation:
+    """optax.clip_by_global_norm: scale by ``max_norm/‖g‖`` only when
+    ``‖g‖ >= max_norm`` (no epsilon in the norm)."""
+
+    def update(updates, state, params=None):
+        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in updates))
+        trigger = g_norm < max_norm
+        return [torch.where(trigger, g, (g / g_norm.to(g.dtype)) * max_norm)
+                for g in updates], state
+
+    return GradientTransformation(lambda params: EmptyState(), update)
+
+
+def sgd(lr, momentum: Optional[float] = None, nesterov: bool = False):
+    first = trace(momentum, nesterov) if momentum is not None else identity()
+    return chain(first, scale_by_learning_rate(lr))
+
+
+def multi_steps(tx: GradientTransformation, every_k: int) -> GradientTransformation:
+    """optax.MultiSteps with ``use_grad_mean``: the running mean of ``every_k``
+    gradients reaches the inner optimizer on the k-th mini-step; the other
+    mini-steps return zero updates and leave the inner state (and so the
+    learning-rate count) where it was."""
+
+    def init(params):
+        return MultiStepsState(0, 0, tx.init(params), _zeros(params))
+
+    def update(updates, state, params=None):
+        n, step, inner = state.mini_step, state.gradient_step, state.inner_opt_state
+        acc = [a + (g - a) / (n + 1) for g, a in zip(updates, state.acc_grads)]
+        if n == every_k - 1:
+            out, inner = tx.update(acc, inner, params)
+            acc, step = [torch.zeros_like(a) for a in acc], step + 1
+        else:
+            out = [torch.zeros_like(g) for g in updates]
+        return out, MultiStepsState((n + 1) % every_k, step, inner, acc, state.skip_state)
+
+    return GradientTransformation(init, update)
+
+
+def make_optimizer(cfg) -> GradientTransformation:
+    """The menu of trainer.py:144-189, transform for transform. Weight decay
+    comes before the clip: the reference's l2 runs through its regularizers,
+    so its gradient term is part of the clipped total."""
+    lr = make_lr_schedule(cfg)
+    txs = []
+    if cfg.weight_decay > 0:
+        txs.append(add_decayed_weights(2.0 * cfg.weight_decay))
+    if cfg.grad_clip_norm > 0:
+        txs.append(clip_by_global_norm(cfg.grad_clip_norm))
+    if cfg.optimizer == "adam":
+        txs.append(chain(scale_by_adam(eps=cfg.adam_eps), scale_by_learning_rate(lr)))
+    elif cfg.optimizer in ("adam_tf", "adam_fused"):
+        # adam_fused shares this state and math; train_step takes the fused
+        # kernel B2 when adam_kernel.fused_adam_ok(cfg)
+        moment_dtype = torch.bfloat16 if cfg.moment_dtype == "bfloat16" else None
+        txs.append(scale_by_adam_tf(eps=cfg.adam_eps, moment_dtype=moment_dtype))
+        txs.append(scale_by_learning_rate(lr))
+    elif cfg.optimizer == "sgd":
+        txs.append(sgd(lr))
+    elif cfg.optimizer == "momentum":
+        txs.append(sgd(lr, momentum=cfg.momentum, nesterov=cfg.nesterov))
+    elif cfg.optimizer == "sign_sgd":
+        txs.append(sign())
+        txs.append(sgd(lr))
+    elif cfg.optimizer == "rmsprop":
+        txs.append(chain(scale_by_rms(), scale_by_learning_rate(lr), identity()))
+    else:
+        raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
+    tx = chain(*txs)
+    if cfg.grad_accum > 1:
+        tx = multi_steps(tx, cfg.grad_accum)
+    return tx
+
+
+@torch.no_grad()
+def apply_updates(params, updates):
+    """optax.apply_updates, in place: ``p ← p + u`` in p's dtype."""
+    for p, u in zip(params, updates):
+        p.add_(u.to(p.dtype))
+
+
+# ------------------------------------------------------------------ state
+
+
+def init_state(cfg, generator: torch.Generator | None = None, device="cuda") -> TrainState:
+    """Glorot-initialised model (draws from ``generator``, a CPU generator
+    seeded with ``cfg.seed`` by default), optimizer state, EMA copy and
+    loss-scale state, on ``device``."""
+    model = model_api.init_denoiser(cfg, generator, device=device)
+    params = list(model.parameters())
+    opt_state = make_optimizer(cfg).init(params)
+    ema = [p.detach().clone() for p in params] if cfg.ema_decay > 0 else None
+    scale_state = None
+    if cfg.dynamic_loss_scale:
+        init_scale = cfg.loss_scale if cfg.loss_scale > 0 else 2.0**15
+        dev = params[0].device
+        scale_state = ScaleState(torch.tensor(init_scale, dtype=torch.float32, device=dev),
+                                 torch.zeros((), dtype=torch.int32, device=dev))
+    return TrainState(0, model, opt_state, ema, scale_state)
+
+
+# ------------------------------------------------------------------- loss
+
+
+def compute_loss(cfg, target, prediction):
+    """Loss in float32 (reference train.py:262-272 and alternatives)."""
+    target = target.to(torch.float32)
+    prediction = prediction.to(torch.float32)
+    if cfg.loss == "mse":
+        return torch.mean(torch.square(target - prediction))
+    if cfg.loss == "l1":
+        # reference train.py:267-270 (max formulation)
+        return torch.mean(torch.maximum(target - prediction, prediction - target))
+    if cfg.loss == "dct":
+        return torch.mean(image_ops.dct2d_weighted(target - prediction) ** 2)
+    if cfg.loss == "mse_multiscale":
+        return torch.mean(torch.square(target - prediction)) + torch.mean(
+            torch.square(image_ops.avg_pool(target, 16) - image_ops.avg_pool(prediction, 16)))
+    raise ValueError(f"unknown loss {cfg.loss!r}")
+
+
+def draw_and_diffuse(cfg, batch, generator, *, t_int=None, epsilon_in=None):
+    """The (t, ε) draws, forward diffusion and target of ``diffusion_loss``
+    (trainer.py:272-322). ``t_int``/``epsilon_in`` inject the draws (the
+    step-parity harness). Returns ``(noised, target, prediction_scale,
+    t_int)`` with ``t_int`` (B, 1, 1, 1) int32 on the batch's device."""
+    b, dev = batch.shape[0], batch.device
+    if t_int is None:
+        t_int = torch.randint(1, cfg.steps + 1, (b, 1, 1, 1), generator=generator,
+                              device=generator.device, dtype=torch.int32).to(dev)
+    else:
+        t_int = torch.as_tensor(t_int, dtype=torch.int32).reshape(b, 1, 1, 1).to(dev)
+    t = t_int.to(batch.dtype)
+    if fused_diffusion.use_fused(cfg, batch.shape, epsilon_in):
+        seed = torch.randint(0, 2**62, (1,), generator=generator, device=generator.device,
+                             dtype=torch.int64).to(dev)
+        noised = fused_diffusion.forward_diffuse_fused(cfg, batch, t, seed)
+        epsilon = None  # never materialised
+    else:
+        if epsilon_in is None:
+            epsilon = torch.randn(batch.shape, generator=generator, device=generator.device,
+                                  dtype=batch.dtype).to(dev)
+        else:
+            epsilon = torch.as_tensor(epsilon_in, dtype=batch.dtype).to(dev)
+        noised = diffusion.forward_diffuse(cfg, batch, epsilon, t)
+    target, pred_scale = diffusion.training_target(cfg, batch, epsilon, t)
+    return noised, target, pred_scale, t_int
+
+
+def diffusion_loss(cfg, model, batch, generator, *, t_int=None, epsilon_in=None):
+    """Draw (t, ε), noise the batch, predict, and take the loss."""
+    noised, target, pred_scale, t_int = draw_and_diffuse(
+        cfg, batch, generator, t_int=t_int, epsilon_in=epsilon_in)
+    prediction = model_api.apply_denoiser(cfg, model, noised, t_int[:, 0, 0, 0])
+    prediction = prediction.to(torch.float32) * pred_scale
+    return compute_loss(cfg, target, prediction)
+
+
+def fold_and_augment(cfg, batch):
+    """Float batches pass through. uint8 batches (HBM-resident raw pixels)
+    would be cropped, flipped and normalised on the device by
+    data/device_augment.py, which is not ported yet."""
+    if batch.dtype == torch.uint8:
+        raise NotImplementedError(
+            "uint8 batches need the on-device augment pipeline "
+            "(data/device_augment.py), which is not ported to PyTorch yet; "
+            "pass float batches in [-1, 1)")
+    return batch
+
+
+def loss_and_grads(cfg, model, batch, generator, scale=None, *, t_int=None, epsilon_in=None):
+    """The differentiated part of the step: ``(loss, grads)`` for
+    ``model.parameters()``, the loss multiplied by ``scale`` when given (the
+    grads then too). float32 convs and matmuls stay IEEE float32 from the
+    forward through the backward (``unet.ieee_fp32``): cuDNN would otherwise
+    compute the weight and input gradients in TF32."""
+    params = list(model.parameters())
+    with unet.ieee_fp32(torch.float32, batch.device):
+        loss = diffusion_loss(cfg, model, batch, generator, t_int=t_int, epsilon_in=epsilon_in)
+        if scale is not None:
+            loss = loss * scale
+        grads = torch.autograd.grad(loss, params)
+    return loss.detach(), list(grads)
+
+
+def _select(pred, new, old):
+    """``jnp.where(pred, new, old)`` over a state tree."""
+    if isinstance(new, torch.Tensor):
+        return torch.where(pred, new, old)
+    if isinstance(new, tuple) and hasattr(new, "_fields"):
+        return type(new)(*(_select(pred, n, o) for n, o in zip(new, old)))
+    if isinstance(new, (tuple, list)):
+        return type(new)(_select(pred, n, o) for n, o in zip(new, old))
+    return new
+
+
+def _apply(cfg, optimizer, state, params, grads):
+    """The update without loss scaling: B2 when ``fused_adam_ok``, else the
+    optax-form optimizer. Returns the new optimizer state."""
+    if adam_kernel.fused_adam_ok(cfg):
+        grads = [g.contiguous() for g in grads]
+        return adam_kernel.fused_adam_apply(cfg, params, state.opt_state, grads)
+    updates, opt_state = optimizer.update(grads, state.opt_state, params)
+    apply_updates(params, updates)
+    return opt_state
+
+
+def train_step(cfg, optimizer, state: TrainState, batch, generator):
+    """One optimizer step (trainer.py:360-442). Updates the model's
+    parameters in place; returns ``(new_state, loss)`` with the loss a
+    float32 tensor on the batch's device (no host sync)."""
+    batch = fold_and_augment(cfg, batch)
+    dynamic = cfg.dynamic_loss_scale
+    if dynamic:
+        scale = state.scale_state.scale
+    else:
+        scale = cfg.loss_scale if cfg.loss_scale > 0 else None
+    params = list(state.model.parameters())
+    loss, grads = loss_and_grads(cfg, state.model, batch, generator, scale)
+    if scale is not None:
+        inv = 1.0 / scale
+        loss = loss * inv
+        grads = [g * inv for g in grads]
+
+    scale_state, finite = state.scale_state, None
+    if dynamic:
+        # skip the whole update on any non-finite gradient and halve the
+        # scale; double it after growth_interval clean steps (train.py:82-83)
+        finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+        updates, new_opt = optimizer.update(grads, state.opt_state, params)
+        with torch.no_grad():
+            for p, u in zip(params, updates):
+                p.copy_(torch.where(finite, p + u.to(p.dtype), p))
+        opt_state = _select(finite, new_opt, state.opt_state)
+        s, good = scale_state.scale, scale_state.good_steps + 1
+        grow = finite & (good >= cfg.loss_scale_growth_interval)
+        new_scale = torch.where(finite, torch.where(grow, s * 2.0, s),
+                                torch.clamp(s * 0.5, min=1.0))
+        new_good = torch.where(finite & ~grow, good, torch.zeros_like(good))
+        scale_state = ScaleState(new_scale, new_good)
+    else:
+        opt_state = _apply(cfg, optimizer, state, params, grads)
+    ema = ema_update(cfg, state.ema_params, params, opt_state, finite=finite)
+    return TrainState(state.step + 1, state.model, opt_state, ema, scale_state), loss
+
+
+@torch.no_grad()
+def ema_update(cfg, ema, params, opt_state, finite=None):
+    """EMA blend gated on an applied update (trainer.py:445-469): under
+    grad_accum only when the accumulation window closed, under dynamic loss
+    scaling only on finite steps; a skipped step leaves the EMA as it was."""
+    if ema is None:
+        return None
+    d = cfg.ema_decay
+    if cfg.grad_accum > 1 and opt_state.mini_step != 0:
+        return ema
+    blended = [e * d + p * (1.0 - d) for e, p in zip(ema, params)]
+    if finite is None:
+        return blended
+    return [torch.where(finite, b, e) for b, e in zip(blended, ema)]
+
+
+def make_train_step(cfg):
+    """``step(state, batch, generator) -> (state, loss)``."""
+    optimizer = make_optimizer(cfg)
+
+    def step(state, batch, generator):
+        return train_step(cfg, optimizer, state, batch, generator)
+
+    return step
+
+
+def make_injected_train_step(cfg):
+    """``step(state, batch, t_int, epsilon) -> (state, loss)`` with the draws
+    supplied by the caller (trainer.py:472-503): no augmentation, loss
+    scaling or EMA. The update is applied as ``train_step`` applies it, so
+    under ``adam_fused`` it goes through B2."""
+    optimizer = make_optimizer(cfg)
+
+    def step(state, batch, t_int, epsilon):
+        loss, grads = loss_and_grads(cfg, state.model, batch, None, t_int=t_int,
+                                     epsilon_in=epsilon)
+        params = list(state.model.parameters())
+        opt_state = _apply(cfg, optimizer, state, params, grads)
+        return state._replace(step=state.step + 1, opt_state=opt_state), loss
+
+    return step

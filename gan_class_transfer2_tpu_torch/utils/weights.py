@@ -12,6 +12,12 @@ Two forms:
     then the up conv, then skip_dense), post block, head. Conv2DTranspose
     kernels are stored there as TF's (kh, kw, out, in) and converted to the
     dataflow HWIO here.
+
+A whole JAX ``TrainState`` (params, optax optimizer state, EMA, loss-scale
+state), given with numpy leaves, carries into the port's
+``train.trainer.TrainState`` by ``from_jax_train_state`` and back by
+``to_jax_train_state``, so a JAX run and a port run continue from the same
+state.
 """
 
 from __future__ import annotations
@@ -26,14 +32,22 @@ from ..models.api import resolve_device
 
 
 def _np(p) -> np.ndarray:
+    if p.dtype == torch.bfloat16:  # numpy has no bfloat16: carry the values as float32
+        p = p.float()
     return p.detach().cpu().numpy()
 
 
-def to_jax_params(model: unet.Denoiser) -> dict:
-    """The JAX param pytree of ``model``, numpy leaves."""
+def to_jax_params(model: unet.Denoiser, values=None) -> dict:
+    """The JAX param pytree of ``model``, numpy leaves: the parameters
+    themselves, or ``values[i]`` for the i-th of ``model.parameters()`` (a
+    list of tensors shaped like them, such as Adam's moments)."""
+    by_id = {id(p): v for p, v in zip(model.parameters(), values)} if values is not None else {}
+
+    def leaf(p):
+        return _np(by_id.get(id(p), p))
 
     def conv(layer):
-        return {"kernel": _np(layer.kernel), "bias": _np(layer.bias)}
+        return {"kernel": leaf(layer.kernel), "bias": leaf(layer.bias)}
 
     octaves = []
     for level in model.octaves:
@@ -44,7 +58,7 @@ def to_jax_params(model: unet.Denoiser) -> dict:
             "up": conv(level.up),
         }
         if hasattr(level, "skip_dense"):
-            entry["skip_dense"] = _np(level.skip_dense)
+            entry["skip_dense"] = leaf(level.skip_dense)
         octaves.append(entry)
     return {
         "pre_block": [conv(x) for x in model.pre_block],
@@ -147,3 +161,98 @@ def load_flat_npz(path) -> List[np.ndarray]:
 def save_flat_npz(path, flat) -> None:
     """Write a flat list as the JAX CLI's ``export-weights`` does."""
     np.savez(path, **{f"w_{i:05d}": w for i, w in enumerate(flat)})
+
+
+# ------------------------------------------------------------ train state
+
+
+def _param_list(model: unet.Denoiser, tree, dtype=None) -> list:
+    """A JAX param-shaped tree as one tensor per ``model.parameters()``, on
+    the model's device."""
+    flat = _jax_state(tree)
+    device = next(model.parameters()).device
+    return [flat[name].to(device=device, dtype=dtype or torch.float32)
+            for name, _ in model.named_parameters()]
+
+
+def _is_param_tree(node) -> bool:
+    return isinstance(node, dict) and "octaves" in node
+
+
+def _opt_from_jax(model, node, moment_dtype):
+    from ..train import trainer
+
+    if _is_param_tree(node):
+        return _param_list(model, node)
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        name = type(node).__name__
+        cls = getattr(trainer, name, None)
+        if cls is None:
+            raise ValueError(f"optimizer state {name} has no counterpart in the port")
+        fields = {}
+        for field, value in zip(node._fields, node):
+            if name == "MultiStepsState" and field in ("mini_step", "gradient_step"):
+                fields[field] = int(np.asarray(value))
+            elif name == "ScaleByAdamState" and field in ("mu", "nu"):
+                fields[field] = _param_list(model, value, moment_dtype)
+            elif field == "skip_state":
+                fields[field] = tuple(value)
+            else:
+                fields[field] = _opt_from_jax(model, value, moment_dtype)
+        return cls(**fields)
+    if isinstance(node, (tuple, list)):
+        return type(node)(_opt_from_jax(model, v, moment_dtype) for v in node)
+    device = next(model.parameters()).device
+    return torch.from_numpy(np.array(node)).to(device)
+
+
+def _opt_to_jax(model, node):
+    if isinstance(node, list):
+        return to_jax_params(model, node)
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return type(node)(*(np.asarray(v, np.int32) if isinstance(v, int) else
+                            _opt_to_jax(model, v) for v in node))
+    if isinstance(node, tuple):
+        return tuple(_opt_to_jax(model, v) for v in node)
+    return _np(node)
+
+
+def from_jax_train_state(cfg, state, device="cuda"):
+    """The port's ``TrainState`` from a JAX one with numpy leaves: params,
+    optimizer state (optax's NamedTuples by name and field; moments in
+    ``cfg.moment_dtype`` for the Keras-form Adam), EMA and loss-scale
+    state."""
+    from ..train import trainer
+
+    model = from_jax_params(cfg, state.params, device)
+    moment_dtype = torch.bfloat16 if cfg.moment_dtype == "bfloat16" and cfg.optimizer in (
+        "adam_tf", "adam_fused") else None
+    opt_state = _opt_from_jax(model, state.opt_state, moment_dtype)
+    ema = _param_list(model, state.ema_params) if state.ema_params is not None else None
+    scale = None
+    if state.scale_state is not None:
+        dev = next(model.parameters()).device
+        scale = trainer.ScaleState(
+            torch.from_numpy(np.array(state.scale_state.scale, np.float32)).to(dev),
+            torch.from_numpy(np.array(state.scale_state.good_steps, np.int32)).to(dev))
+    return trainer.TrainState(int(np.asarray(state.step)), model, opt_state, ema, scale)
+
+
+def to_jax_train_state(state) -> dict:
+    """The inverse of ``from_jax_train_state``: the JAX ``TrainState``'s
+    fields as a dict of numpy trees, optimizer states as the port's
+    NamedTuples (optax's names and fields); bfloat16 moments come back as
+    float32 values."""
+    model = state.model
+    scale = None
+    if state.scale_state is not None:
+        scale = type(state.scale_state)(_np(state.scale_state.scale),
+                                        _np(state.scale_state.good_steps))
+    return {
+        "step": np.asarray(state.step, np.int32),
+        "params": to_jax_params(model),
+        "opt_state": _opt_to_jax(model, state.opt_state),
+        "ema_params": to_jax_params(model, state.ema_params)
+        if state.ema_params is not None else None,
+        "scale_state": scale,
+    }

@@ -189,3 +189,30 @@ def test_image_ops_match_jax(shape, window):
                                   np.asarray(jimage.roll2d(jnp.asarray(x), 1, 2)))
     np.testing.assert_array_equal(image.vq_quantise(T(x), T(d)).numpy(),
                                   np.asarray(jimage.vq_quantise(jnp.asarray(x), jnp.asarray(d))))
+
+
+@pytest.mark.parametrize("relu", [True, False])
+def test_fused_down_conv_backward_matches_jax_vjp(relu):
+    """B4's autograd on the CPU against ``jax.vjp`` of the Pallas kernel in
+    interpret mode, at (2, 16, 16, 128) → 128: dx, dK and db. Both backwards
+    are plain float32 convs (the ReLU mask from the saved output, db a
+    float32 sum); they differ in summation order over at most
+    4·O = 512 (dx) and B·H/2·W/2 = 128 (dK, db) terms: atol 1e-5 relative
+    to the largest gradient of each."""
+    r = np.random.default_rng(8)
+    x = r.normal(size=(2, 16, 16, 128)).astype(np.float32)
+    k = (r.normal(size=(4, 4, 128, 128)) * 0.05).astype(np.float32)
+    b = (r.normal(size=(128,)) * 0.1).astype(np.float32)
+    g = r.normal(size=(2, 8, 8, 128)).astype(np.float32)
+    import jax
+
+    _, vjp = jax.vjp(lambda x, k, b: pallas_conv.down_conv_fused(x, k, b, relu, True),
+                     jnp.asarray(x), jnp.asarray(k), jnp.asarray(b))
+    want = [np.asarray(a) for a in vjp(jnp.asarray(g))]
+    xt, kt, bt = (T(a).requires_grad_() for a in (x, k, b))
+    before = fdc.down_conv_fused.launches
+    y = fdc.down_conv_fused(xt, kt, bt, relu)
+    got = torch.autograd.grad(y, (xt, kt, bt), T(g))
+    assert fdc.down_conv_fused.launches == before  # the CPU takes the plain version
+    for name, a, w in zip(("dx", "dK", "db"), got, want):
+        np.testing.assert_allclose(a.numpy(), w, atol=1e-5 * np.abs(w).max(), err_msg=name)

@@ -169,15 +169,22 @@ def test_port_imports_no_jax():
     assert int(out.stdout.strip()) >= 15
 
 
+def _needs_card(monkeypatch):
+    """Skip without a card; else turn cuDNN's TF32 off for this test only
+    (monkeypatch restores the process-wide flag, so no test depends on the
+    order the others ran in)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+
+
 @pytest.mark.cuda
-def test_fused_down_conv_kernel_matches_plain_on_card():
+def test_fused_down_conv_kernel_matches_plain_on_card(monkeypatch):
     """The CUDA kernel against its plain version, at one tile-ragged shape
     and one full-width shape, in both dtypes, and its launch count.
     Tolerances relative to max|y|: 1e-4 in float32 (summation order over
     16·C terms), 2e-2 in bfloat16 (one bf16 output rounding is ~4e-3)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
-    torch.backends.cudnn.allow_tf32 = False
+    _needs_card(monkeypatch)
     r = np.random.default_rng(0)
     for (bsz, h, c, o) in ((3, 18, 128, 64), (4, 32, 512, 512)):
         x = torch.from_numpy(r.normal(size=(bsz, h, h, c)).astype(np.float32)).cuda()
@@ -193,5 +200,111 @@ def test_fused_down_conv_kernel_matches_plain_on_card():
             assert fdc.down_conv_fused.launches == before + 1
             err = (y.float() - ref.float()).abs().max().item()
             assert err <= tol * ref.float().abs().max().item(), (bsz, h, c, o, dtype, err)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fdc.down_conv_fused(x.requires_grad_(), k, b)
+
+
+@pytest.mark.cuda
+def test_down_conv_gradient_matches_plain_autograd_on_card(monkeypatch):
+    """B4's backward (cuDNN's input and weight gradients around the kernel's
+    forward) against autograd through the plain version, at one full-width
+    shape: relative to the largest gradient, 1e-5 in float32 (IEEE convs,
+    other summation orders), 4e-2 in bfloat16: the plain version's gradient
+    is float32 rounded once to bf16, cuDNN's bf16 dgrad rounds its partial
+    sums over 4·O = 2048 terms too (2.0e-2 seen on an H100 at dx). An output
+    whose pre-activation lies within rounding of 0 may pass one ReLU and not
+    the other; the upstream gradient is 0 there for both."""
+    _needs_card(monkeypatch)
+    r = np.random.default_rng(1)
+    x = torch.from_numpy(r.normal(size=(4, 64, 64, 256)).astype(np.float32)).cuda()
+    k = torch.from_numpy((r.normal(size=(4, 4, 256, 512)) / 64).astype(np.float32)).cuda()
+    b = torch.from_numpy((r.normal(size=(512,)) * 0.1).astype(np.float32)).cuda()
+    g = torch.from_numpy(r.normal(size=(4, 32, 32, 512)).astype(np.float32)).cuda()
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 4e-2)):
+        leaves, ys = [], []
+        for fn in (fdc.down_conv_fused, fdc.down_conv_plain):
+            leaves.append([t.to(dtype).requires_grad_() for t in (x, k, b)])
+            ys.append(fn(*leaves[-1]))
+        gm = torch.where((ys[0] > 0) == (ys[1] > 0), g.to(dtype), 0)
+        grads = [torch.autograd.grad(y, ts, gm) for y, ts in zip(ys, leaves)]
+        for name, a, w in zip(("dx", "dK", "db"), *grads):
+            err = (a.float() - w.float()).abs().max().item()
+            assert err <= tol * w.float().abs().max().item(), (dtype, name, err)
+
+
+@pytest.mark.cuda
+def test_diffuse_kernel_matches_plain_on_card(monkeypatch):
+    """B1 against its plain version (the same Philox words in int64 torch
+    ops, on the card): equal up to the rounding of log and cos in ε, 4e-6
+    absolute (|ε| < 6, a few float32 ulps); with sn = 0 exactly x·ss; one
+    launch per call."""
+    from gan_class_transfer2_tpu_torch.ops import fused_diffusion as fd
+
+    _needs_card(monkeypatch)
+    r = np.random.default_rng(2)
+    for b, n in ((3, 768), (16, 256 * 256 * 3)):
+        x = torch.from_numpy(r.uniform(-1, 1, (b, n)).astype(np.float32)).cuda()
+        ss = torch.from_numpy(r.uniform(0, 0.5, b).astype(np.float32)).cuda()
+        sn = torch.sqrt(1 - ss * ss)
+        seed = torch.tensor([0x1234_5678_9ABC], dtype=torch.int64, device="cuda")
+        before = fd.diffuse_fused.launches
+        y = fd.diffuse_fused(x, ss, sn, seed)
+        torch.cuda.synchronize()
+        assert fd.diffuse_fused.launches == before + 1
+        assert (y - fd.diffuse_plain(x, ss, sn, seed)).abs().max().item() <= 4e-6
+        assert torch.equal(fd.diffuse_fused(x, ss, torch.zeros_like(sn), seed), x * ss[:, None])
+
+
+@pytest.mark.cuda
+def test_adam_kernel_matches_plain_on_card(monkeypatch):
+    """B2 against its plain version on the card, bit for bit (the kernel
+    rounds every operation as the plain version's separate torch ops do),
+    over leaves of sizes that are and are not multiples of 4 and 128, with
+    float32 and bfloat16 moments, and more leaves than one launch takes."""
+    from gan_class_transfer2_tpu_torch.ops import adam_kernel
+
+    _needs_card(monkeypatch)
+    r = np.random.default_rng(3)
+    sizes = [1, 3, 128, 1000, 4096, 70_001] * 9  # 54 leaves: two launches
+    for mdt in (torch.float32, torch.bfloat16):
+        def leaves():
+            return [torch.from_numpy(r.normal(size=n).astype(np.float32)).cuda() for n in sizes]
+
+        p, g = leaves(), leaves()
+        m = [t.mul(0.1).to(mdt) for t in leaves()]
+        v = [t.square().mul(0.01).to(mdt) for t in leaves()]
+        step = torch.tensor([3.7e-4], device="cuda")
+        ref = [[t.clone() for t in ts] for ts in (p, m, v)]
+        before = adam_kernel.adam_fused.launches
+        adam_kernel.adam_fused(p, m, v, g, step, 1e-7)
+        torch.cuda.synchronize()
+        assert adam_kernel.adam_fused.launches == before + adam_kernel.launches_per_step(
+            len(sizes)) == before + 2
+        adam_kernel.adam_plain(*ref, g, step, 1e-7)
+        for got, want in zip(p + m + v, ref[0] + ref[1] + ref[2]):
+            assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_fp32_conv_gradients_stay_ieee_through_the_step_on_card(monkeypatch):
+    """The train step's float32 gradients on the card, with cuDNN's TF32
+    flag at its default (True) before the step, match a float64 CPU
+    gradient to 1e-5 of the largest gradient of each leaf; TF32 (a 10-bit
+    mantissa) would be ~1e-3 off. The flag is restored after the step."""
+    from gan_class_transfer2_tpu_torch.train import trainer
+
+    _needs_card(monkeypatch)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    cfg = tiny_test_config(size=32, pixel_size=32, max_size=64, octaves=2)
+    r = np.random.default_rng(4)
+    x = torch.from_numpy(r.uniform(-1, 1, (4, 32, 32, 3)).astype(np.float32))
+    eps = torch.from_numpy(r.normal(size=x.shape).astype(np.float32))
+    t = torch.tensor([1, 3, 6, 9], dtype=torch.int32)
+    model = unet.Denoiser(cfg).reset_parameters(torch.Generator().manual_seed(0))
+    _, grads = trainer.loss_and_grads(cfg, model.cuda(), x.cuda(), None, t_int=t,
+                                      epsilon_in=eps.cuda())
+    assert torch.backends.cudnn.allow_tf32 is True
+    monkeypatch.setitem(unet.DTYPES, "float32", torch.float64)  # the reference in float64
+    _, want = trainer.loss_and_grads(cfg, model.cpu().double(), x.double(), None,
+                                     t_int=t, epsilon_in=eps.double())
+    for a, w in zip(grads, want):
+        err = (a.double().cpu() - w).abs().max().item()
+        assert err <= 1e-5 * w.abs().max().item(), err

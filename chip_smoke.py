@@ -40,7 +40,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      launch counts per step, finite losses, and a torch.profiler breakdown of
      one step of each;
   8. train-agree — one injected full-width step from the same weights, t and
-     ε through the kernel path and the plain path: losses and updates agree.
+     ε through the kernel path and the plain path: losses and updates agree;
+  9. gan-kernel — B3 (instance norm) against its plain version at the seven
+     distinct shapes of the cycle-GAN step at batch 16, float32 and
+     bfloat16: forward, and dx, dγ, dβ of its autograd Function against
+     autograd through the plain version; kernel, plain version,
+     F.instance_norm and the backward timed beside the byte bound. B4 with
+     ``relu=False`` (every GAN down conv) at its four shapes at batch 16;
+  10. gan — the user's entry point, ``cli.main(["profile", "--model", "gan",
+     ...])``, at the default width (two default U-Net generators, two
+     default discriminators, 256², batch 16 per class) with instance norms
+     and ``--conv-impl pallas``, float32 and bfloat16, 2 + 3 steps: exact B3
+     and B4 launch counts (derived from the config), finite losses, the
+     trace's top kernels, busy and idle; the step timed without the
+     profiler; ``gan.transfer`` at batch 4;
+  11. gan-agree — one full-width float32 GAN step under sgd from the same
+     state and batches through the kernels and through cuDNN with the
+     plain instance norm: losses and each net's update agree;
+  12. gan-reference — a tiny GAN whose discriminators reach B4, 3 steps on
+     the card and on the CPU: the losses agree.
 
 The last two lines of its output are a JSON line of per-kernel results and
 ``{"ok": true, "device": {...}}``; before them the card's name and power
@@ -89,6 +107,17 @@ DIFFUSE_ATOL = 4e-6
 # and the 3 of x·ss + ε·sn; an estimate for the operations bound
 DIFFUSE_FLOPS_PER_ELEMENT = 40
 ADAM_FLOPS_PER_ELEMENT = 12  # 2 mul + add (m), 3 mul + add (v), sqrt, add, mul, div, sub
+GAN_FLAGS = ["--g-norm", "instance", "--d-norm", "instance", "--conv-impl", "pallas"]
+GAN_WARM, GAN_PROFILE_STEPS, GAN_TIMED_STEPS = 2, 3, 5  # cli profile's two warm steps
+# B3 vs plain, relative to max|y|: float32 differs by the order of the
+# statistics' sums (Welford/Chan against two passes, ~1e-7 of a value);
+# bfloat16 by one output rounding (2^-8 ≈ 4e-3 of the value)
+IN_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# B3's Function (backward in torch ops) vs autograd through the plain
+# version, relative to the largest gradient: float32 reductions in other
+# orders; in bfloat16 the plain version's dγ and dβ pass through γ and β
+# rounded to bf16, and dx is rounded to bf16 on both sides
+IN_GRAD_RTOL = {"float32": 1e-5, "bfloat16": 4e-2}
 
 
 def fail(msg):
@@ -256,6 +285,8 @@ def phase_profile(torch, sampler, model, cfg, init):
     The profiler's own overhead inflates the wall time it sees."""
     from torch.profiler import ProfilerActivity, profile
 
+    from gan_class_transfer2_tpu_torch.utils import profiler
+
     for dtype in ("float32", "bfloat16"):
         for impl in ("pallas", "lax"):
             c = cfg.replace(conv_impl=impl, compute_dtype=dtype)
@@ -264,16 +295,12 @@ def phase_profile(torch, sampler, model, cfg, init):
                 sampler.sample(c, model, init, snapshots=False)
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t0) * 1e3
-            kernels = [e for e in prof.key_averages()
-                       if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
-            kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
-            busy = sum(e.self_device_time_total for e in kernels) / 1e3
+            busy = profiler.device_busy_ms(prof)
             print(f"[profile] {dtype}/{impl}: one sample call (batch {BATCH}, "
                   f"{len(sampler.sample_timesteps(c))} denoiser calls): kernels busy "
                   f"{busy:.3f} ms of {wall:.3f} ms wall under the profiler")
-            for e in kernels[:6]:
-                print(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms "
-                      f"x{e.count:<4d} {e.key[:100]}")
+            for r in profiler.device_ops(prof, top=6):
+                print(f"[profile]   {r['ms']:8.3f} ms x{r['calls']:<4d} {r['op'][:100]}")
 
 
 def phase_edit(torch, fdc, sampler, model, cfg):
@@ -381,8 +408,6 @@ def phase_train_kernels(torch, F, fdc, fd, adam_kernel, api, cfg):
     shapes, timed; B4's forward and gradients against the plain version at
     batch 16, its backward timed. Returns ({name: row without launches},
     {dtype: B4's forward max|err| at batch 16})."""
-    from gan_class_transfer2_tpu_torch.models import unet
-
     rows = {}
     gen = torch.Generator(device="cuda").manual_seed(7)
     # ---- B1: batch 16 × 256²×3 float32
@@ -469,54 +494,8 @@ def phase_train_kernels(torch, F, fdc, fd, adam_kernel, api, cfg):
     # kernel) at batch 16, the training path's shapes
     b4_err = {}
     for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
-        worst = {"y": 0.0, "dx": 0.0, "dK": 0.0, "db": 0.0}
-        flips = 0
-        b4_err[dtype_name] = 0.0
-        with unet.ieee_fp32(torch.float32, torch.device("cuda")):
-            for (hw, c, o) in SHAPES:
-                xs = torch.randn((TRAIN_BATCH, hw, hw, c), generator=gen, device="cuda").to(dtype)
-                k = (torch.randn((4, 4, c, o), generator=gen, device="cuda") / (16 * c) ** 0.5)
-                b = torch.randn((o,), generator=gen, device="cuda") * 0.1
-                xs.requires_grad_()
-                k, b = k.to(dtype).requires_grad_(), b.to(dtype).requires_grad_()
-                g = torch.randn((TRAIN_BATCH, hw // 2, hw // 2, o), generator=gen,
-                                device="cuda").to(dtype)
-                before = fdc.down_conv_fused.launches
-                y = fdc.down_conv_fused(xs, k, b)
-                yp = fdc.down_conv_plain(xs, k, b)
-                err = (y.float() - yp.float()).abs().max().item()
-                scale = yp.float().abs().max().item()
-                if not err <= KERNEL_RTOL[dtype_name] * scale:
-                    fail(f"B4 forward {dtype_name} x{tuple(xs.shape)}->{o}: max|err| {err} > "
-                         f"{KERNEL_RTOL[dtype_name]} x max|y| {scale}")
-                b4_err[dtype_name] = max(b4_err[dtype_name], err)
-                worst["y"] = max(worst["y"], err / scale)
-                # an output whose pre-activation lies within rounding of 0
-                # may pass one ReLU and not the other; g is 0 there for both
-                same = (y > 0) == (yp > 0)
-                flips += int((~same).sum().item())
-                gm = torch.where(same, g, torch.zeros_like(g))
-                got = torch.autograd.grad(y, (xs, k, b), gm, retain_graph=True)
-                want = torch.autograd.grad(yp, (xs, k, b), gm, retain_graph=True)
-                for gname, a, w in zip(("dx", "dK", "db"), got, want):
-                    gerr = (a.float() - w.float()).abs().max().item()
-                    gscale = w.float().abs().max().item()
-                    if not gerr <= GRAD_RTOL[dtype_name] * gscale:
-                        fail(f"B4 {gname} {dtype_name} x{tuple(xs.shape)}->{o}: max|err| {gerr} "
-                             f"> {GRAD_RTOL[dtype_name]} x max|{gname}| {gscale}")
-                    worst[gname] = max(worst[gname], gerr / gscale)
-                ms = cuda_ms(lambda: torch.autograd.grad(y, (xs, k, b), g, retain_graph=True))
-                plain_ms = cuda_ms(lambda: torch.autograd.grad(yp, (xs, k, b), g,
-                                                               retain_graph=True))
-                fdc.down_conv_fused.launches = before
-                flops = 2 * 2 * TRAIN_BATCH * (hw // 2) ** 2 * o * 16 * c  # dx and dK
-                nbytes = xs.element_size() * (2 * xs.numel() + 2 * k.numel() + y.numel())
-                bound = max(flops / PEAK_FLOPS[dtype_name] * 1e3, _bytes_ms(nbytes))
-                tot["ms"] += ms
-                tot["plain_ms"] += plain_ms
-                tot["bound_ms"] += bound
-                del xs, k, b, g, gm, y, yp, got, want
+        b4_err[dtype_name], worst, flips, tot = b4_batch16(torch, fdc, gen, dtype_name, dtype,
+                                                           relu=True)
         print(f"[train-kernel] B4 {dtype_name}, batch {TRAIN_BATCH}, four shapes: max error "
               f"relative to the largest value: y {worst['y']:.2e} (bound "
               f"{KERNEL_RTOL[dtype_name]}), dx {worst['dx']:.2e}, dK {worst['dK']:.2e}, db "
@@ -526,19 +505,78 @@ def phase_train_kernels(torch, F, fdc, fd, adam_kernel, api, cfg):
     return rows, b4_err
 
 
-def _bench(cli, args):
-    """One ``cli bench`` run; returns its JSON result (the line is printed)."""
+def b4_batch16(torch, fdc, gen, dtype_name, dtype, relu, timed=True):
+    """B4 at the four down-conv shapes at batch 16: its forward against the
+    plain version (KERNEL_RTOL of max|y|) and dx, dK, db (cuDNN around the
+    kernel) against the plain version's autograd (GRAD_RTOL of the largest
+    gradient); with ``timed``, the backward timed against the plain one.
+    Returns (max|err| of y, worst relative errors, ReLU mask flips, times)."""
+    from gan_class_transfer2_tpu_torch.models import unet
+
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    worst = {"y": 0.0, "dx": 0.0, "dK": 0.0, "db": 0.0}
+    flips, max_err = 0, 0.0
+    with unet.ieee_fp32(torch.float32, torch.device("cuda")):
+        for (hw, c, o) in SHAPES:
+            xs = torch.randn((TRAIN_BATCH, hw, hw, c), generator=gen, device="cuda").to(dtype)
+            k = (torch.randn((4, 4, c, o), generator=gen, device="cuda") / (16 * c) ** 0.5)
+            b = torch.randn((o,), generator=gen, device="cuda") * 0.1
+            xs.requires_grad_()
+            k, b = k.to(dtype).requires_grad_(), b.to(dtype).requires_grad_()
+            g = torch.randn((TRAIN_BATCH, hw // 2, hw // 2, o), generator=gen,
+                            device="cuda").to(dtype)
+            before = fdc.down_conv_fused.launches
+            y = fdc.down_conv_fused(xs, k, b, relu)
+            yp = fdc.down_conv_plain(xs, k, b, relu)
+            err = (y.float() - yp.float()).abs().max().item()
+            scale = yp.float().abs().max().item()
+            if not err <= KERNEL_RTOL[dtype_name] * scale:
+                fail(f"B4 (relu={relu}) forward {dtype_name} x{tuple(xs.shape)}->{o}: max|err| "
+                     f"{err} > {KERNEL_RTOL[dtype_name]} x max|y| {scale}")
+            if not relu and not (y < 0).any():
+                fail(f"B4 (relu=False) {dtype_name} x{tuple(xs.shape)}: no negative output")
+            max_err = max(max_err, err)
+            worst["y"] = max(worst["y"], err / scale)
+            # an output whose pre-activation lies within rounding of 0
+            # may pass one ReLU and not the other; g is 0 there for both
+            same = (y > 0) == (yp > 0) if relu else torch.ones_like(y, dtype=torch.bool)
+            flips += int((~same).sum().item())
+            gm = torch.where(same, g, torch.zeros_like(g))
+            got = torch.autograd.grad(y, (xs, k, b), gm, retain_graph=True)
+            want = torch.autograd.grad(yp, (xs, k, b), gm, retain_graph=True)
+            for gname, a, w in zip(("dx", "dK", "db"), got, want):
+                gerr = (a.float() - w.float()).abs().max().item()
+                gscale = w.float().abs().max().item()
+                if not gerr <= GRAD_RTOL[dtype_name] * gscale:
+                    fail(f"B4 (relu={relu}) {gname} {dtype_name} x{tuple(xs.shape)}->{o}: "
+                         f"max|err| {gerr} > {GRAD_RTOL[dtype_name]} x max|{gname}| {gscale}")
+                worst[gname] = max(worst[gname], gerr / gscale)
+            if timed:
+                tot["ms"] += cuda_ms(lambda: torch.autograd.grad(y, (xs, k, b), g,
+                                                                 retain_graph=True))
+                tot["plain_ms"] += cuda_ms(lambda: torch.autograd.grad(yp, (xs, k, b), g,
+                                                                       retain_graph=True))
+                flops = 2 * 2 * TRAIN_BATCH * (hw // 2) ** 2 * o * 16 * c  # dx and dK
+                nbytes = xs.element_size() * (2 * xs.numel() + 2 * k.numel() + y.numel())
+                tot["bound_ms"] += max(flops / PEAK_FLOPS[dtype_name] * 1e3, _bytes_ms(nbytes))
+            fdc.down_conv_fused.launches = before  # comparison launches do not count
+            del xs, k, b, g, gm, y, yp, got, want
+    return max_err, worst, flips, tot
+
+
+def _cli_json(cli, args):
+    """One CLI run with its standard output captured; returns the JSON
+    lines it printed. Fails the smoke on a non-zero return or no output."""
     import contextlib
     import io
 
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = cli.main(args)
-    out = buf.getvalue().strip().splitlines()
-    if rc != 0 or not out:
+    lines = [json.loads(ln) for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+    if rc != 0 or not lines:
         fail(f"cli {' '.join(args)} returned {rc}")
-    print(f"[train] {out[-1]}")
-    return json.loads(out[-1])
+    return lines
 
 
 def phase_train(torch, cli, fdc, fd, adam_kernel, trainer, cfg):
@@ -548,6 +586,7 @@ def phase_train(torch, cli, fdc, fd, adam_kernel, trainer, cfg):
     from torch.profiler import ProfilerActivity, profile
 
     from gan_class_transfer2_tpu_torch.models import unet
+    from gan_class_transfer2_tpu_torch.utils import profiler
 
     n_leaves = len(list(unet.Denoiser(cfg).parameters()))
     steps = BENCH_STEPS + BENCH_WARMUP
@@ -564,7 +603,8 @@ def phase_train(torch, cli, fdc, fd, adam_kernel, trainer, cfg):
                     "--moment-dtype", moments, *flags]
             fdc.down_conv_fused.launches = fd.diffuse_fused.launches = 0
             adam_kernel.adam_fused.launches = 0
-            res = _bench(cli, args)
+            res = _cli_json(cli, args)[-1]
+            print(f"[train] {json.dumps(res)}")
             got = (fd.diffuse_fused.launches, adam_kernel.adam_fused.launches,
                    fdc.down_conv_fused.launches)
             per_step = (0, 0, 0)
@@ -604,16 +644,13 @@ def phase_train(torch, cli, fdc, fd, adam_kernel, trainer, cfg):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             state, loss = step(state, xb, gen)
             torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages()
-                   if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
-        kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
-        busy = sum(e.self_device_time_total for e in kernels) / 1e3
+        rows = profiler.device_ops(prof, top=None)
+        busy = profiler.device_busy_ms(prof)
         print(f"[train-profile] {dtype}/{path}: one step at batch {TRAIN_BATCH}: kernels busy "
               f"{busy:.3f} ms of {res['step_ms']:.3f} ms per step (bench, no profiler): idle "
-              f"share {max(0.0, 1 - busy / res['step_ms']):.1%}; {len(kernels)} kernel names")
-        for e in kernels[:8]:
-            print(f"[train-profile]   {e.self_device_time_total / 1e3:8.3f} ms "
-                  f"x{e.count:<4d} {e.key[:100]}")
+              f"share {max(0.0, 1 - busy / res['step_ms']):.1%}; {len(rows)} kernel names")
+        for r in rows[:8]:
+            print(f"[train-profile]   {r['ms']:8.3f} ms x{r['calls']:<4d} {r['op'][:100]}")
         del state, step, xb
     fdc.down_conv_fused.launches = fd.diffuse_fused.launches = 0
     adam_kernel.adam_fused.launches = 0
@@ -664,6 +701,349 @@ def phase_train_agree(torch, fdc, adam_kernel, api, trainer, cfg):
           f"elements beyond 1e-3·lr {frac:.2e} (bound 1e-4) of {diff.numel()}")
     if not rel <= 1e-5 or not frac <= 1e-4:
         fail(f"kernel and plain training paths disagree: loss rel {rel}, share {frac}")
+
+
+# ------------------------------------------------------------------ GAN
+
+
+def gan_counts(fdc, cfg, batch):
+    """What one cycle-GAN step of ``cfg`` launches, derived from the config
+    as models/unet.py, models/discriminator.py and train/gan.py build it:
+    ({(H=W, C): B3 launches per step}, B4 launches per step, (B3, B4) per
+    generator forward). Norms follow every G down and up conv and every D
+    conv but the first; B4 takes the down convs its gate admits."""
+    from collections import Counter
+
+    from gan_class_transfer2_tpu_torch.models import discriminator as d_lib
+
+    g_norms, g_b4 = Counter(), b4_per_call(fdc, cfg, batch)
+    for i in range(cfg.octaves):
+        g_norms[(cfg.size >> (i + 1), cfg.octave_filters(i))] += 1  # down_norm
+        g_norms[(cfg.size >> i, cfg.octave_up_filters(i))] += 1  # up_norm
+    d_norms, d_b4, c = Counter(), 0, 3
+    for i in range(d_lib.d_octaves(cfg)):
+        f, hw = d_lib.d_filters(cfg, i), cfg.size >> i
+        d_b4 += fdc.supported((batch, hw, hw, c), (4, 4, c, f))
+        if i > 0:
+            d_norms[(hw // 2, f)] += 1
+        c = f
+    # G forwards: two fakes, two cycle, two identity; D applies: two in the
+    # G loss, four in the D loss (train/gan.py, gan.py:165-249)
+    n_g = 2 + 2 * cfg.cycle_term_active + 2 * cfg.identity_term_active
+    n_d = 6
+    per_step = Counter({k: n_g * v for k, v in g_norms.items()})
+    per_step.update({k: n_d * v for k, v in d_norms.items()})
+    return dict(per_step), n_g * g_b4 + n_d * d_b4, (sum(g_norms.values()), g_b4)
+
+
+def phase_gan_kernels(torch, F, fdc, norm, cfg):
+    """B3 against its plain version at the GAN path's distinct shapes at
+    batch 16, float32 and bfloat16: the forward and the Function's dx, dγ,
+    dβ (its backward is torch ops) against autograd through the plain
+    version; the kernel, the plain version, F.instance_norm and the
+    backward timed beside the byte bound. Then B4 with ``relu=False`` (every
+    GAN down conv) at its four shapes at batch 16. Returns {dtype: row
+    without launches} with times summed over one step's launches."""
+    per_step, _, _ = gan_counts(fdc, cfg, TRAIN_BATCH)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows = {}
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        s = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bwd_ms=0.0, err=0.0)
+        worst = {"y": 0.0, "dx": 0.0, "dgamma": 0.0, "dbeta": 0.0}
+        for (hw, c), n in sorted(per_step.items(), reverse=True):
+            x = (torch.randn((TRAIN_BATCH, hw, hw, c), generator=gen, device="cuda") * 3 + 2)
+            x = x.to(dtype)
+            g = 1 + 0.2 * torch.randn((c,), generator=gen, device="cuda")
+            b = 0.2 * torch.randn((c,), generator=gen, device="cuda")
+            dy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+            before = norm.instance_norm_fused.launches
+            y = norm.instance_norm_fused(x, g, b)
+            yp = norm.instance_norm_plain(x, g, b)
+            err = (y.float() - yp.float()).abs().max().item()
+            scale = yp.float().abs().max().item()
+            if not err <= IN_RTOL[dtype_name] * scale:
+                fail(f"B3 {dtype_name} x{tuple(x.shape)}: max|err| {err} > "
+                     f"{IN_RTOL[dtype_name]} x max|y| {scale}")
+            s["err"] = max(s["err"], err)
+            worst["y"] = max(worst["y"], err / scale)
+            leaves = [[t.clone().requires_grad_() for t in (x, g, b)] for _ in range(2)]
+            out = norm.instance_norm(*leaves[0])
+            ref = norm.instance_norm_plain(*leaves[1])
+            got = torch.autograd.grad(out, leaves[0], dy, retain_graph=True)
+            want = torch.autograd.grad(ref, leaves[1], dy)
+            for gname, a, w in zip(("dx", "dgamma", "dbeta"), got, want):
+                gerr = (a.float() - w.float()).abs().max().item()
+                gscale = w.float().abs().max().item()
+                if not gerr <= IN_GRAD_RTOL[dtype_name] * gscale:
+                    fail(f"B3 {gname} {dtype_name} x{tuple(x.shape)}: max|err| {gerr} > "
+                         f"{IN_GRAD_RTOL[dtype_name]} x max|{gname}| {gscale}")
+                worst[gname] = max(worst[gname], gerr / gscale)
+            ms = cuda_ms(lambda: norm.instance_norm_fused(x, g, b))
+            plain_ms = cuda_ms(lambda: norm.instance_norm_plain(x, g, b))
+            # one library call of the same function: cuDNN/ATen instance norm
+            # on the NCHW view of the same NHWC memory
+            xl, gl, bl = x.permute(0, 3, 1, 2), g.to(dtype), b.to(dtype)
+            lib_ms = cuda_ms(lambda: F.instance_norm(xl, weight=gl, bias=bl, eps=1e-5))
+            bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves[0], dy, retain_graph=True))
+            norm.instance_norm_fused.launches = before  # comparison launches do not count
+            nbytes = 2 * x.numel() * x.element_size() + 2 * 4 * c  # x in, y out; γ, β
+            bound = _bytes_ms(nbytes)
+            print(f"[gan-kernel] B3 {dtype_name} x{tuple(x.shape)} (x{n} a step): max|err| "
+                  f"{err:.3e} (max|y| {scale:.3f}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"F.instance_norm {lib_ms:.4f} ms, bound {bound:.4f} ms (bytes) = "
+                  f"{bound / ms:.1%} of bound; backward (torch ops) {bwd_ms:.4f} ms")
+            for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                         ("bound_ms", bound), ("bwd_ms", bwd_ms)):
+                s[k] += n * v
+            del x, y, yp, dy, leaves, out, ref, got, want, xl
+        print(f"[gan-kernel] B3 {dtype_name}: {sum(per_step.values())} launches a step over "
+              f"{len(per_step)} shapes; max error relative to the largest value: y "
+              f"{worst['y']:.2e} (bound {IN_RTOL[dtype_name]}), dx {worst['dx']:.2e}, dγ "
+              f"{worst['dgamma']:.2e}, dβ {worst['dbeta']:.2e} (bound "
+              f"{IN_GRAD_RTOL[dtype_name]}); a step's norms: kernel {s['ms']:.4f} ms, plain "
+              f"{s['plain_ms']:.4f} ms, F.instance_norm {s['library_ms']:.4f} ms, bound "
+              f"{s['bound_ms']:.4f} ms (bytes); backward (torch ops) {s['bwd_ms']:.4f} ms")
+        name = f"instance_norm_{'f32' if dtype_name == 'float32' else 'bf16'}"
+        rows[dtype_name] = {
+            "name": name, "route": "cuda",
+            "source": "gan_class_transfer2_tpu_torch/csrc/instance_norm.cu",
+            "replaces": "gan_class_transfer2_tpu/ops/norm.py:48", "launches": 0,
+            "max_abs_err": s["err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
+            "bound_ms": s["bound_ms"], "bound_by": "bytes", "library_ms": s["library_ms"]}
+        torch.cuda.empty_cache()
+
+    b4_err = {}
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        b4_err[dtype_name], worst, _, _ = b4_batch16(torch, fdc, gen, dtype_name, dtype,
+                                                     relu=False, timed=False)
+        print(f"[gan-kernel] B4 relu=False {dtype_name}, batch {TRAIN_BATCH}, four shapes: max "
+              f"error relative to the largest value: y {worst['y']:.2e} (bound "
+              f"{KERNEL_RTOL[dtype_name]}), dx {worst['dx']:.2e}, dK {worst['dK']:.2e}, db "
+              f"{worst['db']:.2e} (bound {GRAD_RTOL[dtype_name]})")
+    return rows, b4_err
+
+
+def phase_gan(torch, cli, fdc, norm, gan, cfg, tmp):
+    """The GAN slice through its entry point, ``cli profile --model gan``,
+    at the default width (both generators the default U-Net, both
+    discriminators the default, batch 16 per class, instance norms on,
+    ``--conv-impl pallas``), float32 and bfloat16: exact B3 and B4 launch
+    counts, finite losses, and the trace's breakdown; then the same step
+    timed without the profiler, and ``gan.transfer`` at batch 4. Returns
+    {dtype: (B3 launches, B4 launches)} of the main-path runs."""
+    per_step, b4_step, (b3_fwd, b4_fwd) = gan_counts(fdc, cfg, TRAIN_BATCH)
+    b3_step = sum(per_step.values())
+    steps = GAN_WARM + GAN_PROFILE_STEPS
+    print(f"[gan] per step: {b3_step} B3 launches "
+          f"({', '.join(f'{n}x{hw}²x{c}' for (hw, c), n in sorted(per_step.items()))}), "
+          f"{b4_step} B4 launches; per generator forward {b3_fwd} B3, {b4_fwd} B4")
+    width = [f"--{k.replace('_', '-')}={getattr(cfg, k)}"
+             for k in ("size", "pixel_size", "max_size", "octaves")]
+    launches = {}
+    for dtype in ("float32", "bfloat16"):
+        args = ["profile", "--device", "cuda", "--model", "gan", *width, "--batch-size",
+                str(TRAIN_BATCH), "--compute-dtype", dtype, "--profile-steps",
+                str(GAN_PROFILE_STEPS), "--trace-dir", os.path.join(tmp, f"gan-{dtype}"),
+                *GAN_FLAGS]
+        norm.instance_norm_fused.launches = fdc.down_conv_fused.launches = 0
+        *rows, out = _cli_json(cli, args)  # kernel rows, then the summary line
+        got = (norm.instance_norm_fused.launches, fdc.down_conv_fused.launches)
+        want = (steps * b3_step, steps * b4_step)
+        if got != want:
+            fail(f"gan {dtype}: B3/B4 launches {got}, expected {want} "
+                 f"({b3_step}/{b4_step} a step x {steps} steps)")
+        launches[dtype] = got
+        final = out["final"]
+        if not (np.isfinite(final["g_loss"]) and np.isfinite(final["d_loss"])):
+            fail(f"gan {dtype}: losses {final}")
+        busy, wall = out["device_busy_ms_per_step"], out["wall_ms_per_step"]
+        print(f"[gan] {dtype}: launches B3/B4 {got} over {steps} steps; under the profiler "
+              f"{wall:.3f} ms a step, {out['images_per_sec']:.3f} img/s per class, device busy "
+              f"{busy:.3f} ms a step (idle {max(0.0, 1 - busy / wall):.1%}); g_loss "
+              f"{final['g_loss']:.5f}, d_loss {final['d_loss']:.5f}")
+        for r in rows[:8]:
+            print(f"[gan]   {r['ms_per_step']:9.3f} ms x{r['calls']:<5d} {r['op'][:100]}")
+
+        # the same step without the profiler, batches already on the card
+        c = cfg.replace(batch_size=TRAIN_BATCH, compute_dtype=dtype, g_norm="instance",
+                        d_norm="instance", conv_impl="pallas").validate()
+        state = gan.init_gan_state(c, device="cuda")
+        step = gan.make_gan_train_step(c)
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        a, b = (torch.rand((TRAIN_BATCH, c.size, c.size, 3), generator=gen, device="cuda") * 2 - 1
+                for _ in range(2))
+        times = []
+        for i in range(GAN_WARM + GAN_TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, a, b, gen)
+            float(m["g_loss"])
+            if i >= GAN_WARM:
+                times.append((time.perf_counter() - t0) * 1e3)
+        med = sorted(times)[len(times) // 2]
+        print(f"[gan] {dtype}: without the profiler {med:.3f} ms a step (median of "
+              f"{len(times)}: {[round(t, 3) for t in times]}), "
+              f"{TRAIN_BATCH / med * 1e3:.3f} img/s per class; idle share against the "
+              f"profile's busy time {max(0.0, 1 - busy / med):.1%}")
+
+        # transfer at batch 4: one generator forward
+        x = a[:4].contiguous()
+        with torch.inference_mode():
+            for _ in range(2):
+                gan.transfer(c, state, x)
+            norm.instance_norm_fused.launches = fdc.down_conv_fused.launches = 0
+            y = gan.transfer(c, state, x)
+            one = (norm.instance_norm_fused.launches, fdc.down_conv_fused.launches)
+            if one != (b3_fwd, b4_fwd) or y.shape != x.shape or not torch.isfinite(y).all():
+                fail(f"gan.transfer {dtype}: launches {one} (expected {(b3_fwd, b4_fwd)}), "
+                     f"shape {tuple(y.shape)}")
+            ms = cuda_ms(lambda: gan.transfer(c, state, x), reps=10)
+        norm.instance_norm_fused.launches = fdc.down_conv_fused.launches = 0
+        print(f"[gan] {dtype}: gan.transfer at batch 4: {ms / 4:.4f} ms per image "
+              f"({ms:.4f} ms a call), launches B3/B4 {one} a call")
+        del state, step, a, b, x, y
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _instance_norm_f64(x, gamma, beta):
+    """Instance norm in x's dtype (float64 for the reference step):
+    two-pass statistics, no rounding to float32 anywhere."""
+    m = x.mean(dim=(1, 2), keepdim=True)
+    v = (x - m).square().mean(dim=(1, 2), keepdim=True)
+    return (x - m) * (v + 1e-5).rsqrt() * gamma.to(x.dtype) + beta.to(x.dtype)
+
+
+def phase_gan_agree(torch, fdc, norm, gan, cfg):
+    """One full-width GAN step from the same initial state and batches,
+    under ``optimizer="sgd"`` so that each update is −lr times the gradient,
+    three ways: as the entry point runs it in float32 (B3, B4), through
+    cuDNN with the plain instance norm in float32 (``conv_impl="lax"``,
+    ``norm.instance_norm`` swapped for its plain version), and that plain
+    path in float64 (the reference; the losses and D's logits stay float32
+    as the step casts them). Both float32 paths sit at float32's own
+    distance from the float64 update, ~1e-4 of G's largest update and
+    ~1e-3 of D's (at this state D's gradient is a difference of nearly
+    equal real and fake terms), and that distance moves between runs
+    (cuDNN's weight gradients sum in a varying order), and differs between
+    the two nets of a kind by up to 10× (a few elements carry it). Bounds:
+    g_loss and d_loss of the two float32 paths within 1e-5 relative; for
+    each kind of net (the two generators, the two discriminators), the
+    kernel path's largest distance from the float64 update, in root mean
+    square and at the largest element, at most 2× and 4× the plain float32
+    path's largest over that kind, plus 1e-6; distances relative to each
+    net's largest float64 update."""
+    from gan_class_transfer2_tpu_torch.models import unet
+
+    c = cfg.replace(batch_size=TRAIN_BATCH, g_norm="instance", d_norm="instance",
+                    optimizer="sgd", lr_schedule="constant", learning_rate=1e-2).validate()
+    r = np.random.default_rng(12)
+    a, b = (torch.from_numpy(r.uniform(-1, 1, (TRAIN_BATCH, c.size, c.size, 3))
+                             .astype(np.float32)).cuda() for _ in range(2))
+    nets = ("g_ab", "g_ba", "d_a", "d_b")
+    out = {}
+    for path, impl in (("kernels", "pallas"), ("plain", "lax"), ("float64", "lax")):
+        cp = c.replace(conv_impl=impl)
+        state = gan.init_gan_state(cp, torch.Generator().manual_seed(0), device="cuda")
+        xa, xb = a, b
+        kernel_op, f32 = norm.instance_norm, unet.DTYPES["float32"]
+        if path == "plain":  # apply_norm reads the module's instance_norm at each call
+            norm.instance_norm = norm.instance_norm_plain
+        if path == "float64":
+            norm.instance_norm = _instance_norm_f64
+            unet.DTYPES["float32"] = torch.float64  # the models' compute dtype
+            for n in nets:
+                getattr(state, n).double()
+            state = state._replace(g_opt=gan.make_optimizer(cp).init(gan.g_params(state)),
+                                   d_opt=gan._d_optimizer(cp).init(gan.d_params(state)))
+            xa, xb = a.double(), b.double()
+        before = {n: [p.detach().clone() for p in getattr(state, n).parameters()] for n in nets}
+        norm.instance_norm_fused.launches = fdc.down_conv_fused.launches = 0
+        try:
+            state, m = gan.make_gan_train_step(cp)(state, xa, xb, torch.Generator(device="cuda"))
+            torch.cuda.synchronize()
+        finally:
+            norm.instance_norm, unet.DTYPES["float32"] = kernel_op, f32
+        launched = (norm.instance_norm_fused.launches, fdc.down_conv_fused.launches)
+        norm.instance_norm_fused.launches = fdc.down_conv_fused.launches = 0
+        per_step, b4_step, _ = gan_counts(fdc, cp, TRAIN_BATCH)
+        want = (sum(per_step.values()), b4_step) if path == "kernels" else (0, 0)
+        if launched != want:
+            fail(f"gan-agree {path}: B3/B4 launches {launched}, expected {want}")
+        deltas = {n: [(p.detach() - q).double() for p, q in
+                      zip(getattr(state, n).parameters(), before[n])] for n in nets}
+        out[path] = ({k: float(v) for k, v in m.items()}, deltas)
+        del state, before
+        torch.cuda.empty_cache()
+    (mk, dk), (mp, dp), (m64, d64) = out["kernels"], out["plain"], out["float64"]
+    rel = {k: abs(mk[k] - mp[k]) / abs(mp[k]) for k in ("g_loss", "d_loss")}
+
+    def dist(x, y, n):
+        """(rms, max) of x − y over net n, relative to its largest float64 update."""
+        largest = max(t.abs().max().item() for t in d64[n])
+        sq = sum((u - v).square().sum().item() for u, v in zip(x[n], y[n]))
+        count = sum(u.numel() for u in x[n])
+        top = max((u - v).abs().max().item() for u, v in zip(x[n], y[n]))
+        return (sq / count) ** 0.5 / largest, top / largest
+
+    ok = max(rel.values()) <= 1e-5
+    report = []
+    for kind in (("g_ab", "g_ba"), ("d_a", "d_b")):
+        k = [dist(dk, d64, n) for n in kind]
+        p = [dist(dp, d64, n) for n in kind]
+        k_rms, k_max = max(x[0] for x in k), max(x[1] for x in k)
+        p_rms, p_max = max(x[0] for x in p), max(x[1] for x in p)
+        ok = ok and k_rms <= 2 * p_rms + 1e-6 and k_max <= 4 * p_max + 1e-6
+        for n, (kr, km), (pr, pm) in zip(kind, k, p):
+            report.append(f"{n} rms {kr:.2e} / {pr:.2e}, max {km:.2e} / {pm:.2e} "
+                          f"(kernels − plain max {dist(dk, dp, n)[1]:.2e})")
+    print(f"[gan-agree] one step, {c.size}², batch {TRAIN_BATCH}, sgd lr {c.learning_rate}: "
+          f"g_loss kernels {mk['g_loss']:.7f} plain {mp['g_loss']:.7f} float64 "
+          f"{m64['g_loss']:.7f} (kernels vs plain rel {rel['g_loss']:.2e}), d_loss "
+          f"{mk['d_loss']:.7f} / {mp['d_loss']:.7f} / {m64['d_loss']:.7f} (rel "
+          f"{rel['d_loss']:.2e}), bound 1e-5; updates, distance from the float64 update "
+          f"over the net's largest float64 update, kernels / plain: {'; '.join(report)} "
+          f"(bound, per kind of net: kernels ≤ 2 × plain in rms, 4 × plain at the max, "
+          f"+ 1e-6)")
+    if not ok:
+        fail(f"GAN kernel path less accurate than the plain path: losses {rel}, {report}")
+
+
+def phase_gan_reference(torch, fdc, norm, gan):
+    """A tiny GAN config (no diffaug, float batches: the step draws
+    nothing) whose discriminators reach B4 (128 channels), 3 steps on the
+    card and on the CPU from the same weights: the losses agree within 1e-4
+    relative (IEEE float32 on both; the CPU runs the plain versions, the
+    card the kernels)."""
+    from gan_class_transfer2_tpu_torch.config import tiny_test_config
+
+    cfg = tiny_test_config(g_norm="instance", d_norm="instance", size=32, d_pixel_size=128,
+                           max_size=256, d_octaves=2, conv_impl="pallas",
+                           lr_schedule="constant", learning_rate=1e-4)
+    r = np.random.default_rng(13)
+    batches = [tuple(torch.from_numpy(r.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32))
+                     for _ in range(2)) for _ in range(3)]
+    per_step, b4_step, _ = gan_counts(fdc, cfg, 2)
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        state = gan.init_gan_state(cfg, torch.Generator().manual_seed(0), device=dev)
+        step = gan.make_gan_train_step(cfg)
+        norm.instance_norm_fused.launches = fdc.down_conv_fused.launches = 0
+        losses[dev] = []
+        for a, b in batches:
+            state, m = step(state, a.to(dev), b.to(dev), torch.Generator(device=dev))
+            losses[dev] += [float(m["g_loss"]), float(m["d_loss"])]
+        launched = (norm.instance_norm_fused.launches, fdc.down_conv_fused.launches)
+        norm.instance_norm_fused.launches = fdc.down_conv_fused.launches = 0
+        want = (0, 0) if dev == "cpu" else (3 * sum(per_step.values()), 3 * b4_step)
+        if launched != want:
+            fail(f"gan-reference on {dev}: B3/B4 launches {launched}, expected {want}")
+    rel = max(abs(x - y) / abs(y) for x, y in zip(losses["cuda"], losses["cpu"]))
+    print(f"[gan-reference] tiny GAN, 3 steps, card vs CPU: g/d losses card "
+          f"{[round(v, 7) for v in losses['cuda']]} CPU {[round(v, 7) for v in losses['cpu']]}; "
+          f"max relative diff {rel:.3e} (bound 1e-4)")
+    if not rel <= 1e-4:
+        fail(f"tiny GAN training on the card differs from the CPU by {rel} relative")
 
 
 def main():
@@ -725,26 +1105,39 @@ def main():
     train_rows, b4_err = phase_train_kernels(torch, F, fdc, fd, adam_kernel, api, cfg)
     train_launches = phase_train(torch, cli, fdc, fd, adam_kernel, trainer, cfg)
     phase_train_agree(torch, fdc, adam_kernel, api, trainer, cfg)
+
+    from gan_class_transfer2_tpu_torch.ops import norm
+    from gan_class_transfer2_tpu_torch.train import gan
+
+    gan_rows, b4_gan_err = phase_gan_kernels(torch, F, fdc, norm, cfg)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gan_") as tmp:
+        gan_launches = phase_gan(torch, cli, fdc, norm, gan, cfg, tmp)
+    phase_gan_agree(torch, fdc, norm, gan, cfg)
+    phase_gan_reference(torch, fdc, norm, gan)
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         fail("jax was imported")
 
     # one row per compiled kernel; the down conv's times and bound sum the
     # four shapes of one denoiser call at batch 4, its max_abs_err is the
-    # worst forward error at batch 4 and 16; launches are the main-path runs'
-    # (sample, edit and train for the down conv; train for the others)
+    # worst forward error at batch 4 and 16 (with and without ReLU); the
+    # instance norm's times and bound sum one GAN step's 102 launches at
+    # batch 16; launches are the main-path runs' (sample, edit, train and gan
+    # for the down conv; gan for the instance norm; train for the others)
     source = "gan_class_transfer2_tpu_torch/csrc/down_conv.cu"
     replaces = "gan_class_transfer2_tpu/ops/pallas_conv.py:36"
     rows = []
     for dtype, launches in (
         ("float32", sampled["float32"]["launches"] + edit_launches
-         + train_launches["down_conv_k4s2_f32"]),
-        ("bfloat16", sampled["bfloat16"]["launches"] + train_launches["down_conv_k4s2_bf16"]),
+         + train_launches["down_conv_k4s2_f32"] + gan_launches["float32"][1]),
+        ("bfloat16", sampled["bfloat16"]["launches"] + train_launches["down_conv_k4s2_bf16"]
+         + gan_launches["bfloat16"][1]),
     ):
         s = kernels[dtype]
         rows.append({
             "name": f"down_conv_k4s2_{'f32' if dtype == 'float32' else 'bf16'}",
             "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, "max_abs_err": max(s["max_abs_err"], b4_err[dtype]),
+            "launches": launches,
+            "max_abs_err": max(s["max_abs_err"], b4_err[dtype], b4_gan_err[dtype]),
             "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": "operations" if s["flops_ms"] >= s["bytes_ms"] else "bytes",
@@ -752,6 +1145,8 @@ def main():
         })
     for name, row in train_rows.items():
         rows.append(dict(row, launches=train_launches[name]))
+    for dtype, row in gan_rows.items():
+        rows.append(dict(row, launches=gan_launches[dtype][0]))
     for row in rows:
         if row["launches"] <= 0:
             fail(f"kernel {row['name']} was not launched on the main path")

@@ -1,14 +1,19 @@
 """Command-line interface of the port — counterpart of the ``sample``,
-``edit`` and ``bench`` commands of gan_class_transfer2_tpu/cli.py, with the
-same flag names for the Config fields they read:
+``edit``, ``bench`` and ``profile`` commands of gan_class_transfer2_tpu/cli.py,
+with the same flag names for the Config fields they read:
 
     python -m gan_class_transfer2_tpu_torch.cli sample --weights w.npz --out samples/
     python -m gan_class_transfer2_tpu_torch.cli edit --input photo.png --weights w.npz
     python -m gan_class_transfer2_tpu_torch.cli bench --batch-size 16 --bench-steps 10
+    python -m gan_class_transfer2_tpu_torch.cli profile --model gan \
+        --g-norm instance --d-norm instance --conv-impl pallas --batch-size 16
 
 ``bench`` trains ``--bench-steps`` steps (after 3 untimed ones) on a
 synthetic batch resident on the device and prints one JSON line with the
-JAX package's keys (img/s, step ms, MFU).
+JAX package's keys (img/s, step ms, MFU). ``profile`` runs two warm training
+steps of the diffusion model or the cycle-GAN, then ``--profile-steps``
+steps under ``torch.profiler``, and prints one JSON row per CUDA kernel and
+a summary line with the JAX package's keys.
 
 ``--device`` is ``cuda`` (the default) or ``cpu``; ``cuda`` without a card
 raises. ``--weights`` is a flat Keras-order ``.npz`` as the JAX CLI's
@@ -30,7 +35,7 @@ import torch
 
 from .config import Config
 
-# the Config fields that sample, edit and bench read
+# the Config fields that sample, edit, bench and profile read
 _FIELDS = (
     "size", "pixel_size", "max_size", "block_depth", "octaves", "skip_mode",
     "per_step_output", "steps", "schedule", "parameterization",
@@ -42,6 +47,11 @@ _FIELDS = (
     "weight_decay", "ema_decay", "grad_clip_norm", "grad_accum", "loss",
     "prediction_weighting", "loss_scale", "dynamic_loss_scale",
     "loss_scale_growth_interval", "fused_diffusion", "steps_per_epoch", "epochs",
+    # GAN mode
+    "gan_loss", "adversarial_weight", "cycle_weight", "identity_weight",
+    "reconstruction_weight", "d_learning_rate", "d_pixel_size", "d_octaves",
+    "patch_discriminator", "d_norm", "g_norm", "r1_weight", "diffaug",
+    "cycle_weight_final", "identity_weight_final", "loss_anneal_steps",
 )
 
 
@@ -73,13 +83,23 @@ def config_from_args(args) -> Config:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="gan_class_transfer2_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
-    for cmd in ("sample", "edit", "bench"):
+    for cmd in ("sample", "edit", "bench", "profile"):
         p = sub.add_parser(cmd)
         p.add_argument("--config", type=str, default=None, help="config JSON")
         p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
         _add_config_args(p)
         if cmd == "bench":
             p.add_argument("--bench-steps", type=int, default=30)
+            continue
+        if cmd == "profile":
+            p.add_argument("--model", type=str, default="diffusion",
+                           choices=("diffusion", "gan", "cgan"),
+                           help="which training step to trace")
+            p.add_argument("--profile-steps", type=int, default=3)
+            p.add_argument("--top", type=int, default=25,
+                           help="kernel rows to print from the trace")
+            p.add_argument("--trace-dir", type=str, default=None,
+                           help="where trace.json lands (default: a fresh temp dir)")
             continue
         p.add_argument("--weights", type=str, default=None, metavar="FILE.npz",
                        help="flat Keras-order weights (JAX CLI export-weights)")
@@ -100,6 +120,8 @@ def main(argv=None) -> int:
 
         print(run_benchmark(cfg, steps=args.bench_steps, device=args.device).to_json())
         return 0
+    if args.command == "profile":
+        return _profile(cfg, args)
     return _edit(cfg, args)
 
 
@@ -144,6 +166,84 @@ def _sample(cfg: Config, args) -> int:
         png.write_png(os.path.join(args.out, f"sample_{i}.png"), png.to_uint8(img))
     print(f"wrote {len(images)} samples to {args.out} "
           f"({ms:.3f} ms per image on {device.type})")
+    return 0
+
+
+def _profile(cfg: Config, args) -> int:
+    """Trace N training steps and print the CUDA kernel breakdown (the JAX
+    CLI's ``_profile``, cli.py:854-934). Each step draws fresh
+    ``[-1, 1)`` batches from ``np.random.default_rng(cfg.seed)`` on the host,
+    so every timed step includes their draw and host-to-device copy, as the
+    JAX command's does."""
+    import json
+    import tempfile
+
+    from .models.api import resolve_device
+    from .utils import profiler
+
+    device = resolve_device(args.device)
+    rng = np.random.default_rng(cfg.seed)
+
+    def batch():
+        x = rng.uniform(-1, 1, (cfg.batch_size, cfg.size, cfg.size, 3)).astype(np.float32)
+        return torch.from_numpy(x).to(device)
+
+    generator = torch.Generator(device=device).manual_seed(1)
+    if args.model == "diffusion":
+        from .train import trainer
+
+        state = trainer.init_state(cfg, device=device)
+        step = trainer.make_train_step(cfg)
+
+        def run(s):
+            s, loss = step(s, batch(), generator)
+            return s, {"loss": loss}
+    elif args.model == "gan":
+        from .train import gan
+
+        state = gan.init_gan_state(cfg, device=device)
+        step = gan.make_gan_train_step(cfg)
+
+        def run(s):
+            return step(s, batch(), batch(), generator)
+    else:
+        raise NotImplementedError(
+            "profile --model cgan: the conditional GAN (models/conditional.py, "
+            "train/conditional_gan.py) is not ported to PyTorch yet")
+
+    def sync(metrics):
+        return float(next(iter(metrics.values())))
+
+    for _ in range(2):  # warm steps, outside the trace
+        state, metrics = run(state)
+        sync(metrics)
+    n = max(args.profile_steps, 1)
+    trace_dir = args.trace_dir or tempfile.mkdtemp(prefix="gct2_torch_profile_")
+    timer = profiler.StepTimer()
+    with profiler.trace(trace_dir) as prof:
+        timer.start()
+        for _ in range(n):
+            state, metrics = run(state)
+        timer.lap(sync(metrics))
+    rows = profiler.device_ops(prof, top=args.top)
+    for r in rows:
+        r["ms_per_step"] = r.pop("ms") / n
+        print(json.dumps(r))
+    wall = timer.times[0] / n
+    busy = profiler.device_busy_ms(prof) / n if device.type == "cuda" else None
+    print(json.dumps({
+        "command": "profile", "model": args.model, "steps": n,
+        "wall_ms_per_step": wall * 1000,
+        "images_per_sec": cfg.batch_size / wall,
+        "trace_dir": trace_dir,
+        "device_rows": len(rows),
+        "note": ("wall time includes each step's host batch draw and copy, and the "
+                 "profiler's overhead" if rows else
+                 "no CUDA kernels traced (CPU run); trace.json kept at trace_dir"),
+        "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+        "device_busy_ms_per_step": busy,
+        "final": {k: float(v) for k, v in metrics.items()},
+    }))
     return 0
 
 

@@ -7,11 +7,13 @@ repeated here. Comments that explain a field's meaning live beside the JAX
 copy; this copy adds what the port does differently:
 
   * ``validate`` refuses the features the port does not have yet
-    (``num_classes > 0``, ``g_norm``/``d_norm`` other than ``"none"``,
-    ``zero1``, meshes and pipeline stages beyond one card) with a
-    NotImplementedError that names the missing piece, instead of ignoring them.
+    (``num_classes > 0``, ``zero1``, meshes and pipeline stages beyond one
+    card) with a NotImplementedError that names the missing piece, instead
+    of ignoring them.
   * ``conv_impl="pallas"`` selects the hand-written CUDA down-conv kernel
     (ops/fused_down_conv.py), the port's counterpart of the Pallas kernel.
+    Instance norm always runs the hand-written CUDA kernel on the card
+    (ops/norm.py), whatever ``conv_impl``.
 """
 
 from __future__ import annotations
@@ -151,6 +153,20 @@ class Config:
     def out_channels(self) -> int:
         return 3 * self.steps if self.per_step_output else 3
 
+    @property
+    def cycle_term_active(self) -> bool:
+        """Whether the cycle term is computed at all: nonzero now, or
+        annealing toward a nonzero final (gates two generator forwards)."""
+        return self.cycle_weight > 0 or (
+            self.loss_anneal_steps > 0 and self.cycle_weight_final > 0
+        )
+
+    @property
+    def identity_term_active(self) -> bool:
+        return self.identity_weight > 0 or (
+            self.loss_anneal_steps > 0 and self.identity_weight_final > 0
+        )
+
     def validate(self) -> "Config":
         """The JAX package's checks, then the port's refusals."""
         if self.size % (2**self.octaves) != 0:
@@ -272,13 +288,6 @@ class Config:
                 f"num_classes={self.num_classes}: the class-conditional U-Net "
                 "(models/conditional.py) is not ported to PyTorch yet"
             )
-        for name in ("g_norm", "d_norm"):
-            if getattr(self, name) != "none":
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)!r}: normalization layers "
-                    "(ops/norm.py, instance norm kernel B3) are not ported to "
-                    "PyTorch yet"
-                )
         if self.zero1:
             raise NotImplementedError(
                 "zero1: the sharded optimizer state (parallel/mesh.py) is not "

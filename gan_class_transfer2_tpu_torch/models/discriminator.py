@@ -1,0 +1,111 @@
+"""Discriminator for GAN-mode class transfer — counterpart of
+gan_class_transfer2_tpu/models/discriminator.py.
+
+A strided-conv encoder of ``d_octaves`` (or ``octaves``) k4/s2 down convs
+with ``min(base·2^i, max_size)`` filters (``base = d_pixel_size or
+pixel_size``), each without its ReLU, then the norm (every layer but the
+first, CycleGAN's convention), then ``leaky_relu(0.2)``; a 1×1 dense head
+gives PatchGAN per-patch logits or, without ``patch_discriminator``, one
+mean-pooled logit per image; with ``num_classes > 0`` a projection term
+``<embed_y, feat>`` is added. The down convs go to the hand-written B4
+kernel under ``conv_impl="pallas"`` where its gate admits the shape.
+
+``Discriminator`` holds the parameters under the JAX pytree's names
+(``convs.1.norm.gamma`` ↔ ``params["convs"][1]["norm"]["gamma"]``), float32;
+``discriminator_apply`` casts them to ``cfg.compute_dtype`` and returns
+float32 logits.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops import conv as conv_ops
+from ..ops import init as init_ops
+from ..ops import norm as norm_ops
+from .unet import DTYPES, Conv
+
+
+def d_octaves(cfg) -> int:
+    return cfg.d_octaves or cfg.octaves
+
+
+def d_filters(cfg, i: int) -> int:
+    base = cfg.d_pixel_size or cfg.pixel_size
+    return min(base * 2**i, cfg.max_size)
+
+
+class Discriminator(nn.Module):
+    """Parameters of ``init_discriminator`` (zeros until
+    ``reset_parameters``)."""
+
+    def __init__(self, cfg, in_channels: int = 3, num_classes: int = 0):
+        super().__init__()
+        self.convs = nn.ModuleList()
+        c = in_channels
+        for i in range(d_octaves(cfg)):
+            f = d_filters(cfg, i)
+            layer = Conv((4, 4, c, f))
+            if cfg.d_norm != "none" and i > 0:
+                layer.norm = norm_ops.init_norm(f)
+            self.convs.append(layer)
+            c = f
+        self.head = Conv((c, 1))
+        if num_classes > 0:
+            self.class_embed = nn.Parameter(torch.zeros(num_classes, c))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator):
+        """Glorot-uniform kernels and class embedding, zero biases, unit
+        norms, drawn in ``init_discriminator``'s order from ``generator`` (a
+        CPU generator; the draws are copied to the parameters' device)."""
+        for layer in self.convs:
+            kh, kw, i, o = layer.kernel.shape
+            layer.kernel.copy_(init_ops.conv_kernel(generator, kh, kw, i, o))
+            layer.bias.zero_()
+            if hasattr(layer, "norm"):
+                layer.norm.reset_parameters()
+        self.head.kernel.copy_(init_ops.dense_kernel(generator, *self.head.kernel.shape))
+        self.head.bias.zero_()
+        if hasattr(self, "class_embed"):
+            n, c = self.class_embed.shape
+            self.class_embed.copy_(init_ops.glorot_uniform(generator, (n, c), n, c))
+        return self
+
+
+def init_discriminator(cfg, generator: torch.Generator, device="cpu", in_channels: int = 3,
+                       num_classes: int = 0) -> Discriminator:
+    return Discriminator(cfg, in_channels, num_classes).reset_parameters(generator).to(device)
+
+
+def discriminator_apply(cfg, model: Discriminator, x, class_idx=None):
+    """x: (B, H, W, C) → float32 logits (B, h', w', 1) if
+    ``patch_discriminator`` else (B, 1)."""
+    dtype = DTYPES[cfg.compute_dtype]
+    h = x.to(dtype)
+    for layer in model.convs:
+        h = conv_ops.down_conv(h, layer.kernel.to(dtype), layer.bias.to(dtype), cfg.conv_impl,
+                               relu=False)
+        if hasattr(layer, "norm"):
+            h = norm_ops.apply_norm(cfg.d_norm, h, layer.norm)
+        h = F.leaky_relu(h, 0.2)
+    logits = conv_ops.dense(h, model.head.kernel.to(dtype), model.head.bias.to(dtype))
+    if not cfg.patch_discriminator:
+        logits = logits.mean(dim=(1, 2))  # (B, 1)
+        feat = h.mean(dim=(1, 2))
+    else:
+        feat = h
+    if class_idx is not None and hasattr(model, "class_embed"):
+        embed = model.class_embed[class_idx].to(feat.dtype)  # (B, C)
+        if cfg.patch_discriminator:
+            proj = torch.einsum("bhwc,bc->bhw", feat, embed)[..., None]
+        else:
+            proj = torch.sum(feat * embed, dim=-1, keepdim=True)
+        logits = logits + proj
+    return logits.float()
+
+
+def param_count(model: nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())

@@ -14,6 +14,12 @@ under any of them. Params are cast to ``cfg.compute_dtype`` at apply. Concat
 skips are never materialised (``concat_elision``): a level returns a
 (branch, skip) pair and each consumer splits its kernel along input channels.
 The timestep is ignored unless ``per_step_output``.
+
+GAN mode (``g_norm`` other than ``"none"``) adds ``down_norm``/``up_norm``
+(γ ones, β zeros) to every octave, under the JAX pytree's names, and runs
+each k4/s2 conv without its ReLU, then the norm, then the ReLU
+(unet.py:163-213); with a (branch, skip) pair into the up conv, the norm
+applies to the summed pre-activation.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from torch import nn
 
 from ..ops import conv as conv_ops
 from ..ops import init as init_ops
+from ..ops import norm as norm_ops
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -68,6 +75,8 @@ class Denoiser(nn.Module):
             skip_channels.append(c)
             level = Level()
             level.down = Conv((4, 4, c, f))
+            if cfg.g_norm != "none":  # GAN-mode knob; the reference model has none
+                level.down_norm = norm_ops.init_norm(f)
             level.block_in, c = _block(f, f, cfg.block_depth)
             self.octaves.append(level)
         self.middle, c = _block(c, cfg.middle_filters(), cfg.block_depth)
@@ -76,6 +85,8 @@ class Denoiser(nn.Module):
             level.block_out, c = _block(c, cfg.octave_filters(i), cfg.block_depth)
             u = cfg.octave_up_filters(i)
             level.up = Conv((4, 4, c, u))
+            if cfg.g_norm != "none":
+                level.up_norm = norm_ops.init_norm(u)
             c = u
             if cfg.skip_mode == "concat":
                 c = c + skip_channels[i]
@@ -89,7 +100,7 @@ class Denoiser(nn.Module):
     def reset_parameters(self, generator: torch.Generator):
         """Glorot-uniform kernels (TF fan rules), zero biases, drawn in the
         order ``init_unet`` draws them. ``generator`` lives on the CPU; the
-        draws are copied to the parameters' device."""
+        draws are copied to the parameters' device. Norms take no draws."""
 
         def conv(layer, transpose=False):
             kh, kw, i, o = layer.kernel.shape
@@ -114,6 +125,10 @@ class Denoiser(nn.Module):
             conv(layer)
         self.head.kernel.copy_(init_ops.dense_kernel(generator, *self.head.kernel.shape))
         self.head.bias.zero_()
+        for level in self.octaves:
+            for name in ("down_norm", "up_norm"):
+                if hasattr(level, name):
+                    getattr(level, name).reset_parameters()
         return self
 
     def forward(self, x, t=None):
@@ -139,15 +154,16 @@ def _pair_block_conv(h, layer, dtype):
     return torch.relu(ya + yb)
 
 
-def _pair_up_conv(h, layer, impl, dtype):
+def _pair_up_conv(h, layer, impl, dtype, relu: bool = True):
     kernel, bias = layer.kernel.to(dtype), layer.bias.to(dtype)
     if not isinstance(h, tuple):
-        return conv_ops.up_conv(h, kernel, bias, impl)
+        return conv_ops.up_conv(h, kernel, bias, impl, relu=relu)
     a, b = h
     ca = a.shape[-1]
     ya = conv_ops.up_conv(a, kernel[:, :, :ca], None, impl, relu=False)
     yb = conv_ops.up_conv(b, kernel[:, :, ca:], bias, impl, relu=False)
-    return torch.relu(ya + yb)
+    s = ya + yb
+    return torch.relu(s) if relu else s
 
 
 def _pair_dense(h, layer, dtype):
@@ -167,17 +183,26 @@ def _blocks_after_pair(layers, h, dtype):
 
 
 def octave_down(cfg, level, h, dtype):
-    """One octave's descent: down conv + block_in. Returns ``(h, skip)``."""
+    """One octave's descent: down conv (+ norm) + block_in. Returns
+    ``(h, skip)``."""
     inp = h
     down = level.down
-    h = conv_ops.down_conv(h, down.kernel.to(dtype), down.bias.to(dtype), cfg.conv_impl)
+    normed = cfg.g_norm != "none"
+    h = conv_ops.down_conv(h, down.kernel.to(dtype), down.bias.to(dtype), cfg.conv_impl,
+                           relu=not normed)
+    if normed:
+        h = torch.relu(norm_ops.apply_norm(cfg.g_norm, h, level.down_norm))
     return _conv_relu(level.block_in, h, dtype), inp
 
 
 def octave_up(cfg, level, h, inp, dtype):
-    """One octave's ascent: block_out + up conv + skip merge with ``inp``."""
+    """One octave's ascent: block_out + up conv (+ norm) + skip merge with
+    ``inp``."""
     h = _blocks_after_pair(level.block_out, h, dtype)
-    h = _pair_up_conv(h, level.up, cfg.conv_impl, dtype)
+    normed = cfg.g_norm != "none"
+    h = _pair_up_conv(h, level.up, cfg.conv_impl, dtype, relu=not normed)
+    if normed:
+        h = torch.relu(norm_ops.apply_norm(cfg.g_norm, h, level.up_norm))
     if cfg.skip_mode == "concat":
         h = h.to(inp.dtype)  # branch cast (reference train.py:113-119)
         if cfg.concat_elision:

@@ -17,7 +17,10 @@ The backward follows pallas_conv.py:149-165, where it is XLA convs outside
 any Pallas kernel; here they are cuDNN's (``torch.nn.grad``) on the card:
 the ReLU mask from the saved output, ``db`` the float32 sum over (B, H, W),
 ``dx`` the adjoint of the strided conv, ``dK`` its weight gradient, both
-with the TF-SAME pad (1, 1) of even inputs.
+with the TF-SAME pad (1, 1) of even inputs. Only the gradients autograd
+asks for are computed (the GAN's G step holds D's weights constant), and
+the backward is built of differentiable ops, so R1's double backward
+through a discriminator differentiates it again.
 """
 
 from __future__ import annotations
@@ -147,16 +150,22 @@ class DownConv(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, kernel, bias, y = ctx.saved_tensors
+        need_x, need_k, need_b = ctx.needs_input_grad[:3]
         if ctx.relu:
             g = torch.where(y > 0, g, torch.zeros_like(g))
-        db = g.float().sum((0, 1, 2)).to(bias.dtype)
         gn = g.permute(0, 3, 1, 2)  # NCHW views of the NHWC memory
         xn = x.permute(0, 3, 1, 2)
         w = kernel.to(x.dtype).permute(3, 2, 0, 1)  # OIHW
-        dx = torch.nn.grad.conv2d_input(xn.shape, w, gn, stride=2, padding=1)
-        dk = torch.nn.grad.conv2d_weight(xn, w.shape, gn, stride=2, padding=1)
-        return (dx.permute(0, 2, 3, 1).to(x.dtype), dk.permute(2, 3, 1, 0).to(kernel.dtype),
-                db, None)
+        dx = dk = db = None
+        if need_x:
+            dx = torch.nn.grad.conv2d_input(xn.shape, w, gn, stride=2, padding=1)
+            dx = dx.permute(0, 2, 3, 1).to(x.dtype)
+        if need_k:
+            dk = torch.nn.grad.conv2d_weight(xn, w.shape, gn, stride=2, padding=1)
+            dk = dk.permute(2, 3, 1, 0).to(kernel.dtype)
+        if need_b:
+            db = g.float().sum((0, 1, 2)).to(bias.dtype)
+        return dx, dk, db, None
 
 
 def down_conv_fused(x, kernel, bias, relu: bool = True):

@@ -17,16 +17,21 @@ A whole JAX ``TrainState`` (params, optax optimizer state, EMA, loss-scale
 state), given with numpy leaves, carries into the port's
 ``train.trainer.TrainState`` by ``from_jax_train_state`` and back by
 ``to_jax_train_state``, so a JAX run and a port run continue from the same
-state.
+state; a JAX ``GANState`` likewise by ``from_jax_gan_state`` and
+``to_jax_gan_state`` (four nets, the optimizer states over ``{"ab", "ba"}``
+and ``{"a", "b"}``, the generator EMAs). Norm layers (GAN mode) carry under
+``down_norm``/``up_norm`` and ``convs[i]["norm"]``; the flat Keras order
+has none, as the reference model has none.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import Callable, List, NamedTuple
 
 import numpy as np
 import torch
 
+from ..models import discriminator as d_lib
 from ..models import unet
 from ..models.api import resolve_device
 
@@ -49,6 +54,9 @@ def to_jax_params(model: unet.Denoiser, values=None) -> dict:
     def conv(layer):
         return {"kernel": leaf(layer.kernel), "bias": leaf(layer.bias)}
 
+    def norm(layer):
+        return {"gamma": leaf(layer.gamma), "beta": leaf(layer.beta)}
+
     octaves = []
     for level in model.octaves:
         entry = {
@@ -57,6 +65,9 @@ def to_jax_params(model: unet.Denoiser, values=None) -> dict:
             "block_out": [conv(x) for x in level.block_out],
             "up": conv(level.up),
         }
+        for name in ("down_norm", "up_norm"):
+            if hasattr(level, name):
+                entry[name] = norm(getattr(level, name))
         if hasattr(level, "skip_dense"):
             entry["skip_dense"] = leaf(level.skip_dense)
         octaves.append(entry)
@@ -87,10 +98,40 @@ def _jax_state(tree) -> dict:
     return out
 
 
-def from_jax_params(cfg, tree, device="cuda") -> unet.Denoiser:
+def from_jax_params(cfg, tree, device="cuda", out_channels=None) -> unet.Denoiser:
     """A Denoiser on ``device`` holding the JAX param pytree ``tree`` (numpy
     or array-like leaves). Names and shapes must match exactly."""
-    model = unet.Denoiser(cfg)
+    model = unet.Denoiser(cfg, out_channels=out_channels)
+    model.load_state_dict(_jax_state(tree), strict=True)
+    return model.to(resolve_device(device))
+
+
+def to_jax_discriminator_params(model: d_lib.Discriminator, values=None) -> dict:
+    """The JAX discriminator pytree of ``model`` (``init_discriminator``'s
+    names), numpy leaves; ``values`` as for ``to_jax_params``."""
+    by_id = {id(p): v for p, v in zip(model.parameters(), values)} if values is not None else {}
+
+    def leaf(p):
+        return _np(by_id.get(id(p), p))
+
+    convs = []
+    for layer in model.convs:
+        entry = {"kernel": leaf(layer.kernel), "bias": leaf(layer.bias)}
+        if hasattr(layer, "norm"):
+            entry["norm"] = {"gamma": leaf(layer.norm.gamma), "beta": leaf(layer.norm.beta)}
+        convs.append(entry)
+    tree = {"convs": convs, "head": {"kernel": leaf(model.head.kernel),
+                                     "bias": leaf(model.head.bias)}}
+    if hasattr(model, "class_embed"):
+        tree["class_embed"] = leaf(model.class_embed)
+    return tree
+
+
+def from_jax_discriminator_params(cfg, tree, device="cuda") -> d_lib.Discriminator:
+    """A Discriminator on ``device`` holding the JAX pytree ``tree``."""
+    num_classes = np.shape(tree["class_embed"])[0] if "class_embed" in tree else 0
+    in_channels = np.shape(tree["convs"][0]["kernel"])[2] if tree["convs"] else 3
+    model = d_lib.Discriminator(cfg, in_channels, num_classes)
     model.load_state_dict(_jax_state(tree), strict=True)
     return model.to(resolve_device(device))
 
@@ -166,7 +207,7 @@ def save_flat_npz(path, flat) -> None:
 # ------------------------------------------------------------ train state
 
 
-def _param_list(model: unet.Denoiser, tree, dtype=None) -> list:
+def _param_list(model, tree, dtype=None) -> list:
     """A JAX param-shaped tree as one tensor per ``model.parameters()``, on
     the model's device."""
     flat = _jax_state(tree)
@@ -175,15 +216,48 @@ def _param_list(model: unet.Denoiser, tree, dtype=None) -> list:
             for name, _ in model.named_parameters()]
 
 
-def _is_param_tree(node) -> bool:
-    return isinstance(node, dict) and "octaves" in node
+class _Layout(NamedTuple):
+    """How one optimizer's flat parameter list maps onto the JAX tree its
+    optax state holds (one param tree, or a dict of them)."""
+
+    is_tree: Callable  # node -> bool
+    to_list: Callable  # (tree, dtype) -> list of tensors
+    to_tree: Callable  # list of tensors -> numpy tree
+    device: torch.device
 
 
-def _opt_from_jax(model, node, moment_dtype):
+def _model_layout(model: unet.Denoiser) -> _Layout:
+    return _Layout(lambda node: isinstance(node, dict) and "octaves" in node,
+                   lambda tree, dtype: _param_list(model, tree, dtype),
+                   lambda values: to_jax_params(model, values),
+                   next(model.parameters()).device)
+
+
+def _dict_layout(models: dict, to_jax) -> _Layout:
+    """``{key: module}``: the optimizer's list is the modules' parameters
+    concatenated in the dict's order."""
+    keys = list(models)
+    sizes = [len(list(models[k].parameters())) for k in keys]
+
+    def to_list(tree, dtype):
+        return [t for k in keys for t in _param_list(models[k], tree[k], dtype)]
+
+    def to_tree(values):
+        out, i = {}, 0
+        for k, n in zip(keys, sizes):
+            out[k] = to_jax(models[k], values[i:i + n])
+            i += n
+        return out
+
+    return _Layout(lambda node: isinstance(node, dict) and set(node) == set(keys), to_list,
+                   to_tree, next(models[keys[0]].parameters()).device)
+
+
+def _opt_from_jax(layout: _Layout, node, moment_dtype):
     from ..train import trainer
 
-    if _is_param_tree(node):
-        return _param_list(model, node)
+    if layout.is_tree(node):
+        return layout.to_list(node, None)
     if isinstance(node, tuple) and hasattr(node, "_fields"):
         name = type(node).__name__
         cls = getattr(trainer, name, None)
@@ -194,27 +268,33 @@ def _opt_from_jax(model, node, moment_dtype):
             if name == "MultiStepsState" and field in ("mini_step", "gradient_step"):
                 fields[field] = int(np.asarray(value))
             elif name == "ScaleByAdamState" and field in ("mu", "nu"):
-                fields[field] = _param_list(model, value, moment_dtype)
+                fields[field] = layout.to_list(value, moment_dtype)
             elif field == "skip_state":
                 fields[field] = tuple(value)
             else:
-                fields[field] = _opt_from_jax(model, value, moment_dtype)
+                fields[field] = _opt_from_jax(layout, value, moment_dtype)
         return cls(**fields)
     if isinstance(node, (tuple, list)):
-        return type(node)(_opt_from_jax(model, v, moment_dtype) for v in node)
-    device = next(model.parameters()).device
-    return torch.from_numpy(np.array(node)).to(device)
+        return type(node)(_opt_from_jax(layout, v, moment_dtype) for v in node)
+    return torch.from_numpy(np.array(node)).to(layout.device)
 
 
-def _opt_to_jax(model, node):
+def _opt_to_jax(layout: _Layout, node):
     if isinstance(node, list):
-        return to_jax_params(model, node)
+        return layout.to_tree(node)
     if isinstance(node, tuple) and hasattr(node, "_fields"):
         return type(node)(*(np.asarray(v, np.int32) if isinstance(v, int) else
-                            _opt_to_jax(model, v) for v in node))
+                            _opt_to_jax(layout, v) for v in node))
     if isinstance(node, tuple):
-        return tuple(_opt_to_jax(model, v) for v in node)
+        return tuple(_opt_to_jax(layout, v) for v in node)
     return _np(node)
+
+
+def _moment_dtype(cfg):
+    """bfloat16 moments for the Keras-form Adam under ``moment_dtype``."""
+    if cfg.moment_dtype == "bfloat16" and cfg.optimizer in ("adam_tf", "adam_fused"):
+        return torch.bfloat16
+    return None
 
 
 def from_jax_train_state(cfg, state, device="cuda"):
@@ -225,9 +305,7 @@ def from_jax_train_state(cfg, state, device="cuda"):
     from ..train import trainer
 
     model = from_jax_params(cfg, state.params, device)
-    moment_dtype = torch.bfloat16 if cfg.moment_dtype == "bfloat16" and cfg.optimizer in (
-        "adam_tf", "adam_fused") else None
-    opt_state = _opt_from_jax(model, state.opt_state, moment_dtype)
+    opt_state = _opt_from_jax(_model_layout(model), state.opt_state, _moment_dtype(cfg))
     ema = _param_list(model, state.ema_params) if state.ema_params is not None else None
     scale = None
     if state.scale_state is not None:
@@ -251,8 +329,54 @@ def to_jax_train_state(state) -> dict:
     return {
         "step": np.asarray(state.step, np.int32),
         "params": to_jax_params(model),
-        "opt_state": _opt_to_jax(model, state.opt_state),
+        "opt_state": _opt_to_jax(_model_layout(model), state.opt_state),
         "ema_params": to_jax_params(model, state.ema_params)
         if state.ema_params is not None else None,
         "scale_state": scale,
+    }
+
+
+# -------------------------------------------------------------- GAN state
+
+
+def _gan_layouts(state):
+    return (_dict_layout({"ab": state.g_ab, "ba": state.g_ba}, to_jax_params),
+            _dict_layout({"a": state.d_a, "b": state.d_b}, to_jax_discriminator_params))
+
+
+def from_jax_gan_state(cfg, state, device="cuda"):
+    """The port's ``GANState`` from a JAX one with numpy leaves: the four
+    nets, both optimizer states and the generator EMAs."""
+    from ..train import gan
+
+    def g(tree):
+        return from_jax_params(cfg, tree, device, out_channels=3)
+
+    def d(tree):
+        return from_jax_discriminator_params(cfg, tree, device)
+
+    out = gan.GANState(int(np.asarray(state.step)), g(state.g_ab), g(state.g_ba),
+                       d(state.d_a), d(state.d_b), None, None,
+                       None if state.ema_g_ab is None else g(state.ema_g_ab).requires_grad_(False),
+                       None if state.ema_g_ba is None else g(state.ema_g_ba).requires_grad_(False))
+    g_layout, d_layout = _gan_layouts(out)
+    moments = _moment_dtype(cfg)
+    return out._replace(g_opt=_opt_from_jax(g_layout, state.g_opt, moments),
+                        d_opt=_opt_from_jax(d_layout, state.d_opt, moments))
+
+
+def to_jax_gan_state(state) -> dict:
+    """The inverse of ``from_jax_gan_state``: the JAX ``GANState``'s fields
+    as a dict of numpy trees, optimizer states as the port's NamedTuples."""
+    g_layout, d_layout = _gan_layouts(state)
+    return {
+        "step": np.asarray(state.step, np.int32),
+        "g_ab": to_jax_params(state.g_ab),
+        "g_ba": to_jax_params(state.g_ba),
+        "d_a": to_jax_discriminator_params(state.d_a),
+        "d_b": to_jax_discriminator_params(state.d_b),
+        "g_opt": _opt_to_jax(g_layout, state.g_opt),
+        "d_opt": _opt_to_jax(d_layout, state.d_opt),
+        "ema_g_ab": None if state.ema_g_ab is None else to_jax_params(state.ema_g_ab),
+        "ema_g_ba": None if state.ema_g_ba is None else to_jax_params(state.ema_g_ba),
     }

@@ -1,0 +1,137 @@
+"""Port parity of ops/norm.py: instance norm (B3's plain version and its
+autograd Function), batch norm and apply_norm against
+gan_class_transfer2_tpu.ops.norm on the same numpy inputs, on the CPU.
+
+Tolerances, each with its reason:
+  * plain vs ``_instance_norm_ref``: 1e-5 absolute in float32 (the same
+    two-pass float32 statistics; summation order only); in bfloat16 one
+    output rounding, 2^-8 of max|y| ≈ 1.6e-2 at |y| ≤ 4;
+  * plain vs ``_instance_norm_pallas(interpret=True)``: 1e-4 absolute (the
+    TPU kernel's one-pass E[x²] − m² cancels on inputs of mean 2 and std 3);
+  * gradients against ``jax.vjp`` and the double backward against
+    ``jax.grad``: 1e-5 of the largest value (float32 reductions in other
+    orders).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from gan_class_transfer2_tpu.ops import norm as jnorm  # noqa: E402
+from gan_class_transfer2_tpu_torch.ops import norm  # noqa: E402
+
+torch.set_num_threads(1)
+
+
+def _inputs(c, b=2, hw=8, seed=0):
+    r = np.random.default_rng(seed)
+    x = r.normal(2.0, 3.0, (b, hw, hw, c)).astype(np.float32)
+    g = r.normal(1.0, 0.2, (c,)).astype(np.float32)
+    bt = r.normal(0.0, 0.2, (c,)).astype(np.float32)
+    return x, g, bt
+
+
+def T(a):
+    return torch.from_numpy(np.asarray(a, np.float32))
+
+
+@pytest.mark.parametrize("c", [64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_the_jax_reference(c, dtype):
+    x, g, b = _inputs(c)
+    jd = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    td = torch.float32 if dtype == "float32" else torch.bfloat16
+    # the JAX reference takes γ/β in float32; the port rounds them to x's
+    # dtype first (the Pallas wrapper's rule), so hand JAX the rounded ones
+    g_r = np.asarray(jnp.asarray(g).astype(jd).astype(jnp.float32))
+    b_r = np.asarray(jnp.asarray(b).astype(jd).astype(jnp.float32))
+    want = np.asarray(jnorm._instance_norm_ref(jnp.asarray(x).astype(jd), g_r, b_r),
+                      np.float32)
+    got = norm.instance_norm_plain(T(x).to(td), T(g), T(b))
+    assert got.dtype == td
+    atol = 1e-5 if dtype == "float32" else 2 ** -8 * np.abs(want).max()
+    np.testing.assert_allclose(got.float().numpy(), want, atol=atol)
+
+
+@pytest.mark.parametrize("c", [64, 128])
+def test_plain_matches_the_pallas_kernel_in_interpret_mode(c):
+    x, g, b = _inputs(c, seed=1)
+    want = np.asarray(jnorm._instance_norm_pallas(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b),
+                                                  interpret=True))
+    got = norm.instance_norm_fused(T(x), T(g), T(b))  # CPU tensor: the plain version
+    assert norm.instance_norm_fused.launches == 0
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
+
+
+def test_function_gradients_match_jax_vjp():
+    x, g, b = _inputs(8, b=2, hw=4, seed=5)
+    dy = np.random.default_rng(6).normal(size=x.shape).astype(np.float32)
+    y, vjp = jax.vjp(jnorm.instance_norm, jnp.asarray(x), jnp.asarray(g), jnp.asarray(b))
+    want = vjp(jnp.asarray(dy))
+    leaves = [T(a).requires_grad_() for a in (x, g, b)]
+    out = norm.instance_norm(*leaves)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(y), atol=1e-5)
+    got = torch.autograd.grad(out, leaves, T(dy))
+    for name, a, w in zip(("dx", "dgamma", "dbeta"), got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(a.numpy(), w, atol=1e-5 * np.abs(w).max(), err_msg=name)
+
+
+def test_double_backward_matches_jax():
+    """The gradient of ‖∂L/∂x‖², L = Σ w·instance_norm(x, γ, β), with
+    respect to γ and to x: the Function's backward must itself be
+    differentiable and carry ∂(m, r)/∂x (R1 through a normalised D needs
+    it; statistics saved from the no-grad forward would drop those terms)."""
+    x, g, b = _inputs(8, b=2, hw=4, seed=7)
+    w = np.random.default_rng(8).normal(size=x.shape).astype(np.float32)
+
+    def jax_penalty(gamma, x_in):
+        dx = jax.grad(lambda x_: jnp.sum(jnp.asarray(w) * jnorm.instance_norm(
+            x_, gamma, jnp.asarray(b))))(x_in)
+        return jnp.sum(dx ** 2)
+
+    want_val, want = jax.value_and_grad(jax_penalty, argnums=(0, 1))(jnp.asarray(g),
+                                                                     jnp.asarray(x))
+    xt, gt = T(x).requires_grad_(), T(g).requires_grad_()
+    (dx,) = torch.autograd.grad(torch.sum(T(w) * norm.instance_norm(xt, gt, T(b))), xt,
+                                create_graph=True)
+    pen = torch.sum(dx ** 2)
+    got = torch.autograd.grad(pen, (gt, xt))
+    np.testing.assert_allclose(float(pen.detach()), float(want_val), rtol=1e-5)
+    for name, a, wt in zip(("dgamma", "dx"), got, want):
+        wt = np.asarray(wt)
+        np.testing.assert_allclose(a.numpy(), wt, atol=1e-5 * np.abs(wt).max(), err_msg=name)
+
+
+def test_batch_norm_and_apply_norm_match_jax():
+    x, g, b = _inputs(16, b=3, hw=4, seed=9)
+    layer = norm.init_norm(16)
+    with torch.no_grad():
+        layer.gamma.copy_(T(g))
+        layer.beta.copy_(T(b))
+    params = {"gamma": jnp.asarray(g), "beta": jnp.asarray(b)}
+    for kind in ("none", "instance", "batch"):
+        want = np.asarray(jnorm.apply_norm(kind, jnp.asarray(x), params))
+        got = norm.apply_norm(kind, T(x), layer).detach().numpy()
+        np.testing.assert_allclose(got, want, atol=1e-5, err_msg=kind)
+    np.testing.assert_allclose(norm.batch_norm(T(x), T(g), T(b)).numpy(),
+                               np.asarray(jnorm.batch_norm(jnp.asarray(x), g, b)), atol=1e-5)
+    with pytest.raises(ValueError, match="unknown norm"):
+        norm.apply_norm("layer", T(x), layer)
+
+
+def test_init_norm_is_ones_and_zeros():
+    layer = norm.init_norm(5)
+    want = jnorm.init_norm(5)
+    np.testing.assert_array_equal(layer.gamma.detach().numpy(), np.asarray(want["gamma"]))
+    np.testing.assert_array_equal(layer.beta.detach().numpy(), np.asarray(want["beta"]))
+
+
+def test_wrapper_refuses_devices_without_a_kernel():
+    x = torch.empty((1, 4, 4, 8), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        norm.instance_norm_fused(x, torch.ones(8, device="meta"), torch.zeros(8, device="meta"))

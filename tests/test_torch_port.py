@@ -308,3 +308,65 @@ def test_fp32_conv_gradients_stay_ieee_through_the_step_on_card(monkeypatch):
     for a, w in zip(grads, want):
         err = (a.double().cpu() - w).abs().max().item()
         assert err <= 1e-5 * w.abs().max().item(), err
+
+
+@pytest.mark.cuda
+def test_instance_norm_kernel_matches_plain_on_card(monkeypatch):
+    """B3 against its plain version at a ragged shape (C not a multiple of
+    32, H·W not a multiple of the block's rows) and at the GAN path's
+    largest and smallest maps, in both dtypes; one launch per call. The
+    forward within 1e-5 (float32: Welford against two-pass statistics, other
+    orders) and 1e-2 (bfloat16: one output rounding is 2^-8 of the value)
+    of max|y|; the Function's dx, dγ, dβ against autograd through the plain
+    version within 1e-5 / 4e-2 of the largest gradient."""
+    from gan_class_transfer2_tpu_torch.ops import norm
+
+    _needs_card(monkeypatch)
+    r = np.random.default_rng(5)
+    for (b, hw, c) in ((3, 5, 40), (16, 256, 64), (16, 4, 512)):
+        x = torch.from_numpy(r.normal(2.0, 3.0, (b, hw, hw, c)).astype(np.float32)).cuda()
+        g = torch.from_numpy(r.normal(1.0, 0.2, c).astype(np.float32)).cuda()
+        beta = torch.from_numpy(r.normal(0.0, 0.2, c).astype(np.float32)).cuda()
+        dy = torch.from_numpy(r.normal(size=x.shape).astype(np.float32)).cuda()
+        for dtype, tol, gtol in ((torch.float32, 1e-5, 1e-5), (torch.bfloat16, 1e-2, 4e-2)):
+            leaves = [[t.to(dtype if i == 0 else torch.float32).clone().requires_grad_()
+                       for i, t in enumerate((x, g, beta))] for _ in range(2)]
+            before = norm.instance_norm_fused.launches
+            y = norm.instance_norm(*leaves[0])
+            torch.cuda.synchronize()
+            assert norm.instance_norm_fused.launches == before + 1
+            want = norm.instance_norm_plain(*leaves[1])
+            assert y.dtype == dtype
+            err = (y.float() - want.float()).abs().max().item()
+            assert err <= tol * want.float().abs().max().item(), (b, hw, c, dtype, err)
+            got = torch.autograd.grad(y, leaves[0], dy.to(dtype))
+            ref = torch.autograd.grad(want, leaves[1], dy.to(dtype))
+            for name, a, w in zip(("dx", "dgamma", "dbeta"), got, ref):
+                gerr = (a.float() - w.float()).abs().max().item()
+                assert gerr <= gtol * w.float().abs().max().item(), (b, hw, c, dtype, name, gerr)
+
+
+@pytest.mark.cuda
+def test_down_conv_without_relu_matches_plain_on_card(monkeypatch):
+    """B4 with ``relu=False``, as every down conv of the GAN path calls it
+    (a branch of the kernel the diffusion path never takes): forward within
+    1e-4 / 2e-2 of max|y| and dx, dK, db within 1e-5 / 4e-2 of the largest
+    gradient, as the ReLU tests above."""
+    _needs_card(monkeypatch)
+    r = np.random.default_rng(6)
+    x = torch.from_numpy(r.normal(size=(4, 32, 32, 512)).astype(np.float32)).cuda()
+    k = torch.from_numpy((r.normal(size=(4, 4, 512, 512)) / 90).astype(np.float32)).cuda()
+    b = torch.from_numpy((r.normal(size=(512,)) * 0.1).astype(np.float32)).cuda()
+    g = torch.from_numpy(r.normal(size=(4, 16, 16, 512)).astype(np.float32)).cuda()
+    for dtype, tol, gtol in ((torch.float32, 1e-4, 1e-5), (torch.bfloat16, 2e-2, 4e-2)):
+        leaves = [[t.to(dtype).clone().requires_grad_() for t in (x, k, b)] for _ in range(2)]
+        y = fdc.down_conv_fused(*leaves[0], relu=False)
+        want = fdc.down_conv_plain(*leaves[1], relu=False)
+        assert (y < 0).any()  # no ReLU applied
+        err = (y.float() - want.float()).abs().max().item()
+        assert err <= tol * want.float().abs().max().item(), (dtype, err)
+        grads = [torch.autograd.grad(out, ts, g.to(dtype)) for out, ts in ((y, leaves[0]),
+                                                                           (want, leaves[1]))]
+        for name, a, w in zip(("dx", "dK", "db"), *grads):
+            gerr = (a.float() - w.float()).abs().max().item()
+            assert gerr <= gtol * w.float().abs().max().item(), (dtype, name, gerr)

@@ -7,10 +7,12 @@ NVIDIA card. Run it from the root of a checkout:
 Phases, each of which fails the run (non-zero exit) when it fails:
 
   1. build  — compile every csrc/*.cu of the port with nvcc for sm_90a;
-  2. kernels — hold each kernel against its plain PyTorch version on the card
-     at the shapes the serving path gives it (the four full-width k4/s2 down
-     convs at batch 4, float32 and bfloat16), and time kernel, plain version
-     and one library call (cuDNN) on the same inputs beside the bound;
+  2. kernels — hold B4 against its plain PyTorch version on the card at the
+     four full-width k4/s2 down convs at batch 4 (the sampler) and 16
+     (training, the GAN), float32 and bfloat16: two launches on the same
+     inputs must be bit-identical; print the plan's split of K, and time
+     kernel, plain version and one library call (cuDNN) on the same inputs
+     beside the bound;
   3. sample — the user's entry point, ``cli.main(["sample", ...])``, at the
      default model width (256², 6 octaves, 41.7 M params, T = 200, stride 50)
      with ``--conv-impl pallas``, in float32 and bfloat16: the kernel's launch
@@ -42,7 +44,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   8. train-agree — one injected full-width step from the same weights, t and
      ε through the kernel path and the plain path: losses and updates agree;
   9. gan-kernel — B3 (instance norm) against its plain version at the seven
-     distinct shapes of the cycle-GAN step at batch 16, float32 and
+     distinct shapes of the cycle-GAN step at batch 16 (each with its plan's
+     cluster size) and at a large mean (3·N(0, 1) + 100), float32 and
      bfloat16: forward, and dx, dγ, dβ of its autograd Function against
      autograd through the plain version; kernel, plain version,
      F.instance_norm and the backward timed beside the byte bound. B4 with
@@ -153,58 +156,79 @@ def phase_build():
 
 
 def phase_kernels(torch, F, fdc):
-    """Kernel vs plain version at the four full-width shapes; returns one
-    summary per dtype (sums over the shapes of one denoiser call)."""
+    """Kernel vs plain version at the four full-width shapes, at batch 4
+    (the sampler) and 16 (training and the GAN): error, the plan's split of
+    K, bit-identical repeats, and times beside the bound and cuDNN. Returns
+    one summary per dtype (sums over the shapes of one denoiser call at
+    batch 4)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     summary = {}
     for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        s = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, flops_ms=0.0,
-                 bytes_ms=0.0, max_abs_err=0.0)
-        for (hw, c, o) in SHAPES:
-            x = torch.randn((BATCH, hw, hw, c), generator=gen, device="cuda").to(dtype)
-            k = torch.randn((4, 4, c, o), generator=gen, device="cuda") / (16 * c) ** 0.5
-            b = torch.randn((o,), generator=gen, device="cuda") * 0.1
-            with torch.inference_mode():
-                before = fdc.down_conv_fused.launches
-                y = fdc.down_conv_fused(x, k, b)
-                ref = fdc.down_conv_plain(x, k, b)
-                torch.cuda.synchronize()
-                fdc.down_conv_fused.launches = before  # comparison launches do not count
-                err = (y.float() - ref.float()).abs().max().item()
-                scale = ref.float().abs().max().item()
-                if not err <= KERNEL_RTOL[dtype_name] * scale:
-                    fail(f"kernel {dtype_name} {x.shape}->{o}: max|err| {err} > "
-                         f"{KERNEL_RTOL[dtype_name]} x max|y| {scale}")
-                # one library call computing the same function: cuDNN on the
-                # same NHWC memory (a channels_last NCHW view), bias folded in
-                x_lib = x.permute(0, 3, 1, 2)
-                w_lib = k.to(dtype).permute(3, 2, 0, 1).contiguous(
-                    memory_format=torch.channels_last)
-                b_lib = b.to(dtype)
-                ms = cuda_ms(lambda: fdc.down_conv_fused(x, k, b))
-                plain_ms = cuda_ms(lambda: fdc.down_conv_plain(x, k, b))
-                lib_ms = cuda_ms(lambda: torch.relu_(
-                    F.conv2d(x_lib, w_lib, b_lib, stride=2, padding=1)))
-                fdc.down_conv_fused.launches = before
-            h2 = hw // 2
-            flops = 2 * BATCH * h2 * h2 * o * 16 * c
-            nbytes = x.element_size() * (x.numel() + k.numel() + b.numel() + y.numel())
-            flops_ms = flops / PEAK_FLOPS[dtype_name] * 1e3
-            bytes_ms = nbytes / PEAK_BYTES * 1e3
-            bound = max(flops_ms, bytes_ms)
-            print(f"[kernel] {dtype_name} x{tuple(x.shape)} -> {o}: max|err| {err:.3e} "
-                  f"(max|y| {scale:.3f}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"cuDNN {lib_ms:.4f} ms, bound {bound:.4f} ms "
-                  f"({'operations' if flops_ms >= bytes_ms else 'bytes'}); "
-                  f"{flops / ms / 1e9:.1f} TFLOP/s = {bound / ms:.1%} of bound")
-            s["ms"] += ms
-            s["plain_ms"] += plain_ms
-            s["library_ms"] += lib_ms
-            s["bound_ms"] += bound
-            s["flops_ms"] += flops_ms
-            s["bytes_ms"] += bytes_ms
-            s["max_abs_err"] = max(s["max_abs_err"], err)
-        summary[dtype_name] = s
+        for batch in (BATCH, TRAIN_BATCH):
+            s = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, flops_ms=0.0,
+                     bytes_ms=0.0, max_abs_err=0.0)
+            for (hw, c, o) in SHAPES:
+                # weight and bias already in x's dtype, as the models pass them
+                # (and as the cuDNN call below gets them)
+                x = torch.randn((batch, hw, hw, c), generator=gen, device="cuda").to(dtype)
+                k = (torch.randn((4, 4, c, o), generator=gen, device="cuda")
+                     / (16 * c) ** 0.5).to(dtype)
+                b = (torch.randn((o,), generator=gen, device="cuda") * 0.1).to(dtype)
+                plan = fdc.plan(batch, hw, hw, c, o, dtype)
+                with torch.inference_mode():
+                    before = fdc.down_conv_fused.launches
+                    y = fdc.down_conv_fused(x, k, b)
+                    again = fdc.down_conv_fused(x, k, b)
+                    ref = fdc.down_conv_plain(x, k, b)
+                    torch.cuda.synchronize()
+                    fdc.down_conv_fused.launches = before  # comparison launches do not count
+                    if not torch.equal(y, again):
+                        fail(f"kernel {dtype_name} {x.shape}->{o}: two launches on the same "
+                             f"inputs differ")
+                    err = (y.float() - ref.float()).abs().max().item()
+                    scale = ref.float().abs().max().item()
+                    if not err <= KERNEL_RTOL[dtype_name] * scale:
+                        fail(f"kernel {dtype_name} {x.shape}->{o}: max|err| {err} > "
+                             f"{KERNEL_RTOL[dtype_name]} x max|y| {scale}")
+                    # one library call computing the same function: cuDNN on the
+                    # same NHWC memory (a channels_last NCHW view), bias folded in
+                    x_lib = x.permute(0, 3, 1, 2)
+                    w_lib = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+                    b_lib = b
+                    ms = cuda_ms(lambda: fdc.down_conv_fused(x, k, b))
+                    plain_ms = cuda_ms(lambda: fdc.down_conv_plain(x, k, b))
+                    lib_ms = cuda_ms(lambda: torch.relu_(
+                        F.conv2d(x_lib, w_lib, b_lib, stride=2, padding=1)))
+                    fdc.down_conv_fused.launches = before
+                h2 = hw // 2
+                flops = 2 * batch * h2 * h2 * o * 16 * c
+                nbytes = x.element_size() * (x.numel() + k.numel() + b.numel() + y.numel())
+                flops_ms = flops / PEAK_FLOPS[dtype_name] * 1e3
+                bytes_ms = nbytes / PEAK_BYTES * 1e3
+                bound = max(flops_ms, bytes_ms)
+                print(f"[kernel] {dtype_name} x{tuple(x.shape)} -> {o}: max|err| {err:.3e} "
+                      f"(max|y| {scale:.3f}), repeat bit-identical; plan {plan.blocks} blocks "
+                      f"({plan.tiles_m}x{plan.tiles_n} tiles, split {plan.split}); kernel "
+                      f"{ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN {lib_ms:.4f} ms, bound "
+                      f"{bound:.4f} ms ({'operations' if flops_ms >= bytes_ms else 'bytes'}); "
+                      f"{flops / ms / 1e9:.1f} TFLOP/s = {bound / ms:.1%} of bound")
+                s["ms"] += ms
+                s["plain_ms"] += plain_ms
+                s["library_ms"] += lib_ms
+                s["bound_ms"] += bound
+                s["flops_ms"] += flops_ms
+                s["bytes_ms"] += bytes_ms
+                s["max_abs_err"] = max(s["max_abs_err"], err)
+                del x, y, again, ref, x_lib, w_lib
+            print(f"[kernel] {dtype_name} batch {batch}, four shapes: kernel {s['ms']:.4f} ms, "
+                  f"plain {s['plain_ms']:.4f} ms, cuDNN {s['library_ms']:.4f} ms, bound "
+                  f"{s['bound_ms']:.4f} ms = {s['bound_ms'] / s['ms']:.1%} of bound")
+            if batch == BATCH:
+                summary[dtype_name] = s
+            else:
+                summary[dtype_name]["max_abs_err"] = max(summary[dtype_name]["max_abs_err"],
+                                                         s["max_abs_err"])
+        torch.cuda.empty_cache()
     return summary
 
 
@@ -788,10 +812,13 @@ def phase_gan_kernels(torch, F, fdc, norm, cfg):
             norm.instance_norm_fused.launches = before  # comparison launches do not count
             nbytes = 2 * x.numel() * x.element_size() + 2 * 4 * c  # x in, y out; γ, β
             bound = _bytes_ms(nbytes)
-            print(f"[gan-kernel] B3 {dtype_name} x{tuple(x.shape)} (x{n} a step): max|err| "
+            plan = norm.plan(*x.shape)
+            print(f"[gan-kernel] B3 {dtype_name} x{tuple(x.shape)} (x{n} a step): cluster "
+                  f"{plan.cluster} ({plan.blocks} blocks, chunk {plan.chunk} px); max|err| "
                   f"{err:.3e} (max|y| {scale:.3f}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"F.instance_norm {lib_ms:.4f} ms, bound {bound:.4f} ms (bytes) = "
-                  f"{bound / ms:.1%} of bound; backward (torch ops) {bwd_ms:.4f} ms")
+                  f"{bound / ms:.1%} of bound; backward (torch ops) {bwd_ms:.4f} ms, its bound "
+                  f"{1.5 * bound:.4f} ms (bytes: x and dy read, dx written)")
             for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
                          ("bound_ms", bound), ("bwd_ms", bwd_ms)):
                 s[k] += n * v
@@ -802,7 +829,27 @@ def phase_gan_kernels(torch, F, fdc, norm, cfg):
               f"{worst['dgamma']:.2e}, dβ {worst['dbeta']:.2e} (bound "
               f"{IN_GRAD_RTOL[dtype_name]}); a step's norms: kernel {s['ms']:.4f} ms, plain "
               f"{s['plain_ms']:.4f} ms, F.instance_norm {s['library_ms']:.4f} ms, bound "
-              f"{s['bound_ms']:.4f} ms (bytes); backward (torch ops) {s['bwd_ms']:.4f} ms")
+              f"{s['bound_ms']:.4f} ms (bytes); backward (torch ops) {s['bwd_ms']:.4f} ms, its "
+              f"bound {1.5 * s['bound_ms']:.4f} ms (bytes)")
+        # a large mean, x = 3·N(0, 1) + 100: where a one-pass E[x²] − m² loses
+        # the variance's digits; the kernel's Welford/Chan combine must not
+        for shape in ((TRAIN_BATCH, 64, 64, 256), (TRAIN_BATCH, 256, 256, 64)):
+            x = (torch.randn(shape, generator=gen, device="cuda") * 3 + 100).to(dtype)
+            g = 1 + 0.2 * torch.randn((shape[3],), generator=gen, device="cuda")
+            b = 0.2 * torch.randn((shape[3],), generator=gen, device="cuda")
+            before = norm.instance_norm_fused.launches
+            y = norm.instance_norm_fused(x, g, b)
+            yp = norm.instance_norm_plain(x, g, b)
+            norm.instance_norm_fused.launches = before
+            err = (y.float() - yp.float()).abs().max().item()
+            scale = yp.float().abs().max().item()
+            print(f"[gan-kernel] B3 {dtype_name} large mean x{shape} = 3·N(0,1) + 100: max|err| "
+                  f"{err:.3e} (max|y| {scale:.3f}, bound {IN_RTOL[dtype_name]} x max|y|)")
+            if not err <= IN_RTOL[dtype_name] * scale:
+                fail(f"B3 {dtype_name} large mean x{shape}: max|err| {err} > "
+                     f"{IN_RTOL[dtype_name]} x max|y| {scale}")
+            s["err"] = max(s["err"], err)
+            del x, y, yp
         name = f"instance_norm_{'f32' if dtype_name == 'float32' else 'bf16'}"
         rows[dtype_name] = {
             "name": name, "route": "cuda",

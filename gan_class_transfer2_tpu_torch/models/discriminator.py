@@ -25,6 +25,7 @@ from torch import nn
 from ..ops import conv as conv_ops
 from ..ops import init as init_ops
 from ..ops import norm as norm_ops
+from .api import resolve_device
 from .unet import DTYPES, Conv
 
 
@@ -75,9 +76,12 @@ class Discriminator(nn.Module):
         return self
 
 
-def init_discriminator(cfg, generator: torch.Generator, device="cpu", in_channels: int = 3,
+def init_discriminator(cfg, generator: torch.Generator, device="cuda", in_channels: int = 3,
                        num_classes: int = 0) -> Discriminator:
-    return Discriminator(cfg, in_channels, num_classes).reset_parameters(generator).to(device)
+    """A Glorot-initialised Discriminator on ``device`` (the card unless the
+    caller asks for the CPU; without a card ``cuda`` raises)."""
+    dev = resolve_device(device)
+    return Discriminator(cfg, in_channels, num_classes).reset_parameters(generator).to(dev)
 
 
 def discriminator_apply(cfg, model: Discriminator, x, class_idx=None):

@@ -11,7 +11,8 @@ Three pieces, as for every kernel of the port:
     ``down_conv_fused.launches``);
   * ``down_conv_plain`` — the same forward in plain PyTorch. The wrapper
     takes it only for a tensor on the CPU; a CUDA tensor launches the kernel
-    or raises.
+    or raises;
+  * ``plan`` — the kernel's tiles and split of K, from the shape alone.
 
 The backward follows pallas_conv.py:149-165, where it is XLA convs outside
 any Pallas kernel; here they are cuDNN's (``torch.nn.grad``) on the card:
@@ -27,13 +28,13 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
-
-_N_TILE = 128  # the kernel's output-channel tile; the weight is padded to it
 
 
 def supported(x_shape, kernel_shape) -> bool:
@@ -82,13 +83,76 @@ def down_conv_plain(x, kernel, bias, relu: bool = True):
 
 
 _ENTRY = {torch.float32: "gct2_down_conv_f32", torch.bfloat16: "gct2_down_conv_bf16"}
+_FNS: dict = {}
+SM_COUNT = 132  # H100 SXM
+_TILE = 128  # output rows (pixels) and columns (channels) of one block's tile
+K_SLICE = {torch.float32: 8, torch.bfloat16: 64}  # depth of one staged K slice
+# blocks a call should put on the card: 7/8 of one full wave, RESIDENT blocks
+# on each SM (the float32 kernel's 256 threads and 32 KB twice, the bfloat16
+# kernel's 129 KB ring once). 7/8, not all: a 128-tile layer (64²×256→512 at
+# batch 4) runs faster unsplit on 132 SMs than split in two, whose workspace
+# and second launch cost more than the 4 idle SMs (PERF.md, Findings)
+RESIDENT = {torch.float32: 2, torch.bfloat16: 1}
+FILL_TARGET = {dt: -(-7 * n * SM_COUNT // 8) for dt, n in RESIDENT.items()}
+
+
+class Plan(NamedTuple):
+    """How the kernel cuts one call, from the shape alone.
+
+    ``box``: bfloat16 tiles are boxes of (TW, TH, TB) output pixels along
+    (W/2, H/2, B), TW·TH·TB = 128, the box the TMA map loads; float32 tiles
+    are 128 consecutive output pixels, ``box`` (0, 0, 0). ``split``: K ranges
+    per tile, each ``k_slices // split`` whole slices; ``ws_elems`` the float32
+    workspace (split, M, Opad) that holds their partial sums (0 for split 1).
+    """
+
+    tiles_m: int
+    tiles_n: int
+    split: int
+    k_slices: int
+    box: tuple
+    o_pad: int
+    ws_elems: int
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles_m * self.tiles_n * self.split
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+@functools.lru_cache(maxsize=None)
+def plan(b: int, h: int, w: int, c: int, o: int, dtype) -> Plan:
+    """Tiles and split-K of the kernel for x (b, h, w, c) → o channels: the
+    smallest power-of-2 split (dividing the K slices) that puts at least
+    ``FILL_TARGET[dtype]`` blocks on the card."""
+    h2, w2 = h // 2, w // 2
+    o_pad = -(-o // _TILE) * _TILE
+    if dtype == torch.bfloat16:
+        tw = min(_pow2_at_least(w2), _TILE)
+        th = min(_pow2_at_least(h2), _TILE // tw)
+        tb = _TILE // (tw * th)
+        box = (tw, th, tb)
+        tiles_m = -(-w2 // tw) * -(-h2 // th) * -(-b // tb)
+    else:
+        box = (0, 0, 0)
+        tiles_m = -(-(b * h2 * w2) // _TILE)
+    tiles_n = o_pad // _TILE
+    k_slices = 16 * c // K_SLICE[dtype]
+    split = 1
+    while tiles_m * tiles_n * split < FILL_TARGET[dtype] and k_slices % (2 * split) == 0:
+        split *= 2
+    ws = split * b * h2 * w2 * o_pad if split > 1 else 0
+    return Plan(tiles_m, tiles_n, split, k_slices, box, o_pad, ws)
 
 
 def _entry(dtype):
-    lib = _build.load("down_conv")
-    fn = getattr(lib, _ENTRY[dtype])
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn = _FNS.get(dtype)
+    if fn is None:
+        fn = _FNS[dtype] = getattr(_build.load("down_conv"), _ENTRY[dtype])
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -96,41 +160,50 @@ def _entry(dtype):
 def _forward(x, kernel, bias, relu: bool):
     """The forward: the plain version for a CPU tensor, the kernel on the
     current stream for a CUDA tensor (or an exception)."""
-    if x.device.type == "cpu":
+    dev = x.device
+    if dev.type == "cpu":
         return down_conv_plain(x, kernel, bias, relu)
-    if x.device.type != "cuda":
-        raise ValueError(f"down_conv_fused: no kernel for device {x.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"down_conv_fused: no kernel for device {dev}")
     if x.dtype not in _ENTRY:
         raise TypeError(f"down_conv_fused: float32 or bfloat16 only, got {x.dtype}")
-    if kernel.device != x.device or bias.device != x.device:
+    if kernel.device != dev or bias.device != dev:
         raise ValueError("down_conv_fused: x, kernel and bias must share a device")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("down_conv_fused: x must be contiguous NHWC, 16-byte aligned")
-    if not supported(tuple(x.shape), tuple(kernel.shape)) or tuple(bias.shape) != (
-        kernel.shape[3],
-    ):
+    x_shape, k_shape = tuple(x.shape), tuple(kernel.shape)
+    if not supported(x_shape, k_shape) or tuple(bias.shape) != (k_shape[3],):
         raise ValueError(
-            f"down_conv_fused: unsupported shapes x{tuple(x.shape)} "
-            f"kernel{tuple(kernel.shape)} bias{tuple(bias.shape)}"
+            f"down_conv_fused: unsupported shapes x{x_shape} kernel{k_shape} "
+            f"bias{tuple(bias.shape)}"
         )
-    b, h, w, c = x.shape
-    o = kernel.shape[3]
+    b, h, w, c = x_shape
+    o = k_shape[3]
+    p = plan(b, h, w, c, o, x.dtype)
     # HWIO is already the (16·C, O) GEMM operand, rows ordered (di, dj, c);
-    # the weight and bias are cast to x.dtype on every call (as the Pallas
-    # wrapper does) and zero-padded to the kernel's 128-wide N tile
-    o_pad = -(-o // _N_TILE) * _N_TILE
+    # the weight and bias are cast to x.dtype (as the Pallas wrapper does, a
+    # no-op for the models, which cast them first) and zero-padded to whole
+    # 128-wide N tiles where O is not one
     w2 = kernel.to(x.dtype).reshape(16 * c, o)
     b2 = bias.to(x.dtype)
-    if o_pad != o:
-        w2 = F.pad(w2, (0, o_pad - o))
-        b2 = F.pad(b2, (0, o_pad - o))
-    w2, b2 = w2.contiguous(), b2.contiguous()
-    y = torch.empty((b, h // 2, w // 2, o), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):  # the launch goes to the current device
-        err = _entry(x.dtype)(
-            x.data_ptr(), w2.data_ptr(), b2.data_ptr(), y.data_ptr(),
-            b, h, w, c, o, o_pad, int(relu), torch.cuda.current_stream().cuda_stream,
-        )
+    if p.o_pad != o:
+        w2 = F.pad(w2, (0, p.o_pad - o))
+        b2 = F.pad(b2, (0, p.o_pad - o))
+    if not w2.is_contiguous():
+        w2 = w2.contiguous()
+    if not b2.is_contiguous():
+        b2 = b2.contiguous()
+    y = torch.empty((b, h // 2, w // 2, o), dtype=x.dtype, device=dev)
+    ws = torch.empty(p.ws_elems, dtype=torch.float32, device=dev) if p.ws_elems else None
+    args = (x.data_ptr(), w2.data_ptr(), b2.data_ptr(), y.data_ptr(),
+            ws.data_ptr() if ws is not None else None, b, h, w, c, o, p.o_pad, int(relu),
+            p.split, *p.box)
+    fn = _entry(x.dtype)
+    if dev.index == torch.cuda.current_device():
+        err = fn(*args, _build.current_stream(dev.index))
+    else:
+        with torch.cuda.device(dev):  # the launch goes to the current device
+            err = fn(*args, _build.current_stream(dev.index))
     if err != 0:
         raise RuntimeError(f"down_conv kernel launch failed: CUDA error {err}")
     down_conv_fused.launches += 1

@@ -13,7 +13,9 @@ The reference model has no normalization; the GAN-mode models do
     float32 statistics, ``rsqrt(v + 1e-5)``, with γ and β first rounded to
     x's dtype as the Pallas wrapper rounds them (norm.py:76). The wrapper
     takes it only for a tensor on the CPU; a CUDA tensor launches the kernel
-    or raises.
+    or raises;
+  * ``plan`` — the kernel's split of H·W across a thread-block cluster,
+    from the shape alone.
 
 The JAX package sends a norm to its Pallas kernel only on a TPU, for
 ``C % 128 == 0`` and a per-sample block of at most 6 MB (``_use_pallas``,
@@ -33,6 +35,8 @@ of x (norm.py:103-106).
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 from torch import nn
@@ -60,24 +64,63 @@ def instance_norm_plain(x, gamma, beta):
 
 
 _ENTRY = {torch.float32: "gct2_instance_norm_f32", torch.bfloat16: "gct2_instance_norm_bf16"}
+_FNS: dict = {}
+SM_COUNT = 132  # H100 SXM
+CLUSTER_MAX = 8  # portable thread-block cluster size
+CHANNELS = 32  # channels per cluster
+# blocks a norm should put on the card: 7/8 of one per SM. Larger clusters
+# that reach 132 or 256 blocks measured slower on the two big maps (PERF.md,
+# Findings)
+FILL_TARGET = -(-7 * SM_COUNT // 8)
+
+
+class NormPlan(NamedTuple):
+    """How the kernel cuts one norm: ``cluster`` blocks split H·W into
+    chunks of ``chunk`` pixels (the last ones may be short or empty);
+    ``blocks``: the grid's size."""
+
+    cluster: int
+    chunk: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=None)
+def plan(b: int, h: int, w: int, c: int) -> NormPlan:
+    """The smallest cluster (a power of 2, at most ``CLUSTER_MAX``) that puts
+    at least ``FILL_TARGET`` blocks on the card."""
+    base = -(-c // CHANNELS) * b  # one cluster per (sample, 32-channel group)
+    s = 1
+    while base * s < FILL_TARGET and s < CLUSTER_MAX:
+        s *= 2
+    return NormPlan(s, -(-(h * w) // s), base * s)
 
 
 def _entry(dtype):
-    fn = getattr(_build.load("instance_norm"), _ENTRY[dtype])
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn = _FNS.get(dtype)
+    if fn is None:
+        fn = _FNS[dtype] = getattr(_build.load("instance_norm"), _ENTRY[dtype])
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _f32(t):
+    """A float32 contiguous tensor of ``t``'s values, ``t`` itself if it is one."""
+    t = t.detach()
+    if t.dtype != torch.float32:
+        t = t.float()
+    return t if t.is_contiguous() else t.contiguous()
 
 
 def instance_norm_fused(x, gamma, beta):
     """Forward of B3: the plain version for a CPU tensor, the kernel on the
     current stream for a CUDA tensor (or an exception). x (B, H, W, C)
     contiguous, float32 or bfloat16; gamma/beta (C,) on x's device."""
-    if x.device.type == "cpu":
+    dev = x.device
+    if dev.type == "cpu":
         return instance_norm_plain(x, gamma, beta)
-    if x.device.type != "cuda":
-        raise ValueError(f"instance_norm_fused: no kernel for device {x.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"instance_norm_fused: no kernel for device {dev}")
     if x.dtype not in _ENTRY:
         raise TypeError(f"instance_norm_fused: float32 or bfloat16 only, got {x.dtype}")
     if x.dim() != 4 or not x.is_contiguous():
@@ -85,18 +128,22 @@ def instance_norm_fused(x, gamma, beta):
     b, h, w, c = x.shape
     if tuple(gamma.shape) != (c,) or tuple(beta.shape) != (c,):
         raise ValueError(f"instance_norm_fused: gamma/beta must be ({c},)")
-    if gamma.device != x.device or beta.device != x.device:
+    if gamma.device != dev or beta.device != dev:
         raise ValueError("instance_norm_fused: x, gamma and beta must share a device")
     if b > 65535:
         raise ValueError(f"instance_norm_fused: batch {b} exceeds the grid's 65535")
-    # γ and β go over as float32 (a no-op for the float32 parameters); the
+    p = plan(b, h, w, c)
+    # γ and β go over as float32 (no copy for the float32 parameters); the
     # kernel rounds them to x's dtype, as the Pallas wrapper does (norm.py:76)
-    g = gamma.detach().float().contiguous()
-    bt = beta.detach().float().contiguous()
+    g, bt = _f32(gamma), _f32(beta)
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):  # the launch goes to the current device
-        err = _entry(x.dtype)(x.data_ptr(), g.data_ptr(), bt.data_ptr(), y.data_ptr(),
-                              b, h * w, c, torch.cuda.current_stream().cuda_stream)
+    args = (x.data_ptr(), g.data_ptr(), bt.data_ptr(), y.data_ptr(), b, h * w, c, p.cluster)
+    fn = _entry(x.dtype)
+    if dev.index == torch.cuda.current_device():
+        err = fn(*args, _build.current_stream(dev.index))
+    else:
+        with torch.cuda.device(dev):  # the launch goes to the current device
+            err = fn(*args, _build.current_stream(dev.index))
     if err != 0:
         raise RuntimeError(f"instance_norm kernel launch failed: CUDA error {err}")
     instance_norm_fused.launches += 1

@@ -216,3 +216,83 @@ def test_fused_down_conv_backward_matches_jax_vjp(relu):
     assert fdc.down_conv_fused.launches == before  # the CPU takes the plain version
     for name, a, w in zip(("dx", "dK", "db"), got, want):
         np.testing.assert_allclose(a.numpy(), w, atol=1e-5 * np.abs(w).max(), err_msg=name)
+
+
+# the four down convs of the default U-Net that B4's gate admits, (H=W, C, O)
+_B4_SHAPES = ((128, 128, 256), (64, 256, 512), (32, 512, 512), (16, 512, 512))
+
+
+def _k_ranges(p, c, dtype):
+    """A plan's K ranges as the kernel walks them: for each split z, its
+    whole slices as (di, dj, c0, c1), the tap (row di, column dj of the 4×4
+    window) and the channels [c0, c1) of that tap, in the order summed."""
+    bk = fdc.K_SLICE[dtype]
+    per = p.k_slices // p.split
+    out = []
+    for z in range(p.split):
+        part = []
+        for kt in range(z * per, (z + 1) * per):
+            tap, c0 = divmod(kt * bk, c)
+            part.append((tap >> 2, tap & 3, c0, c0 + bk))
+        out.append(part)
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch", [1, 4, 16])
+@pytest.mark.parametrize("shape", _B4_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}-{s[2]}")
+def test_down_conv_plan_fills_the_card(shape, batch, dtype):
+    """B4's plan at the main path's shapes: the split divides the K slices,
+    every slice stays within one tap, the workspace holds split × M × Opad,
+    the tiles cover the output, and at least 7/8 of a full wave of blocks
+    runs (132 SMs × 2 blocks in float32, × 1 in bfloat16)."""
+    hw, c, o = shape
+    dt = getattr(torch, dtype)
+    p = fdc.plan(batch, hw, hw, c, o, dt)
+    bk = fdc.K_SLICE[dt]
+    assert p.k_slices * bk == 16 * c and p.k_slices % p.split == 0
+    assert c % bk == 0  # so no K slice straddles two taps
+    m = batch * (hw // 2) ** 2
+    assert p.o_pad % 128 == 0 and o <= p.o_pad < o + 128 and p.tiles_n == p.o_pad // 128
+    assert p.ws_elems == (p.split * m * p.o_pad if p.split > 1 else 0)
+    if dt == torch.bfloat16:
+        tw, th, tb = p.box
+        assert tw * th * tb == 128 and 2 * tw <= 256 and 2 * th <= 256
+        assert p.tiles_m * 128 >= m
+    else:
+        assert p.box == (0, 0, 0) and p.tiles_m == -(-m // 128)
+    assert p.blocks >= fdc.FILL_TARGET[dt] >= 7 * fdc.SM_COUNT // 8
+    # 132 blocks or more; the bfloat16 kernel (one block an SM) may stop at
+    # one wave of 128 blocks, 4 SMs idle
+    assert p.blocks >= fdc.SM_COUNT or (dt == torch.bfloat16 and p.blocks >= 128)
+    # the smallest such split: half of it would not fill the card
+    assert p.split == 1 or p.tiles_m * p.tiles_n * p.split // 2 < fdc.FILL_TARGET[dt]
+    ranges = _k_ranges(p, c, dt)
+    assert len(ranges) == p.split
+    assert [s for part in ranges for s in part] == [
+        (t >> 2, t & 3, c0, c0 + bk) for t in range(16) for c0 in range(0, c, bk)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_down_conv_plan_k_ranges_sum_to_the_conv(dtype):
+    """The plan's K ranges, each summed as partial products over its taps and
+    channels (the (tap, channel) indexing the kernel mirrors) and the ranges
+    then summed in order, give the plain version's conv to 1e-5."""
+    dt = getattr(torch, dtype)
+    b, hw, c, o = 1, 16, 128, 128  # split 64 (f32) / 16 (bf16): one or two taps a range
+    x, k, bias = (T(a) for a in _rand(21, (b, hw, hw, c), (4, 4, c, o), (o,)))
+    k = k / np.sqrt(16 * c)
+    p = fdc.plan(b, hw, hw, c, o, dt)
+    assert p.split > 1
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))  # the SAME pad of even inputs
+    h2 = hw // 2
+    total = torch.zeros((b, h2, h2, o), dtype=torch.float64)
+    for part in _k_ranges(p, c, dt):
+        acc = torch.zeros((b, h2, h2, o), dtype=torch.float64)
+        for di, dj, c0, c1 in part:
+            window = xp[:, di:di + 2 * h2:2, dj:dj + 2 * h2:2, c0:c1].double()
+            acc += window @ k[di, dj, c0:c1].double()
+        total += acc
+    got = (total + bias.double()).float()
+    want = fdc.down_conv_plain(x, k, bias, relu=False)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)

@@ -151,8 +151,8 @@ def test_default_discriminator_size_matches_jax():
 
 def test_init_is_seeded_glorot_with_unit_norms():
     cfg = tiny_test_config(d_norm="instance")
-    a = disc.init_discriminator(cfg, torch.Generator().manual_seed(0))
-    b = disc.init_discriminator(cfg, torch.Generator().manual_seed(0))
+    a = disc.init_discriminator(cfg, torch.Generator().manual_seed(0), device="cpu")
+    b = disc.init_discriminator(cfg, torch.Generator().manual_seed(0), device="cpu")
     for (name, p), q in zip(a.named_parameters(), b.parameters()):
         assert torch.equal(p, q), name
     k = a.convs[1].kernel
@@ -161,3 +161,13 @@ def test_init_is_seeded_glorot_with_unit_norms():
     assert torch.equal(a.convs[1].norm.gamma, torch.ones(8))
     assert torch.equal(a.convs[1].norm.beta, torch.zeros(8))
     assert torch.equal(a.convs[0].bias, torch.zeros(4))
+
+
+def test_init_discriminator_defaults_to_the_card():
+    """Like ``init_denoiser``, the entry point runs on the card unless the
+    caller asks for the CPU; without a card the default raises and names
+    the CPU option, and nothing falls back."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the default would succeed")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        disc.init_discriminator(tiny_test_config(), torch.Generator().manual_seed(0))

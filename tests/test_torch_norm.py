@@ -135,3 +135,37 @@ def test_wrapper_refuses_devices_without_a_kernel():
     x = torch.empty((1, 4, 4, 8), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         norm.instance_norm_fused(x, torch.ones(8, device="meta"), torch.zeros(8, device="meta"))
+
+
+# the seven (H=W, C) maps of the cycle-GAN step's instance norms at the
+# default width
+_GAN_MAPS = ((256, 64), (128, 128), (64, 256), (32, 512), (16, 512), (8, 512), (4, 512))
+
+
+@pytest.mark.parametrize("batch", [1, 4, 16])
+@pytest.mark.parametrize("shape", _GAN_MAPS, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_instance_norm_plan_splits_hw_exactly(shape, batch):
+    """B3's plan: the cluster's chunks cover H·W exactly (the last may be
+    short, or empty where H·W is below the cluster), the cluster stays
+    within the portable limit, and every map at batch 16 puts at least 7/8
+    of a wave on the card (128 blocks at the two big maps, 256 at the
+    others)."""
+    hw, c = shape
+    p = norm.plan(batch, hw, hw, c)
+    assert 1 <= p.cluster <= norm.CLUSTER_MAX and p.cluster & (p.cluster - 1) == 0
+    chunks = [min(hw * hw, (r + 1) * p.chunk) - min(hw * hw, r * p.chunk)
+              for r in range(p.cluster)]
+    assert p.chunk == -(-hw * hw // p.cluster) and sum(chunks) == hw * hw
+    assert p.blocks == -(-c // norm.CHANNELS) * batch * p.cluster
+    # the smallest such cluster
+    assert p.cluster == 1 or p.blocks // 2 < norm.FILL_TARGET
+    if batch == 16:
+        assert p.blocks >= norm.FILL_TARGET >= 7 * norm.SM_COUNT // 8
+        assert p.blocks >= norm.SM_COUNT or p.blocks == 128
+
+
+def test_instance_norm_plan_below_the_cluster():
+    """H·W below the cluster (2×2 pixels, 8 blocks): one pixel a block, the
+    last four blocks empty; C = 96 gives three channel groups."""
+    p = norm.plan(1, 2, 2, 96)
+    assert (p.cluster, p.chunk, p.blocks) == (8, 1, 24)

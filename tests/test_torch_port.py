@@ -180,13 +180,17 @@ def _needs_card(monkeypatch):
 
 @pytest.mark.cuda
 def test_fused_down_conv_kernel_matches_plain_on_card(monkeypatch):
-    """The CUDA kernel against its plain version, at one tile-ragged shape
-    and one full-width shape, in both dtypes, and its launch count.
-    Tolerances relative to max|y|: 1e-4 in float32 (summation order over
-    16·C terms), 2e-2 in bfloat16 (one bf16 output rounding is ~4e-3)."""
+    """The CUDA kernel against its plain version, at a tile-ragged shape
+    with O = 64 (padded to 128), and at full-width shapes whose plan splits
+    K (batch 1, 4 and 16) or not, in both dtypes; its launch count; and two
+    launches on the same inputs give bit-identical y (the split partials
+    are summed in a fixed order). Tolerances relative to max|y|: 1e-4 in
+    float32 (summation order over 16·C terms), 2e-2 in bfloat16 (one bf16
+    output rounding is ~4e-3)."""
     _needs_card(monkeypatch)
     r = np.random.default_rng(0)
-    for (bsz, h, c, o) in ((3, 18, 128, 64), (4, 32, 512, 512)):
+    for (bsz, h, c, o) in ((3, 18, 128, 64), (4, 32, 512, 512), (1, 16, 512, 512),
+                           (16, 16, 512, 512), (4, 64, 256, 512), (1, 128, 128, 256)):
         x = torch.from_numpy(r.normal(size=(bsz, h, h, c)).astype(np.float32)).cuda()
         k = torch.from_numpy((r.normal(size=(4, 4, c, o)) / np.sqrt(16 * c)).astype(np.float32))
         b = torch.from_numpy(r.normal(size=(o,)).astype(np.float32))
@@ -200,6 +204,9 @@ def test_fused_down_conv_kernel_matches_plain_on_card(monkeypatch):
             assert fdc.down_conv_fused.launches == before + 1
             err = (y.float() - ref.float()).abs().max().item()
             assert err <= tol * ref.float().abs().max().item(), (bsz, h, c, o, dtype, err)
+            with torch.inference_mode():
+                again = fdc.down_conv_fused(x.to(dtype), k, b)
+            assert torch.equal(y, again), (bsz, h, c, o, dtype)
 
 
 @pytest.mark.cuda
@@ -312,19 +319,24 @@ def test_fp32_conv_gradients_stay_ieee_through_the_step_on_card(monkeypatch):
 
 @pytest.mark.cuda
 def test_instance_norm_kernel_matches_plain_on_card(monkeypatch):
-    """B3 against its plain version at a ragged shape (C not a multiple of
-    32, H·W not a multiple of the block's rows) and at the GAN path's
-    largest and smallest maps, in both dtypes; one launch per call. The
-    forward within 1e-5 (float32: Welford against two-pass statistics, other
-    orders) and 1e-2 (bfloat16: one output rounding is 2^-8 of the value)
-    of max|y|; the Function's dx, dγ, dβ against autograd through the plain
-    version within 1e-5 / 4e-2 of the largest gradient."""
+    """B3 against its plain version at ragged shapes (C not a multiple of
+    32 or of the 16-byte vector, H·W not a multiple of the block's rows, H·W
+    below the cluster: 2×2 pixels over 8 blocks, C = 96, batch 1), at a
+    large mean (x = 3·N(0, 1) + 100, where a one-pass E[x²] − m² would lose
+    the variance's digits), and at the GAN path's largest, a middle and
+    its smallest maps, in both dtypes; one launch per call, and bit-identical y
+    from two launches. The forward within 1e-5 (float32: Welford/Chan
+    against two-pass statistics, other orders) and 1e-2 (bfloat16: one
+    output rounding is 2^-8 of the value) of max|y|; the Function's dx, dγ,
+    dβ against autograd through the plain version within 1e-5 / 4e-2 of the
+    largest gradient."""
     from gan_class_transfer2_tpu_torch.ops import norm
 
     _needs_card(monkeypatch)
     r = np.random.default_rng(5)
-    for (b, hw, c) in ((3, 5, 40), (16, 256, 64), (16, 4, 512)):
-        x = torch.from_numpy(r.normal(2.0, 3.0, (b, hw, hw, c)).astype(np.float32)).cuda()
+    for (b, hw, c, mean) in ((3, 5, 40, 2.0), (1, 2, 96, 2.0), (1, 7, 43, 2.0), (4, 32, 512, 100.0),
+                             (16, 256, 64, 2.0), (16, 64, 256, 2.0), (16, 4, 512, 2.0)):
+        x = torch.from_numpy(r.normal(mean, 3.0, (b, hw, hw, c)).astype(np.float32)).cuda()
         g = torch.from_numpy(r.normal(1.0, 0.2, c).astype(np.float32)).cuda()
         beta = torch.from_numpy(r.normal(0.0, 0.2, c).astype(np.float32)).cuda()
         dy = torch.from_numpy(r.normal(size=x.shape).astype(np.float32)).cuda()
@@ -335,6 +347,7 @@ def test_instance_norm_kernel_matches_plain_on_card(monkeypatch):
             y = norm.instance_norm(*leaves[0])
             torch.cuda.synchronize()
             assert norm.instance_norm_fused.launches == before + 1
+            assert torch.equal(y, norm.instance_norm_fused(*leaves[0]))
             want = norm.instance_norm_plain(*leaves[1])
             assert y.dtype == dtype
             err = (y.float() - want.float()).abs().max().item()
@@ -354,19 +367,20 @@ def test_down_conv_without_relu_matches_plain_on_card(monkeypatch):
     gradient, as the ReLU tests above."""
     _needs_card(monkeypatch)
     r = np.random.default_rng(6)
-    x = torch.from_numpy(r.normal(size=(4, 32, 32, 512)).astype(np.float32)).cuda()
-    k = torch.from_numpy((r.normal(size=(4, 4, 512, 512)) / 90).astype(np.float32)).cuda()
-    b = torch.from_numpy((r.normal(size=(512,)) * 0.1).astype(np.float32)).cuda()
-    g = torch.from_numpy(r.normal(size=(4, 16, 16, 512)).astype(np.float32)).cuda()
-    for dtype, tol, gtol in ((torch.float32, 1e-4, 1e-5), (torch.bfloat16, 2e-2, 4e-2)):
-        leaves = [[t.to(dtype).clone().requires_grad_() for t in (x, k, b)] for _ in range(2)]
-        y = fdc.down_conv_fused(*leaves[0], relu=False)
-        want = fdc.down_conv_plain(*leaves[1], relu=False)
-        assert (y < 0).any()  # no ReLU applied
-        err = (y.float() - want.float()).abs().max().item()
-        assert err <= tol * want.float().abs().max().item(), (dtype, err)
-        grads = [torch.autograd.grad(out, ts, g.to(dtype)) for out, ts in ((y, leaves[0]),
-                                                                           (want, leaves[1]))]
-        for name, a, w in zip(("dx", "dK", "db"), *grads):
-            gerr = (a.float() - w.float()).abs().max().item()
-            assert gerr <= gtol * w.float().abs().max().item(), (dtype, name, gerr)
+    for bsz, h in ((4, 32), (1, 32), (16, 16)):  # split K 8 / 32 / 8 ways (float32)
+        x = torch.from_numpy(r.normal(size=(bsz, h, h, 512)).astype(np.float32)).cuda()
+        k = torch.from_numpy((r.normal(size=(4, 4, 512, 512)) / 90).astype(np.float32)).cuda()
+        b = torch.from_numpy((r.normal(size=(512,)) * 0.1).astype(np.float32)).cuda()
+        g = torch.from_numpy(r.normal(size=(bsz, h // 2, h // 2, 512)).astype(np.float32)).cuda()
+        for dtype, tol, gtol in ((torch.float32, 1e-4, 1e-5), (torch.bfloat16, 2e-2, 4e-2)):
+            leaves = [[t.to(dtype).clone().requires_grad_() for t in (x, k, b)] for _ in range(2)]
+            y = fdc.down_conv_fused(*leaves[0], relu=False)
+            want = fdc.down_conv_plain(*leaves[1], relu=False)
+            assert (y < 0).any()  # no ReLU applied
+            err = (y.float() - want.float()).abs().max().item()
+            assert err <= tol * want.float().abs().max().item(), (bsz, dtype, err)
+            grads = [torch.autograd.grad(out, ts, g.to(dtype))
+                     for out, ts in ((y, leaves[0]), (want, leaves[1]))]
+            for name, a, w in zip(("dx", "dK", "db"), *grads):
+                gerr = (a.float() - w.float()).abs().max().item()
+                assert gerr <= gtol * w.float().abs().max().item(), (bsz, dtype, name, gerr)

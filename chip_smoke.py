@@ -27,7 +27,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      3 train steps of a tiny config with fused diffusion (B1) and fused Adam
      (B2) on must give the card's and the CPU's losses alike (both draw the
      same Philox noise);
-  6. train kernels — B1 (fused forward diffusion, batch 16 × 256²×3) and B2
+  6. train kernels — B1 (fused forward diffusion, batch 16 × 256²×3, its
+     scales gathered from the (T + 1, 2) table by t; bit-identical repeats;
+     timed back to back, on the device with L2 warm and cold, and the
+     wrapper's host time) and B2
      (fused Adam over every leaf of the 41.7 M-param model, float32 and
      bfloat16 moments) against their plain versions, timed beside their
      bound and, for B2, torch.optim.Adam(fused=True); B4 at the four
@@ -41,6 +44,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      (``--conv-impl lax --optimizer adam_tf --fused-diffusion false``): exact
      launch counts per step, finite losses, and a torch.profiler breakdown of
      one step of each;
+  7b. train-hbm — the same training fed from a uint8 pool in device memory
+     (128 images of 288², ``data/device_augment.HBMDataset(raw=True)``),
+     which the step crops, flips and normalises itself: 3 + 10 steps at
+     batch 16 on the kernel path, float32 and bfloat16, exact launch counts,
+     img/s beside ``[train]``'s, the augment's device time in one profiled
+     step; a ``raw=False`` draw against ``apply_augment``; 3 tiny uint8
+     steps on the card and on the CPU, losses alike;
   8. train-agree — one injected full-width step from the same weights, t and
      ε through the kernel path and the plain path: losses and updates agree;
   9. gan-kernel — B3 (instance norm) against its plain version at the seven
@@ -102,13 +112,28 @@ TRAIN_BATCH = 16
 BENCH_STEPS, BENCH_WARMUP = 10, 3  # run_benchmark's warmup default
 KERNEL_PATH = ["--conv-impl", "pallas", "--optimizer", "adam_fused", "--fused-diffusion", "true"]
 PLAIN_PATH = ["--conv-impl", "lax", "--optimizer", "adam_tf", "--fused-diffusion", "false"]
-# B1 kernel vs plain: the same Philox words; ε differs by the rounding of
-# log and cos (|ε| < 6, a few float32 ulps)
+# B1 kernel vs plain: the same Philox words; ε may differ by the rounding of
+# log and cos (|ε| < 6, a few float32 ulps); on an H100 they agree bit for bit
 DIFFUSE_ATOL = 4e-6
-# flops per element of B1 outside Philox's integer work: Box–Muller's two
-# int→float conversions, 4 mul/add, log, sqrt, cos (~10 each as polynomials)
-# and the 3 of x·ss + ε·sn; an estimate for the operations bound
-DIFFUSE_FLOPS_PER_ELEMENT = 40
+# B1's operations per element, for its bound: Philox4x32-10 is, per half
+# block (one element), 5 rounds of two 32×32→64 products (one IMAD.WIDE each)
+# and two 3-input XORs (LOP3), with the key schedule shared by a thread's
+# blocks; the SASS of csrc/diffuse.cu holds 181 more integer instructions than
+# its probe without the rounds for a thread's 8 elements (tools/
+# kernel_plan_sweep.py b1): 23 an element. Box–Muller (2 conversions, 6
+# mul/add), the IEEE logf, sqrtf and cosf fast paths (~16, ~7, ~16) and the 3
+# of x·ss + ε·sn: about 48 float instructions, what this build runs (fewer
+# would only lower the term). An H100 SM quarter dispatches one warp
+# instruction a clock and its INT32 pipe takes one every two: the least time
+# is the larger of the integer instructions at INT32_RATE and all of them at
+# DISPATCH_RATE (132 SMs × 64 or 128 lanes × 1.98 GHz; DISPATCH_RATE is the
+# instruction rate of the 67 TFLOP/s of FMA). At 71 instructions that is
+# ~89% of the byte term, so the bytes set the bound.
+DIFFUSE_INT_PER_ELEMENT = 23
+DIFFUSE_FLOAT_PER_ELEMENT = 48
+INT32_RATE = 132 * 64 * 1.98e9
+DISPATCH_RATE = 132 * 128 * 1.98e9
+HBM_POOL = (128, 288, 288)  # [train-hbm]: uint8 images (N, H, W) in device memory, 31.9 MB
 ADAM_FLOPS_PER_ELEMENT = 12  # 2 mul + add (m), 3 mul + add (v), sqrt, add, mul, div, sub
 GAN_FLAGS = ["--g-norm", "instance", "--d-norm", "instance", "--conv-impl", "pallas"]
 GAN_WARM, GAN_PROFILE_STEPS, GAN_TIMED_STEPS = 2, 3, 5  # cli profile's two warm steps
@@ -140,6 +165,41 @@ def cuda_ms(fn, reps=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, match, reps=20, before=None):
+    """Device time of one call of fn, over its CUDA kernels whose name
+    contains ``match`` (torch.profiler); ``before`` runs ahead of each call,
+    outside the count (an L2 scrub)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if before is not None:
+                before()
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages() if match in e.key) / reps / 1e3
+
+
+def host_ms(fn, reps=50):
+    """Host time of one call of fn: back-to-back calls timed before the
+    final synchronise, so the launch queue absorbs the device time."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return secs / reps * 1e3
 
 
 def phase_build():
@@ -434,40 +494,59 @@ def phase_train_kernels(torch, F, fdc, fd, adam_kernel, api, cfg):
     {dtype: B4's forward max|err| at batch 16})."""
     rows = {}
     gen = torch.Generator(device="cuda").manual_seed(7)
-    # ---- B1: batch 16 × 256²×3 float32
+    # ---- B1: batch 16 × 256²×3 float32, its scales gathered from the table
     n = cfg.size * cfg.size * 3
     x = torch.rand((TRAIN_BATCH, n), generator=gen, device="cuda") * 2 - 1
-    t = torch.randint(1, cfg.steps + 1, (TRAIN_BATCH,), generator=gen, device="cuda")
-    from gan_class_transfer2_tpu_torch.core.schedule import alpha_dash
-
-    ad = alpha_dash(t.float(), cfg.steps, cfg.schedule)
-    ss, sn = ad.sqrt(), (1 - ad).sqrt()
+    t = torch.randint(1, cfg.steps + 1, (TRAIN_BATCH,), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    table = fd.scale_table(cfg.steps, cfg.schedule, "cuda")
     seed = torch.randint(0, 2**62, (1,), generator=gen, device="cuda")
     before = fd.diffuse_fused.launches
-    y = fd.diffuse_fused(x, ss, sn, seed)
-    ref = fd.diffuse_plain(x, ss, sn, seed)
+    y = fd.diffuse_fused(x, t, table, seed)
+    ref = fd.diffuse_plain(x, t, table, seed)
     torch.cuda.synchronize()
     err = (y - ref).abs().max().item()
     if not err <= DIFFUSE_ATOL:
         fail(f"diffuse kernel vs plain: max|err| {err} > {DIFFUSE_ATOL}")
-    if not torch.equal(fd.diffuse_fused(x, ss, torch.zeros_like(sn), seed), x * ss[:, None]):
+    if not torch.equal(fd.diffuse_fused(x, t, table, seed), y):
+        fail("diffuse kernel: two launches on the same inputs differ")
+    ss = table[t.long(), 0]
+    only_ss = torch.stack([table[:, 0], torch.zeros_like(table[:, 0])], 1)
+    if not torch.equal(fd.diffuse_fused(x, t, only_ss, seed), x * ss[:, None]):
         fail("diffuse kernel with sn = 0 is not x·ss")
-    eps = fd.diffuse_fused(torch.zeros_like(x), torch.zeros_like(ss), torch.ones_like(sn), seed)
+    noise = torch.tensor([[0.0, 1.0]], device="cuda")
+    eps = fd.diffuse_fused(x, torch.zeros_like(t), noise, seed)
     mean, std = eps.double().mean().item(), eps.double().std().item()
     if not (abs(mean) < 5 / eps.numel() ** 0.5 and abs(std - 1) < 5 / (2 * eps.numel()) ** 0.5):
         fail(f"diffuse kernel noise has mean {mean}, std {std}")
-    ms = cuda_ms(lambda: fd.diffuse_fused(x, ss, sn, seed), reps=50)
-    plain_ms = cuda_ms(lambda: fd.diffuse_plain(x, ss, sn, seed), reps=5)
+    call = lambda: fd.diffuse_fused(x, t, table, seed)  # noqa: E731
+    ms = cuda_ms(call, reps=50)
+    scrub = torch.empty(16 * 2**20, device="cuda")  # 64 MB written between launches: L2 cold
+    dev_ms = device_ms(call, "diffuse")
+    cold_ms = device_ms(call, "diffuse", before=lambda: scrub.fill_(1.0))
+    wrapper_ms = host_ms(call)
+    plain_ms = cuda_ms(lambda: fd.diffuse_plain(x, t, table, seed), reps=5)
     fd.diffuse_fused.launches = before
-    rows["diffuse_f32"] = _row(
-        "diffuse_f32", "gan_class_transfer2_tpu_torch/csrc/diffuse.cu",
-        "gan_class_transfer2_tpu/ops/kernels.py:44", 0, err, ms, plain_ms,
-        DIFFUSE_FLOPS_PER_ELEMENT * x.numel(), 2 * 4 * x.numel(), None)
+    elems = x.numel()
+    bytes_ms = _bytes_ms(8 * elems)
+    ops = DIFFUSE_INT_PER_ELEMENT * elems, DIFFUSE_FLOAT_PER_ELEMENT * elems
+    ops_ms = max(ops[0] / INT32_RATE, (ops[0] + ops[1]) / DISPATCH_RATE) * 1e3
+    bound = max(bytes_ms, ops_ms)
+    rows["diffuse_f32"] = {
+        "name": "diffuse_f32", "route": "cuda",
+        "source": "gan_class_transfer2_tpu_torch/csrc/diffuse.cu",
+        "replaces": "gan_class_transfer2_tpu/ops/kernels.py:44", "launches": 0,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": None,
+        "device_ms": dev_ms, "device_cold_ms": cold_ms, "host_ms": wrapper_ms}
     print(f"[train-kernel] B1 diffuse x{tuple(x.shape)}: max|err| {err:.3e} (bound "
-          f"{DIFFUSE_ATOL}); noise mean {mean:.2e} std {std:.5f}; kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {rows['diffuse_f32']['bound_ms']:.4f} ms "
-          f"({rows['diffuse_f32']['bound_by']}); no one-call library yardstick")
-    del x, y, ref, eps
+          f"{DIFFUSE_ATOL}), repeat bit-identical; noise mean {mean:.2e} std {std:.5f}; kernel "
+          f"{ms:.4f} ms back to back (host-included), device {dev_ms:.4f} ms L2 warm, "
+          f"{cold_ms:.4f} ms cold, the wrapper's host {wrapper_ms:.4f} ms a call; plain "
+          f"{plain_ms:.4f} ms; bound {bound:.4f} ms ({rows['diffuse_f32']['bound_by']}: bytes "
+          f"{bytes_ms:.4f}, operations {ops_ms:.4f}) = {bound / cold_ms:.1%} of the cold device "
+          f"time; no one-call library yardstick")
+    del x, y, ref, eps, scrub
 
     # ---- B2: every leaf of the default model, float32 and bfloat16 moments
     model = api.init_denoiser(cfg, device="cuda")
@@ -678,6 +757,144 @@ def phase_train(torch, cli, fdc, fd, adam_kernel, trainer, cfg):
         del state, step, xb
     fdc.down_conv_fused.launches = fd.diffuse_fused.launches = 0
     adam_kernel.adam_fused.launches = 0
+    return launches, results
+
+
+def phase_train_hbm(torch, fdc, fd, adam_kernel, trainer, cfg, synthetic):
+    """The training slice fed as users feed it from a pool in device memory:
+    a uint8 pool made from the seed on the card (HBM_POOL, 31.9 MB) behind
+    ``HBMDataset(raw=True)``, whose batches ``train_step`` crops, flips and
+    normalises itself; the default model at batch 16 on the kernel path
+    (B1, B2, B4), float32 and bfloat16, 3 + 10 steps: exact launch counts,
+    finite losses, img/s beside ``[train]``'s synthetic batch; one profiled
+    step with the augment's device time; a ``raw=False`` draw against
+    ``apply_augment`` on the same draws; and a tiny config's 3 uint8 steps on
+    the card and on the CPU (losses within 1e-4 relative, as
+    ``[reference]``). Returns the launches by kernel name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from gan_class_transfer2_tpu_torch.config import tiny_test_config
+    from gan_class_transfer2_tpu_torch.data import device_augment as aug
+    from gan_class_transfer2_tpu_torch.data.pipeline import EpochIndexStream
+    from gan_class_transfer2_tpu_torch.models import unet
+    from gan_class_transfer2_tpu_torch.utils import profiler
+
+    n_img, h, w = HBM_POOL
+    pool = torch.randint(0, 256, (n_img, h, w, 3), dtype=torch.uint8, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(21))
+    n_leaves = len(list(unet.Denoiser(cfg).parameters()))
+    per_step = (1, adam_kernel.launches_per_step(n_leaves), b4_per_call(fdc, cfg, TRAIN_BATCH))
+    steps = BENCH_WARMUP + BENCH_STEPS
+    launches = {"diffuse_f32": 0, "adam_f32m": 0, "adam_bf16m": 0,
+                "down_conv_k4s2_f32": 0, "down_conv_k4s2_bf16": 0}
+    for dtype in ("float32", "bfloat16"):
+        moments = "bfloat16" if dtype == "bfloat16" else "float32"
+        c = cfg.replace(batch_size=TRAIN_BATCH, compute_dtype=dtype, moment_dtype=moments,
+                        conv_impl="pallas", optimizer="adam_fused",
+                        fused_diffusion=True).validate()
+        data = iter(aug.HBMDataset(pool, c.size, TRAIN_BATCH, seed=0, raw=True, device="cuda"))
+        state = trainer.init_state(c, device="cuda")
+        step = trainer.make_train_step(c)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        fdc.down_conv_fused.launches = fd.diffuse_fused.launches = 0
+        adam_kernel.adam_fused.launches = 0
+        for i in range(steps):
+            if i == BENCH_WARMUP:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            state, loss = step(state, next(data), gen)
+        loss = float(loss)
+        secs = time.perf_counter() - t0
+        got = (fd.diffuse_fused.launches, adam_kernel.adam_fused.launches,
+               fdc.down_conv_fused.launches)
+        want = tuple(steps * k for k in per_step)
+        if got != want:
+            fail(f"train-hbm {dtype}: launches B1/B2/B4 {got}, expected {want}")
+        if not np.isfinite(loss):
+            fail(f"train-hbm {dtype}: loss {loss}")
+        launches["diffuse_f32"] += got[0]
+        launches["adam_bf16m" if moments == "bfloat16" else "adam_f32m"] += got[1]
+        launches["down_conv_k4s2_" + ("bf16" if dtype == "bfloat16" else "f32")] += got[2]
+        ips = TRAIN_BATCH * BENCH_STEPS / secs
+        print(f"[train-hbm] {dtype}: uint8 pool {tuple(pool.shape)} on the card, batch "
+              f"{TRAIN_BATCH}: launches B1/B2/B4 {got} over {steps} steps; {ips:.3f} img/s, "
+              f"{secs / BENCH_STEPS * 1e3:.3f} ms/step ([train] on a synthetic batch: "
+              f"{synthetic[(dtype, 'kernels')]['images_per_sec']} img/s); loss {loss:.5f}")
+
+        # one profiled step, its augment in a named range; then the augment
+        # of one batch alone
+        batch = next(data)
+        augment = trainer.augment_if_uint8
+
+        def named(*args):
+            with record_function("augment_if_uint8"):
+                return augment(*args)
+
+        trainer.augment_if_uint8 = named  # fold_and_augment looks it up at each call
+        try:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                state, loss = step(state, batch, gen)
+                torch.cuda.synchronize()
+        finally:
+            trainer.augment_if_uint8 = augment
+        busy = profiler.device_busy_ms(prof)
+        # the kernels launched inside the CPU-side range (the GPU-side
+        # annotation of the same name spans the host-paced gaps between them)
+        in_step = sum(e.device_time_total for e in prof.events()
+                      if e.name == "augment_if_uint8" and e.device_type == DeviceType.CPU) / 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            augment(c, batch, gen)
+            torch.cuda.synchronize()
+        alone = sum(e.device_time_total for e in prof.key_averages()
+                    if not e.key.startswith(("cuda", "Activity"))) / 1e3
+        print(f"[train-hbm] {dtype}: one profiled step: kernels busy {busy:.3f} ms, of which the "
+              f"augment (draws, gather, normalise) {in_step:.4f} ms ({in_step / busy:.2%}); the "
+              f"augment alone {alone:.4f} ms of device time")
+        del state, step, data, batch
+        torch.cuda.empty_cache()
+    fdc.down_conv_fused.launches = fd.diffuse_fused.launches = 0
+    adam_kernel.adam_fused.launches = 0
+
+    # a raw=False draw is apply_augment of the same rows and draws
+    ds = aug.HBMDataset(pool, cfg.size, TRAIN_BATCH, seed=4, device="cuda")
+    idx = EpochIndexStream(n_img, TRAIN_BATCH, seed=4).next_indices()
+    got = next(iter(ds))
+    off, flip = aug.draw_augment(TRAIN_BATCH, h, w, cfg.size,
+                                 torch.Generator(device="cuda").manual_seed(aug._key(4, 0)))
+    want = aug.apply_augment(pool[torch.from_numpy(idx).cuda()], off, flip, cfg.size)
+    if not torch.equal(got, want):
+        fail("HBMDataset(raw=False) differs from apply_augment on the same draws")
+    print(f"[train-hbm] HBMDataset(raw=False) batch {tuple(got.shape)} equals apply_augment on "
+          f"the same rows and draws")
+
+    # a tiny config, 3 uint8 steps on the card and on the CPU, B1 and B2 on;
+    # one CPU generator stream makes both draw the same crops, t and noise
+    tiny = tiny_test_config(fused_diffusion=True, optimizer="adam_fused", lr_schedule="constant",
+                            learning_rate=1e-3)
+    small = np.random.default_rng(22).integers(0, 256, (6, 20, 22, 3), dtype=np.uint8)
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        state = trainer.init_state(tiny, torch.Generator().manual_seed(0), device=dev)
+        step, gen = trainer.make_train_step(tiny), torch.Generator().manual_seed(5)
+        data = iter(aug.HBMDataset(small, tiny.size, 2, seed=1, raw=True, device=dev))
+        b1, b2 = fd.diffuse_fused.launches, adam_kernel.adam_fused.launches
+        losses[dev] = []
+        for _ in range(3):
+            state, loss = step(state, next(data), gen)
+            losses[dev].append(float(loss))
+        launched = (fd.diffuse_fused.launches - b1, adam_kernel.adam_fused.launches - b2)
+        fd.diffuse_fused.launches, adam_kernel.adam_fused.launches = b1, b2
+        if launched != ((0, 0) if dev == "cpu" else (3, 3)):
+            fail(f"train-hbm tiny on {dev}: B1/B2 launches {launched}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    print(f"[train-hbm] tiny uint8 train, 3 steps: losses card {losses['cuda']} CPU "
+          f"{losses['cpu']}; max relative diff {rel:.3e} (bound 1e-4)")
+    if not rel <= 1e-4:
+        fail(f"tiny uint8 training on the card differs from the CPU by {rel} relative")
+    del pool, ds
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1150,7 +1367,10 @@ def main():
     # the loss forward through backward()): train under torch's defaults
     torch.backends.cudnn.allow_tf32 = True
     train_rows, b4_err = phase_train_kernels(torch, F, fdc, fd, adam_kernel, api, cfg)
-    train_launches = phase_train(torch, cli, fdc, fd, adam_kernel, trainer, cfg)
+    train_launches, train_results = phase_train(torch, cli, fdc, fd, adam_kernel, trainer, cfg)
+    hbm_launches = phase_train_hbm(torch, fdc, fd, adam_kernel, trainer, cfg, train_results)
+    for name, n in hbm_launches.items():
+        train_launches[name] += n
     phase_train_agree(torch, fdc, adam_kernel, api, trainer, cfg)
 
     from gan_class_transfer2_tpu_torch.ops import norm

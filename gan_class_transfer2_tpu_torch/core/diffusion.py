@@ -26,13 +26,15 @@ def forward_diffuse(cfg, x, epsilon, t):
 
 
 def training_target(cfg, x, epsilon, t):
-    """``(target, prediction_scale)`` for the loss (reference train.py:238-252)."""
-    ad = _ad(cfg, t)
+    """``(target, prediction_scale)`` for the loss (reference train.py:238-252).
+    ᾱ(t) is computed only where the target needs it (``t`` may be None on the
+    ``x`` path)."""
     if cfg.parameterization == "ode":
         ad_prev = _ad(cfg, t - 1)
         return x * ad_prev**0.5 + epsilon * (1 - ad_prev) ** 0.5, 1.0
     if cfg.parameterization == "x":
         return x, 1.0
+    ad = _ad(cfg, t)
     target = epsilon
     if cfg.parameterization == "scaled_epsilon":
         target = target * (1 - ad) ** 0.5

@@ -16,15 +16,22 @@ sample takes two Philox blocks (``half`` 0 and 1), and each pair of words
 ``u2 = (b >> 8)·2⁻²⁴``, ``ε = √(−2 ln u1)·cos(2π·u2)``. Element
 ``4g + 2·half + j`` takes words ``(2j, 2j + 1)`` of block ``half``.
 
+The per-sample scales ``(ss, sn) = (√ᾱ(t), √(1 − ᾱ(t)))`` come from a
+(steps + 1, 2) table built once per ``(steps, schedule, device)``
+(``scale_table``), gathered by t inside the kernel: the step's draw of t and
+of the seed and the kernel are its only three launches for the noising.
+
 Three pieces, as for every kernel of the port:
 
   * ``diffuse_fused`` — the wrapper of csrc/diffuse.cu, with its launch
     counter ``diffuse_fused.launches``, inside ``FusedDiffuse``, the
     autograd Function whose backward is ``g·ss[b]`` (kernels.py:117-120);
-  * ``diffuse_plain`` — the same function in plain PyTorch: the same Philox
-    written in int64 arithmetic, its 32×32-bit products split into 16-bit
-    halves so that nothing overflows. Kernel and plain version draw the same
-    ε; they differ only by the float rounding of ``log`` and ``cos``;
+  * ``diffuse_plain`` — the same function in plain PyTorch: the same table
+    gather, the same Philox written in int64 arithmetic, its 32×32-bit
+    products split into 16-bit halves so that nothing overflows. Kernel and
+    plain version draw the same ε; on the card they agree bit for bit (the
+    kernel uses the library's IEEE log and cos), on the CPU up to the
+    rounding of ``log`` and ``cos``;
   * ``use_fused`` — the gate of trainer.py:289-296.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
@@ -97,46 +104,82 @@ def philox_normal(b: int, n: int, seed, device) -> torch.Tensor:
     return eps.reshape(b, n)  # element 4g + 2·half + j
 
 
-def diffuse_plain(x, ss, sn, seed):
-    """``x·ss[b] + ε·sn[b]`` with the kernel's ε, in float32. x: (B, N)
-    float32, ss/sn: (B,) float32, seed: int64 tensor of one element."""
+def diffuse_plain(x, t, table, seed):
+    """``x·ss[b] + ε·sn[b]`` with ``(ss, sn) = table[t[b]]`` and the kernel's
+    ε, in float32. x: (B, N) float32; t: (B,) integer; table: (rows, 2)
+    float32; seed: int64 tensor of one element."""
     b, n = x.shape
+    sc = table[t.reshape(b).long()]  # (B, 2)
     eps = philox_normal(b, n, seed, x.device)
-    return x * ss[:, None] + eps * sn[:, None]
+    return x * sc[:, :1] + eps * sc[:, 1:]
+
+
+_tables: dict = {}
+
+
+def scale_table(steps: int, schedule: str, device) -> torch.Tensor:
+    """The (steps + 1, 2) float32 table of ``(√ᾱ(t), √(1 − ᾱ(t)))`` for
+    t = 0 … steps on ``device``, built once per ``(steps, schedule,
+    device)`` by the torch ops the step ran on each batch before: float32 t,
+    ``alpha_dash``, ``sqrt(ad)``, ``sqrt(1 − ad)``."""
+    device = torch.device(device)
+    key = (steps, schedule, device)
+    table = _tables.get(key)
+    if table is None:
+        t = torch.arange(steps + 1, device=device).to(torch.float32)
+        ad = alpha_dash(t, steps, schedule).to(torch.float32)
+        table = _tables[key] = torch.stack([torch.sqrt(ad), torch.sqrt(1.0 - ad)], 1)
+    return table
+
+
+_fn = None
 
 
 def _entry():
-    fn = _build.load("diffuse").gct2_diffuse_f32
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+    global _fn
+    if _fn is None:
+        fn = _build.load("diffuse").gct2_diffuse_f32
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return fn
+        _fn = fn
+    return _fn
 
 
-def diffuse_fused(x, ss, sn, seed):
-    """Forward of B1: x (B, N) float32 contiguous with N % 4 == 0, ss/sn (B,)
-    float32, seed an int64 tensor of one element on x's device (read by the
-    kernel, so drawing it needs no host sync)."""
-    if x.device.type == "cpu":
-        return diffuse_plain(x, ss, sn, seed)
-    if x.device.type != "cuda":
+def diffuse_fused(x, t, table, seed):
+    """Forward of B1: the plain version for a CPU tensor, the kernel on the
+    current stream for a CUDA tensor (or an exception). x (B, N) float32
+    contiguous, 16-byte aligned, N % 4 == 0; t (B,) int32 and table
+    (rows, 2) float32, both contiguous; seed an int64 tensor of one element
+    (read by the kernel, so drawing it needs no host sync). All on x's
+    device. The checks read ints and flags only (no device or string
+    objects): the wrapper's host time paces back-to-back calls."""
+    if not x.is_cuda:
+        if x.is_cpu:
+            return diffuse_plain(x, t, table, seed)
         raise ValueError(f"diffuse_fused: no kernel for device {x.device}")
+    f32 = torch.float32
+    if x.dtype is not f32 or table.dtype is not f32 or t.dtype is not torch.int32 or (
+            seed.dtype is not torch.int64):
+        raise TypeError("diffuse_fused: x float32, t int32, table float32, seed int64")
+    index = x.get_device()
+    if t.get_device() != index or table.get_device() != index or seed.get_device() != index:
+        raise ValueError("diffuse_fused: x, t, table and seed must share a device")
     b, n = x.shape
-    if x.dtype != torch.float32 or ss.dtype != torch.float32 or sn.dtype != torch.float32:
-        raise TypeError("diffuse_fused: x, ss and sn must be float32")
-    if seed.dtype != torch.int64 or seed.numel() != 1:
-        raise TypeError("diffuse_fused: seed must be one int64 element")
-    if any(t.device != x.device for t in (ss, sn, seed)):
-        raise ValueError("diffuse_fused: x, ss, sn and seed must share a device")
-    if not x.is_contiguous() or x.data_ptr() % 16 or n % 4:
-        raise ValueError("diffuse_fused: x must be contiguous, 16-byte aligned, N % 4 == 0")
-    if tuple(ss.shape) != (b,) or tuple(sn.shape) != (b,):
-        raise ValueError(f"diffuse_fused: ss/sn must be ({b},)")
-    ss, sn = ss.contiguous(), sn.contiguous()
+    rows = table.shape
+    xp = x.data_ptr()
+    if (n % 4 or xp % 16 or not x.is_contiguous() or t.numel() != b or not t.is_contiguous()
+            or len(rows) != 2 or rows[1] != 2 or not table.is_contiguous() or seed.numel() != 1):
+        raise ValueError("diffuse_fused: x (B, N) contiguous, 16-byte aligned, N % 4 == 0; "
+                         "t (B,) and table (rows, 2) contiguous; one seed")
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = _entry()(x.data_ptr(), ss.data_ptr(), sn.data_ptr(), seed.data_ptr(),
-                       out.data_ptr(), b, n, torch.cuda.current_stream().cuda_stream)
+    args = (xp, t.data_ptr(), table.data_ptr(), rows[0], seed.data_ptr(), out.data_ptr(), b, n,
+            _build.current_stream(index))
+    if index == torch.cuda.current_device():
+        err = _entry()(*args)
+    else:
+        with torch.cuda.device(index):  # the launch goes to the current device
+            err = _entry()(*args)
     if err != 0:
         raise RuntimeError(f"diffuse kernel launch failed: CUDA error {err}")
     diffuse_fused.launches += 1
@@ -147,17 +190,19 @@ diffuse_fused.launches = 0
 
 
 class FusedDiffuse(torch.autograd.Function):
-    """B1 with its backward: d noised / dx = ss[b]. The scales and the seed
-    get no gradient (kernels.py:156-162: the schedule is not learned)."""
+    """B1 with its backward: d noised / dx = ss[b] = table[t[b], 0]. The
+    table and the seed get no gradient (kernels.py:156-162: the schedule is
+    not learned)."""
 
     @staticmethod
-    def forward(ctx, x, ss, sn, seed):
-        ctx.save_for_backward(ss)
-        return diffuse_fused(x, ss, sn, seed)
+    def forward(ctx, x, t, table, seed):
+        ctx.save_for_backward(t, table)
+        return diffuse_fused(x, t, table, seed)
 
     @staticmethod
     def backward(ctx, g):
-        (ss,) = ctx.saved_tensors
+        t, table = ctx.saved_tensors
+        ss = table[t.long(), 0]
         return g * ss[:, None].to(g.dtype), None, None, None
 
 
@@ -177,13 +222,16 @@ def use_fused(cfg, batch_shape, epsilon_in=None) -> bool:
     )
 
 
-def forward_diffuse_fused(cfg, x, t, seed):
+def forward_diffuse_fused(cfg, x, t_int, seed):
     """Drop-in for ``core.diffusion.forward_diffuse`` on the ``x`` path.
-    x: (B, H, W, C) float32; t: (B, 1, 1, 1) float; seed: int64 tensor of one
-    element on x's device. Returns ``noised``."""
+    x: (B, H, W, C) float32; t_int: B integer timesteps; seed: int64 tensor
+    of one element; all on x's device. The kernel gathers its scales from
+    ``scale_table`` by t, so the step launches nothing for them. Returns
+    ``noised``."""
     b = x.shape[0]
-    ad = alpha_dash(t.reshape(b), cfg.steps, cfg.schedule).to(torch.float32)
-    ss = torch.sqrt(ad).detach()
-    sn = torch.sqrt(1.0 - ad).detach()
-    out = FusedDiffuse.apply(x.reshape(b, -1), ss, sn, seed)
+    t = t_int.reshape(b)
+    if t.dtype != torch.int32:
+        t = t.to(torch.int32)
+    table = scale_table(cfg.steps, cfg.schedule, x.device)
+    out = FusedDiffuse.apply(x.reshape(b, -1), t.contiguous(), table, seed)
     return out.reshape(x.shape)

@@ -160,8 +160,10 @@ def gan_train_step(cfg, g_optimizer, d_optimizer, state: GANState, batch_a, batc
     """One G/D update (gan.py:140-299). Updates the four nets' parameters
     and the EMAs in place; returns ``(new_state, metrics)`` with float32
     scalar tensors on the batch's device (no host sync)."""
-    batch_a = trainer_lib.fold_and_augment(cfg, batch_a)
-    batch_b = trainer_lib.fold_and_augment(cfg, batch_b)
+    # HBM-resident uint8 batches are cropped, flipped and normalised on the
+    # device, each with its own draws, before anything else (gan.py:151-156)
+    batch_a = trainer_lib.augment_if_uint8(cfg, batch_a, generator)
+    batch_b = trainer_lib.augment_if_uint8(cfg, batch_b, generator)
 
     def aug(x):
         return diffaug.augment(cfg, generator, x)

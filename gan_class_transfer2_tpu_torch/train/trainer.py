@@ -40,6 +40,7 @@ import torch
 
 from ..core import diffusion
 from ..core.schedule import make_lr_schedule
+from ..data import device_augment
 from ..models import api as model_api
 from ..models import unet
 from ..ops import adam_kernel, fused_diffusion
@@ -347,20 +348,22 @@ def draw_and_diffuse(cfg, batch, generator, *, t_int=None, epsilon_in=None):
     """The (t, ε) draws, forward diffusion and target of ``diffusion_loss``
     (trainer.py:272-322). ``t_int``/``epsilon_in`` inject the draws (the
     step-parity harness). Returns ``(noised, target, prediction_scale,
-    t_int)`` with ``t_int`` (B, 1, 1, 1) int32 on the batch's device."""
+    t_int)`` with ``t_int`` (B, 1, 1, 1) int32 on the batch's device. On the
+    fused path the draws of t and of B1's seed and B1 itself are the only
+    launches: B1 gathers its scales by t."""
     b, dev = batch.shape[0], batch.device
     if t_int is None:
         t_int = torch.randint(1, cfg.steps + 1, (b, 1, 1, 1), generator=generator,
                               device=generator.device, dtype=torch.int32).to(dev)
     else:
         t_int = torch.as_tensor(t_int, dtype=torch.int32).reshape(b, 1, 1, 1).to(dev)
-    t = t_int.to(batch.dtype)
     if fused_diffusion.use_fused(cfg, batch.shape, epsilon_in):
         seed = torch.randint(0, 2**62, (1,), generator=generator, device=generator.device,
                              dtype=torch.int64).to(dev)
-        noised = fused_diffusion.forward_diffuse_fused(cfg, batch, t, seed)
-        epsilon = None  # never materialised
+        noised = fused_diffusion.forward_diffuse_fused(cfg, batch, t_int, seed)
+        epsilon, t = None, None  # ε never materialised; the x target needs no ᾱ(t)
     else:
+        t = t_int.to(batch.dtype)
         if epsilon_in is None:
             epsilon = torch.randn(batch.shape, generator=generator, device=generator.device,
                                   dtype=batch.dtype).to(dev)
@@ -371,8 +374,21 @@ def draw_and_diffuse(cfg, batch, generator, *, t_int=None, epsilon_in=None):
     return noised, target, pred_scale, t_int
 
 
+def _image(batch):
+    """The image tensor of a batch, or of a dict (labeled) batch."""
+    return batch["image"] if isinstance(batch, dict) else batch
+
+
 def diffusion_loss(cfg, model, batch, generator, *, t_int=None, epsilon_in=None):
-    """Draw (t, ε), noise the batch, predict, and take the loss."""
+    """Draw (t, ε), noise the batch, predict, and take the loss. A dict
+    batch gives its ``"image"``; a label in it needs the class-conditional
+    model, which is not ported."""
+    if isinstance(batch, dict):
+        if batch.get("label") is not None:
+            raise NotImplementedError(
+                "labeled batches need the class-conditional model (models/conditional.py), "
+                "which is not ported to PyTorch yet")
+        batch = batch["image"]
     noised, target, pred_scale, t_int = draw_and_diffuse(
         cfg, batch, generator, t_int=t_int, epsilon_in=epsilon_in)
     prediction = model_api.apply_denoiser(cfg, model, noised, t_int[:, 0, 0, 0])
@@ -380,16 +396,27 @@ def diffusion_loss(cfg, model, batch, generator, *, t_int=None, epsilon_in=None)
     return compute_loss(cfg, target, prediction)
 
 
-def fold_and_augment(cfg, batch):
-    """Float batches pass through. uint8 batches (HBM-resident raw pixels)
-    would be cropped, flipped and normalised on the device by
-    data/device_augment.py, which is not ported yet."""
-    if batch.dtype == torch.uint8:
-        raise NotImplementedError(
-            "uint8 batches need the on-device augment pipeline "
-            "(data/device_augment.py), which is not ported to PyTorch yet; "
-            "pass float batches in [-1, 1)")
-    return batch
+def augment_if_uint8(cfg, batch, generator):
+    """The on-device crop / flip / normalise of uint8 (HBM-resident raw
+    pixel) batches, ``data/device_augment.augment_batch`` at ``cfg.size``,
+    drawing from ``generator``; dict (labeled) batches keep their other
+    entries; float batches pass through untouched and draw nothing
+    (trainer.py:343-357)."""
+    raw = _image(batch)
+    if raw.dtype != torch.uint8:
+        return batch
+    augmented = device_augment.augment_batch(raw, generator, cfg.size)
+    if isinstance(batch, dict):
+        return dict(batch, image=augmented)
+    return augmented
+
+
+def fold_and_augment(cfg, batch, generator):
+    """The step's augment (trainer.py:325-340): a uint8 batch is cropped,
+    flipped and normalised before t and ε are drawn, outside the
+    differentiated region. JAX folds the step number into its key here; the
+    port's generator advances with every draw instead."""
+    return augment_if_uint8(cfg, batch, generator)
 
 
 def loss_and_grads(cfg, model, batch, generator, scale=None, *, t_int=None, epsilon_in=None):
@@ -399,7 +426,7 @@ def loss_and_grads(cfg, model, batch, generator, scale=None, *, t_int=None, epsi
     forward through the backward (``unet.ieee_fp32``): cuDNN would otherwise
     compute the weight and input gradients in TF32."""
     params = list(model.parameters())
-    with unet.ieee_fp32(torch.float32, batch.device):
+    with unet.ieee_fp32(torch.float32, _image(batch).device):
         loss = diffusion_loss(cfg, model, batch, generator, t_int=t_int, epsilon_in=epsilon_in)
         if scale is not None:
             loss = loss * scale
@@ -433,7 +460,7 @@ def train_step(cfg, optimizer, state: TrainState, batch, generator):
     """One optimizer step (trainer.py:360-442). Updates the model's
     parameters in place; returns ``(new_state, loss)`` with the loss a
     float32 tensor on the batch's device (no host sync)."""
-    batch = fold_and_augment(cfg, batch)
+    batch = fold_and_augment(cfg, batch, generator)
     dynamic = cfg.dynamic_loss_scale
     if dynamic:
         scale = state.scale_state.scale

@@ -34,6 +34,11 @@ def _t(*v):
     return tuple(torch.tensor(x, dtype=torch.int64) for x in v)
 
 
+def _scales(ss, sn):
+    """(t, table) with table[t[b]] = (ss[b], sn[b]): one row per sample."""
+    return torch.arange(len(ss), dtype=torch.int32), torch.stack([ss, sn], 1)
+
+
 @pytest.mark.parametrize("counter, key, want", [
     ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
     ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344), (0xA4093822, 0x299F31D0),
@@ -73,13 +78,13 @@ def test_normal_from_words_is_the_jax_box_muller():
 def test_zero_noise_scale_gives_x_times_ss_exactly():
     x = torch.from_numpy(np.random.default_rng(1).normal(size=(3, 384)).astype(np.float32))
     ss = torch.tensor([0.5, 0.25, 0.7], dtype=torch.float32)
-    out = fd.diffuse_fused(x, ss, torch.zeros(3), _seed(7))
+    out = fd.diffuse_fused(x, *_scales(ss, torch.zeros(3)), _seed(7))
     assert torch.equal(out, x * ss[:, None])
 
 
 def test_zero_signal_scale_gives_standard_normals():
     x = torch.full((4, N), 3.0)
-    eps = fd.diffuse_fused(x, torch.zeros(4), torch.ones(4), _seed(12345)).double()
+    eps = fd.diffuse_fused(x, *_scales(torch.zeros(4), torch.ones(4)), _seed(12345)).double()
     assert abs(eps.mean().item()) < 5 / (4 * N) ** 0.5
     assert abs(eps.std().item() - 1) < 5 / (2 * 4 * N) ** 0.5
     kurt = ((eps - eps.mean()) ** 4).mean().item() / eps.var().item() ** 2
@@ -90,11 +95,11 @@ def test_zero_signal_scale_gives_standard_normals():
 
 def test_same_seed_same_noise_other_seeds_and_samples_decorrelated():
     x = torch.zeros((2, N))
-    one, zero = torch.ones(2), torch.zeros(2)
-    a = fd.diffuse_fused(x, zero, one, _seed(1))
-    assert torch.equal(a, fd.diffuse_fused(x, zero, one, _seed(1)))
-    b = fd.diffuse_fused(x, zero, one, _seed(2))
-    c = fd.diffuse_fused(x, zero, one, _seed(1 << 40))  # the seed's high word keys too
+    noise = _scales(torch.zeros(2), torch.ones(2))
+    a = fd.diffuse_fused(x, *noise, _seed(1))
+    assert torch.equal(a, fd.diffuse_fused(x, *noise, _seed(1)))
+    b = fd.diffuse_fused(x, *noise, _seed(2))
+    c = fd.diffuse_fused(x, *noise, _seed(1 << 40))  # the seed's high word keys too
     bound = 5 / N**0.5
     for u, v in ((a[0], b[0]), (a[0], c[0]), (a[0], a[1]), (a[0, :-1], a[0, 1:])):
         assert abs(torch.corrcoef(torch.stack([u, v]))[0, 1].item()) < bound
@@ -113,22 +118,34 @@ def test_layout_of_the_stream():
 def test_gradient_is_g_times_ss():
     x = torch.randn((2, 256), generator=torch.Generator().manual_seed(0), requires_grad=True)
     ss = torch.tensor([0.3, 0.9])
-    out = fd.FusedDiffuse.apply(x, ss, torch.tensor([0.5, 0.1]), _seed(3))
+    t, table = _scales(ss, torch.tensor([0.5, 0.1]))
+    out = fd.FusedDiffuse.apply(x, t.flip(0), table.flip(0), _seed(3))  # a gather that moves rows
     g = torch.randn_like(out)
     (dx,) = torch.autograd.grad(out, x, g)
     torch.testing.assert_close(dx, g * ss[:, None], rtol=0, atol=0)
+    # forward_diffuse_fused keeps the gradient for an x that asks for one
+    from gan_class_transfer2_tpu_torch.config import tiny_test_config
+
+    cfg = tiny_test_config(fused_diffusion=True)
+    x4 = x.detach().reshape(2, 16, 16, 1).requires_grad_()
+    steps = torch.tensor([3, 8], dtype=torch.int32)
+    out = fd.forward_diffuse_fused(cfg, x4, steps, _seed(3))
+    (dx,) = torch.autograd.grad(out, x4, torch.ones_like(out))
+    want = fd.scale_table(cfg.steps, cfg.schedule, "cpu")[steps.long(), 0]
+    torch.testing.assert_close(dx, want.reshape(2, 1, 1, 1).expand_as(x4), rtol=0, atol=0)
 
 
 def test_cpu_wrapper_launches_nothing():
     before = fd.diffuse_fused.launches
-    fd.diffuse_fused(torch.zeros((1, 128)), torch.ones(1), torch.ones(1), _seed(0))
+    fd.diffuse_fused(torch.zeros((1, 128)), *_scales(torch.ones(1), torch.ones(1)), _seed(0))
     assert fd.diffuse_fused.launches == before == 0
 
 
 def test_wrapper_refuses_devices_without_a_kernel():
     x = torch.empty((1, 128), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
-        fd.diffuse_fused(x, torch.empty(1, device="meta"), torch.empty(1, device="meta"),
+        fd.diffuse_fused(x, torch.empty(1, dtype=torch.int32, device="meta"),
+                         torch.empty((3, 2), device="meta"),
                          torch.empty(1, dtype=torch.int64, device="meta"))
 
 
@@ -167,9 +184,76 @@ def test_fused_step_noises_with_the_kernel_stream():
     cfg = tiny_test_config(fused_diffusion=True)
     x = torch.from_numpy(np.random.default_rng(2).uniform(-1, 1, (2, 16, 16, 3))
                          .astype(np.float32))
-    t = torch.tensor([3.0, 8.0]).reshape(2, 1, 1, 1)
+    t = torch.tensor([3, 8], dtype=torch.int32).reshape(2, 1, 1, 1)
     out = fd.forward_diffuse_fused(cfg, x, t, _seed(11))
-    ad = alpha_dash(t.reshape(2), cfg.steps, cfg.schedule)
+    ad = alpha_dash(t.reshape(2).to(torch.float32), cfg.steps, cfg.schedule)
     eps = fd.philox_normal(2, 768, _seed(11), "cpu").reshape(x.shape)
     want = x * ad.sqrt().reshape(2, 1, 1, 1) + eps * (1 - ad).sqrt().reshape(2, 1, 1, 1)
     torch.testing.assert_close(out, want, rtol=0, atol=0)
+
+
+SCHEDULES = ("quadratic", "exponential", "rational_exponential", "geometric", "cosine2",
+             "quartic")
+
+
+@pytest.mark.parametrize("schedule", SCHEDULES)
+def test_scale_table_is_the_steps_own_scales_bit_for_bit(schedule):
+    """Row t of the table equals what the step computed from t before the
+    table existed, sqrt(alpha_dash(t)) and sqrt(1 − alpha_dash(t)) on float32
+    t, bit for bit, for every t in 0 … steps; one table per (steps,
+    schedule, device)."""
+    from gan_class_transfer2_tpu_torch.core.schedule import alpha_dash
+
+    steps = 200
+    table = fd.scale_table(steps, schedule, "cpu")
+    assert table.shape == (steps + 1, 2) and table.dtype == torch.float32
+    t = torch.arange(steps + 1, dtype=torch.int32).reshape(-1, 1, 1, 1).to(torch.float32)
+    ad = alpha_dash(t.reshape(-1), steps, schedule).to(torch.float32)
+    assert torch.equal(table[:, 0], torch.sqrt(ad))
+    assert torch.equal(table[:, 1], torch.sqrt(1.0 - ad))
+    assert fd.scale_table(steps, schedule, torch.device("cpu")) is table
+    assert fd.scale_table(10, schedule, "cpu").shape == (11, 2)
+
+
+def test_plain_version_gathers_its_scales_by_t():
+    """diffuse_plain(x, t, table) is x·table[t, 0] + ε·table[t, 1] with the
+    kernel's ε, for any order of t; a t past the table raises on the CPU
+    (the kernel writes NaN there)."""
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(3, 256)).astype(np.float32))
+    table = torch.tensor([[0.9, 0.1], [0.5, 0.8], [0.2, 0.95]])
+    t = torch.tensor([2, 0, 2], dtype=torch.int32)
+    eps = fd.philox_normal(3, 256, _seed(4), "cpu")
+    want = x * table[t.long(), :1] + eps * table[t.long(), 1:]
+    assert torch.equal(fd.diffuse_plain(x, t, table, _seed(4)), want)
+    with pytest.raises(IndexError):
+        fd.diffuse_plain(x, torch.tensor([0, 1, 3], dtype=torch.int32), table, _seed(4))
+
+
+def test_fused_prologue_is_two_draws_and_one_kernel_call(monkeypatch):
+    """On the fused path the step's noising is the draw of t, the draw of
+    B1's seed and one B1 call: the scales come from the cached table, so
+    alpha_dash is not evaluated again once the table exists, and the x
+    target needs no ᾱ(t)."""
+    from gan_class_transfer2_tpu_torch.config import tiny_test_config
+    from gan_class_transfer2_tpu_torch.core import diffusion
+    from gan_class_transfer2_tpu_torch.train import trainer
+
+    cfg = tiny_test_config(fused_diffusion=True)
+    batch = torch.zeros((2, 16, 16, 3))
+    trainer.draw_and_diffuse(cfg, batch, torch.Generator().manual_seed(0))  # builds the table
+    calls = {"alpha_dash": 0, "diffuse_fused": 0, "randint": 0}
+
+    def counted(name, fn):
+        def wrapper(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    monkeypatch.setattr(fd, "alpha_dash", counted("alpha_dash", fd.alpha_dash))
+    monkeypatch.setattr(diffusion, "_ad", counted("alpha_dash", diffusion._ad))
+    monkeypatch.setattr(fd, "diffuse_fused", counted("diffuse_fused", fd.diffuse_fused))
+    monkeypatch.setattr(torch, "randint", counted("randint", torch.randint))
+    noised, target, scale, t_int = trainer.draw_and_diffuse(cfg, batch,
+                                                            torch.Generator().manual_seed(0))
+    assert calls == {"alpha_dash": 0, "diffuse_fused": 1, "randint": 2}
+    assert target is batch and scale == 1.0 and t_int.dtype == torch.int32

@@ -359,12 +359,28 @@ def test_diffaug_draws_are_fresh_on_consecutive_steps(monkeypatch):
     assert all(torch.equal(x, y) for x, y in zip(seen, first))
 
 
-def test_uint8_batches_name_the_missing_augment_module():
+def test_uint8_batches_name_the_missing_augment_module(monkeypatch):
+    """uint8 batches, once refused for want of data/device_augment.py, now go
+    through it (gan.py:151-156): each of the two batches is augmented once,
+    with its own draws, and the generators see exactly those float32
+    outputs. (Equality with the float step: test_torch_device_augment.py.)"""
+    from gan_class_transfer2_tpu_torch.data import device_augment
+
     jcfg, cfg = _cfgs()
     state = gan.init_gan_state(cfg, device="cpu")
-    x = torch.zeros((2, 16, 16, 3), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="device_augment"):
-        gan.make_gan_train_step(cfg)(state, x, x, torch.Generator())
+    x = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (2, 24, 24, 3),
+                                                           dtype=np.uint8))
+    seen, inputs = [], []
+    augment = device_augment.augment_batch
+    generate = gan._generate
+    monkeypatch.setattr(device_augment, "augment_batch",
+                        lambda raw, g, size: seen.append(augment(raw, g, size)) or seen[-1])
+    monkeypatch.setattr(gan, "_generate", lambda c, m, b: inputs.append(b) or generate(c, m, b))
+    _, metrics = gan.make_gan_train_step(cfg)(state, x, x, torch.Generator().manual_seed(0))
+    assert len(seen) == 2 and not torch.equal(seen[0], seen[1])  # own draws, same pixels
+    assert all(t.dtype == torch.float32 and t.shape == (2, 16, 16, 3) for t in inputs)
+    assert torch.equal(inputs[0], seen[0]) and torch.equal(inputs[1], seen[1])
+    assert all(torch.isfinite(v) for v in metrics.values())
 
 
 # ------------------------------------------------------------ state carry

@@ -239,25 +239,41 @@ def test_down_conv_gradient_matches_plain_autograd_on_card(monkeypatch):
 
 @pytest.mark.cuda
 def test_diffuse_kernel_matches_plain_on_card(monkeypatch):
-    """B1 against its plain version (the same Philox words in int64 torch
-    ops, on the card): equal up to the rounding of log and cos in ε, 4e-6
-    absolute (|ε| < 6, a few float32 ulps); with sn = 0 exactly x·ss; one
-    launch per call."""
+    """B1 against its plain version (the same table gather and the same
+    Philox words in int64 torch ops, on the card) at batch 1, 16 and 64 and
+    N = 16²×3, 256²×3 and a ragged tail of the kernel's tiling (groups of 4
+    elements, 1024 groups a block per pass): within 4e-6 absolute (|ε| < 6,
+    a few float32 ulps; the IEEE log and cos make it 0 on an H100); two
+    launches bit-identical; with sn = 0 exactly x·ss; one launch per call; a
+    t past the table gives NaN; an unaligned or non-float32 x is refused."""
     from gan_class_transfer2_tpu_torch.ops import fused_diffusion as fd
 
     _needs_card(monkeypatch)
     r = np.random.default_rng(2)
-    for b, n in ((3, 768), (16, 256 * 256 * 3)):
+    seed = torch.tensor([0x1234_5678_9ABC], dtype=torch.int64, device="cuda")
+    table = fd.scale_table(200, "quadratic", "cuda")
+    for b, n in ((1, 768), (16, 768), (64, 768), (1, 256 * 256 * 3), (16, 256 * 256 * 3),
+                 (64, 256 * 256 * 3), (3, 4 * (3 * 1024 + 37))):
         x = torch.from_numpy(r.uniform(-1, 1, (b, n)).astype(np.float32)).cuda()
-        ss = torch.from_numpy(r.uniform(0, 0.5, b).astype(np.float32)).cuda()
-        sn = torch.sqrt(1 - ss * ss)
-        seed = torch.tensor([0x1234_5678_9ABC], dtype=torch.int64, device="cuda")
+        t = torch.from_numpy(r.integers(0, 201, b).astype(np.int32)).cuda()
         before = fd.diffuse_fused.launches
-        y = fd.diffuse_fused(x, ss, sn, seed)
+        y = fd.diffuse_fused(x, t, table, seed)
         torch.cuda.synchronize()
         assert fd.diffuse_fused.launches == before + 1
-        assert (y - fd.diffuse_plain(x, ss, sn, seed)).abs().max().item() <= 4e-6
-        assert torch.equal(fd.diffuse_fused(x, ss, torch.zeros_like(sn), seed), x * ss[:, None])
+        assert (y - fd.diffuse_plain(x, t, table, seed)).abs().max().item() <= 4e-6, (b, n)
+        assert torch.equal(y, fd.diffuse_fused(x, t, table, seed)), (b, n)
+        ss_only = torch.stack([table[:, 0], torch.zeros_like(table[:, 0])], 1)
+        ss = table[t.long(), 0]
+        assert torch.equal(fd.diffuse_fused(x, t, ss_only, seed), x * ss[:, None]), (b, n)
+    x = torch.zeros((2, 768), device="cuda")
+    past = torch.tensor([3, 201], dtype=torch.int32, device="cuda")
+    y = fd.diffuse_fused(x, past, table, seed)
+    assert torch.isfinite(y[0]).all() and torch.isnan(y[1]).all()
+    buf = torch.zeros(2 * 768 + 1, device="cuda")
+    with pytest.raises(ValueError, match="aligned"):
+        fd.diffuse_fused(buf[1:].view(2, 768), past, table, seed)
+    with pytest.raises(TypeError, match="float32"):
+        fd.diffuse_fused(x.double(), past, table, seed)
 
 
 @pytest.mark.cuda

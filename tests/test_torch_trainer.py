@@ -307,12 +307,35 @@ def test_static_loss_scale_returns_the_unscaled_loss():
     np.testing.assert_allclose(float(l1), float(l2), rtol=1e-6)
 
 
-def test_uint8_batches_name_the_missing_augment_module():
+def test_uint8_batches_name_the_missing_augment_module(monkeypatch):
+    """uint8 batches, once refused for want of data/device_augment.py, now go
+    through it, where trainer.py:331-334 puts it: ``augment_batch`` runs once,
+    before the differentiated region (``loss_and_grads``) and so before t and
+    the seed are drawn, and the loss sees exactly its float32 output.
+    (Equality with the float step: test_torch_device_augment.py.)"""
+    from gan_class_transfer2_tpu_torch.data import device_augment
+
     cfg = tiny_test_config()
-    state = _tiny_state(cfg)
-    with pytest.raises(NotImplementedError, match="device_augment"):
-        trainer.make_train_step(cfg)(state, torch.zeros((2, 16, 16, 3), dtype=torch.uint8),
-                                     torch.Generator())
+    raw = torch.from_numpy(np.random.default_rng(5).integers(0, 256, (2, 20, 20, 3),
+                                                             dtype=np.uint8))
+    calls, augmented = [], []
+    augment, differentiate = device_augment.augment_batch, trainer.loss_and_grads
+
+    def spy_augment(r, g, size):
+        calls.append("augment")
+        augmented.append(augment(r, g, size))
+        return augmented[-1]
+
+    def spy_differentiate(c, m, batch, g, *a, **k):
+        calls.append("loss_and_grads")
+        assert batch is augmented[-1] and batch.dtype == torch.float32
+        return differentiate(c, m, batch, g, *a, **k)
+
+    monkeypatch.setattr(device_augment, "augment_batch", spy_augment)
+    monkeypatch.setattr(trainer, "loss_and_grads", spy_differentiate)
+    _, loss = trainer.make_train_step(cfg)(_tiny_state(cfg), raw, torch.Generator().manual_seed(4))
+    assert calls == ["augment", "loss_and_grads"]
+    assert augmented[0].shape == (2, cfg.size, cfg.size, 3) and torch.isfinite(loss)
 
 
 @pytest.mark.parametrize("field, value, match", [

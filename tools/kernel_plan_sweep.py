@@ -10,14 +10,30 @@ its neighbours:
   * B3 (csrc/instance_norm.cu): at the seven GAN maps at batch 16, every
     cluster size from 1 to 8 that puts at least 64 blocks on the card;
   * the host cost of one B4 call (wrapper, bare C entry, one F.conv2d) at a
-    shape whose device time is small.
+    shape whose device time is small;
+  * B1 (csrc/diffuse.cu) at batch 16 × 256²×3: device time with L2 warm
+    and cold (after a 64 MB scrub write), ptxas registers and spills, the
+    SASS instructions by class, two probes built here and nowhere else (the
+    Philox rounds cut to one XOR: what Philox costs; ``--use_fast_math``:
+    what the IEEE log, cos and sqrt cost), the host µs of one wrapper call
+    against the bare C entry, and the launches and host µs of the train
+    step's draw of (t, seed) and its forward diffusion
+    (``trainer.draw_and_diffuse``);
+  * B1's knobs (``b1-knobs``): groups a thread and the form of Philox's
+    multiply, set by substitution in its source, device time of each.
 
-Run it from the root of a checkout on a machine with a card:
+Run it from the root of a checkout on a machine with a card, with the
+sections to run (default all):
 
-    python3 tools/kernel_plan_sweep.py
+    python3 tools/kernel_plan_sweep.py [b4] [b3] [host] [b1] [b1-knobs]
 """
 
+import collections
+import ctypes
+import hashlib
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -26,7 +42,8 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
 from gan_class_transfer2_tpu_torch.ops import _build  # noqa: E402
 from gan_class_transfer2_tpu_torch.ops import fused_down_conv as fdc  # noqa: E402
@@ -36,8 +53,9 @@ B4_SHAPES = ((128, 128, 256), (64, 256, 512), (32, 512, 512), (16, 512, 512))
 B3_MAPS = ((256, 64), (128, 128), (64, 256), (32, 512), (16, 512), (8, 512), (4, 512))
 
 
-def device_us(fn, reps=10):
-    """Device time of one call of fn, summed over its CUDA kernels."""
+def device_us(fn, reps=10, match=None):
+    """Device time of one call of fn, summed over its CUDA kernels (those
+    whose name contains ``match``, when given)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -45,7 +63,8 @@ def device_us(fn, reps=10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.device_time_total for e in prof.key_averages()) / reps
+    return sum(e.device_time_total for e in prof.key_averages()
+               if match is None or match in e.key) / reps
 
 
 def host_us(fn, reps=300):
@@ -134,17 +153,237 @@ def host_cost(gen):
           + ", ".join(f"{k} {v:.1f}" for k, v in rows.items()))
 
 
+# ------------------------------------------------------------------ B1
+
+SASS_CLASSES = ("IMAD.HI", "IMAD.WIDE", "IMAD", "LOP3", "IADD3", "SHF", "I2F", "MUFU", "FFMA",
+                "FMUL", "FADD", "LDG", "STG")
+# the Philox rounds of a probe: one XOR of the key into each counter, so the
+# words still vary with (group, sample, half, seed) and nothing is folded away
+NO_PHILOX = ("  for (int i = 0; i < BLOCKS; ++i) {\n    c[i][0] ^= k0;\n    c[i][1] ^= k1;\n"
+             "    c[i][2] ^= k0;\n    c[i][3] ^= k1;\n  }\n")
+
+
+def _tool(name):
+    found = shutil.which(name) or f"/usr/local/cuda/bin/{name}"
+    if not os.path.exists(found):
+        raise RuntimeError(f"{name} not found")
+    return found
+
+
+def build_variant(tag, source, extra=()):
+    """nvcc ``source`` (text) with the port's flags and ``extra`` into
+    build/; returns (CDLL, ptxas lines, SASS counts by class)."""
+    key = hashlib.sha1(source.encode() + " ".join(extra).encode()).hexdigest()[:10]
+    _build.BUILD.mkdir(parents=True, exist_ok=True)
+    cu = _build.BUILD / f"probe-{tag}-{key}.cu"
+    so = cu.with_suffix(".so")
+    cu.write_text(source)
+    done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, *extra, "-o", str(so), str(cu)],
+                          capture_output=True, text=True)
+    if done.returncode:
+        raise RuntimeError(f"nvcc {tag}:\n{done.stderr}")
+    ptxas = [ln.strip() for ln in (done.stdout + done.stderr).splitlines()
+             if "registers" in ln or "spill" in ln or "stack" in ln]
+    sass = subprocess.run([_tool("cuobjdump"), "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+    counts = collections.Counter()
+    for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)", sass):
+        op = m.group(1)
+        counts[next((c for c in SASS_CLASSES if op == c or op.startswith(c + ".")), "other")] += 1
+    return ctypes.CDLL(str(so)), ptxas, counts
+
+
+def without_philox(source, body):
+    """The source with philox4x32_10's rounds replaced by ``body``."""
+    pat = r"(__device__ __forceinline__ void philox4x32_10\(.*?\) \{\n).*?\n\}\n"
+    out, n = re.subn(pat, lambda m: m.group(1) + body + "}\n", source, count=1, flags=re.S)
+    if n != 1:
+        raise RuntimeError("philox4x32_10 not found in the source")
+    return out
+
+
+def _table_args(fn, x, t, table, seed, out):
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    b, n = x.shape
+    return (x.data_ptr(), t.data_ptr(), table.data_ptr(), table.shape[0], seed.data_ptr(),
+            out.data_ptr(), b, n, _build.current_stream(x.device.index))
+
+
+INT_CLASSES = ("IMAD.HI", "IMAD.WIDE", "IMAD", "LOP3", "IADD3", "SHF")
+
+
+def sweep_b1(gen):
+    from gan_class_transfer2_tpu_torch.config import Config
+    from gan_class_transfer2_tpu_torch.ops import fused_diffusion as fd
+    from gan_class_transfer2_tpu_torch.train import trainer
+
+    cfg = Config().validate()
+    b, n = 16, cfg.size * cfg.size * 3
+    x = torch.rand((b, n), generator=gen, device="cuda") * 2 - 1
+    t = torch.randint(1, cfg.steps + 1, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    table = fd.scale_table(cfg.steps, cfg.schedule, "cuda")
+    seed = torch.randint(0, 2**62, (1,), generator=gen, device="cuda")
+    out = torch.empty_like(x)
+    scrub = torch.empty(16 * 2**20, device="cuda")  # 64 MB, more than the 50 MB L2
+    ref = fd.diffuse_plain(x, t, table, seed)
+    nbytes = 8 * x.numel()
+    print(f"[b1] x ({b}, {n}) float32; {nbytes / 1e6:.1f} MB moved; byte bound "
+          f"{nbytes / 3.35e12 * 1e6:.2f} us at 3.35 TB/s")
+    source = (_build.CSRC / "diffuse.cu").read_text()
+    ints = {}
+    for tag, src, extra in (("as built", source, ()),
+                            ("no Philox", without_philox(source, NO_PHILOX), ()),
+                            ("fast math", source, ("--use_fast_math",))):
+        lib, ptxas, sass = build_variant(tag.replace(" ", "_"), src, extra)
+        fn = lib.gct2_diffuse_f32
+        args = _table_args(fn, x, t, table, seed, out)
+
+        def call(fn=fn, args=args):
+            err = fn(*args)
+            if err:
+                raise RuntimeError(f"CUDA error {err}")
+
+        if tag == "as built":
+            bare = call
+        ints[tag] = sum(sass[c] for c in INT_CLASSES)
+        call()
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        warm = device_us(call, reps=100, match="diffuse")
+        cold = device_us(lambda: (scrub.fill_(1.0), call()), reps=100, match="diffuse")
+        print(f"[b1] csrc/diffuse.cu, {tag}: device us L2 warm {warm:.2f}, cold {cold:.2f} "
+              f"(= {nbytes / 3.35e12 * 1e6 / cold:.0%} of the byte bound); max|out - plain| "
+              f"{err:.3e}; ptxas {' | '.join(ptxas)}")
+        print("[b1]   SASS (static, whole kernel): "
+              + ", ".join(f"{c} {sass[c]}" for c in (*SASS_CLASSES, "other")))
+    groups = int(re.search(r"constexpr int GROUPS = (\d+);", source).group(1))
+    philox = ints["as built"] - ints["no Philox"]
+    print(f"[b1] integer SASS the Philox rounds add: {philox} for a thread's {4 * groups} "
+          f"elements, {philox / (4 * groups):.1f} an element")
+    # host cost of one call, back to back: the bare C entry, the wrapper, and
+    # the wrapper's CUDA-event mean (as chip_smoke.py times it)
+    print(f"[b1] host us a call, back to back: wrapper "
+          f"{host_us(lambda: fd.diffuse_fused(x, t, table, seed)):.2f}; bare C entry "
+          f"{host_us(bare):.2f}; CUDA-event mean of the wrapper "
+          f"{cuda_event_us(lambda: fd.diffuse_fused(x, t, table, seed)):.2f}")
+
+    # the step's prologue on the fused path: the draws of t and the seed, and
+    # B1 through its autograd Function
+    batch = x.reshape(b, cfg.size, cfg.size, 3)
+    step_gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def prologue():
+        trainer.draw_and_diffuse(cfg, batch, step_gen)
+
+    for _ in range(3):
+        prologue()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prologue()
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    launches = sum(e.count for e in rows if e.key in ("cudaLaunchKernel", "cudaMemcpyAsync"))
+    kernels = [(e.key, e.count) for e in rows if e.device_time_total > 0
+               and not e.key.startswith(("cuda", "aten::", "Activity"))]
+    print(f"[b1] draw_and_diffuse (fused path, generator on the card): {launches} launches a "
+          f"step ({sum(c for _, c in kernels)} device ops), host us a call "
+          f"{host_us(prologue):.2f}, device us {device_us(prologue):.2f}; "
+          + "; ".join(f"{c} x {k[:50]}" for k, c in kernels))
+
+
+B1_KNOBS = {
+    # float4 groups a thread takes
+    "groups": ("constexpr int GROUPS = 2;", "constexpr int GROUPS = {};"),
+    # each Philox product as one 32×32→64 multiply (IMAD.WIDE.U32) instead
+    # of a low and a high multiply
+    "wide": ("const uint32_t lo0 = 0xD2511F53u * c[i][0], hi0 = __umulhi(0xD2511F53u, c[i][0]);\n"
+             "      const uint32_t lo1 = 0xCD9E8D57u * c[i][2], hi1 = __umulhi(0xCD9E8D57u, c[i][2]);",
+             "const unsigned long long p0 = 0xD2511F53ull * c[i][0], p1 = 0xCD9E8D57ull * c[i][2];\n"
+             "      const uint32_t lo0 = static_cast<uint32_t>(p0), hi0 = static_cast<uint32_t>(p0 >> 32);\n"
+             "      const uint32_t lo1 = static_cast<uint32_t>(p1), hi1 = static_cast<uint32_t>(p1 >> 32);"),
+}
+
+
+def sweep_b1_knobs(gen):
+    """Device time of csrc/diffuse.cu with its knobs set otherwise (by
+    substitution in its source, B1_KNOBS), at batch 16 × 256²×3, L2 warm
+    and cold; then the host cost of one call at a shape whose device time
+    is small."""
+    from gan_class_transfer2_tpu_torch.ops import fused_diffusion as fd
+
+    b, n = 16, 256 * 256 * 3
+    x = torch.rand((b, n), generator=gen, device="cuda") * 2 - 1
+    t = torch.randint(1, 201, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    table = fd.scale_table(200, "quadratic", "cuda")
+    seed = torch.randint(0, 2**62, (1,), generator=gen, device="cuda")
+    out = torch.empty_like(x)
+    scrub = torch.empty(16 * 2**20, device="cuda")
+    ref = fd.diffuse_plain(x, t, table, seed)
+    source = (_build.CSRC / "diffuse.cu").read_text()
+    if any(old not in source for old, _ in B1_KNOBS.values()):
+        raise RuntimeError("a knob's text is not in csrc/diffuse.cu")
+    for groups in (1, 2, 4, 8):
+        for wide in (False, True):
+            src = source.replace(B1_KNOBS["groups"][0], B1_KNOBS["groups"][1].format(groups))
+            if wide:
+                src = src.replace(*B1_KNOBS["wide"])
+            lib, ptxas, sass = build_variant(f"knob_g{groups}{'w' if wide else ''}", src)
+            fn = lib.gct2_diffuse_f32
+            args = _table_args(fn, x, t, table, seed, out)
+            call = lambda fn=fn, args=args: fn(*args)  # noqa: E731
+            call()
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            warm = device_us(call, reps=100, match="diffuse")
+            cold = device_us(lambda: (scrub.fill_(1.0), call()), reps=100, match="diffuse")
+            regs = next((ln.split("Used ")[1].split(",")[0] for ln in ptxas if "Used" in ln), "?")
+            print(f"[b1-knobs] groups {groups}, wide {wide}: device us warm {warm:.2f}, cold "
+                  f"{cold:.2f}; {regs}; max|out - plain| {err:.1e}; SASS IMAD.WIDE "
+                  f"{sass['IMAD.WIDE']} IMAD.HI {sass['IMAD.HI']} IMAD {sass['IMAD']} LOP3 "
+                  f"{sass['LOP3']} IADD3 {sass['IADD3']}")
+    # the host's share: one call at a shape whose device time is ~2 us
+    xs, ts, small = x[:1, :768].contiguous(), t[:1].contiguous(), out[:1, :768].contiguous()
+    fn = fd._entry()
+    args = _table_args(fn, xs, ts, table, seed, small)
+    print(f"[b1-knobs] host us a call at (1, 768): wrapper "
+          f"{host_us(lambda: fd.diffuse_fused(xs, ts, table, seed)):.2f}, bare C entry "
+          f"{host_us(lambda: fn(*args)):.2f}, torch.empty_like "
+          f"{host_us(lambda: torch.empty_like(xs)):.2f}")
+
+
+def cuda_event_us(fn, reps=50):
+    """CUDA-event mean over back-to-back calls, as chip_smoke.py times."""
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps * 1e3
+
+
+SECTIONS = {"b4": sweep_b4, "b3": sweep_b3, "host": host_cost, "b1": sweep_b1,
+            "b1-knobs": sweep_b1_knobs}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("kernel_plan_sweep: needs an NVIDIA card")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+    names = sys.argv[1:] or list(SECTIONS)
+    if any(n not in SECTIONS for n in names):
+        sys.exit(f"kernel_plan_sweep: sections are {sorted(SECTIONS)}, got {names}")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
+                           "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(f"[sweep] {card.splitlines()[0]}; torch {torch.__version__}")
-    _build.build_all(["down_conv", "instance_norm"])
+    _build.build_all()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    sweep_b4(gen)
-    sweep_b3(gen)
-    host_cost(gen)
+    for name in names:
+        SECTIONS[name](gen)
 
 
 if __name__ == "__main__":

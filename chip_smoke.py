@@ -53,6 +53,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      steps on the card and on the CPU, losses alike;
   8. train-agree — one injected full-width step from the same weights, t and
      ε through the kernel path and the plain path: losses and updates agree;
+  8b. train-cli — the user's ``cli.main(["train", ...])`` on 64 synthetic
+     288² PNGs written by the port's writer and streamed from disk: the
+     default model, float32, batch 16, 2 epochs × 4 steps on the kernel
+     path, a checkpoint each epoch and one log_sample; exact B1/B2/B4
+     launches, finite losses, img/s, every reference tag in the event file;
+  8c. train-resume — the same from the uint8 pool (``--data-hbm 288``) with
+     an EMA: 2 epochs in one call against ``--epochs 1`` then ``--epochs 2``
+     on one checkpoint dir (exactly 4 steps restored): epoch-1 losses within
+     1e-5 relative; ``cli sample --checkpoint-dir`` equals the restored EMA
+     sampled in process (within one uint8 level); one checkpoint save timed;
   9. gan-kernel — B3 (instance norm) against its plain version at the seven
      distinct shapes of the cycle-GAN step at batch 16 (each with its plan's
      cluster size) and at a large mean (3·N(0, 1) + 100), float32 and
@@ -71,7 +81,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      state and batches through the kernels and through cuDNN with the
      plain instance norm: losses and each net's update agree;
   12. gan-reference — a tiny GAN whose discriminators reach B4, 3 steps on
-     the card and on the CPU: the losses agree.
+     the card and on the CPU: the losses agree;
+  13. gan-train-cli — the user's ``cli.main(["gan-train", ...])`` on the two
+     class folders of PNGs (circles, crosses) at the default width with
+     instance norms and B4, float32, batch 16 per class, 4 steps, one
+     checkpoint and one log_sample: exact B3/B4 launches, finite losses.
 
 The last two lines of its output are a JSON line of per-kernel results and
 ``{"ok": true, "device": {...}}``; before them the card's name and power
@@ -136,6 +150,11 @@ DISPATCH_RATE = 132 * 128 * 1.98e9
 HBM_POOL = (128, 288, 288)  # [train-hbm]: uint8 images (N, H, W) in device memory, 31.9 MB
 ADAM_FLOPS_PER_ELEMENT = 12  # 2 mul + add (m), 3 mul + add (v), sqrt, add, mul, div, sub
 GAN_FLAGS = ["--g-norm", "instance", "--d-norm", "instance", "--conv-impl", "pallas"]
+CLI_FILES = (32, 288)  # [train-cli]: PNGs per class (circles, crosses) and their side
+CLI_STEPS = 4  # steps an epoch in [train-cli], [train-resume] and [gan-train-cli]
+# the reference's TensorBoard tags (train.py:356-361, 489-496) and the epoch scalars
+REF_TAGS = ("denoised/image", "example loss", "step_1/image/0", "step_0.25/image/0",
+            "step_0.5/image/0", "step_0.75/image/0", "fake/image/0", "loss", "images_per_sec")
 GAN_WARM, GAN_PROFILE_STEPS, GAN_TIMED_STEPS = 2, 3, 5  # cli profile's two warm steps
 # B3 vs plain, relative to max|y|: float32 differs by the order of the
 # statistics' sums (Welford/Chan against two passes, ~1e-7 of a value);
@@ -944,6 +963,198 @@ def phase_train_agree(torch, fdc, adam_kernel, api, trainer, cfg):
         fail(f"kernel and plain training paths disagree: loss rel {rel}, share {frac}")
 
 
+# ----------------------------------------------- the train commands (files in)
+
+
+def write_class_pngs(tmp):
+    """CLI_FILES[0] circles in ``tmp/a`` and as many crosses in ``tmp/b``,
+    CLI_FILES[1]² PNGs from ``data/synthetic.py``, written with the port's
+    own PNG writer. Returns the two globs."""
+    from gan_class_transfer2_tpu_torch.data import synthetic
+
+    n, side = CLI_FILES
+    t0 = time.perf_counter()
+    synthetic.save_as_pngs(synthetic.circles(n, side, seed=0), os.path.join(tmp, "a"))
+    synthetic.save_as_pngs(synthetic.crosses(n, side, seed=0), os.path.join(tmp, "b"))
+    print(f"[train-cli] wrote {2 * n} synthetic {side}² PNGs (circles, crosses) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return os.path.join(tmp, "a", "*.png"), os.path.join(tmp, "b", "*.png")
+
+
+def _width(cfg, names=("size", "pixel_size", "max_size", "octaves", "steps")):
+    return [f"--{k.replace('_', '-')}={getattr(cfg, k)}" for k in names]
+
+
+def _train_cli(cfg, tmp, log, ckpt, *extra):
+    """``cli train`` at the default width on the kernel path, float32,
+    batch 16, CLI_STEPS steps an epoch and a checkpoint at each epoch's end
+    (the newest one kept), from every PNG under ``tmp``."""
+    return ["train", "--device", "cuda", *_width(cfg), *KERNEL_PATH, "--compute-dtype",
+            "float32", "--batch-size", str(TRAIN_BATCH), "--steps-per-epoch", str(CLI_STEPS),
+            "--checkpoint-every", str(CLI_STEPS), "--checkpoint-keep", "1",
+            "--sample-stride", "50", "--dataset-pattern", os.path.join(tmp, "*", "*.png"),
+            "--log-dir", os.path.join(tmp, log), "--checkpoint-dir", os.path.join(tmp, ckpt),
+            *extra]
+
+
+def _events(log_dir):
+    """{tag: [(epoch, value), ...]} of the one event file a run wrote under
+    ``log_dir`` (the reference's <day>/<time> layout), read back with the
+    port's own reader."""
+    import glob
+
+    from gan_class_transfer2_tpu_torch.utils import tensorboard as tb
+
+    files = glob.glob(os.path.join(log_dir, "*", "*", "events.out.tfevents.*"))
+    if len(files) != 1:
+        fail(f"{log_dir}: {len(files)} event files, expected 1")
+    out = {}
+    for step, tag, _, value in tb.read_events(files[0]):
+        out.setdefault(tag, []).append((step, value))
+    return out
+
+
+def _run_cli(cli, counters, args):
+    """``cli.main(args)`` with every counter in ``counters`` (kernel
+    wrappers) set to 0 just before; returns (their launches, seconds)."""
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main(args)
+    secs = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"cli {' '.join(args[:1])} returned {rc}")
+    return tuple(c.launches for c in counters), secs
+
+
+def phase_train_cli(torch, cli, fdc, fd, adam_kernel, sampler, cfg, tmp):
+    """The user's training command, ``cli.main(["train", ...])``, streaming
+    the PNG files from disk (``--data-hbm 0 --data-workers 2``): the default
+    model, float32, batch 16, 2 epochs × CLI_STEPS steps on the kernel path,
+    a checkpoint each epoch and one ``log_sample`` (at stride 50). Exact
+    B1/B2/B4 launches (the train steps, and B4 in log_sample's denoiser
+    calls: the preview, T invert steps and the stride-50 sample), finite
+    losses, every reference tag in the event file, the last checkpoint.
+    Returns the launches by kernel name."""
+    from gan_class_transfer2_tpu_torch.models import unet
+    from gan_class_transfer2_tpu_torch.utils import checkpoint as ckpt_lib
+
+    n_leaves = len(list(unet.Denoiser(cfg).parameters()))
+    steps = 2 * CLI_STEPS
+    calls = 1 + cfg.steps + len(sampler.sample_timesteps(cfg.replace(sample_stride=50)))
+    b4 = b4_per_call(fdc, cfg, TRAIN_BATCH)
+    want = (steps, steps * adam_kernel.launches_per_step(n_leaves), (steps + calls) * b4)
+    args = _train_cli(cfg, tmp, "logs-cli", "ckpt-cli", "--epochs", "2", "--data-hbm", "0",
+                      "--data-workers", "2", "--log-images-every", "2")
+    got, secs = _run_cli(cli, (fd.diffuse_fused, adam_kernel.adam_fused, fdc.down_conv_fused),
+                         args)
+    if got != want:
+        fail(f"train-cli: launches B1/B2/B4 {got}, expected {want} ({steps} steps, "
+             f"{calls} denoiser calls in one log_sample)")
+    ev = _events(os.path.join(tmp, "logs-cli"))
+    missing = [t for t in REF_TAGS if t not in ev]
+    if missing:
+        fail(f"train-cli: the event file lacks the reference tags {missing}")
+    losses, ips = dict(ev["loss"]), dict(ev["images_per_sec"])
+    if sorted(losses) != [0, 1] or not all(np.isfinite(v) for v in losses.values()):
+        fail(f"train-cli: epoch losses {losses}")
+    if ckpt_lib.all_steps(os.path.join(tmp, "ckpt-cli")) != [steps]:
+        fail(f"train-cli: checkpoints {ckpt_lib.all_steps(os.path.join(tmp, 'ckpt-cli'))}")
+    for e in (0, 1):
+        print(f"[train-cli] epoch {e}: loss {losses[e]:.7f}, {ips[e]:.3f} img/s "
+              f"({TRAIN_BATCH * CLI_STEPS} images from PNG files{', after log_sample' if e == 0 else ''})")
+    print(f"[train-cli] fp32 kernel path, {steps} steps + one log_sample ({calls} denoiser "
+          f"calls): launches B1/B2/B4 {got}; every reference tag logged; checkpoint step "
+          f"{steps}; wall {secs:.2f} s")
+    return {"diffuse_f32": got[0], "adam_f32m": got[1], "down_conv_k4s2_f32": got[2]}
+
+
+def phase_train_resume(torch, cli, fdc, fd, adam_kernel, trainer, sampler, png, cfg, tmp):
+    """A resumed run against an unbroken one, from the HBM-resident pool
+    (``--data-hbm 288``: the index stream and the augment replay exactly)
+    with an EMA: run A trains 2 epochs in one call; run B trains
+    ``--epochs 1``, then ``--epochs 2`` on the same checkpoint dir, which
+    must restore and run exactly CLI_STEPS steps. B's epoch-1 loss must
+    equal A's within 1e-5 relative (cuDNN's weight gradients may sum in
+    another order). Then ``cli sample --checkpoint-dir`` of A's dir must
+    write the images that A's restored EMA params give in this process
+    (within one uint8 level, in at most 1e-3 of the values), and one save
+    of that state is timed. Returns the launches by kernel name."""
+    from gan_class_transfer2_tpu_torch.models import unet
+    from gan_class_transfer2_tpu_torch.utils import checkpoint as ckpt_lib
+
+    n_leaves = len(list(unet.Denoiser(cfg).parameters()))
+    per_step = (1, adam_kernel.launches_per_step(n_leaves), b4_per_call(fdc, cfg, TRAIN_BATCH))
+    counters = (fd.diffuse_fused, adam_kernel.adam_fused, fdc.down_conv_fused)
+    common = ("--data-hbm", "288", "--log-images-every", "0", "--ema-decay", "0.999")
+    total = [0, 0, 0]
+    loss, secs = {}, {}
+    for log, ckpt, epochs, n in (("logs-A", "ckpt-A", 2, 2), ("logs-B1", "ckpt-B", 1, 1),
+                                 ("logs-B2", "ckpt-B", 2, 1)):
+        got, secs[log] = _run_cli(cli, counters,
+                                  _train_cli(cfg, tmp, log, ckpt, "--epochs", str(epochs), *common))
+        want = tuple(n * CLI_STEPS * k for k in per_step)
+        if got != want:
+            fail(f"train-resume {log}: launches B1/B2/B4 {got}, expected {want} "
+                 f"({n * CLI_STEPS} steps)")
+        total = [t + g for t, g in zip(total, got)]
+        loss[log] = dict(_events(os.path.join(tmp, log))["loss"])
+    a, b = loss["logs-A"], {**loss["logs-B1"], **loss["logs-B2"]}
+    if sorted(b) != [0, 1] or sorted(a) != [0, 1]:
+        fail(f"train-resume: epochs logged A {sorted(a)}, B {sorted(b)}")
+    rel = {e: abs(a[e] - b[e]) / abs(a[e]) for e in (0, 1)}
+    print(f"[train-resume] data_hbm 288, EMA 0.999: A (one call) epoch losses {a[0]:.9f}, "
+          f"{a[1]:.9f}; B (--epochs 1, then --epochs 2 restored at step {CLI_STEPS}: "
+          f"{CLI_STEPS} steps) {b[0]:.9f}, {b[1]:.9f}; relative differences epoch 0 "
+          f"{rel[0]:.3e}, epoch 1 {rel[1]:.3e} (bound 1e-5); wall A {secs['logs-A']:.2f} s, "
+          f"B {secs['logs-B1']:.2f} + {secs['logs-B2']:.2f} s")
+    if not rel[1] <= 1e-5:
+        fail(f"train-resume: the resumed epoch-1 loss differs by {rel[1]} relative")
+
+    ckpt = os.path.join(tmp, "ckpt-A")
+    out = os.path.join(tmp, "samples-A")
+    got, s_secs = _run_cli(cli, (fdc.down_conv_fused,), [
+        "sample", "--device", "cuda", "--checkpoint-dir", ckpt, "--num", str(BATCH),
+        "--out", out])
+    total[2] += got[0]
+    c = ckpt_lib.load_config(ckpt)
+    state = ckpt_lib.restore(ckpt, trainer.init_state(c, device="cuda"))
+    if state.ema_params is None or state.step != 2 * CLI_STEPS:
+        fail(f"train-resume: A's checkpoint holds step {state.step}, EMA "
+             f"{state.ema_params is not None}")
+    init = torch.from_numpy(np.random.default_rng(c.seed).normal(
+        size=(BATCH, c.size, c.size, 3)).astype(np.float32)).cuda()
+    fdc.down_conv_fused.launches = 0
+    images = sampler.sample(c, trainer.eval_model(state), init, snapshots=False).images
+    fdc.down_conv_fused.launches = 0  # the in-process comparison does not count
+    diff = np.stack([np.abs(png.read_png(os.path.join(out, f"sample_{i}.png")).astype(int)
+                            - png.to_uint8(images[i].cpu().numpy()).astype(int))
+                     for i in range(BATCH)])
+    # the same weights and inputs; float32 sums may round differently between
+    # two allocations (cuBLAS picks kernels by alignment), so a value on a
+    # level boundary may flip by one level, as in [sample]
+    print(f"[train-resume] cli sample --checkpoint-dir (step {state.step}, EMA params, "
+          f"{got[0]} B4 launches, {s_secs:.2f} s) against A's restored EMA sampled in "
+          f"process: max {diff.max()} uint8 levels apart (bound {IMAGE_LEVELS['float32']}), "
+          f"{int((diff > 0).sum())} of {diff.size} values differ")
+    if diff.max() > IMAGE_LEVELS["float32"] or (diff > 0).mean() > 1e-3:
+        fail(f"train-resume: sample --checkpoint-dir differs by {diff.max()} levels in "
+             f"{int((diff > 0).sum())} values")
+
+    # the checkpoint layer: one save of this state (model, Adam moments, EMA)
+    t0 = time.perf_counter()
+    snap = ckpt_lib.host_complete(state)
+    t1 = time.perf_counter()
+    path = ckpt_lib.save(os.path.join(tmp, "ckpt-timed"), snap, c)
+    t2 = time.perf_counter()
+    size = os.path.getsize(os.path.join(path, ckpt_lib.STATE_FILE))
+    print(f"[train-resume] one checkpoint of the default model's train state ({size / 1e6:.1f} "
+          f"MB): copy to the host {(t1 - t0) * 1e3:.1f} ms, write {(t2 - t1) * 1e3:.1f} ms")
+    del state, images, snap
+    torch.cuda.empty_cache()
+    return {"diffuse_f32": total[0], "adam_f32m": total[1], "down_conv_k4s2_f32": total[2]}
+
+
 # ------------------------------------------------------------------ GAN
 
 
@@ -1310,6 +1521,49 @@ def phase_gan_reference(torch, fdc, norm, gan):
         fail(f"tiny GAN training on the card differs from the CPU by {rel} relative")
 
 
+def phase_gan_train_cli(torch, cli, fdc, norm, cfg, tmp, globs):
+    """The user's GAN training command, ``cli.main(["gan-train", ...])``,
+    on the two class folders of PNGs (circles → crosses) streamed from
+    disk, at the default width with GAN_FLAGS, float32, batch 16 per class,
+    CLI_STEPS steps, one checkpoint and one ``log_sample`` (three
+    transfers of a fixed batch): exact B3/B4 launches, finite losses, the
+    transfer tags, the checkpoint. Returns (B3, B4) launches."""
+    from gan_class_transfer2_tpu_torch.utils import checkpoint as ckpt_lib
+
+    c = cfg.replace(batch_size=TRAIN_BATCH, g_norm="instance", d_norm="instance",
+                    conv_impl="pallas")
+    per_step, b4_step, (b3_fwd, b4_fwd) = gan_counts(fdc, c, TRAIN_BATCH)
+    want = (CLI_STEPS * sum(per_step.values()) + 3 * b3_fwd, CLI_STEPS * b4_step + 3 * b4_fwd)
+    args = ["gan-train", "--device", "cuda", *_width(cfg, ("size", "pixel_size", "max_size",
+                                                           "octaves")),
+            *GAN_FLAGS, "--compute-dtype", "float32", "--batch-size", str(TRAIN_BATCH),
+            "--classes", *globs, "--steps-per-epoch", str(CLI_STEPS), "--epochs", "1",
+            "--checkpoint-every", str(CLI_STEPS), "--checkpoint-keep", "1",
+            "--data-workers", "2", "--native-loader", "false",
+            "--log-dir", os.path.join(tmp, "logs-gan"),
+            "--checkpoint-dir", os.path.join(tmp, "ckpt-gan")]
+    got, secs = _run_cli(cli, (norm.instance_norm_fused, fdc.down_conv_fused), args)
+    if got != want:
+        fail(f"gan-train-cli: launches B3/B4 {got}, expected {want} ({CLI_STEPS} steps and 3 "
+             f"generator forwards in log_sample)")
+    ev = _events(os.path.join(tmp, "logs-gan"))
+    missing = [t for t in ("transfer_ab/image/0", "transfer_ba/image/0", "cycle_aba/image/0",
+                           "g_loss", "d_loss", "cycle", "images_per_sec") if t not in ev]
+    if missing:
+        fail(f"gan-train-cli: the event file lacks {missing}")
+    vals = {k: ev[k][0][1] for k in ("g_loss", "d_loss", "cycle", "images_per_sec")}
+    if not all(np.isfinite(v) for v in vals.values()):
+        fail(f"gan-train-cli: {vals}")
+    if ckpt_lib.all_steps(os.path.join(tmp, "ckpt-gan")) != [CLI_STEPS]:
+        fail("gan-train-cli: no checkpoint at the last step")
+    print(f"[gan-train-cli] fp32, {CLI_STEPS} steps at batch {TRAIN_BATCH} per class from PNG "
+          f"files + one log_sample: launches B3/B4 {got}; g_loss {vals['g_loss']:.5f}, d_loss "
+          f"{vals['d_loss']:.5f}, cycle {vals['cycle']:.5f}; {vals['images_per_sec']:.3f} img/s "
+          f"per class; checkpoint step {CLI_STEPS}; wall {secs:.2f} s")
+    torch.cuda.empty_cache()
+    return got
+
+
 def main():
     try:
         import torch
@@ -1376,11 +1630,28 @@ def main():
     from gan_class_transfer2_tpu_torch.ops import norm
     from gan_class_transfer2_tpu_torch.train import gan
 
+    files = tempfile.TemporaryDirectory(prefix="chip_smoke_files_")
+    t0 = time.perf_counter()
+    globs = write_class_pngs(files.name)
+    cli_launches = phase_train_cli(torch, cli, fdc, fd, adam_kernel, sampler, cfg, files.name)
+    resume_launches = phase_train_resume(torch, cli, fdc, fd, adam_kernel, trainer, sampler,
+                                         png, cfg, files.name)
+    for name in cli_launches:
+        train_launches[name] += cli_launches[name] + resume_launches[name]
+    print(f"[train-resume] the PNGs, [train-cli] and [train-resume] took "
+          f"{time.perf_counter() - t0:.2f} s")
+
     gan_rows, b4_gan_err = phase_gan_kernels(torch, F, fdc, norm, cfg)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_gan_") as tmp:
         gan_launches = phase_gan(torch, cli, fdc, norm, gan, cfg, tmp)
     phase_gan_agree(torch, fdc, norm, gan, cfg)
     phase_gan_reference(torch, fdc, norm, gan)
+    t0 = time.perf_counter()
+    cli_b3, cli_b4 = phase_gan_train_cli(torch, cli, fdc, norm, cfg, files.name, globs)
+    print(f"[gan-train-cli] took {time.perf_counter() - t0:.2f} s")
+    files.cleanup()
+    gan_launches["float32"] = (gan_launches["float32"][0] + cli_b3,
+                               gan_launches["float32"][1] + cli_b4)
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         fail("jax was imported")
 
@@ -1388,8 +1659,10 @@ def main():
     # four shapes of one denoiser call at batch 4, its max_abs_err is the
     # worst forward error at batch 4 and 16 (with and without ReLU); the
     # instance norm's times and bound sum one GAN step's 102 launches at
-    # batch 16; launches are the main-path runs' (sample, edit, train and gan
-    # for the down conv; gan for the instance norm; train for the others)
+    # batch 16; launches are the main-path runs' (sample, edit, train,
+    # train-hbm, train-cli, train-resume, gan and gan-train-cli for the down
+    # conv; gan and gan-train-cli for the instance norm; the train phases for
+    # the others)
     source = "gan_class_transfer2_tpu_torch/csrc/down_conv.cu"
     replaces = "gan_class_transfer2_tpu/ops/pallas_conv.py:36"
     rows = []

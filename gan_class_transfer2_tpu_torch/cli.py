@@ -1,25 +1,40 @@
-"""Command-line interface of the port — counterpart of the ``sample``,
-``edit``, ``bench`` and ``profile`` commands of gan_class_transfer2_tpu/cli.py,
-with the same flag names for the Config fields they read:
+"""Command-line interface of the port — counterpart of the ``train``,
+``gan-train``, ``sample``, ``edit``, ``export-weights``, ``bench`` and
+``profile`` commands of gan_class_transfer2_tpu/cli.py, with the same flag
+names for the Config fields they read:
 
-    python -m gan_class_transfer2_tpu_torch.cli sample --weights w.npz --out samples/
-    python -m gan_class_transfer2_tpu_torch.cli edit --input photo.png --weights w.npz
+    python -m gan_class_transfer2_tpu_torch.cli train --dataset-pattern 'data/*.png' \
+        --batch-size 16 --checkpoint-dir ckpt --log-dir logs
+    python -m gan_class_transfer2_tpu_torch.cli gan-train --classes 'a/*.png' 'b/*.png' \
+        --g-norm instance --d-norm instance --conv-impl pallas
+    python -m gan_class_transfer2_tpu_torch.cli sample --checkpoint-dir ckpt --out samples/
+    python -m gan_class_transfer2_tpu_torch.cli edit --input photo.png --checkpoint-dir ckpt
+    python -m gan_class_transfer2_tpu_torch.cli export-weights --checkpoint-dir ckpt --out w.npz
     python -m gan_class_transfer2_tpu_torch.cli bench --batch-size 16 --bench-steps 10
     python -m gan_class_transfer2_tpu_torch.cli profile --model gan \
         --g-norm instance --d-norm instance --conv-impl pallas --batch-size 16
 
-``bench`` trains ``--bench-steps`` steps (after 3 untimed ones) on a
-synthetic batch resident on the device and prints one JSON line with the
-JAX package's keys (img/s, step ms, MFU). ``profile`` runs two warm training
-steps of the diffusion model or the cycle-GAN, then ``--profile-steps``
-steps under ``torch.profiler``, and prints one JSON row per CUDA kernel and
-a summary line with the JAX package's keys.
+``train`` and ``gan-train`` run ``train/loop.Runner`` and
+``train/gan_loop.GANRunner``: files in, checkpoints and TensorBoard events
+out, resuming from ``--checkpoint-dir`` when it holds a checkpoint;
+``--resilient N`` restarts from the last checkpoint after a failed step.
+One process on one card: ``--coordinator``, ``--num-processes`` and
+``--process-id`` are refused. ``bench`` trains ``--bench-steps`` steps
+(after 3 untimed ones) on a synthetic batch resident on the device and
+prints one JSON line with the JAX package's keys (img/s, step ms, MFU).
+``profile`` runs two warm training steps of the diffusion model or the
+cycle-GAN, then ``--profile-steps`` steps under ``torch.profiler``, and
+prints one JSON row per CUDA kernel and a summary line.
+
+``sample``, ``edit`` and ``export-weights`` read the latest checkpoint in
+``--checkpoint-dir`` (its EMA params when it has them) and inherit the
+``config.json`` saved there, as the JAX CLI does; ``sample`` and ``edit``
+also take ``--weights``, a flat Keras-order ``.npz`` as ``export-weights``
+writes it. With neither they warn and run on randomly initialised weights
+drawn from ``--seed``.
 
 ``--device`` is ``cuda`` (the default) or ``cpu``; ``cuda`` without a card
-raises. ``--weights`` is a flat Keras-order ``.npz`` as the JAX CLI's
-``export-weights`` writes it; without it the command warns and runs on
-randomly initialised weights drawn from ``--seed``. Orbax checkpoints are
-not read yet.
+raises.
 """
 
 from __future__ import annotations
@@ -35,24 +50,33 @@ import torch
 
 from .config import Config
 
-# the Config fields that sample, edit, bench and profile read
+# the Config fields that the commands read
 _FIELDS = (
     "size", "pixel_size", "max_size", "block_depth", "octaves", "skip_mode",
-    "per_step_output", "steps", "schedule", "parameterization",
+    "per_step_output", "steps", "schedule", "parameterization", "test_step",
     "bits_per_pixel", "sample_stride", "compute_dtype", "conv_impl",
-    "concat_elision", "seed",
+    "concat_elision", "remat", "seed",
+    # data
+    "dataset_pattern", "example_image_path", "classes", "shuffle_buffer", "cache",
+    "native_loader", "data_workers", "data_hbm",
     # training
     "batch_size", "optimizer", "moment_dtype", "learning_rate", "warm_up",
     "lr_schedule", "inverse_time_decay_steps", "adam_eps", "momentum", "nesterov",
     "weight_decay", "ema_decay", "grad_clip_norm", "grad_accum", "loss",
     "prediction_weighting", "loss_scale", "dynamic_loss_scale",
     "loss_scale_growth_interval", "fused_diffusion", "steps_per_epoch", "epochs",
+    "host_sync_every", "mesh_data",
     # GAN mode
     "gan_loss", "adversarial_weight", "cycle_weight", "identity_weight",
     "reconstruction_weight", "d_learning_rate", "d_pixel_size", "d_octaves",
     "patch_discriminator", "d_norm", "g_norm", "r1_weight", "diffaug",
     "cycle_weight_final", "identity_weight_final", "loss_anneal_steps",
+    # io
+    "log_dir", "checkpoint_dir", "checkpoint_every", "checkpoint_keep",
+    "checkpoint_async", "keep_best", "log_images_every", "fid_samples", "fid_extractor",
 )
+# the commands that read a checkpoint, and so inherit its config.json
+_READS_CHECKPOINT = ("sample", "edit", "export-weights")
 
 
 def _add_config_args(p: argparse.ArgumentParser):
@@ -67,31 +91,57 @@ def _add_config_args(p: argparse.ArgumentParser):
             p.add_argument(flag, type=int, default=None)
         elif isinstance(default, float):
             p.add_argument(flag, type=float, default=None)
+        elif name == "classes":
+            p.add_argument(flag, type=str, nargs="*", default=None)
         else:
             p.add_argument(flag, type=str, default=None)
 
 
-def config_from_args(args) -> Config:
-    """Explicit flags > --config JSON > dataclass defaults."""
-    overrides = {n: getattr(args, n) for n in _FIELDS if getattr(args, n) is not None}
-    if args.config:
+def config_from_args(args, checkpoint_config: bool = False) -> Config:
+    """Explicit flags > --config JSON > (with ``checkpoint_config``, for the
+    commands that read a checkpoint) the config.json that training saved in
+    the checkpoint dir > dataclass defaults. A restore rebuilds the state
+    the checkpoint was written with (its optimizer, moments, EMA), so the
+    saved config is the right base for the flags the user left out."""
+    overrides = {n: getattr(args, n) for n in _FIELDS if getattr(args, n, None) is not None}
+    if "classes" in overrides:
+        overrides["classes"] = tuple(overrides["classes"])
+    base = None
+    if getattr(args, "config", None):
         with open(args.config) as fh:
-            return Config.from_json(fh.read()).replace(**overrides).validate()
+            base = Config.from_json(fh.read())
+    elif checkpoint_config:
+        from .utils.checkpoint import load_config
+
+        ckpt_dir = overrides.get("checkpoint_dir", Config.checkpoint_dir)
+        if ckpt_dir and os.path.exists(os.path.join(ckpt_dir, "config.json")):
+            # restore from the dir the config was found in, not the path
+            # the training run wrote it under
+            base = load_config(ckpt_dir).replace(checkpoint_dir=ckpt_dir)
+    if base is not None:
+        return base.replace(**overrides).validate()
     return Config(**overrides).validate()
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="gan_class_transfer2_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
-    for cmd in ("sample", "edit", "bench", "profile"):
+    for cmd in ("train", "gan-train", "sample", "edit", "export-weights", "bench", "profile"):
         p = sub.add_parser(cmd)
         p.add_argument("--config", type=str, default=None, help="config JSON")
         p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
         _add_config_args(p)
-        if cmd == "bench":
+        if cmd in ("train", "gan-train"):
+            p.add_argument("--resilient", type=int, default=0, metavar="N",
+                           help="restart up to N times from the last checkpoint on a "
+                                "step failure (requires --checkpoint-dir)")
+            # multi-host launch flags of the JAX CLI, refused below
+            p.add_argument("--coordinator", type=str, default=None, metavar="HOST:PORT")
+            p.add_argument("--num-processes", type=int, default=None)
+            p.add_argument("--process-id", type=int, default=None)
+        elif cmd == "bench":
             p.add_argument("--bench-steps", type=int, default=30)
-            continue
-        if cmd == "profile":
+        elif cmd == "profile":
             p.add_argument("--model", type=str, default="diffusion",
                            choices=("diffusion", "gan", "cgan"),
                            help="which training step to trace")
@@ -100,34 +150,72 @@ def main(argv=None) -> int:
                            help="kernel rows to print from the trace")
             p.add_argument("--trace-dir", type=str, default=None,
                            help="where trace.json lands (default: a fresh temp dir)")
-            continue
-        p.add_argument("--weights", type=str, default=None, metavar="FILE.npz",
-                       help="flat Keras-order weights (JAX CLI export-weights)")
-        if cmd == "sample":
-            p.add_argument("--out", type=str, default="samples")
-            p.add_argument("--num", type=int, default=6)
+        elif cmd == "export-weights":
+            p.add_argument("--out", type=str, default="weights.npz",
+                           help="npz of the flat weights in Keras build order")
         else:
-            p.add_argument("--input", type=str, required=True, help="image path")
-            p.add_argument("--out", type=str, default="edited")
-            p.add_argument("--edits", type=str, nargs="*",
-                           default=["pixelate", "shift", "quantise"])
+            p.add_argument("--weights", type=str, default=None, metavar="FILE.npz",
+                           help="flat Keras-order weights (export-weights); without it "
+                                "the latest checkpoint in --checkpoint-dir")
+            if cmd == "sample":
+                p.add_argument("--out", type=str, default="samples")
+                p.add_argument("--num", type=int, default=6)
+            else:
+                p.add_argument("--input", type=str, required=True, help="image path")
+                p.add_argument("--out", type=str, default="edited")
+                p.add_argument("--edits", type=str, nargs="*",
+                               default=["pixelate", "shift", "quantise"])
     args = parser.parse_args(argv)
-    cfg = config_from_args(args)
+    if any(getattr(args, f, None) is not None
+           for f in ("coordinator", "num_processes", "process_id")):
+        raise NotImplementedError(
+            "--coordinator/--num-processes/--process-id: multi-host training "
+            "(parallel/multihost.py) is not ported to PyTorch yet; the port trains in one "
+            "process on one card")
+    cfg = config_from_args(args, checkpoint_config=args.command in _READS_CHECKPOINT
+                           and not getattr(args, "weights", None))
+    if args.command in ("train", "gan-train"):
+        return _train(cfg, args)
     if args.command == "sample":
         return _sample(cfg, args)
+    if args.command == "edit":
+        return _edit(cfg, args)
+    if args.command == "export-weights":
+        return _export_weights(cfg, args)
     if args.command == "bench":
         from .utils.benchmark import run_benchmark
 
         print(run_benchmark(cfg, steps=args.bench_steps, device=args.device).to_json())
         return 0
-    if args.command == "profile":
-        return _profile(cfg, args)
-    return _edit(cfg, args)
+    return _profile(cfg, args)
+
+
+def _train(cfg: Config, args) -> int:
+    if args.command == "train":
+        from .train.loop import Runner
+
+        runner = Runner(cfg, device=args.device)
+    else:
+        from .train.gan_loop import GANRunner
+
+        runner = GANRunner(cfg, device=args.device)
+    try:
+        if args.resilient > 0:
+            runner.fit_resilient(max_restarts=args.resilient)
+        else:
+            runner.fit()
+    finally:
+        runner.close()
+    return 0
 
 
 def _load_model(cfg: Config, weights, device):
+    """The denoiser ``sample`` and ``edit`` run: from ``--weights``, else
+    the latest checkpoint's EMA params (its params without an EMA), else
+    random weights from ``--seed`` with a warning."""
     from .models import api as model_api
     from .models import unet
+    from .utils import checkpoint as ckpt_lib
     from .utils import weights as weights_lib
 
     device = model_api.resolve_device(device)
@@ -135,9 +223,39 @@ def _load_model(cfg: Config, weights, device):
         model = unet.Denoiser(cfg)
         weights_lib.import_flat_weights(model, weights_lib.load_flat_npz(weights))
         return model.to(device)
-    print("warning: no --weights given; using randomly initialised weights",
-          file=sys.stderr)
+    if cfg.checkpoint_dir and ckpt_lib.latest_step(cfg.checkpoint_dir) is not None:
+        return _restored_model(cfg, device)[0]
+    print(f"warning: no --weights given and no checkpoint in {cfg.checkpoint_dir!r}; "
+          "using randomly initialised weights", file=sys.stderr)
     return model_api.init_denoiser(cfg, device=device)
+
+
+def _restored_model(cfg: Config, device):
+    """(denoiser, step) of the latest checkpoint in ``cfg.checkpoint_dir``:
+    the train state is rebuilt from the config, restored, and its EMA
+    params taken when present (JAX cli.py:951-960)."""
+    from .train import trainer
+    from .utils import checkpoint as ckpt_lib
+
+    state = ckpt_lib.restore(cfg.checkpoint_dir, trainer.init_state(cfg, device=device))
+    return trainer.eval_model(state), state.step
+
+
+def _export_weights(cfg: Config, args) -> int:
+    """The flat Keras-order npz of the latest checkpoint's weights (EMA when
+    kept), as the JAX CLI's ``export-weights`` writes it."""
+    from .models.api import resolve_device
+    from .utils import checkpoint as ckpt_lib
+    from .utils import weights as weights_lib
+
+    if not (cfg.checkpoint_dir and ckpt_lib.latest_step(cfg.checkpoint_dir) is not None):
+        raise SystemExit(f"no checkpoint found in {cfg.checkpoint_dir!r} "
+                         "(export needs trained weights)")
+    model, step = _restored_model(cfg, resolve_device(args.device))
+    flat = weights_lib.export_flat_weights(model)
+    weights_lib.save_flat_npz(args.out, flat)
+    print(f"wrote {len(flat)} weights (step {step}, Keras build order) to {args.out}")
+    return 0
 
 
 def _synchronize(device):
@@ -248,17 +366,13 @@ def _profile(cfg: Config, args) -> int:
 
 
 def decode_image(path, size: int) -> np.ndarray:
-    """An image file as float32 (size, size, 3) in [-1, 1): RGB, center crop
-    when larger (the user edits the picture they see), refused when smaller."""
-    from PIL import Image
+    """An image file as float32 (size, size, 3) in [-1, 1): RGB, the center
+    crop when larger (the user edits the picture they see), no flip, refused
+    when smaller; PNGs need no Pillow."""
+    from .data import pipeline
 
-    with Image.open(path) as img:
-        arr = np.asarray(img.convert("RGB"), dtype=np.uint8)
-    h, w = arr.shape[:2]
-    if h < size or w < size:
-        raise ValueError(f"image {arr.shape} smaller than crop {size}")
-    i, j = (h - size) // 2, (w - size) // 2
-    return arr[i : i + size, j : j + size].astype(np.float32) / 128.0 - 1.0
+    return pipeline.decode_image(path, size, np.random.default_rng(0), crop=True, flip=False,
+                                 center=True)
 
 
 def _edit(cfg: Config, args) -> int:

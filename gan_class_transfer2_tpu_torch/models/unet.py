@@ -25,9 +25,11 @@ applies to the summed pre-activation.
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import conv as conv_ops
 from ..ops import init as init_ops
@@ -225,6 +227,11 @@ def unet_head(cfg, model, h, t, dtype):
     return pred
 
 
+_FP32_LOCK = threading.Lock()
+_fp32_regions = 0  # open ieee_fp32 regions on the card, process-wide
+_fp32_saved = None  # the TF32 flags as the first open region found them
+
+
 @contextlib.contextmanager
 def ieee_fp32(dtype, device):
     """float32 convs and matmuls in IEEE float32 (the JAX package's
@@ -232,24 +239,44 @@ def ieee_fp32(dtype, device):
     TF32. The flags are process-wide and read when a conv or matmul runs,
     forward or backward, so a caller that differentiates holds this context
     from the loss forward through ``backward()`` (the train step does);
-    ``unet_apply`` holds it around its own forward. Setting process-wide flags
-    is sound for a single-threaded trainer or sampler; a threaded server
-    would need them per call."""
+    ``unet_apply`` holds it around its own forward.
+
+    Regions may overlap, nested or across threads (an async checkpoint
+    thread, the sampler between train steps, a server's requests): a count
+    under a lock makes the first region to open save the flags and clear
+    them, and the last to close restore them, so no region turns TF32 back
+    on while another is open. Regions of other dtypes (TF32 applies only to
+    float32 ops) and off the card are left alone."""
+    global _fp32_regions, _fp32_saved
     if dtype != torch.float32 or device.type != "cuda":
         yield
         return
-    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    with _FP32_LOCK:
+        if _fp32_regions == 0:
+            _fp32_saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        _fp32_regions += 1
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+        with _FP32_LOCK:
+            _fp32_regions -= 1
+            if _fp32_regions == 0:
+                torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = (
+                    _fp32_saved)
 
 
 def unet_apply(cfg, model: Denoiser, x, t=None):
     """Forward pass. ``x``: (B, H, W, C) in [-1, 1). ``t``: (B,) timesteps,
-    ignored unless ``cfg.per_step_output``."""
+    ignored unless ``cfg.per_step_output``.
+
+    ``cfg.remat`` rematerialises each inner octave in the backward (JAX's
+    ``jax.checkpoint`` at unet.py:255-257): ``rec(i + 1, ·)`` runs under
+    ``torch.utils.checkpoint``, which keeps only its input and recomputes
+    the rest when the gradient needs it. The recompute holds its own
+    ``ieee_fp32`` region, so it runs in IEEE float32 whoever calls the
+    backward; B4's autograd Function is recomputed as it ran."""
     dtype = DTYPES[cfg.compute_dtype]
     with ieee_fp32(dtype, x.device):
         h = _conv_relu(model.pre_block, x.to(dtype), dtype)
@@ -258,10 +285,17 @@ def unet_apply(cfg, model: Denoiser, x, t=None):
             level = model.octaves[i]
             h, inp = octave_down(cfg, level, h, dtype)
             if i + 1 < cfg.octaves:
-                h = rec(i + 1, h)
+                if cfg.remat and torch.is_grad_enabled():
+                    h = checkpoint(_inner, i + 1, h, use_reentrant=False)
+                else:
+                    h = rec(i + 1, h)
             else:
                 h = _conv_relu(model.middle, h, dtype)
             return octave_up(cfg, level, h, inp, dtype)
+
+        def _inner(i, h):
+            with ieee_fp32(dtype, h.device):
+                return rec(i, h)
 
         h = rec(0, h) if cfg.octaves > 0 else _conv_relu(model.middle, h, dtype)
         return unet_head(cfg, model, h, t, dtype)

@@ -34,6 +34,7 @@ What differs from the JAX package, and why:
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
@@ -509,6 +510,20 @@ def ema_update(cfg, ema, params, opt_state, finite=None):
     if finite is None:
         return blended
     return [torch.where(finite, b, e) for b, e in zip(blended, ema)]
+
+
+@torch.no_grad()
+def eval_model(state: TrainState, out: Optional[unet.Denoiser] = None) -> unet.Denoiser:
+    """The weights to sample from (the JAX CLI's ``ema_params if not None
+    else params``): ``state.model`` itself without an EMA; with one,
+    ``out`` (a copy of the model when None) holding the EMA values."""
+    if state.ema_params is None:
+        return state.model
+    if out is None:
+        out = copy.deepcopy(state.model).requires_grad_(False)
+    for p, e in zip(out.parameters(), state.ema_params):
+        p.copy_(e)
+    return out
 
 
 def make_train_step(cfg):

@@ -334,6 +334,39 @@ def test_fp32_conv_gradients_stay_ieee_through_the_step_on_card(monkeypatch):
 
 
 @pytest.mark.cuda
+def test_remat_recomputes_through_b4_in_ieee_fp32_on_card(monkeypatch):
+    """cfg.remat on the card: the checkpointed inner octave holds B4 (a
+    128-channel 16² down conv), which the backward recomputes (two launches
+    a step, one without remat); with cuDNN's TF32 flag at its default, the
+    gradients match a float64 CPU gradient to 1e-5 of each leaf's largest
+    (the recompute runs in IEEE float32) and the loss equals the step's
+    without remat."""
+    from gan_class_transfer2_tpu_torch.train import trainer
+
+    _needs_card(monkeypatch)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    cfg = tiny_test_config(size=32, pixel_size=128, max_size=256, octaves=2, conv_impl="pallas")
+    r = np.random.default_rng(5)
+    x = torch.from_numpy(r.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32))
+    eps = torch.from_numpy(r.normal(size=x.shape).astype(np.float32))
+    t = torch.tensor([2, 7], dtype=torch.int32)
+    model = unet.Denoiser(cfg).reset_parameters(torch.Generator().manual_seed(0)).cuda()
+    out = {}
+    for remat in (False, True):
+        fdc.down_conv_fused.launches = 0
+        out[remat] = trainer.loss_and_grads(cfg.replace(remat=remat), model, x.cuda(), None,
+                                            t_int=t, epsilon_in=eps.cuda())
+        assert fdc.down_conv_fused.launches == (2 if remat else 1)
+    assert torch.equal(out[True][0], out[False][0])
+    monkeypatch.setitem(unet.DTYPES, "float32", torch.float64)
+    _, want = trainer.loss_and_grads(cfg.replace(conv_impl="lax"), model.cpu().double(),
+                                     x.double(), None, t_int=t, epsilon_in=eps.double())
+    for a, w in zip(out[True][1], want):
+        err = (a.double().cpu() - w).abs().max().item()
+        assert err <= 1e-5 * w.abs().max().item(), err
+
+
+@pytest.mark.cuda
 def test_instance_norm_kernel_matches_plain_on_card(monkeypatch):
     """B3 against its plain version at ragged shapes (C not a multiple of
     32 or of the 16-byte vector, H·W not a multiple of the block's rows, H·W

@@ -168,3 +168,115 @@ def test_g_norm_forward_parity(overrides):
         y = api.apply_denoiser(cfg, model, torch.from_numpy(x))
     assert "octaves.0.down_norm.gamma" in dict(model.named_parameters())
     np.testing.assert_allclose(y.numpy(), ref, atol=1e-4 if cfg.pixel_size == 128 else 1e-5)
+
+
+def _loss_and_grads(cfg, model, x):
+    """The mean square of the forward, its gradients, and how many tensors
+    autograd saved for the backward."""
+    saved = []
+    with torch.autograd.graph.saved_tensors_hooks(lambda t: saved.append(1) or t, lambda t: t):
+        loss = api.apply_denoiser(cfg, model, x).float().square().mean()
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    return loss.detach(), grads, len(saved)
+
+
+@pytest.mark.parametrize("overrides", [dict(octaves=3), dict(octaves=3, g_norm="instance")],
+                         ids=["plain", "instance-norm"])
+def test_remat_rematerialises_with_equal_loss_and_gradients(overrides):
+    """cfg.remat wraps each inner octave in torch.utils.checkpoint, as JAX
+    wraps it in jax.checkpoint (unet.py:255-257): the loss and every
+    gradient equal those without remat bit for bit (the recompute runs the
+    same ops), autograd keeps fewer tensors, and the gradients equal JAX's
+    with remat on (1e-5 of the largest gradient: float32 summation order; a
+    conv bias right before a norm gets only rounding noise)."""
+    jcfg = jax_tiny(remat=True, **overrides)
+    params = jax_params(jcfg)
+    x = np.random.default_rng(5).uniform(-1, 1, (2, 16, 16, 3)).astype(np.float32)
+    out = {}
+    for remat in (False, True):
+        cfg = tiny_test_config(remat=remat, **overrides)
+        model = weights.from_jax_params(cfg, params, device="cpu",
+                                        out_channels=3 if cfg.g_norm != "none" else None)
+        out[remat] = _loss_and_grads(cfg, model, torch.from_numpy(x))
+    (l0, g0, n0), (l1, g1, n1) = out[False], out[True]
+    assert torch.equal(l0, l1)
+    for a, b in zip(g0, g1):
+        assert torch.equal(a, b)
+    assert n1 < n0, (n1, n0)
+
+    def jloss(p):
+        return jnp.mean(jnp.square(junet.unet_apply(jcfg.replace(conv_impl="lax"), p,
+                                                    jnp.asarray(x))))
+
+    jl, jg = jax.value_and_grad(jloss)(params)
+    np.testing.assert_allclose(float(l1), float(jl), rtol=1e-6)
+    got = jax.tree_util.tree_leaves(weights.to_jax_params(model, g1))
+    want = [np.asarray(b) for b in jax.tree_util.tree_leaves(jg)]
+    largest = max(np.abs(b).max() for b in want)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, b, atol=1e-5 * largest)
+
+
+def test_remat_keeps_the_gan_steps_r1_double_backward():
+    """remat on in the GAN step with R1 (a double backward through D) and
+    instance norms: the same losses and updated parameters as with remat
+    off, bit for bit."""
+    from gan_class_transfer2_tpu_torch.train import gan
+
+    x = torch.from_numpy(np.random.default_rng(6).uniform(-1, 1, (2, 16, 16, 3))
+                         .astype(np.float32))
+    out = {}
+    for remat in (False, True):
+        cfg = tiny_test_config(remat=remat, r1_weight=1.0, g_norm="instance",
+                               d_norm="instance", learning_rate=1e-3)
+        state = gan.init_gan_state(cfg, device="cpu")
+        state, metrics = gan.make_gan_train_step(cfg)(state, x, -x, torch.Generator())
+        out[remat] = ({k: float(v) for k, v in metrics.items()},
+                      [p.detach().clone() for p in gan.g_params(state) + gan.d_params(state)])
+    assert out[True][0] == out[False][0] and out[True][0]["r1"] > 0
+    for a, b in zip(out[True][1], out[False][1]):
+        assert torch.equal(a, b)
+
+
+def test_overlapping_ieee_fp32_regions_keep_tf32_off(monkeypatch):
+    """Two threads' ieee_fp32 regions overlap: A opens, B opens, A closes
+    while B is still inside. TF32 must stay off until the last region
+    closes, then come back as it was (a saved-and-restored pair per region
+    turned it back on under B). The flags are set on a CPU build too, so
+    the regions run on the CPU with a CUDA device named."""
+    import threading
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    cuda = torch.device("cuda")
+    a_in, b_in, a_out = threading.Event(), threading.Event(), threading.Event()
+    seen = {}
+
+    def flags():
+        return torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+
+    def region_a():
+        with unet.ieee_fp32(torch.float32, cuda):
+            a_in.set()
+            b_in.wait(10)
+        a_out.set()
+
+    def region_b():
+        a_in.wait(10)
+        with unet.ieee_fp32(torch.float32, cuda):
+            b_in.set()
+            a_out.wait(10)
+            seen["b after a closed"] = flags()
+            with unet.ieee_fp32(torch.bfloat16, cuda):  # bf16 regions leave the flags alone
+                seen["bf16 inside b"] = flags()
+
+    threads = [threading.Thread(target=f) for f in (region_a, region_b)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(10)
+        assert not t.is_alive()
+    assert seen == {"b after a closed": (False, False), "bf16 inside b": (False, False)}
+    assert flags() == (True, True)
+    with unet.ieee_fp32(torch.float32, torch.device("cpu")):
+        assert flags() == (True, True)  # no card: nothing to change

@@ -53,16 +53,28 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      steps on the card and on the CPU, losses alike;
   8. train-agree — one injected full-width step from the same weights, t and
      ε through the kernel path and the plain path: losses and updates agree;
+  8a. loader — the native C++ loader on the card's machine: the codec probe
+     (png.h, jpeglib.h, zlib.h, the libraries, Pillow), the library built
+     with g++ (a failed build fails the run, nothing falls back), its decode
+     against utils/png on the 64 class PNGs and on 64 288² PNGs written with
+     Paeth and Average rows, and decode img/s at batch 16 for
+     NativeImageDataset with 2 and 8 workers and the Python ImageDataset
+     with 2 threads, beside [train]'s float32 img/s;
   8b. train-cli — the user's ``cli.main(["train", ...])`` on 64 synthetic
-     288² PNGs written by the port's writer and streamed from disk: the
-     default model, float32, batch 16, 2 epochs × 4 steps on the kernel
-     path, a checkpoint each epoch and one log_sample; exact B1/B2/B4
-     launches, finite losses, img/s, every reference tag in the event file;
+     288² PNGs written by the port's writer and streamed from disk through
+     the native loader (the dataset must be NativeImageDataset), with
+     ``--fid-samples 16``: the default model, float32, batch 16, 2 epochs × 4
+     steps on the kernel path, a checkpoint each epoch and one log_sample
+     with its FID/KID; exact B1/B2/B4 launches, finite losses, img/s, every
+     reference tag and fid/kid in the event file;
   8c. train-resume — the same from the uint8 pool (``--data-hbm 288``) with
      an EMA: 2 epochs in one call against ``--epochs 1`` then ``--epochs 2``
      on one checkpoint dir (exactly 4 steps restored): epoch-1 losses within
      1e-5 relative; ``cli sample --checkpoint-dir`` equals the restored EMA
      sampled in process (within one uint8 level); one checkpoint save timed;
+  8d. cache — ``cli build-cache`` of the Paeth PNGs at store 288, then a
+     Runner fed AugmentedCachedDataset for 4 steps at the default width,
+     float32, batch 16: exact B1/B2/B4 launches, a finite loss, img/s;
   9. gan-kernel — B3 (instance norm) against its plain version at the seven
      distinct shapes of the cycle-GAN step at batch 16 (each with its plan's
      cluster size) and at a large mean (3·N(0, 1) + 100), float32 and
@@ -85,7 +97,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   13. gan-train-cli — the user's ``cli.main(["gan-train", ...])`` on the two
      class folders of PNGs (circles, crosses) at the default width with
      instance norms and B4, float32, batch 16 per class, 4 steps, one
-     checkpoint and one log_sample: exact B3/B4 launches, finite losses.
+     checkpoint and one log_sample: exact B3/B4 launches, finite losses;
+  14. eval — ``cli.main(["eval", ...])`` on [train-cli]'s checkpoint
+     (--model diffusion: 16 samples at stride 50, exact B4 launches) and on
+     [gan-train-cli]'s (--model gan, 16 held-out images a class: exact B3/B4
+     launches): finite scores; the extractor's features on the card against
+     the CPU; run_sampler_benchmark at batch 16, float32 and bfloat16.
 
 The last two lines of its output are a JSON line of per-kernel results and
 ``{"ok": true, "device": {...}}``; before them the card's name and power
@@ -152,6 +169,8 @@ ADAM_FLOPS_PER_ELEMENT = 12  # 2 mul + add (m), 3 mul + add (v), sqrt, add, mul,
 GAN_FLAGS = ["--g-norm", "instance", "--d-norm", "instance", "--conv-impl", "pallas"]
 CLI_FILES = (32, 288)  # [train-cli]: PNGs per class (circles, crosses) and their side
 CLI_STEPS = 4  # steps an epoch in [train-cli], [train-resume] and [gan-train-cli]
+EVAL_SAMPLES = 16  # fid_samples of [train-cli] and [eval]: held-out files and samples
+PAETH_FILES = (64, 288)  # [loader]/[cache]: PNGs written with Paeth and Average rows
 # the reference's TensorBoard tags (train.py:356-361, 489-496) and the epoch scalars
 REF_TAGS = ("denoised/image", "example loss", "step_1/image/0", "step_0.25/image/0",
             "step_0.5/image/0", "step_0.75/image/0", "fake/image/0", "loss", "images_per_sec")
@@ -1029,32 +1048,57 @@ def _run_cli(cli, counters, args):
 
 def phase_train_cli(torch, cli, fdc, fd, adam_kernel, sampler, cfg, tmp):
     """The user's training command, ``cli.main(["train", ...])``, streaming
-    the PNG files from disk (``--data-hbm 0 --data-workers 2``): the default
-    model, float32, batch 16, 2 epochs × CLI_STEPS steps on the kernel path,
-    a checkpoint each epoch and one ``log_sample`` (at stride 50). Exact
-    B1/B2/B4 launches (the train steps, and B4 in log_sample's denoiser
-    calls: the preview, T invert steps and the stride-50 sample), finite
-    losses, every reference tag in the event file, the last checkpoint.
-    Returns the launches by kernel name."""
+    the PNG files from disk through the native C++ loader (the default
+    ``--native-loader true``, ``--data-hbm 0 --data-workers 2``) with
+    ``--fid-samples EVAL_SAMPLES``: the default model, float32, batch 16, 2
+    epochs × CLI_STEPS steps on the kernel path, a checkpoint each epoch and
+    one ``log_sample`` (at stride 50). The dataset must be the
+    ``NativeImageDataset``. Exact B1/B2/B4 launches (the train steps, and B4
+    in log_sample's denoiser calls: the preview, T invert steps, the
+    stride-50 sample, and the FID/KID sample of EVAL_SAMPLES), finite losses,
+    every reference tag and ``fid``/``kid`` in the event file, the last
+    checkpoint. Returns the launches by kernel name."""
+    from gan_class_transfer2_tpu_torch.data import native_loader, pipeline
     from gan_class_transfer2_tpu_torch.models import unet
     from gan_class_transfer2_tpu_torch.utils import checkpoint as ckpt_lib
 
     n_leaves = len(list(unet.Denoiser(cfg).parameters()))
     steps = 2 * CLI_STEPS
-    calls = 1 + cfg.steps + len(sampler.sample_timesteps(cfg.replace(sample_stride=50)))
+    sample_calls = len(sampler.sample_timesteps(cfg.replace(sample_stride=50)))
+    calls = 1 + cfg.steps + sample_calls
     b4 = b4_per_call(fdc, cfg, TRAIN_BATCH)
-    want = (steps, steps * adam_kernel.launches_per_step(n_leaves), (steps + calls) * b4)
+    b4_fid = sample_calls * b4_per_call(fdc, cfg, EVAL_SAMPLES)
+    want = (steps, steps * adam_kernel.launches_per_step(n_leaves), (steps + calls) * b4 + b4_fid)
     args = _train_cli(cfg, tmp, "logs-cli", "ckpt-cli", "--epochs", "2", "--data-hbm", "0",
-                      "--data-workers", "2", "--log-images-every", "2")
-    got, secs = _run_cli(cli, (fd.diffuse_fused, adam_kernel.adam_fused, fdc.down_conv_fused),
-                         args)
+                      "--data-workers", "2", "--log-images-every", "2",
+                      "--fid-samples", str(EVAL_SAMPLES))
+    built = []
+    make_datasets = pipeline.make_datasets
+
+    def recording(*a, **kw):
+        out = make_datasets(*a, **kw)
+        built.extend(type(d).__name__ for d in out)
+        return out
+
+    pipeline.make_datasets = recording
+    try:
+        got, secs = _run_cli(cli, (fd.diffuse_fused, adam_kernel.adam_fused,
+                                   fdc.down_conv_fused), args)
+    finally:
+        pipeline.make_datasets = make_datasets
+    if built != [native_loader.NativeImageDataset.__name__]:
+        fail(f"train-cli: the datasets were {built}, expected one NativeImageDataset")
     if got != want:
         fail(f"train-cli: launches B1/B2/B4 {got}, expected {want} ({steps} steps, "
-             f"{calls} denoiser calls in one log_sample)")
+             f"{calls} denoiser calls in one log_sample and {sample_calls} for its FID/KID "
+             f"sample of {EVAL_SAMPLES})")
     ev = _events(os.path.join(tmp, "logs-cli"))
-    missing = [t for t in REF_TAGS if t not in ev]
+    missing = [t for t in (*REF_TAGS, "fid", "kid") if t not in ev]
     if missing:
-        fail(f"train-cli: the event file lacks the reference tags {missing}")
+        fail(f"train-cli: the event file lacks the tags {missing}")
+    fid, kid = ev["fid"][0][1], ev["kid"][0][1]
+    if not (np.isfinite(fid) and np.isfinite(kid)):
+        fail(f"train-cli: fid {fid}, kid {kid}")
     losses, ips = dict(ev["loss"]), dict(ev["images_per_sec"])
     if sorted(losses) != [0, 1] or not all(np.isfinite(v) for v in losses.values()):
         fail(f"train-cli: epoch losses {losses}")
@@ -1063,9 +1107,11 @@ def phase_train_cli(torch, cli, fdc, fd, adam_kernel, sampler, cfg, tmp):
     for e in (0, 1):
         print(f"[train-cli] epoch {e}: loss {losses[e]:.7f}, {ips[e]:.3f} img/s "
               f"({TRAIN_BATCH * CLI_STEPS} images from PNG files{', after log_sample' if e == 0 else ''})")
-    print(f"[train-cli] fp32 kernel path, {steps} steps + one log_sample ({calls} denoiser "
-          f"calls): launches B1/B2/B4 {got}; every reference tag logged; checkpoint step "
-          f"{steps}; wall {secs:.2f} s")
+    print(f"[train-cli] fp32 kernel path on the NativeImageDataset, {steps} steps + one "
+          f"log_sample ({calls} denoiser calls + {sample_calls} for FID/KID of {EVAL_SAMPLES} "
+          f"samples): launches B1/B2/B4 {got}; every reference tag logged; fid {fid:.6f}, kid "
+          f"{kid:.6f} (random-init weights after {steps} steps, against {EVAL_SAMPLES} held-out "
+          f"files); checkpoint step {steps}; wall {secs:.2f} s")
     return {"diffuse_f32": got[0], "adam_f32m": got[1], "down_conv_k4s2_f32": got[2]}
 
 
@@ -1153,6 +1199,176 @@ def phase_train_resume(torch, cli, fdc, fd, adam_kernel, trainer, sampler, png, 
     del state, images, snap
     torch.cuda.empty_cache()
     return {"diffuse_f32": total[0], "adam_f32m": total[1], "down_conv_k4s2_f32": total[2]}
+
+
+# ------------------------------------------ the native loader and the cache
+
+
+def _paeth_png(img):
+    """PNG bytes of (H, W, 3) uint8 whose even rows use the Paeth filter and
+    odd rows the Average filter (the two a Python decoder runs byte by
+    byte); filtering reads the raw bytes only, so numpy does it at once."""
+    import struct
+    import zlib
+
+    from gan_class_transfer2_tpu_torch.utils import png
+
+    h, w, c = img.shape
+    x = img.reshape(h, w * c).astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, c:] = x[:, :-c]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    ul = np.zeros_like(x)
+    ul[1:, c:] = x[:-1, :-c]
+    p = a + b - ul
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - ul)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, ul))
+    ftype = np.where(np.arange(h) % 2 == 0, 4, 3).astype(np.uint8)
+    pred = np.where(ftype[:, None] == 4, paeth, (a + b) // 2)
+    rows = np.concatenate([ftype[:, None], ((x - pred) % 256).astype(np.uint8)], 1)
+
+    def chunk(tag, body):
+        return (struct.pack(">I", len(body)) + tag + body
+                + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF))
+
+    return (png.SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes())) + chunk(b"IEND", b""))
+
+
+def write_paeth_pngs(directory):
+    """PAETH_FILES[0] photo-like PNGs of PAETH_FILES[1]²: the synthetic
+    circles with Gaussian noise (σ = 6 levels), Paeth and Average rows.
+    Returns their glob."""
+    from gan_class_transfer2_tpu_torch.data import synthetic
+    from gan_class_transfer2_tpu_torch.utils import png
+
+    n, side = PAETH_FILES
+    os.makedirs(directory, exist_ok=True)
+    imgs = png.to_uint8(synthetic.circles(n, side, seed=1)).astype(np.int16)
+    imgs = np.clip(imgs + np.random.default_rng(0).normal(0, 6, imgs.shape), 0, 255)
+    for i, img in enumerate(imgs.astype(np.uint8)):
+        with open(os.path.join(directory, f"p_{i:04d}.png"), "wb") as fh:
+            fh.write(_paeth_png(img))
+    return os.path.join(directory, "*.png")
+
+
+def phase_loader(globs, paeth_glob, step_ips):
+    """The native C++ loader on the card's machine: the codec probe (the
+    libpng, libjpeg and zlib headers and libraries, Pillow), the library
+    built with the host's g++ (a failed build fails the phase), its
+    decode against utils/png on every PNG of the smoke (the filter-0 class
+    files and the Paeth/Average files), and decode img/s at batch 16 for
+    NativeImageDataset with 2 and 8 workers and the Python ImageDataset
+    with 2 threads, on the Paeth/Average files (288² → crops of 256²),
+    beside what the float32 training step consumes (``step_ips``)."""
+    import glob
+    import importlib.util
+
+    from gan_class_transfer2_tpu_torch.data import native_loader, pipeline
+    from gan_class_transfer2_tpu_torch.utils import png
+
+    for header in ("png.h", "jpeglib.h", "zlib.h"):
+        # jpeglib.h needs stdio's FILE and size_t declared before it
+        r = subprocess.run(["g++", "-fsyntax-only", "-x", "c++", "-"],
+                           input=f"#include <cstdio>\n#include <{header}>\n",
+                           capture_output=True, text=True)
+        print(f"[loader] probe: #include <{header}> {'found' if r.returncode == 0 else 'missing'}")
+    libs = subprocess.run(["ldconfig", "-p"], capture_output=True, text=True).stdout
+    names = sorted({ln.split()[0] for ln in libs.splitlines()
+                    if ln.strip().startswith(("libpng", "libjpeg", "libz."))})
+    print(f"[loader] probe: ldconfig -p has {names}; Pillow importable: "
+          f"{importlib.util.find_spec('PIL') is not None}")
+    t0 = time.perf_counter()
+    if not native_loader.available():
+        fail(f"loader: the native loader did not build:\n{native_loader.build_error()}")
+    print(f"[loader] dataloader.cc built with g++ and loaded in {time.perf_counter() - t0:.2f} s")
+
+    files = sorted(glob.glob(globs[0]) + glob.glob(globs[1]))
+    paeth = sorted(glob.glob(paeth_glob))
+    t0 = time.perf_counter()
+    for f in files + paeth:
+        want = png.read_png(f).astype(np.float32) / 128.0 - 1.0
+        if not np.array_equal(native_loader.decode_one(f, 0, augment=False), want):
+            fail(f"loader: the native decode of {f} differs from utils/png")
+    print(f"[loader] native decode equals utils/png on {len(files)} filter-0 PNGs and "
+          f"{len(paeth)} Paeth/Average PNGs of {PAETH_FILES[1]}² ({time.perf_counter() - t0:.2f} s)")
+
+    def rate(make, batches):
+        """img/s from the dataset's creation to its ``batches``-th batch (a
+        prefetch window filled ahead of the timing would inflate it)."""
+        t0 = time.perf_counter()
+        ds = make()
+        it = iter(ds)
+        for _ in range(batches):
+            b = next(it)
+        secs = time.perf_counter() - t0
+        ds.close()
+        if b.shape != (TRAIN_BATCH, 256, 256, 3):
+            fail(f"loader: batch {b.shape}")
+        return batches * TRAIN_BATCH / secs
+
+    rates = {}
+    for workers in (2, 8):
+        rates[f"native, {workers} workers"] = rate(lambda: native_loader.NativeImageDataset(
+            paeth, 256, TRAIN_BATCH, seed=0, num_workers=workers), 16)
+    rates["python, 2 threads"] = rate(lambda: pipeline.ImageDataset(
+        paeth, 256, TRAIN_BATCH, seed=0, num_workers=2), 4)
+    for name, ips in rates.items():
+        print(f"[loader] decode + crop + flip + normalise at batch {TRAIN_BATCH}, Paeth/Average "
+              f"{PAETH_FILES[1]}² PNGs, {name}: {ips:.3f} img/s ({ips / step_ips:.2f}x the "
+              f"{step_ips:.3f} img/s a float32 training step consumes)")
+    return rates
+
+
+def phase_cache(torch, cli, fdc, fd, adam_kernel, cfg, tmp, paeth_glob):
+    """``cli build-cache`` of the Paeth/Average PNGs at store 288, then a
+    Runner fed ``AugmentedCachedDataset`` (uint8 batches to the card, crop,
+    flip and normalise there) for CLI_STEPS steps at the default width,
+    float32, batch 16, on the kernel path: exact B1/B2/B4 launches, a finite
+    loss, img/s. Returns the launches by kernel name."""
+    from gan_class_transfer2_tpu_torch.data import cache
+    from gan_class_transfer2_tpu_torch.models import unet
+    from gan_class_transfer2_tpu_torch.train.loop import Runner
+    from gan_class_transfer2_tpu_torch.utils import tensorboard as tb
+
+    path = os.path.join(tmp, "paeth.gct2cache")
+    t0 = time.perf_counter()
+    rc = cli.main(["build-cache", "--device", "cuda", "--dataset-pattern", paeth_glob,
+                   "--store", str(PAETH_FILES[1]), "--out", path])
+    build_s = time.perf_counter() - t0
+    data, store = cache.read_cache(path)
+    if rc != 0 or data.shape != (PAETH_FILES[0], store, store, 3) or store != PAETH_FILES[1]:
+        fail(f"cache: build-cache returned {rc}, records {data.shape}")
+    c = cfg.replace(conv_impl="pallas", optimizer="adam_fused", fused_diffusion=True,
+                    compute_dtype="float32", batch_size=TRAIN_BATCH, checkpoint_dir=None,
+                    log_images_every=0).validate()
+    n_leaves = len(list(unet.Denoiser(c).parameters()))
+    per_step = (1, adam_kernel.launches_per_step(n_leaves), b4_per_call(fdc, c, TRAIN_BATCH))
+    ds = cache.AugmentedCachedDataset(path, c.size, TRAIN_BATCH, seed=0, device="cuda")
+    runner = Runner(c, dataset=ds, log_dir=os.path.join(tmp, "logs-cache"), device="cuda")
+    counters = (fd.diffuse_fused, adam_kernel.adam_fused, fdc.down_conv_fused)
+    for k in counters:
+        k.launches = 0
+    t0 = time.perf_counter()
+    runner.fit(epochs=1, steps_per_epoch=CLI_STEPS, log_samples=False)
+    secs = time.perf_counter() - t0
+    got = tuple(k.launches for k in counters)
+    runner.close()
+    want = tuple(CLI_STEPS * k for k in per_step)
+    if got != want:
+        fail(f"cache: launches B1/B2/B4 {got}, expected {want} ({CLI_STEPS} steps)")
+    ev = {tag: value for _, tag, _, value in tb.read_events(runner.writer.path)}
+    if not np.isfinite(ev.get("loss", np.nan)):
+        fail(f"cache: loss {ev.get('loss')}")
+    print(f"[cache] cli build-cache: {PAETH_FILES[0]} Paeth/Average PNGs -> {store}² uint8 "
+          f"records ({os.path.getsize(path) / 1e6:.1f} MB) in {build_s:.2f} s; Runner on "
+          f"AugmentedCachedDataset, fp32 kernel path, {CLI_STEPS} steps at batch "
+          f"{TRAIN_BATCH}: launches B1/B2/B4 {got}, loss {ev['loss']:.7f}, "
+          f"{ev['images_per_sec']:.3f} img/s (the first steps included), wall {secs:.2f} s")
+    del runner, ds
+    torch.cuda.empty_cache()
+    return {"diffuse_f32": got[0], "adam_f32m": got[1], "down_conv_k4s2_f32": got[2]}
 
 
 # ------------------------------------------------------------------ GAN
@@ -1564,6 +1780,76 @@ def phase_gan_train_cli(torch, cli, fdc, norm, cfg, tmp, globs):
     return got
 
 
+# ------------------------------------------------------------------ eval
+
+
+def phase_eval(torch, cli, fdc, norm, sampler, cfg, tmp):
+    """The user's ``cli.main(["eval", ...])``: ``--model diffusion`` on
+    [train-cli]'s checkpoint (its config: the default width, T = 200, stride
+    50, fid_samples EVAL_SAMPLES), exactly ``len(sample_timesteps)`` denoiser
+    calls of B4 launches and a finite fid and kid; ``--model gan`` on
+    [gan-train-cli]'s checkpoint with ``--fid-samples EVAL_SAMPLES``, two
+    generator forwards (A→B, B→A) of exact B3/B4 launches and finite
+    transfer scores. Then the trained extractor's features of 16 images at
+    256² on the card against the CPU (within 1e-4 relative: IEEE float32
+    convolutions in other orders), and ``run_sampler_benchmark`` at batch 16
+    in float32 and bfloat16. Returns the eval commands' (B3, B4) launches."""
+    from gan_class_transfer2_tpu_torch.utils import benchmark
+    from gan_class_transfer2_tpu_torch.utils import fid_extractor as fx
+
+    t_phase = time.perf_counter()
+    sample_calls = len(sampler.sample_timesteps(cfg.replace(sample_stride=50)))
+    results = {}
+    counters = (norm.instance_norm_fused, fdc.down_conv_fused)
+    c = cfg.replace(batch_size=TRAIN_BATCH, g_norm="instance", d_norm="instance",
+                    conv_impl="pallas")
+    _, _, (b3_fwd, b4_fwd) = gan_counts(fdc, c, EVAL_SAMPLES)
+    wants = {"diffusion": (0, sample_calls * b4_per_call(fdc, cfg, EVAL_SAMPLES)),
+             "gan": (2 * b3_fwd, 2 * b4_fwd)}
+    total = [0, 0]
+    for model, ckpt, extra in (("diffusion", "ckpt-cli", []),
+                               ("gan", "ckpt-gan", ["--fid-samples", str(EVAL_SAMPLES)])):
+        for k in counters:
+            k.launches = 0
+        t0 = time.perf_counter()
+        out = _cli_json(cli, ["eval", "--device", "cuda", "--model", model,
+                              "--checkpoint-dir", os.path.join(tmp, ckpt), *extra])[-1]
+        secs = time.perf_counter() - t0
+        got = tuple(k.launches for k in counters)
+        if got != wants[model]:
+            fail(f"eval {model}: launches B3/B4 {got}, expected {wants[model]}")
+        keys = ("fid", "kid") if model == "diffusion" else (
+            "transfer_fid_ab", "transfer_kid_ab", "transfer_fid_ba", "transfer_kid_ba")
+        if not all(np.isfinite(out.get(k, np.nan)) for k in keys):
+            fail(f"eval {model}: {out}")
+        total = [t + g for t, g in zip(total, got)]
+        results[model] = out
+        print(f"[eval] cli eval --model {model} (step {out['step']}, fid_samples "
+              f"{EVAL_SAMPLES}): {json.dumps({k: out[k] for k in keys})}; launches B3/B4 {got}; "
+              f"wall {secs:.2f} s")
+
+    x = np.random.default_rng(0).uniform(-1, 1, (16, 256, 256, 3)).astype(np.float32)
+    cpu = fx.trained_features(torch.from_numpy(x)).numpy()
+    card = fx.trained_features(torch.from_numpy(x).cuda()).cpu().numpy()
+    rel = float(np.abs(card - cpu).max() / np.abs(cpu).max())
+    print(f"[eval] trained extractor features, 16 images 256² -> 256: card vs CPU max "
+          f"{rel:.3e} relative to max|feature| (bound 1e-4)")
+    if not rel <= 1e-4:
+        fail(f"eval: the extractor's features on the card differ by {rel} relative")
+
+    for dtype in ("float32", "bfloat16"):
+        fdc.down_conv_fused.launches = 0
+        res = benchmark.run_sampler_benchmark(
+            cfg.replace(compute_dtype=dtype, conv_impl="pallas", sample_stride=50),
+            batch=TRAIN_BATCH, iters=3, device="cuda")
+        print(f"[eval] run_sampler_benchmark {dtype}, batch {TRAIN_BATCH}, stride 50: "
+              f"{json.dumps(res)}")
+    fdc.down_conv_fused.launches = 0  # the benchmark is not the main path's count
+    print(f"[eval] the phase took {time.perf_counter() - t_phase:.2f} s")
+    torch.cuda.empty_cache()
+    return tuple(total)
+
+
 def main():
     try:
         import torch
@@ -1631,14 +1917,25 @@ def main():
     from gan_class_transfer2_tpu_torch.train import gan
 
     files = tempfile.TemporaryDirectory(prefix="chip_smoke_files_")
+    paeth_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_paeth_")
     t0 = time.perf_counter()
     globs = write_class_pngs(files.name)
+    paeth_glob = write_paeth_pngs(paeth_dir.name)
+    print(f"[loader] wrote {PAETH_FILES[0]} Paeth/Average PNGs of {PAETH_FILES[1]}²")
+    phase_loader(globs, paeth_glob, train_results[("float32", "kernels")]["images_per_sec"])
+    print(f"[loader] the phase took {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
     cli_launches = phase_train_cli(torch, cli, fdc, fd, adam_kernel, sampler, cfg, files.name)
     resume_launches = phase_train_resume(torch, cli, fdc, fd, adam_kernel, trainer, sampler,
                                          png, cfg, files.name)
+    t1 = time.perf_counter()
+    cache_launches = phase_cache(torch, cli, fdc, fd, adam_kernel, cfg, paeth_dir.name,
+                                 paeth_glob)
+    print(f"[cache] the phase took {time.perf_counter() - t1:.2f} s")
+    paeth_dir.cleanup()
     for name in cli_launches:
-        train_launches[name] += cli_launches[name] + resume_launches[name]
-    print(f"[train-resume] the PNGs, [train-cli] and [train-resume] took "
+        train_launches[name] += cli_launches[name] + resume_launches[name] + cache_launches[name]
+    print(f"[train-resume] [train-cli], [train-resume] and [cache] took "
           f"{time.perf_counter() - t0:.2f} s")
 
     gan_rows, b4_gan_err = phase_gan_kernels(torch, F, fdc, norm, cfg)
@@ -1649,9 +1946,10 @@ def main():
     t0 = time.perf_counter()
     cli_b3, cli_b4 = phase_gan_train_cli(torch, cli, fdc, norm, cfg, files.name, globs)
     print(f"[gan-train-cli] took {time.perf_counter() - t0:.2f} s")
+    eval_b3, eval_b4 = phase_eval(torch, cli, fdc, norm, sampler, cfg, files.name)
     files.cleanup()
-    gan_launches["float32"] = (gan_launches["float32"][0] + cli_b3,
-                               gan_launches["float32"][1] + cli_b4)
+    gan_launches["float32"] = (gan_launches["float32"][0] + cli_b3 + eval_b3,
+                               gan_launches["float32"][1] + cli_b4 + eval_b4)
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         fail("jax was imported")
 
@@ -1660,9 +1958,9 @@ def main():
     # worst forward error at batch 4 and 16 (with and without ReLU); the
     # instance norm's times and bound sum one GAN step's 102 launches at
     # batch 16; launches are the main-path runs' (sample, edit, train,
-    # train-hbm, train-cli, train-resume, gan and gan-train-cli for the down
-    # conv; gan and gan-train-cli for the instance norm; the train phases for
-    # the others)
+    # train-hbm, train-cli, train-resume, cache, gan, gan-train-cli and eval
+    # for the down conv; gan, gan-train-cli and eval for the instance norm;
+    # the train phases and cache for the others)
     source = "gan_class_transfer2_tpu_torch/csrc/down_conv.cu"
     replaces = "gan_class_transfer2_tpu/ops/pallas_conv.py:36"
     rows = []

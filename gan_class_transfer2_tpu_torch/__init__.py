@@ -5,9 +5,11 @@ module of the same path there and is tested against it on the same inputs.
 Public functions keep the JAX package's NHWC activations and HWIO kernels.
 The port imports torch and numpy, never jax and never the JAX package.
 
-Ported so far: the serving path — reverse-diffusion sampling and the
-invert→edit→decode workflow — with the k4/s2 down conv as a hand-written CUDA
-kernel (ops/fused_down_conv.py, csrc/down_conv.cu).
+Ported so far: sampling and editing, diffusion and cycle-GAN training
+behind the ``train``, ``gan-train``, ``bench`` and ``profile`` commands, the
+native C++ data loader and its cache, and FID/KID eval, with the JAX
+package's four TPU kernels as hand-written CUDA (``csrc/``). ROADMAP.md
+lists what is still missing.
 """
 
 from .config import Config, tiny_test_config

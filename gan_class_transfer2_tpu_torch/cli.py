@@ -1,7 +1,8 @@
 """Command-line interface of the port — counterpart of the ``train``,
-``gan-train``, ``sample``, ``edit``, ``export-weights``, ``bench`` and
-``profile`` commands of gan_class_transfer2_tpu/cli.py, with the same flag
-names for the Config fields they read:
+``gan-train``, ``sample``, ``edit``, ``export-weights``, ``eval``,
+``build-cache``, ``bench`` and ``profile`` commands of
+gan_class_transfer2_tpu/cli.py, with the same flag names for the Config
+fields they read:
 
     python -m gan_class_transfer2_tpu_torch.cli train --dataset-pattern 'data/*.png' \
         --batch-size 16 --checkpoint-dir ckpt --log-dir logs
@@ -10,6 +11,9 @@ names for the Config fields they read:
     python -m gan_class_transfer2_tpu_torch.cli sample --checkpoint-dir ckpt --out samples/
     python -m gan_class_transfer2_tpu_torch.cli edit --input photo.png --checkpoint-dir ckpt
     python -m gan_class_transfer2_tpu_torch.cli export-weights --checkpoint-dir ckpt --out w.npz
+    python -m gan_class_transfer2_tpu_torch.cli eval --checkpoint-dir ckpt --fid-samples 64
+    python -m gan_class_transfer2_tpu_torch.cli build-cache --dataset-pattern 'data/*.png' \
+        --out data.gct2cache
     python -m gan_class_transfer2_tpu_torch.cli bench --batch-size 16 --bench-steps 10
     python -m gan_class_transfer2_tpu_torch.cli profile --model gan \
         --g-norm instance --d-norm instance --conv-impl pallas --batch-size 16
@@ -26,7 +30,14 @@ prints one JSON line with the JAX package's keys (img/s, step ms, MFU).
 cycle-GAN, then ``--profile-steps`` steps under ``torch.profiler``, and
 prints one JSON row per CUDA kernel and a summary line.
 
-``sample``, ``edit`` and ``export-weights`` read the latest checkpoint in
+``eval`` scores the latest checkpoint in ``--checkpoint-dir`` without
+training (``--model diffusion``: FID/KID of ``fid_samples`` samples against
+the held-out files; ``--model gan``: the transfer FID/KID pairs) through the
+runners' own held-out split, and prints one JSON line with the JAX
+command's keys. ``build-cache`` packs the dataset into the native loader's
+uint8 cache file (``data/cache.py``).
+
+``sample``, ``edit``, ``export-weights`` and ``eval`` read the latest checkpoint in
 ``--checkpoint-dir`` (its EMA params when it has them) and inherit the
 ``config.json`` saved there, as the JAX CLI does; ``sample`` and ``edit``
 also take ``--weights``, a flat Keras-order ``.npz`` as ``export-weights``
@@ -76,7 +87,7 @@ _FIELDS = (
     "checkpoint_async", "keep_best", "log_images_every", "fid_samples", "fid_extractor",
 )
 # the commands that read a checkpoint, and so inherit its config.json
-_READS_CHECKPOINT = ("sample", "edit", "export-weights")
+_READS_CHECKPOINT = ("sample", "edit", "export-weights", "eval")
 
 
 def _add_config_args(p: argparse.ArgumentParser):
@@ -126,7 +137,8 @@ def config_from_args(args, checkpoint_config: bool = False) -> Config:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="gan_class_transfer2_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
-    for cmd in ("train", "gan-train", "sample", "edit", "export-weights", "bench", "profile"):
+    for cmd in ("train", "gan-train", "sample", "edit", "export-weights", "eval",
+                "build-cache", "bench", "profile"):
         p = sub.add_parser(cmd)
         p.add_argument("--config", type=str, default=None, help="config JSON")
         p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
@@ -150,6 +162,15 @@ def main(argv=None) -> int:
                            help="kernel rows to print from the trace")
             p.add_argument("--trace-dir", type=str, default=None,
                            help="where trace.json lands (default: a fresh temp dir)")
+        elif cmd == "eval":
+            p.add_argument("--model", type=str, default="diffusion",
+                           choices=("diffusion", "gan", "cgan"),
+                           help="which runner's quality metric to score (held-out FID "
+                                "for diffusion, transfer-FID pairs for gan)")
+        elif cmd == "build-cache":
+            p.add_argument("--out", type=str, required=True, help="cache file path")
+            p.add_argument("--store", type=int, default=0,
+                           help="stored image side (default: size + size/8)")
         elif cmd == "export-weights":
             p.add_argument("--out", type=str, default="weights.npz",
                            help="npz of the flat weights in Keras build order")
@@ -182,6 +203,15 @@ def main(argv=None) -> int:
         return _edit(cfg, args)
     if args.command == "export-weights":
         return _export_weights(cfg, args)
+    if args.command == "eval":
+        return _eval(cfg, args)
+    if args.command == "build-cache":
+        from .data import native_loader
+
+        store = args.store or cfg.size + cfg.size // 8
+        n = native_loader.build_cache(cfg.dataset_pattern, store, args.out)
+        print(f"wrote {n} records ({store}x{store}x3 uint8) to {args.out}")
+        return 0
     if args.command == "bench":
         from .utils.benchmark import run_benchmark
 
@@ -255,6 +285,59 @@ def _export_weights(cfg: Config, args) -> int:
     flat = weights_lib.export_flat_weights(model)
     weights_lib.save_flat_npz(args.out, flat)
     print(f"wrote {len(flat)} weights (step {step}, Keras build order) to {args.out}")
+    return 0
+
+
+def _eval(cfg: Config, args) -> int:
+    """Score a checkpoint's quality metric without training (the JAX CLI's
+    ``_eval``, cli.py:773-851): one JSON line. The runners log into a
+    temporary directory, removed afterwards."""
+    import json
+    import shutil
+    import tempfile
+
+    from .utils import checkpoint as ckpt_lib
+
+    if cfg.fid_samples <= 0:
+        raise SystemExit("eval requires fid_samples > 0")
+    if args.model == "cgan":
+        raise NotImplementedError(
+            "eval --model cgan: the conditional GAN (models/conditional.py, "
+            "train/conditional_gan_loop.py) is not ported to PyTorch yet")
+    if not (cfg.checkpoint_dir and ckpt_lib.latest_step(cfg.checkpoint_dir) is not None):
+        print(f"warning: no checkpoint found in {cfg.checkpoint_dir!r}; "
+              "scoring randomly initialised weights", file=sys.stderr)
+    out = {"command": "eval", "model": args.model, "fid_extractor": cfg.fid_extractor}
+    scratch = tempfile.mkdtemp(prefix="gct2_eval_logs_")
+    try:
+        if args.model == "diffusion":
+            from .train.loop import Runner
+
+            runner = Runner(cfg, log_dir=scratch, device=args.device)
+            try:
+                out["step"] = int(runner.state.step)
+                scores = runner.quality_scores()
+                # None = degenerate eval set (< 2 images): nulls, not a crash
+                out["fid"] = None if scores is None else float(scores["fid"])
+                out["kid"] = None if scores is None else float(scores["kid"])
+            finally:
+                runner.close()
+        else:
+            from .train.gan_loop import GANRunner
+
+            runner = GANRunner(cfg, log_dir=scratch, device=args.device)
+            try:
+                out["step"] = int(runner.state.step)
+                for d in ("ab", "ba"):
+                    scores = runner.transfer_scores(d)
+                    if scores is not None:
+                        out[f"transfer_fid_{d}"] = float(scores["fid"])
+                        out[f"transfer_kid_{d}"] = float(scores["kid"])
+            finally:
+                runner.close()
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    print(json.dumps(out))
     return 0
 
 

@@ -7,7 +7,7 @@ broadcast → random flip → ``uint8/128 − 1`` → batch → prefetch.
 What differs from the JAX package, and why:
 
   * PNG files decode through ``utils/png.py``, so training from a folder of
-    PNGs needs no Pillow (the card's machine has none). Other formats take
+    PNGs needs no Pillow (nor does the native loader). Other formats take
     a lazy Pillow import; when Pillow is missing that raises
     ``DecoderUnavailable``, which no pipeline counts as a bad file: a
     missing decoder stops the run at once with its name, instead of
@@ -16,10 +16,10 @@ What differs from the JAX package, and why:
     to the card without blocking (PyTorch's pinned-memory allocator records
     the copy's stream, so a buffer is reused only after its copy ended),
     keeping one batch in flight.
-  * ``make_datasets`` takes the streaming Python pipeline where the JAX
-    package prefers its native C++ loader (``data/native_loader.py``,
-    not ported yet); it says so in one printed line. ``data_hbm`` builds the
-    ported ``HBMDataset``. One process only.
+  * ``make_datasets`` prefers the native C++ loader
+    (``data/native_loader.py``) as the JAX package does; where it does not
+    build, the Python pipeline runs and one printed line gives the
+    compiler's reason. ``data_hbm`` builds ``HBMDataset``. One process only.
   * ``LabeledDataset`` waits for the class-conditional model.
 
 The numpy draws (file order, crop corners, flips, held-out splits) are the
@@ -491,10 +491,11 @@ def make_datasets(cfg, files_per_class=None, device="cuda", **kw) -> list:
 
     ``cfg.data_hbm > 0``: each class is decoded once into a uint8 pool on
     ``device`` (``HBMDataset``, which crops, flips and normalises on the
-    device from (seed, position)); otherwise an ``ImageDataset`` streams the
-    files through decode threads. ``cfg.native_loader`` asks for the JAX
-    package's C++ loader, which is not ported: the Python pipeline runs and
-    a line says so. One process only."""
+    device from (seed, position)); otherwise ``cfg.native_loader`` streams
+    the files through the C++ loader (``NativeImageDataset``), or an
+    ``ImageDataset`` through Python decode threads: with ``cfg.cache``
+    (the native loader keeps no file bytes), or where the loader does not
+    build, with a printed line that says why. One process only."""
     import torch.distributed as dist
 
     if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
@@ -514,8 +515,24 @@ def make_datasets(cfg, files_per_class=None, device="cuda", **kw) -> list:
             for i, src in enumerate(sources)
         ]
     if cfg.native_loader:
-        print("native_loader=True: the native C++ loader (data/native_loader.py) is not "
-              "ported to PyTorch yet; using the Python pipeline (data/pipeline.py)")
+        from . import native_loader
+
+        if cfg.cache:
+            print("cache=True: using the Python pipeline "
+                  "(the native loader does not cache file bytes)")
+        elif native_loader.available():
+            # shuffle_buffer does not apply: the native loader draws exact
+            # per-epoch permutations
+            return [
+                native_loader.NativeImageDataset(src, cfg.size, cfg.batch_size,
+                                                 seed=cfg.seed + i, **kw)
+                for i, src in enumerate(sources)
+            ]
+        else:
+            lines = (native_loader.build_error() or "unknown error").strip().splitlines()
+            reason = next((ln for ln in lines if "error" in ln), lines[0]).strip()
+            print(f"native_loader=True: the native C++ loader did not build ({reason}); "
+                  "using the Python pipeline (data/pipeline.py)")
     return [
         ImageDataset(src, cfg.size, cfg.batch_size, seed=cfg.seed + i,
                      shuffle_buffer=cfg.shuffle_buffer, cache=cfg.cache, **kw)

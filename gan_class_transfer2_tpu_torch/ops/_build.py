@@ -1,4 +1,5 @@
-"""Builds the port's CUDA sources and loads them with ctypes.
+"""Builds the port's CUDA sources and its C++ host library, and loads them
+with ctypes.
 
 Each ``csrc/<name>.cu`` is compiled by its own ``nvcc`` into
 ``build/<name>-<hash>.so`` beside the package (``build/`` is git-ignored),
@@ -6,6 +7,8 @@ for ``sm_90a``, with a plain C interface: no PyTorch headers, so a build
 takes seconds. The hash covers the source and the flags, so an edited source
 is never served from a stale library. ``build_all`` starts every missing
 build at once and waits for all of them; ``load`` builds at first use.
+``load_host`` does the same for a C++ source run on the host (the native
+data loader, ``data/native/dataloader.cc``) with the host's ``g++``.
 Nothing is built when a module is imported.
 """
 
@@ -26,6 +29,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+HOST_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared", "-Wall", "-pthread")
 
 _loaded: dict = {}
 
@@ -85,6 +89,32 @@ def load(name: str) -> ctypes.CDLL:
         if not path.exists():
             build_all([name])
         lib = _loaded[name] = ctypes.CDLL(str(path))
+    return lib
+
+
+def load_host(source: Path, libs=()) -> ctypes.CDLL:
+    """The loaded library of the C++ file ``source``, compiled first if
+    needed with ``g++ -O3 -fPIC -std=c++17 -shared`` and linked with
+    ``libs``. The build writes a file of its own and moves it into place,
+    so processes that build at once never load half a library. Raises
+    RuntimeError with the compiler's message when the build fails."""
+    digest = hashlib.sha1(source.read_bytes() + " ".join((*HOST_FLAGS, *libs)).encode())
+    path = BUILD / f"{source.stem}-{digest.hexdigest()[:12]}.so"
+    lib = _loaded.get(str(path))
+    if lib is None:
+        if not path.exists():
+            BUILD.mkdir(parents=True, exist_ok=True)
+            tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            cmd = ["g++", *HOST_FLAGS, "-o", str(tmp), str(source), *libs]
+            try:
+                proc = subprocess.run(cmd, capture_output=True, text=True)
+            except OSError as e:
+                raise RuntimeError(f"C++ build of {source.name} failed: {e}") from None
+            if proc.returncode != 0:
+                raise RuntimeError(f"C++ build of {source.name} failed (exit "
+                                   f"{proc.returncode}):\n{proc.stderr or proc.stdout}")
+            os.replace(tmp, path)
+        lib = _loaded[str(path)] = ctypes.CDLL(str(path))
     return lib
 
 

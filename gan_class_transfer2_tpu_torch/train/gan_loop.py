@@ -5,16 +5,18 @@ checkpoint/resume through the same ``ResilientRunnerMixin`` as the
 diffusion ``Runner``.
 
 ``Config.classes`` names exactly two glob patterns. Each class keeps
-``fid_samples`` held-out files out of training, as in JAX; the transfer
-FID over them needs ``utils/metrics.py``, which is not ported yet, so
-``fid_samples > 0`` is refused. One card; the step's ``torch.Generator``
-is carried in each checkpoint.
+``fid_samples`` held-out files out of training, as in JAX; with
+``fid_samples > 0`` each ``log_sample`` scores the transfer of one class's
+held-out images against the other's (``transfer_scores``: FID and KID, B3
+and B4 in the generator on the card). The transfer draws no noise. One
+card; the step's ``torch.Generator`` is carried in each checkpoint.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..config import Config
@@ -23,7 +25,7 @@ from ..models.api import resolve_device
 from ..utils import checkpoint as ckpt_lib
 from ..utils import tensorboard as tb
 from . import gan
-from .loop import refuse_fid, step_seed
+from .loop import step_seed
 from .resilience import ResilientRunnerMixin
 
 
@@ -36,7 +38,6 @@ class GANRunner(ResilientRunnerMixin):
             if len(patterns) != 2:
                 raise ValueError("GAN class transfer needs exactly 2 class patterns "
                                  f"(got {len(patterns)}); set Config.classes")
-        refuse_fid(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.generator = torch.Generator(device=self.device).manual_seed(step_seed(cfg.seed, 23))
@@ -68,6 +69,8 @@ class GANRunner(ResilientRunnerMixin):
         self.writer = tb.SummaryWriter(self.log_dir)
         self._fixed_a = None
         self._fixed_b = None
+        self._eval_cache = {}
+        self._eval_feat_cache = {}
 
     def _data_sources(self) -> dict:
         return {"a": self.dataset_a, "b": self.dataset_b}
@@ -88,6 +91,71 @@ class GANRunner(ResilientRunnerMixin):
         for tag, images in (("transfer_ab", fake_b), ("transfer_ba", fake_a),
                             ("cycle_aba", cycled)):
             self.writer.image(tag, images.float().cpu().numpy() * 0.5 + 0.5, epoch, 10)
+        if self.cfg.fid_samples > 0:
+            fids = []
+            for d in ("ab", "ba"):
+                scores = self.transfer_scores(d)
+                if scores is None:  # degenerate eval set: metric skipped
+                    continue
+                self.writer.scalar(f"transfer_fid_{d}", scores["fid"], epoch)
+                self.writer.scalar(f"transfer_kid_{d}", scores["kid"], epoch)
+                fids.append(scores["fid"])
+            if fids:
+                # per-direction FID oscillates late in cycle-GAN training:
+                # keep_best tracks the mean over directions
+                self._maybe_keep_best(sum(fids) / len(fids), epoch, "transfer_fid_mean")
+
+    def _eval_set(self, cls: str) -> np.ndarray:
+        """The fixed per-class eval images, disjoint from training: the
+        held-out files reserved at construction (fixed crop stream, no
+        flip), or, for datasets passed in, a set drawn once from a fresh
+        iterator of the class's dataset."""
+        if cls in self._eval_cache:
+            return self._eval_cache[cls]
+        files = self._eval_files[cls]
+        n = max(self.cfg.fid_samples, self.cfg.batch_size)
+        if files:
+            out = pipeline.decode_eval_set(files, self.cfg.size, seed=0)
+        else:
+            it = iter(self.dataset_a if cls == "a" else self.dataset_b)
+            chunks = []
+            while sum(len(x) for x in chunks) < n:
+                chunks.append(torch.as_tensor(next(it)).float().cpu().numpy())
+            out = np.concatenate(chunks, 0)[:n]
+        self._eval_cache[cls] = out
+        return out
+
+    def transfer_fid(self, direction: str = "ab"):
+        """FID of the transferred held-out images against the target class's
+        held-out set; None when an eval set is degenerate."""
+        scores = self.transfer_scores(direction)
+        return None if scores is None else scores["fid"]
+
+    def transfer_scores(self, direction: str = "ab"):
+        """{"fid", "kid"} of one transferred held-out batch against the
+        target class's held-out set; None when either set has < 2 images."""
+        from ..utils import metrics
+
+        src = self._eval_set("a" if direction == "ab" else "b")
+        tgt_cls = "b" if direction == "ab" else "a"
+        tgt = self._eval_set(tgt_cls)
+        if len(src) < 2 or len(tgt) < 2:
+            print(f"transfer_scores({direction}) skipped: need >= 2 images "
+                  f"per eval set (src={len(src)}, tgt={len(tgt)})")
+            return None
+        fake = self._transfer(src, direction)
+        x = metrics.get_extractor(self.cfg.fid_extractor)
+        feats = self._eval_features(tgt_cls, tgt, x)
+        return metrics.fid_and_kid(fake, tgt, extractor=x, features_b=feats, device=self.device)
+
+    def _eval_features(self, cls: str, images, extractor):
+        """The extractor's features of a class's fixed eval set, computed once."""
+        from ..utils import metrics
+
+        if cls not in self._eval_feat_cache:
+            self._eval_feat_cache[cls] = metrics.extract_features(images, extractor=extractor,
+                                                                  device=self.device)
+        return self._eval_feat_cache[cls]
 
     def _transfer(self, images, direction: str):
         """The transfer with the runner's (EMA-preferring) generator."""

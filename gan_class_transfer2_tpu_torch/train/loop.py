@@ -14,8 +14,9 @@ What differs from the JAX package, and why:
     a fixed key, the port's generator advances with each draw, so a
     resumed run draws what an unbroken run draws only with its state
     restored.
-  * FID/KID (``fid_samples > 0``) need ``utils/metrics.py``, which is not
-    ported yet; the Runner refuses them.
+  * FID/KID (``fid_samples > 0``, ``quality_scores``): the sample batch's
+    initial noise is drawn from that same generator, and the held-out
+    reference set and its features are computed once, as in JAX.
 """
 
 from __future__ import annotations
@@ -43,20 +44,12 @@ def step_seed(seed: int, purpose: int) -> int:
     return int(np.random.default_rng((seed, purpose)).integers(0, 2**63))
 
 
-def refuse_fid(cfg):
-    if cfg.fid_samples > 0:
-        raise NotImplementedError(
-            f"fid_samples={cfg.fid_samples}: FID/KID (utils/metrics.py) is not ported to "
-            "PyTorch yet; run with fid_samples=0")
-
-
 class Runner(ResilientRunnerMixin):
     """Owns the state, the generator, the data, the writer and the epoch loop."""
 
     def __init__(self, cfg: Config, dataset=None, log_dir: Optional[str] = None,
                  device="cuda"):
         self.cfg = cfg.validate()
-        refuse_fid(cfg)
         self.device = resolve_device(device)
         self.generator = torch.Generator(device=self.device).manual_seed(step_seed(cfg.seed, 17))
         self.state = trainer.init_state(cfg, device=self.device)
@@ -66,8 +59,26 @@ class Runner(ResilientRunnerMixin):
         self.eval_fn = sampler.make_eval_fn(cfg)
         self._ema_model = None
 
+        # held-out eval split (FID hygiene, as in JAX): with FID on and the
+        # datasets built here, fid_samples files per class are reserved for
+        # the metric and never reach training; only class 0's are the
+        # reference set (the sampler draws class 0)
+        self._eval_files = None
+        self._fid_reference = None
+        self._ref_features = None
         if dataset is None:
-            dataset = pipeline.make_datasets(cfg, device=self.device)[0]
+            files_per_class = None
+            if cfg.fid_samples > 0:
+                try:
+                    splits = [pipeline.held_out_split(p, cfg.fid_samples, seed=cfg.seed + i)
+                              for i, p in enumerate(cfg.class_patterns())]
+                except FileNotFoundError:
+                    splits = None  # make_datasets raises with the pattern
+                if splits is not None:
+                    files_per_class = [tr for tr, _ in splits]
+                    self._eval_files = list(splits[0][1])
+            dataset = pipeline.make_datasets(cfg, files_per_class=files_per_class,
+                                             device=self.device)[0]
         self.dataset = dataset
         self._restore_data_state()
         self.data_iter = pipeline.DeviceIterator(self.dataset, self.device)
@@ -109,6 +120,68 @@ class Runner(ResilientRunnerMixin):
         for tag in ("step_1", "step_0.25", "step_0.5", "step_0.75"):
             self.writer.image(tag, out[tag] * 0.5 + 0.5, epoch, max_outputs=10)
         self.writer.image("fake", out["fake"] * 0.5 + 0.5, epoch, max_outputs=10)
+        if self.cfg.fid_samples > 0:
+            scores = self.quality_scores(self._ema_model)
+            if scores is not None:  # degenerate eval set: metric skipped
+                self.writer.scalar("fid", scores["fid"], epoch)
+                self.writer.scalar("kid", scores["kid"], epoch)
+                self._maybe_keep_best(scores["fid"], epoch, "fid")
+
+    def compute_fid(self, model=None):
+        """FID of fresh reverse-diffusion samples against the held-out set;
+        None when the eval set is degenerate (see quality_scores)."""
+        scores = self.quality_scores(model)
+        return None if scores is None else scores["fid"]
+
+    def quality_scores(self, model=None, init=None):
+        """{"fid", "kid"} of one fresh batch of ``fid_samples`` samples
+        against the held-out set, or None when either set has < 2 images.
+        ``model``: the denoiser (default: the EMA when kept); ``init``: the
+        sampler's initial noise (default: drawn from the runner's
+        generator)."""
+        from ..utils import metrics
+
+        cfg = self.cfg
+        n = cfg.fid_samples
+        if model is None:
+            model = self._ema_model = trainer.eval_model(self.state, self._ema_model)
+        ref = self._fid_reference_set(n)
+        if n < 2 or len(ref) < 2:
+            print(f"quality_scores skipped: need >= 2 samples and reference "
+                  f"images (fid_samples={n}, reference={len(ref)})")
+            return None
+        if init is None:
+            init = torch.randn((n, cfg.size, cfg.size, 3), generator=self.generator,
+                               device=self.device)
+        samples = self._metric_sample(model, init)
+        x = metrics.get_extractor(cfg.fid_extractor)
+        if self._ref_features is None:
+            # the reference set is fixed: its features are extracted once
+            self._ref_features = metrics.extract_features(ref, extractor=x, device=self.device)
+        return metrics.fid_and_kid(samples, ref, extractor=x, features_b=self._ref_features,
+                                   device=self.device)
+
+    def _metric_sample(self, model, init):
+        """The sampler's batch for FID/KID: ``len(sample_timesteps(cfg))``
+        denoiser calls on ``init``, on the runner's device."""
+        return sampler.sample(self.cfg, model, torch.as_tensor(init).to(self.device),
+                              snapshots=False).images
+
+    def _fid_reference_set(self, n: int) -> np.ndarray:
+        """The fixed comparison set: the held-out files reserved at
+        construction (decoded with a fixed crop stream, no flip), or, for
+        a dataset passed in, a set drawn once from the training stream."""
+        if self._fid_reference is not None:
+            return self._fid_reference
+        if self._eval_files:
+            out = pipeline.decode_eval_set(self._eval_files[:n], self.cfg.size, seed=0)
+        else:
+            data = []
+            while sum(len(d) for d in data) < n:
+                data.append(torch.as_tensor(next(self.data_iter)).float().cpu().numpy())
+            out = np.concatenate(data, 0)[:n]
+        self._fid_reference = out
+        return out
 
     # ----------------------------------------------------------------- train
     def fit(self, epochs: Optional[int] = None, steps_per_epoch: Optional[int] = None,

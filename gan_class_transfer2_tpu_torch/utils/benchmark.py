@@ -1,9 +1,10 @@
-"""Training throughput benchmark — counterpart of
+"""Throughput benchmarks — counterpart of
 gan_class_transfer2_tpu/utils/benchmark.py (``model_flops_per_image``,
-``run_benchmark``): images per second of the train step on a synthetic batch
-resident on the device, with the same JSON keys as the JAX package's
-``bench`` command. Warmup steps are excluded from the timing; the timed loop
-ends in ``torch.cuda.synchronize()``.
+``run_benchmark``, ``run_sampler_benchmark``): images per second of the
+train step on a synthetic batch resident on the device, with the same JSON
+keys as the JAX package's ``bench`` command, and of the reverse-diffusion
+sampler. Warmup is excluded from the timing; each timed loop ends in
+``torch.cuda.synchronize()``.
 """
 
 from __future__ import annotations
@@ -151,3 +152,46 @@ def run_benchmark(cfg, steps: int = 30, warmup: int = 3, baseline_ips: float | N
             "final_loss": float(loss),
         },
     )
+
+
+def run_sampler_benchmark(cfg, batch: int = 8, iters: int = 3, mesh=None,
+                          device="cuda") -> dict:
+    """Throughput of the reverse-diffusion sampler (``sample/sampler.py``,
+    ``len(sample_timesteps(cfg))`` denoiser calls a batch) at ``batch``
+    images from random weights, after one untimed call; the JAX function's
+    keys. ``sampler_mfu`` is None off an H100 SXM and in float32, as in
+    ``run_benchmark``. One card: a mesh beyond one device raises."""
+    from ..models import api
+    from ..sample import sampler
+
+    if mesh is not None and getattr(mesh, "size", 1) > 1:
+        raise NotImplementedError(
+            "run_sampler_benchmark: device meshes (parallel/mesh.py) are not ported to "
+            "PyTorch yet; the port samples on one card (mesh=None)")
+    device = api.resolve_device(device)
+    model = api.init_denoiser(cfg, device=device)
+    r = np.random.default_rng(0)
+    init = torch.from_numpy(
+        r.normal(size=(batch, cfg.size, cfg.size, 3)).astype(np.float32)).to(device)
+    imgs = sampler.sample(cfg, model, init, snapshots=False).images
+    float(imgs.sum())  # warm up and synchronise
+    _synchronize(device)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        imgs = sampler.sample(cfg, model, init, snapshots=False).images
+    _synchronize(device)
+    dt = time.perf_counter() - t0
+    # forward-only: each visited timestep is one denoiser forward
+    n_calls = len(sampler.sample_timesteps(cfg))
+    ips = batch * iters / dt
+    tflops = ips * n_calls * model_flops_per_image(cfg) / 1e12
+    peak = _peak_tflops(cfg.compute_dtype, device)
+    return {
+        "sampler_images_per_sec": round(ips, 3),
+        "sampler_batch": batch,
+        "sampler_steps": cfg.steps,
+        "sampler_denoiser_calls": n_calls,
+        "sampler_mesh": 1,
+        "sampler_tflops_per_chip": round(tflops, 3),
+        "sampler_mfu": round(tflops / peak, 4) if peak else None,
+    }

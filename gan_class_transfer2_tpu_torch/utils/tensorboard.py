@@ -12,10 +12,11 @@ writing the on-disk format TensorBoard reads:
   * hand-encoded protobuf wire format for Event / Summary / Image protos
     (field numbers from tensorboard's event.proto / summary.proto)
 
-Where the JAX module reaches its native loader's C++ CRC32C and Pillow's PNG
-encoder, this one computes CRC32C from the table below in Python and encodes
-PNGs with ``utils/png.encode_png``, so the JAX package's ``read_events`` and
-TensorBoard read its files.
+CRC32C comes from the native loader's C++ (``data/native_loader.py``), as
+in the JAX module, with the Python table loop below as its plain version
+where the library does not build. Where the JAX module reaches Pillow's PNG
+encoder, this one encodes PNGs with ``utils/png.encode_png``, so the JAX
+package's ``read_events`` and TensorBoard read its files.
 """
 
 from __future__ import annotations
@@ -46,11 +47,28 @@ def _make_crc_table():
 _make_crc_table()
 
 
-def crc32c(data: bytes) -> int:
+def crc32c_plain(data: bytes) -> int:
+    """CRC32C byte by byte in Python: the plain version of the native
+    loader's ``dl_crc32c``, used where that library does not build."""
     crc = 0xFFFFFFFF
     for b in data:
         crc = _CRC_TABLE[(crc ^ b) & 0xFF] ^ (crc >> 8)
     return crc ^ 0xFFFFFFFF
+
+
+_crc_impl = None  # resolved at the first call, so importing builds nothing
+
+
+def crc32c(data: bytes) -> int:
+    """CRC32C (Castagnoli) through the native loader's slicing-by-8 loop
+    (``data/native_loader.crc32c``; the Python loop costs ~0.2 s per logged
+    image grid), or ``crc32c_plain`` where the library does not build."""
+    global _crc_impl
+    if _crc_impl is None:
+        from ..data import native_loader
+
+        _crc_impl = native_loader.crc32c if native_loader.available() else crc32c_plain
+    return _crc_impl(data)
 
 
 def _masked_crc(data: bytes) -> int:

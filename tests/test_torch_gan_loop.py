@@ -75,8 +75,12 @@ def test_gan_runner_end_to_end_and_resume(tmp_path):
 def test_gan_runner_requires_two_classes(tmp_path):
     with pytest.raises(ValueError, match="exactly 2 class patterns"):
         GANRunner(tiny_test_config(classes=("only_one",)), device="cpu")
-    with pytest.raises(NotImplementedError, match="utils/metrics.py"):
-        _runner(_cfg(tmp_path, fid_samples=2))
+    # fid_samples > 0 is no longer refused: with datasets passed in there
+    # is no file split, and the eval sets come from the datasets
+    runner = _runner(_cfg(tmp_path, fid_samples=2))
+    assert runner._eval_files == {"a": None, "b": None}
+    assert runner._eval_set("a").shape == (2, 16, 16, 3)
+    runner.close()
 
 
 @pytest.mark.parametrize("source", ["array", "data_hbm"])

@@ -343,9 +343,19 @@ def jax_params_np(params):
     return jax.tree_util.tree_map(np.asarray, params)
 
 
-def test_fid_and_multi_host_are_refused(cfg):
-    with pytest.raises(NotImplementedError, match="utils/metrics.py"):
-        _runner(cfg.replace(fid_samples=4))
+def test_fid_and_multi_host_are_refused(cfg, tmp_path):
+    """FID is ported: fid_samples=4 reserves held-out files (class 0's
+    are the reference set) and no longer raises; multi-host still does.
+    (The name is kept from when both were refused.)"""
+    r = np.random.default_rng(0)
+    for i in range(6):
+        Image.fromarray(r.integers(0, 256, (18, 18, 3), dtype=np.uint8)).save(
+            tmp_path / f"{i}.png")
+    runner = Runner(cfg.replace(fid_samples=4, dataset_pattern=str(tmp_path / "*.png")),
+                    device="cpu")
+    assert len(runner._eval_files) == 4
+    assert not set(runner._eval_files) & set(runner.dataset.files)
+    runner.close()
     for flags in (["--coordinator", "localhost:1234"], ["--num-processes", "2"],
                   ["--process-id", "0"]):
         with pytest.raises(NotImplementedError, match="parallel/multihost.py"):
@@ -371,7 +381,7 @@ def test_cli_train_sample_and_export_weights_end_to_end(tmp_path, capsys):
             "--log-dir", logs, "--checkpoint-dir", ckpt, "--checkpoint-every", "2",
             "--data-workers", "1"]
     assert cli.main(argv) == 0
-    assert "data/native_loader.py" in capsys.readouterr().out
+    assert "native_loader" not in capsys.readouterr().out  # the C++ loader ran
     assert ckpt_lib.all_steps(ckpt) == [2]
     (events,) = [os.path.join(d, f) for d, _, fs in os.walk(logs) for f in fs
                  if f.startswith("events")]

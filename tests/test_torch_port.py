@@ -158,6 +158,11 @@ def test_port_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "assert 'gan_class_transfer2_tpu_torch.cli' in names, names\n"
+        "new = ['data.native_loader', 'data.cache', 'utils.metrics', 'utils.fid_extractor']\n"
+        "missing = [n for n in new if p.__name__ + '.' + n not in names]\n"
+        "assert not missing, missing\n"
+        "from gan_class_transfer2_tpu_torch.utils import fid_extractor\n"
+        "fid_extractor.load_params()  # the JAX package's weights file, read as data\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'gan_class_transfer2_tpu')\n"
         "       or m.startswith(('jax.', 'jaxlib.', 'gan_class_transfer2_tpu.'))]\n"
         "assert not bad, bad\n"

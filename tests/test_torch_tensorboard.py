@@ -73,6 +73,20 @@ def test_crc32c_equals_jax(data):
     assert tb.crc32c(b"123456789") == 0xE3069283  # the CRC-32C check value
 
 
+@pytest.mark.parametrize("n", [0, 1, 7, 8, 9, 63, 1000, 65537])
+def test_crc32c_goes_through_the_native_loader_and_equals_the_plain_loop(n):
+    """crc32c takes the C++ slicing-by-8 loop (dl_crc32c); the Python loop
+    is its plain version: equal on random bytes of every length class
+    (the 8-byte main loop, its tail, both) and on the check value."""
+    from gan_class_transfer2_tpu_torch.data import native_loader
+
+    assert native_loader.available(), native_loader.build_error()
+    data = np.random.default_rng(n).integers(0, 256, n, dtype=np.uint8).tobytes()
+    assert tb.crc32c(data) == tb.crc32c_plain(data) == native_loader.crc32c(data)
+    assert tb._crc_impl is native_loader.crc32c
+    assert native_loader.crc32c(b"123456789") == tb.crc32c_plain(b"123456789") == 0xE3069283
+
+
 def test_png_payloads_decode_with_the_port_decoder(tmp_path):
     for _, tag, kind, payload in tb.read_events(_write(tb, tmp_path)):
         if kind == "image" and not tag.startswith("gray"):

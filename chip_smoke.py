@@ -102,7 +102,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      (--model diffusion: 16 samples at stride 50, exact B4 launches) and on
      [gan-train-cli]'s (--model gan, 16 held-out images a class: exact B3/B4
      launches): finite scores; the extractor's features on the card against
-     the CPU; run_sampler_benchmark at batch 16, float32 and bfloat16.
+     the CPU; run_sampler_benchmark at batch 16, float32 and bfloat16;
+  15. serve — ``serve/server.build_service`` on [train-cli]'s diffusion and
+     [gan-train-cli]'s GAN checkpoints behind the threaded Server and the
+     AsyncServer on the card: exact B3/B4 launches from HTTP requests
+     (/sample num 1 and 3, /denoise, /edit, /transfer ab and ba), npy
+     answers equal the in-process sampler, preview and transfer within 1
+     uint8 level, the two frontends equal; 8 concurrent requests in ≤ 2
+     device batches; a stream spanning /reload ends on the old weights;
+     503s past serve_max_queue and serve_max_streams; then latency (p50, and
+     p99 from 120 or 200 requests), sample img/s and peak memory by device batch, PNG vs npy encode,
+     reload ms, printed.
 
 The last two lines of its output are a JSON line of per-kernel results and
 ``{"ok": true, "device": {...}}``; before them the card's name and power
@@ -1850,6 +1860,411 @@ def phase_eval(torch, cli, fdc, norm, sampler, cfg, tmp):
     return tuple(total)
 
 
+# ------------------------------------------------------------------ serve
+
+
+def _http(port, method, path, body=None, timeout=300):
+    """(status, headers, body) of one request to the server on ``port``."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=body)
+        r = conn.getresponse()
+        return r.status, {k.lower(): v for k, v in r.getheaders()}, r.read()
+    finally:
+        conn.close()
+
+
+def _ok(port, path, body=None, method="POST"):
+    status, _, out = _http(port, method, path, body)
+    if status != 200:
+        fail(f"serve: {method} {path} answered {status}: {out[:300]!r}")
+    return out
+
+
+def _busy(port, path, body, what):
+    status, headers, out = _http(port, "POST", path, body)
+    if status != 503 or headers.get("retry-after") != "1":
+        fail(f"serve: {what}: {status} {headers}, expected 503 with Retry-After 1: {out[:200]!r}")
+    return json.loads(out)["error"]
+
+
+def _levels(got, want, what):
+    """Max uint8 difference and the share of values that differ; fails past
+    1 level or past 1e-3 of the values (a float32 difference flips a value
+    only where it sits on a level boundary)."""
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    share = float((diff > 0).mean())
+    if got.shape != want.shape or diff.max() > 1 or share > 1e-3:
+        fail(f"serve: {what}: shapes {got.shape}/{want.shape}, max {diff.max()} levels on "
+             f"{share:.2e} of the values (bound 1 level on 1e-3)")
+    return int(diff.max()), share
+
+
+def _read_frame(resp):
+    """One PNG frame of a /sample stream (None at the terminator)."""
+    from gan_class_transfer2_tpu_torch.utils import png
+
+    line = resp.readline()
+    if line.startswith(b"--gct2frame--"):
+        return None
+    if line != b"--gct2frame\r\n":
+        fail(f"serve: stream frame starts with {line[:80]!r}")
+    headers = {}
+    while (line := resp.readline()) != b"\r\n":
+        k, _, v = line.decode().partition(":")
+        headers[k.strip().lower()] = v.strip()
+    frame = png.decode_png(resp.read(int(headers["content-length"])))
+    resp.read(2)
+    return frame
+
+
+def _latency(port, path, body, conc, per_thread):
+    """(p50, p99, max) ms and the count of ``conc`` clients each sending
+    ``per_thread`` requests back to back; fails unless every request got a
+    200. The p99 means something only from ~100 requests on: below that it
+    is in effect the max."""
+    import threading
+
+    lat, bad, lock = [], [], threading.Lock()
+
+    def client():
+        for _ in range(per_thread):
+            t0 = time.perf_counter()
+            status, _, _ = _http(port, "POST", path, body)
+            with lock:
+                lat.append((time.perf_counter() - t0) * 1e3)
+                if status != 200:
+                    bad.append(status)
+
+    threads = [threading.Thread(target=client) for _ in range(conc)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    if bad or len(lat) != conc * per_thread:
+        fail(f"serve: latency of {path} at concurrency {conc}: statuses {bad}, "
+             f"{len(lat)} answers")
+    p50, p99 = np.percentile(lat, [50, 99])
+    return float(p50), float(p99), float(max(lat)), len(lat)
+
+
+def phase_serve(torch, fdc, norm, sampler, gan, png, tmp, globs, card):
+    """The user's serving path: ``serve/server.build_service`` on
+    [train-cli]'s diffusion checkpoint (the default width, T = 200, stride
+    50, ``conv_impl="pallas"``) and [gan-train-cli]'s cycle-GAN checkpoint
+    (instance norms), each behind the threaded ``Server`` and the
+    ``AsyncServer`` on port 0, on the card. Exact B3/B4 launches from HTTP
+    requests (/sample num 1 and 3: one device batch each; /denoise: one
+    denoiser call; /edit: T invert + 4 decode calls; /transfer ab and ba:
+    one generator forward each); the ``format=npy`` answers equal the
+    in-process sampler, preview and transfer on the replayed noise within
+    1 uint8 level on ≤ 1e-3 of the values, and the two frontends' bytes
+    equal; 8 concurrent num=2 requests in ≤ 2 device batches (the test holds
+    the device lock until all are queued) and a 503 past serve_max_queue; a
+    stream spanning a /reload ends on the old weights, /healthz then reports
+    the new step, and a second stream and /edit get 503 past
+    serve_max_streams. Then, measured and printed only: latency at
+    concurrency 1 and 8 (p50, max, and a p99 where 100 requests or more), sample img/s and peak memory by device batch (fp32
+    and bf16), PNG against npy encode, reload ms. Returns the (B3, B4)
+    launches of the checked requests."""
+    import glob
+    import http.client
+    import io
+    import threading
+
+    from gan_class_transfer2_tpu_torch.serve import server as srv_mod
+    from gan_class_transfer2_tpu_torch.serve.aio import AsyncServer
+    from gan_class_transfer2_tpu_torch.utils import checkpoint as ckpt_lib
+
+    t_phase = time.perf_counter()
+    counters = (norm.instance_norm_fused, fdc.down_conv_fused)
+    total = [0, 0]
+
+    def reset():
+        for k in counters:
+            k.launches = 0
+
+    def take(want, what):
+        got = tuple(k.launches for k in counters)
+        if got != want:
+            fail(f"serve: {what}: launches B3/B4 {got}, expected {want}")
+        total[0] += got[0]
+        total[1] += got[1]
+        reset()
+        return got
+
+    ddir, gdir = os.path.join(tmp, "ckpt-cli"), os.path.join(tmp, "ckpt-gan")
+    dcfg = ckpt_lib.load_config(ddir).replace(checkpoint_dir=ddir, serve_max_queue=16,
+                                              serve_max_streams=1).validate()
+    gcfg = ckpt_lib.load_config(gdir).replace(checkpoint_dir=gdir).validate()
+    t0 = time.perf_counter()
+    dsvc = srv_mod.build_service(dcfg, "diffusion", "cuda")
+    gsvc = srv_mod.build_service(gcfg, "gan", "cuda")
+    print(f"[serve] services restored (diffusion step {dsvc.step}, gan step {gsvc.step}) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    servers = [srv_mod.Server(dsvc).start(), AsyncServer(dsvc).start(),
+               srv_mod.Server(gsvc).start(), AsyncServer(gsvc).start()]
+    dthr, daio, gthr, gaio = (s.port for s in servers)
+    size = dcfg.size
+    calls = len(sampler.sample_timesteps(dcfg))
+    b4 = b4_per_call(fdc, dcfg, 1)
+    _, _, (b3_fwd, b4_fwd) = gan_counts(fdc, gcfg, 1)
+    raw = png.read_png(sorted(glob.glob(globs[0]))[0])
+    off = (raw.shape[0] - size) // 2
+    img = np.ascontiguousarray(raw[off:off + size, off:off + size])
+    buf = io.BytesIO()
+    np.save(buf, img)
+    body_npy = buf.getvalue()
+    x = torch.from_numpy(srv_mod._decode_image(body_npy, size)).cuda()
+
+    def replay(svc, gen_state, shape):
+        g = torch.Generator(device="cuda")
+        g.set_state(gen_state)
+        return torch.randn(shape, generator=g, device="cuda")
+
+    def both(svc, ports, path, body, want, what):
+        """The request through each frontend on the same generator state:
+        exact launches each, equal bytes; returns (answer, generator state)."""
+        gen_state, outs = svc._gen.get_state(), []
+        for port in ports:
+            svc._gen.set_state(gen_state)
+            reset()
+            outs.append(_ok(port, path, body))
+            take(want, f"{what} on port {port}")
+        if outs[0] != outs[1]:
+            a, b = (np.load(io.BytesIO(o)).astype(np.int16) for o in outs)
+            fail(f"serve: {what}: the threaded and the aio answers differ (max "
+                 f"{np.abs(a - b).max()} levels on {(a != b).mean():.2e} of the values)")
+        return np.load(io.BytesIO(outs[0])), gen_state
+
+    # cuDNN's default algorithm for a transposed convolution (the up convs)
+    # is not bit-reproducible: two runs of one batch-4 program on an H100
+    # can differ by a level (printed below). The agreement checks run with
+    # deterministic algorithms, so equal requests must give equal bytes.
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+
+    # ---- exact launches, agreement with the in-process path, both frontends
+    reset()
+    for num, padded in ((1, 1), (3, 4)):
+        before = dsvc.counters["device_batches"]
+        got, gen_state = both(dsvc, (dthr, daio), "/sample",
+                              json.dumps({"num": num, "format": "npy"}).encode(),
+                              (0, calls * b4), f"/sample num {num}")
+        if dsvc.counters["device_batches"] - before != 2:
+            fail(f"serve: /sample num {num} took {dsvc.counters['device_batches'] - before} "
+                 "device batches for two requests")
+        init = replay(dsvc, gen_state, (padded, size, size, 3))
+        want = png.to_uint8(sampler.sample(dcfg, dsvc._model, init, snapshots=False)
+                            .images[:num].cpu().numpy())
+        lv = _levels(got, want, f"/sample num {num} against sampler.sample")
+        print(f"[serve] /sample num {num} (device batch {padded}): {calls * b4} B4 launches "
+              f"per frontend; npy vs in-process sampler.sample {lv[0]} level(s) on "
+              f"{lv[1]:.2e} of the values; threaded = aio bytes")
+    got, gen_state = both(dsvc, (dthr, daio), "/denoise?format=npy", body_npy, (0, b4),
+                          "/denoise")
+    noise = replay(dsvc, gen_state, (1, size, size, 3))
+    want = png.to_uint8(sampler.preview(dcfg, dsvc._model, x, noise)[0].cpu().numpy())
+    lv = _levels(got, want, "/denoise against sampler.preview")
+    print(f"[serve] /denoise: {b4} B4 launches per frontend; npy vs sampler.preview {lv[0]} "
+          f"level(s) on {lv[1]:.2e}; threaded = aio bytes")
+    for d in ("ab", "ba"):
+        got, _ = both(gsvc, (gthr, gaio), f"/transfer?direction={d}&format=npy", body_npy,
+                      (b3_fwd, b4_fwd), f"/transfer {d}")
+        with torch.inference_mode():
+            want = png.to_uint8(gan.transfer(gcfg, gsvc.gan_state, x, d).cpu().numpy())
+        lv = _levels(got, want, f"/transfer {d} against gan.transfer")
+        print(f"[serve] /transfer {d}: B3/B4 ({b3_fwd}, {b4_fwd}) per frontend; npy vs "
+              f"gan.transfer {lv[0]} level(s) on {lv[1]:.2e}; threaded = aio bytes")
+    reset()
+    out = png.decode_png(_ok(gthr, "/transfer?direction=ab", png.encode_png(raw)))
+    take((b3_fwd, b4_fwd), f"/transfer of a {raw.shape[0]}² PNG")
+    if out.shape != (size, size, 3):
+        fail(f"serve: /transfer of a {raw.shape} PNG gave {out.shape}")
+    t0 = time.perf_counter()
+    with np.load(io.BytesIO(_ok(dthr, "/edit?format=npy", body_npy))) as z:
+        edited = {k: z[k] for k in z.files}
+    edit_s = time.perf_counter() - t0
+    take((0, (dcfg.steps + calls) * b4), "/edit")
+    if sorted(edited) != ["pixelate", "quantise", "reconstruction", "shift"] or any(
+            v.shape != (1, size, size, 3) or v.dtype != np.uint8 for v in edited.values()):
+        fail(f"serve: /edit answered {[(k, v.shape, v.dtype) for k, v in edited.items()]}")
+    print(f"[serve] /edit: {(dcfg.steps + calls) * b4} B4 launches ({dcfg.steps} invert + "
+          f"{calls} decode calls) in {edit_s:.3f} s; /transfer of a {raw.shape[0]}² PNG "
+          f"resampled to {size}²")
+    torch.backends.cudnn.deterministic = deterministic
+    init = replay(dsvc, dsvc._gen.get_state(), (4, size, size, 3))
+    runs = [dsvc._sample_prog(dsvc._model, init).cpu().numpy().astype(np.int16)
+            for _ in range(2)]
+    print(f"[serve] cuDNN's default algorithms: two runs of the batch-4 sample program on the "
+          f"same noise differ by {np.abs(runs[0] - runs[1]).max()} level(s) on "
+          f"{(runs[0] != runs[1]).mean():.2e} of the values")
+
+    # ---- coalescing behind a gate, and the queue's shed
+    n_req, per = 8, 2
+    batches, orig = [], dsvc._batcher._execute
+
+    def counting(batch):
+        batches.append(sum(r.num for r in batch))
+        return orig(batch)
+
+    answers, lock = [], threading.Lock()
+
+    def client(port):
+        status, _, body = _http(port, "POST", "/sample",
+                                json.dumps({"num": per, "format": "npy"}).encode())
+        with lock:
+            answers.append((status, np.load(io.BytesIO(body)).shape if status == 200 else None))
+
+    dsvc._batcher._execute = counting
+    reset()
+    with dsvc._lock:
+        threads = [threading.Thread(target=client, args=((dthr, daio)[i % 2],))
+                   for i in range(n_req)]
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + 120
+        while not (batches and batches[0] + dsvc._batcher.depth() == n_req * per):
+            if time.monotonic() > deadline:
+                fail(f"serve: coalescing gate: batches {batches}, depth "
+                     f"{dsvc._batcher.depth()}")
+            time.sleep(0.005)
+        over = n_req * per - batches[0] - dsvc._batcher.depth() + dcfg.serve_max_queue + 1
+        # queued + over > serve_max_queue: shed on both frontends
+        for port in (dthr, daio):
+            _busy(port, "/sample", json.dumps({"num": over}).encode(), "past serve_max_queue")
+    for t in threads:
+        t.join(300)
+    dsvc._batcher._execute = orig
+    if sorted(answers) != [(200, (per, size, size, 3))] * n_req or len(batches) > 2 or sum(
+            batches) != n_req * per:
+        fail(f"serve: {n_req} concurrent num={per} requests: answers {answers}, device "
+             f"batches {batches}")
+    take((0, len(batches) * calls * b4), "the coalesced requests")
+    print(f"[serve] {n_req} concurrent num={per} requests (both frontends) in {len(batches)} "
+          f"device batches {batches}; num={over} past serve_max_queue "
+          f"{dcfg.serve_max_queue}: 503 + Retry-After on both frontends")
+
+    # ---- a stream spanning a /reload, and the stream shed
+    real, go = dsvc.sample_stream, threading.Event()
+
+    def gated(num, segments=4, class_idx=None):
+        inner = real(num, segments=segments, class_idx=class_idx)
+
+        def frames():
+            try:
+                for i, snap in enumerate(inner):
+                    yield snap
+                    if i == 0:
+                        go.wait(300)  # hold the stream after its first frame
+            finally:
+                inner.close()
+
+        return frames()
+
+    dsvc.sample_stream = gated
+    gen_state, old_model, old_step = dsvc._gen.get_state(), dsvc._model, dsvc.step
+    reset()
+    conn = http.client.HTTPConnection("127.0.0.1", dthr, timeout=300)
+    conn.request("POST", "/sample", body=json.dumps({"num": 1, "stream": True}).encode())
+    resp = conn.getresponse()
+    if resp.status != 200:
+        fail(f"serve: stream answered {resp.status}")
+    frames = [_read_frame(resp)]
+    stream_shed = _busy(daio, "/sample", json.dumps({"num": 1, "stream": True}).encode(),
+                        "a second stream past serve_max_streams")
+    _busy(dthr, "/edit", body_npy, "/edit past serve_max_streams")
+    new = copy.deepcopy(dsvc.state)
+    with torch.no_grad():
+        for p in list(new.model.parameters()) + list(new.ema_params or []):
+            p.mul_(1.05)
+    t0 = time.perf_counter()
+    ckpt_lib.save(ddir, new._replace(step=old_step + 1), dcfg)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    del new
+    t0 = time.perf_counter()
+    reloaded = json.loads(_ok(daio, "/reload"))
+    reload_ms = (time.perf_counter() - t0) * 1e3
+    health = json.loads(_ok(dthr, "/healthz", method="GET"))
+    if reloaded != {"step": old_step + 1} or health["step"] != old_step + 1:
+        fail(f"serve: /reload gave {reloaded}, /healthz {health}; expected step {old_step + 1}")
+    go.set()
+    while (frame := _read_frame(resp)) is not None:
+        frames.append(frame)
+    conn.close()
+    dsvc.sample_stream = real
+    take((0, calls * b4), "the stream")
+    init = replay(dsvc, gen_state, (1, size, size, 3))
+    with torch.inference_mode():
+        old = png.to_uint8(sampler.sample(dcfg, old_model, init).images[0].cpu().numpy())
+        fresh = png.to_uint8(sampler.sample(dcfg, dsvc._model, init).images[0].cpu().numpy())
+    lv = _levels(frames[-1], old, "the stream's last frame against the old weights")
+    moved = int(np.abs(frames[-1].astype(np.int16) - fresh.astype(np.int16)).max())
+    if len(frames) != calls or moved <= 1:
+        fail(f"serve: the stream gave {len(frames)} frames; its last frame is {moved} "
+             "levels from the new weights' sample (the reload must have changed them)")
+    del old_model
+    print(f"[serve] stream of {len(frames)} frames spanning a /reload (step {old_step} -> "
+          f"{old_step + 1}): last frame vs the old weights {lv[0]} level(s) on {lv[1]:.2e}, vs "
+          f"the new weights {moved} levels; a second stream and /edit got 503 "
+          f"({stream_shed!r}); checkpoint save {save_ms:.1f} ms, /reload {reload_ms:.1f} ms "
+          f"({card})")
+    launches = tuple(total)
+    print(f"[serve] launches B3/B4 from the checked requests: {launches}; the checks took "
+          f"{time.perf_counter() - t_phase:.2f} s")
+
+    # ---- measured and printed, not gated
+    # a p99 from 120 requests at concurrency 1 and 200 at 8 (between the
+    # second and third largest); /edit (0.6 s a request, serial behind the
+    # device lock) only gets a p50
+    dsvc.cfg = dsvc.cfg.replace(serve_max_streams=8)  # /edit at concurrency 8
+    for path, port, body, reps in (
+            ("/sample", dthr, json.dumps({"num": 1}).encode(), (120, 25)),
+            ("/sample", dthr, json.dumps({"num": 1, "format": "npy"}).encode(), (120, 25)),
+            ("/denoise?format=npy", dthr, body_npy, (120, 25)),
+            ("/transfer?direction=ab&format=npy", gthr, body_npy, (120, 25)),
+            ("/edit?format=npy", dthr, body_npy, (2, 1))):
+        for conc, per_thread in ((1, reps[0]), (8, reps[1])):
+            p50, p99, top, n = _latency(port, path, body, conc, per_thread)
+            what = path + {b'{"num": 1}': " png", b'{"num": 1, "format": "npy"}': " npy"}.get(
+                body, "")
+            tail = f", p99 {p99:.3f} ms" if n >= 100 else ""
+            print(f"[serve] latency {what} at concurrency {conc}: p50 {p50:.3f} ms{tail}, max "
+                  f"{top:.3f} ms over {n} requests ({card})")
+    bf16 = srv_mod.ModelService(dcfg.replace(compute_dtype="bfloat16"), state=dsvc.state,
+                                device="cuda")
+    for name, svc in (("float32", dsvc), ("bfloat16", bf16)):
+        for b in (1, 4, 16, 64, 128):
+            t0 = time.perf_counter()
+            svc._run_sample(b)  # warms this batch's shapes (64 and 128 are new here)
+            first = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = svc._run_sample(b)
+            secs = time.perf_counter() - t0
+            if out.shape != (b, size, size, 3):
+                fail(f"serve: batch {b} gave {out.shape}")
+            print(f"[serve] sample {name} device batch {b} (stride {dcfg.sample_stride}, {calls} "
+                  f"calls, uint8 fetch included): {b / secs:.3f} img/s, the call before it "
+                  f"{first * 1e3:.1f} ms, peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB ({card})")
+    bf16.close()
+    sample = dsvc.sample(1)
+    png_ms = host_ms(lambda: srv_mod._png_bytes(sample[0]), reps=20)
+    npy_ms = host_ms(lambda: srv_mod._npy_bytes(sample), reps=20)
+    print(f"[serve] host encode of one {size}² image: PNG {png_ms:.3f} ms "
+          f"({len(srv_mod._png_bytes(sample[0]))} B), npy {npy_ms:.3f} ms ({card})")
+    for s in servers:
+        s.stop()
+    reset()
+    print(f"[serve] the phase took {time.perf_counter() - t_phase:.2f} s")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     try:
         import torch
@@ -1947,9 +2362,11 @@ def main():
     cli_b3, cli_b4 = phase_gan_train_cli(torch, cli, fdc, norm, cfg, files.name, globs)
     print(f"[gan-train-cli] took {time.perf_counter() - t0:.2f} s")
     eval_b3, eval_b4 = phase_eval(torch, cli, fdc, norm, sampler, cfg, files.name)
+    serve_b3, serve_b4 = phase_serve(torch, fdc, norm, sampler, gan, png, files.name, globs,
+                                     card)
     files.cleanup()
-    gan_launches["float32"] = (gan_launches["float32"][0] + cli_b3 + eval_b3,
-                               gan_launches["float32"][1] + cli_b4 + eval_b4)
+    gan_launches["float32"] = (gan_launches["float32"][0] + cli_b3 + eval_b3 + serve_b3,
+                               gan_launches["float32"][1] + cli_b4 + eval_b4 + serve_b4)
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         fail("jax was imported")
 
@@ -1958,9 +2375,9 @@ def main():
     # worst forward error at batch 4 and 16 (with and without ReLU); the
     # instance norm's times and bound sum one GAN step's 102 launches at
     # batch 16; launches are the main-path runs' (sample, edit, train,
-    # train-hbm, train-cli, train-resume, cache, gan, gan-train-cli and eval
-    # for the down conv; gan, gan-train-cli and eval for the instance norm;
-    # the train phases and cache for the others)
+    # train-hbm, train-cli, train-resume, cache, gan, gan-train-cli, eval and
+    # serve for the down conv; gan, gan-train-cli, eval and serve for the
+    # instance norm; the train phases and cache for the others)
     source = "gan_class_transfer2_tpu_torch/csrc/down_conv.cu"
     replaces = "gan_class_transfer2_tpu/ops/pallas_conv.py:36"
     rows = []

@@ -1,6 +1,6 @@
 """Command-line interface of the port — counterpart of the ``train``,
 ``gan-train``, ``sample``, ``edit``, ``export-weights``, ``eval``,
-``build-cache``, ``bench`` and ``profile`` commands of
+``build-cache``, ``bench``, ``profile`` and ``serve`` commands of
 gan_class_transfer2_tpu/cli.py, with the same flag names for the Config
 fields they read:
 
@@ -17,6 +17,8 @@ fields they read:
     python -m gan_class_transfer2_tpu_torch.cli bench --batch-size 16 --bench-steps 10
     python -m gan_class_transfer2_tpu_torch.cli profile --model gan \
         --g-norm instance --d-norm instance --conv-impl pallas --batch-size 16
+    python -m gan_class_transfer2_tpu_torch.cli serve --checkpoint-dir ckpt --port 8080 \
+        --model diffusion --frontend threaded
 
 ``train`` and ``gan-train`` run ``train/loop.Runner`` and
 ``train/gan_loop.GANRunner``: files in, checkpoints and TensorBoard events
@@ -37,7 +39,13 @@ runners' own held-out split, and prints one JSON line with the JAX
 command's keys. ``build-cache`` packs the dataset into the native loader's
 uint8 cache file (``data/cache.py``).
 
-``sample``, ``edit``, ``export-weights`` and ``eval`` read the latest checkpoint in
+``serve`` answers HTTP requests (``serve/server.py``: /sample, /denoise,
+/edit, /transfer, /reload, /metrics) from the latest checkpoint in
+``--checkpoint-dir``, a diffusion model (``--model diffusion``) or a cycle-GAN
+(``--model gan``), through the threaded or the asyncio frontend
+(``--frontend threaded|aio``); ``--model cgan`` and ``--bundle`` are refused.
+
+``sample``, ``edit``, ``export-weights``, ``eval`` and ``serve`` read the latest checkpoint in
 ``--checkpoint-dir`` (its EMA params when it has them) and inherit the
 ``config.json`` saved there, as the JAX CLI does; ``sample`` and ``edit``
 also take ``--weights``, a flat Keras-order ``.npz`` as ``export-weights``
@@ -85,9 +93,11 @@ _FIELDS = (
     # io
     "log_dir", "checkpoint_dir", "checkpoint_every", "checkpoint_keep",
     "checkpoint_async", "keep_best", "log_images_every", "fid_samples", "fid_extractor",
+    # serving
+    "serve_max_queue", "serve_batch_wait_ms", "serve_max_streams",
 )
 # the commands that read a checkpoint, and so inherit its config.json
-_READS_CHECKPOINT = ("sample", "edit", "export-weights", "eval")
+_READS_CHECKPOINT = ("sample", "edit", "export-weights", "eval", "serve")
 
 
 def _add_config_args(p: argparse.ArgumentParser):
@@ -138,7 +148,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="gan_class_transfer2_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
     for cmd in ("train", "gan-train", "sample", "edit", "export-weights", "eval",
-                "build-cache", "bench", "profile"):
+                "build-cache", "bench", "profile", "serve"):
         p = sub.add_parser(cmd)
         p.add_argument("--config", type=str, default=None, help="config JSON")
         p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
@@ -167,6 +177,17 @@ def main(argv=None) -> int:
                            choices=("diffusion", "gan", "cgan"),
                            help="which runner's quality metric to score (held-out FID "
                                 "for diffusion, transfer-FID pairs for gan)")
+        elif cmd == "serve":
+            p.add_argument("--host", type=str, default="127.0.0.1")
+            p.add_argument("--port", type=int, default=8080)
+            p.add_argument("--model", type=str, default="diffusion",
+                           choices=("diffusion", "gan", "cgan"))
+            p.add_argument("--frontend", type=str, default="threaded",
+                           choices=("threaded", "aio"),
+                           help="threaded = http.server thread-per-connection; aio = "
+                                "asyncio event loop (same endpoints and batching)")
+            p.add_argument("--bundle", type=str, default=None, metavar="DIR",
+                           help="a compiled model bundle (refused: not ported)")
         elif cmd == "build-cache":
             p.add_argument("--out", type=str, required=True, help="cache file path")
             p.add_argument("--store", type=int, default=0,
@@ -212,12 +233,25 @@ def main(argv=None) -> int:
         n = native_loader.build_cache(cfg.dataset_pattern, store, args.out)
         print(f"wrote {n} records ({store}x{store}x3 uint8) to {args.out}")
         return 0
+    if args.command == "serve":
+        return _serve(cfg, args)
     if args.command == "bench":
         from .utils.benchmark import run_benchmark
 
         print(run_benchmark(cfg, steps=args.bench_steps, device=args.device).to_json())
         return 0
     return _profile(cfg, args)
+
+
+def _serve(cfg: Config, args) -> int:
+    from .serve import server
+
+    if args.bundle:
+        server.serve_from_bundle(args.bundle, host=args.host, port=args.port,
+                                 frontend=args.frontend)
+    server.serve_from_checkpoint(cfg, host=args.host, port=args.port, model=args.model,
+                                 frontend=args.frontend, device=args.device)
+    return 0
 
 
 def _train(cfg: Config, args) -> int:

@@ -158,7 +158,8 @@ def test_port_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "assert 'gan_class_transfer2_tpu_torch.cli' in names, names\n"
-        "new = ['data.native_loader', 'data.cache', 'utils.metrics', 'utils.fid_extractor']\n"
+        "new = ['data.native_loader', 'data.cache', 'utils.metrics', 'utils.fid_extractor',\n"
+        "       'serve.server', 'serve.aio']\n"
         "missing = [n for n in new if p.__name__ + '.' + n not in names]\n"
         "assert not missing, missing\n"
         "from gan_class_transfer2_tpu_torch.utils import fid_extractor\n"
@@ -438,3 +439,47 @@ def test_down_conv_without_relu_matches_plain_on_card(monkeypatch):
             for name, a, w in zip(("dx", "dK", "db"), *grads):
                 gerr = (a.float() - w.float()).abs().max().item()
                 assert gerr <= gtol * w.float().abs().max().item(), (bsz, dtype, name, gerr)
+
+
+@pytest.mark.cuda
+def test_serve_sample_launches_b4_on_card(monkeypatch):
+    """/sample over HTTP on the card at a tiny width whose two down convs B4
+    takes (block_depth 1 gives 128 channels at 32² and 16²): num 3 is one device batch of
+    4, and each denoiser call of the stride-3 sample launches B4 once per
+    down conv it admits; the uint8 answer is within 1 level, on at most
+    1e-3 of the values, of the service's own program run in process on the
+    replayed noise (the same kernels; a level can flip only at a boundary)."""
+    import io
+    import json
+    import urllib.request
+
+    from gan_class_transfer2_tpu_torch.sample import sampler
+    from gan_class_transfer2_tpu_torch.serve.server import ModelService, Server
+
+    _needs_card(monkeypatch)
+    cfg = tiny_test_config(size=32, pixel_size=128, max_size=128, block_depth=1,
+                           conv_impl="pallas", sample_stride=3)
+    per_call, c = 0, cfg.pixel_size if cfg.block_depth else 3
+    for i in range(cfg.octaves):
+        f, hw = cfg.octave_filters(i), cfg.size >> i
+        per_call += fdc.supported((4, hw, hw, c), (4, 4, c, f))
+        c = f
+    assert per_call == 2
+    srv = Server(ModelService(cfg, device="cuda")).start()
+    svc = srv.service
+    try:
+        g = torch.Generator(device="cuda")
+        g.set_state(svc._gen.get_state())
+        init = torch.randn((4, cfg.size, cfg.size, 3), generator=g, device="cuda")
+        fdc.down_conv_fused.launches = 0
+        req = urllib.request.Request(f"http://127.0.0.1:{srv.port}/sample",
+                                     data=json.dumps({"num": 3, "format": "npy"}).encode())
+        with urllib.request.urlopen(req, timeout=120) as r:
+            got = np.load(io.BytesIO(r.read()))
+        assert fdc.down_conv_fused.launches == per_call * len(sampler.sample_timesteps(cfg))
+        assert svc.counters["device_batches"] == 1
+        want = svc._sample_prog(svc._model, init)[:3].cpu().numpy()
+        diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+        assert got.shape == (3, 32, 32, 3) and diff.max() <= 1 and (diff > 0).mean() <= 1e-3
+    finally:
+        srv.stop()

@@ -112,7 +112,31 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      device batches; a stream spanning /reload ends on the old weights;
      503s past serve_max_queue and serve_max_streams; then latency (p50, and
      p99 from 120 or 200 requests), sample img/s and peak memory by device batch, PNG vs npy encode,
-     reload ms, printed.
+     reload ms and the card's peak memory across each service's /reload, printed;
+  16. cond-train-cli — the class-conditional model (3 classes, embedding
+     width 8): ``cli train --classes a b c --num-classes 3`` on three class
+     folders of PNGs (a third, triangles, written after [eval]) through the
+     native loader, float32 on the kernel path, 2 epochs × 4 steps and one
+     log_sample: exact B1/B2/B4 launches, epoch img/s beside [train-cli]'s,
+     and ``cli bench --num-classes 3``'s step ms beside [train]'s;
+     ``cli sample --class-idx 0/1/2`` from the same noise must differ by
+     class; ``cli edit --class-idx 1``; one injected labeled step through
+     the kernels and the plain path (loss within 1e-5 relative);
+  17. cgan — ``cli profile --model cgan`` at the default width, 3 classes,
+     batch 16, instance norms and B4, float32 and bfloat16, 2 + 3 steps:
+     exact B3/B4 launches (half the cycle GAN's), busy, idle, top kernels;
+     the step timed without the profiler;
+  18. cgan-agree — one cGAN step with injected targets through the kernels,
+     the plain path and float64, [gan-agree]'s bounds;
+  19. cgan-train-cli — ``cli cgan-train`` on the three folders, 4 steps,
+     --fid-samples 16 (transfer_to_<k>, six pairs' FID/KID), then ``cli eval
+     --model cgan`` on its checkpoint: exact B3/B4 launches, finite scores;
+  20. serve (classes) — the conditional diffusion and the cGAN checkpoints
+     behind both frontends: /sample {"class": k} and /transfer?to=K within
+     1 level of the in-process path with exact launches, frontends equal;
+     a stream and /edit with a class; mixed classes and mixed targets
+     coalesced behind a gate; direction= on the cGAN a 400; latency p50/p99
+     at concurrency 1 and 8; the peak memory across each /reload.
 
 The last two lines of its output are a JSON line of per-kernel results and
 ``{"ok": true, "device": {...}}``; before them the card's name and power
@@ -512,8 +536,10 @@ def phase_reference(torch, api, sampler):
 
 def b4_per_call(fdc, cfg, batch):
     """Down convs of one denoiser call that the B4 gate admits (4 at the
-    default width: 128²→…→16² inputs with C ≥ 128; the stem has C = 3)."""
-    n, c = 0, cfg.pixel_size if cfg.block_depth else 3
+    default width: 128²→…→16² inputs with C ≥ 128; the stem has C = 3, or
+    3 + class_embed_dim in the class-conditional model)."""
+    stem = 3 + (cfg.class_embed_dim if cfg.num_classes > 0 else 0)
+    n, c = 0, cfg.pixel_size if cfg.block_depth else stem
     for i in range(cfg.octaves):
         f, hw = cfg.octave_filters(i), cfg.size >> i
         n += fdc.supported((batch, hw, hw, c), (4, 4, c, f))
@@ -946,8 +972,9 @@ def phase_train_hbm(torch, fdc, fd, adam_kernel, trainer, cfg, synthetic):
     return launches
 
 
-def phase_train_agree(torch, fdc, adam_kernel, api, trainer, cfg):
-    """One injected step at full width from the same weights, t and ε:
+def phase_train_agree(torch, fdc, adam_kernel, api, trainer, cfg, tag="train-agree"):
+    """One injected step at full width from the same weights, t and ε (and,
+    for a class-conditional ``cfg``, the same labels):
     kernel path (B4 fwd+bwd, B2) against plain path (cuDNN, optax-form
     Adam), float32, constant LR 1e-3 so that the update (≈ ±lr per element
     on Adam's first step) stands far above a float32 ulp of the weights.
@@ -960,6 +987,10 @@ def phase_train_agree(torch, fdc, adam_kernel, api, trainer, cfg):
                          .astype(np.float32)).cuda()
     t = torch.from_numpy(r.integers(1, cfg.steps + 1, TRAIN_BATCH).astype(np.int32))
     eps = torch.from_numpy(r.standard_normal(tuple(x.shape)).astype(np.float32)).cuda()
+    batch = x
+    if cfg.num_classes > 0:
+        labels = r.integers(0, cfg.num_classes, TRAIN_BATCH).astype(np.int32)
+        batch = {"image": x, "label": torch.from_numpy(labels).cuda()}
     lr = 1e-3
     init = api.init_denoiser(cfg, device="cpu")
     p0 = [p.detach().cuda() for p in init.parameters()]
@@ -971,12 +1002,12 @@ def phase_train_agree(torch, fdc, adam_kernel, api, trainer, cfg):
         opt_state = trainer.make_optimizer(c).init(list(model.parameters()))
         state = trainer.TrainState(0, model, opt_state, None, None)
         b4, b2 = fdc.down_conv_fused.launches, adam_kernel.adam_fused.launches
-        state, loss = trainer.make_injected_train_step(c)(state, x, t, eps)
+        state, loss = trainer.make_injected_train_step(c)(state, batch, t, eps)
         torch.cuda.synchronize()
         launched = (fdc.down_conv_fused.launches - b4, adam_kernel.adam_fused.launches - b2)
         fdc.down_conv_fused.launches, adam_kernel.adam_fused.launches = b4, b2
         if launched != ((b4_per_call(fdc, cfg, TRAIN_BATCH), 1) if path == "kernels" else (0, 0)):
-            fail(f"train-agree {path}: B4/B2 launches {launched}")
+            fail(f"{tag} {path}: B4/B2 launches {launched}")
         out[path] = (float(loss), [(p.detach() - q) for p, q in zip(model.parameters(), p0)])
         del state, model
     (lk, dk), (lp, dp) = out["kernels"], out["plain"]
@@ -984,7 +1015,8 @@ def phase_train_agree(torch, fdc, adam_kernel, api, trainer, cfg):
     diff = torch.cat([(a - b).abs().flatten() for a, b in zip(dk, dp)])
     frac = (diff > 1e-3 * lr).double().mean().item()
     mean_update = torch.cat([a.abs().flatten() for a in dp]).mean().item()
-    print(f"[train-agree] one injected step, {cfg.size}², batch {TRAIN_BATCH}, fp32: loss kernels "
+    print(f"[{tag}] one injected step, {cfg.size}², batch {TRAIN_BATCH}, fp32"
+          f"{f', {cfg.num_classes} classes' if cfg.num_classes else ''}: loss kernels "
           f"{lk:.7f} plain {lp:.7f} (rel {rel:.2e}, bound 1e-5); updates: mean |Δp| "
           f"{mean_update:.3e} (lr {lr}), max|Δk − Δp| {diff.max().item():.3e}, share of "
           f"elements beyond 1e-3·lr {frac:.2e} (bound 1e-4) of {diff.numel()}")
@@ -1384,12 +1416,14 @@ def phase_cache(torch, cli, fdc, fd, adam_kernel, cfg, tmp, paeth_glob):
 # ------------------------------------------------------------------ GAN
 
 
-def gan_counts(fdc, cfg, batch):
-    """What one cycle-GAN step of ``cfg`` launches, derived from the config
-    as models/unet.py, models/discriminator.py and train/gan.py build it:
-    ({(H=W, C): B3 launches per step}, B4 launches per step, (B3, B4) per
-    generator forward). Norms follow every G down and up conv and every D
-    conv but the first; B4 takes the down convs its gate admits."""
+def gan_counts(fdc, cfg, batch, conditional=False):
+    """What one cycle-GAN step of ``cfg`` launches (with ``conditional``,
+    one conditional-GAN step), derived from the config as models/unet.py,
+    models/discriminator.py, train/gan.py and train/conditional_gan.py
+    build it: ({(H=W, C): B3 launches per step}, B4 launches per step,
+    (B3, B4) per generator forward). Norms follow every G down and up conv
+    and every D conv but the first; B4 takes the down convs its gate
+    admits."""
     from collections import Counter
 
     from gan_class_transfer2_tpu_torch.models import discriminator as d_lib
@@ -1405,10 +1439,16 @@ def gan_counts(fdc, cfg, batch):
         if i > 0:
             d_norms[(hw // 2, f)] += 1
         c = f
-    # G forwards: two fakes, two cycle, two identity; D applies: two in the
-    # G loss, four in the D loss (train/gan.py, gan.py:165-249)
-    n_g = 2 + 2 * cfg.cycle_term_active + 2 * cfg.identity_term_active
-    n_d = 6
+    if conditional:
+        # G forwards: the fake, the cycle, the identity; D applies: one in
+        # the G loss, two in the D loss (train/conditional_gan.py)
+        n_g = 1 + cfg.cycle_term_active + cfg.identity_term_active
+        n_d = 3
+    else:
+        # G forwards: two fakes, two cycle, two identity; D applies: two in
+        # the G loss, four in the D loss (train/gan.py, gan.py:165-249)
+        n_g = 2 + 2 * cfg.cycle_term_active + 2 * cfg.identity_term_active
+        n_d = 6
     per_step = Counter({k: n_g * v for k, v in g_norms.items()})
     per_step.update({k: n_d * v for k, v in d_norms.items()})
     return dict(per_step), n_g * g_b4 + n_d * d_b4, (sum(g_norms.values()), g_b4)
@@ -1950,6 +1990,81 @@ def _latency(port, path, body, conc, per_thread):
     return float(p50), float(p99), float(max(lat)), len(lat)
 
 
+class _Launches:
+    """The kernels' launch counters around served requests: ``take`` checks
+    the launches since the last reset against ``want`` and adds them to
+    ``total``."""
+
+    def __init__(self, *counters):
+        self.counters = counters
+        self.total = [0] * len(counters)
+
+    def reset(self):
+        for k in self.counters:
+            k.launches = 0
+
+    def take(self, want, what):
+        got = tuple(k.launches for k in self.counters)
+        if got != want:
+            fail(f"serve: {what}: launches B3/B4 {got}, expected {want}")
+        self.total = [t + g for t, g in zip(self.total, got)]
+        self.reset()
+        return got
+
+
+def _replay(gen_state, shape):
+    """The noise a service's generator in ``gen_state`` draws next."""
+    import torch
+
+    g = torch.Generator(device="cuda")
+    g.set_state(gen_state)
+    return torch.randn(shape, generator=g, device="cuda")
+
+
+def _both(svc, ports, path, body, launches, want, what):
+    """The request through each frontend on the same generator state:
+    exact launches each, equal bytes; returns (npy answer, generator
+    state)."""
+    import io
+
+    gen_state, outs = svc._gen.get_state(), []
+    for port in ports:
+        svc._gen.set_state(gen_state)
+        launches.reset()
+        outs.append(_ok(port, path, body))
+        launches.take(want, f"{what} on port {port}")
+    if outs[0] != outs[1]:
+        a, b = (np.load(io.BytesIO(o)).astype(np.int16) for o in outs)
+        fail(f"serve: {what}: the threaded and the aio answers differ (max "
+             f"{np.abs(a - b).max()} levels on {(a != b).mean():.2e} of the values)")
+    return np.load(io.BytesIO(outs[0])), gen_state
+
+
+def _reload_memory(torch, svc, port, what, card):
+    """/reload of ``svc`` (the latest checkpoint, again) with the card's
+    peak memory across it: allocated before, the peak during, and after.
+    Garbage is collected first and after (a service and its batchers form
+    a reference cycle, so a dropped service's weights wait for the
+    collector), so before and after count live tensors only."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step = json.loads(_ok(port, "/reload"))["step"]
+    ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    gc.collect()
+    after = torch.cuda.memory_allocated()
+    print(f"[serve] /reload of the {what} service (step {step}): {ms:.1f} ms; card memory "
+          f"allocated {before / 2**20:.1f} MiB before, peak {peak / 2**20:.1f} MiB during, "
+          f"{after / 2**20:.1f} MiB after ({card})")
+    return peak - before
+
+
 def phase_serve(torch, fdc, norm, sampler, gan, png, tmp, globs, card):
     """The user's serving path: ``serve/server.build_service`` on
     [train-cli]'s diffusion checkpoint (the default width, T = 200, stride
@@ -1979,21 +2094,8 @@ def phase_serve(torch, fdc, norm, sampler, gan, png, tmp, globs, card):
     from gan_class_transfer2_tpu_torch.utils import checkpoint as ckpt_lib
 
     t_phase = time.perf_counter()
-    counters = (norm.instance_norm_fused, fdc.down_conv_fused)
-    total = [0, 0]
-
-    def reset():
-        for k in counters:
-            k.launches = 0
-
-    def take(want, what):
-        got = tuple(k.launches for k in counters)
-        if got != want:
-            fail(f"serve: {what}: launches B3/B4 {got}, expected {want}")
-        total[0] += got[0]
-        total[1] += got[1]
-        reset()
-        return got
+    launches = _Launches(norm.instance_norm_fused, fdc.down_conv_fused)
+    reset, take = launches.reset, launches.take
 
     ddir, gdir = os.path.join(tmp, "ckpt-cli"), os.path.join(tmp, "ckpt-gan")
     dcfg = ckpt_lib.load_config(ddir).replace(checkpoint_dir=ddir, serve_max_queue=16,
@@ -2019,26 +2121,6 @@ def phase_serve(torch, fdc, norm, sampler, gan, png, tmp, globs, card):
     body_npy = buf.getvalue()
     x = torch.from_numpy(srv_mod._decode_image(body_npy, size)).cuda()
 
-    def replay(svc, gen_state, shape):
-        g = torch.Generator(device="cuda")
-        g.set_state(gen_state)
-        return torch.randn(shape, generator=g, device="cuda")
-
-    def both(svc, ports, path, body, want, what):
-        """The request through each frontend on the same generator state:
-        exact launches each, equal bytes; returns (answer, generator state)."""
-        gen_state, outs = svc._gen.get_state(), []
-        for port in ports:
-            svc._gen.set_state(gen_state)
-            reset()
-            outs.append(_ok(port, path, body))
-            take(want, f"{what} on port {port}")
-        if outs[0] != outs[1]:
-            a, b = (np.load(io.BytesIO(o)).astype(np.int16) for o in outs)
-            fail(f"serve: {what}: the threaded and the aio answers differ (max "
-                 f"{np.abs(a - b).max()} levels on {(a != b).mean():.2e} of the values)")
-        return np.load(io.BytesIO(outs[0])), gen_state
-
     # cuDNN's default algorithm for a transposed convolution (the up convs)
     # is not bit-reproducible: two runs of one batch-4 program on an H100
     # can differ by a level (printed below). The agreement checks run with
@@ -2050,29 +2132,29 @@ def phase_serve(torch, fdc, norm, sampler, gan, png, tmp, globs, card):
     reset()
     for num, padded in ((1, 1), (3, 4)):
         before = dsvc.counters["device_batches"]
-        got, gen_state = both(dsvc, (dthr, daio), "/sample",
-                              json.dumps({"num": num, "format": "npy"}).encode(),
-                              (0, calls * b4), f"/sample num {num}")
+        got, gen_state = _both(dsvc, (dthr, daio), "/sample",
+                               json.dumps({"num": num, "format": "npy"}).encode(), launches,
+                               (0, calls * b4), f"/sample num {num}")
         if dsvc.counters["device_batches"] - before != 2:
             fail(f"serve: /sample num {num} took {dsvc.counters['device_batches'] - before} "
                  "device batches for two requests")
-        init = replay(dsvc, gen_state, (padded, size, size, 3))
+        init = _replay(gen_state, (padded, size, size, 3))
         want = png.to_uint8(sampler.sample(dcfg, dsvc._model, init, snapshots=False)
                             .images[:num].cpu().numpy())
         lv = _levels(got, want, f"/sample num {num} against sampler.sample")
         print(f"[serve] /sample num {num} (device batch {padded}): {calls * b4} B4 launches "
               f"per frontend; npy vs in-process sampler.sample {lv[0]} level(s) on "
               f"{lv[1]:.2e} of the values; threaded = aio bytes")
-    got, gen_state = both(dsvc, (dthr, daio), "/denoise?format=npy", body_npy, (0, b4),
-                          "/denoise")
-    noise = replay(dsvc, gen_state, (1, size, size, 3))
+    got, gen_state = _both(dsvc, (dthr, daio), "/denoise?format=npy", body_npy, launches,
+                           (0, b4), "/denoise")
+    noise = _replay(gen_state, (1, size, size, 3))
     want = png.to_uint8(sampler.preview(dcfg, dsvc._model, x, noise)[0].cpu().numpy())
     lv = _levels(got, want, "/denoise against sampler.preview")
     print(f"[serve] /denoise: {b4} B4 launches per frontend; npy vs sampler.preview {lv[0]} "
           f"level(s) on {lv[1]:.2e}; threaded = aio bytes")
     for d in ("ab", "ba"):
-        got, _ = both(gsvc, (gthr, gaio), f"/transfer?direction={d}&format=npy", body_npy,
-                      (b3_fwd, b4_fwd), f"/transfer {d}")
+        got, _ = _both(gsvc, (gthr, gaio), f"/transfer?direction={d}&format=npy", body_npy,
+                       launches, (b3_fwd, b4_fwd), f"/transfer {d}")
         with torch.inference_mode():
             want = png.to_uint8(gan.transfer(gcfg, gsvc.gan_state, x, d).cpu().numpy())
         lv = _levels(got, want, f"/transfer {d} against gan.transfer")
@@ -2095,7 +2177,7 @@ def phase_serve(torch, fdc, norm, sampler, gan, png, tmp, globs, card):
           f"{calls} decode calls) in {edit_s:.3f} s; /transfer of a {raw.shape[0]}² PNG "
           f"resampled to {size}²")
     torch.backends.cudnn.deterministic = deterministic
-    init = replay(dsvc, dsvc._gen.get_state(), (4, size, size, 3))
+    init = _replay(dsvc._gen.get_state(), (4, size, size, 3))
     runs = [dsvc._sample_prog(dsvc._model, init).cpu().numpy().astype(np.int16)
             for _ in range(2)]
     print(f"[serve] cuDNN's default algorithms: two runs of the batch-4 sample program on the "
@@ -2196,7 +2278,7 @@ def phase_serve(torch, fdc, norm, sampler, gan, png, tmp, globs, card):
     conn.close()
     dsvc.sample_stream = real
     take((0, calls * b4), "the stream")
-    init = replay(dsvc, gen_state, (1, size, size, 3))
+    init = _replay(gen_state, (1, size, size, 3))
     with torch.inference_mode():
         old = png.to_uint8(sampler.sample(dcfg, old_model, init).images[0].cpu().numpy())
         fresh = png.to_uint8(sampler.sample(dcfg, dsvc._model, init).images[0].cpu().numpy())
@@ -2211,9 +2293,8 @@ def phase_serve(torch, fdc, norm, sampler, gan, png, tmp, globs, card):
           f"the new weights {moved} levels; a second stream and /edit got 503 "
           f"({stream_shed!r}); checkpoint save {save_ms:.1f} ms, /reload {reload_ms:.1f} ms "
           f"({card})")
-    launches = tuple(total)
-    print(f"[serve] launches B3/B4 from the checked requests: {launches}; the checks took "
-          f"{time.perf_counter() - t_phase:.2f} s")
+    print(f"[serve] launches B3/B4 from the checked requests: {tuple(launches.total)}; the "
+          f"checks took {time.perf_counter() - t_phase:.2f} s")
 
     # ---- measured and printed, not gated
     # a p99 from 120 requests at concurrency 1 and 200 at 8 (between the
@@ -2252,17 +2333,526 @@ def phase_serve(torch, fdc, norm, sampler, gan, png, tmp, globs, card):
                   f"{first * 1e3:.1f} ms, peak memory "
                   f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB ({card})")
     bf16.close()
+    del bf16, svc  # they share dsvc's served module, which the reload below must free
     sample = dsvc.sample(1)
     png_ms = host_ms(lambda: srv_mod._png_bytes(sample[0]), reps=20)
     npy_ms = host_ms(lambda: srv_mod._npy_bytes(sample), reps=20)
     print(f"[serve] host encode of one {size}² image: PNG {png_ms:.3f} ms "
           f"({len(srv_mod._png_bytes(sample[0]))} B), npy {npy_ms:.3f} ms ({card})")
+    _reload_memory(torch, dsvc, dthr, "diffusion", card)
+    _reload_memory(torch, gsvc, gthr, "cycle-GAN", card)
     for s in servers:
         s.stop()
     reset()
     print(f"[serve] the phase took {time.perf_counter() - t_phase:.2f} s")
     torch.cuda.empty_cache()
+    return tuple(launches.total)
+
+
+# ----------------------------------------- the class-conditional model
+
+
+def write_third_class(tmp):
+    """CLI_FILES[0] triangles in ``tmp/c`` (the third class of
+    [cond-train-cli] and [cgan-train-cli]), written after [eval], whose
+    diffusion held-out split reads ``tmp/*/*.png``. Returns its glob."""
+    from gan_class_transfer2_tpu_torch.data import synthetic
+
+    n, side = CLI_FILES
+    synthetic.save_as_pngs(synthetic.triangles(n, side, seed=0), os.path.join(tmp, "c"))
+    return os.path.join(tmp, "c", "*.png")
+
+
+def phase_cond_train_cli(torch, cli, fdc, fd, adam_kernel, api, sampler, png, cfg, tmp, globs,
+                         train_results):
+    """The class-conditional model (BASELINE config 5's 3 classes, embedding
+    width 8) through the user's commands: ``cli train --classes a b c
+    --num-classes 3`` on the three class folders through the native loader
+    (three NativeImageDatasets behind one LabeledDataset), float32 on the
+    kernel path, 2 epochs × CLI_STEPS steps, a checkpoint each epoch and
+    one log_sample at stride 50: exact B1/B2/B4 launches, finite losses,
+    epoch img/s beside [train-cli]'s; then ``cli sample --class-idx k`` for
+    k = 0, 1, 2 from the same noise (the images must differ by class, and
+    no class equal class 0's default) and ``cli edit --class-idx 1``, with
+    exact B4 launches. First, the conditional step's ms through ``cli bench
+    --num-classes 3`` (float32, kernel path, 3 + 10 steps, every sample
+    class 0 as bench draws no labels) beside [train]'s unconditional step.
+    Returns the launches by kernel name."""
+    import glob
+    import shutil
+
+    from gan_class_transfer2_tpu_torch.data import native_loader, pipeline
+    from gan_class_transfer2_tpu_torch.utils import checkpoint as ckpt_lib
+
+    t_phase = time.perf_counter()
+    ccfg = cfg.replace(num_classes=3, sample_stride=50)
+    n_leaves = len(list(api.build_denoiser(ccfg).parameters()))
+    bench_steps = BENCH_STEPS + BENCH_WARMUP
+    fdc.down_conv_fused.launches = fd.diffuse_fused.launches = 0
+    adam_kernel.adam_fused.launches = 0
+    res = _cli_json(cli, ["bench", "--device", "cuda", *_width(cfg), "--num-classes", "3",
+                          "--batch-size", str(TRAIN_BATCH), "--bench-steps", str(BENCH_STEPS),
+                          "--compute-dtype", "float32", *KERNEL_PATH])[-1]
+    bench = (fd.diffuse_fused.launches, adam_kernel.adam_fused.launches,
+             fdc.down_conv_fused.launches)
+    per_step = (1, adam_kernel.launches_per_step(n_leaves), b4_per_call(fdc, ccfg, TRAIN_BATCH))
+    if bench != tuple(bench_steps * k for k in per_step) or not np.isfinite(res["final_loss"]):
+        fail(f"cond-train-cli: bench launches B1/B2/B4 {bench} ({per_step} a step expected), "
+             f"loss {res['final_loss']}")
+    base = train_results[("float32", "kernels")]
+    print(f"[cond-train-cli] cli bench --num-classes 3, fp32 kernel path, batch {TRAIN_BATCH}: "
+          f"{res['step_ms']:.3f} ms a step, {res['images_per_sec']:.3f} img/s ([train], "
+          f"unconditional, this run: {base['step_ms']:.3f} ms, {base['images_per_sec']:.3f} img/s; "
+          f"{res['step_ms'] / base['step_ms'] - 1:+.2%}); launches B1/B2/B4 {bench}")
+    steps = 2 * CLI_STEPS
+    sample_calls = len(sampler.sample_timesteps(ccfg))
+    calls = 1 + cfg.steps + sample_calls  # one log_sample: preview, T invert, the sample
+    b4 = b4_per_call(fdc, ccfg, TRAIN_BATCH)
+    want = (steps, steps * adam_kernel.launches_per_step(n_leaves), (steps + calls) * b4)
+    ckpt = os.path.join(tmp, "ckpt-cond")
+    args = ["train", "--device", "cuda", *_width(cfg), *KERNEL_PATH, "--compute-dtype",
+            "float32", "--batch-size", str(TRAIN_BATCH), "--steps-per-epoch", str(CLI_STEPS),
+            "--checkpoint-every", str(CLI_STEPS), "--checkpoint-keep", "1", "--sample-stride",
+            "50", "--classes", *globs, "--num-classes", "3", "--epochs", "2",
+            "--log-images-every", "2", "--data-workers", "2", "--log-dir",
+            os.path.join(tmp, "logs-cond"), "--checkpoint-dir", ckpt]
+    built, make_datasets = [], pipeline.make_datasets
+
+    def recording(*a, **kw):
+        out = make_datasets(*a, **kw)
+        built.extend(type(d).__name__ for d in out)
+        return out
+
+    pipeline.make_datasets = recording
+    try:
+        got, secs = _run_cli(cli, (fd.diffuse_fused, adam_kernel.adam_fused,
+                                   fdc.down_conv_fused), args)
+    finally:
+        pipeline.make_datasets = make_datasets
+    if built != [native_loader.NativeImageDataset.__name__] * 3:
+        fail(f"cond-train-cli: the datasets were {built}, expected three NativeImageDatasets")
+    if got != want:
+        fail(f"cond-train-cli: launches B1/B2/B4 {got}, expected {want} ({steps} steps, "
+             f"{calls} denoiser calls in one log_sample)")
+    ev, ref = _events(os.path.join(tmp, "logs-cond")), _events(os.path.join(tmp, "logs-cli"))
+    losses, ips = dict(ev["loss"]), dict(ev["images_per_sec"])
+    if sorted(losses) != [0, 1] or not all(np.isfinite(v) for v in losses.values()):
+        fail(f"cond-train-cli: epoch losses {losses}")
+    if ckpt_lib.all_steps(ckpt) != [steps] or ckpt_lib.load_config(ckpt).num_classes != 3:
+        fail(f"cond-train-cli: checkpoints {ckpt_lib.all_steps(ckpt)}")
+    ref_ips = dict(ref["images_per_sec"])
+    for e in (0, 1):
+        print(f"[cond-train-cli] epoch {e}: loss {losses[e]:.7f}, {ips[e]:.3f} img/s "
+              f"([train-cli], unconditional: {ref_ips[e]:.3f})"
+              f"{' after log_sample' if e == 0 else ''}")
+    print(f"[cond-train-cli] fp32 kernel path, 3 classes from PNG files (3 NativeImageDatasets "
+          f"behind a LabeledDataset), {steps} steps + one log_sample ({calls} calls): launches "
+          f"B1/B2/B4 {got} ({n_leaves} leaves); checkpoint step {steps}; wall {secs:.2f} s")
+
+    out, images = os.path.join(tmp, "cond-samples"), {}
+    sample_b4 = sample_calls * b4_per_call(fdc, ccfg, 2)
+    for k in (None, 0, 1, 2):
+        d = os.path.join(out, f"class-{k}")
+        extra = [] if k is None else ["--class-idx", str(k)]
+        got_k, _ = _run_cli(cli, (fdc.down_conv_fused,), [
+            "sample", "--device", "cuda", "--checkpoint-dir", ckpt, "--num", "2", "--out", d,
+            *extra])
+        if got_k != (sample_b4,):
+            fail(f"cond-train-cli: sample --class-idx {k}: B4 launches {got_k}, "
+                 f"expected {sample_b4}")
+        images[k] = np.stack([png.read_png(os.path.join(d, f"sample_{i}.png"))
+                              for i in range(2)]).astype(np.int16)
+    diffs = {(a, b): int(np.abs(images[a] - images[b]).max()) for a, b in
+             ((0, 1), (0, 2), (1, 2))}
+    default = int(np.abs(images[None] - images[0]).max())
+    if min(diffs.values()) <= IMAGE_LEVELS["float32"] or default > IMAGE_LEVELS["float32"]:
+        fail(f"cond-train-cli: samples by class differ by {diffs} levels (must exceed "
+             f"{IMAGE_LEVELS['float32']}); no class against class 0 {default}")
+    edit_b4 = cfg.steps * b4_per_call(fdc, ccfg, 1) + sample_calls * b4_per_call(fdc, ccfg, 4)
+    got_e, _ = _run_cli(cli, (fdc.down_conv_fused,), [
+        "edit", "--device", "cuda", "--checkpoint-dir", ckpt, "--input",
+        sorted(glob.glob(globs[1]))[0], "--class-idx", "1", "--out", os.path.join(out, "edit")])
+    edited = sorted(os.listdir(os.path.join(out, "edit")))
+    if got_e != (edit_b4,) or edited != ["pixelate.png", "quantise.png", "reconstruction.png",
+                                         "shift.png"]:
+        fail(f"cond-train-cli: edit --class-idx 1: B4 launches {got_e} (expected {edit_b4}), "
+             f"wrote {edited}")
+    shutil.rmtree(out, ignore_errors=True)
+    print(f"[cond-train-cli] cli sample --class-idx 0/1/2 from the same noise (batch 2, "
+          f"{sample_calls} calls, {sample_b4} B4 each): max uint8 differences between classes "
+          f"{diffs}; no --class-idx against class 0: {default}; cli edit --class-idx 1: "
+          f"{edit_b4} B4; the phase took {time.perf_counter() - t_phase:.2f} s")
+    n = sample_b4 * 4 + edit_b4
+    return {"diffuse_f32": got[0] + bench[0], "adam_f32m": got[1] + bench[1],
+            "down_conv_k4s2_f32": got[2] + n + bench[2]}
+
+
+def phase_cgan(torch, cli, fdc, norm, cgan, cfg, tmp):
+    """The conditional GAN through ``cli profile --model cgan`` at the
+    default width (the conditional U-Net generator, one projection
+    discriminator, 3 classes, batch 16, every source class 0 as the JAX
+    command profiles it, instance norms, ``--conv-impl pallas``), float32
+    and bfloat16, 2 + 3 steps: exact B3 and B4 launches (half the cycle
+    GAN's: one generator's fake, cycle and identity, three D applies),
+    finite losses, the trace's busy and idle and top kernels; the step timed
+    without the profiler. Returns {dtype: (B3, B4)} of the main-path runs."""
+    c0 = cfg.replace(num_classes=3)
+    per_step, b4_step, (b3_fwd, b4_fwd) = gan_counts(fdc, c0, TRAIN_BATCH, conditional=True)
+    b3_step = sum(per_step.values())
+    steps = GAN_WARM + GAN_PROFILE_STEPS
+    print(f"[cgan] per step: {b3_step} B3 and {b4_step} B4 launches; per generator forward "
+          f"{b3_fwd} B3, {b4_fwd} B4")
+    launches = {}
+    for dtype in ("float32", "bfloat16"):
+        args = ["profile", "--device", "cuda", "--model", "cgan", *_width(cfg, (
+            "size", "pixel_size", "max_size", "octaves")), "--num-classes", "3",
+            "--batch-size", str(TRAIN_BATCH), "--compute-dtype", dtype, "--profile-steps",
+            str(GAN_PROFILE_STEPS), "--trace-dir", os.path.join(tmp, f"cgan-{dtype}"),
+            *GAN_FLAGS]
+        norm.instance_norm_fused.launches = fdc.down_conv_fused.launches = 0
+        *rows, out = _cli_json(cli, args)
+        got = (norm.instance_norm_fused.launches, fdc.down_conv_fused.launches)
+        want = (steps * b3_step, steps * b4_step)
+        if got != want:
+            fail(f"cgan {dtype}: B3/B4 launches {got}, expected {want}")
+        launches[dtype] = got
+        final = out["final"]
+        if not (np.isfinite(final["g_loss"]) and np.isfinite(final["d_loss"])):
+            fail(f"cgan {dtype}: losses {final}")
+        busy, wall = out["device_busy_ms_per_step"], out["wall_ms_per_step"]
+        print(f"[cgan] {dtype}: launches B3/B4 {got} over {steps} steps; under the profiler "
+              f"{wall:.3f} ms a step, {out['images_per_sec']:.3f} img/s, device busy "
+              f"{busy:.3f} ms a step (idle {max(0.0, 1 - busy / wall):.1%}); g_loss "
+              f"{final['g_loss']:.5f}, d_loss {final['d_loss']:.5f}")
+        for r in rows[:8]:
+            print(f"[cgan]   {r['ms_per_step']:9.3f} ms x{r['calls']:<5d} {r['op'][:100]}")
+        c = c0.replace(batch_size=TRAIN_BATCH, compute_dtype=dtype, g_norm="instance",
+                       d_norm="instance", conv_impl="pallas").validate()
+        state = cgan.init_conditional_gan_state(c, device="cuda")
+        step = cgan.make_conditional_gan_train_step(c)
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        batch = {"image": torch.rand((TRAIN_BATCH, c.size, c.size, 3), generator=gen,
+                                     device="cuda") * 2 - 1,
+                 "label": torch.arange(TRAIN_BATCH, device="cuda") % 3}
+        times = []
+        for i in range(GAN_WARM + GAN_TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch, gen)
+            float(m["g_loss"])
+            if i >= GAN_WARM:
+                times.append((time.perf_counter() - t0) * 1e3)
+        med = sorted(times)[len(times) // 2]
+        print(f"[cgan] {dtype}: without the profiler {med:.3f} ms a step (median of "
+              f"{len(times)}: {[round(t, 3) for t in times]}), {TRAIN_BATCH / med * 1e3:.3f} "
+              f"img/s; idle share against the profile's busy time {max(0.0, 1 - busy / med):.1%}")
+        del state, step, batch
+        torch.cuda.empty_cache()
+    norm.instance_norm_fused.launches = fdc.down_conv_fused.launches = 0
     return launches
+
+
+def phase_cgan_agree(torch, fdc, norm, cgan, cfg):
+    """One full-width conditional-GAN step with injected targets, under sgd,
+    three ways, as [gan-agree] runs the cycle GAN: the entry point in
+    float32 (B3, B4), cuDNN with the plain instance norm in float32, and
+    that plain path in float64. Bounds as [gan-agree]'s: the losses of the
+    two float32 paths within 1e-5 relative; for each net the kernel path's
+    distance from the float64 update at most 2× the plain path's in root
+    mean square and 4× at the largest element, plus 1e-6, relative to the
+    net's largest float64 update. Under ``cudnn.deterministic``: the
+    distances then repeat from run to run (with cuDNN's default algorithms
+    the plain path's moved by ±10% between runs, the kernel path's largest
+    element not at all)."""
+    from gan_class_transfer2_tpu_torch.models import unet
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    c = cfg.replace(num_classes=3, batch_size=TRAIN_BATCH, g_norm="instance", d_norm="instance",
+                    optimizer="sgd", lr_schedule="constant", learning_rate=1e-2).validate()
+    r = np.random.default_rng(14)
+    x = torch.from_numpy(r.uniform(-1, 1, (TRAIN_BATCH, c.size, c.size, 3))
+                         .astype(np.float32)).cuda()
+    labels = torch.from_numpy(r.integers(0, 3, TRAIN_BATCH)).cuda()
+    targets = (labels + torch.from_numpy(r.integers(1, 3, TRAIN_BATCH)).cuda()) % 3
+    nets = ("generator", "discriminator")
+    out = {}
+    for path, impl in (("kernels", "pallas"), ("plain", "lax"), ("float64", "lax")):
+        cp = c.replace(conv_impl=impl)
+        state = cgan.init_conditional_gan_state(cp, torch.Generator().manual_seed(0),
+                                                device="cuda")
+        xb = x
+        kernel_op, f32 = norm.instance_norm, unet.DTYPES["float32"]
+        if path == "plain":
+            norm.instance_norm = norm.instance_norm_plain
+        if path == "float64":
+            norm.instance_norm = _instance_norm_f64
+            unet.DTYPES["float32"] = torch.float64
+            for n in nets:
+                getattr(state, n).double()
+            state = state._replace(
+                g_opt=cgan.make_optimizer(cp).init(list(state.generator.parameters())),
+                d_opt=cgan._d_optimizer(cp).init(list(state.discriminator.parameters())))
+            xb = x.double()
+        before = {n: [p.detach().clone() for p in getattr(state, n).parameters()] for n in nets}
+        norm.instance_norm_fused.launches = fdc.down_conv_fused.launches = 0
+        try:
+            state, m = cgan.make_conditional_gan_train_step(cp)(
+                state, {"image": xb, "label": labels}, torch.Generator(device="cuda"),
+                targets=targets)
+            torch.cuda.synchronize()
+        finally:
+            norm.instance_norm, unet.DTYPES["float32"] = kernel_op, f32
+        launched = (norm.instance_norm_fused.launches, fdc.down_conv_fused.launches)
+        norm.instance_norm_fused.launches = fdc.down_conv_fused.launches = 0
+        per_step, b4_step, _ = gan_counts(fdc, cp, TRAIN_BATCH, conditional=True)
+        want = (sum(per_step.values()), b4_step) if path == "kernels" else (0, 0)
+        if launched != want:
+            fail(f"cgan-agree {path}: B3/B4 launches {launched}, expected {want}")
+        deltas = {n: [(p.detach() - q).double() for p, q in
+                      zip(getattr(state, n).parameters(), before[n])] for n in nets}
+        out[path] = ({k: float(v) for k, v in m.items()}, deltas)
+        del state, before
+        torch.cuda.empty_cache()
+    (mk, dk), (mp, dp), (m64, d64) = out["kernels"], out["plain"], out["float64"]
+    rel = {k: abs(mk[k] - mp[k]) / abs(mp[k]) for k in ("g_loss", "d_loss")}
+
+    def dist(a, b, n):
+        largest = max(t.abs().max().item() for t in d64[n])
+        sq = sum((u - v).square().sum().item() for u, v in zip(a[n], b[n]))
+        count = sum(u.numel() for u in a[n])
+        top = max((u - v).abs().max().item() for u, v in zip(a[n], b[n]))
+        return (sq / count) ** 0.5 / largest, top / largest
+
+    ok = max(rel.values()) <= 1e-5
+    report = []
+    for n in nets:
+        (kr, km), (pr, pm) = dist(dk, d64, n), dist(dp, d64, n)
+        ok = ok and kr <= 2 * pr + 1e-6 and km <= 4 * pm + 1e-6
+        report.append(f"{n} rms {kr:.2e} / {pr:.2e}, max {km:.2e} / {pm:.2e}")
+    print(f"[cgan-agree] one step, {c.size}², batch {TRAIN_BATCH}, 3 classes, injected targets, "
+          f"sgd lr {c.learning_rate}: g_loss kernels {mk['g_loss']:.7f} plain {mp['g_loss']:.7f} "
+          f"float64 {m64['g_loss']:.7f} (rel {rel['g_loss']:.2e}), d_loss {mk['d_loss']:.7f} / "
+          f"{mp['d_loss']:.7f} / {m64['d_loss']:.7f} (rel {rel['d_loss']:.2e}), bound 1e-5; "
+          f"updates from the float64 update, kernels / plain: {'; '.join(report)} (bound: "
+          f"kernels ≤ 2 × plain in rms, 4 × at the max, + 1e-6)")
+    torch.backends.cudnn.deterministic = deterministic
+    if not ok:
+        fail(f"cGAN kernel path less accurate than the plain path: losses {rel}, {report}")
+
+
+def phase_cgan_train_cli(torch, cli, fdc, norm, cfg, tmp, globs):
+    """The user's ``cli cgan-train`` on the three class folders, default
+    width, instance norms and B4, float32, batch 16, CLI_STEPS steps with
+    ``--fid-samples 16`` (16 held-out files a class), one checkpoint and one
+    log_sample (``transfer_to_<k>`` of a fixed batch for k = 0, 1, 2, and the
+    transfer FID/KID of all six ordered pairs); then ``cli eval --model
+    cgan`` on its checkpoint (six transfers). Exact B3/B4 launches, finite
+    losses and scores. Returns (B3, B4)."""
+    from gan_class_transfer2_tpu_torch.utils import checkpoint as ckpt_lib
+
+    c = cfg.replace(num_classes=3, batch_size=TRAIN_BATCH, g_norm="instance", d_norm="instance",
+                    conv_impl="pallas")
+    per_step, b4_step, (b3_fwd, b4_fwd) = gan_counts(fdc, c, TRAIN_BATCH, conditional=True)
+    fwd = 3 + 6  # log_sample: three targets of the fixed batch, six pairs' held-out transfers
+    want = (CLI_STEPS * sum(per_step.values()) + fwd * b3_fwd, CLI_STEPS * b4_step + fwd * b4_fwd)
+    ckpt = os.path.join(tmp, "ckpt-cgan")
+    args = ["cgan-train", "--device", "cuda", *_width(cfg, ("size", "pixel_size", "max_size",
+                                                            "octaves")),
+            *GAN_FLAGS, "--compute-dtype", "float32", "--batch-size", str(TRAIN_BATCH),
+            "--classes", *globs, "--steps-per-epoch", str(CLI_STEPS), "--epochs", "1",
+            "--checkpoint-every", str(CLI_STEPS), "--checkpoint-keep", "1",
+            "--fid-samples", str(EVAL_SAMPLES), "--data-workers", "2",
+            "--log-dir", os.path.join(tmp, "logs-cgan"), "--checkpoint-dir", ckpt]
+    got, secs = _run_cli(cli, (norm.instance_norm_fused, fdc.down_conv_fused), args)
+    if got != want:
+        fail(f"cgan-train-cli: launches B3/B4 {got}, expected {want} ({CLI_STEPS} steps and "
+             f"{fwd} generator forwards in log_sample)")
+    ev = _events(os.path.join(tmp, "logs-cgan"))
+    pairs = [(s, t) for s in range(3) for t in range(3) if s != t]
+    need = ([f"transfer_to_{k}/image/0" for k in range(3)]
+            + [f"transfer_{m}_{s}_to_{t}" for s, t in pairs for m in ("fid", "kid")]
+            + ["g_loss", "d_loss", "cycle", "images_per_sec"])
+    missing = [t for t in need if t not in ev]
+    if missing:
+        fail(f"cgan-train-cli: the event file lacks {missing}")
+    vals = {k: ev[k][0][1] for k in need[3:]}
+    if not all(np.isfinite(v) for v in vals.values()):
+        fail(f"cgan-train-cli: {vals}")
+    if ckpt_lib.all_steps(ckpt) != [CLI_STEPS]:
+        fail("cgan-train-cli: no checkpoint at the last step")
+    print(f"[cgan-train-cli] fp32, 3 classes, {CLI_STEPS} steps at batch {TRAIN_BATCH} from PNG "
+          f"files + one log_sample ({fwd} generator forwards): launches B3/B4 {got}; g_loss "
+          f"{vals['g_loss']:.5f}, d_loss {vals['d_loss']:.5f}, cycle {vals['cycle']:.5f}; "
+          f"{vals['images_per_sec']:.3f} img/s; mean transfer FID "
+          f"{np.mean([vals[f'transfer_fid_{s}_to_{t}'] for s, t in pairs]):.3f}; wall "
+          f"{secs:.2f} s")
+    for k in (norm.instance_norm_fused, fdc.down_conv_fused):
+        k.launches = 0
+    t0 = time.perf_counter()
+    out = _cli_json(cli, ["eval", "--device", "cuda", "--model", "cgan", "--checkpoint-dir",
+                          ckpt])[-1]
+    secs = time.perf_counter() - t0
+    got_e = (norm.instance_norm_fused.launches, fdc.down_conv_fused.launches)
+    if got_e != (6 * b3_fwd, 6 * b4_fwd):
+        fail(f"eval cgan: launches B3/B4 {got_e}, expected {(6 * b3_fwd, 6 * b4_fwd)}")
+    keys = [f"transfer_{m}_{s}_to_{t}" for s, t in pairs for m in ("fid", "kid")]
+    if out.get("step") != CLI_STEPS or not all(np.isfinite(out.get(k, np.nan)) for k in keys):
+        fail(f"eval cgan: {out}")
+    print(f"[cgan-train-cli] cli eval --model cgan (step {out['step']}, fid_samples "
+          f"{EVAL_SAMPLES}): {json.dumps({k: round(out[k], 6) for k in keys})}; launches "
+          f"B3/B4 {got_e}; wall {secs:.2f} s")
+    torch.cuda.empty_cache()
+    return got[0] + got_e[0], got[1] + got_e[1]
+
+
+def phase_serve_classes(torch, fdc, norm, sampler, cgan, png, tmp, globs, card):
+    """[serve] on the class-conditional checkpoints: ``build_service`` on
+    [cond-train-cli]'s conditional diffusion checkpoint and
+    [cgan-train-cli]'s conditional GAN, each behind the threaded Server and
+    the AsyncServer on the card. ``/sample {"class": k}`` (num 1 and 3) and
+    ``/transfer?to=K`` answer what the in-process sampler and
+    ``conditional_gan.transfer`` give within 1 uint8 level, with exact B3/B4
+    launches, the two frontends' bytes equal; a stream and an /edit with a
+    class; 8 concurrent /sample requests of mixed classes and 6 /transfer
+    requests of mixed targets each in ≤ 2 device batches (the device lock
+    held until all are queued) with the right per-sample vectors;
+    ``direction=`` on the cGAN is a 400. Then printed: latency p50/p99 at
+    concurrency 1 and 8 of /sample with a class and /transfer?to=, and the
+    card's peak memory across each service's /reload. Returns the (B3, B4)
+    launches of the checked requests."""
+    import glob
+    import io
+    import threading
+
+    from gan_class_transfer2_tpu_torch.serve import server as srv_mod
+    from gan_class_transfer2_tpu_torch.serve.aio import AsyncServer
+    from gan_class_transfer2_tpu_torch.utils import checkpoint as ckpt_lib
+
+    t_phase = time.perf_counter()
+    launches = _Launches(norm.instance_norm_fused, fdc.down_conv_fused)
+    cdir, kdir = os.path.join(tmp, "ckpt-cond"), os.path.join(tmp, "ckpt-cgan")
+    ccfg = ckpt_lib.load_config(cdir).replace(checkpoint_dir=cdir).validate()
+    kcfg = ckpt_lib.load_config(kdir).replace(checkpoint_dir=kdir).validate()
+    csvc = srv_mod.build_service(ccfg, "diffusion", "cuda")
+    ksvc = srv_mod.build_service(kcfg, "cgan", "cuda")
+    servers = [srv_mod.Server(csvc).start(), AsyncServer(csvc).start(),
+               srv_mod.Server(ksvc).start(), AsyncServer(ksvc).start()]
+    cthr, caio, kthr, kaio = (s.port for s in servers)
+    size, calls = ccfg.size, len(sampler.sample_timesteps(ccfg))
+    b4 = b4_per_call(fdc, ccfg, 1)
+    _, _, (b3_fwd, b4_fwd) = gan_counts(fdc, kcfg, 1, conditional=True)
+    raw = png.read_png(sorted(glob.glob(globs[2]))[0])
+    off = (raw.shape[0] - size) // 2
+    buf = io.BytesIO()
+    np.save(buf, np.ascontiguousarray(raw[off:off + size, off:off + size]))
+    body_npy = buf.getvalue()
+    x = torch.from_numpy(srv_mod._decode_image(body_npy, size)).cuda()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # equal requests, equal bytes (see [serve])
+
+    for num, padded, k in ((1, 1, 2), (3, 4, 1)):
+        got, gen_state = _both(csvc, (cthr, caio), "/sample", json.dumps(
+            {"num": num, "class": k, "format": "npy"}).encode(), launches, (0, calls * b4),
+            f"/sample num {num} class {k}")
+        c = torch.full((padded,), k, dtype=torch.int32, device="cuda")
+        want = png.to_uint8(sampler.sample(ccfg, csvc._model, _replay(
+            gen_state, (padded, size, size, 3)), c, snapshots=False).images[:num].cpu().numpy())
+        lv = _levels(got, want, f"/sample class {k} against sampler.sample")
+        print(f"[serve] conditional /sample num {num} class {k}: {calls * b4} B4 per frontend; "
+              f"npy vs sampler.sample {lv[0]} level(s) on {lv[1]:.2e}; threaded = aio bytes")
+    for k in (0, 2):
+        got, _ = _both(ksvc, (kthr, kaio), f"/transfer?to={k}&format=npy", body_npy, launches,
+                       (b3_fwd, b4_fwd), f"/transfer to {k}")
+        with torch.inference_mode():
+            want = png.to_uint8(cgan.transfer(kcfg, ksvc.cgan_state, x, k).cpu().numpy())
+        lv = _levels(got, want, f"/transfer?to={k} against conditional_gan.transfer")
+        print(f"[serve] /transfer?to={k}: B3/B4 ({b3_fwd}, {b4_fwd}) per frontend; npy vs "
+              f"conditional_gan.transfer {lv[0]} level(s) on {lv[1]:.2e}; threaded = aio bytes")
+    status, _, out = _http(kaio, "POST", "/transfer?direction=ab", body_npy)
+    if status != 400 or "GAN" not in json.loads(out)["error"]:
+        fail(f"serve: /transfer?direction=ab on the cGAN answered {status}: {out[:200]!r}")
+    launches.reset()
+    resp = _http(cthr, "POST", "/sample", json.dumps(
+        {"num": 1, "stream": True, "segments": 2, "class": 1}).encode())
+    if resp[0] != 200 or resp[2].count(b"Content-Type: image/png") != 2:
+        fail(f"serve: conditional stream answered {resp[0]}")
+    launches.take((0, calls * b4), "the stream with a class")
+    with np.load(io.BytesIO(_ok(caio, "/edit?format=npy&edits=shift&class=2", body_npy))) as z:
+        edited = sorted(z.files)
+    launches.take((0, (ccfg.steps + calls) * b4), "/edit with a class")
+    if edited != ["reconstruction", "shift"]:
+        fail(f"serve: /edit with a class answered {edited}")
+    torch.backends.cudnn.deterministic = deterministic
+
+    def gated(svc, batcher, send, n, total):
+        """``n`` requests through ``send(i)`` with the device lock held until
+        all are queued; returns the device batches' sizes."""
+        sizes, orig = [], batcher._execute
+
+        def counting(batch):
+            sizes.append(sum(r.num for r in batch))
+            return orig(batch)
+
+        batcher._execute = counting
+        answers = [None] * n
+        with svc._lock:
+            threads = [threading.Thread(target=lambda i=i: answers.__setitem__(i, send(i)))
+                       for i in range(n)]
+            for t in threads:
+                t.start()
+            deadline = time.monotonic() + 120
+            while not (sizes and sizes[0] + batcher.depth() == total):
+                if time.monotonic() > deadline:
+                    fail(f"serve: coalescing gate: batches {sizes}, depth {batcher.depth()}")
+                time.sleep(0.005)
+        for t in threads:
+            t.join(300)
+        batcher._execute = orig
+        if any(a != 200 for a in answers) or len(sizes) > 2 or sum(sizes) != total:
+            fail(f"serve: {n} concurrent requests: answers {answers}, device batches {sizes}")
+        return sizes
+
+    seen, run = [], csvc._batcher._run
+    csvc._batcher._run = lambda num, c=None: seen.append(sorted(c.tolist())) or run(num, c)
+    sizes = gated(csvc, csvc._batcher, lambda i: _http((cthr, caio)[i % 2], "POST", "/sample",
+                  json.dumps({"num": 2, "class": i % 3, "format": "npy"}).encode())[0],
+                  8, 16)
+    csvc._batcher._run = run
+    if sorted(v for s in seen for v in s) != sorted([i % 3 for i in range(8)] * 2):
+        fail(f"serve: mixed-class batches carried the classes {seen}")
+    launches.take((0, len(sizes) * calls * b4), "the coalesced mixed-class requests")
+    targets, trun = [], ksvc._cgan_batcher._targeted_run
+    ksvc._cgan_batcher._targeted_run = (
+        lambda imgs, t: targets.append(sorted(t.tolist())) or trun(imgs, t))
+    tsizes = gated(ksvc, ksvc._cgan_batcher, lambda i: _http(
+        (kthr, kaio)[i % 2], "POST", f"/transfer?to={i % 3}&format=npy", body_npy)[0],
+        6, 6)
+    ksvc._cgan_batcher._targeted_run = trun
+    if sorted(v for s in targets for v in s) != [0, 0, 1, 1, 2, 2]:
+        fail(f"serve: mixed-target batches carried the targets {targets}")
+    launches.take((b3_fwd * len(tsizes), b4_fwd * len(tsizes)), "the coalesced transfers")
+    print(f"[serve] 8 concurrent /sample of classes 0/1/2 in device batches {sizes} (classes "
+          f"{seen}); 6 /transfer?to= of targets 0/1/2 in {tsizes} ({targets}); a stream and "
+          f"/edit with a class; direction= on the cGAN: 400; launches B3/B4 "
+          f"{tuple(launches.total)}")
+
+    for path, port, body in (
+            ("/sample", cthr, json.dumps({"num": 1, "class": 2, "format": "npy"}).encode()),
+            ("/transfer?to=1&format=npy", kthr, body_npy)):
+        for conc, per_thread in ((1, 120), (8, 25)):
+            p50, p99, top, n = _latency(port, path, body, conc, per_thread)
+            print(f"[serve] latency {path}{' class 2' if path == '/sample' else ''} npy at "
+                  f"concurrency {conc}: p50 {p50:.3f} ms, p99 {p99:.3f} ms, max {top:.3f} ms "
+                  f"over {n} requests ({card})")
+    _reload_memory(torch, csvc, cthr, "conditional diffusion", card)
+    _reload_memory(torch, ksvc, kthr, "conditional-GAN", card)
+    for s in servers:
+        s.stop()
+    launches.reset()
+    print(f"[serve] the class-conditional services took {time.perf_counter() - t_phase:.2f} s")
+    torch.cuda.empty_cache()
+    return tuple(launches.total)
 
 
 def main():
@@ -2362,11 +2952,35 @@ def main():
     cli_b3, cli_b4 = phase_gan_train_cli(torch, cli, fdc, norm, cfg, files.name, globs)
     print(f"[gan-train-cli] took {time.perf_counter() - t0:.2f} s")
     eval_b3, eval_b4 = phase_eval(torch, cli, fdc, norm, sampler, cfg, files.name)
+
+    from gan_class_transfer2_tpu_torch.train import conditional_gan as cgan
+
+    t0 = time.perf_counter()
+    globs3 = (*globs, write_third_class(files.name))
+    cond_launches = phase_cond_train_cli(torch, cli, fdc, fd, adam_kernel, api, sampler, png,
+                                         cfg, files.name, globs3, train_results)
+    phase_train_agree(torch, fdc, adam_kernel, api, trainer, cfg.replace(num_classes=3),
+                      tag="cond-train-cli")
+    for name, n in cond_launches.items():
+        train_launches[name] += n
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cgan_") as tmp:
+        cgan_launches = phase_cgan(torch, cli, fdc, norm, cgan, cfg, tmp)
+    phase_cgan_agree(torch, fdc, norm, cgan, cfg)
+    cgan_b3, cgan_b4 = phase_cgan_train_cli(torch, cli, fdc, norm, cfg, files.name, globs3)
+    print(f"[cgan-train-cli] [cond-train-cli], [cgan], [cgan-agree] and [cgan-train-cli] took "
+          f"{time.perf_counter() - t0:.2f} s")
     serve_b3, serve_b4 = phase_serve(torch, fdc, norm, sampler, gan, png, files.name, globs,
                                      card)
+    cls_b3, cls_b4 = phase_serve_classes(torch, fdc, norm, sampler, cgan, png, files.name, globs3,
+                                         card)
     files.cleanup()
-    gan_launches["float32"] = (gan_launches["float32"][0] + cli_b3 + eval_b3 + serve_b3,
-                               gan_launches["float32"][1] + cli_b4 + eval_b4 + serve_b4)
+    gan_launches["float32"] = (
+        gan_launches["float32"][0] + cli_b3 + eval_b3 + serve_b3 + cgan_launches["float32"][0]
+        + cgan_b3 + cls_b3,
+        gan_launches["float32"][1] + cli_b4 + eval_b4 + serve_b4 + cgan_launches["float32"][1]
+        + cgan_b4 + cls_b4)
+    gan_launches["bfloat16"] = tuple(a + b for a, b in zip(gan_launches["bfloat16"],
+                                                           cgan_launches["bfloat16"]))
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         fail("jax was imported")
 
@@ -2375,9 +2989,10 @@ def main():
     # worst forward error at batch 4 and 16 (with and without ReLU); the
     # instance norm's times and bound sum one GAN step's 102 launches at
     # batch 16; launches are the main-path runs' (sample, edit, train,
-    # train-hbm, train-cli, train-resume, cache, gan, gan-train-cli, eval and
-    # serve for the down conv; gan, gan-train-cli, eval and serve for the
-    # instance norm; the train phases and cache for the others)
+    # train-hbm, train-cli, train-resume, cache, gan, gan-train-cli, eval,
+    # cond-train-cli, cgan, cgan-train-cli and serve for the down conv; gan,
+    # gan-train-cli, eval, cgan, cgan-train-cli and serve for the instance
+    # norm; the train phases, cache and cond-train-cli for the others)
     source = "gan_class_transfer2_tpu_torch/csrc/down_conv.cu"
     replaces = "gan_class_transfer2_tpu/ops/pallas_conv.py:36"
     rows = []

@@ -1,5 +1,5 @@
 """Command-line interface of the port — counterpart of the ``train``,
-``gan-train``, ``sample``, ``edit``, ``export-weights``, ``eval``,
+``gan-train``, ``cgan-train``, ``sample``, ``edit``, ``export-weights``, ``eval``,
 ``build-cache``, ``bench``, ``profile`` and ``serve`` commands of
 gan_class_transfer2_tpu/cli.py, with the same flag names for the Config
 fields they read:
@@ -8,7 +8,12 @@ fields they read:
         --batch-size 16 --checkpoint-dir ckpt --log-dir logs
     python -m gan_class_transfer2_tpu_torch.cli gan-train --classes 'a/*.png' 'b/*.png' \
         --g-norm instance --d-norm instance --conv-impl pallas
+    python -m gan_class_transfer2_tpu_torch.cli train --classes 'a/*.png' 'b/*.png' 'c/*.png' \
+        --num-classes 3 --checkpoint-dir cckpt
+    python -m gan_class_transfer2_tpu_torch.cli cgan-train --classes 'a/*.png' 'b/*.png' \
+        'c/*.png' --g-norm instance --d-norm instance --checkpoint-dir cgckpt
     python -m gan_class_transfer2_tpu_torch.cli sample --checkpoint-dir ckpt --out samples/
+    python -m gan_class_transfer2_tpu_torch.cli sample --checkpoint-dir cckpt --class-idx 2
     python -m gan_class_transfer2_tpu_torch.cli edit --input photo.png --checkpoint-dir ckpt
     python -m gan_class_transfer2_tpu_torch.cli export-weights --checkpoint-dir ckpt --out w.npz
     python -m gan_class_transfer2_tpu_torch.cli eval --checkpoint-dir ckpt --fid-samples 64
@@ -20,30 +25,37 @@ fields they read:
     python -m gan_class_transfer2_tpu_torch.cli serve --checkpoint-dir ckpt --port 8080 \
         --model diffusion --frontend threaded
 
-``train`` and ``gan-train`` run ``train/loop.Runner`` and
-``train/gan_loop.GANRunner``: files in, checkpoints and TensorBoard events
+``train``, ``gan-train`` and ``cgan-train`` run ``train/loop.Runner``,
+``train/gan_loop.GANRunner`` and
+``train/conditional_gan_loop.ConditionalGANRunner``: files in, checkpoints
+and TensorBoard events
 out, resuming from ``--checkpoint-dir`` when it holds a checkpoint;
 ``--resilient N`` restarts from the last checkpoint after a failed step.
 One process on one card: ``--coordinator``, ``--num-processes`` and
 ``--process-id`` are refused. ``bench`` trains ``--bench-steps`` steps
 (after 3 untimed ones) on a synthetic batch resident on the device and
 prints one JSON line with the JAX package's keys (img/s, step ms, MFU).
-``profile`` runs two warm training steps of the diffusion model or the
-cycle-GAN, then ``--profile-steps`` steps under ``torch.profiler``, and
+``train`` with ``--num-classes`` > 0 trains the class-conditional denoiser on
+round-robin labeled batches of ``--classes``; ``sample`` and ``edit`` take
+``--class-idx`` on such a checkpoint. ``profile`` runs two warm training
+steps of the diffusion model, the cycle-GAN or the conditional GAN, then
+``--profile-steps`` steps under ``torch.profiler``, and
 prints one JSON row per CUDA kernel and a summary line.
 
 ``eval`` scores the latest checkpoint in ``--checkpoint-dir`` without
 training (``--model diffusion``: FID/KID of ``fid_samples`` samples against
-the held-out files; ``--model gan``: the transfer FID/KID pairs) through the
+the held-out files; ``--model gan``: the transfer FID/KID pairs; ``--model
+cgan``: every ordered class pair's) through the
 runners' own held-out split, and prints one JSON line with the JAX
 command's keys. ``build-cache`` packs the dataset into the native loader's
 uint8 cache file (``data/cache.py``).
 
 ``serve`` answers HTTP requests (``serve/server.py``: /sample, /denoise,
 /edit, /transfer, /reload, /metrics) from the latest checkpoint in
-``--checkpoint-dir``, a diffusion model (``--model diffusion``) or a cycle-GAN
-(``--model gan``), through the threaded or the asyncio frontend
-(``--frontend threaded|aio``); ``--model cgan`` and ``--bundle`` are refused.
+``--checkpoint-dir``, a diffusion model (``--model diffusion``, conditional or
+not), a cycle-GAN (``--model gan``) or a conditional GAN (``--model cgan``,
+``/transfer?to=K``), through the threaded or the asyncio frontend
+(``--frontend threaded|aio``); ``--bundle`` is refused.
 
 ``sample``, ``edit``, ``export-weights``, ``eval`` and ``serve`` read the latest checkpoint in
 ``--checkpoint-dir`` (its EMA params when it has them) and inherit the
@@ -72,7 +84,8 @@ from .config import Config
 # the Config fields that the commands read
 _FIELDS = (
     "size", "pixel_size", "max_size", "block_depth", "octaves", "skip_mode",
-    "per_step_output", "steps", "schedule", "parameterization", "test_step",
+    "per_step_output", "steps", "num_classes", "class_embed_dim", "schedule",
+    "parameterization", "test_step",
     "bits_per_pixel", "sample_stride", "compute_dtype", "conv_impl",
     "concat_elision", "remat", "seed",
     # data
@@ -147,13 +160,13 @@ def config_from_args(args, checkpoint_config: bool = False) -> Config:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="gan_class_transfer2_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
-    for cmd in ("train", "gan-train", "sample", "edit", "export-weights", "eval",
+    for cmd in ("train", "gan-train", "cgan-train", "sample", "edit", "export-weights", "eval",
                 "build-cache", "bench", "profile", "serve"):
         p = sub.add_parser(cmd)
         p.add_argument("--config", type=str, default=None, help="config JSON")
         p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
         _add_config_args(p)
-        if cmd in ("train", "gan-train"):
+        if cmd in ("train", "gan-train", "cgan-train"):
             p.add_argument("--resilient", type=int, default=0, metavar="N",
                            help="restart up to N times from the last checkpoint on a "
                                 "step failure (requires --checkpoint-dir)")
@@ -176,7 +189,7 @@ def main(argv=None) -> int:
             p.add_argument("--model", type=str, default="diffusion",
                            choices=("diffusion", "gan", "cgan"),
                            help="which runner's quality metric to score (held-out FID "
-                                "for diffusion, transfer-FID pairs for gan)")
+                                "for diffusion, transfer-FID pairs for gan/cgan)")
         elif cmd == "serve":
             p.add_argument("--host", type=str, default="127.0.0.1")
             p.add_argument("--port", type=int, default=8080)
@@ -202,8 +215,13 @@ def main(argv=None) -> int:
             if cmd == "sample":
                 p.add_argument("--out", type=str, default="samples")
                 p.add_argument("--num", type=int, default=6)
+                p.add_argument("--class-idx", type=int, default=None,
+                               help="class to sample from (conditional checkpoints, "
+                                    "default 0)")
             else:
                 p.add_argument("--input", type=str, required=True, help="image path")
+                p.add_argument("--class-idx", type=int, default=None,
+                               help="class of the input image (conditional checkpoints)")
                 p.add_argument("--out", type=str, default="edited")
                 p.add_argument("--edits", type=str, nargs="*",
                                default=["pixelate", "shift", "quantise"])
@@ -216,7 +234,7 @@ def main(argv=None) -> int:
             "process on one card")
     cfg = config_from_args(args, checkpoint_config=args.command in _READS_CHECKPOINT
                            and not getattr(args, "weights", None))
-    if args.command in ("train", "gan-train"):
+    if args.command in ("train", "gan-train", "cgan-train"):
         return _train(cfg, args)
     if args.command == "sample":
         return _sample(cfg, args)
@@ -259,10 +277,14 @@ def _train(cfg: Config, args) -> int:
         from .train.loop import Runner
 
         runner = Runner(cfg, device=args.device)
-    else:
+    elif args.command == "gan-train":
         from .train.gan_loop import GANRunner
 
         runner = GANRunner(cfg, device=args.device)
+    else:
+        from .train.conditional_gan_loop import ConditionalGANRunner
+
+        runner = ConditionalGANRunner(cfg, device=args.device)
     try:
         if args.resilient > 0:
             runner.fit_resilient(max_restarts=args.resilient)
@@ -284,6 +306,9 @@ def _load_model(cfg: Config, weights, device):
 
     device = model_api.resolve_device(device)
     if weights:
+        if cfg.num_classes > 0:
+            raise SystemExit("--weights holds the unconditional model's flat Keras-order "
+                             "weights; read a conditional model from --checkpoint-dir")
         model = unet.Denoiser(cfg)
         weights_lib.import_flat_weights(model, weights_lib.load_flat_npz(weights))
         return model.to(device)
@@ -315,6 +340,9 @@ def _export_weights(cfg: Config, args) -> int:
     if not (cfg.checkpoint_dir and ckpt_lib.latest_step(cfg.checkpoint_dir) is not None):
         raise SystemExit(f"no checkpoint found in {cfg.checkpoint_dir!r} "
                          "(export needs trained weights)")
+    if cfg.num_classes > 0:
+        raise SystemExit("export-weights writes the unconditional model's flat Keras order; "
+                         "a conditional checkpoint has no such form")
     model, step = _restored_model(cfg, resolve_device(args.device))
     flat = weights_lib.export_flat_weights(model)
     weights_lib.save_flat_npz(args.out, flat)
@@ -334,10 +362,6 @@ def _eval(cfg: Config, args) -> int:
 
     if cfg.fid_samples <= 0:
         raise SystemExit("eval requires fid_samples > 0")
-    if args.model == "cgan":
-        raise NotImplementedError(
-            "eval --model cgan: the conditional GAN (models/conditional.py, "
-            "train/conditional_gan_loop.py) is not ported to PyTorch yet")
     if not (cfg.checkpoint_dir and ckpt_lib.latest_step(cfg.checkpoint_dir) is not None):
         print(f"warning: no checkpoint found in {cfg.checkpoint_dir!r}; "
               "scoring randomly initialised weights", file=sys.stderr)
@@ -356,7 +380,7 @@ def _eval(cfg: Config, args) -> int:
                 out["kid"] = None if scores is None else float(scores["kid"])
             finally:
                 runner.close()
-        else:
+        elif args.model == "gan":
             from .train.gan_loop import GANRunner
 
             runner = GANRunner(cfg, log_dir=scratch, device=args.device)
@@ -367,6 +391,20 @@ def _eval(cfg: Config, args) -> int:
                     if scores is not None:
                         out[f"transfer_fid_{d}"] = float(scores["fid"])
                         out[f"transfer_kid_{d}"] = float(scores["kid"])
+            finally:
+                runner.close()
+        else:
+            from .train.conditional_gan_loop import ConditionalGANRunner
+
+            runner = ConditionalGANRunner(cfg, log_dir=scratch, device=args.device)
+            try:
+                out["step"] = int(runner.state.step)
+                n = runner.cfg.num_classes
+                for src, tgt in ((s, t) for s in range(n) for t in range(n) if s != t):
+                    scores = runner.transfer_scores(src, tgt)
+                    if scores is not None:
+                        out[f"transfer_fid_{src}_to_{tgt}"] = float(scores["fid"])
+                        out[f"transfer_kid_{src}_to_{tgt}"] = float(scores["kid"])
             finally:
                 runner.close()
     finally:
@@ -380,19 +418,32 @@ def _synchronize(device):
         torch.cuda.synchronize(device)
 
 
+def _class_vector(cfg: Config, class_idx, num: int, device):
+    """``--class-idx`` as a (num,) class vector, checked as the JAX CLI
+    checks it (cli.py:635-645); None when not given."""
+    if class_idx is None:
+        return None
+    if cfg.num_classes <= 0:
+        raise SystemExit("--class-idx requires a conditional checkpoint (num_classes > 0)")
+    if not 0 <= class_idx < cfg.num_classes:
+        raise SystemExit(f"--class-idx must be in [0, {cfg.num_classes})")
+    return torch.full((num,), class_idx, dtype=torch.int32, device=device)
+
+
 def _sample(cfg: Config, args) -> int:
     from .sample import sampler
     from .utils import png
 
     model = _load_model(cfg, args.weights, args.device)
     device = next(model.parameters()).device
+    class_idx = _class_vector(cfg, args.class_idx, args.num, device)
     rng = np.random.default_rng(cfg.seed)  # the JAX CLI's init batch, exactly
     batch = torch.from_numpy(
         rng.normal(size=(args.num, cfg.size, cfg.size, 3)).astype(np.float32)
     ).to(device)
     _synchronize(device)
     t0 = time.perf_counter()
-    images = sampler.sample(cfg, model, batch, snapshots=False).images
+    images = sampler.sample(cfg, model, batch, class_idx, snapshots=False).images
     _synchronize(device)
     ms = (time.perf_counter() - t0) * 1000 / args.num
     images = images.cpu().numpy()
@@ -442,9 +493,14 @@ def _profile(cfg: Config, args) -> int:
         def run(s):
             return step(s, batch(), batch(), generator)
     else:
-        raise NotImplementedError(
-            "profile --model cgan: the conditional GAN (models/conditional.py, "
-            "train/conditional_gan.py) is not ported to PyTorch yet")
+        from .train import conditional_gan as cgan
+
+        state = cgan.init_conditional_gan_state(cfg, device=device)
+        step = cgan.make_conditional_gan_train_step(cfg)
+        labels = torch.zeros((cfg.batch_size,), dtype=torch.int32, device=device)
+
+        def run(s):  # every source class 0, as the JAX command profiles it
+            return step(s, {"image": batch(), "label": labels}, generator)
 
     def sync(metrics):
         return float(next(iter(metrics.values())))
@@ -498,8 +554,9 @@ def _edit(cfg: Config, args) -> int:
 
     model = _load_model(cfg, args.weights, args.device)
     device = next(model.parameters()).device
+    class_idx = _class_vector(cfg, args.class_idx, 1, device)
     image = torch.from_numpy(decode_image(args.input, cfg.size))[None].to(device)
-    results = sampler.edit_image(cfg, model, image, tuple(args.edits))
+    results = sampler.edit_image(cfg, model, image, tuple(args.edits), class_idx=class_idx)
     os.makedirs(args.out, exist_ok=True)
     for name, out in results.items():
         png.write_png(os.path.join(args.out, f"{name}.png"), png.to_uint8(out[0].cpu()))

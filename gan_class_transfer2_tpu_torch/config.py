@@ -7,9 +7,9 @@ repeated here. Comments that explain a field's meaning live beside the JAX
 copy; this copy adds what the port does differently:
 
   * ``validate`` refuses the features the port does not have yet
-    (``num_classes > 0``, ``zero1``, meshes and pipeline stages beyond one
-    card) with a NotImplementedError that names the missing piece, instead
-    of ignoring them.
+    (``zero1``, meshes and pipeline stages beyond one card) with a
+    NotImplementedError that names the missing piece, instead of ignoring
+    them.
   * ``conv_impl="pallas"`` selects the hand-written CUDA down-conv kernel
     (ops/fused_down_conv.py), the port's counterpart of the Pallas kernel.
     Instance norm always runs the hand-written CUDA kernel on the card
@@ -283,11 +283,6 @@ class Config:
                 f"octaves={self.octaves} (stages own octave bands)"
             )
         # the port's refusals: features whose modules are not ported yet
-        if self.num_classes > 0:
-            raise NotImplementedError(
-                f"num_classes={self.num_classes}: the class-conditional U-Net "
-                "(models/conditional.py) is not ported to PyTorch yet"
-            )
         if self.zero1:
             raise NotImplementedError(
                 "zero1: the sharded optimizer state (parallel/mesh.py) is not "

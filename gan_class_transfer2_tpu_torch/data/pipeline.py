@@ -20,7 +20,9 @@ What differs from the JAX package, and why:
     (``data/native_loader.py``) as the JAX package does; where it does not
     build, the Python pipeline runs and one printed line gives the
     compiler's reason. ``data_hbm`` builds ``HBMDataset``. One process only.
-  * ``LabeledDataset`` waits for the class-conditional model.
+  * ``DeviceIterator`` carries ``LabeledDataset``'s dict batches: the
+    images and the int32 labels each take the same pinned, non-blocking
+    copy.
 
 The numpy draws (file order, crop corners, flips, held-out splits) are the
 JAX module's, call for call, so one seed gives the same batches in both
@@ -376,11 +378,47 @@ class ArrayDataset:
         self._stream.set_state(state)
 
 
+class LabeledDataset:
+    """Round-robin over per-class datasets, yielding ``{"image": (B, H, W,
+    3), "label": (B,) int32}`` batches for class-conditional training
+    (BASELINE config 5; pipeline.py:384-420). ``state_dict`` holds the
+    round-robin position ``k`` and each class dataset's own state."""
+
+    def __init__(self, datasets):
+        self.datasets = list(datasets)
+        self._k = 0  # next class to draw from
+
+    def __iter__(self):
+        iters = [iter(d) for d in self.datasets]
+        while True:
+            k = self._k
+            batch = next(iters[k])
+            self._k = (k + 1) % len(iters)
+            yield {"image": batch, "label": np.full((len(batch),), k, np.int32)}
+
+    def state_dict(self) -> dict:
+        return {"k": self._k,
+                "datasets": [d.state_dict() if hasattr(d, "state_dict") else None
+                             for d in self.datasets]}
+
+    def set_state(self, state: dict) -> None:
+        self._k = int(state["k"])
+        for d, s in zip(self.datasets, state["datasets"]):
+            if s is not None and hasattr(d, "set_state"):
+                d.set_state(s)
+
+    def close(self):
+        for d in self.datasets:
+            if hasattr(d, "close"):
+                d.close()
+
+
 class DeviceIterator:
     """Host batches onto ``device``, one batch in flight: batch N + 1 is
     pinned and its copy to the card queued (non-blocking) before batch N is
     returned, so the copy overlaps the step on batch N. Tensors already on
-    the device (``HBMDataset``) pass through.
+    the device (``HBMDataset``) pass through; a dict batch
+    (``LabeledDataset``) moves entry by entry.
 
     Because of that prefetch, the dataset's own ``state_dict()`` runs one
     batch ahead of training; ``consumed_state()`` is the snapshot taken
@@ -400,6 +438,8 @@ class DeviceIterator:
         return sd() if sd is not None else None
 
     def _put(self, x):
+        if isinstance(x, dict):
+            return {k: self._put(v) for k, v in x.items()}
         t = x if torch.is_tensor(x) else torch.from_numpy(np.ascontiguousarray(x))
         if t.device == self.device:
             return t

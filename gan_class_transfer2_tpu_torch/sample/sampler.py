@@ -4,8 +4,11 @@ of gan_class_transfer2_tpu/sample/sampler.py.
 Where the JAX package runs each loop as one ``lax.scan``, the port runs a
 Python loop of denoiser calls under ``torch.inference_mode()``. Each step
 takes its timestep as a float32 scalar, as the scan does, so the schedule
-algebra rounds as in the JAX package. ``model`` is a ``models.unet.Denoiser``;
-``cfg`` supplies the sampling knobs, the compute dtype and ``conv_impl``.
+algebra rounds as in the JAX package. ``model`` is a ``models.unet.Denoiser``
+or a ``models.conditional.ConditionalDenoiser``, whose ``class_idx`` ((B,)
+integers on the batch's device; class 0 when None) every entry point passes
+through; ``cfg`` supplies the sampling knobs, the compute dtype and
+``conv_impl``.
 
   (a) ``preview``    — single-step denoise at ``test_step``   (train.py:325-361)
   (b) ``invert``     — t = 1…T ascending DDIM-style encoder   (train.py:364-413)
@@ -36,40 +39,41 @@ def _f32(t):
     return torch.tensor(float(t), dtype=torch.float32)
 
 
-def _denoise_call(cfg, model, fake, t):
+def _denoise_call(cfg, model, fake, t, class_idx=None):
     t_vec = torch.full((fake.shape[0],), int(t), dtype=torch.int32, device=fake.device)
     return model_api.apply_denoiser(
-        cfg, model, fake.to(DTYPES[cfg.compute_dtype]), t_vec
+        cfg, model, fake.to(DTYPES[cfg.compute_dtype]), t_vec, class_idx=class_idx
     ).float()
 
 
-def _step(cfg, model, x_theta, epsilon_theta, t):
+def _step(cfg, model, x_theta, epsilon_theta, t, class_idx=None):
     tf = _f32(t)
     fake = diffusion.renoise(cfg, x_theta, epsilon_theta, tf)
-    prediction = _denoise_call(cfg, model, fake, t)
+    prediction = _denoise_call(cfg, model, fake, t, class_idx)
     return diffusion.step_update(cfg, prediction, fake, epsilon_theta, tf)
 
 
 @torch.inference_mode()
-def preview(cfg, model, example_image, noise):
+def preview(cfg, model, example_image, noise, class_idx=None):
     """Single-step denoise preview. Returns (denoised, rmse)."""
     factor = diffusion.preview_image_factor(cfg)
     noised = example_image * factor**0.5 + noise * (1 - factor) ** 0.5
     t_vec = torch.full((noised.shape[0],), cfg.test_step, dtype=torch.int32,
                        device=noised.device)
-    prediction = model_api.apply_denoiser(cfg, model, noised, t_vec).float()
+    prediction = model_api.apply_denoiser(cfg, model, noised, t_vec,
+                                          class_idx=class_idx).float()
     denoised = diffusion.preview_denoise(cfg, noised, prediction)
     rmse = torch.mean((example_image - denoised) ** 2) ** 0.5
     return denoised, rmse
 
 
 @torch.inference_mode()
-def invert(cfg, model, image):
+def invert(cfg, model, image, class_idx=None):
     """DDIM-style encoder over t = 1…T. Returns (x̂, ε̂). ε̂ starts as the
     image itself (reference train.py:367, "might be close enough")."""
     x_theta = epsilon_theta = image
     for t in range(1, cfg.steps + 1):
-        x_theta, epsilon_theta = _step(cfg, model, x_theta, epsilon_theta, t)
+        x_theta, epsilon_theta = _step(cfg, model, x_theta, epsilon_theta, t, class_idx)
     return x_theta, epsilon_theta
 
 
@@ -101,7 +105,7 @@ class SampleResult(NamedTuple):
 
 
 @torch.inference_mode()
-def sample(cfg, model, init_batch, snapshots: bool = True) -> SampleResult:
+def sample(cfg, model, init_batch, class_idx=None, snapshots: bool = True) -> SampleResult:
     """Reverse diffusion over ``sample_timesteps(cfg)``; ``init_batch`` seeds
     both x̂ and ε̂ (train.py:436-437). With snapshots, x̂ is kept at the four
     reference timesteps, each mapped to the nearest visited timestep at or
@@ -117,7 +121,7 @@ def sample(cfg, model, init_batch, snapshots: bool = True) -> SampleResult:
     snaps = torch.zeros((4,) + tuple(init_batch.shape), device=init_batch.device) if snapshots else None
     x_theta = epsilon_theta = init_batch
     for t in visited:
-        x_theta, epsilon_theta = _step(cfg, model, x_theta, epsilon_theta, t)
+        x_theta, epsilon_theta = _step(cfg, model, x_theta, epsilon_theta, t, class_idx)
         if snapshots:
             for slot, st in enumerate(snap_ts):
                 if st == t:
@@ -125,23 +129,25 @@ def sample(cfg, model, init_batch, snapshots: bool = True) -> SampleResult:
     return SampleResult(x_theta, snaps)
 
 
-def make_segment_fn(cfg):
+def make_segment_fn(cfg, class_idx=None):
     """Partial reverse diffusion: ``seg(model, x̂, ε̂, ts)`` advances the state
-    over the timesteps ``ts`` (serve/server.py streams with it)."""
+    over the timesteps ``ts`` (serve/server.py streams with it), conditioned
+    on ``class_idx``."""
 
     @torch.inference_mode()
     def seg(model, x_theta, epsilon_theta, ts):
         for t in ts:
-            x_theta, epsilon_theta = _step(cfg, model, x_theta, epsilon_theta, int(t))
+            x_theta, epsilon_theta = _step(cfg, model, x_theta, epsilon_theta, int(t),
+                                           class_idx)
         return x_theta, epsilon_theta
 
     return seg
 
 
-def sample_stream(cfg, model, init_batch, segments: int = 4):
+def sample_stream(cfg, model, init_batch, segments: int = 4, class_idx=None):
     """Yields ``segments`` intermediate x̂ states as numpy arrays; the last is
     ``sample(...).images``."""
-    seg = make_segment_fn(cfg)
+    seg = make_segment_fn(cfg, class_idx)
     ts_all = sample_timesteps(cfg)
     segments = min(max(int(segments), 1), len(ts_all))
     x_theta = epsilon_theta = init_batch
@@ -154,13 +160,14 @@ def sample_stream(cfg, model, init_batch, segments: int = 4):
 
 @torch.inference_mode()
 def edit_image(cfg, model, image, edits=("pixelate", "shift", "quantise"),
-               dictionary=None, generator: torch.Generator | None = None):
+               dictionary=None, generator: torch.Generator | None = None, class_idx=None):
     """Invert a real image to its noise estimate, apply noise-space edits and
     decode each edited noise (reference train.py:364-496). image:
     (B, H, W, 3) in [-1, 1). Returns {edit name: (B, H, W, 3)} plus
     "reconstruction" for the unedited noise. Without ``dictionary`` the VQ
     codebook is drawn from ``generator`` (CPU, seeded with ``cfg.seed`` by
-    default)."""
+    default). ``class_idx``: the class of each input image, applied to its
+    inversion and to each of its decoded candidates."""
     unknown = [e for e in edits if e not in ("pixelate", "shift", "quantise")]
     if unknown:
         raise ValueError(f"unknown edits {unknown}; valid: pixelate, shift, quantise")
@@ -171,14 +178,18 @@ def edit_image(cfg, model, image, edits=("pixelate", "shift", "quantise"),
             (cfg.size, cfg.size, 2**cfg.bits_per_pixel, 3), generator=generator
         ).to(image.device)
     B = image.shape[0]
-    _, epsilon_theta = invert(cfg, model, image)
+    _, epsilon_theta = invert(cfg, model, image, class_idx)
     candidates = {"reconstruction": epsilon_theta}
     for name in ("pixelate", "shift", "quantise"):
         if name in edits:
             candidates[name] = apply_edit(name, epsilon_theta, dictionary)
     names = list(candidates)
     batch = torch.cat([candidates[n] for n in names], 0)
-    decoded = sample(cfg, model, batch, snapshots=False).images
+    if class_idx is not None:
+        # the candidates decode as one batch in blocks of B: each input
+        # image's class applies to its block row
+        class_idx = class_idx.reshape(-1)[:B].repeat(len(names))
+    decoded = sample(cfg, model, batch, class_idx, snapshots=False).images
     return {n: decoded[i * B : (i + 1) * B] for i, n in enumerate(names)}
 
 

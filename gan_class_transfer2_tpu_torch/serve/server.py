@@ -11,8 +11,10 @@ Endpoints (JSON unless noted):
                                "npy" (one .npy of the uint8 (k, H, W, 3) batch);
                                "stream": true sends a multipart stream of
                                intermediate states (num = 1)
-  POST /transfer  body=image → class-transferred image (cycle-GAN), query
-                               direction=ab|ba
+  POST /transfer  body=image → class-transferred image: cycle-GAN, query
+                               direction=ab|ba; conditional GAN, query to=K
+  POST /sample {"class": k}  → samples of class k (conditional checkpoints;
+                               class 0 when absent)
   POST /denoise   body=image → single-step denoise preview of the input
   POST /edit      body=image → invert → edit noise → decode; query
                                edits=pixelate,shift,quantise; JSON {edit name:
@@ -25,18 +27,21 @@ keyed by edit name).
 
 What differs from the JAX package, and why:
 
-  * One card and one process. ``ModelService`` holds the denoiser and the
-    generators as ``nn.Module``s on ``device`` (the card unless the caller
-    asks for the CPU); ``mesh=`` with more than one device, ``bundle=`` and
-    ``cgan_state=`` raise ``NotImplementedError`` naming the module they
-    wait for. Without a cGAN, ``/transfer?to=K`` answers 400 as JAX does.
+  * One card and one process. ``ModelService`` holds the modules that serve
+    (the denoiser or its EMA, the generators or their EMAs) as
+    ``nn.Module``s on ``device`` (the card unless the caller asks for the
+    CPU), and of the states it is given nothing else: no optimizer moments,
+    no discriminators. ``mesh=`` with more than one device and ``bundle=``
+    raise ``NotImplementedError`` naming the module they wait for.
   * Request noise comes from a ``torch.Generator`` on the device, seeded
     ``cfg.seed + 99``, drawn at the padded batch's shape.
-  * ``reload`` restores into a copy of the state and swaps the module
+  * ``reload`` restores only the serving modules' tensors from the
+    checkpoint, into fresh copies of those modules, and swaps the module
     references under the device lock. The port's checkpoint restore writes
-    into the tensors it is given, so restoring into the live state would
-    change the denoiser under a stream that pinned it; the copy keeps the
-    pinned module as it was.
+    into the tensors it is given, so restoring into the live modules would
+    change the denoiser under a stream that pinned it; the fresh copies
+    keep the pinned module as it was, and the card holds two copies of the
+    served weights (not of the train state) while a reload runs.
   * PNGs are encoded and decoded by ``utils/png.py``; Pillow is imported
     only for a non-PNG upload or to resample an upload that is not size²
     (with Pillow's own ``resize``, so the pixels are JAX's), and its absence
@@ -69,6 +74,7 @@ import torch
 from ..data.pipeline import DecoderUnavailable, decode_rgb
 from ..models.api import resolve_device
 from ..sample import sampler
+from ..train import conditional_gan as cgan_lib
 from ..train import gan as gan_lib
 from ..train import trainer as trainer_lib
 from ..utils import checkpoint as ckpt_lib
@@ -182,7 +188,18 @@ class SampleBatcher:
         return req.result
 
     def _execute(self, batch):
-        return self._run(sum(r.num for r in batch))
+        total = sum(r.num for r in batch)
+        if any(r.payload is not None for r in batch):
+            # conditional sampling: the requests' classes concatenate into
+            # one mixed-class device batch. A None payload means no class
+            # was requested, not class 0: ModelService.sample resolves the
+            # default before submitting, so None here is a caller bug.
+            if any(r.payload is None for r in batch):
+                raise ValueError("mixed class-conditional and unconditional requests in "
+                                 "one batch: resolve a class index before submit()")
+            classes = np.concatenate([np.full((r.num,), r.payload, np.int32) for r in batch])
+            return self._run(total, classes)
+        return self._run(total)
 
     def close(self):
         with self._cv:
@@ -376,6 +393,26 @@ class ImageBatcher(SampleBatcher):
         return self._stack_run(np.concatenate([r.payload for r in batch], axis=0))
 
 
+class TargetedImageBatcher(SampleBatcher):
+    """Image + target-class coalescing (conditional transfer): requests for
+    different target classes share one device batch, whose program takes a
+    per-sample (B,) target vector."""
+
+    def __init__(self, run_fn, max_batch: int = 16, max_wait_s: float = 0.01,
+                 max_queue: int = 0):
+        super().__init__(None, max_batch, max_wait_s, max_queue)
+        self._targeted_run = run_fn  # (N, H, W, C), (N,) int32 -> (N, H, W, C)
+
+    def submit_targeted(self, img: np.ndarray, target: int) -> np.ndarray:
+        return self.submit(img.shape[0], payload=(img, target))
+
+    def _execute(self, batch):
+        imgs = np.concatenate([r.payload[0] for r in batch], axis=0)
+        targets = np.concatenate([np.full((r.payload[0].shape[0],), r.payload[1], np.int32)
+                                  for r in batch])
+        return self._targeted_run(imgs, targets)
+
+
 def _mesh_size(mesh) -> int:
     size = getattr(mesh, "size", None)
     return int(size) if size is not None else len(mesh)
@@ -385,13 +422,57 @@ def _device_of(module) -> torch.device:
     return next(module.parameters()).device
 
 
+def _serving_part(state):
+    """The part of a train state that serves: its step and its evaluation
+    weights, one module each (the EMA when kept), in a state of the same
+    type with every other field None (no optimizer moments, no
+    discriminators)."""
+    if isinstance(state, trainer_lib.TrainState):
+        return trainer_lib.TrainState(state.step, trainer_lib.eval_model(state), None, None, None)
+    if isinstance(state, gan_lib.GANState):
+        return gan_lib.GANState(state.step, gan_lib.select_generator(state, "ab"),
+                                gan_lib.select_generator(state, "ba"), None, None, None, None,
+                                None, None)
+    return cgan_lib.ConditionalGANState(state.step, cgan_lib.select_generator(state), None, None,
+                                        None, None)
+
+
+def _reload_target(served, ema: bool):
+    """What ``reload`` restores into: a fresh copy of each serving module,
+    placed where the checkpoint keeps its values (the EMA entries when
+    training kept an EMA), the rest of the state None. Returns (the state
+    to restore into, a function of the restored state giving the new
+    serving part)."""
+    def fresh(module):
+        return copy.deepcopy(module).requires_grad_(False)
+
+    if isinstance(served, trainer_lib.TrainState):
+        m = fresh(served.model)
+        like = trainer_lib.TrainState(0, None if ema else m, None,
+                                      list(m.parameters()) if ema else None, None)
+        return like, lambda st: trainer_lib.TrainState(st.step, m, None, None, None)
+    if isinstance(served, gan_lib.GANState):
+        ab, ba = fresh(served.g_ab), fresh(served.g_ba)
+        like = gan_lib.GANState(0, None if ema else ab, None if ema else ba, None, None, None,
+                                None, ab if ema else None, ba if ema else None)
+        return like, lambda st: gan_lib.GANState(st.step, ab, ba, *(None,) * 6)
+    g = fresh(served.generator)
+    like = cgan_lib.ConditionalGANState(0, None if ema else g, None, None, None,
+                                        g if ema else None)
+    return like, lambda st: cgan_lib.ConditionalGANState(st.step, g, *(None,) * 4)
+
+
 class ModelService:
     """Owns the serving modules and the request noise; thread-safe.
 
-    ``state``: a ``trainer.TrainState`` (diffusion; its EMA weights when it
-    keeps them), ``gan_state``: a ``gan.GANState`` (cycle-GAN transfer, the
-    generator EMAs when kept). With neither, a diffusion state is
-    initialised from ``cfg.seed``. Both must live on ``device``."""
+    ``state``: a ``trainer.TrainState`` (diffusion, conditional or not; its
+    EMA weights when it keeps them), ``gan_state``: a ``gan.GANState``
+    (cycle-GAN transfer, the generator EMAs when kept), ``cgan_state``: a
+    ``conditional_gan.ConditionalGANState`` (``/transfer?to=K``, the EMA
+    generator when kept). With none, a diffusion state is initialised from
+    ``cfg.seed``. Each must live on ``device``; the service keeps only its
+    serving part (``_serving_part``), as ``self.state``, ``self.gan_state``
+    and ``self.cgan_state``."""
 
     EDIT_NAMES = ("pixelate", "shift", "quantise")
 
@@ -405,21 +486,17 @@ class ModelService:
             raise NotImplementedError(
                 "ModelService(bundle=...): compiled model bundles (utils/bundle.py) are not "
                 "ported to PyTorch yet; serve a checkpoint")
-        if cgan_state is not None:
-            raise NotImplementedError(
-                "ModelService(cgan_state=...): the conditional GAN (train/conditional_gan.py) "
-                "is not ported to PyTorch yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         self._lock = threading.Lock()  # the device: one program at a time
-        if state is None and gan_state is None:
+        if state is None and gan_state is None and cgan_state is None:
             state = trainer_lib.init_state(cfg, device=self.device)
-        for st, module in ((state, "model"), (gan_state, "g_ab")):
+        for st, module in ((state, "model"), (gan_state, "g_ab"), (cgan_state, "generator")):
             if st is not None and _device_of(getattr(st, module)).type != self.device.type:
                 raise ValueError(f"the state lives on {_device_of(getattr(st, module))}, "
                                  f"the service on {self.device}")
-        self.state = state
-        self.gan_state = gan_state
+        self.state, self.gan_state, self.cgan_state = (
+            None if st is None else _serving_part(st) for st in (state, gan_state, cgan_state))
         self._gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 99)
         # the VQ codebook of /edit's quantise; None draws it from cfg.seed
         self.edit_dictionary: Optional[torch.Tensor] = None
@@ -439,25 +516,24 @@ class ModelService:
         }
         self._max_queue = cfg.serve_max_queue
         self._max_wait = cfg.serve_batch_wait_ms / 1000.0
-        if state is not None:
-            self._model = trainer_lib.eval_model(state)
-            self._segment = sampler.make_segment_fn(cfg)
+        if self.state is not None:
+            self._model = self.state.model
             self._batcher = SampleBatcher(self._run_sample, max_wait_s=self._max_wait,
                                           max_queue=self._max_queue)
             self._denoise_batcher = ImageBatcher(self._run_denoise, max_wait_s=self._max_wait,
                                                  max_queue=self._max_queue)
-        if gan_state is not None:
-            self._generators = self._select_generators(gan_state)
+        if self.gan_state is not None:
+            self._generators = {"ab": self.gan_state.g_ab, "ba": self.gan_state.g_ba}
             self._gan_transfer = gan_lib.make_transfer_fn(cfg)
             self._transfer_batchers = {
                 d: ImageBatcher(lambda imgs, d=d: self._run_transfer(imgs, d),
                                 max_wait_s=self._max_wait, max_queue=self._max_queue)
                 for d in ("ab", "ba")
             }
-
-    @staticmethod
-    def _select_generators(gan_state) -> dict:
-        return {d: gan_lib.select_generator(gan_state, d) for d in ("ab", "ba")}
+        if self.cgan_state is not None:
+            self._cgan_transfer = cgan_lib.make_transfer_fn(cfg)
+            self._cgan_batcher = TargetedImageBatcher(
+                self._run_cgan_transfer, max_wait_s=self._max_wait, max_queue=self._max_queue)
 
     # ----------------------------------------------------- device programs
 
@@ -465,21 +541,34 @@ class ModelService:
         """Request noise from the service's generator (caller holds the lock)."""
         return torch.randn(shape, generator=self._gen, device=self.device)
 
-    def _sample_prog(self, model, init) -> torch.Tensor:
+    def _classes(self, classes, num: int, padded: int):
+        """The (padded,) class vector of a device batch on a conditional
+        checkpoint (padding rows take class 0), or None on an unconditional
+        one."""
+        if classes is None and self.cfg.num_classes <= 0:
+            return None
+        c = np.zeros((padded,), np.int32)
+        if classes is not None:
+            c[:num] = classes
+        return torch.from_numpy(c).to(self.device)
+
+    def _sample_prog(self, model, init, class_idx=None) -> torch.Tensor:
         """Reverse diffusion from ``init``, quantised to uint8 on the device
         (clip, then truncate, as JAX's program casts): the fetch to the host
         is then a quarter of float32's bytes."""
-        images = sampler.sample(self.cfg, model, init, snapshots=False).images
+        images = sampler.sample(self.cfg, model, init, class_idx, snapshots=False).images
         with torch.inference_mode():
             return torch.clamp((images * 0.5 + 0.5) * 255.0, 0, 255).to(torch.uint8)
 
-    def _run_sample(self, num: int) -> np.ndarray:
-        """One coalesced device call for ``num`` images, padded to a bucket."""
+    def _run_sample(self, num: int, classes=None) -> np.ndarray:
+        """One coalesced device call for ``num`` images, padded to a bucket;
+        ``classes``: the per-sample class vector (conditional checkpoints)."""
         padded = _pow2(num)
+        c = self._classes(classes, num, padded)
         self._bump("device_batches")
         with self._lock:
             init = self._noise((padded, self.cfg.size, self.cfg.size, 3))
-            return self._sample_prog(self._model, init)[:num].cpu().numpy()
+            return self._sample_prog(self._model, init, c)[:num].cpu().numpy()
 
     def _pad_pow2(self, imgs: np.ndarray):
         """Pad an image batch to its power-of-two bucket."""
@@ -493,6 +582,8 @@ class ModelService:
         return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(self.device)
 
     def _run_denoise(self, imgs: np.ndarray) -> np.ndarray:
+        """One preview forward; on a conditional checkpoint, class 0 (the
+        request carries no class)."""
         x, n = self._pad_pow2(imgs)
         self._bump("device_batches")
         with self._lock:
@@ -507,26 +598,40 @@ class ModelService:
             out = self._gan_transfer(self._generators[direction], self._to_device(x))
             return out[:n].cpu().numpy()
 
+    def _run_cgan_transfer(self, imgs: np.ndarray, targets: np.ndarray) -> np.ndarray:
+        """One conditional-GAN forward for a mixed-target batch; padding rows
+        take target 0."""
+        x, n = self._pad_pow2(imgs)
+        t = np.zeros((x.shape[0],), np.int32)
+        t[:n] = targets
+        self._bump("device_batches")
+        with self._lock:
+            out = self._cgan_transfer(self.cgan_state.generator, self._to_device(x),
+                                      torch.from_numpy(t).to(self.device))
+            return out[:n].cpu().numpy()
+
     # ----------------------------------------------------------- state
 
     @property
     def step(self) -> int:
-        for st in (self.state, self.gan_state):
+        for st in (self.state, self.gan_state, self.cgan_state):
             if st is not None:
                 return int(st.step)
         raise ValueError("no model state loaded")
 
     def reload(self) -> int:
         """Hot-swap to the LATEST checkpoint without restarting (serve while
-        a training job keeps writing checkpoints). The checkpoint is restored
-        into a copy of the state, and the module references are swapped
-        under the device lock: a stream keeps the module it pinned. Returns
-        the restored step."""
+        a training job keeps writing checkpoints). Only the serving modules'
+        tensors are read, into fresh copies of those modules, and the module
+        references are swapped under the device lock: a stream keeps the
+        module it pinned, and no optimizer moments or discriminators are
+        ever held. Returns the restored step."""
         ckpt_dir = self.cfg.checkpoint_dir
         if not ckpt_dir:
             raise ValueError("no checkpoint_dir configured")
         if ckpt_lib.latest_step(ckpt_dir) is None:
             raise ValueError(f"no checkpoint found in {ckpt_dir!r}")
+        ema = self.cfg.ema_decay > 0
         # a concurrent training save with checkpoint_keep may PRUNE the step
         # resolved here mid-restore: retry only when the step vanished,
         # otherwise raise the real error at once
@@ -535,23 +640,28 @@ class ModelService:
             if step is None:
                 raise ValueError(f"no checkpoint found in {ckpt_dir!r}")
             try:
-                state = gan_state = None
-                if self.state is not None:
-                    state = ckpt_lib.restore(ckpt_dir, copy.deepcopy(self.state), step=step)
-                if self.gan_state is not None:
-                    gan_state = ckpt_lib.restore(ckpt_dir, copy.deepcopy(self.gan_state),
-                                                 step=step)
+                new = []
+                for served in (self.state, self.gan_state, self.cgan_state):
+                    if served is None:
+                        new.append(None)
+                        continue
+                    like, serving = _reload_target(served, ema)
+                    new.append(serving(ckpt_lib.restore(ckpt_dir, ckpt_lib.Subset(like),
+                                                        step=step)))
             except Exception:  # noqa: BLE001 — pruned mid-restore?
                 if step in ckpt_lib.all_steps(ckpt_dir):
                     raise  # step still there: a genuine restore error
                 time.sleep(0.1)  # raced the pruner; re-resolve and retry
                 continue
             with self._lock:
+                state, gan_state, cgan_state = new
                 if state is not None:
-                    self.state, self._model = state, trainer_lib.eval_model(state)
+                    self.state, self._model = state, state.model
                 if gan_state is not None:
                     self.gan_state = gan_state
-                    self._generators = self._select_generators(gan_state)
+                    self._generators = {"ab": gan_state.g_ab, "ba": gan_state.g_ba}
+                if cgan_state is not None:
+                    self.cgan_state = cgan_state
                 self._bump("reloads")
             return self.step
         raise RuntimeError("reload kept racing checkpoint pruning; raise checkpoint_keep")
@@ -574,6 +684,8 @@ class ModelService:
             depths["denoise"] = self._denoise_batcher.depth()
         for d, b in getattr(self, "_transfer_batchers", {}).items():
             depths[f"transfer_{d}"] = b.depth()
+        if getattr(self, "_cgan_batcher", None) is not None:
+            depths["transfer_to"] = self._cgan_batcher.depth()
         if depths:
             lines.append("# TYPE gct2_queue_depth gauge")
             for name, v in sorted(depths.items()):
@@ -593,10 +705,14 @@ class ModelService:
             self.counters[name] += 1
 
     def _validate_class(self, class_idx: Optional[int]):
-        """The port serves unconditional checkpoints only (Config refuses
-        num_classes > 0), so any class is refused as JAX refuses it there."""
-        if class_idx is not None:
+        """The class of /sample, streams and /edit: in range on a
+        conditional checkpoint, refused on an unconditional one."""
+        if class_idx is None:
+            return
+        if self.cfg.num_classes <= 0:
             raise ValueError("this checkpoint is unconditional (no classes)")
+        if not 0 <= class_idx < self.cfg.num_classes:
+            raise ValueError(f"class must be in [0, {self.cfg.num_classes})")
 
     # ------------------------------------------------------- endpoints
 
@@ -605,7 +721,12 @@ class ModelService:
             raise ValueError("sampling not served (no diffusion checkpoint loaded)")
         self._validate_class(class_idx)
         self._bump("requests_sample")
-        return self._shed(lambda: self._batcher.submit(num))
+        if class_idx is None and self.cfg.num_classes > 0:
+            # a conditional checkpoint with no class requested: class 0,
+            # resolved here so that the batcher never guesses what a None
+            # payload means in a mixed-class batch
+            class_idx = 0
+        return self._shed(lambda: self._batcher.submit(num, payload=class_idx))
 
     def check_streamable(self, class_idx: Optional[int] = None):
         """Raise the errors sample_stream would — BEFORE the HTTP layer has
@@ -621,7 +742,7 @@ class ModelService:
         frontend commits a 200 header)."""
         self.check_streamable(class_idx)
         self._acquire_trajectory_slot()
-        return _StreamHandle(self, self._sample_stream_impl(num, segments))
+        return _StreamHandle(self, self._sample_stream_impl(num, segments, class_idx))
 
     def _acquire_trajectory_slot(self):
         """Shed for the un-coalesced trajectory endpoints (streams and /edit):
@@ -640,9 +761,12 @@ class ModelService:
         with self._counters_lock:
             self._active_streams -= 1
 
-    def _sample_stream_impl(self, num: int, segments: int):
+    def _sample_stream_impl(self, num: int, segments: int, class_idx: Optional[int] = None):
         self._bump("requests_stream")
         padded = _pow2(num)
+        segment = sampler.make_segment_fn(
+            self.cfg, None if class_idx is None else self._classes(
+                np.full((num,), class_idx, np.int32), num, padded))
         ts_all = sampler.sample_timesteps(self.cfg)
         # more segments than timesteps is meaningless
         segments = min(max(int(segments), 1), len(ts_all))
@@ -659,11 +783,11 @@ class ModelService:
             # stall the other endpoints
             self._bump("device_batches")
             with self._lock:
-                x, e = self._segment(model, x, e, ts)
+                x, e = segment(model, x, e, ts)
             yield x[:num].cpu().numpy()
 
     def close(self):
-        for b in ("_batcher", "_denoise_batcher"):
+        for b in ("_batcher", "_denoise_batcher", "_cgan_batcher"):
             if getattr(self, b, None) is not None:
                 getattr(self, b).close()
         for b in getattr(self, "_transfer_batchers", {}).values():
@@ -671,14 +795,18 @@ class ModelService:
 
     def edit(self, image: np.ndarray, edits=EDIT_NAMES, class_idx: Optional[int] = None) -> dict:
         """invert → edit noise → decode (reference train.py:364-496): 2·T
-        denoiser steps, single-flight under the device lock. Returns
-        {edit name: (1, H, W, 3)} with 'reconstruction'."""
+        denoiser steps, single-flight under the device lock, conditioned on
+        ``class_idx`` when given. Returns {edit name: (1, H, W, 3)} with
+        'reconstruction'."""
         if self.state is None:
             raise ValueError("edit requires a checkpoint-backed diffusion server")
         bad = [e for e in edits if e not in self.EDIT_NAMES]
         if bad:
             raise ValueError(f"unknown edits {bad}; valid: {', '.join(self.EDIT_NAMES)}")
         self._validate_class(class_idx)
+        c = None
+        if class_idx is not None:
+            c = torch.full((1,), class_idx, dtype=torch.int32, device=self.device)
         self._bump("requests_edit")
         # a whole trajectory holding the device: the stream shed counts it
         self._acquire_trajectory_slot()
@@ -689,7 +817,8 @@ class ModelService:
             if dictionary is not None:
                 dictionary = dictionary.to(self.device)
             with self._lock:
-                out = sampler.edit_image(self.cfg, self._model, x, key, dictionary=dictionary)
+                out = sampler.edit_image(self.cfg, self._model, x, key, dictionary=dictionary,
+                                         class_idx=c)
                 self._bump("device_batches")
                 # keys sorted, as JAX's jitted program returns its dict
                 return {k: out[k].cpu().numpy() for k in sorted(out)}
@@ -710,10 +839,15 @@ class ModelService:
         return self._shed(lambda: self._transfer_batchers[direction].submit_image(image))
 
     def transfer_to(self, image: np.ndarray, target: int) -> np.ndarray:
-        """Multi-class conditional transfer: needs a conditional GAN, which
-        the port does not serve yet (as JAX answers without one)."""
-        raise ValueError("conditional transfer not served (no conditional-GAN checkpoint "
-                         "loaded)")
+        """Multi-class conditional transfer (BASELINE config 5): requests
+        for different target classes coalesce into one device batch."""
+        if getattr(self, "_cgan_batcher", None) is None:
+            raise ValueError("conditional transfer not served (no conditional-GAN checkpoint "
+                             "loaded)")
+        if not 0 <= target < self.cfg.num_classes:
+            raise ValueError(f"target must be in [0, {self.cfg.num_classes})")
+        self._bump("requests_transfer")
+        return self._shed(lambda: self._cgan_batcher.submit_targeted(image, target))
 
 
 def make_handler(service: ModelService):
@@ -894,12 +1028,8 @@ def build_service(cfg, model: str = "diffusion", device="cuda") -> ModelService:
     ``cfg.checkpoint_dir`` restored (a warning and random weights from
     ``cfg.seed`` when there is none), on ``device``. The checkpoint's
     train-time mesh settings are ignored: the port serves on one card."""
-    if model == "cgan":
-        raise NotImplementedError(
-            "serve --model cgan: the conditional GAN (models/conditional.py, "
-            "train/conditional_gan.py) is not ported to PyTorch yet")
-    if model not in ("diffusion", "gan"):
-        raise ValueError(f"model must be diffusion | gan, got {model!r}")
+    if model not in ("diffusion", "gan", "cgan"):
+        raise ValueError(f"model must be diffusion | gan | cgan, got {model!r}")
     device = resolve_device(device)
     has_ckpt = bool(cfg.checkpoint_dir) and ckpt_lib.latest_step(cfg.checkpoint_dir) is not None
     if not has_ckpt:
@@ -910,6 +1040,11 @@ def build_service(cfg, model: str = "diffusion", device="cuda") -> ModelService:
         if has_ckpt:
             gan_state = ckpt_lib.restore(cfg.checkpoint_dir, gan_state)
         return ModelService(cfg, gan_state=gan_state, device=device)
+    if model == "cgan":
+        cgan_state = cgan_lib.init_conditional_gan_state(cfg, device=device)
+        if has_ckpt:
+            cgan_state = ckpt_lib.restore(cfg.checkpoint_dir, cgan_state)
+        return ModelService(cfg, cgan_state=cgan_state, device=device)
     state = trainer_lib.init_state(cfg, device=device)
     if has_ckpt:
         state = ckpt_lib.restore(cfg.checkpoint_dir, state)
@@ -937,7 +1072,8 @@ def serve_from_checkpoint(cfg, host: str = "127.0.0.1", port: int = 8080,
     """Load the latest checkpoint and serve forever (the serve command).
 
     model='diffusion' serves /sample, /denoise and /edit; model='gan'
-    serves /transfer from a cycle-GAN checkpoint. frontend='aio' swaps the
+    serves /transfer?direction= from a cycle-GAN checkpoint, model='cgan'
+    /transfer?to= from a conditional-GAN one. frontend='aio' swaps the
     thread-per-connection http.server for the asyncio loop (serve/aio.py),
     with the same endpoints and batching."""
     service = build_service(cfg, model, device)

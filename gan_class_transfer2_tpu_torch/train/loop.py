@@ -77,8 +77,10 @@ class Runner(ResilientRunnerMixin):
                 if splits is not None:
                     files_per_class = [tr for tr, _ in splits]
                     self._eval_files = list(splits[0][1])
-            dataset = pipeline.make_datasets(cfg, files_per_class=files_per_class,
-                                             device=self.device)[0]
+            dsets = pipeline.make_datasets(cfg, files_per_class=files_per_class,
+                                           device=self.device)
+            # class-conditional training takes labeled round-robin batches
+            dataset = pipeline.LabeledDataset(dsets) if cfg.num_classes > 0 else dsets[0]
         self.dataset = dataset
         self._restore_data_state()
         self.data_iter = pipeline.DeviceIterator(self.dataset, self.device)
@@ -178,7 +180,10 @@ class Runner(ResilientRunnerMixin):
         else:
             data = []
             while sum(len(d) for d in data) < n:
-                data.append(torch.as_tensor(next(self.data_iter)).float().cpu().numpy())
+                batch = next(self.data_iter)
+                if isinstance(batch, dict):  # labeled batches
+                    batch = batch["image"]
+                data.append(torch.as_tensor(batch).float().cpu().numpy())
             out = np.concatenate(data, 0)[:n]
         self._fid_reference = out
         return out

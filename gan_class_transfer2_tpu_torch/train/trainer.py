@@ -59,7 +59,7 @@ class ScaleState(NamedTuple):
 
 class TrainState(NamedTuple):
     step: int
-    model: unet.Denoiser  # the params, updated in place by the step
+    model: Any  # unet.Denoiser or ConditionalDenoiser, updated in place by the step
     opt_state: Any
     ema_params: Optional[list]  # one tensor per parameter, or None
     scale_state: Optional[ScaleState] = None
@@ -382,17 +382,16 @@ def _image(batch):
 
 def diffusion_loss(cfg, model, batch, generator, *, t_int=None, epsilon_in=None):
     """Draw (t, ε), noise the batch, predict, and take the loss. A dict
-    batch gives its ``"image"``; a label in it needs the class-conditional
-    model, which is not ported."""
+    batch ``{"image", "label"}`` (class-conditional training) passes its
+    label to the model as ``class_idx`` (trainer.py:244-266)."""
+    label = None
     if isinstance(batch, dict):
-        if batch.get("label") is not None:
-            raise NotImplementedError(
-                "labeled batches need the class-conditional model (models/conditional.py), "
-                "which is not ported to PyTorch yet")
+        label = batch.get("label")
         batch = batch["image"]
     noised, target, pred_scale, t_int = draw_and_diffuse(
         cfg, batch, generator, t_int=t_int, epsilon_in=epsilon_in)
-    prediction = model_api.apply_denoiser(cfg, model, noised, t_int[:, 0, 0, 0])
+    prediction = model_api.apply_denoiser(cfg, model, noised, t_int[:, 0, 0, 0],
+                                          class_idx=label)
     prediction = prediction.to(torch.float32) * pred_scale
     return compute_loss(cfg, target, prediction)
 
@@ -513,7 +512,7 @@ def ema_update(cfg, ema, params, opt_state, finite=None):
 
 
 @torch.no_grad()
-def eval_model(state: TrainState, out: Optional[unet.Denoiser] = None) -> unet.Denoiser:
+def eval_model(state: TrainState, out=None):
     """The weights to sample from (the JAX CLI's ``ema_params if not None
     else params``): ``state.model`` itself without an EMA; with one,
     ``out`` (a copy of the model when None) holding the EMA values."""

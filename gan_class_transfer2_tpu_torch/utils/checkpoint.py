@@ -12,8 +12,11 @@ Layout (the JAX module's, with the orbax directory replaced):
 "ints": {name: int}}``, read back with ``torch.load(weights_only=True)``.
 The names are the state's structure flattened: a ``TrainState`` gives
 ``model.<param>``, ``opt_state.<i>.mu.<j>``, ``ema_params.<j>``,
-``scale_state.scale``; a ``GANState`` gives ``g_ab.<param>`` …; the
-optional ``generator`` entry is the Runner's ``torch.Generator`` state.
+``scale_state.scale``; a ``GANState`` gives ``g_ab.<param>`` …, a
+``ConditionalGANState`` ``generator.<param>``, ``discriminator.<param>``
+…; the optional ``generator`` entry is the Runner's ``torch.Generator``
+state (a ``ConditionalGANState``'s module of that name is
+``generator.<param>``, so the two never collide).
 
 What differs from the JAX package, and why:
 
@@ -57,6 +60,16 @@ class Snapshot(NamedTuple):
     step: int
     tensors: dict
     ints: dict
+
+
+class Subset:
+    """A state to restore in part: ``restore(ckpt_dir, Subset(state))``
+    fills the tensors and ints that ``state`` holds (its None fields hold
+    nothing) from a checkpoint that may hold more — a server's serving
+    modules out of a whole train state's checkpoint."""
+
+    def __init__(self, state):
+        self.state = state
 
 
 def _walk(node, prefix: str, out: dict):
@@ -291,10 +304,14 @@ def load_state_file(ckpt_dir: str, step: Optional[int] = None) -> dict:
 def restore(ckpt_dir: str, like, step: Optional[int] = None,
             generator: Optional[torch.Generator] = None):
     """Restore into ``like`` (a live state of the same structure, e.g. from
-    ``trainer.init_state``): every tensor is overwritten in place, and the
-    state is returned with its ints (steps, counters) from the file. With
-    ``generator``, its state is restored too when the checkpoint holds one
-    from a generator on the same kind of device."""
+    ``trainer.init_state``, or a ``Subset`` of one): every tensor is
+    overwritten in place, and the state is returned with its ints (steps,
+    counters) from the file. With ``generator``, its state is restored too
+    when the checkpoint holds one from a generator on the same kind of
+    device."""
+    partial = isinstance(like, Subset)
+    if partial:
+        like = like.state
     data = load_state_file(ckpt_dir, step)
     live: dict = {}
     _walk(like, "", live)
@@ -302,8 +319,8 @@ def restore(ckpt_dir: str, like, step: Optional[int] = None,
     saved.update(data["ints"])
     gen_state = saved.pop("generator", None)
     gen_cuda = saved.pop("generator_is_cuda", None)
-    if set(live) != set(saved):
-        missing, unknown = sorted(set(live) - set(saved)), sorted(set(saved) - set(live))
+    missing, unknown = sorted(set(live) - set(saved)), sorted(set(saved) - set(live))
+    if missing or (unknown and not partial):
         raise ValueError(
             f"checkpoint in {ckpt_dir} does not match the state's structure (was it "
             f"written under another optimizer or model config?): missing {missing[:5]}, "

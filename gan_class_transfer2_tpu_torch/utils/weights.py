@@ -19,7 +19,12 @@ state), given with numpy leaves, carries into the port's
 ``to_jax_train_state``, so a JAX run and a port run continue from the same
 state; a JAX ``GANState`` likewise by ``from_jax_gan_state`` and
 ``to_jax_gan_state`` (four nets, the optimizer states over ``{"ab", "ba"}``
-and ``{"a", "b"}``, the generator EMAs). Norm layers (GAN mode) carry under
+and ``{"a", "b"}``, the generator EMAs), and a ``ConditionalGANState`` by
+``from_jax_conditional_gan_state`` and ``to_jax_conditional_gan_state``.
+The class-conditional denoiser's ``{"embed", "unet"}`` tree carries by
+``from_jax_conditional_params`` / ``to_jax_conditional_params``, which
+``from_jax_params`` / ``to_jax_params`` and the train-state functions
+dispatch to. Norm layers (GAN mode) carry under
 ``down_norm``/``up_norm`` and ``convs[i]["norm"]``; the flat Keras order
 has none, as the reference model has none.
 """
@@ -31,6 +36,7 @@ from typing import Callable, List, NamedTuple
 import numpy as np
 import torch
 
+from ..models import conditional
 from ..models import discriminator as d_lib
 from ..models import unet
 from ..models.api import resolve_device
@@ -42,10 +48,12 @@ def _np(p) -> np.ndarray:
     return p.detach().cpu().numpy()
 
 
-def to_jax_params(model: unet.Denoiser, values=None) -> dict:
+def to_jax_params(model, values=None) -> dict:
     """The JAX param pytree of ``model``, numpy leaves: the parameters
     themselves, or ``values[i]`` for the i-th of ``model.parameters()`` (a
     list of tensors shaped like them, such as Adam's moments)."""
+    if isinstance(model, conditional.ConditionalDenoiser):
+        return to_jax_conditional_params(model, values)
     by_id = {id(p): v for p, v in zip(model.parameters(), values)} if values is not None else {}
 
     def leaf(p):
@@ -98,10 +106,32 @@ def _jax_state(tree) -> dict:
     return out
 
 
-def from_jax_params(cfg, tree, device="cuda", out_channels=None) -> unet.Denoiser:
+def from_jax_params(cfg, tree, device="cuda", out_channels=None):
     """A Denoiser on ``device`` holding the JAX param pytree ``tree`` (numpy
-    or array-like leaves). Names and shapes must match exactly."""
+    or array-like leaves), a ConditionalDenoiser when the tree has an
+    ``embed``. Names and shapes must match exactly."""
+    if "embed" in tree:
+        return from_jax_conditional_params(cfg, tree, device, out_channels)
     model = unet.Denoiser(cfg, out_channels=out_channels)
+    model.load_state_dict(_jax_state(tree), strict=True)
+    return model.to(resolve_device(device))
+
+
+def to_jax_conditional_params(model: conditional.ConditionalDenoiser, values=None) -> dict:
+    """``{"embed", "unet"}`` of a ConditionalDenoiser, numpy leaves;
+    ``values`` as for ``to_jax_params`` (``embed`` is the first parameter)."""
+    embed = model.embed if values is None else values[0]
+    return {"embed": _np(embed),
+            "unet": to_jax_params(model.unet, None if values is None else values[1:])}
+
+
+def from_jax_conditional_params(cfg, tree, device="cuda", out_channels=None):
+    """A ConditionalDenoiser on ``device`` holding the JAX
+    ``init_conditional_unet`` tree ``tree``; the class count and embedding
+    width come from ``tree["embed"]``."""
+    num_classes, embed_dim = np.shape(tree["embed"])
+    model = conditional.ConditionalDenoiser(cfg, num_classes, embed_dim,
+                                            out_channels=out_channels)
     model.load_state_dict(_jax_state(tree), strict=True)
     return model.to(resolve_device(device))
 
@@ -226,8 +256,14 @@ class _Layout(NamedTuple):
     device: torch.device
 
 
-def _model_layout(model: unet.Denoiser) -> _Layout:
-    return _Layout(lambda node: isinstance(node, dict) and "octaves" in node,
+def _model_layout(model) -> _Layout:
+    """One denoiser (conditional or not) or discriminator."""
+    if isinstance(model, d_lib.Discriminator):
+        return _Layout(lambda node: isinstance(node, dict) and "convs" in node,
+                       lambda tree, dtype: _param_list(model, tree, dtype),
+                       lambda values: to_jax_discriminator_params(model, values),
+                       next(model.parameters()).device)
+    return _Layout(lambda node: isinstance(node, dict) and ("octaves" in node or "unet" in node),
                    lambda tree, dtype: _param_list(model, tree, dtype),
                    lambda values: to_jax_params(model, values),
                    next(model.parameters()).device)
@@ -379,4 +415,39 @@ def to_jax_gan_state(state) -> dict:
         "d_opt": _opt_to_jax(d_layout, state.d_opt),
         "ema_g_ab": None if state.ema_g_ab is None else to_jax_params(state.ema_g_ab),
         "ema_g_ba": None if state.ema_g_ba is None else to_jax_params(state.ema_g_ba),
+    }
+
+
+# --------------------------------------------------- conditional GAN state
+
+
+def from_jax_conditional_gan_state(cfg, state, device="cuda"):
+    """The port's ``ConditionalGANState`` from a JAX one with numpy leaves:
+    G, D, both optimizer states and G's EMA."""
+    from ..train import conditional_gan as cgan
+
+    g = from_jax_conditional_params(cfg, state.generator, device)
+    d = from_jax_discriminator_params(cfg, state.discriminator, device)
+    ema = state.ema_generator
+    if ema is not None:
+        ema = from_jax_conditional_params(cfg, ema, device).requires_grad_(False)
+    moments = _moment_dtype(cfg)
+    return cgan.ConditionalGANState(
+        int(np.asarray(state.step)), g, d,
+        _opt_from_jax(_model_layout(g), state.g_opt, moments),
+        _opt_from_jax(_model_layout(d), state.d_opt, moments), ema)
+
+
+def to_jax_conditional_gan_state(state) -> dict:
+    """The inverse of ``from_jax_conditional_gan_state``: the JAX
+    ``ConditionalGANState``'s fields as a dict of numpy trees, optimizer
+    states as the port's NamedTuples."""
+    return {
+        "step": np.asarray(state.step, np.int32),
+        "generator": to_jax_conditional_params(state.generator),
+        "discriminator": to_jax_discriminator_params(state.discriminator),
+        "g_opt": _opt_to_jax(_model_layout(state.generator), state.g_opt),
+        "d_opt": _opt_to_jax(_model_layout(state.discriminator), state.d_opt),
+        "ema_generator": None if state.ema_generator is None
+        else to_jax_conditional_params(state.ema_generator),
     }

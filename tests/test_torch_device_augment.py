@@ -23,6 +23,7 @@ from gan_class_transfer2_tpu.data import pipeline as jpipe  # noqa: E402
 from gan_class_transfer2_tpu_torch.config import tiny_test_config  # noqa: E402
 from gan_class_transfer2_tpu_torch.data import device_augment as aug  # noqa: E402
 from gan_class_transfer2_tpu_torch.data import pipeline  # noqa: E402
+from gan_class_transfer2_tpu_torch.models import api  # noqa: E402
 from gan_class_transfer2_tpu_torch.train import trainer  # noqa: E402
 
 torch.set_num_threads(1)
@@ -185,8 +186,16 @@ def test_augment_if_uint8_keeps_dicts_and_passes_floats_without_drawing():
     out = trainer.augment_if_uint8(cfg, raw, gen)
     assert out["label"] is raw["label"] and out["image"].shape == (2, 16, 16, 3)
     assert out["image"].dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="conditional"):
-        trainer.diffusion_loss(cfg, None, raw, gen)
+    # the label reaches the class-conditional model as its class_idx
+    cond = tiny_test_config(num_classes=2)
+    model = api.init_denoiser(cond, device="cpu").requires_grad_(False)
+    loss = trainer.diffusion_loss(cond, model, out, gen)
+    other = trainer.diffusion_loss(cond, model, dict(out, label=torch.tensor([0, 0])),
+                                   torch.Generator().manual_seed(0), t_int=torch.tensor([5, 5]),
+                                   epsilon_in=torch.zeros(2, 16, 16, 3))
+    same = trainer.diffusion_loss(cond, model, out, torch.Generator().manual_seed(0),
+                                  t_int=torch.tensor([5, 5]), epsilon_in=torch.zeros(2, 16, 16, 3))
+    assert np.isfinite(float(loss)) and float(other) != float(same)
 
 
 def test_gan_step_on_uint8_batches_equals_the_float_step_on_the_same_draws():

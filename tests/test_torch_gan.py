@@ -463,7 +463,9 @@ def test_cli_profile_prints_the_jax_summary_keys(model, tmp_path, capsys):
 
 
 def test_cli_profile_cgan_names_the_missing_module():
-    with pytest.raises(NotImplementedError, match="models/conditional.py"):
+    """The conditional GAN is ported; without --num-classes it names the
+    missing setting (tests/test_torch_conditional_gan.py profiles it)."""
+    with pytest.raises(ValueError, match="num_classes >= 2"):
         cli.main(["profile", "--device", "cpu", "--model", "cgan", *TINY])
 
 

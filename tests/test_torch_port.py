@@ -159,7 +159,8 @@ def test_port_imports_no_jax():
         "for n in names: importlib.import_module(n)\n"
         "assert 'gan_class_transfer2_tpu_torch.cli' in names, names\n"
         "new = ['data.native_loader', 'data.cache', 'utils.metrics', 'utils.fid_extractor',\n"
-        "       'serve.server', 'serve.aio']\n"
+        "       'serve.server', 'serve.aio', 'models.conditional', 'train.conditional_gan',\n"
+        "       'train.conditional_gan_loop']\n"
         "missing = [n for n in new if p.__name__ + '.' + n not in names]\n"
         "assert not missing, missing\n"
         "from gan_class_transfer2_tpu_torch.utils import fid_extractor\n"
@@ -483,3 +484,32 @@ def test_serve_sample_launches_b4_on_card(monkeypatch):
         assert got.shape == (3, 32, 32, 3) and diff.max() <= 1 and (diff > 0).mean() <= 1e-3
     finally:
         srv.stop()
+
+
+@pytest.mark.cuda
+def test_conditional_forward_through_b4_matches_the_plain_path_on_card(monkeypatch):
+    """The class-conditional U-Net at a width whose two down convs B4 takes
+    (block_depth 1: 128 channels at 32² and 16²; the 3 + 8 embedded input
+    channels reach only the pre_block conv), a mixed-class batch: the kernel
+    path against cuDNN (``conv_impl="lax"``) within 1e-4 of the output's
+    scale (IEEE float32 sums in other orders), B4 launched once per down
+    conv, and the class moving the output."""
+    from gan_class_transfer2_tpu_torch.models import api, conditional
+
+    _needs_card(monkeypatch)
+    cfg = tiny_test_config(num_classes=3, size=32, pixel_size=128, max_size=256,
+                           block_depth=1, conv_impl="pallas")
+    model = api.init_denoiser(cfg, device="cuda")
+    assert isinstance(model, conditional.ConditionalDenoiser)
+    x = torch.from_numpy(np.random.default_rng(20).uniform(-1, 1, (2, 32, 32, 3))
+                         .astype(np.float32)).cuda()
+    c = torch.tensor([2, 0], dtype=torch.int32, device="cuda")
+    with torch.inference_mode():
+        fdc.down_conv_fused.launches = 0
+        y = api.apply_denoiser(cfg, model, x, class_idx=c)
+        assert fdc.down_conv_fused.launches == 2
+        ref = api.apply_denoiser(cfg.replace(conv_impl="lax"), model, x, class_idx=c)
+        other = api.apply_denoiser(cfg, model, x, class_idx=torch.ones_like(c))
+    scale = max(1.0, ref.abs().max().item())
+    assert (y - ref).abs().max().item() <= 1e-4 * scale
+    assert (other - y).abs().max().item() > 1e-3

@@ -291,13 +291,11 @@ def test_service_refuses_what_is_not_ported():
         ModelService(cfg, mesh=["cuda:0", "cuda:1"], device="cpu")
     with pytest.raises(NotImplementedError, match="utils/bundle.py"):
         ModelService(cfg, bundle=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="train/conditional_gan.py"):
-        ModelService(cfg, cgan_state=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="utils/bundle.py"):
         srv_mod.build_bundle_service("bundle")
     with pytest.raises(NotImplementedError, match="utils/bundle.py"):
         srv_mod.serve_from_bundle("bundle")
-    with pytest.raises(NotImplementedError, match="train/conditional_gan.py"):
+    with pytest.raises(ValueError, match="num_classes >= 2"):  # cgan is served with classes
         build_service(cfg, "cgan", device="cpu")
     state, _ = _states(cfg)
     with pytest.raises(ValueError, match="lives on cpu"):
@@ -735,7 +733,7 @@ def test_reload_retries_a_step_pruned_mid_restore(tmp_path, monkeypatch):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="train/conditional_gan.py"):
+    with pytest.raises(ValueError, match="num_classes >= 2"):  # cgan is served with classes
         cli.main(["serve", "--device", "cpu", *TINY, "--model", "cgan"])
     with pytest.raises(NotImplementedError, match="utils/bundle.py"):
         cli.main(["serve", "--device", "cpu", *TINY, "--bundle", str(tmp_path)])

@@ -131,8 +131,9 @@ def test_init_is_seeded_glorot():
 
 
 def test_refused_features_name_the_missing_piece():
-    with pytest.raises(NotImplementedError, match="conditional"):
-        tiny_test_config(num_classes=2)
+    with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
+        tiny_test_config(zero1=True)
+    assert tiny_test_config(num_classes=2).num_classes == 2  # the conditional model is ported
     with pytest.raises(ValueError, match="unknown norm"):
         tiny_test_config(g_norm="layer")
     with pytest.raises(ValueError, match="unknown norm"):

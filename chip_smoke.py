@@ -136,7 +136,29 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      1 level of the in-process path with exact launches, frontends equal;
      a stream and /edit with a class; mixed classes and mixed targets
      coalesced behind a gate; direction= on the cGAN a 400; latency p50/p99
-     at concurrency 1 and 8; the peak memory across each /reload.
+     at concurrency 1 and 8; the peak memory across each /reload;
+  21. distill (run after [cgan-train-cli] and before [serve], which replaces
+     [train-cli]'s train state with its served part) — ``cli distill`` on
+     [train-cli]'s checkpoint (stride 50), one round of 4 steps to stride
+     100 at batch 16: exact launches (B4 3 denoiser calls a step + the
+     grids' 6, B1 and B2 none), finite losses,
+     ``sample_stride`` 100 in the student's config.json, ``cli sample`` of
+     the student (2 calls); one distill step timed beside [train]'s; one
+     injected full-width step through the kernels and cuDNN (1e-5);
+  22. bundle (also before [serve]) — ``cli export-model`` of [train-cli]'s,
+     [gan-train-cli]'s and [cgan-train-cli]'s checkpoints on the card:
+     export, save and load s and MB of each program; the graphs hold B4 and B3 as ``gct2::`` custom ops
+     (no aten convolution where B4's gate admits one); one sample program at
+     batch 1, 3 and 16; ``cli sample --bundle`` against ``--checkpoint-dir``
+     (1 level); denoise, preview, invert and the transfers against the
+     in-process path (1e-4 of the scale, 1 level) with exact launches; the
+     card's bundle on the CPU (1e-4); sample ms/image at batch 4 through the
+     bundle against in process; B4's host µs direct and through the op;
+  23. serve-bundle (last) — ``build_bundle_service`` on the three bundles
+     behind both frontends: /sample, /denoise, /transfer ab, ba and ?to= within 1
+     level of the bundle in process with exact launches, frontends equal;
+     /edit, a stream and /reload refused (400); /sample npy p50/p99 at
+     concurrency 1 and 8.
 
 The last two lines of its output are a JSON line of per-kernel results and
 ``{"ok": true, "device": {...}}``; before them the card's name and power
@@ -2855,6 +2877,431 @@ def phase_serve_classes(torch, fdc, norm, sampler, cgan, png, tmp, globs, card):
     return tuple(launches.total)
 
 
+# ------------------------------------------- distillation and bundles
+
+
+DISTILL_STEPS = 4  # [distill]: steps of the one round (stride 50 -> 100)
+BUNDLE_BATCH = 4  # [bundle]: the batch of the sample timing, as [sample]'s
+
+
+def _cli_lines(cli, args):
+    """One CLI run with its standard output captured and echoed; returns the
+    lines it printed. Fails the smoke on a non-zero return."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(args)
+    sys.stdout.write(buf.getvalue())
+    if rc != 0:
+        fail(f"cli {' '.join(args[:1])} returned {rc}")
+    return buf.getvalue().splitlines()
+
+
+def phase_distill(torch, cli, fdc, fd, adam_kernel, trainer, sampler, cfg, tmp, train_results):
+    """``cli.main(["distill", ...])`` on [train-cli]'s checkpoint (the
+    default width, stride 50, fp32 on the kernel path, batch 16, its 16
+    held-out files kept out): one round of DISTILL_STEPS steps to stride
+    100. Exact launches: B4 three denoiser calls a step (the teacher's two,
+    the student's one) plus the grids' six (the teacher at stride 50: 4
+    calls, the student at 100: 2), 4 down convs each; B1 and B2 none (the
+    JAX step draws ε unfused and takes the optax-form update). Finite
+    losses, ``sample_stride`` 100 in the student's config.json, ``cli
+    sample --checkpoint-dir`` on it (2 calls). Then one distill step timed
+    beside [train]'s fp32 step, and one injected full-width step (the same
+    t and ε) through the kernel path and cuDNN (``conv_impl="lax"``): losses
+    within 1e-5 relative. Returns the B4 launches of the two commands."""
+    from gan_class_transfer2_tpu_torch.train import distill
+    from gan_class_transfer2_tpu_torch.utils import checkpoint as ckpt_lib
+
+    t_phase = time.perf_counter()
+    ckpt, out = os.path.join(tmp, "ckpt-cli"), os.path.join(tmp, "ckpt-distill")
+    dcfg = ckpt_lib.load_config(ckpt)
+    b4 = b4_per_call(fdc, dcfg, TRAIN_BATCH)
+    grid = len(sampler.sample_timesteps(dcfg)) + len(sampler.sample_timesteps(
+        dcfg.replace(sample_stride=2 * dcfg.sample_stride)))
+    want = (0, 0, (3 * DISTILL_STEPS + grid) * b4)
+    args = ["distill", "--device", "cuda", "--checkpoint-dir", ckpt, "--out", out,
+            "--distill-steps", str(DISTILL_STEPS), "--log-dir", os.path.join(tmp, "logs-distill")]
+    counters = (fd.diffuse_fused, adam_kernel.adam_fused, fdc.down_conv_fused)
+    got, secs = _run_cli(cli, counters, args)
+    if got != want:
+        fail(f"distill: launches B1/B2/B4 {got}, expected {want} ({DISTILL_STEPS} steps x 3 "
+             f"denoiser calls + {grid} grid calls, {b4} B4 each)")
+    ev = _events(os.path.join(tmp, "logs-distill"))
+    stride = 2 * dcfg.sample_stride
+    losses = [v for _, v in ev.get(f"distill_loss/stride_{stride}", [])]
+    missing = [t for t in ("distill/teacher_samples/image/0", "distill/student_samples/image/0")
+               if t not in ev]
+    if not losses or not all(np.isfinite(losses)) or missing:
+        fail(f"distill: losses {losses}, missing tags {missing}")
+    scfg = ckpt_lib.load_config(out)
+    if scfg.sample_stride != stride:
+        fail(f"distill: the student's config.json has sample_stride {scfg.sample_stride}")
+    s_calls = len(sampler.sample_timesteps(scfg))
+    sgot, _ = _run_cli(cli, (fdc.down_conv_fused,), [
+        "sample", "--device", "cuda", "--checkpoint-dir", out, "--num", "2",
+        "--out", os.path.join(tmp, "out", "samples-distill")])
+    if sgot != (s_calls * b4,):
+        fail(f"distill: sample of the student launched B4 {sgot}, expected {s_calls * b4}")
+    print(f"[distill] cli distill, one round stride {dcfg.sample_stride} -> {stride}, "
+          f"{DISTILL_STEPS} steps at batch {dcfg.batch_size}: launches B1/B2/B4 {got}; losses "
+          f"{[round(v, 7) for v in losses]}; student sample_stride {scfg.sample_stride}; cli "
+          f"sample of the student {sgot[0]} B4 ({s_calls} calls); wall {secs:.2f} s")
+
+    # the step timed, and one injected step through both paths
+    c = dcfg.replace(conv_impl="pallas").validate()
+    teacher = trainer.eval_model(ckpt_lib.restore(ckpt, trainer.init_state(c, device="cuda")))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = torch.rand((TRAIN_BATCH, c.size, c.size, 3), generator=gen, device="cuda") * 2 - 1
+    opt = distill.distill_opt_config(c, 100)
+    state = distill.init_student(opt, teacher)
+    step = distill.make_distill_step(opt, stride)
+    for _ in range(2):
+        state, loss = step(state, teacher, batch, gen)
+    torch.cuda.synchronize()
+    t0, n = time.perf_counter(), 5
+    for _ in range(n):
+        state, loss = step(state, teacher, batch, gen)
+    float(loss)
+    step_ms = (time.perf_counter() - t0) * 1e3 / n
+    train_ms = train_results[("float32", "kernels")]["step_ms"]
+    print(f"[distill] fp32 distill step at batch {TRAIN_BATCH}: {step_ms:.3f} ms ({n} steps, "
+          f"after 2 warm), against [train]'s fp32 kernel step {train_ms:.3f} ms "
+          f"({step_ms / train_ms:.3f}x)")
+    del state
+    t, eps = distill.draw(c, batch, gen, stride)
+    losses = {}
+    for impl in ("pallas", "lax"):
+        ci = opt.replace(conv_impl=impl)
+        st = distill.init_student(ci, teacher)
+        _, lo = distill.make_distill_step(ci, stride)(st, teacher, batch, None, t=t, epsilon=eps)
+        losses[impl] = float(lo)
+        del st
+    rel = abs(losses["pallas"] - losses["lax"]) / abs(losses["lax"])
+    if not rel <= 1e-5:
+        fail(f"distill: injected step losses {losses}, relative {rel:.3e} (bound 1e-5)")
+    print(f"[distill] injected full-width step (t {t.tolist()}): loss kernels "
+          f"{losses['pallas']:.9f}, cuDNN {losses['lax']:.9f}, relative {rel:.3e} (bound "
+          f"1e-5); the phase took {time.perf_counter() - t_phase:.2f} s")
+    fdc.down_conv_fused.launches = 0
+    torch.cuda.empty_cache()
+    return got[2] + sgot[0]
+
+
+def _program_ops(path):
+    """(gct2::down_conv_k4s2, gct2::instance_norm, stride-2 aten
+    convolutions) in a saved program's graph."""
+    import torch
+
+    ep = torch.export.load(path)
+    nodes = [(str(n.target), n.args) for n in ep.graph.nodes if n.op == "call_function"]
+    return (sum(t == "gct2.down_conv_k4s2.default" for t, _ in nodes),
+            sum(t == "gct2.instance_norm.default" for t, _ in nodes),
+            sum(t in ("aten.conv2d.default", "aten.convolution.default")
+                and list(a[3]) == [2, 2] for t, a in nodes))
+
+
+def _close_scale(got, want, what, tol=1e-4):
+    """Max |got − want| within ``tol`` of max(1, max|want|); returns it."""
+    err = float((got.float().cpu() - want.float().cpu()).abs().max())
+    scale = max(1.0, float(want.abs().max()))
+    if not err <= tol * scale:
+        fail(f"bundle: {what}: max difference {err:.3e} over {tol} x scale {scale:.3f}")
+    return err
+
+
+def phase_bundle(torch, cli, fdc, norm, sampler, gan, cgan, png, tmp, card):
+    """``cli.main(["export-model", ...])`` on [train-cli]'s, [gan-train-cli]'s
+    and [cgan-train-cli]'s checkpoints, traced on the card: each program's
+    export s, save s, load s and MB; the graphs hold 4
+    ``gct2::down_conv_k4s2`` (and the generators 12 ``gct2::instance_norm``)
+    and no aten convolution where B4's gate admits one (2 stride-2 convs
+    left: the 3-channel stem and the 8² one). One sample program serves
+    batch 1, 3 and 16 (16 B4 each); ``cli sample --bundle`` writes the PNGs
+    of ``cli sample --checkpoint-dir`` within 1 level; denoise, preview
+    and invert (800 B4) agree with the in-process model and sampler (1e-4
+    of the scale on raw arrays, 1 level on images); each transfer with
+    gan.transfer / cgan.transfer within 1 level (4 B4, 12 B3 each); the
+    bundle runs denoise at batch 1 on the CPU within 1e-4 of the card.
+    Printed: sample ms/image at batch 4 through the bundle against the
+    in-process sampler (in turns), and B4's eager host µs direct against
+    through the custom op. Returns (bundle dirs, (B3, B4) launches)."""
+    from gan_class_transfer2_tpu_torch.models import api
+    from gan_class_transfer2_tpu_torch.train import trainer
+    from gan_class_transfer2_tpu_torch.utils import bundle as bundle_lib
+    from gan_class_transfer2_tpu_torch.utils import checkpoint as ckpt_lib
+
+    t_phase = time.perf_counter()
+    launches = _Launches(norm.instance_norm_fused, fdc.down_conv_fused)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # equal programs, equal bytes (see [serve])
+    dirs = {}
+    for model, ckpt in (("diffusion", "ckpt-cli"), ("gan", "ckpt-gan"), ("cgan", "ckpt-cgan")):
+        out = os.path.join(tmp, f"bundle-{model}")
+        t0 = time.perf_counter()
+        lines = _cli_lines(cli, ["export-model", "--device", "cuda", "--checkpoint-dir",
+                                 os.path.join(tmp, ckpt), "--model", model, "--out", out])
+        print(f"[bundle] export-model --model {model}: {time.perf_counter() - t0:.2f} s in all; "
+              f"{[ln.strip() for ln in lines if ln.startswith('  ')]}")
+        dirs[model] = out
+    dcfg = ckpt_lib.load_config(os.path.join(tmp, "ckpt-cli"))
+    gcfg = ckpt_lib.load_config(os.path.join(tmp, "ckpt-gan"))
+    kcfg = ckpt_lib.load_config(os.path.join(tmp, "ckpt-cgan"))
+    b4 = b4_per_call(fdc, dcfg, 1)
+    _, _, (b3_fwd, b4_fwd) = gan_counts(fdc, gcfg, 1)
+    _, _, (kb3_fwd, kb4_fwd) = gan_counts(fdc, kcfg, 1, conditional=True)
+    expect = {"diffusion": (b4, 0, dcfg.octaves - b4), "gan": (b4_fwd, b3_fwd,
+                                                               gcfg.octaves - b4_fwd),
+              "cgan": (kb4_fwd, kb3_fwd, kcfg.octaves - kb4_fwd)}
+    bundles = {}
+    for model, out in dirs.items():
+        bundles[model] = b = bundle_lib.load_bundle(out, "cuda")
+        for name in b.programs:
+            path = os.path.join(out, b.manifest["programs"][name]["file"])
+            ops = _program_ops(path)
+            if ops != expect[model]:
+                fail(f"bundle: {model}/{name}: graph holds down-conv ops / norm ops / "
+                     f"stride-2 aten convs {ops}, expected {expect[model]}")
+            t0 = time.perf_counter()
+            b.load(name)
+            torch.cuda.synchronize()
+            print(f"[bundle] {model}/{name}: load {time.perf_counter() - t0:.3f} s, "
+                  f"{os.path.getsize(path) / 1e6:.1f} MB; graph: {ops[0]} gct2::down_conv_k4s2, "
+                  f"{ops[1]} gct2::instance_norm, {ops[2]} stride-2 aten convs ({card})")
+
+    # ---- diffusion: batch polymorphism, the CLI, agreement with in-process
+    db, size = bundles["diffusion"], dcfg.size
+    calls = len(sampler.sample_timesteps(dcfg))
+    model = trainer.eval_model(ckpt_lib.restore(
+        os.path.join(tmp, "ckpt-cli"), trainer.init_state(dcfg, device="cuda")))
+    rng = np.random.default_rng(0)
+    launches.reset()
+    for n in (1, 3, 16):
+        y = db.call("sample", torch.from_numpy(rng.normal(size=(n, size, size, 3)).astype(
+            np.float32)).cuda())
+        if tuple(y.shape) != (n, size, size, 3) or not bool(torch.isfinite(y).all()):
+            fail(f"bundle: sample at batch {n}: shape {tuple(y.shape)}")
+        launches.take((0, calls * b4), f"bundle sample at batch {n}")
+    print(f"[bundle] one sample program served batch 1, 3 and 16: {calls * b4} B4 launches each")
+    pngs = {}
+    for kind, src in (("bundle", ["--bundle", dirs["diffusion"]]),
+                      ("checkpoint", ["--checkpoint-dir", os.path.join(tmp, "ckpt-cli")])):
+        outdir = os.path.join(tmp, "out", f"samples-{kind}")  # outside the PNG globs
+        launches.reset()
+        _cli_lines(cli, ["sample", "--device", "cuda", *src, "--num", str(BUNDLE_BATCH),
+                         "--out", outdir])
+        launches.take((0, calls * b4), f"cli sample {src[0]}")
+        pngs[kind] = np.stack([png.read_png(os.path.join(outdir, f"sample_{i}.png"))
+                               for i in range(BUNDLE_BATCH)])
+    lv = _levels(pngs["bundle"], pngs["checkpoint"], "cli sample --bundle against "
+                 "--checkpoint-dir")
+    print(f"[bundle] cli sample --bundle vs --checkpoint-dir, {BUNDLE_BATCH} PNGs: {lv[0]} "
+          f"level(s) on {lv[1]:.2e} of the values; {calls * b4} B4 launches each")
+    x = torch.from_numpy(rng.uniform(-1, 1, (1, size, size, 3)).astype(np.float32)).cuda()
+    noise = torch.from_numpy(rng.normal(size=(1, size, size, 3)).astype(np.float32)).cuda()
+    t = torch.full((1,), 37, dtype=torch.int32, device="cuda")
+    launches.reset()
+    d = db.call("denoise", x, t)
+    launches.take((0, b4), "bundle denoise")
+    with torch.inference_mode():
+        d_err = _close_scale(d, api.apply_denoiser(dcfg, model, x, t).float(), "denoise")
+    launches.reset()
+    p = db.call("preview", x, noise)
+    launches.take((0, b4), "bundle preview")
+    p_lv = _levels(png.to_uint8(p.cpu().numpy()), png.to_uint8(
+        sampler.preview(dcfg, model, x, noise)[0].cpu().numpy()), "bundle preview")
+    launches.reset()
+    gx, ge = db.call("invert", x)
+    launches.take((0, dcfg.steps * b4), "bundle invert")
+    wx, we = sampler.invert(dcfg, model, x)
+    i_err = max(_close_scale(gx, wx, "invert x"), _close_scale(ge, we, "invert eps"))
+    cpu = bundle_lib.load_bundle(dirs["diffusion"], "cpu")
+    t0 = time.perf_counter()
+    dc = cpu.call("denoise", x.cpu(), t.cpu())
+    cpu_s = time.perf_counter() - t0
+    c_err = _close_scale(dc, d, "denoise on the CPU against the card")
+    print(f"[bundle] denoise vs the in-process model {d_err:.3e}, preview vs sampler.preview "
+          f"{p_lv[0]} level(s) on {p_lv[1]:.2e}, invert ({dcfg.steps * b4} B4) vs "
+          f"sampler.invert {i_err:.3e} (bound 1e-4 of the scale); the card's bundle on the CPU: "
+          f"denoise at batch 1 {c_err:.3e} from the card's, load + call {cpu_s:.2f} s")
+    del cpu
+
+    # ---- the transfers
+    gstate = ckpt_lib.restore(os.path.join(tmp, "ckpt-gan"), gan.init_gan_state(gcfg,
+                                                                                  device="cuda"))
+    xg = torch.from_numpy(rng.uniform(-1, 1, (1, size, size, 3)).astype(np.float32)).cuda()
+    for dr in ("ab", "ba"):
+        launches.reset()
+        got = bundles["gan"].call(f"transfer_{dr}", xg)
+        launches.take((b3_fwd, b4_fwd), f"bundle transfer_{dr}")
+        with torch.inference_mode():
+            want = gan.transfer(gcfg, gstate, xg, dr)
+        lv = _levels(png.to_uint8(got.cpu().numpy()), png.to_uint8(want.cpu().numpy()),
+                     f"bundle transfer_{dr}")
+        print(f"[bundle] transfer_{dr}: B3/B4 ({b3_fwd}, {b4_fwd}); vs gan.transfer {lv[0]} "
+              f"level(s) on {lv[1]:.2e}")
+    del gstate
+    kstate = ckpt_lib.restore(os.path.join(tmp, "ckpt-cgan"),
+                              cgan.init_conditional_gan_state(kcfg, device="cuda"))
+    target = torch.tensor([1], dtype=torch.int32, device="cuda")
+    launches.reset()
+    got = bundles["cgan"].call("transfer", xg, target)
+    launches.take((kb3_fwd, kb4_fwd), "bundle transfer?to=1")
+    with torch.inference_mode():
+        want = cgan.transfer(kcfg, kstate, xg, target)
+    lv = _levels(png.to_uint8(got.cpu().numpy()), png.to_uint8(want.cpu().numpy()),
+                 "bundle transfer?to=1")
+    print(f"[bundle] transfer to 1 (cGAN): B3/B4 ({kb3_fwd}, {kb4_fwd}); vs cgan.transfer "
+          f"{lv[0]} level(s) on {lv[1]:.2e}")
+    del kstate, bundles
+    # timed under cuDNN's default algorithms, as [sample] times the sampler
+    torch.backends.cudnn.deterministic = deterministic
+    init = torch.from_numpy(rng.normal(size=(BUNDLE_BATCH, size, size, 3)).astype(
+        np.float32)).cuda()
+
+    def ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / 3 / BUNDLE_BATCH
+
+    def inproc():
+        return sampler.sample(dcfg, model, init, snapshots=False).images
+
+    def bundled():
+        return db.call("sample", init)
+
+    runs = [("in-process", ms(inproc)), ("bundle", ms(bundled)), ("bundle", ms(bundled)),
+            ("in-process", ms(inproc))]
+    print(f"[bundle] sample fp32 batch {BUNDLE_BATCH}, stride {dcfg.sample_stride} ({calls} "
+          f"calls), ms per image in turns: {', '.join(f'{k} {v:.3f}' for k, v in runs)} "
+          f"({card})")
+    xx = torch.randn((1, 128, 128, 128), device="cuda")
+    k = torch.randn((4, 4, 128, 256), device="cuda") * 0.05
+    bb = torch.zeros(256, device="cuda")
+    host = [("direct", host_ms(lambda: fdc._forward(xx, k, bb, True)) * 1e3),
+            ("custom op", host_ms(lambda: torch.ops.gct2.down_conv_k4s2(xx, k, bb, True)) * 1e3),
+            ("custom op", host_ms(lambda: torch.ops.gct2.down_conv_k4s2(xx, k, bb, True)) * 1e3),
+            ("direct", host_ms(lambda: fdc._forward(xx, k, bb, True)) * 1e3)]
+    print(f"[bundle] B4 eager host us a call (batch 1, 128² x 128 -> 256), in turns: "
+          f"{', '.join(f'{k} {v:.2f}' for k, v in host)} ({card})")
+
+    del model, db
+    print(f"[bundle] launches B3/B4 of the bundles' checked calls {tuple(launches.total)}; the "
+          f"phase took {time.perf_counter() - t_phase:.2f} s")
+    torch.cuda.empty_cache()
+    return dirs, tuple(launches.total)
+
+
+def phase_serve_bundle(torch, fdc, norm, sampler, png, tmp, globs, dirs, card):
+    """``serve/server.build_bundle_service`` on [bundle]'s diffusion, GAN and
+    cGAN bundles, each behind the threaded Server and the AsyncServer on the
+    card: /sample (num 1 and 3), /denoise, /transfer ab and ba and
+    /transfer?to=1 answer what the bundle called in process gives on the
+    replayed noise within 1 level, with exact B3/B4 launches, the two
+    frontends' bytes equal; /edit, a stream and /reload are refused as in
+    JAX (400). Then printed: /sample npy p50/p99 at concurrency 1 (120
+    requests) and 8 (200). Returns the (B3, B4) launches of the checked
+    requests."""
+    import glob
+    import io
+
+    from gan_class_transfer2_tpu_torch.serve import server as srv_mod
+    from gan_class_transfer2_tpu_torch.serve.aio import AsyncServer
+
+    t_phase = time.perf_counter()
+    launches = _Launches(norm.instance_norm_fused, fdc.down_conv_fused)
+    t0 = time.perf_counter()
+    svcs = {m: srv_mod.build_bundle_service(d, device="cuda") for m, d in dirs.items()}
+    for svc in svcs.values():
+        for name in svc.bundle.programs:
+            svc.bundle.load(name)
+    print(f"[serve-bundle] three bundle services built and their programs loaded in "
+          f"{time.perf_counter() - t0:.2f} s")
+    ports = {}
+    servers = []
+    for m, svc in svcs.items():
+        pair = [srv_mod.Server(svc).start(), AsyncServer(svc).start()]
+        servers += pair
+        ports[m] = tuple(s.port for s in pair)
+    dsvc, gsvc, ksvc = svcs["diffusion"], svcs["gan"], svcs["cgan"]
+    dcfg = dsvc.cfg
+    size, calls = dcfg.size, len(sampler.sample_timesteps(dcfg))
+    b4 = b4_per_call(fdc, dcfg, 1)
+    _, _, (b3_fwd, b4_fwd) = gan_counts(fdc, gsvc.cfg, 1)
+    _, _, (kb3_fwd, kb4_fwd) = gan_counts(fdc, ksvc.cfg, 1, conditional=True)
+    raw = png.read_png(sorted(glob.glob(globs[0]))[0])
+    off = (raw.shape[0] - size) // 2
+    buf = io.BytesIO()
+    np.save(buf, np.ascontiguousarray(raw[off:off + size, off:off + size]))
+    body_npy = buf.getvalue()
+    x = torch.from_numpy(srv_mod._decode_image(body_npy, size)).cuda()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # equal requests, equal bytes (see [serve])
+    for num, padded in ((1, 1), (3, 4)):
+        got, gen_state = _both(dsvc, ports["diffusion"], "/sample", json.dumps(
+            {"num": num, "format": "npy"}).encode(), launches, (0, calls * b4),
+            f"bundle /sample num {num}")
+        want = dsvc._sample_prog(None, _replay(gen_state, (padded, size, size, 3)))
+        lv = _levels(got, want[:num].cpu().numpy(), f"bundle /sample num {num}")
+        print(f"[serve-bundle] /sample num {num} (device batch {padded}): {calls * b4} B4 per "
+              f"frontend; npy vs the bundle in process {lv[0]} level(s) on {lv[1]:.2e}; "
+              f"threaded = aio bytes")
+    launches.reset()
+    got, gen_state = _both(dsvc, ports["diffusion"], "/denoise?format=npy", body_npy, launches,
+                           (0, b4), "bundle /denoise")
+    want = dsvc.bundle.call("preview", x, _replay(gen_state, (1, size, size, 3)))
+    lv = _levels(got, png.to_uint8(want.cpu().numpy()), "bundle /denoise")
+    print(f"[serve-bundle] /denoise: {b4} B4 per frontend; vs the bundle's preview {lv[0]} "
+          f"level(s) on {lv[1]:.2e}; threaded = aio bytes")
+    for path, svc, m, want_l, prog, extra in (
+            ("/transfer?direction=ab&format=npy", gsvc, "gan", (b3_fwd, b4_fwd), "transfer_ab",
+             ()),
+            ("/transfer?direction=ba&format=npy", gsvc, "gan", (b3_fwd, b4_fwd), "transfer_ba",
+             ()),
+            ("/transfer?to=1&format=npy", ksvc, "cgan", (kb3_fwd, kb4_fwd), "transfer",
+             (torch.tensor([1], dtype=torch.int32, device="cuda"),))):
+        got, _ = _both(svc, ports[m], path, body_npy, launches, want_l, f"bundle {path}")
+        want = svc.bundle.call(prog, x, *extra)
+        lv = _levels(got, png.to_uint8(want.cpu().numpy()), f"bundle {path}")
+        print(f"[serve-bundle] {path}: B3/B4 {want_l} per frontend; vs the bundle in process "
+              f"{lv[0]} level(s) on {lv[1]:.2e}; threaded = aio bytes")
+    torch.backends.cudnn.deterministic = deterministic
+    launches.reset()
+    refused = []
+    for port in ports["diffusion"]:
+        for path, body in (("/edit", body_npy), ("/reload", b""),
+                           ("/sample", json.dumps({"num": 1, "stream": True}).encode())):
+            status, _, out = _http(port, "POST", path, body)
+            err = json.loads(out).get("error", "")
+            if status != 400 or not ("bundle" in err or "immutable" in err):
+                fail(f"serve-bundle: {path} on port {port} answered {status} {out[:200]!r}")
+            refused.append(err)
+    launches.take((0, 0), "the refused requests")
+    print(f"[serve-bundle] /edit, /reload and a stream refused with 400 on both frontends: "
+          f"{sorted(set(refused))}")
+    print(f"[serve-bundle] launches B3/B4 from the checked requests: {tuple(launches.total)}")
+    for conc, per_thread in ((1, 120), (8, 25)):
+        p50, p99, top, n = _latency(ports["diffusion"][0], "/sample",
+                                    json.dumps({"num": 1, "format": "npy"}).encode(), conc,
+                                    per_thread)
+        print(f"[serve-bundle] latency /sample npy at concurrency {conc}: p50 {p50:.3f} ms, p99 "
+              f"{p99:.3f} ms, max {top:.3f} ms over {n} requests ({card})")
+    for s in servers:
+        s.stop()
+    for svc in svcs.values():
+        svc.close()
+    launches.reset()
+    print(f"[serve-bundle] the phase took {time.perf_counter() - t_phase:.2f} s")
+    torch.cuda.empty_cache()
+    return tuple(launches.total)
+
+
 def main():
     try:
         import torch
@@ -2969,16 +3416,29 @@ def main():
     cgan_b3, cgan_b4 = phase_cgan_train_cli(torch, cli, fdc, norm, cfg, files.name, globs3)
     print(f"[cgan-train-cli] [cond-train-cli], [cgan], [cgan-agree] and [cgan-train-cli] took "
           f"{time.perf_counter() - t0:.2f} s")
+    # [distill] and [bundle] read the train states that [serve] replaces
+    # with its served part for the reload test, so they come first
+    t0 = time.perf_counter()
+    distill_b4 = phase_distill(torch, cli, fdc, fd, adam_kernel, trainer, sampler, cfg,
+                               files.name, train_results)
+    dirs, (bundle_b3, bundle_b4) = phase_bundle(torch, cli, fdc, norm, sampler, gan, cgan, png,
+                                                files.name, card)
+    t_db = time.perf_counter() - t0
     serve_b3, serve_b4 = phase_serve(torch, fdc, norm, sampler, gan, png, files.name, globs,
                                      card)
     cls_b3, cls_b4 = phase_serve_classes(torch, fdc, norm, sampler, cgan, png, files.name, globs3,
                                          card)
+    t0 = time.perf_counter()
+    sb_b3, sb_b4 = phase_serve_bundle(torch, fdc, norm, sampler, png, files.name, globs, dirs,
+                                      card)
+    print(f"[serve-bundle] [distill], [bundle] and [serve-bundle] took "
+          f"{t_db + time.perf_counter() - t0:.2f} s")
     files.cleanup()
     gan_launches["float32"] = (
         gan_launches["float32"][0] + cli_b3 + eval_b3 + serve_b3 + cgan_launches["float32"][0]
-        + cgan_b3 + cls_b3,
+        + cgan_b3 + cls_b3 + bundle_b3 + sb_b3,
         gan_launches["float32"][1] + cli_b4 + eval_b4 + serve_b4 + cgan_launches["float32"][1]
-        + cgan_b4 + cls_b4)
+        + cgan_b4 + cls_b4 + distill_b4 + bundle_b4 + sb_b4)
     gan_launches["bfloat16"] = tuple(a + b for a, b in zip(gan_launches["bfloat16"],
                                                            cgan_launches["bfloat16"]))
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
@@ -2990,9 +3450,10 @@ def main():
     # instance norm's times and bound sum one GAN step's 102 launches at
     # batch 16; launches are the main-path runs' (sample, edit, train,
     # train-hbm, train-cli, train-resume, cache, gan, gan-train-cli, eval,
-    # cond-train-cli, cgan, cgan-train-cli and serve for the down conv; gan,
-    # gan-train-cli, eval, cgan, cgan-train-cli and serve for the instance
-    # norm; the train phases, cache and cond-train-cli for the others)
+    # cond-train-cli, cgan, cgan-train-cli, serve, distill, bundle and
+    # serve-bundle for the down conv; gan, gan-train-cli, eval, cgan,
+    # cgan-train-cli, serve, bundle and serve-bundle for the instance norm;
+    # the train phases, cache and cond-train-cli for the others)
     source = "gan_class_transfer2_tpu_torch/csrc/down_conv.cu"
     replaces = "gan_class_transfer2_tpu/ops/pallas_conv.py:36"
     rows = []

@@ -1,8 +1,8 @@
 """Command-line interface of the port — counterpart of the ``train``,
-``gan-train``, ``cgan-train``, ``sample``, ``edit``, ``export-weights``, ``eval``,
-``build-cache``, ``bench``, ``profile`` and ``serve`` commands of
-gan_class_transfer2_tpu/cli.py, with the same flag names for the Config
-fields they read:
+``gan-train``, ``cgan-train``, ``sample``, ``edit``, ``export-weights``,
+``export-model``, ``distill``, ``eval``, ``build-cache``, ``bench``,
+``profile`` and ``serve`` commands of gan_class_transfer2_tpu/cli.py, with
+the same flag names for the Config fields they read:
 
     python -m gan_class_transfer2_tpu_torch.cli train --dataset-pattern 'data/*.png' \
         --batch-size 16 --checkpoint-dir ckpt --log-dir logs
@@ -16,6 +16,10 @@ fields they read:
     python -m gan_class_transfer2_tpu_torch.cli sample --checkpoint-dir cckpt --class-idx 2
     python -m gan_class_transfer2_tpu_torch.cli edit --input photo.png --checkpoint-dir ckpt
     python -m gan_class_transfer2_tpu_torch.cli export-weights --checkpoint-dir ckpt --out w.npz
+    python -m gan_class_transfer2_tpu_torch.cli distill --checkpoint-dir ckpt --out student \
+        --target-stride 2 --distill-steps 2000
+    python -m gan_class_transfer2_tpu_torch.cli export-model --checkpoint-dir ckpt --out bundle/
+    python -m gan_class_transfer2_tpu_torch.cli sample --bundle bundle/ --out samples/
     python -m gan_class_transfer2_tpu_torch.cli eval --checkpoint-dir ckpt --fid-samples 64
     python -m gan_class_transfer2_tpu_torch.cli build-cache --dataset-pattern 'data/*.png' \
         --out data.gct2cache
@@ -24,6 +28,7 @@ fields they read:
         --g-norm instance --d-norm instance --conv-impl pallas --batch-size 16
     python -m gan_class_transfer2_tpu_torch.cli serve --checkpoint-dir ckpt --port 8080 \
         --model diffusion --frontend threaded
+    python -m gan_class_transfer2_tpu_torch.cli serve --bundle bundle/ --port 8080
 
 ``train``, ``gan-train`` and ``cgan-train`` run ``train/loop.Runner``,
 ``train/gan_loop.GANRunner`` and
@@ -55,10 +60,21 @@ uint8 cache file (``data/cache.py``).
 ``--checkpoint-dir``, a diffusion model (``--model diffusion``, conditional or
 not), a cycle-GAN (``--model gan``) or a conditional GAN (``--model cgan``,
 ``/transfer?to=K``), through the threaded or the asyncio frontend
-(``--frontend threaded|aio``); ``--bundle`` is refused.
+(``--frontend threaded|aio``); ``serve --bundle`` serves a compiled bundle
+instead (``/sample``, ``/denoise``, ``/transfer`` from its programs; the
+config and weights come from the artifact, explicit flags override its
+serving knobs).
 
-``sample``, ``edit``, ``export-weights``, ``eval`` and ``serve`` read the latest checkpoint in
-``--checkpoint-dir`` (its EMA params when it has them) and inherit the
+``distill`` trains a student of the latest checkpoint's EMA that samples at
+twice the stride per round (``train/distill.py``) and writes it as a
+checkpoint to ``--out``, whose ``config.json`` carries the new
+``sample_stride``. ``export-model`` writes a bundle of the latest checkpoint
+(``utils/bundle.py``: ``torch.export`` programs with the weights inside);
+``sample --bundle`` samples from one, with no checkpoint and no model build.
+
+``sample``, ``edit``, ``export-weights``, ``export-model``, ``distill``,
+``eval`` and ``serve`` read the latest checkpoint in ``--checkpoint-dir``
+(its EMA params when it has them) and inherit the
 ``config.json`` saved there, as the JAX CLI does; ``sample`` and ``edit``
 also take ``--weights``, a flat Keras-order ``.npz`` as ``export-weights``
 writes it. With neither they warn and run on randomly initialised weights
@@ -110,7 +126,8 @@ _FIELDS = (
     "serve_max_queue", "serve_batch_wait_ms", "serve_max_streams",
 )
 # the commands that read a checkpoint, and so inherit its config.json
-_READS_CHECKPOINT = ("sample", "edit", "export-weights", "eval", "serve")
+_READS_CHECKPOINT = ("sample", "edit", "export-weights", "export-model", "eval", "distill",
+                     "serve")
 
 
 def _add_config_args(p: argparse.ArgumentParser):
@@ -131,15 +148,21 @@ def _add_config_args(p: argparse.ArgumentParser):
             p.add_argument(flag, type=str, default=None)
 
 
+def _explicit_overrides(args) -> dict:
+    """The Config fields the user set on the command line."""
+    overrides = {n: getattr(args, n) for n in _FIELDS if getattr(args, n, None) is not None}
+    if "classes" in overrides:
+        overrides["classes"] = tuple(overrides["classes"])
+    return overrides
+
+
 def config_from_args(args, checkpoint_config: bool = False) -> Config:
     """Explicit flags > --config JSON > (with ``checkpoint_config``, for the
     commands that read a checkpoint) the config.json that training saved in
     the checkpoint dir > dataclass defaults. A restore rebuilds the state
     the checkpoint was written with (its optimizer, moments, EMA), so the
     saved config is the right base for the flags the user left out."""
-    overrides = {n: getattr(args, n) for n in _FIELDS if getattr(args, n, None) is not None}
-    if "classes" in overrides:
-        overrides["classes"] = tuple(overrides["classes"])
+    overrides = _explicit_overrides(args)
     base = None
     if getattr(args, "config", None):
         with open(args.config) as fh:
@@ -160,8 +183,8 @@ def config_from_args(args, checkpoint_config: bool = False) -> Config:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="gan_class_transfer2_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
-    for cmd in ("train", "gan-train", "cgan-train", "sample", "edit", "export-weights", "eval",
-                "build-cache", "bench", "profile", "serve"):
+    for cmd in ("train", "gan-train", "cgan-train", "sample", "edit", "export-weights",
+                "export-model", "distill", "eval", "build-cache", "bench", "profile", "serve"):
         p = sub.add_parser(cmd)
         p.add_argument("--config", type=str, default=None, help="config JSON")
         p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
@@ -200,7 +223,10 @@ def main(argv=None) -> int:
                            help="threaded = http.server thread-per-connection; aio = "
                                 "asyncio event loop (same endpoints and batching)")
             p.add_argument("--bundle", type=str, default=None, metavar="DIR",
-                           help="a compiled model bundle (refused: not ported)")
+                           help="serve a compiled model bundle (export-model) instead of a "
+                                "checkpoint: config + weights come from the artifact; "
+                                "sample/denoise/transfer per its programs (edit/stream/"
+                                "reload stay checkpoint-only)")
         elif cmd == "build-cache":
             p.add_argument("--out", type=str, required=True, help="cache file path")
             p.add_argument("--store", type=int, default=0,
@@ -208,6 +234,28 @@ def main(argv=None) -> int:
         elif cmd == "export-weights":
             p.add_argument("--out", type=str, default="weights.npz",
                            help="npz of the flat weights in Keras build order")
+        elif cmd == "export-model":
+            p.add_argument("--out", type=str, required=True,
+                           help="output bundle directory (manifest.json + one torch.export "
+                                "program per inference surface)")
+            p.add_argument("--model", type=str, default="diffusion",
+                           choices=("diffusion", "gan", "cgan"),
+                           help="which checkpoint kind to export")
+            p.add_argument("--programs", type=str, nargs="*", default=None,
+                           help="subset of programs to export (default: all — diffusion: "
+                                "denoise/sample/invert/preview; gan: transfer_ab/transfer_ba; "
+                                "cgan: transfer)")
+            p.add_argument("--export-platforms", type=str, default="cuda,cpu",
+                           help="comma-separated devices the bundle may run on")
+        elif cmd == "distill":
+            p.add_argument("--out", type=str, required=True,
+                           help="directory for the distilled student checkpoint (its "
+                                "config.json carries the doubled sample_stride)")
+            p.add_argument("--target-stride", type=int, default=None,
+                           help="final sample_stride (teacher stride · 2^k); default: one "
+                                "halving round, 2 · the teacher's stride")
+            p.add_argument("--distill-steps", type=int, default=2000,
+                           help="optimizer steps per halving round")
         else:
             p.add_argument("--weights", type=str, default=None, metavar="FILE.npz",
                            help="flat Keras-order weights (export-weights); without it "
@@ -218,6 +266,9 @@ def main(argv=None) -> int:
                 p.add_argument("--class-idx", type=int, default=None,
                                help="class to sample from (conditional checkpoints, "
                                     "default 0)")
+                p.add_argument("--bundle", type=str, default=None, metavar="DIR",
+                               help="sample from a compiled model bundle (export-model) "
+                                    "instead of a checkpoint: no model build")
             else:
                 p.add_argument("--input", type=str, required=True, help="image path")
                 p.add_argument("--class-idx", type=int, default=None,
@@ -242,6 +293,10 @@ def main(argv=None) -> int:
         return _edit(cfg, args)
     if args.command == "export-weights":
         return _export_weights(cfg, args)
+    if args.command == "export-model":
+        return _export_model(cfg, args)
+    if args.command == "distill":
+        return _distill(cfg, args)
     if args.command == "eval":
         return _eval(cfg, args)
     if args.command == "build-cache":
@@ -265,8 +320,12 @@ def _serve(cfg: Config, args) -> int:
     from .serve import server
 
     if args.bundle:
+        # serving knobs (shedding caps, sample_stride, seed …) stay settable;
+        # the model's shape is sealed in the artifact
         server.serve_from_bundle(args.bundle, host=args.host, port=args.port,
-                                 frontend=args.frontend)
+                                 frontend=args.frontend, overrides=_explicit_overrides(args),
+                                 device=args.device)
+        return 0
     server.serve_from_checkpoint(cfg, host=args.host, port=args.port, model=args.model,
                                  frontend=args.frontend, device=args.device)
     return 0
@@ -334,12 +393,9 @@ def _export_weights(cfg: Config, args) -> int:
     """The flat Keras-order npz of the latest checkpoint's weights (EMA when
     kept), as the JAX CLI's ``export-weights`` writes it."""
     from .models.api import resolve_device
-    from .utils import checkpoint as ckpt_lib
     from .utils import weights as weights_lib
 
-    if not (cfg.checkpoint_dir and ckpt_lib.latest_step(cfg.checkpoint_dir) is not None):
-        raise SystemExit(f"no checkpoint found in {cfg.checkpoint_dir!r} "
-                         "(export needs trained weights)")
+    _require_checkpoint(cfg, "export needs trained weights")
     if cfg.num_classes > 0:
         raise SystemExit("export-weights writes the unconditional model's flat Keras order; "
                          "a conditional checkpoint has no such form")
@@ -430,10 +486,59 @@ def _class_vector(cfg: Config, class_idx, num: int, device):
     return torch.full((num,), class_idx, dtype=torch.int32, device=device)
 
 
-def _sample(cfg: Config, args) -> int:
-    from .sample import sampler
+def _write_sample_pngs(images, out_dir: str) -> None:
+    """One encoder for both sample paths (bundle and checkpoint): their
+    byte-for-byte agreement is a tested contract."""
     from .utils import png
 
+    os.makedirs(out_dir, exist_ok=True)
+    for i, img in enumerate(images):
+        png.write_png(os.path.join(out_dir, f"sample_{i}.png"), png.to_uint8(img))
+
+
+def _sample_from_bundle(args) -> int:
+    """Sample from a compiled bundle (JAX cli.py:558-595): the config (size,
+    classes, stride) and the weights live in the artifact; ``--seed`` draws
+    the init batch as the checkpoint path does."""
+    from .utils import bundle as bundle_lib
+
+    bundle = bundle_lib.load_bundle(args.bundle, args.device)
+    m = bundle.manifest
+    if "sample" not in m["programs"]:
+        raise SystemExit(f"bundle {args.bundle!r} has no 'sample' program "
+                         f"(model={m['model']}, programs={bundle.programs})")
+    bcfg = m["config"]
+    seed = args.seed if args.seed is not None else bcfg.get("seed", 0)
+    size = bcfg["size"]
+    rng = np.random.default_rng(seed)
+    batch = torch.from_numpy(rng.normal(size=(args.num, size, size, 3)).astype(np.float32))
+    call_args = [batch]
+    if len(m["programs"]["sample"]["inputs"]) > 1:  # conditional
+        num_classes = bcfg.get("num_classes", 0)
+        cls = args.class_idx if args.class_idx is not None else 0
+        if not 0 <= cls < num_classes:
+            raise SystemExit(f"--class-idx must be in [0, {num_classes})")
+        call_args.append(torch.full((args.num,), cls, dtype=torch.int32))
+    elif args.class_idx is not None:
+        raise SystemExit("--class-idx: bundle is unconditional")
+    bundle.load("sample")  # the program's read, outside the timing
+    _synchronize(bundle.device)
+    t0 = time.perf_counter()
+    images = bundle.call("sample", *call_args)
+    _synchronize(bundle.device)
+    ms = (time.perf_counter() - t0) * 1000 / args.num
+    images = images.cpu().numpy()
+    _write_sample_pngs(images, args.out)
+    print(f"wrote {len(images)} samples to {args.out} (bundle step {m['step']}, "
+          f"{ms:.3f} ms per image on {bundle.device.type})")
+    return 0
+
+
+def _sample(cfg: Config, args) -> int:
+    from .sample import sampler
+
+    if args.bundle:
+        return _sample_from_bundle(args)
     model = _load_model(cfg, args.weights, args.device)
     device = next(model.parameters()).device
     class_idx = _class_vector(cfg, args.class_idx, args.num, device)
@@ -447,11 +552,123 @@ def _sample(cfg: Config, args) -> int:
     _synchronize(device)
     ms = (time.perf_counter() - t0) * 1000 / args.num
     images = images.cpu().numpy()
-    os.makedirs(args.out, exist_ok=True)
-    for i, img in enumerate(images):
-        png.write_png(os.path.join(args.out, f"sample_{i}.png"), png.to_uint8(img))
+    _write_sample_pngs(images, args.out)
     print(f"wrote {len(images)} samples to {args.out} "
           f"({ms:.3f} ms per image on {device.type})")
+    return 0
+
+
+def _require_checkpoint(cfg: Config, why: str):
+    from .utils import checkpoint as ckpt_lib
+
+    if not (cfg.checkpoint_dir and ckpt_lib.latest_step(cfg.checkpoint_dir) is not None):
+        raise SystemExit(f"no checkpoint found in {cfg.checkpoint_dir!r} ({why})")
+
+
+def _export_model(cfg: Config, args) -> int:
+    """The latest checkpoint as a compiled model bundle (utils/bundle.py;
+    JAX cli.py:504-543), traced on ``--device``."""
+    from .models.api import resolve_device
+    from .utils import bundle as bundle_lib
+    from .utils import checkpoint as ckpt_lib
+
+    _require_checkpoint(cfg, "export needs trained weights")
+    device = resolve_device(args.device)
+    if args.model == "diffusion":
+        from .train import trainer
+
+        state = trainer.init_state(cfg, device=device)
+    elif args.model == "gan":
+        from .train import gan
+
+        state = gan.init_gan_state(cfg, device=device)
+    else:
+        from .train import conditional_gan as cgan
+
+        state = cgan.init_conditional_gan_state(cfg, device=device)
+    state = ckpt_lib.restore(cfg.checkpoint_dir, state)
+    platforms = tuple(p.strip() for p in args.export_platforms.split(",") if p.strip())
+    manifest = bundle_lib.export_bundle(cfg, state, args.out, model=args.model,
+                                        programs=args.programs, platforms=platforms, log=print)
+    names = ", ".join(sorted(manifest["programs"]))
+    print(f"wrote bundle to {args.out}: programs [{names}] "
+          f"(step {manifest['step']}, platforms {manifest['platforms']})")
+    return 0
+
+
+def _log_distill_grids(cfg: Config, teacher, student, stride: int, writer):
+    """The same 6 noise draws sampled by the teacher at its stride and by the
+    student at the distilled stride (JAX cli.py:632-652; the draws from
+    ``np.random.default_rng(cfg.seed + 7)``: jax.random cannot be
+    reproduced)."""
+    from .sample import sampler
+
+    device = next(teacher.parameters()).device
+    init = torch.from_numpy(np.random.default_rng(cfg.seed + 7).normal(
+        size=(6, cfg.size, cfg.size, 3)).astype(np.float32)).to(device)
+    t_imgs = sampler.sample(cfg, teacher, init, snapshots=False).images
+    s_imgs = sampler.sample(cfg.replace(sample_stride=stride), student, init,
+                            snapshots=False).images
+    writer.image("distill/teacher_samples", t_imgs.cpu().numpy() * 0.5 + 0.5, stride, 6)
+    writer.image("distill/student_samples", s_imgs.cpu().numpy() * 0.5 + 0.5, stride, 6)
+
+
+def _distill(cfg: Config, args) -> int:
+    """Progressive sampler distillation (train/distill.py; JAX
+    cli.py:655-770): halve the sampler's denoiser calls per round and write
+    a drop-in student checkpoint whose config.json carries the final
+    sample_stride. The teacher is the latest checkpoint's EMA (its params
+    without one); the fid_samples held-out files stay out of the batches;
+    a conditional checkpoint distills on labeled round-robin batches."""
+    from .data import pipeline
+    from .models.api import resolve_device
+    from .train import distill as distill_lib
+    from .train import trainer
+    from .utils import checkpoint as ckpt_lib
+    from .utils import tensorboard as tb
+
+    _require_checkpoint(cfg, "distillation needs a trained teacher")
+    device = resolve_device(args.device)
+    state = ckpt_lib.restore(cfg.checkpoint_dir, trainer.init_state(cfg, device=device))
+    teacher = trainer.eval_model(state)
+    target = args.target_stride or 2 * max(cfg.sample_stride, 1)
+    files_per_class = None
+    if cfg.fid_samples > 0:
+        try:
+            files_per_class = [
+                pipeline.held_out_split(p, cfg.fid_samples, seed=cfg.seed + i)[0]
+                for i, p in enumerate(cfg.class_patterns())
+            ]
+        except FileNotFoundError:
+            files_per_class = None  # make_datasets raises with the pattern
+    dsets = pipeline.make_datasets(cfg, files_per_class=files_per_class, device=device)
+    writer = tb.SummaryWriter(tb.reference_log_dir(cfg.log_dir))
+    try:
+        dataset = pipeline.LabeledDataset(dsets) if cfg.num_classes > 0 else dsets[0]
+        generator = torch.Generator(device=device).manual_seed(cfg.seed + 101)
+        student, stride = distill_lib.progressive_distill(
+            cfg, teacher, pipeline.DeviceIterator(dataset, device), target,
+            args.distill_steps, generator,
+            on_loss=lambda s, i, loss: writer.scalar(f"distill_loss/stride_{s}", loss, i))
+        _log_distill_grids(cfg, teacher, student, stride, writer)
+    finally:
+        writer.close()
+        for d in dsets:
+            if hasattr(d, "close"):
+                d.close()
+
+    student_cfg = cfg.replace(sample_stride=stride, checkpoint_dir=args.out)
+    with torch.no_grad():
+        for p, s in zip(state.model.parameters(), student.parameters()):
+            p.copy_(s)
+    ema = None
+    if state.ema_params is not None:
+        ema = [p.detach().clone() for p in student.parameters()]
+    path = ckpt_lib.save(args.out, state._replace(ema_params=ema), student_cfg)
+    print(f"wrote distilled student (sample_stride={stride}, "
+          f"{len(distill_lib.student_grid(student_cfg, stride))} sampler steps vs the "
+          f"teacher's {len(distill_lib.student_grid(cfg, max(cfg.sample_stride, 1)))}) "
+          f"to {path}")
     return 0
 
 

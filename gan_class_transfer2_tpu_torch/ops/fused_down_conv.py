@@ -12,7 +12,14 @@ Three pieces, as for every kernel of the port:
   * ``down_conv_plain`` — the same forward in plain PyTorch. The wrapper
     takes it only for a tensor on the CPU; a CUDA tensor launches the kernel
     or raises;
-  * ``plan`` — the kernel's tiles and split of K, from the shape alone.
+  * ``plan`` — the kernel's tiles and split of K, from the shape alone;
+  * ``gct2::down_conv_k4s2`` — the forward as a ``torch.library`` custom op,
+    so that ``torch.export`` (utils/bundle.py) holds the kernel by name: its
+    implementation is ``_forward`` (the kernel on a CUDA tensor, the plain
+    version on a CPU one), its fake implementation gives the output's shape
+    over a symbolic batch. Eager calls go to ``_forward`` directly (a Python
+    custom op adds dispatcher time to every call, PERF.md); the op is taken
+    while ``torch.compiler.is_exporting()``.
 
 The backward follows pallas_conv.py:149-165, where it is XLA convs outside
 any Pallas kernel; here they are cuDNN's (``torch.nn.grad``) on the card:
@@ -210,6 +217,20 @@ def _forward(x, kernel, bias, relu: bool):
     return y
 
 
+@torch.library.custom_op("gct2::down_conv_k4s2", mutates_args=())
+def down_conv_op(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+                 relu: bool) -> torch.Tensor:
+    """B4's forward by name: the kernel on a CUDA tensor, the plain version
+    on a CPU one, an exception elsewhere."""
+    return _forward(x, kernel, bias, relu)
+
+
+@down_conv_op.register_fake
+def _(x, kernel, bias, relu):
+    b, h, w, _ = x.shape
+    return x.new_empty((b, h // 2, w // 2, kernel.shape[3]))
+
+
 class DownConv(torch.autograd.Function):
     """B4 with the backward of pallas_conv.py:149-165."""
 
@@ -245,7 +266,10 @@ def down_conv_fused(x, kernel, bias, relu: bool = True):
     """relu(conv_k4s2_SAME(x, kernel) + bias): x (B,H,W,C) NHWC, kernel
     (4,4,C,O) HWIO, bias (O,), differentiable in all three. A CPU tensor
     takes the plain version; a CUDA tensor launches the kernel on the
-    current stream or raises."""
+    current stream or raises. Under ``torch.export`` (inference) the forward
+    is the custom op ``gct2::down_conv_k4s2``."""
+    if torch.compiler.is_exporting():
+        return down_conv_op(x, kernel, bias, relu)
     return DownConv.apply(x, kernel, bias, relu)
 
 

@@ -15,7 +15,12 @@ The reference model has no normalization; the GAN-mode models do
     takes it only for a tensor on the CPU; a CUDA tensor launches the kernel
     or raises;
   * ``plan`` — the kernel's split of H·W across a thread-block cluster,
-    from the shape alone.
+    from the shape alone;
+  * ``gct2::instance_norm`` — the forward as a ``torch.library`` custom op,
+    so that ``torch.export`` (utils/bundle.py) holds the kernel by name
+    (``instance_norm_fused`` on any device, a fake implementation of x's
+    shape); eager calls go to ``instance_norm_fused`` directly, the op is
+    taken while ``torch.compiler.is_exporting()``, as for B4.
 
 The JAX package sends a norm to its Pallas kernel only on a TPU, for
 ``C % 128 == 0`` and a per-sample block of at most 6 MB (``_use_pallas``,
@@ -167,6 +172,18 @@ def _in_bwd(x, gamma, dy):
     return dx.to(x.dtype), dgamma, dbeta
 
 
+@torch.library.custom_op("gct2::instance_norm", mutates_args=())
+def instance_norm_op(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    """B3's forward by name: the kernel on a CUDA tensor, the plain version
+    on a CPU one, an exception elsewhere."""
+    return instance_norm_fused(x, gamma, beta)
+
+
+@instance_norm_op.register_fake
+def _(x, gamma, beta):
+    return torch.empty_like(x)
+
+
 class InstanceNorm(torch.autograd.Function):
     """B3 with the custom VJP of norm.py:95-122. Its backward is made of
     torch ops on the saved inputs, so it is differentiable again."""
@@ -184,7 +201,10 @@ class InstanceNorm(torch.autograd.Function):
 
 def instance_norm(x, gamma, beta):
     """Per-(sample, channel) normalization over (H, W) with affine γ/β.
-    x: (B, H, W, C); gamma/beta: (C,)."""
+    x: (B, H, W, C); gamma/beta: (C,). Under ``torch.export`` (inference)
+    the forward is the custom op ``gct2::instance_norm``."""
+    if torch.compiler.is_exporting():
+        return instance_norm_op(x.contiguous(), gamma, beta)
     return InstanceNorm.apply(x.contiguous(), gamma, beta)
 
 

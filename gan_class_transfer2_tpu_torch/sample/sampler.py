@@ -40,14 +40,21 @@ def _f32(t):
 
 
 def _denoise_call(cfg, model, fake, t, class_idx=None):
-    t_vec = torch.full((fake.shape[0],), int(t), dtype=torch.int32, device=fake.device)
+    if torch.is_tensor(t):  # a 0-d float32 timestep: made from the input, on its device
+        t_vec = t.to(torch.int32).expand(fake.shape[0])
+    else:
+        t_vec = torch.full((fake.shape[0],), int(t), dtype=torch.int32, device=fake.device)
     return model_api.apply_denoiser(
         cfg, model, fake.to(DTYPES[cfg.compute_dtype]), t_vec, class_idx=class_idx
     ).float()
 
 
-def _step(cfg, model, x_theta, epsilon_theta, t, class_idx=None):
-    tf = _f32(t)
+def step(cfg, model, x_theta, epsilon_theta, t, class_idx=None):
+    """One sampler/inversion step at timestep ``t``: re-noise, denoise,
+    update (x̂, ε̂). ``t`` is a Python int, or a 0-d float32 tensor on the
+    state's device (a bundle's exported step program takes it as an input,
+    so that no tensor in its graph is made on a fixed device)."""
+    tf = t if torch.is_tensor(t) else _f32(t)
     fake = diffusion.renoise(cfg, x_theta, epsilon_theta, tf)
     prediction = _denoise_call(cfg, model, fake, t, class_idx)
     return diffusion.step_update(cfg, prediction, fake, epsilon_theta, tf)
@@ -58,8 +65,7 @@ def preview(cfg, model, example_image, noise, class_idx=None):
     """Single-step denoise preview. Returns (denoised, rmse)."""
     factor = diffusion.preview_image_factor(cfg)
     noised = example_image * factor**0.5 + noise * (1 - factor) ** 0.5
-    t_vec = torch.full((noised.shape[0],), cfg.test_step, dtype=torch.int32,
-                       device=noised.device)
+    t_vec = torch.full_like(noised[:, 0, 0, 0], cfg.test_step, dtype=torch.int32)
     prediction = model_api.apply_denoiser(cfg, model, noised, t_vec,
                                           class_idx=class_idx).float()
     denoised = diffusion.preview_denoise(cfg, noised, prediction)
@@ -73,7 +79,7 @@ def invert(cfg, model, image, class_idx=None):
     image itself (reference train.py:367, "might be close enough")."""
     x_theta = epsilon_theta = image
     for t in range(1, cfg.steps + 1):
-        x_theta, epsilon_theta = _step(cfg, model, x_theta, epsilon_theta, t, class_idx)
+        x_theta, epsilon_theta = step(cfg, model, x_theta, epsilon_theta, t, class_idx)
     return x_theta, epsilon_theta
 
 
@@ -121,7 +127,7 @@ def sample(cfg, model, init_batch, class_idx=None, snapshots: bool = True) -> Sa
     snaps = torch.zeros((4,) + tuple(init_batch.shape), device=init_batch.device) if snapshots else None
     x_theta = epsilon_theta = init_batch
     for t in visited:
-        x_theta, epsilon_theta = _step(cfg, model, x_theta, epsilon_theta, t, class_idx)
+        x_theta, epsilon_theta = step(cfg, model, x_theta, epsilon_theta, t, class_idx)
         if snapshots:
             for slot, st in enumerate(snap_ts):
                 if st == t:
@@ -137,7 +143,7 @@ def make_segment_fn(cfg, class_idx=None):
     @torch.inference_mode()
     def seg(model, x_theta, epsilon_theta, ts):
         for t in ts:
-            x_theta, epsilon_theta = _step(cfg, model, x_theta, epsilon_theta, int(t),
+            x_theta, epsilon_theta = step(cfg, model, x_theta, epsilon_theta, int(t),
                                            class_idx)
         return x_theta, epsilon_theta
 

@@ -31,8 +31,12 @@ What differs from the JAX package, and why:
     (the denoiser or its EMA, the generators or their EMAs) as
     ``nn.Module``s on ``device`` (the card unless the caller asks for the
     CPU), and of the states it is given nothing else: no optimizer moments,
-    no discriminators. ``mesh=`` with more than one device and ``bundle=``
-    raise ``NotImplementedError`` naming the module they wait for.
+    no discriminators. ``mesh=`` with more than one device raises
+    ``NotImplementedError`` naming parallel/mesh.py.
+  * A compiled bundle (``bundle=``, utils/bundle.py; ``build_bundle_service``)
+    serves /sample, /denoise and /transfer from its programs behind the same
+    batchers, with the same uint8 quantisation on the device; /edit,
+    streams and /reload are refused as in JAX (its weights are sealed).
   * Request noise comes from a ``torch.Generator`` on the device, seeded
     ``cfg.seed + 99``, drawn at the padded batch's shape.
   * ``reload`` restores only the serving modules' tensors from the
@@ -482,14 +486,13 @@ class ModelService:
             raise NotImplementedError(
                 "ModelService(mesh=...): serving over a device mesh (parallel/mesh.py) is "
                 "not ported to PyTorch yet; the port serves on one card")
-        if bundle is not None:
-            raise NotImplementedError(
-                "ModelService(bundle=...): compiled model bundles (utils/bundle.py) are not "
-                "ported to PyTorch yet; serve a checkpoint")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.bundle = bundle
+        if bundle is not None and bundle.device.type != self.device.type:
+            raise ValueError(f"the bundle runs on {bundle.device}, the service on {self.device}")
         self._lock = threading.Lock()  # the device: one program at a time
-        if state is None and gan_state is None and cgan_state is None:
+        if state is None and gan_state is None and cgan_state is None and bundle is None:
             state = trainer_lib.init_state(cfg, device=self.device)
         for st, module in ((state, "model"), (gan_state, "g_ab"), (cgan_state, "generator")):
             if st is not None and _device_of(getattr(st, module)).type != self.device.type:
@@ -534,6 +537,29 @@ class ModelService:
             self._cgan_transfer = cgan_lib.make_transfer_fn(cfg)
             self._cgan_batcher = TargetedImageBatcher(
                 self._run_cgan_transfer, max_wait_s=self._max_wait, max_queue=self._max_queue)
+        if bundle is not None:
+            # the artifact's programs behind the same batchers; a surface
+            # whose program the bundle lacks stays unserved
+            progs = set(bundle.programs)
+            self._model = None
+            if "sample" in progs:
+                self._batcher = SampleBatcher(self._run_sample, max_wait_s=self._max_wait,
+                                              max_queue=self._max_queue)
+            if "preview" in progs:
+                self._denoise_batcher = ImageBatcher(self._run_denoise,
+                                                     max_wait_s=self._max_wait,
+                                                     max_queue=self._max_queue)
+            gan_dirs = [d for d in ("ab", "ba") if f"transfer_{d}" in progs]
+            if gan_dirs:
+                self._transfer_batchers = {
+                    d: ImageBatcher(lambda imgs, d=d: self._run_transfer(imgs, d),
+                                    max_wait_s=self._max_wait, max_queue=self._max_queue)
+                    for d in gan_dirs
+                }
+            if "transfer" in progs:
+                self._cgan_batcher = TargetedImageBatcher(
+                    self._run_cgan_transfer, max_wait_s=self._max_wait,
+                    max_queue=self._max_queue)
 
     # ----------------------------------------------------- device programs
 
@@ -556,7 +582,10 @@ class ModelService:
         """Reverse diffusion from ``init``, quantised to uint8 on the device
         (clip, then truncate, as JAX's program casts): the fetch to the host
         is then a quarter of float32's bytes."""
-        images = sampler.sample(self.cfg, model, init, class_idx, snapshots=False).images
+        if self.bundle is not None:
+            images = self.bundle.call("sample", init, *(() if class_idx is None else (class_idx,)))
+        else:
+            images = sampler.sample(self.cfg, model, init, class_idx, snapshots=False).images
         with torch.inference_mode():
             return torch.clamp((images * 0.5 + 0.5) * 255.0, 0, 255).to(torch.uint8)
 
@@ -588,14 +617,22 @@ class ModelService:
         self._bump("device_batches")
         with self._lock:
             noise = self._noise(x.shape)
-            out = sampler.preview(self.cfg, self._model, self._to_device(x), noise)[0]
+            if self.bundle is not None:
+                c = self._classes(None, n, x.shape[0])
+                out = self.bundle.call("preview", self._to_device(x), noise,
+                                       *(() if c is None else (c,)))
+            else:
+                out = sampler.preview(self.cfg, self._model, self._to_device(x), noise)[0]
             return out[:n].cpu().numpy()
 
     def _run_transfer(self, imgs: np.ndarray, direction: str) -> np.ndarray:
         x, n = self._pad_pow2(imgs)
         self._bump("device_batches")
         with self._lock:
-            out = self._gan_transfer(self._generators[direction], self._to_device(x))
+            if self.bundle is not None:
+                out = self.bundle.call(f"transfer_{direction}", self._to_device(x))
+            else:
+                out = self._gan_transfer(self._generators[direction], self._to_device(x))
             return out[:n].cpu().numpy()
 
     def _run_cgan_transfer(self, imgs: np.ndarray, targets: np.ndarray) -> np.ndarray:
@@ -606,14 +643,19 @@ class ModelService:
         t[:n] = targets
         self._bump("device_batches")
         with self._lock:
-            out = self._cgan_transfer(self.cgan_state.generator, self._to_device(x),
-                                      torch.from_numpy(t).to(self.device))
+            target = torch.from_numpy(t).to(self.device)
+            if self.bundle is not None:
+                out = self.bundle.call("transfer", self._to_device(x), target)
+            else:
+                out = self._cgan_transfer(self.cgan_state.generator, self._to_device(x), target)
             return out[:n].cpu().numpy()
 
     # ----------------------------------------------------------- state
 
     @property
     def step(self) -> int:
+        if self.bundle is not None:
+            return int(self.bundle.manifest["step"])
         for st in (self.state, self.gan_state, self.cgan_state):
             if st is not None:
                 return int(st.step)
@@ -625,7 +667,13 @@ class ModelService:
         tensors are read, into fresh copies of those modules, and the module
         references are swapped under the device lock: a stream keeps the
         module it pinned, and no optimizer moments or discriminators are
-        ever held. Returns the restored step."""
+        ever held. Returns the restored step. A bundle's weights are sealed:
+        refused."""
+        if self.bundle is not None:
+            raise ValueError(
+                "bundle serving is immutable (weights are sealed into the "
+                "artifact) — re-export and restart to update"
+            )
         ckpt_dir = self.cfg.checkpoint_dir
         if not ckpt_dir:
             raise ValueError("no checkpoint_dir configured")
@@ -718,7 +766,8 @@ class ModelService:
 
     def sample(self, num: int, class_idx: Optional[int] = None) -> np.ndarray:
         if getattr(self, "_batcher", None) is None:
-            raise ValueError("sampling not served (no diffusion checkpoint loaded)")
+            raise ValueError("sampling not served (no diffusion checkpoint or bundle 'sample' "
+                             "program loaded)")
         self._validate_class(class_idx)
         self._bump("requests_sample")
         if class_idx is None and self.cfg.num_classes > 0:
@@ -732,7 +781,8 @@ class ModelService:
         """Raise the errors sample_stream would — BEFORE the HTTP layer has
         committed a 200 multipart header."""
         if self.state is None:
-            raise ValueError("streaming requires a checkpoint-backed diffusion server")
+            raise ValueError("streaming requires a checkpoint-backed diffusion server"
+                             + (" (not available from a bundle)" if self.bundle else ""))
         self._validate_class(class_idx)
 
     def sample_stream(self, num: int, segments: int = 4, class_idx: Optional[int] = None):
@@ -799,7 +849,8 @@ class ModelService:
         ``class_idx`` when given. Returns {edit name: (1, H, W, 3)} with
         'reconstruction'."""
         if self.state is None:
-            raise ValueError("edit requires a checkpoint-backed diffusion server")
+            raise ValueError("edit requires a checkpoint-backed diffusion server"
+                             + (" (not available from a bundle)" if self.bundle else ""))
         bad = [e for e in edits if e not in self.EDIT_NAMES]
         if bad:
             raise ValueError(f"unknown edits {bad}; valid: {', '.join(self.EDIT_NAMES)}")
@@ -827,14 +878,15 @@ class ModelService:
 
     def denoise(self, image: np.ndarray) -> np.ndarray:
         if getattr(self, "_denoise_batcher", None) is None:
-            raise ValueError("denoise not served (no diffusion checkpoint loaded)")
+            raise ValueError("denoise not served (no diffusion checkpoint or bundle 'preview' "
+                             "program loaded)")
         self._bump("requests_denoise")
         return self._shed(lambda: self._denoise_batcher.submit_image(image))
 
     def transfer(self, image: np.ndarray, direction: str = "ab") -> np.ndarray:
         if direction not in getattr(self, "_transfer_batchers", {}):
-            raise ValueError(
-                f"transfer direction {direction!r} not served (no GAN checkpoint loaded)")
+            raise ValueError(f"transfer direction {direction!r} not served (no GAN checkpoint "
+                             "or bundle transfer program loaded)")
         self._bump("requests_transfer")
         return self._shed(lambda: self._transfer_batchers[direction].submit_image(image))
 
@@ -843,7 +895,7 @@ class ModelService:
         for different target classes coalesce into one device batch."""
         if getattr(self, "_cgan_batcher", None) is None:
             raise ValueError("conditional transfer not served (no conditional-GAN checkpoint "
-                             "loaded)")
+                             "or bundle 'transfer' program loaded)")
         if not 0 <= target < self.cfg.num_classes:
             raise ValueError(f"target must be in [0, {self.cfg.num_classes})")
         self._bump("requests_transfer")
@@ -1051,19 +1103,41 @@ def build_service(cfg, model: str = "diffusion", device="cuda") -> ModelService:
     return ModelService(cfg, state=state, device=device)
 
 
-def _refuse_bundle():
-    raise NotImplementedError(
-        "serving a compiled model bundle: utils/bundle.py (export-model) is not ported to "
-        "PyTorch yet; serve a checkpoint")
+def build_bundle_service(bundle_path: str, overrides=None, device="cuda") -> ModelService:
+    """A ModelService over a compiled model bundle (utils/bundle.py), on
+    ``device``: the config and the weights come from the artifact, no
+    checkpoint is read and no model is built. It serves the programs the
+    bundle carries (/sample, /denoise, /transfer); /edit, streams and
+    /reload stay checkpoint-only. ``overrides``: Config fields set
+    explicitly (the serving knobs of the CLI's flags) over the manifest's
+    config; the model's shape is sealed in the programs."""
+    from ..config import Config
+    from ..utils import bundle as bundle_lib
 
-
-def build_bundle_service(bundle_path: str, overrides=None) -> ModelService:
-    _refuse_bundle()
+    bundle = bundle_lib.load_bundle(bundle_path, device)
+    cfg = Config.from_json(json.dumps(bundle.manifest["config"]))
+    if overrides:
+        cfg = cfg.replace(**overrides).validate()
+    return ModelService(cfg, bundle=bundle, device=device)
 
 
 def serve_from_bundle(bundle_path: str, host: str = "127.0.0.1", port: int = 8080,
-                      frontend: str = "threaded", overrides=None):
-    _refuse_bundle()
+                      frontend: str = "threaded", overrides=None, device="cuda"):
+    """Serve a compiled model bundle forever (the serve command's --bundle)."""
+    service = build_bundle_service(bundle_path, overrides=overrides, device=device)
+    if frontend == "aio":
+        from .aio import AsyncServer
+
+        AsyncServer(service, host, port).run_forever()
+        return
+    server = Server(service, host, port)
+    print(f"serving bundle {bundle_path} on {host}:{server.port} "
+          f"(step {service.step}, programs {service.bundle.programs})", flush=True)
+    try:
+        server.httpd.serve_forever()
+    finally:
+        server.httpd.server_close()
+        service.close()
 
 
 def serve_from_checkpoint(cfg, host: str = "127.0.0.1", port: int = 8080,

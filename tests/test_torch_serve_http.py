@@ -285,16 +285,16 @@ def test_sample_stream_matches_full_sampler(server):
         svc.close()
 
 
-def test_service_refuses_what_is_not_ported():
+def test_service_refuses_what_is_not_ported(tmp_path):
     cfg = tiny_test_config()
     with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
         ModelService(cfg, mesh=["cuda:0", "cuda:1"], device="cpu")
-    with pytest.raises(NotImplementedError, match="utils/bundle.py"):
-        ModelService(cfg, bundle=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="utils/bundle.py"):
-        srv_mod.build_bundle_service("bundle")
-    with pytest.raises(NotImplementedError, match="utils/bundle.py"):
-        srv_mod.serve_from_bundle("bundle")
+    # bundles are ported (tests/test_torch_serve_bundle.py): a directory that
+    # holds none is refused by name, as JAX's load_bundle refuses it
+    with pytest.raises(FileNotFoundError, match="is not a model bundle"):
+        srv_mod.build_bundle_service(str(tmp_path), device="cpu")
+    with pytest.raises(FileNotFoundError, match="is not a model bundle"):
+        srv_mod.serve_from_bundle(str(tmp_path), device="cpu")
     with pytest.raises(ValueError, match="num_classes >= 2"):  # cgan is served with classes
         build_service(cfg, "cgan", device="cpu")
     state, _ = _states(cfg)
@@ -735,7 +735,7 @@ def test_reload_retries_a_step_pruned_mid_restore(tmp_path, monkeypatch):
 def test_cli_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(ValueError, match="num_classes >= 2"):  # cgan is served with classes
         cli.main(["serve", "--device", "cpu", *TINY, "--model", "cgan"])
-    with pytest.raises(NotImplementedError, match="utils/bundle.py"):
+    with pytest.raises(FileNotFoundError, match="is not a model bundle"):
         cli.main(["serve", "--device", "cpu", *TINY, "--bundle", str(tmp_path)])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):

@@ -154,11 +154,32 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      in-process path (1e-4 of the scale, 1 level) with exact launches; the
      card's bundle on the CPU (1e-4); sample ms/image at batch 4 through the
      bundle against in process; B4's host µs direct and through the op;
-  23. serve-bundle (last) — ``build_bundle_service`` on the three bundles
+  23. serve-bundle — ``build_bundle_service`` on the three bundles
      behind both frontends: /sample, /denoise, /transfer ab, ba and ?to= within 1
      level of the bundle in process with exact launches, frontends equal;
      /edit, a stream and /reload refused (400); /sample npy p50/p99 at
-     concurrency 1 and 8.
+     concurrency 1 and 8;
+  24. dp-kernel — B1s (B1 on one rank's block, its seed folded by the
+     rank's position): the batch of 16 split into two blocks of 8, each
+     through positions 0 and 1: bit for bit B1 with the folded seed, within
+     B1's bound of the plain version, the positions' ε different; one block
+     timed beside its byte bound;
+  25. dp-train — ``cli train --num-processes 1`` (the parallel code at world
+     size 1: [train-cli]'s launches a step); then jobs of 2 processes of this
+     script (``--dp-worker``), each ``cli.main`` with ``--coordinator
+     --num-processes 2 --process-id k``, sharing cuda:0 over gloo: ``cli
+     train`` at the default width, global batch 16, the kernel path from an
+     HBM pool of each rank's PNG files, 2 epochs and one log_sample; the same
+     as --epochs 1 then --epochs 2 (resumed, within 1e-5 of the unbroken
+     epoch 1); ``cli gan-train`` and ``cli cgan-train``, 4 steps and one
+     log_sample: exact launches a rank (B1s 1 a step, B2 0, B3/B4 as
+     counted), equal metrics and weights on both ranks, checkpoints and
+     events from rank 0 alone; two-rank img/s beside [train]'s;
+  26. dp-agree (last) — 2 processes: one injected full-width step on 2
+     ranks, replicated and under ZeRO-1, against the one-process step on
+     the global batch ([train-agree]'s bounds); the optimizer bytes a rank
+     holds; the gradient all-reduce and ZeRO-1's all-gather timed. Every
+     two-rank time is of 2 ranks sharing one card, not a multi-card number.
 
 The last two lines of its output are a JSON line of per-kernel results and
 ``{"ok": true, "device": {...}}``; before them the card's name and power
@@ -167,6 +188,7 @@ prints no result.
 """
 
 import copy
+import glob
 import json
 import os
 import subprocess
@@ -3302,6 +3324,498 @@ def phase_serve_bundle(torch, fdc, norm, sampler, png, tmp, globs, dirs, card):
     return tuple(launches.total)
 
 
+# ------------------------------------- data parallelism over processes
+
+
+DP_RANKS = 2  # [dp-*]: the ranks of one job; they share cuda:0 over gloo
+DP_LOCAL = TRAIN_BATCH // DP_RANKS  # each rank's rows of the global batch of 16
+
+
+def phase_dp_kernel(torch, fd, cfg, card):
+    """B1s: the full-width batch of 16 × 256²×3 split into two blocks of 8;
+    each block through B1s at position 0 and 1 must equal B1 on that block
+    with the folded seed bit for bit, and its plain version within B1's
+    bound; the two positions' ε differ. B1s on one block timed beside its
+    bound. Returns the kernel's row (launches filled in by the caller)."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    n = cfg.size * cfg.size * 3
+    x = torch.rand((TRAIN_BATCH, n), generator=gen, device="cuda") * 2 - 1
+    t = torch.randint(1, cfg.steps + 1, (TRAIN_BATCH,), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    seed = torch.randint(0, 2**62, (1,), generator=gen, device="cuda")
+    table = fd.scale_table(cfg.steps, cfg.schedule, "cuda")
+    counts = fd.diffuse_fused.launches, fd.diffuse_fused_sharded.launches
+    blocks = [(x[r * DP_LOCAL:(r + 1) * DP_LOCAL], t[r * DP_LOCAL:(r + 1) * DP_LOCAL])
+              for r in range(DP_RANKS)]
+    err = 0.0
+    for xb, tb in blocks:
+        for pos in range(DP_RANKS):
+            y = fd.diffuse_fused_sharded(xb, tb, table, seed, pos)
+            b1 = fd.diffuse_fused(xb, tb, table, fd.fold_seed(seed, pos))
+            ref = fd.diffuse_sharded_plain(xb, tb, table, seed, pos)
+            torch.cuda.synchronize()
+            if not torch.equal(y, b1):
+                fail(f"dp-kernel: B1s at position {pos} differs from B1 with the folded seed")
+            err = max(err, (y - ref).abs().max().item())
+    if not err <= DIFFUSE_ATOL:
+        fail(f"dp-kernel: B1s vs plain max|err| {err} > {DIFFUSE_ATOL}")
+    noise = torch.tensor([[0.0, 1.0]], device="cuda")  # ss = 0, sn = 1: the output is ε
+    zero, t0 = torch.zeros_like(blocks[0][0]), torch.zeros_like(blocks[0][1])
+    eps = [fd.diffuse_fused_sharded(zero, t0, noise, seed, p) for p in range(DP_RANKS)]
+    same = (eps[0] == eps[1]).double().mean().item()
+    if same > 1e-3:
+        fail(f"dp-kernel: positions 0 and 1 drew the same ε in {same:.2%} of the elements")
+    xb, tb = blocks[1]
+    call = lambda: fd.diffuse_fused_sharded(xb, tb, table, seed, 1)  # noqa: E731
+    ms = cuda_ms(call, reps=50)
+    scrub = torch.empty(16 * 2**20, device="cuda")  # 64 MB written between launches: L2 cold
+    cold_ms = device_ms(call, "diffuse", before=lambda: scrub.fill_(1.0))
+    plain_ms = cuda_ms(lambda: fd.diffuse_sharded_plain(xb, tb, table, seed, 1), reps=5)
+    fd.diffuse_fused.launches, fd.diffuse_fused_sharded.launches = counts
+    elems = xb.numel()
+    bytes_ms = _bytes_ms(8 * elems)
+    ops = DIFFUSE_INT_PER_ELEMENT * elems, DIFFUSE_FLOAT_PER_ELEMENT * elems
+    ops_ms = max(ops[0] / INT32_RATE, (ops[0] + ops[1]) / DISPATCH_RATE) * 1e3
+    bound = max(bytes_ms, ops_ms)
+    row = {"name": "diffuse_sharded_f32", "route": "cuda",
+           "source": "gan_class_transfer2_tpu_torch/csrc/diffuse.cu",
+           "replaces": "gan_class_transfer2_tpu/ops/kernels.py:209", "launches": 0,
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": None,
+           "device_cold_ms": cold_ms}
+    print(f"[dp-kernel] B1s, batch {TRAIN_BATCH} × {cfg.size}²×3 in {DP_RANKS} blocks of "
+          f"{DP_LOCAL}, positions 0 and 1: bit for bit B1 with the folded seed; max|err| vs plain "
+          f"{err:.3e} (bound {DIFFUSE_ATOL}); the positions' ε agree in {same:.2e} of the "
+          f"elements; one block of {DP_LOCAL}: kernel {ms:.4f} ms back to back, device "
+          f"{cold_ms:.4f} ms L2 cold, plain {plain_ms:.4f} ms; bound {bound:.4f} ms "
+          f"({row['bound_by']}: {8 * elems / 1e6:.2f} MB, {bytes_ms * 1e3:.2f} us at 3.35 TB/s; "
+          f"operations {ops_ms * 1e3:.2f} us) on {card}; launches in this phase are comparisons "
+          "(the main path's are [dp-train]'s)")
+    del x, blocks, eps, scrub
+    return row
+
+
+def _dp_jobs(jobs, timeout=600):
+    """Run ``jobs`` (each ``(mode, [spec of rank 0, spec of rank 1])``) at
+    once, each as DP_RANKS processes of this script (``--dp-worker``) with a
+    port of its own; returns each job's per-rank DPRESULT dicts. A rank
+    that fails fails the smoke, with the end of its output."""
+    import socket
+
+    procs = []
+    for mode, specs in jobs:
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        procs.append([subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp-worker", mode, str(k), str(port),
+             json.dumps(specs[k])], cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for k in range(DP_RANKS)])
+    results = []
+    for (mode, _), ranks in zip(jobs, procs):
+        outs = []
+        for k, p in enumerate(ranks):
+            out = p.communicate(timeout=timeout)[0]
+            line = next((ln for ln in out.splitlines() if ln.startswith("DPRESULT ")), None)
+            if p.returncode != 0 or line is None:
+                fail(f"dp {mode} rank {k} exited {p.returncode}:\n{out[-3000:]}")
+            outs.append(json.loads(line[len("DPRESULT "):]))
+        results.append(outs)
+    return results
+
+
+def _dp_scalars(res, tag):
+    return {step: v for t, v, step in res["scalars"] if t == tag}
+
+
+def _dp_cli_specs(args, tmp, log):
+    """Both ranks' ``cli`` arguments: the same, but each rank its own
+    --log-dir, so that only the coordinator's may exist afterwards."""
+    return [{"args": [*args, "--log-dir", os.path.join(tmp, f"{log}-r{k}")]}
+            for k in range(DP_RANKS)]
+
+
+def _dp_same(res, what):
+    a, b = res
+    for key in ("checksum", "step"):
+        if a[key] != b[key]:
+            fail(f"dp-train {what}: ranks differ in {key}: {a[key]} vs {b[key]}")
+    sa = [(t, v, s) for t, v, s in a["scalars"] if t != "images_per_sec"]
+    sb = [(t, v, s) for t, v, s in b["scalars"] if t != "images_per_sec"]
+    if sa != sb or not sa:
+        fail(f"dp-train {what}: the ranks' logged metrics differ: {sa} vs {sb}")
+    if a["saves"] < 1 or b["saves"] != 0:
+        fail(f"dp-train {what}: checkpoint saves rank 0 {a['saves']}, rank 1 {b['saves']}")
+
+
+def phase_dp_train(torch, cli, fdc, fd, adam_kernel, norm, sampler, cfg, tmp, globs, globs3,
+                   train_results, card):
+    """Data parallelism through the user's commands: ``cli train
+    --num-processes 1`` in this process (the parallel code at world size 1:
+    B1 unfolded, B2 on, [train-cli]'s launches a step); then 2 processes of
+    ``cli train --coordinator ... --num-processes 2 --process-id k`` sharing
+    cuda:0 over gloo at the default width, global batch 16, the kernel path
+    from an HBM pool of each rank's share of the PNG files: run A (2 epochs
+    and one log_sample, its sampler split over the ranks) alone, then B
+    (--epochs 1, then --epochs 2 restored) beside ``cli gan-train`` and
+    ``cli cgan-train`` of CLI_STEPS steps and one log_sample. Exact launches
+    a rank, equal metrics and weights on both ranks, checkpoints and events
+    from rank 0 alone, B's epoch 1 against A's within [train-resume]'s
+    1e-5. Returns {kernel row name: main-path launches}."""
+    from gan_class_transfer2_tpu_torch.models import unet
+
+    n_leaves = len(list(unet.Denoiser(cfg).parameters()))
+    b4 = b4_per_call(fdc, cfg, DP_LOCAL)
+    launches = {"diffuse_f32": 0, "diffuse_sharded_f32": 0, "adam_f32m": 0,
+                "down_conv_k4s2_f32": 0, "instance_norm_f32": 0}
+    hbm = ("--data-hbm", "288")
+    t0 = time.perf_counter()
+    got, secs = _run_cli(cli, (fd.diffuse_fused, fd.diffuse_fused_sharded, adam_kernel.adam_fused,
+                               fdc.down_conv_fused),
+                         _train_cli(cfg, tmp, "logs-dp1", "ckpt-dp1", "--epochs", "1",
+                                    "--num-processes", "1", "--log-images-every", "0", *hbm))
+    want = (CLI_STEPS, 0, CLI_STEPS * adam_kernel.launches_per_step(n_leaves),
+            CLI_STEPS * b4_per_call(fdc, cfg, TRAIN_BATCH))
+    if got != want:
+        fail(f"dp-train world size 1: launches B1/B1s/B2/B4 {got}, expected {want} "
+             "([train-cli]'s a step)")
+    for name, n in zip(("diffuse_f32", "diffuse_sharded_f32", "adam_f32m", "down_conv_k4s2_f32"),
+                       got):
+        launches[name] += n
+    print(f"[dp-train] cli train --num-processes 1: {CLI_STEPS} steps through the parallel code, "
+          f"launches B1/B1s/B2/B4 {got} ([train-cli]'s a step: B1 unfolded, B2 on); "
+          f"{secs:.2f} s")
+
+    def train(log, ckpt, *extra):  # each rank its own --log-dir, one --checkpoint-dir
+        return [{"args": _train_cli(cfg, tmp, f"{log}-r{k}", ckpt, *hbm, *extra)}
+                for k in range(DP_RANKS)]
+
+    t1 = time.perf_counter()
+    (a,) = _dp_jobs([("cli", train("logs-dpA", "ckpt-dpA", "--epochs", "2",
+                                   "--log-images-every", "2"))])
+    secs_a = time.perf_counter() - t1
+    sample_calls = len(sampler.sample_timesteps(cfg.replace(sample_stride=50)))
+    want_a = {"B1": 0, "B1s": 2 * CLI_STEPS, "B2": 0, "B3": 0,
+              "B4": (2 * CLI_STEPS + 1 + cfg.steps + sample_calls) * b4}
+    for k, res in enumerate(a):
+        if res["launches"] != want_a:
+            fail(f"dp-train A rank {k}: launches {res['launches']}, expected {want_a}")
+    _dp_same(a, "train A")
+    events = [glob.glob(os.path.join(tmp, f"logs-dpA-r{k}", "*", "*", "events.out.tfevents.*"))
+              for k in range(DP_RANKS)]
+    if len(events[0]) != 1 or os.path.exists(os.path.join(tmp, "logs-dpA-r1")):
+        fail(f"dp-train A: event files by rank {[len(e) for e in events]}")
+    ckpt_files = sorted(os.listdir(os.path.join(tmp, "ckpt-dpA")))
+    step = 2 * CLI_STEPS
+    want_files = ["config.json", f"step_{step:09d}", f"step_{step:09d}.extra.host0.json",
+                  f"step_{step:09d}.extra.host1.json", f"step_{step:09d}.extra.json"]
+    if ckpt_files != want_files:
+        fail(f"dp-train A: checkpoint dir holds {ckpt_files}, expected {want_files}")
+    ips = _dp_scalars(a[0], "images_per_sec")
+    loss_a = _dp_scalars(a[0], "loss")
+    print(f"[dp-train] A: cli train, 2 ranks x {DP_LOCAL} rows (global batch {TRAIN_BATCH}), "
+          f"{2 * CLI_STEPS} steps + one log_sample (its {2 + 4 * 1}-image sampler batch split "
+          f"over the ranks): launches a rank {a[0]['launches']} (B1s 1 a step, B2 0); epoch "
+          f"losses {loss_a[0]:.7f}, {loss_a[1]:.7f} on both ranks, weights' checksum "
+          f"{a[0]['checksum']:.6f} on both; rank 0 saved {a[0]['saves']} checkpoints and the "
+          f"events, rank 1 nothing but its data sidecar; epoch 1 (4 steps and rank 0's save): "
+          f"{ips[1]:.3f} img/s — 2 ranks sharing one {card}, not a multi-card number; peak "
+          f"memory a rank {a[0]['peak_gb']:.2f} GB; wall {a[0]['secs']:.2f} s")
+    for res in a:
+        launches["diffuse_sharded_f32"] += res["launches"]["B1s"]
+        launches["down_conv_k4s2_f32"] += res["launches"]["B4"]
+
+    gan_args = ["--device", "cuda", *_width(cfg, ("size", "pixel_size", "max_size", "octaves")),
+                *GAN_FLAGS, "--compute-dtype", "float32", "--batch-size", str(TRAIN_BATCH),
+                "--steps-per-epoch", str(CLI_STEPS), "--epochs", "1", "--checkpoint-every",
+                str(CLI_STEPS), "--data-workers", "2"]
+    jobs = [("cli", train("logs-dpB1", "ckpt-dpB", "--epochs", "1", "--log-images-every", "0")),
+            ("cli", _dp_cli_specs(["gan-train", *gan_args, "--classes", *globs,
+                                   "--checkpoint-dir", os.path.join(tmp, "ckpt-dpgan")],
+                                  tmp, "logs-dpgan"))]
+    t1 = time.perf_counter()
+    b1, g = _dp_jobs(jobs)
+    jobs = [("cli", train("logs-dpB2", "ckpt-dpB", "--epochs", "2", "--log-images-every", "0")),
+            ("cli", _dp_cli_specs(["cgan-train", *gan_args, "--classes", *globs3,
+                                   "--checkpoint-dir", os.path.join(tmp, "ckpt-dpcgan")],
+                                  tmp, "logs-dpcgan"))]
+    b2, cg = _dp_jobs(jobs)
+    secs_b = time.perf_counter() - t1
+    want_b = {"B1": 0, "B1s": CLI_STEPS, "B2": 0, "B3": 0, "B4": CLI_STEPS * b4}
+    for name, res in (("B1", b1), ("B2", b2)):
+        for k, r in enumerate(res):
+            if r["launches"] != want_b:
+                fail(f"dp-train {name} rank {k}: launches {r['launches']}, expected {want_b}")
+            launches["diffuse_sharded_f32"] += r["launches"]["B1s"]
+            launches["down_conv_k4s2_f32"] += r["launches"]["B4"]
+        _dp_same(res, name)
+    if b2[0]["step"] != 2 * CLI_STEPS:
+        fail(f"dp-train B: the resumed job ended at step {b2[0]['step']}")
+    loss_b = _dp_scalars(b2[0], "loss")
+    rel = abs(loss_b[1] - loss_a[1]) / abs(loss_a[1])
+    print(f"[dp-train] B: --epochs 1, then --epochs 2 restored at step {CLI_STEPS} on 2 ranks "
+          f"(each rank's data sidecar, the full moments sliced again): epoch-1 loss "
+          f"{loss_b[1]:.9f} against A's {loss_a[1]:.9f}, relative {rel:.3e} (bound 1e-5); "
+          f"launches a rank {b2[0]['launches']} each call")
+    if not rel <= 1e-5:
+        fail(f"dp-train: the resumed two-rank epoch-1 loss differs by {rel} relative")
+    for what, res, cond, fwd in (("gan-train", g, False, 3), ("cgan-train", cg, True, 3)):
+        c = cfg.replace(batch_size=DP_LOCAL, g_norm="instance", d_norm="instance",
+                        conv_impl="pallas", num_classes=3 if cond else 0)
+        per_step, b4_step, (b3_fwd, b4_fwd) = gan_counts(fdc, c, DP_LOCAL, conditional=cond)
+        want_g = {"B1": 0, "B1s": 0, "B2": 0,
+                  "B3": CLI_STEPS * sum(per_step.values()) + fwd * b3_fwd,
+                  "B4": CLI_STEPS * b4_step + fwd * b4_fwd}
+        for k, r in enumerate(res):
+            if r["launches"] != want_g:
+                fail(f"dp-train {what} rank {k}: launches {r['launches']}, expected {want_g}")
+            launches["instance_norm_f32"] += r["launches"]["B3"]
+            launches["down_conv_k4s2_f32"] += r["launches"]["B4"]
+        _dp_same(res, what)
+        m = {t: _dp_scalars(res[0], t)[0] for t in ("g_loss", "d_loss", "cycle")}
+        if not all(np.isfinite(v) for v in m.values()):
+            fail(f"dp-train {what}: {m}")
+        print(f"[dp-train] {what}: 2 ranks x {DP_LOCAL} rows a class, {CLI_STEPS} steps + one "
+              f"log_sample ({fwd} generator forwards split over the ranks): launches a rank "
+              f"{res[0]['launches']}; g {m['g_loss']:.5f} d {m['d_loss']:.5f} cycle "
+              f"{m['cycle']:.5f} and the weights' checksum equal on both ranks; rank 0 alone "
+              f"saved; {_dp_scalars(res[0], 'images_per_sec')[0]:.3f} img/s (2 ranks sharing one "
+              f"{card}, beside train B, not a multi-card number)")
+    print(f"[dp-train] the phase took {time.perf_counter() - t0:.2f} s (A {secs_a:.2f} s, B with "
+          f"gan-train and cgan-train {secs_b:.2f} s)")
+    return launches
+
+
+def phase_dp_agree(card, train_results):
+    """A two-rank injected step, replicated and under ZeRO-1, against the
+    one-process injected step on the same global batch and weights at the
+    default width (run in rank 0), [train-agree]'s bounds; the bytes of
+    optimizer state a rank holds; the two-rank train step on the kernel
+    path (B1s, B4; B2 gated off) timed beside [train]'s one-process step,
+    replicated and ZeRO-1; the gradient all-reduce and ZeRO-1's all-gather
+    timed. Returns nothing: every check is here."""
+    (res,) = _dp_jobs([("agree", [{}] * DP_RANKS)])
+    r0, r1 = res
+    for zero1 in ("replicated", "zero1"):
+        a, b = r0[zero1], r1[zero1]
+        if a["checksum"] != b["checksum"]:
+            fail(f"dp-agree {zero1}: the ranks' weights differ")
+        if a["launches"]["B2"] != 0 or a["launches"]["B4"] <= 0:
+            fail(f"dp-agree {zero1}: launches {a['launches']}")
+        print(f"[dp-agree] {zero1}: one injected step, 2 ranks x {DP_LOCAL} rows against one "
+              f"process x {TRAIN_BATCH} (B2 in the one process, the optax-form update on the "
+              f"ranks): loss {a['loss']:.7f} vs {r0['ref']['loss']:.7f} (rel {a['rel']:.2e}, "
+              f"bound 1e-5); updates: max|Δ2 − Δ1| {a['max_diff']:.3e}, share beyond 1e-3·lr "
+              f"{a['share']:.2e} (bound 1e-4); optimizer state a rank "
+              f"{a['opt_bytes'] / 1e6:.1f} MB ({b['opt_bytes'] / 1e6:.1f} MB on rank 1); "
+              + (f"{a['split_leaves']} of {a['leaves']} optimizer leaves split, each rank "
+                 "holding half of each; " if a["split_leaves"] else "every leaf whole on each "
+                 "rank; ") +
+              f"step {a['step_ms']:.2f} ms (one process: {r0['ref']['step_ms']:.2f} ms) — 2 ranks "
+              f"sharing one {card}, not a multi-card number")
+        if not a["rel"] <= 1e-5 or not a["share"] <= 1e-4:
+            fail(f"dp-agree {zero1}: loss rel {a['rel']}, share {a['share']}")
+    if not r0["zero1"]["opt_bytes"] < 0.6 * r0["replicated"]["opt_bytes"]:
+        fail("dp-agree: ZeRO-1 did not halve the optimizer state a rank holds")
+    one = train_results[("float32", "kernels")]
+    for name in ("replicated", "zero1"):
+        ms = r0["train_ms"][name]
+        print(f"[dp-agree] the train step on 2 ranks sharing one {card}, {name}, fp32 kernel "
+              f"path (B1s, B4; B2 off), global batch {TRAIN_BATCH}: {ms:.2f} ms, "
+              f"{TRAIN_BATCH / ms * 1e3:.3f} img/s, against [train]'s one process "
+              f"{one['step_ms']:.2f} ms ({one['images_per_sec']} img/s) in this run; not a "
+              "multi-card number")
+    print(f"[dp-agree] collectives over gloo, host-staged (2 ranks sharing one {card}): the "
+          f"gradient all-reduce of {r0['grad_mb']:.1f} MB (one flat float32 bucket) "
+          f"{r0['allreduce_ms']:.2f} ms; ZeRO-1's all-gather of the updated slices "
+          f"({r0['gather_mb']:.1f} MB a rank) {r0['gather_ms']:.2f} ms; ZeRO-1 step "
+          f"{r0['zero1']['step_ms']:.2f} ms against the replicated two-rank step "
+          f"{r0['replicated']['step_ms']:.2f} ms; peak memory rank 0 {r0['peak_gb']:.2f} GB")
+
+
+def _dp_cli_worker(torch, rank, port, spec):
+    """One rank of a [dp-train] job: ``cli.main`` with the launch counts set
+    to 0 just before and read just after; the logged scalars, checkpoint
+    saves and the weights' checksum recorded."""
+    from gan_class_transfer2_tpu_torch import cli
+    from gan_class_transfer2_tpu_torch.ops import adam_kernel
+    from gan_class_transfer2_tpu_torch.ops import fused_diffusion as fd
+    from gan_class_transfer2_tpu_torch.ops import fused_down_conv as fdc
+    from gan_class_transfer2_tpu_torch.ops import norm
+    from gan_class_transfer2_tpu_torch.parallel import mesh as mesh_lib
+    from gan_class_transfer2_tpu_torch.train import conditional_gan_loop, gan_loop, loop
+    from gan_class_transfer2_tpu_torch.utils import checkpoint as ckpt_lib
+    from gan_class_transfer2_tpu_torch.utils import tensorboard as tb
+
+    scalars, saves, closing = [], [0], {}
+    write = tb.SummaryWriter.scalar
+
+    def scalar(self, tag, value, step):
+        scalars.append((tag, float(value), int(step)))
+        if isinstance(self, tb.SummaryWriter):
+            write(self, tag, value, step)
+
+    tb.SummaryWriter.scalar = tb.NullWriter.scalar = scalar
+    save = ckpt_lib.save
+
+    def counted_save(*a, **k):
+        saves[0] += 1
+        return save(*a, **k)
+
+    ckpt_lib.save = counted_save
+    for cls in (loop.Runner, gan_loop.GANRunner, conditional_gan_loop.ConditionalGANRunner):
+        def close(self, _close=cls.close):
+            closing["checksum"] = float(sum(
+                t.double().sum() for p, t in mesh_lib._leaves(self.state)
+                if not mesh_lib._is_opt_state_path(p)))
+            closing["step"] = int(self.state.step)
+            return _close(self)
+
+        cls.close = close
+    counters = {"B1": fd.diffuse_fused, "B1s": fd.diffuse_fused_sharded,
+                "B2": adam_kernel.adam_fused, "B3": norm.instance_norm_fused,
+                "B4": fdc.down_conv_fused}
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main([*spec["args"], "--coordinator", f"127.0.0.1:{port}", "--num-processes",
+                   str(DP_RANKS), "--process-id", str(rank)])
+    secs = time.perf_counter() - t0
+    print("DPRESULT " + json.dumps({
+        "rank": rank, "launches": {k: c.launches for k, c in counters.items()},
+        "scalars": scalars, "saves": saves[0], "secs": secs,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9, **closing}), flush=True)
+    return rc
+
+
+def _dp_agree_worker(torch, rank, port):
+    """One rank of [dp-agree] (see phase_dp_agree)."""
+    from gan_class_transfer2_tpu_torch.config import Config
+    from gan_class_transfer2_tpu_torch.models import api
+    from gan_class_transfer2_tpu_torch.ops import adam_kernel
+    from gan_class_transfer2_tpu_torch.ops import fused_down_conv as fdc
+    from gan_class_transfer2_tpu_torch.parallel import mesh as mesh_lib
+    from gan_class_transfer2_tpu_torch.parallel import multihost
+    from gan_class_transfer2_tpu_torch.train import trainer
+
+    dev = "cuda"
+    torch.backends.cudnn.allow_tf32 = False
+    multihost.initialize(f"127.0.0.1:{port}", DP_RANKS, rank, device=dev)
+    mesh = mesh_lib.make_mesh(device=dev)
+    lr = 1e-3
+    base = Config()
+    cfg = base.replace(batch_size=TRAIN_BATCH, conv_impl="pallas", optimizer="adam_fused",
+                       lr_schedule="constant", learning_rate=lr).validate()
+    r = np.random.default_rng(9)
+    x = torch.from_numpy(r.uniform(-1, 1, (TRAIN_BATCH, cfg.size, cfg.size, 3))
+                         .astype(np.float32)).to(dev)
+    t = torch.from_numpy(r.integers(1, cfg.steps + 1, TRAIN_BATCH).astype(np.int32))
+    eps = torch.from_numpy(r.standard_normal(tuple(x.shape)).astype(np.float32)).to(dev)
+    init = api.init_denoiser(cfg, device="cpu")
+    p0 = [p.detach().to(dev) for p in init.parameters()]
+    sync = torch.cuda.synchronize
+
+    def timed(fn, reps=3, ranks=True):
+        times = []
+        for _ in range(reps):
+            sync()
+            if ranks:  # start every rank together (rank 0's one-process step alone)
+                multihost.barrier()
+            t1 = time.perf_counter()
+            fn()
+            sync()
+            times.append(time.perf_counter() - t1)
+        return float(np.median(times)) * 1e3
+
+    def run(c, on_mesh):
+        model = copy.deepcopy(init).to(dev)
+        state = trainer.TrainState(0, model, trainer.make_optimizer(c).init(
+            list(model.parameters())), None, None)
+        rows = (x, t, eps)
+        if on_mesh:
+            sh = mesh_lib.state_shardings(state, mesh, c.zero1)
+            state = mesh_lib.shard_state(state, sh, mesh)
+            rows = tuple(mesh_lib.local_rows(v, mesh) for v in rows)
+        step = trainer.make_injected_train_step(c, mesh if on_mesh else None)
+        fdc.down_conv_fused.launches = adam_kernel.adam_fused.launches = 0
+        state, loss = step(state, *rows)
+        sync()
+        out = {"loss": float(loss),
+               "launches": {"B2": adam_kernel.adam_fused.launches,
+                            "B4": fdc.down_conv_fused.launches},
+               "delta": [(p.detach() - q) for p, q in zip(model.parameters(), p0)],
+               "checksum": float(sum(p.detach().double().sum() for p in model.parameters())),
+               "opt_bytes": mesh_lib.opt_state_bytes(state)}
+        if on_mesh:
+            split = [n for n, s in sh.items() if s]
+            out["split_leaves"], out["leaves"] = len(split), sum(
+                1 for p, _ in mesh_lib._leaves(state) if mesh_lib._is_opt_state_path(p))
+        holder = [state]
+
+        def again():
+            holder[0], _ = step(holder[0], *rows)
+
+        out["step_ms"] = timed(again, ranks=on_mesh)
+        return out
+
+    out = {}
+    if rank == 0:
+        ref = run(cfg, False)  # one process: B2 on
+        out["ref"] = {"loss": ref["loss"], "step_ms": ref["step_ms"]}
+    for name, zero1 in (("replicated", False), ("zero1", True)):
+        res = run(cfg.replace(zero1=zero1), True)
+        if rank == 0:
+            res["rel"] = abs(res["loss"] - ref["loss"]) / abs(ref["loss"])
+            diff = torch.cat([(a - b).abs().flatten() for a, b in zip(res["delta"], ref["delta"])])
+            res["max_diff"] = diff.max().item()
+            res["share"] = (diff > 1e-3 * lr).double().mean().item()
+        del res["delta"]
+        out[name] = res
+    # the train step on the kernel path, timed (B1s and B4; B2 is gated off)
+    out["train_ms"] = {}
+    tc = base.replace(batch_size=TRAIN_BATCH, conv_impl="pallas", optimizer="adam_fused",
+                      fused_diffusion=True).validate()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    xb = mesh_lib.local_rows(torch.rand((TRAIN_BATCH, tc.size, tc.size, 3), generator=gen,
+                                        device=dev) * 2 - 1, mesh)
+    torch.backends.cudnn.allow_tf32 = True  # the step holds IEEE fp32 itself
+    for name, zero1 in (("replicated", False), ("zero1", True)):
+        c = tc.replace(zero1=zero1)
+        holder = [mesh_lib.init_sharded_state(c, mesh)[0]]
+        step = mesh_lib.make_parallel_train_step(c, mesh)
+
+        def train():
+            holder[0], _ = step(holder[0], xb, gen)
+
+        for _ in range(2):
+            train()
+        out["train_ms"][name] = timed(train, reps=5)
+        del holder
+    grads = [torch.randn_like(p) for p in p0]
+    out["grad_mb"] = sum(g.numel() for g in grads) * 4 / 1e6
+    out["allreduce_ms"] = timed(lambda: multihost.all_reduce_mean(grads), reps=5)
+    half = torch.cat([mesh_lib._slice(g, mesh).reshape(-1) for g in grads
+                      if mesh_lib._zero1_spec(g, mesh)])
+    out["gather_mb"] = half.numel() * 4 / 1e6
+    out["gather_ms"] = timed(lambda: multihost.all_gather(half), reps=5)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    multihost.shutdown()
+    print("DPRESULT " + json.dumps(out), flush=True)
+    return 0
+
+
+def dp_worker(argv):
+    """``python3 chip_smoke.py --dp-worker <cli|agree> <rank> <port> <spec JSON>``:
+    one rank of a [dp-train] or [dp-agree] job (started by _dp_jobs)."""
+    mode, rank, port, spec = argv[0], int(argv[1]), argv[2], json.loads(argv[3])
+    import torch
+
+    if mode == "cli":
+        return _dp_cli_worker(torch, rank, port, spec)
+    return _dp_agree_worker(torch, rank, port)
+
+
 def main():
     try:
         import torch
@@ -3433,10 +3947,19 @@ def main():
                                       card)
     print(f"[serve-bundle] [distill], [bundle] and [serve-bundle] took "
           f"{t_db + time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    dp_row = phase_dp_kernel(torch, fd, cfg, card)
+    dp_launches = phase_dp_train(torch, cli, fdc, fd, adam_kernel, norm, sampler, cfg, files.name,
+                                 globs, globs3, train_results, card)
+    phase_dp_agree(card, train_results)
+    print(f"[dp-agree] [dp-kernel], [dp-train] and [dp-agree] took "
+          f"{time.perf_counter() - t0:.2f} s")
+    for name in ("diffuse_f32", "adam_f32m", "down_conv_k4s2_f32"):
+        train_launches[name] += dp_launches[name]
     files.cleanup()
     gan_launches["float32"] = (
         gan_launches["float32"][0] + cli_b3 + eval_b3 + serve_b3 + cgan_launches["float32"][0]
-        + cgan_b3 + cls_b3 + bundle_b3 + sb_b3,
+        + cgan_b3 + cls_b3 + bundle_b3 + sb_b3 + dp_launches["instance_norm_f32"],
         gan_launches["float32"][1] + cli_b4 + eval_b4 + serve_b4 + cgan_launches["float32"][1]
         + cgan_b4 + cls_b4 + distill_b4 + bundle_b4 + sb_b4)
     gan_launches["bfloat16"] = tuple(a + b for a, b in zip(gan_launches["bfloat16"],
@@ -3450,10 +3973,12 @@ def main():
     # instance norm's times and bound sum one GAN step's 102 launches at
     # batch 16; launches are the main-path runs' (sample, edit, train,
     # train-hbm, train-cli, train-resume, cache, gan, gan-train-cli, eval,
-    # cond-train-cli, cgan, cgan-train-cli, serve, distill, bundle and
-    # serve-bundle for the down conv; gan, gan-train-cli, eval, cgan,
-    # cgan-train-cli, serve, bundle and serve-bundle for the instance norm;
-    # the train phases, cache and cond-train-cli for the others)
+    # cond-train-cli, cgan, cgan-train-cli, serve, distill, bundle,
+    # serve-bundle and dp-train's ranks for the down conv; gan, gan-train-cli,
+    # eval, cgan, cgan-train-cli, serve, bundle, serve-bundle and dp-train's
+    # GAN ranks for the instance norm; the train phases, cache,
+    # cond-train-cli and dp-train's world-size-1 run for B1 and B2;
+    # dp-train's diffusion ranks for B1s)
     source = "gan_class_transfer2_tpu_torch/csrc/down_conv.cu"
     replaces = "gan_class_transfer2_tpu/ops/pallas_conv.py:36"
     rows = []
@@ -3476,6 +4001,7 @@ def main():
         })
     for name, row in train_rows.items():
         rows.append(dict(row, launches=train_launches[name]))
+    rows.append(dict(dp_row, launches=dp_launches["diffuse_sharded_f32"]))
     for dtype, row in gan_rows.items():
         rows.append(dict(row, launches=gan_launches[dtype][0]))
     for row in rows:
@@ -3490,4 +4016,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == "--dp-worker":
+        sys.exit(dp_worker(sys.argv[2:]))
     sys.exit(main())

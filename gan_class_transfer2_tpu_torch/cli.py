@@ -36,8 +36,18 @@ the same flag names for the Config fields they read:
 and TensorBoard events
 out, resuming from ``--checkpoint-dir`` when it holds a checkpoint;
 ``--resilient N`` restarts from the last checkpoint after a failed step.
-One process on one card: ``--coordinator``, ``--num-processes`` and
-``--process-id`` are refused. ``bench`` trains ``--bench-steps`` steps
+``--coordinator HOST:PORT --num-processes N --process-id K`` makes the
+process rank K of an N-process data-parallel job (``parallel/multihost.py``:
+gloo on the CPU and for ranks that share a card, nccl when each has its
+own); start one such process per rank, e.g. on one host
+
+    for k in 0 1; do python -m gan_class_transfer2_tpu_torch.cli train \
+        --coordinator 127.0.0.1:29500 --num-processes 2 --process-id $k \
+        --batch-size 16 --checkpoint-dir ckpt & done; wait
+
+``--batch-size`` is the global batch; each rank reads its share of the
+files and its rows of the batch, only rank 0 writes, and ``--zero1 true``
+slices the optimizer state over the ranks. ``bench`` trains ``--bench-steps`` steps
 (after 3 untimed ones) on a synthetic batch resident on the device and
 prints one JSON line with the JAX package's keys (img/s, step ms, MFU).
 ``train`` with ``--num-classes`` > 0 trains the class-conditional denoiser on
@@ -113,7 +123,7 @@ _FIELDS = (
     "weight_decay", "ema_decay", "grad_clip_norm", "grad_accum", "loss",
     "prediction_weighting", "loss_scale", "dynamic_loss_scale",
     "loss_scale_growth_interval", "fused_diffusion", "steps_per_epoch", "epochs",
-    "host_sync_every", "mesh_data",
+    "host_sync_every", "mesh_data", "zero1",
     # GAN mode
     "gan_loss", "adversarial_weight", "cycle_weight", "identity_weight",
     "reconstruction_weight", "d_learning_rate", "d_pixel_size", "d_octaves",
@@ -193,10 +203,13 @@ def main(argv=None) -> int:
             p.add_argument("--resilient", type=int, default=0, metavar="N",
                            help="restart up to N times from the last checkpoint on a "
                                 "step failure (requires --checkpoint-dir)")
-            # multi-host launch flags of the JAX CLI, refused below
-            p.add_argument("--coordinator", type=str, default=None, metavar="HOST:PORT")
-            p.add_argument("--num-processes", type=int, default=None)
-            p.add_argument("--process-id", type=int, default=None)
+            # the JAX CLI's multi-host launch flags (parallel/multihost.py)
+            p.add_argument("--coordinator", type=str, default=None, metavar="HOST:PORT",
+                           help="rank 0's address: join a multi-process data-parallel job")
+            p.add_argument("--num-processes", type=int, default=None,
+                           help="the job's processes (ranks), each on one device")
+            p.add_argument("--process-id", type=int, default=None,
+                           help="this process's rank in [0, --num-processes)")
         elif cmd == "bench":
             p.add_argument("--bench-steps", type=int, default=30)
         elif cmd == "profile":
@@ -277,12 +290,6 @@ def main(argv=None) -> int:
                 p.add_argument("--edits", type=str, nargs="*",
                                default=["pixelate", "shift", "quantise"])
     args = parser.parse_args(argv)
-    if any(getattr(args, f, None) is not None
-           for f in ("coordinator", "num_processes", "process_id")):
-        raise NotImplementedError(
-            "--coordinator/--num-processes/--process-id: multi-host training "
-            "(parallel/multihost.py) is not ported to PyTorch yet; the port trains in one "
-            "process on one card")
     cfg = config_from_args(args, checkpoint_config=args.command in _READS_CHECKPOINT
                            and not getattr(args, "weights", None))
     if args.command in ("train", "gan-train", "cgan-train"):
@@ -331,7 +338,35 @@ def _serve(cfg: Config, args) -> int:
     return 0
 
 
+def _join_process_group(args) -> bool:
+    """Join the job's process group when ``--coordinator`` names one (before
+    anything touches a device); True when joined. Without it, more than
+    one process or a rank other than 0 is refused: every process would
+    train alone, each its own model, without saying so."""
+    from .parallel import multihost
+
+    if args.coordinator:
+        multihost.initialize(args.coordinator, args.num_processes, args.process_id,
+                             device=args.device)
+        return True
+    if (args.num_processes or 1) != 1 or (args.process_id or 0) != 0:
+        raise ValueError("--num-processes/--process-id require --coordinator HOST:PORT "
+                         "(without it each process would train alone)")
+    return False
+
+
 def _train(cfg: Config, args) -> int:
+    from .parallel import multihost
+
+    joined = _join_process_group(args)
+    try:
+        return _fit(cfg, args)
+    finally:
+        if joined:
+            multihost.shutdown()
+
+
+def _fit(cfg: Config, args) -> int:
     if args.command == "train":
         from .train.loop import Runner
 

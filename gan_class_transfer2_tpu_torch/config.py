@@ -6,10 +6,11 @@ packages. The port imports nothing of the JAX package, so the dataclass is
 repeated here. Comments that explain a field's meaning live beside the JAX
 copy; this copy adds what the port does differently:
 
-  * ``validate`` refuses the features the port does not have yet
-    (``zero1``, meshes and pipeline stages beyond one card) with a
-    NotImplementedError that names the missing piece, instead of ignoring
-    them.
+  * ``validate`` refuses the features the port does not have yet (the
+    model and slice mesh axes, pipeline stages) with a NotImplementedError
+    that names the missing piece, instead of ignoring them. ``zero1`` and
+    ``mesh_data`` are data parallelism over processes (parallel/mesh.py,
+    which holds ``mesh_data`` to the world size).
   * ``conv_impl="pallas"`` selects the hand-written CUDA down-conv kernel
     (ops/fused_down_conv.py), the port's counterpart of the Pallas kernel.
     Instance norm always runs the hand-written CUDA kernel on the card
@@ -283,12 +284,7 @@ class Config:
                 f"octaves={self.octaves} (stages own octave bands)"
             )
         # the port's refusals: features whose modules are not ported yet
-        if self.zero1:
-            raise NotImplementedError(
-                "zero1: the sharded optimizer state (parallel/mesh.py) is not "
-                "ported to PyTorch yet; the port trains on one card"
-            )
-        for name in ("mesh_data", "mesh_model", "mesh_slice"):
+        for name in ("mesh_model", "mesh_slice"):
             if getattr(self, name) > 1:
                 raise NotImplementedError(
                     f"{name}={getattr(self, name)}: device meshes (parallel/mesh.py) "

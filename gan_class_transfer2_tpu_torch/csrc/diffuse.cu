@@ -40,6 +40,15 @@
 // the chunks measured no faster).
 // A t outside [0, rows) gives NaN outputs: the kernel cannot raise.
 //
+// Data parallelism (B1s, kernels.py:209 forward_diffuse_fused_sharded): each
+// rank runs this kernel on its own block of the batch with the same seed, so
+// the counter (group, local sample, half, 0) repeats on every rank. The
+// entry point gct2_diffuse_f32_folded takes a 32-bit fold word, XORed into
+// the key's low word in the kernel: JAX's seed ^ ((position + 1)·0x9E3779B9)
+// with the product wrapped to 32 bits, computed on the host from the rank's
+// linear position (no device op, no host sync). The high word is untouched.
+// gct2_diffuse_f32 is the same launch with fold 0 (B1, one process).
+//
 // The entry point launches on the given stream, allocates nothing and returns
 // cudaGetLastError().
 
@@ -94,8 +103,8 @@ __device__ __forceinline__ float4 diffuse4(float4 v, float e0, float e1, float e
 __global__ void __launch_bounds__(THREADS)
 diffuse_f32_kernel(const float4* __restrict__ x, const int* __restrict__ t,
                    const float* __restrict__ table, int rows,
-                   const long long* __restrict__ seed, float4* __restrict__ out,
-                   long long groups) {
+                   const long long* __restrict__ seed, unsigned int fold,
+                   float4* __restrict__ out, long long groups) {
   const int b = blockIdx.y;
   const long long base = static_cast<long long>(blockIdx.x) * CHUNK + threadIdx.x;
   const float4* xb = x + static_cast<size_t>(b) * groups;
@@ -125,7 +134,7 @@ diffuse_f32_kernel(const float4* __restrict__ x, const int* __restrict__ t,
       c[2 * j + half][3] = 0u;
     }
   }
-  philox4x32_10(c, static_cast<uint32_t>(s), static_cast<uint32_t>(s >> 32));
+  philox4x32_10(c, static_cast<uint32_t>(s) ^ fold, static_cast<uint32_t>(s >> 32));
 #pragma unroll
   for (int j = 0; j < GROUPS; ++j) {
     const long long g = base + j * THREADS;
@@ -142,9 +151,10 @@ diffuse_f32_kernel(const float4* __restrict__ x, const int* __restrict__ t,
 
 // x, out: (B, N) float32, N % 4 == 0, 16-byte aligned; t: (B,) int32 on the
 // device; table: (rows, 2) float32, row t = (ss, sn); seed: one int64 on the
-// device.
-extern "C" int gct2_diffuse_f32(const void* x, const void* t, const void* table, int rows,
-                                const void* seed, void* out, int B, long long N, void* stream) {
+// device; fold: XORed into the seed's low word (0: the seed as it is).
+extern "C" int gct2_diffuse_f32_folded(const void* x, const void* t, const void* table, int rows,
+                                       const void* seed, unsigned int fold, void* out, int B,
+                                       long long N, void* stream) {
   if (B <= 0 || B > 65535 || N <= 0 || N % 4 != 0 || rows <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long groups = N / 4;
@@ -152,6 +162,11 @@ extern "C" int gct2_diffuse_f32(const void* x, const void* t, const void* table,
   const dim3 grid(static_cast<unsigned>((groups + CHUNK - 1) / CHUNK), static_cast<unsigned>(B));
   diffuse_f32_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(x), static_cast<const int*>(t), static_cast<const float*>(table),
-      rows, static_cast<const long long*>(seed), static_cast<float4*>(out), groups);
+      rows, static_cast<const long long*>(seed), fold, static_cast<float4*>(out), groups);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int gct2_diffuse_f32(const void* x, const void* t, const void* table, int rows,
+                                const void* seed, void* out, int B, long long N, void* stream) {
+  return gct2_diffuse_f32_folded(x, t, table, rows, seed, 0u, out, B, N, stream);
 }

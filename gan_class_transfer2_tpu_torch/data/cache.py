@@ -75,14 +75,21 @@ class CachedDataset:
 class AugmentedCachedDataset(CachedDataset):
     """``CachedDataset`` + random crop/flip/normalise to ``size`` on
     ``device`` (the card unless the caller asks for the CPU): yields
-    float32 (B, size, size, 3) tensors there."""
+    float32 (B, size, size, 3) tensors there. ``sharding``
+    (``parallel/mesh.batch_sharding``): ``batch_size`` is the global batch;
+    each rank reads only its rows' records, onto the sharding's device, and
+    augments them with the global batch's draws, so the ranks' rows
+    together are the one-process batch."""
 
     def __init__(self, path: str, size: int, batch_size: int, seed: int = 0,
                  sharding=None, device="cuda"):
+        self._mesh = None
         if sharding is not None:
-            raise NotImplementedError(
-                "AugmentedCachedDataset: sharded batches need the parallel layer "
-                "(parallel/), which is not ported to PyTorch yet (sharding=None)")
+            self._mesh = sharding.mesh
+            device = sharding.device
+            if batch_size % sharding.mesh.size:
+                raise ValueError(f"global batch {batch_size} not divisible by "
+                                 f"{sharding.mesh.size} ranks")
         super().__init__(path, batch_size, seed)
         if self.store < size:
             raise ValueError(f"cache store={self.store} smaller than crop size={size}")
@@ -94,10 +101,13 @@ class AugmentedCachedDataset(CachedDataset):
     def __iter__(self):
         from . import device_augment
 
-        for raw in super().__iter__():
+        from ..parallel import mesh as mesh_lib
+
+        while True:
+            idx = mesh_lib.local_rows(self._stream.next_indices(), self._mesh)
             pos = self._stream.position  # the post-draw position keys the augment
-            batch = torch.from_numpy(raw)
+            batch = torch.from_numpy(np.asarray(self.images[idx]))  # copy out of the memmap
             if self.device.type == "cuda":
                 batch = batch.pin_memory().to(self.device, non_blocking=True)
             self._generator.manual_seed(device_augment._key(self._seed + 101, pos))
-            yield device_augment.augment_batch(batch, self._generator, self.size)
+            yield device_augment.augment_batch(batch, self._generator, self.size, self._mesh)

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..models.api import resolve_device
+from ..parallel import mesh as mesh_lib
 from .pipeline import EpochIndexStream
 
 
@@ -53,12 +54,15 @@ def apply_augment(raw, offsets, flips, size: int):
     return crop.to(torch.float32).mul_(1.0 / 128.0).sub_(1.0)
 
 
-def augment_batch(raw, generator: torch.Generator, size: int):
+def augment_batch(raw, generator: torch.Generator, size: int, mesh=None):
     """raw: (B, H, W, 3) uint8 with H, W ≥ size → (B, size, size, 3) float32
     in [−1, 1): per-sample random crop and horizontal flip, then /128 − 1.
-    Draws on the generator's device, applies on raw's."""
+    Draws on the generator's device, applies on raw's. On a mesh
+    (``parallel/mesh.py``) ``raw`` is this rank's rows of the global batch:
+    the draws are the global batch's and the rank takes its rows."""
     b, h, w, _ = raw.shape
-    offsets, flips = draw_augment(b, h, w, size, generator)
+    offsets, flips = draw_augment(mesh_lib.global_rows(b, mesh), h, w, size, generator)
+    offsets, flips = mesh_lib.local_rows(offsets, mesh), mesh_lib.local_rows(flips, mesh)
     return apply_augment(raw, offsets.to(raw.device), flips.to(raw.device), size)
 
 
@@ -81,14 +85,23 @@ class HBMDataset:
     stream for the same ``(N, batch_size, seed)``), and the augment's
     generator is seeded from ``(seed, position)``, so ``set_state`` restores
     the exact draws. ``device`` defaults to the card; without one it raises
-    unless ``device="cpu"`` is asked for."""
+    unless ``device="cpu"`` is asked for.
+
+    ``sharding`` (``parallel/mesh.batch_sharding``): the pool lives whole on
+    the sharding's device on every rank (a gather takes any index, as the
+    JAX pool is replicated over its mesh), ``batch_size`` is the global
+    batch, and each rank yields its rows of it, augmented with the global
+    batch's draws: the ranks' rows together are the one-process batch."""
 
     def __init__(self, images, size: int, batch_size: int, seed: int = 0, sharding=None,
                  raw: bool = False, device=None):
+        self._mesh = None
         if sharding is not None:
-            raise NotImplementedError(
-                "HBMDataset: sharded pools need the parallel layer (parallel/), which is "
-                "not ported to PyTorch yet; the port draws on one card (sharding=None)")
+            self._mesh = sharding.mesh
+            device = sharding.device
+            if batch_size % sharding.mesh.size:
+                raise ValueError(f"global batch {batch_size} not divisible by "
+                                 f"{sharding.mesh.size} ranks")
         pool = images if torch.is_tensor(images) else torch.from_numpy(np.ascontiguousarray(images))
         if pool.dtype == torch.uint8:
             if pool.shape[1] < size or pool.shape[2] < size:
@@ -114,10 +127,11 @@ class HBMDataset:
 
     def draw(self, idx, position: int):
         """The batch of pool indices ``idx`` at stream ``position``."""
-        batch = self._images[torch.as_tensor(idx, dtype=torch.int64).to(self.device)]
+        idx = mesh_lib.local_rows(torch.as_tensor(idx, dtype=torch.int64), self._mesh)
+        batch = self._images[idx.to(self.device)]
         if self._augment:
             self._generator.manual_seed(_key(self.seed, position))
-            batch = augment_batch(batch, self._generator, self.size)
+            batch = augment_batch(batch, self._generator, self.size, self._mesh)
         return batch
 
     def __iter__(self):

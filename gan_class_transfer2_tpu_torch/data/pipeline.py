@@ -535,15 +535,21 @@ def make_datasets(cfg, files_per_class=None, device="cuda", **kw) -> list:
     the files through the C++ loader (``NativeImageDataset``), or an
     ``ImageDataset`` through Python decode threads: with ``cfg.cache``
     (the native loader keeps no file bytes), or where the loader does not
-    build, with a printed line that says why. One process only."""
-    import torch.distributed as dist
+    build, with a printed line that says why.
 
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "make_datasets: multi-process input sharding (parallel/multihost.py) is not "
-            "ported to PyTorch yet; the port trains in one process")
+    Multi-process runs (``parallel/multihost``): each rank reads its round
+    robin share of every class's files (``shard_files_for_host``) and loads
+    ``host_local_batch_size(cfg.batch_size)`` images a batch, its rows of
+    the global batch; an HBM pool holds the rank's share."""
+    from ..parallel import multihost
+
     kw.setdefault("num_workers", cfg.data_workers)
     sources = files_per_class if files_per_class is not None else cfg.class_patterns()
+    batch_size = cfg.batch_size
+    if multihost.process_count() > 1:
+        batch_size = multihost.host_local_batch_size(cfg.batch_size)
+        sources = [multihost.shard_files_for_host(
+            list_files(src) if isinstance(src, str) else sorted(src)) for src in sources]
     if cfg.data_hbm:
         from .device_augment import HBMDataset
 
@@ -551,7 +557,7 @@ def make_datasets(cfg, files_per_class=None, device="cuda", **kw) -> list:
             HBMDataset(
                 load_hbm_pool(list_files(src) if isinstance(src, str) else sorted(src),
                               cfg.data_hbm, size=cfg.size, workers=cfg.data_workers),
-                cfg.size, cfg.batch_size, seed=cfg.seed + i, device=device)
+                cfg.size, batch_size, seed=cfg.seed + i, device=device)
             for i, src in enumerate(sources)
         ]
     if cfg.native_loader:
@@ -564,7 +570,7 @@ def make_datasets(cfg, files_per_class=None, device="cuda", **kw) -> list:
             # shuffle_buffer does not apply: the native loader draws exact
             # per-epoch permutations
             return [
-                native_loader.NativeImageDataset(src, cfg.size, cfg.batch_size,
+                native_loader.NativeImageDataset(src, cfg.size, batch_size,
                                                  seed=cfg.seed + i, **kw)
                 for i, src in enumerate(sources)
             ]
@@ -574,7 +580,7 @@ def make_datasets(cfg, files_per_class=None, device="cuda", **kw) -> list:
             print(f"native_loader=True: the native C++ loader did not build ({reason}); "
                   "using the Python pipeline (data/pipeline.py)")
     return [
-        ImageDataset(src, cfg.size, cfg.batch_size, seed=cfg.seed + i,
+        ImageDataset(src, cfg.size, batch_size, seed=cfg.seed + i,
                      shuffle_buffer=cfg.shuffle_buffer, cache=cfg.cache, **kw)
         for i, src in enumerate(sources)
     ]

@@ -39,12 +39,12 @@ LEAVES_PER_LAUNCH = 48  # csrc/adam.cu MAX_LEAVES: the table fits the 4 KB param
 B1, B2 = 0.9, 0.999
 
 
-def fused_adam_ok(cfg) -> bool:
+def fused_adam_ok(cfg, mesh_size: int = 1) -> bool:
     """True when the train step may take the fused update: plain Adam, no
-    chained clip/decay, no accumulation, no dynamic loss scale, one device
-    (adam_kernel.py:104-117; the port runs on one card). The JAX step also
-    asks for a TPU (trainer.py:424-427); here the CPU takes the kernel's
-    plain version."""
+    chained clip/decay, no accumulation, no dynamic loss scale, no ZeRO-1,
+    and a data-parallel world of one rank (adam_kernel.py:104-117: the
+    train step passes its mesh's size). The JAX step also asks for a TPU
+    (trainer.py:424-427); here the CPU takes the kernel's plain version."""
     return (
         cfg.optimizer == "adam_fused"
         and cfg.grad_clip_norm <= 0
@@ -52,6 +52,7 @@ def fused_adam_ok(cfg) -> bool:
         and cfg.grad_accum == 1
         and not cfg.dynamic_loss_scale
         and not cfg.zero1
+        and mesh_size == 1
     )
 
 

@@ -15,12 +15,17 @@ from one seed):
 
 ``augment`` draws from the generator on every call, so consecutive calls
 and steps see fresh draws. An empty policy is a no-op that draws nothing.
-Inputs are NHWC in [-1, 1).
+Inputs are NHWC in [-1, 1). On a mesh (``parallel/mesh.py``) the input is
+this rank's rows of the global batch: each policy draws for the global
+batch and the rank takes its rows, so the ranks together see the draws of
+one process.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..parallel import mesh as mesh_lib
 
 
 def _uniform(generator, n, lo, hi, like):
@@ -34,8 +39,8 @@ def _randint(generator, n, lo, hi, like):
                          device=generator.device).to(like.device)
 
 
-def draw_color(generator, x):
-    n = x.shape[0]
+def draw_color(generator, x, n=None):
+    n = x.shape[0] if n is None else n
     return (_uniform(generator, n, -0.5, 0.5, x), _uniform(generator, n, 0.0, 2.0, x),
             _uniform(generator, n, 0.5, 1.5, x))
 
@@ -53,8 +58,9 @@ def _shift_bounds(h, w):
     return max(-(-h // 8), 1), max(-(-w // 8), 1)
 
 
-def draw_translation(generator, x):
-    n, h, w, _ = x.shape
+def draw_translation(generator, x, n=None):
+    n = x.shape[0] if n is None else n
+    _, h, w, _ = x.shape
     sy, sx = _shift_bounds(h, w)
     return _randint(generator, n, -sy, sy, x), _randint(generator, n, -sx, sx, x)
 
@@ -75,8 +81,9 @@ def _cut_sides(h, w):
     return max(h // 2, 1), max(w // 2, 1)
 
 
-def draw_cutout(generator, x):
-    n, h, w, _ = x.shape
+def draw_cutout(generator, x, n=None):
+    n = x.shape[0] if n is None else n
+    _, h, w, _ = x.shape
     ch, cw = _cut_sides(h, w)
     return (_randint(generator, n, -(ch // 2), h - ch // 2, x),
             _randint(generator, n, -(cw // 2), w - cw // 2, x))
@@ -100,10 +107,12 @@ POLICIES = {
 }
 
 
-def augment(cfg, generator, x):
+def augment(cfg, generator, x, mesh=None):
     """Apply ``cfg.diffaug``'s policies in order, each with a fresh draw from
-    ``generator``. No-op (``x`` itself, no draw) for an empty policy."""
+    ``generator`` (for the global batch on a mesh, of which ``x`` is this
+    rank's rows). No-op (``x`` itself, no draw) for an empty policy."""
+    n = mesh_lib.global_rows(x.shape[0], mesh)
     for name in filter(None, cfg.diffaug.split(",")):
         draw, apply = POLICIES[name]
-        x = apply(x, *draw(generator, x))
+        x = apply(x, *(mesh_lib.local_rows(d, mesh) for d in draw(generator, x, n)))
     return x

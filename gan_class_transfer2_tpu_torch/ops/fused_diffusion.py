@@ -21,6 +21,18 @@ The per-sample scales ``(ss, sn) = (√ᾱ(t), √(1 − ᾱ(t)))`` come from a
 (``scale_table``), gathered by t inside the kernel: the step's draw of t and
 of the seed and the kernel are its only three launches for the noising.
 
+B1s (kernels.py:209 ``forward_diffuse_fused_sharded``, B1 under a
+``shard_map``) is B1 on one rank's block of the batch: every rank draws the
+same seed, and the kernel XORs the seed's low word with ``fold_word(p) =
+(p + 1)·0x9E3779B9 mod 2³²``, JAX's ``seed ^ ((lin + 1)·-1640531527)`` in
+wrapping int32 arithmetic, for the rank's linear mesh position ``p``; the
+high word stays. The word is computed on the host from the position, a
+Python int, and passed to the kernel (``gct2_diffuse_f32_folded``): no
+device op and no host sync. ``diffuse_fused_sharded`` counts its own
+launches, so a run shows which of B1 and B1s it took; its plain version is
+``diffuse_plain`` with the folded seed (``diffuse_sharded_plain``).
+``fused_sharded_ok`` is JAX's gate on the local shape.
+
 Three pieces, as for every kernel of the port:
 
   * ``diffuse_fused`` — the wrapper of csrc/diffuse.cu, with its launch
@@ -132,15 +144,34 @@ def scale_table(steps: int, schedule: str, device) -> torch.Tensor:
     return table
 
 
+def fold_word(position: int) -> int:
+    """The 32-bit word B1s XORs into the seed's low word at linear mesh
+    position ``position``: JAX's ``(lin + 1) * jnp.int32(-1640531527)``
+    (kernels.py:258-259) as an unsigned word (−1640531527 is 0x9E3779B9)."""
+    return ((position + 1) * _W0) & _MASK32
+
+
+def fold_seed(seed, position: int):
+    """``seed`` (an int64 tensor) with its low word folded for
+    ``position``; the high word is left as it is."""
+    return seed ^ fold_word(position)
+
+
+def diffuse_sharded_plain(x, t, table, seed, position: int):
+    """B1s's plain version: ``diffuse_plain`` with the folded seed."""
+    return diffuse_plain(x, t, table, fold_seed(seed, position))
+
+
 _fn = None
 
 
 def _entry():
     global _fn
     if _fn is None:
-        fn = _build.load("diffuse").gct2_diffuse_f32
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [
-            ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+        fn = _build.load("diffuse").gct2_diffuse_f32_folded
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_uint,
+                                               ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                                               ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -158,6 +189,33 @@ def diffuse_fused(x, t, table, seed):
         if x.is_cpu:
             return diffuse_plain(x, t, table, seed)
         raise ValueError(f"diffuse_fused: no kernel for device {x.device}")
+    out = _launch(x, t, table, seed, 0)
+    diffuse_fused.launches += 1
+    return out
+
+
+diffuse_fused.launches = 0
+
+
+def diffuse_fused_sharded(x, t, table, seed, position: int):
+    """Forward of B1s: B1 on one rank's block ``x`` with the seed folded for
+    the rank's linear mesh ``position`` (inside the kernel). The plain
+    version for a CPU tensor, the kernel for a CUDA tensor (or an
+    exception); the arguments as ``diffuse_fused``'s."""
+    if not x.is_cuda:
+        if x.is_cpu:
+            return diffuse_sharded_plain(x, t, table, seed, position)
+        raise ValueError(f"diffuse_fused_sharded: no kernel for device {x.device}")
+    out = _launch(x, t, table, seed, fold_word(position))
+    diffuse_fused_sharded.launches += 1
+    return out
+
+
+diffuse_fused_sharded.launches = 0
+
+
+def _launch(x, t, table, seed, fold: int):
+    """One launch of csrc/diffuse.cu on CUDA tensors, checked."""
     f32 = torch.float32
     if x.dtype is not f32 or table.dtype is not f32 or t.dtype is not torch.int32 or (
             seed.dtype is not torch.int64):
@@ -173,8 +231,8 @@ def diffuse_fused(x, t, table, seed):
         raise ValueError("diffuse_fused: x (B, N) contiguous, 16-byte aligned, N % 4 == 0; "
                          "t (B,) and table (rows, 2) contiguous; one seed")
     out = torch.empty_like(x)
-    args = (xp, t.data_ptr(), table.data_ptr(), rows[0], seed.data_ptr(), out.data_ptr(), b, n,
-            _build.current_stream(index))
+    args = (xp, t.data_ptr(), table.data_ptr(), rows[0], seed.data_ptr(), fold, out.data_ptr(),
+            b, n, _build.current_stream(index))
     if index == torch.cuda.current_device():
         err = _entry()(*args)
     else:
@@ -182,28 +240,27 @@ def diffuse_fused(x, t, table, seed):
             err = _entry()(*args)
     if err != 0:
         raise RuntimeError(f"diffuse kernel launch failed: CUDA error {err}")
-    diffuse_fused.launches += 1
     return out
 
 
-diffuse_fused.launches = 0
-
-
 class FusedDiffuse(torch.autograd.Function):
-    """B1 with its backward: d noised / dx = ss[b] = table[t[b], 0]. The
-    table and the seed get no gradient (kernels.py:156-162: the schedule is
-    not learned)."""
+    """B1 (``position`` None) or B1s (a rank's linear mesh position) with
+    its backward: d noised / dx = ss[b] = table[t[b], 0]. The table and the
+    seed get no gradient (kernels.py:156-162: the schedule is not
+    learned)."""
 
     @staticmethod
-    def forward(ctx, x, t, table, seed):
+    def forward(ctx, x, t, table, seed, position=None):
         ctx.save_for_backward(t, table)
-        return diffuse_fused(x, t, table, seed)
+        if position is None:
+            return diffuse_fused(x, t, table, seed)
+        return diffuse_fused_sharded(x, t, table, seed, position)
 
     @staticmethod
     def backward(ctx, g):
         t, table = ctx.saved_tensors
         ss = table[t.long(), 0]
-        return g * ss[:, None].to(g.dtype), None, None, None
+        return g * ss[:, None].to(g.dtype), None, None, None, None
 
 
 def use_fused(cfg, batch_shape, epsilon_in=None) -> bool:
@@ -220,6 +277,52 @@ def use_fused(cfg, batch_shape, epsilon_in=None) -> bool:
         and cfg.parameterization == "x"
         and n % 128 == 0
     )
+
+
+def _local_shape(x_shape, spec, extents):
+    """The per-rank block shape of an array of ``x_shape`` split by ``spec``
+    (one entry per leading dim: None, an axis name, or a tuple of names)
+    over a mesh of ``extents`` ({axis: size}); None when a split dim does
+    not divide (kernels.py:178-196)."""
+    local = []
+    for i, dim in enumerate(x_shape):
+        entry = spec[i] if i < len(spec) else None
+        names = () if entry is None else (entry if isinstance(entry, tuple) else (entry,))
+        k = 1
+        for name in names:
+            k *= extents[name]
+        if dim % k:
+            return None
+        local.append(dim // k)
+    return tuple(local)
+
+
+def fused_sharded_ok(cfg, x_shape, world, spec) -> bool:
+    """JAX's ``fused_sharded_ok`` (kernels.py:199): every split dim of the
+    (B, H, W, C) batch divides, and each rank's flattened sample is a
+    multiple of 128. ``world``: the data extent (an int), or the mesh's
+    {axis: size}; ``spec``: the batch's split, e.g. ``("data",)``,
+    ``(None, "spatial")`` or ``("data", "spatial")``."""
+    extents = {"data": world} if isinstance(world, int) else dict(world)
+    local = _local_shape(x_shape, spec, extents)
+    if local is None:
+        return False
+    return (local[1] * local[2] * local[3]) % 128 == 0
+
+
+def forward_diffuse_fused_sharded(cfg, x_local, t_local, seed, position: int):
+    """B1s (kernels.py:209): ``forward_diffuse_fused`` on this rank's block
+    ``x_local`` (b, H, W, C) float32 with ``t_local`` its b timesteps,
+    ``seed`` the step's int64 seed (the same on every rank) and
+    ``position`` the rank's linear mesh position, which the kernel folds
+    into the seed. Returns the block's ``noised``."""
+    b = x_local.shape[0]
+    t = t_local.reshape(b)
+    if t.dtype != torch.int32:
+        t = t.to(torch.int32)
+    table = scale_table(cfg.steps, cfg.schedule, x_local.device)
+    out = FusedDiffuse.apply(x_local.reshape(b, -1), t.contiguous(), table, seed, int(position))
+    return out.reshape(x_local.shape)
 
 
 def forward_diffuse_fused(cfg, x, t_int, seed):

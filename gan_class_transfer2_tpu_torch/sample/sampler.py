@@ -202,23 +202,8 @@ def edit_image(cfg, model, image, edits=("pixelate", "shift", "quantise"),
 def make_eval_fn(cfg):
     """``eval_fn(model, example_image, noise_bank, dictionary)`` → the
     reference's TensorBoard artifacts (denoised, example_loss, fake,
-    step_1/0.75/0.5/0.25): preview + invert + edits + sample."""
+    step_1/0.75/0.5/0.25): preview + invert + edits + sample, in one
+    process (``parallel/mesh.sampler_eval`` without a mesh)."""
+    from ..parallel import mesh as mesh_lib
 
-    @torch.inference_mode()
-    def eval_fn(model, example_image, noise_bank, dictionary):
-        preview_noise = noise_bank[:1].expand(example_image.shape)
-        denoised, rmse = preview(cfg, model, example_image, preview_noise)
-        _, epsilon_theta = invert(cfg, model, example_image)
-        batch = edit_noise(cfg, epsilon_theta, dictionary, noise_bank)
-        result = sample(cfg, model, batch)
-        return {
-            "denoised": denoised,
-            "example_loss": rmse,
-            "fake": result.images,
-            "step_1": result.snapshots[0],
-            "step_0.75": result.snapshots[1],
-            "step_0.5": result.snapshots[2],
-            "step_0.25": result.snapshots[3],
-        }
-
-    return eval_fn
+    return mesh_lib.sampler_eval(cfg)

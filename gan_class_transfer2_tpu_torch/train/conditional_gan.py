@@ -18,7 +18,10 @@ injected through ``targets=``). The step follows train/gan.py's port: G's
 gradient with D held constant, D's on the detached fakes, both from the
 parameters as they were before the step, then both updates, then the
 gated EMA. B3 and B4 run in both nets on the card; B2 is not on this path
-(the JAX step applies ``optimizer.update`` itself).
+(the JAX step applies ``optimizer.update`` itself). On a mesh
+(``parallel/mesh.py``) the batch is this rank's rows, the targets, augment
+and DiffAugment draws the global batch's, and the gradients and metrics
+are averaged over the ranks, as in ``train/gan.py``.
 """
 
 from __future__ import annotations
@@ -34,8 +37,9 @@ from ..models import unet
 from ..models.api import resolve_device
 from ..ops import diffaug
 from . import trainer as trainer_lib
-from .gan import (_constant, _d_optimizer, _ema_step, _l1, adversarial_loss, annealed_weight,
-                  r1_penalty)
+from ..parallel import mesh as mesh_lib
+from .gan import (_constant, _d_optimizer, _ema_step, _l1, _update_both, adversarial_loss,
+                  annealed_weight, r1_penalty)
 from .trainer import make_optimizer
 
 
@@ -69,30 +73,33 @@ def init_conditional_gan_state(cfg, generator: torch.Generator | None = None,
                                _d_optimizer(cfg).init(list(d.parameters())), ema)
 
 
-def _target_classes(cfg, labels, generator):
-    """Per-sample target class != source: ``(label + U[1, C−1]) mod C``."""
-    shift = torch.randint(1, cfg.num_classes, tuple(labels.shape), generator=generator,
-                          device=generator.device).to(labels.device)
+def _target_classes(cfg, labels, generator, mesh=None):
+    """Per-sample target class != source: ``(label + U[1, C−1]) mod C``
+    (drawn for the global batch on a mesh, of which ``labels`` are this
+    rank's rows)."""
+    n = mesh_lib.global_rows(labels.shape[0], mesh)
+    shift = mesh_lib.local_rows(torch.randint(1, cfg.num_classes, (n,), generator=generator,
+                                              device=generator.device), mesh).to(labels.device)
     return (labels.long() + shift) % cfg.num_classes
 
 
 def conditional_gan_train_step(cfg, g_optimizer, d_optimizer, state: ConditionalGANState,
-                               batch, generator: torch.Generator, *, targets=None):
+                               batch, generator: torch.Generator, *, targets=None, mesh=None):
     """One G/D update (conditional_gan.py:63-187). Updates G, D and the EMA
     in place; returns ``(new_state, metrics)`` with float32 scalar tensors
     on the batch's device (no host sync). ``targets``: the (B,) target
     classes, injected instead of drawn (the parity harness)."""
-    batch = trainer_lib.augment_if_uint8(cfg, batch, generator)
+    batch = trainer_lib.augment_if_uint8(cfg, batch, generator, mesh)
     images, labels = batch["image"], batch["label"]
     dev = images.device
     labels = torch.as_tensor(labels).to(dev).long()
     if targets is None:
-        targets = _target_classes(cfg, labels, generator)
+        targets = _target_classes(cfg, labels, generator, mesh)
     else:
         targets = torch.as_tensor(targets).to(dev).long()
 
     def aug(x):
-        return diffaug.augment(cfg, generator, x)
+        return diffaug.augment(cfg, generator, x, mesh)
 
     w_cycle = annealed_weight(cfg, cfg.cycle_weight, cfg.cycle_weight_final, state.step)
     w_ident = annealed_weight(cfg, cfg.identity_weight, cfg.identity_weight_final, state.step)
@@ -131,18 +138,14 @@ def conditional_gan_train_step(cfg, g_optimizer, d_optimizer, state: Conditional
             d_loss = d_loss + 0.5 * cfg.r1_weight * r1
         d_grads = torch.autograd.grad(d_loss, dp, materialize_grads=True)
 
-    # ---- both updates, from gradients of the pre-step parameters
-    g_updates, g_opt = g_optimizer.update(list(g_grads), state.g_opt, gp)
-    trainer_lib.apply_updates(gp, g_updates)
-    d_updates, d_opt = d_optimizer.update(list(d_grads), state.d_opt, dp)
-    trainer_lib.apply_updates(dp, d_updates)
-    _ema_step(cfg, state.ema_generator, g_model, g_opt)
-
     metrics = {"g_loss": g_loss.detach(), "d_loss": d_loss.detach(),
                "adversarial": adv.detach(), "cycle": cycle.detach(),
                "identity": ident.detach()}
     if cfg.r1_weight > 0:
         metrics["r1"] = r1.detach()
+    g_opt, d_opt, metrics = _update_both(cfg, g_optimizer, d_optimizer, state, gp, dp, g_grads,
+                                         d_grads, metrics, mesh)
+    _ema_step(cfg, state.ema_generator, g_model, g_opt)
     if cfg.loss_anneal_steps > 0:
         metrics["cycle_weight"] = torch.as_tensor(w_cycle, dtype=torch.float32)
         metrics["identity_weight"] = torch.as_tensor(w_ident, dtype=torch.float32)
@@ -170,17 +173,15 @@ def select_generator(state: ConditionalGANState, use_ema: bool = True):
 
 def make_transfer_fn(cfg, mesh=None):
     """``(generator_module, images, target_vec) -> transferred`` under
-    inference mode, on the images' device. One card only: a mesh raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_transfer_fn: device meshes (parallel/mesh.py) are not ported to "
-            "PyTorch yet; the port transfers on one card (mesh=None)")
+    inference mode, on the images' device; on a mesh of more than one rank
+    the images and targets are split over the ranks and the result
+    gathered (``parallel/mesh.make_data_parallel_apply``)."""
 
     @torch.inference_mode()
     def fn(model, images, targets):
         return cond_lib.conditional_unet_apply(cfg, model, images, targets)
 
-    return fn
+    return mesh_lib.make_data_parallel_apply(mesh, fn)
 
 
 def transfer(cfg, state: ConditionalGANState, images, target_class, use_ema: bool = True):

@@ -9,7 +9,10 @@ classes. Each class keeps ``fid_samples`` held-out files out of training;
 target class and, with ``fid_samples > 0``, the transfer FID/KID of every
 ordered class pair (``transfer_scores``), whose mean keeps the best
 checkpoint. Checkpoint/resume through ``ResilientRunnerMixin``; the step's
-``torch.Generator`` is carried in each checkpoint. One card.
+``torch.Generator`` is carried in each checkpoint. Over processes
+(``parallel/``) as the diffusion ``Runner``: the mesh's state and step,
+the transfers split over the ranks and gathered, the coordinator alone
+writing.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ import torch
 from ..config import Config
 from ..data import pipeline
 from ..models.api import resolve_device
+from ..parallel import mesh as mesh_lib
+from ..parallel import multihost
 from ..utils import checkpoint as ckpt_lib
 from ..utils import tensorboard as tb
 from . import conditional_gan as cgan
@@ -47,13 +52,14 @@ class ConditionalGANRunner(ResilientRunnerMixin):
         if cfg.num_classes < 2:
             raise ValueError("conditional transfer needs >= 2 classes")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh_lib.make_mesh(cfg, device=resolve_device(device))
+        self.device = self.mesh.device
         self.generator = torch.Generator(device=self.device).manual_seed(step_seed(cfg.seed, 31))
-        self.state = cgan.init_conditional_gan_state(cfg, device=self.device)
+        self.state, self.shardings = mesh_lib.init_sharded_conditional_gan_state(cfg, self.mesh)
         if cfg.checkpoint_dir and ckpt_lib.latest_step(cfg.checkpoint_dir) is not None:
             self._restore_checkpoint()
-        self.train_step = cgan.make_conditional_gan_train_step(cfg)
-        self._transfer_fn = cgan.make_transfer_fn(cfg)
+        self.train_step = mesh_lib.make_parallel_conditional_gan_train_step(cfg, self.mesh)
+        self._transfer_fn = cgan.make_transfer_fn(cfg, self.mesh)
 
         self._eval_sets = list(eval_sets) if eval_sets is not None else None
         self._eval_files = None
@@ -69,7 +75,8 @@ class ConditionalGANRunner(ResilientRunnerMixin):
         self.data_iter = pipeline.DeviceIterator(self.labeled, self.device)
 
         self.log_dir = log_dir or tb.reference_log_dir(cfg.log_dir)
-        self.writer = tb.SummaryWriter(self.log_dir)
+        self.writer = (tb.SummaryWriter(self.log_dir) if multihost.is_coordinator()
+                       else tb.NullWriter())
         self._fixed = None
         self._eval_feat_cache = {}
 
@@ -92,8 +99,9 @@ class ConditionalGANRunner(ResilientRunnerMixin):
         the first call, as in JAX) to every class, with the EMA generator
         when kept; with ``fid_samples > 0`` the transfer FID/KID of every
         ordered class pair."""
-        if self._fixed is None:
-            self._fixed = next(self.data_iter)["image"]
+        if self._fixed is None:  # every rank's rows (a collective on every rank)
+            self._fixed = multihost.host_fetch(next(self.data_iter)["image"],
+                                               ("data",)).to(self.device)
         for target in range(self.cfg.num_classes):
             out = self._transfer(self._fixed, target)
             self.writer.image(f"transfer_to_{target}", out.float().cpu().numpy() * 0.5 + 0.5,

@@ -29,6 +29,13 @@ What differs from the JAX package, and why:
     the JAX GAN step applies ``optimizer.update`` itself and never calls it.
   * ``jax.random.fold_in(rng, step)`` gives the JAX step fresh draws every
     step; here the caller's ``torch.Generator`` advances with each draw.
+  * Data parallelism (``mesh=``, ``parallel/mesh.py``): each class batch
+    is this rank's rows; the augment and DiffAugment draws are the global
+    batch's, each rank taking its rows; G's and D's gradients and the
+    metrics are averaged over the ranks by one ``all_reduce`` after both
+    ``autograd.grad`` calls. R1's double backward stays on the rank: the
+    mean over the global batch is the mean of the ranks' means, their
+    batches being equal.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from ..models import discriminator as d_lib
 from ..models import unet
 from ..models.api import resolve_device
 from ..ops import diffaug
+from ..parallel import mesh as mesh_lib
 from . import trainer as trainer_lib
 from .trainer import make_optimizer
 
@@ -156,17 +164,18 @@ def r1_penalty(cfg, d_model, real, labels=None):
 
 
 def gan_train_step(cfg, g_optimizer, d_optimizer, state: GANState, batch_a, batch_b,
-                   generator: torch.Generator):
+                   generator: torch.Generator, mesh=None):
     """One G/D update (gan.py:140-299). Updates the four nets' parameters
     and the EMAs in place; returns ``(new_state, metrics)`` with float32
-    scalar tensors on the batch's device (no host sync)."""
+    scalar tensors on the batch's device (no host sync); on a mesh, the
+    global batch's."""
     # HBM-resident uint8 batches are cropped, flipped and normalised on the
     # device, each with its own draws, before anything else (gan.py:151-156)
-    batch_a = trainer_lib.augment_if_uint8(cfg, batch_a, generator)
-    batch_b = trainer_lib.augment_if_uint8(cfg, batch_b, generator)
+    batch_a = trainer_lib.augment_if_uint8(cfg, batch_a, generator, mesh)
+    batch_b = trainer_lib.augment_if_uint8(cfg, batch_b, generator, mesh)
 
     def aug(x):
-        return diffaug.augment(cfg, generator, x)
+        return diffaug.augment(cfg, generator, x, mesh)
 
     w_cycle = annealed_weight(cfg, cfg.cycle_weight, cfg.cycle_weight_final, state.step)
     w_ident = annealed_weight(cfg, cfg.identity_weight, cfg.identity_weight_final, state.step)
@@ -211,24 +220,34 @@ def gan_train_step(cfg, g_optimizer, d_optimizer, state: GANState, batch_a, batc
             d_loss = d_loss + 0.5 * cfg.r1_weight * r1
         d_grads = torch.autograd.grad(d_loss, dp, materialize_grads=True)
 
-    # ---- both updates, from gradients of the pre-step parameters
-    g_updates, g_opt = g_optimizer.update(list(g_grads), state.g_opt, gp)
-    trainer_lib.apply_updates(gp, g_updates)
-    d_updates, d_opt = d_optimizer.update(list(d_grads), state.d_opt, dp)
-    trainer_lib.apply_updates(dp, d_updates)
-    _ema_step(cfg, state.ema_g_ab, state.g_ab, g_opt)
-    _ema_step(cfg, state.ema_g_ba, state.g_ba, g_opt)
-
     metrics = {"g_loss": g_loss.detach(), "d_loss": d_loss.detach(),
                "adversarial": adv.detach(), "cycle": cycle.detach(),
                "identity": ident.detach()}
     if cfg.r1_weight > 0:
         metrics["r1"] = r1.detach()
+    g_opt, d_opt, metrics = _update_both(cfg, g_optimizer, d_optimizer, state, gp, dp, g_grads,
+                                         d_grads, metrics, mesh)
+    _ema_step(cfg, state.ema_g_ab, state.g_ab, g_opt)
+    _ema_step(cfg, state.ema_g_ba, state.g_ba, g_opt)
     if cfg.loss_anneal_steps > 0:
         # the current effective weights, so the anneal is visible
         metrics["cycle_weight"] = torch.as_tensor(w_cycle, dtype=torch.float32)
         metrics["identity_weight"] = torch.as_tensor(w_ident, dtype=torch.float32)
     return state._replace(step=state.step + 1, g_opt=g_opt, d_opt=d_opt), metrics
+
+
+def _update_both(cfg, g_optimizer, d_optimizer, state, gp, dp, g_grads, d_grads, metrics,
+                 mesh=None):
+    """G's and D's updates, from gradients of the pre-step parameters,
+    after one ``all_reduce`` of both gradients and the metrics on a mesh.
+    Returns ``(g_opt, d_opt, metrics)``."""
+    ng = len(g_grads)
+    grads, values = trainer_lib.average_over_ranks(mesh, [*g_grads, *d_grads],
+                                                   list(metrics.values()))
+    metrics = dict(zip(metrics, values))
+    g_opt = trainer_lib.update_params(g_optimizer, state.g_opt, gp, grads[:ng], mesh, cfg.zero1)
+    d_opt = trainer_lib.update_params(d_optimizer, state.d_opt, dp, grads[ng:], mesh, cfg.zero1)
+    return g_opt, d_opt, metrics
 
 
 @contextlib.contextmanager
@@ -278,17 +297,16 @@ def select_generator(state: GANState, direction: str = "ab", use_ema: bool = Tru
 
 def make_transfer_fn(cfg, mesh=None):
     """``(generator_module, images) -> transferred`` under inference mode, on
-    the images' device. One card only: a mesh raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_transfer_fn: device meshes (parallel/mesh.py) are not ported to "
-            "PyTorch yet; the port transfers on one card (mesh=None)")
+    the images' device; on a mesh of more than one rank the images are
+    split over the ranks and the result gathered
+    (``parallel/mesh.make_data_parallel_apply``)."""
+    from ..parallel import mesh as mesh_lib
 
     @torch.inference_mode()
     def fn(model, images):
         return _generate(cfg, model, images)
 
-    return fn
+    return mesh_lib.make_data_parallel_apply(mesh, fn)
 
 
 def transfer(cfg, state: GANState, images, direction: str = "ab", use_ema: bool = True):

@@ -8,8 +8,11 @@ diffusion ``Runner``.
 ``fid_samples`` held-out files out of training, as in JAX; with
 ``fid_samples > 0`` each ``log_sample`` scores the transfer of one class's
 held-out images against the other's (``transfer_scores``: FID and KID, B3
-and B4 in the generator on the card). The transfer draws no noise. One
-card; the step's ``torch.Generator`` is carried in each checkpoint.
+and B4 in the generator on the card). The transfer draws no noise. The
+step's ``torch.Generator`` is carried in each checkpoint. Over processes
+(``parallel/``) as the diffusion ``Runner``: the mesh's state and step,
+the transfers split over the ranks and gathered, the coordinator alone
+writing.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ import torch
 from ..config import Config
 from ..data import pipeline
 from ..models.api import resolve_device
+from ..parallel import mesh as mesh_lib
+from ..parallel import multihost
 from ..utils import checkpoint as ckpt_lib
 from ..utils import tensorboard as tb
 from . import gan
@@ -39,13 +44,14 @@ class GANRunner(ResilientRunnerMixin):
                 raise ValueError("GAN class transfer needs exactly 2 class patterns "
                                  f"(got {len(patterns)}); set Config.classes")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh_lib.make_mesh(cfg, device=resolve_device(device))
+        self.device = self.mesh.device
         self.generator = torch.Generator(device=self.device).manual_seed(step_seed(cfg.seed, 23))
-        self.state = gan.init_gan_state(cfg, device=self.device)
+        self.state, self.shardings = mesh_lib.init_sharded_gan_state(cfg, self.mesh)
         if cfg.checkpoint_dir and ckpt_lib.latest_step(cfg.checkpoint_dir) is not None:
             self._restore_checkpoint()
-        self.train_step = gan.make_gan_train_step(cfg)
-        self._transfer_fn = gan.make_transfer_fn(cfg)
+        self.train_step = mesh_lib.make_parallel_gan_train_step(cfg, self.mesh)
+        self._transfer_fn = gan.make_transfer_fn(cfg, self.mesh)
 
         # held-out eval split: fid_samples files per class never reach training
         self._eval_files = {"a": None, "b": None}
@@ -66,7 +72,8 @@ class GANRunner(ResilientRunnerMixin):
         self.iter_b = pipeline.DeviceIterator(self.dataset_b, self.device)
 
         self.log_dir = log_dir or tb.reference_log_dir(cfg.log_dir)
-        self.writer = tb.SummaryWriter(self.log_dir)
+        self.writer = (tb.SummaryWriter(self.log_dir) if multihost.is_coordinator()
+                       else tb.NullWriter())
         self._fixed_a = None
         self._fixed_b = None
         self._eval_cache = {}
@@ -82,9 +89,9 @@ class GANRunner(ResilientRunnerMixin):
         """The transfers of one fixed batch per class (drawn from the
         training streams at the first call, as in JAX) with the EMA
         generators when kept: A→B, B→A and A→B→A."""
-        if self._fixed_a is None:
-            self._fixed_a = next(self.iter_a)
-            self._fixed_b = next(self.iter_b)
+        if self._fixed_a is None:  # every rank's rows (a collective on every rank)
+            self._fixed_a = multihost.host_fetch(next(self.iter_a), ("data",)).to(self.device)
+            self._fixed_b = multihost.host_fetch(next(self.iter_b), ("data",)).to(self.device)
         fake_b = self._transfer(self._fixed_a, "ab")
         fake_a = self._transfer(self._fixed_b, "ba")
         cycled = self._transfer(fake_b, "ba")
@@ -120,7 +127,8 @@ class GANRunner(ResilientRunnerMixin):
             it = iter(self.dataset_a if cls == "a" else self.dataset_b)
             chunks = []
             while sum(len(x) for x in chunks) < n:
-                chunks.append(torch.as_tensor(next(it)).float().cpu().numpy())
+                chunks.append(multihost.host_fetch(torch.as_tensor(next(it)).float(),
+                                                   ("data",)).numpy())
             out = np.concatenate(chunks, 0)[:n]
         self._eval_cache[cls] = out
         return out

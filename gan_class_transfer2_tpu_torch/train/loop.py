@@ -5,9 +5,16 @@ sampling callback, and checkpoint/resume.
 
 What differs from the JAX package, and why:
 
-  * One card (``device``, the card unless the caller asks for the CPU), no
-    mesh: the state comes from ``trainer.init_state`` and the step is
-    ``trainer.make_train_step``.
+  * One device a process (``device``, the card unless the caller asks for
+    the CPU; on the card, this rank's under ``parallel/multihost``'s
+    rule); the mesh is the data-parallel world of the process group
+    (``parallel/mesh.make_mesh``, one rank without one). The state comes
+    from ``mesh.init_sharded_state`` (its optimizer state sliced under
+    ``zero1``) and the step from ``mesh.make_parallel_train_step``; at
+    world size 1 both are the one-process state and step (B1 unfolded, B2
+    on). Only the coordinator writes checkpoints, events, config.json and
+    images; every rank computes, and each loads its share of the files and
+    its rows of the batch (``pipeline.make_datasets``).
   * Randomness is one ``torch.Generator`` on the device, seeded from
     ``cfg.seed`` (through ``step_seed``, so it does not repeat the init's
     draws) and carried in each checkpoint: JAX folds the step number into
@@ -30,6 +37,8 @@ import torch
 from ..config import Config
 from ..data import pipeline
 from ..models.api import resolve_device
+from ..parallel import mesh as mesh_lib
+from ..parallel import multihost
 from ..sample import sampler
 from ..utils import checkpoint as ckpt_lib
 from ..utils import tensorboard as tb
@@ -50,13 +59,18 @@ class Runner(ResilientRunnerMixin):
     def __init__(self, cfg: Config, dataset=None, log_dir: Optional[str] = None,
                  device="cuda"):
         self.cfg = cfg.validate()
-        self.device = resolve_device(device)
+        self.mesh = mesh_lib.make_mesh(cfg, device=resolve_device(device))
+        self.device = self.mesh.device
+        self._is_coordinator = multihost.is_coordinator()
         self.generator = torch.Generator(device=self.device).manual_seed(step_seed(cfg.seed, 17))
-        self.state = trainer.init_state(cfg, device=self.device)
+        self.state, self.shardings = mesh_lib.init_sharded_state(cfg, self.mesh)
         if cfg.checkpoint_dir and ckpt_lib.latest_step(cfg.checkpoint_dir) is not None:
             self._restore_checkpoint()
-        self.train_step = trainer.make_train_step(cfg)
-        self.eval_fn = sampler.make_eval_fn(cfg)
+        self.train_step = mesh_lib.make_parallel_train_step(cfg, self.mesh)
+        self.eval_fn = mesh_lib.make_parallel_eval_fn(cfg, self.mesh)
+        self._metric_sampler = mesh_lib.make_data_parallel_apply(
+            self.mesh, lambda model, init: sampler.sample(self.cfg, model, init,
+                                                          snapshots=False).images)
         self._ema_model = None
 
         # held-out eval split (FID hygiene, as in JAX): with FID on and the
@@ -86,9 +100,12 @@ class Runner(ResilientRunnerMixin):
         self.data_iter = pipeline.DeviceIterator(self.dataset, self.device)
 
         self.log_dir = log_dir or tb.reference_log_dir(cfg.log_dir)
-        self.writer = tb.SummaryWriter(self.log_dir)
-        with open(os.path.join(self.log_dir, "config.json"), "w") as fh:
-            fh.write(cfg.to_json())
+        if self._is_coordinator:
+            self.writer = tb.SummaryWriter(self.log_dir)
+            with open(os.path.join(self.log_dir, "config.json"), "w") as fh:
+                fh.write(cfg.to_json())
+        else:  # every rank computes, the coordinator writes
+            self.writer = tb.NullWriter()
 
         # eval fixtures (reference train.py:305-311), the JAX Runner's draws
         fr = np.random.default_rng(cfg.seed + 1)
@@ -111,8 +128,9 @@ class Runner(ResilientRunnerMixin):
     # ------------------------------------------------------------------ eval
     def log_sample(self, epoch: int):
         """Per-epoch eval with the EMA params when kept: preview, inversion,
-        edits and sampling, logged under the reference's TensorBoard tags
-        (train.py:323-496)."""
+        edits and sampling (the sampler's batch split over the ranks),
+        logged under the reference's TensorBoard tags (train.py:323-496).
+        Every rank runs it; the coordinator writes."""
         self._ema_model = trainer.eval_model(self.state, self._ema_model)
         out = self.eval_fn(self._ema_model, self.example_image, self.noise_bank,
                            self.dictionary)
@@ -165,9 +183,9 @@ class Runner(ResilientRunnerMixin):
 
     def _metric_sample(self, model, init):
         """The sampler's batch for FID/KID: ``len(sample_timesteps(cfg))``
-        denoiser calls on ``init``, on the runner's device."""
-        return sampler.sample(self.cfg, model, torch.as_tensor(init).to(self.device),
-                              snapshots=False).images
+        denoiser calls on ``init``, on the runner's device, split over the
+        ranks and gathered."""
+        return self._metric_sampler(model, torch.as_tensor(init).to(self.device))
 
     def _fid_reference_set(self, n: int) -> np.ndarray:
         """The fixed comparison set: the held-out files reserved at
@@ -183,7 +201,9 @@ class Runner(ResilientRunnerMixin):
                 batch = next(self.data_iter)
                 if isinstance(batch, dict):  # labeled batches
                     batch = batch["image"]
-                data.append(torch.as_tensor(batch).float().cpu().numpy())
+                # every rank's rows: the same reference set on every rank
+                data.append(multihost.host_fetch(torch.as_tensor(batch).float(),
+                                                 ("data",)).numpy())
             out = np.concatenate(data, 0)[:n]
         self._fid_reference = out
         return out

@@ -15,10 +15,16 @@ Every runner (the diffusion ``Runner``, ``GANRunner``) mixes this in for:
     ``host_sync_every`` steps, one read per metric per epoch), the
     checkpoint cadence and TensorBoard scalars at the global epoch.
 
-The JAX module's pod branches (per-host sidecars, collectives before the
-coordinator gate) have no counterpart: the port runs one process. The
-runner's ``torch.Generator`` (``self.generator``) is saved and restored
-with the state, so a resumed run draws what an unbroken one draws.
+Across processes (``parallel/multihost``), as the JAX module's pod
+branches: every rank computes and restores; only the coordinator writes
+the step, after every rank wrote its own data-position sidecar
+(``step_<N>.extra.host<k>.json``); the gather of ZeRO-1 moments
+(``host_complete`` with the runner's ``shardings``) is a collective, so it
+runs on every rank before the coordinator gate; and a barrier after each
+save (after the drain of the async saver, for ``checkpoint_async``) makes
+the step durable before any rank goes on. The runner's ``torch.Generator``
+(``self.generator``, alike on every rank) is saved and restored with the
+state, so a resumed run draws what an unbroken one draws.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import time
 
 import torch
 
+from ..parallel import multihost
 from ..utils import checkpoint as ckpt_lib
 
 
@@ -58,15 +65,29 @@ class ResilientRunnerMixin:
 
     def _checkpoint_now(self):
         """Save state, generator and the data-position sidecar; returns the
-        step path. The CPU snapshot is complete before an async save is
-        queued: the next step updates the live tensors in place."""
-        snap = ckpt_lib.host_complete(self.state, self.generator)
+        step path (None on the ranks that do not write). The CPU snapshot
+        is complete before an async save is queued: the next step updates
+        the live tensors in place. Every rank calls this at the same step."""
+        shardings = getattr(self, "shardings", None)
+        snap = None
+        if multihost.is_coordinator() or multihost.any_cross_process_sharded(shardings):
+            snap = ckpt_lib.host_complete(self.state, self.generator, shardings)
         extra = self._data_state_extra()
+        if multihost.process_count() > 1 and extra is not None:
+            ckpt_lib.save_host_extra(self.cfg.checkpoint_dir, int(self.state.step), extra,
+                                     host=multihost.process_index())
+        path = None
         if self.cfg.checkpoint_async:
-            if getattr(self, "_ckpt_saver", None) is None:
-                self._ckpt_saver = ckpt_lib.AsyncSaver()
-            return self._ckpt_saver.submit(self.cfg.checkpoint_dir, snap, self.cfg, extra=extra)
-        return ckpt_lib.save(self.cfg.checkpoint_dir, snap, self.cfg, extra=extra)
+            if multihost.is_coordinator():
+                if getattr(self, "_ckpt_saver", None) is None:
+                    self._ckpt_saver = ckpt_lib.AsyncSaver()
+                path = self._ckpt_saver.submit(self.cfg.checkpoint_dir, snap, self.cfg,
+                                               extra=extra)
+            return path
+        if multihost.is_coordinator():
+            path = ckpt_lib.save(self.cfg.checkpoint_dir, snap, self.cfg, extra=extra)
+        multihost.barrier()
+        return path
 
     def _maybe_keep_best(self, value, epoch: int, metric: str):
         """Config.keep_best: save the state under <checkpoint_dir>/best when
@@ -98,17 +119,29 @@ class ResilientRunnerMixin:
             self._best_metric = prev
             return None
         self._best_metric = float(value)
-        path = ckpt_lib.save_best(cfg.checkpoint_dir, ckpt_lib.host_complete(self.state), cfg,
-                                  metric=metric, value=float(value), epoch=epoch)
-        print(f"keep_best: {metric}={value:.4f} at step {int(self.state.step)} -> {path}")
+        # every rank reaches this with the same value (the eval is
+        # replicated); the ZeRO-1 gather inside host_complete is a collective
+        shardings = getattr(self, "shardings", None)
+        snap = None
+        if multihost.is_coordinator() or multihost.any_cross_process_sharded(shardings):
+            snap = ckpt_lib.host_complete(self.state, shardings=shardings)
+        path = None
+        if multihost.is_coordinator():
+            path = ckpt_lib.save_best(cfg.checkpoint_dir, snap, cfg, metric=metric,
+                                      value=float(value), epoch=epoch)
+            print(f"keep_best: {metric}={value:.4f} at step {int(self.state.step)} -> {path}")
+        multihost.barrier()
         return path
 
     def _checkpoint_flush(self):
-        """Drain pending async saves (a no-op without checkpoint_async): the
-        checkpoint directory is consistent only after it."""
+        """Drain pending async saves (a no-op without checkpoint_async), then
+        wait for every rank: the checkpoint directory is consistent only
+        after it. Every rank calls this at the same point."""
         saver = getattr(self, "_ckpt_saver", None)
         if saver is not None:
             saver.wait()
+        if self.cfg.checkpoint_async:
+            multihost.barrier()
 
     def _close_checkpoints(self):
         """Drain pending async saves and stop the saver's thread (close)."""
@@ -120,7 +153,8 @@ class ResilientRunnerMixin:
     def _restore_checkpoint(self):
         """Restore the latest checkpoint into the live state and generator."""
         self.state = ckpt_lib.restore(self.cfg.checkpoint_dir, self.state,
-                                      generator=self.generator)
+                                      generator=self.generator,
+                                      shardings=getattr(self, "shardings", None))
 
     def _restore_data_state(self):
         """Apply the latest checkpoint's data-position sidecar to the
@@ -129,7 +163,8 @@ class ResilientRunnerMixin:
         is skipped with a printed line."""
         if not self.cfg.checkpoint_dir:
             return
-        extra = ckpt_lib.load_extra(self.cfg.checkpoint_dir)
+        host = multihost.process_index() if multihost.process_count() > 1 else None
+        extra = ckpt_lib.load_extra(self.cfg.checkpoint_dir, host=host)
         if not extra or "data" not in extra:
             return
         sources = self._data_sources()

@@ -30,6 +30,14 @@ What differs from the JAX package, and why:
     are Python ints; counts that dynamic loss scaling may hold back (Adam's,
     the schedule's) are int32 tensors on the parameters' device, so a step
     never waits for the card.
+  * Data parallelism (``mesh=``, built by ``parallel/mesh.py``): the batch
+    is this rank's rows of the global batch; t, ε and the augment's
+    parameters are drawn for the global batch and the rank takes its rows
+    (trainer.py:283-284 draws over the global shape), the fused path runs
+    B1s with the rank's position, and the gradients and the loss are
+    averaged over the ranks by one ``all_reduce`` before the update (and
+    before the non-finite test). The update runs on the rank's ZeRO-1
+    slices under ``cfg.zero1`` (``update_params``).
 """
 
 from __future__ import annotations
@@ -46,6 +54,8 @@ from ..models import api as model_api
 from ..models import unet
 from ..ops import adam_kernel, fused_diffusion
 from ..ops import image as image_ops
+from ..parallel import mesh as mesh_lib
+from ..parallel import multihost
 
 
 class ScaleState(NamedTuple):
@@ -225,10 +235,15 @@ def add_decayed_weights(weight_decay: float) -> GradientTransformation:
 
 def clip_by_global_norm(max_norm: float) -> GradientTransformation:
     """optax.clip_by_global_norm: scale by ``max_norm/‖g‖`` only when
-    ``‖g‖ >= max_norm`` (no epsilon in the norm)."""
+    ``‖g‖ >= max_norm`` (no epsilon in the norm). On ZeRO-1 slices
+    (``params`` a ``parallel/mesh.RankSlices``) the norm is the full
+    gradient's, summed over the ranks."""
 
     def update(updates, state, params=None):
-        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in updates))
+        if hasattr(params, "global_sum"):
+            g_norm = torch.sqrt(params.global_sum([torch.sum(g * g) for g in updates]))
+        else:
+            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in updates))
         trigger = g_norm < max_norm
         return [torch.where(trigger, g, (g / g_norm.to(g.dtype)) * max_norm)
                 for g in updates], state
@@ -345,29 +360,44 @@ def compute_loss(cfg, target, prediction):
     raise ValueError(f"unknown loss {cfg.loss!r}")
 
 
-def draw_and_diffuse(cfg, batch, generator, *, t_int=None, epsilon_in=None):
+def draw_and_diffuse(cfg, batch, generator, *, t_int=None, epsilon_in=None, mesh=None):
     """The (t, ε) draws, forward diffusion and target of ``diffusion_loss``
     (trainer.py:272-322). ``t_int``/``epsilon_in`` inject the draws (the
-    step-parity harness). Returns ``(noised, target, prediction_scale,
-    t_int)`` with ``t_int`` (B, 1, 1, 1) int32 on the batch's device. On the
-    fused path the draws of t and of B1's seed and B1 itself are the only
-    launches: B1 gathers its scales by t."""
+    step-parity harness; on a mesh, this rank's rows). Returns ``(noised,
+    target, prediction_scale, t_int)`` with ``t_int`` (B, 1, 1, 1) int32 on
+    the batch's device. On the fused path the draws of t and of B1's seed
+    and B1 itself are the only launches: B1 gathers its scales by t. On a
+    mesh of more than one rank the draws are the global batch's and the
+    fused path is B1s at the rank's position, when ``fused_sharded_ok``
+    (trainer.py:288-311)."""
     b, dev = batch.shape[0], batch.device
+    n = mesh_lib.global_rows(b, mesh)
     if t_int is None:
-        t_int = torch.randint(1, cfg.steps + 1, (b, 1, 1, 1), generator=generator,
-                              device=generator.device, dtype=torch.int32).to(dev)
+        t_int = mesh_lib.local_rows(torch.randint(
+            1, cfg.steps + 1, (n, 1, 1, 1), generator=generator, device=generator.device,
+            dtype=torch.int32), mesh).to(dev)
     else:
         t_int = torch.as_tensor(t_int, dtype=torch.int32).reshape(b, 1, 1, 1).to(dev)
-    if fused_diffusion.use_fused(cfg, batch.shape, epsilon_in):
+    fused = fused_diffusion.use_fused(cfg, batch.shape, epsilon_in)
+    sharded = mesh is not None and mesh.size > 1
+    if fused and sharded:
+        fused = fused_diffusion.fused_sharded_ok(cfg, (n, *batch.shape[1:]), mesh.size,
+                                                 ("data",))
+    if fused:
         seed = torch.randint(0, 2**62, (1,), generator=generator, device=generator.device,
                              dtype=torch.int64).to(dev)
-        noised = fused_diffusion.forward_diffuse_fused(cfg, batch, t_int, seed)
+        if sharded:
+            noised = fused_diffusion.forward_diffuse_fused_sharded(cfg, batch, t_int, seed,
+                                                                   mesh.rank)
+        else:
+            noised = fused_diffusion.forward_diffuse_fused(cfg, batch, t_int, seed)
         epsilon, t = None, None  # ε never materialised; the x target needs no ᾱ(t)
     else:
         t = t_int.to(batch.dtype)
         if epsilon_in is None:
-            epsilon = torch.randn(batch.shape, generator=generator, device=generator.device,
-                                  dtype=batch.dtype).to(dev)
+            epsilon = mesh_lib.local_rows(torch.randn(
+                (n, *batch.shape[1:]), generator=generator, device=generator.device,
+                dtype=batch.dtype), mesh).to(dev)
         else:
             epsilon = torch.as_tensor(epsilon_in, dtype=batch.dtype).to(dev)
         noised = diffusion.forward_diffuse(cfg, batch, epsilon, t)
@@ -380,7 +410,7 @@ def _image(batch):
     return batch["image"] if isinstance(batch, dict) else batch
 
 
-def diffusion_loss(cfg, model, batch, generator, *, t_int=None, epsilon_in=None):
+def diffusion_loss(cfg, model, batch, generator, *, t_int=None, epsilon_in=None, mesh=None):
     """Draw (t, ε), noise the batch, predict, and take the loss. A dict
     batch ``{"image", "label"}`` (class-conditional training) passes its
     label to the model as ``class_idx`` (trainer.py:244-266)."""
@@ -389,37 +419,38 @@ def diffusion_loss(cfg, model, batch, generator, *, t_int=None, epsilon_in=None)
         label = batch.get("label")
         batch = batch["image"]
     noised, target, pred_scale, t_int = draw_and_diffuse(
-        cfg, batch, generator, t_int=t_int, epsilon_in=epsilon_in)
+        cfg, batch, generator, t_int=t_int, epsilon_in=epsilon_in, mesh=mesh)
     prediction = model_api.apply_denoiser(cfg, model, noised, t_int[:, 0, 0, 0],
                                           class_idx=label)
     prediction = prediction.to(torch.float32) * pred_scale
     return compute_loss(cfg, target, prediction)
 
 
-def augment_if_uint8(cfg, batch, generator):
+def augment_if_uint8(cfg, batch, generator, mesh=None):
     """The on-device crop / flip / normalise of uint8 (HBM-resident raw
     pixel) batches, ``data/device_augment.augment_batch`` at ``cfg.size``,
-    drawing from ``generator``; dict (labeled) batches keep their other
-    entries; float batches pass through untouched and draw nothing
-    (trainer.py:343-357)."""
+    drawing from ``generator`` (for the global batch on a mesh); dict
+    (labeled) batches keep their other entries; float batches pass through
+    untouched and draw nothing (trainer.py:343-357)."""
     raw = _image(batch)
     if raw.dtype != torch.uint8:
         return batch
-    augmented = device_augment.augment_batch(raw, generator, cfg.size)
+    augmented = device_augment.augment_batch(raw, generator, cfg.size, mesh)
     if isinstance(batch, dict):
         return dict(batch, image=augmented)
     return augmented
 
 
-def fold_and_augment(cfg, batch, generator):
+def fold_and_augment(cfg, batch, generator, mesh=None):
     """The step's augment (trainer.py:325-340): a uint8 batch is cropped,
     flipped and normalised before t and ε are drawn, outside the
     differentiated region. JAX folds the step number into its key here; the
     port's generator advances with every draw instead."""
-    return augment_if_uint8(cfg, batch, generator)
+    return augment_if_uint8(cfg, batch, generator, mesh)
 
 
-def loss_and_grads(cfg, model, batch, generator, scale=None, *, t_int=None, epsilon_in=None):
+def loss_and_grads(cfg, model, batch, generator, scale=None, *, t_int=None, epsilon_in=None,
+                   mesh=None):
     """The differentiated part of the step: ``(loss, grads)`` for
     ``model.parameters()``, the loss multiplied by ``scale`` when given (the
     grads then too). float32 convs and matmuls stay IEEE float32 from the
@@ -427,7 +458,8 @@ def loss_and_grads(cfg, model, batch, generator, scale=None, *, t_int=None, epsi
     compute the weight and input gradients in TF32."""
     params = list(model.parameters())
     with unet.ieee_fp32(torch.float32, _image(batch).device):
-        loss = diffusion_loss(cfg, model, batch, generator, t_int=t_int, epsilon_in=epsilon_in)
+        loss = diffusion_loss(cfg, model, batch, generator, t_int=t_int, epsilon_in=epsilon_in,
+                              mesh=mesh)
         if scale is not None:
             loss = loss * scale
         grads = torch.autograd.grad(loss, params)
@@ -445,29 +477,59 @@ def _select(pred, new, old):
     return new
 
 
-def _apply(cfg, optimizer, state, params, grads):
-    """The update without loss scaling: B2 when ``fused_adam_ok``, else the
-    optax-form optimizer. Returns the new optimizer state."""
-    if adam_kernel.fused_adam_ok(cfg):
+def average_over_ranks(mesh, grads, metrics):
+    """``(grads, metrics)`` averaged over the ranks of ``mesh`` by one
+    ``all_reduce``: the gradient and the metrics of the global batch
+    (each rank's batch is an equal share of it). As they are in one
+    process."""
+    if mesh is None or mesh.size == 1:
+        return list(grads), metrics
+    values = multihost.all_reduce_mean([*grads, *metrics])
+    return values[:len(grads)], values[len(grads):]
+
+
+@torch.no_grad()
+def update_params(optimizer, opt_state, params, grads, mesh=None, zero1: bool = False,
+                  finite=None):
+    """``optimizer.update`` and its in-place apply (only where ``finite``,
+    when given); under ``zero1`` on a mesh of more than one rank, on this
+    rank's slices (``parallel/mesh.zero1_update``). Returns the new
+    optimizer state."""
+    if zero1 and mesh is not None and mesh.size > 1:
+        return mesh_lib.zero1_update(optimizer, opt_state, params, grads, mesh, finite)
+    updates, new_state = optimizer.update(grads, opt_state, params)
+    if finite is None:
+        apply_updates(params, updates)
+    else:
+        for p, u in zip(params, updates):
+            p.copy_(torch.where(finite, p + u.to(p.dtype), p))
+    return new_state
+
+
+def _apply(cfg, optimizer, state, params, grads, mesh=None):
+    """The update without loss scaling: B2 when ``fused_adam_ok`` (never on
+    a mesh of more than one rank), else the optax-form optimizer. Returns
+    the new optimizer state."""
+    if adam_kernel.fused_adam_ok(cfg, mesh.size if mesh is not None else 1):
         grads = [g.contiguous() for g in grads]
         return adam_kernel.fused_adam_apply(cfg, params, state.opt_state, grads)
-    updates, opt_state = optimizer.update(grads, state.opt_state, params)
-    apply_updates(params, updates)
-    return opt_state
+    return update_params(optimizer, state.opt_state, params, grads, mesh, cfg.zero1)
 
 
-def train_step(cfg, optimizer, state: TrainState, batch, generator):
+def train_step(cfg, optimizer, state: TrainState, batch, generator, mesh=None):
     """One optimizer step (trainer.py:360-442). Updates the model's
     parameters in place; returns ``(new_state, loss)`` with the loss a
-    float32 tensor on the batch's device (no host sync)."""
-    batch = fold_and_augment(cfg, batch, generator)
+    float32 tensor on the batch's device (no host sync). On a mesh,
+    ``batch`` is this rank's rows and the loss the global batch's."""
+    batch = fold_and_augment(cfg, batch, generator, mesh)
     dynamic = cfg.dynamic_loss_scale
     if dynamic:
         scale = state.scale_state.scale
     else:
         scale = cfg.loss_scale if cfg.loss_scale > 0 else None
     params = list(state.model.parameters())
-    loss, grads = loss_and_grads(cfg, state.model, batch, generator, scale)
+    loss, grads = loss_and_grads(cfg, state.model, batch, generator, scale, mesh=mesh)
+    grads, (loss,) = average_over_ranks(mesh, grads, [loss])
     if scale is not None:
         inv = 1.0 / scale
         loss = loss * inv
@@ -478,10 +540,8 @@ def train_step(cfg, optimizer, state: TrainState, batch, generator):
         # skip the whole update on any non-finite gradient and halve the
         # scale; double it after growth_interval clean steps (train.py:82-83)
         finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
-        updates, new_opt = optimizer.update(grads, state.opt_state, params)
-        with torch.no_grad():
-            for p, u in zip(params, updates):
-                p.copy_(torch.where(finite, p + u.to(p.dtype), p))
+        new_opt = update_params(optimizer, state.opt_state, params, grads, mesh, cfg.zero1,
+                                finite)
         opt_state = _select(finite, new_opt, state.opt_state)
         s, good = scale_state.scale, scale_state.good_steps + 1
         grow = finite & (good >= cfg.loss_scale_growth_interval)
@@ -490,7 +550,7 @@ def train_step(cfg, optimizer, state: TrainState, batch, generator):
         new_good = torch.where(finite & ~grow, good, torch.zeros_like(good))
         scale_state = ScaleState(new_scale, new_good)
     else:
-        opt_state = _apply(cfg, optimizer, state, params, grads)
+        opt_state = _apply(cfg, optimizer, state, params, grads, mesh)
     ema = ema_update(cfg, state.ema_params, params, opt_state, finite=finite)
     return TrainState(state.step + 1, state.model, opt_state, ema, scale_state), loss
 
@@ -535,18 +595,21 @@ def make_train_step(cfg):
     return step
 
 
-def make_injected_train_step(cfg):
+def make_injected_train_step(cfg, mesh=None):
     """``step(state, batch, t_int, epsilon) -> (state, loss)`` with the draws
     supplied by the caller (trainer.py:472-503): no augmentation, loss
     scaling or EMA. The update is applied as ``train_step`` applies it, so
-    under ``adam_fused`` it goes through B2."""
+    under ``adam_fused`` it goes through B2 (in one process). On a mesh the
+    batch, t and ε are this rank's rows, and the gradients and the loss
+    are averaged over the ranks."""
     optimizer = make_optimizer(cfg)
 
     def step(state, batch, t_int, epsilon):
         loss, grads = loss_and_grads(cfg, state.model, batch, None, t_int=t_int,
-                                     epsilon_in=epsilon)
+                                     epsilon_in=epsilon, mesh=mesh)
+        grads, (loss,) = average_over_ranks(mesh, grads, [loss])
         params = list(state.model.parameters())
-        opt_state = _apply(cfg, optimizer, state, params, grads)
+        opt_state = _apply(cfg, optimizer, state, params, grads, mesh)
         return state._replace(step=state.step + 1, opt_state=opt_state), loss
 
     return step

@@ -160,38 +160,42 @@ def run_sampler_benchmark(cfg, batch: int = 8, iters: int = 3, mesh=None,
     ``len(sample_timesteps(cfg))`` denoiser calls a batch) at ``batch``
     images from random weights, after one untimed call; the JAX function's
     keys. ``sampler_mfu`` is None off an H100 SXM and in float32, as in
-    ``run_benchmark``. One card: a mesh beyond one device raises."""
+    ``run_benchmark``. On a mesh (``parallel/mesh.py``) the batch is split
+    over the ranks as ``shard_sample_batch`` splits it (every rank calls
+    this; the rate is the whole batch's, the TFLOP/s each rank's share)."""
     from ..models import api
+    from ..parallel import mesh as mesh_lib
+    from ..parallel import multihost
     from ..sample import sampler
 
-    if mesh is not None and getattr(mesh, "size", 1) > 1:
-        raise NotImplementedError(
-            "run_sampler_benchmark: device meshes (parallel/mesh.py) are not ported to "
-            "PyTorch yet; the port samples on one card (mesh=None)")
-    device = api.resolve_device(device)
+    device = mesh.device if mesh is not None else api.resolve_device(device)
     model = api.init_denoiser(cfg, device=device)
     r = np.random.default_rng(0)
     init = torch.from_numpy(
         r.normal(size=(batch, cfg.size, cfg.size, 3)).astype(np.float32)).to(device)
+    init, _ = mesh_lib.shard_sample_batch(init, mesh)
     imgs = sampler.sample(cfg, model, init, snapshots=False).images
     float(imgs.sum())  # warm up and synchronise
     _synchronize(device)
+    multihost.barrier()
     t0 = time.perf_counter()
     for _ in range(iters):
         imgs = sampler.sample(cfg, model, init, snapshots=False).images
     _synchronize(device)
+    multihost.barrier()  # the whole batch is done when the last rank is
     dt = time.perf_counter() - t0
     # forward-only: each visited timestep is one denoiser forward
     n_calls = len(sampler.sample_timesteps(cfg))
     ips = batch * iters / dt
-    tflops = ips * n_calls * model_flops_per_image(cfg) / 1e12
+    ranks = mesh.size if mesh is not None else 1
+    tflops = ips / ranks * n_calls * model_flops_per_image(cfg) / 1e12
     peak = _peak_tflops(cfg.compute_dtype, device)
     return {
         "sampler_images_per_sec": round(ips, 3),
         "sampler_batch": batch,
         "sampler_steps": cfg.steps,
         "sampler_denoiser_calls": n_calls,
-        "sampler_mesh": 1,
+        "sampler_mesh": ranks,
         "sampler_tflops_per_chip": round(tflops, 3),
         "sampler_mfu": round(tflops / peak, 4) if peak else None,
     }

@@ -5,6 +5,7 @@ Layout (the JAX module's, with the orbax directory replaced):
 
     <dir>/step_<N:09d>/state.pt        one torch.save file: plain tensors + ints
     <dir>/step_<N:09d>.extra.json      sidecar (the data-stream position)
+    <dir>/step_<N:09d>.extra.host<k>.json  rank k's own sidecar (multi-process runs)
     <dir>/config.json                  the run's Config + checkpoint_format_version
     <dir>/best/                        keep_best: a checkpoint dir of its own + best.json
 
@@ -29,7 +30,15 @@ What differs from the JAX package, and why:
     (``Tensor.copy_``): each keeps its device and dtype (bfloat16 moments
     stay bfloat16) and the lists that B2 walks stay the same objects.
     Python ints (steps, MultiSteps counters) come back in a rebuilt state.
-  * One process: no per-host sidecars.
+  * Multi-process runs (``parallel/multihost``): every rank restores;
+    only the coordinator writes the step, but every rank writes its own
+    ``step_<N>.extra.host<k>.json`` first (the ranks read different file
+    shards, so their data positions are their own), and ``load_extra(host=k)``
+    prefers it. Under ZeRO-1 a state's optimizer leaves are this rank's
+    slices: ``host_complete(..., shardings)`` gathers them (a collective,
+    run on every rank) so the file holds the full moments, and ``restore(...,
+    shardings)`` slices them again, so a checkpoint moves between world
+    sizes.
 
 Each save writes ``step_<N>.tmp`` and renames it into place, so a
 ``step_<N>`` directory that exists is complete.
@@ -48,6 +57,7 @@ import torch
 from torch import nn
 
 from ..config import Config
+from ..parallel import multihost
 
 # stamped into config.json; bump when the layout above changes
 CHECKPOINT_FORMAT_VERSION = 1
@@ -93,13 +103,17 @@ def _walk(node, prefix: str, out: dict):
             _walk(value, f"{prefix}.{i}", out)
 
 
-def host_complete(state, generator: Optional[torch.Generator] = None) -> Snapshot:
+def host_complete(state, generator: Optional[torch.Generator] = None,
+                  shardings: Optional[dict] = None) -> Snapshot:
     """A CPU copy of ``state`` (a ``TrainState`` or ``GANState``) and of
-    ``generator``'s state, complete when this returns."""
+    ``generator``'s state, complete when this returns. ``shardings``
+    ({name: spec}, ``parallel/mesh.state_shardings``): leaves split across
+    the ranks are gathered to their full value (``multihost.host_fetch``,
+    a collective: every rank calls this)."""
     flat: dict = {}
     _walk(state, "", flat)
-    tensors = {k: v.detach().to("cpu", copy=True) for k, v in flat.items()
-               if isinstance(v, torch.Tensor)}
+    tensors = {k: v for k, v in flat.items() if isinstance(v, torch.Tensor)}
+    tensors = multihost.host_fetch(tensors, {k: (shardings or {}).get(k) for k in tensors})
     ints = {k: int(v) for k, v in flat.items() if not isinstance(v, torch.Tensor)}
     if generator is not None:
         tensors["generator"] = generator.get_state()
@@ -230,11 +244,19 @@ def prune(ckpt_dir: str, keep: int, protect: Optional[int] = None) -> int:
                 os.remove(extra)
         removed += 1
     if steps:
+        # leftover .tmp sidecars, and orphan rank sidecars: a rank writes
+        # its own before the coordinator commits the step, so a crashed save
+        # leaves one with no step dir; only steps older than the newest
+        # committed one are swept (a newer one may belong to a save in flight)
+        have = set(all_steps(ckpt_dir))
         root = globlib.escape(os.path.abspath(ckpt_dir))
-        for extra in globlib.glob(os.path.join(root, "step_*.extra*.json.tmp")):
-            m = re.match(r"step_(\d+)\.extra", os.path.basename(extra))
-            if m and int(m.group(1)) < steps[-1]:
-                os.remove(extra)
+        for pattern, orphans_only in (("step_*.extra*.json.tmp", False),
+                                      ("step_*.extra.host*.json", True)):
+            for extra in globlib.glob(os.path.join(root, pattern)):
+                m = re.match(r"step_(\d+)\.extra", os.path.basename(extra))
+                if m and int(m.group(1)) < steps[-1] and not (
+                        orphans_only and int(m.group(1)) in have):
+                    os.remove(extra)
     return removed
 
 
@@ -265,26 +287,38 @@ def read_best(ckpt_dir: str) -> Optional[dict]:
         return json.load(fh)
 
 
-def save_host_extra(ckpt_dir: str, step: int, extra: dict) -> str:
-    """Write the JSON sidecar of ``step_<N>`` (atomically, after the step
-    commits: a crash in between costs only the data position); returns its
-    path. The JAX module's per-host variant has no use in one process."""
+def _extra_path(ckpt_dir: str, step: int, host: Optional[int] = None) -> str:
+    suffix = ".extra.json" if host is None else f".extra.host{host}.json"
+    return _step_path(ckpt_dir, step) + suffix
+
+
+def save_host_extra(ckpt_dir: str, step: int, extra: dict, host: Optional[int] = None) -> str:
+    """Write the JSON sidecar of ``step_<N>`` atomically; returns its path.
+    ``host=None``: the coordinator's ``.extra.json``, written after the
+    step commits (a crash in between costs only the data position);
+    ``host=k``: rank k's own ``.extra.host<k>.json`` (JAX
+    checkpoint.py:229-250), one file a rank, so ranks never race."""
     os.makedirs(ckpt_dir, exist_ok=True)
-    path = _step_path(ckpt_dir, int(step)) + ".extra.json"
+    path = _extra_path(ckpt_dir, int(step), host)
     _write_json(path, extra)
     return path
 
 
-def load_extra(ckpt_dir: str, step: Optional[int] = None) -> Optional[dict]:
-    """The JSON sidecar of ``step_<N>`` (the latest step by default), or None."""
+def load_extra(ckpt_dir: str, step: Optional[int] = None,
+               host: Optional[int] = None) -> Optional[dict]:
+    """The JSON sidecar of ``step_<N>`` (the latest step by default), or
+    None. ``host``: prefer that rank's own sidecar, falling back to the
+    coordinator's (valid as a fallback: the ranks' streams advance in
+    lockstep)."""
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         return None
-    path = _step_path(ckpt_dir, step) + ".extra.json"
-    if not os.path.exists(path):
-        return None
-    with open(path) as fh:
-        return json.load(fh)
+    for path in ([_extra_path(ckpt_dir, step, host)] if host is not None else []) + [
+            _extra_path(ckpt_dir, step)]:
+        if os.path.exists(path):
+            with open(path) as fh:
+                return json.load(fh)
+    return None
 
 
 def load_state_file(ckpt_dir: str, step: Optional[int] = None) -> dict:
@@ -302,13 +336,14 @@ def load_state_file(ckpt_dir: str, step: Optional[int] = None) -> dict:
 
 @torch.no_grad()
 def restore(ckpt_dir: str, like, step: Optional[int] = None,
-            generator: Optional[torch.Generator] = None):
+            generator: Optional[torch.Generator] = None, shardings: Optional[dict] = None):
     """Restore into ``like`` (a live state of the same structure, e.g. from
     ``trainer.init_state``, or a ``Subset`` of one): every tensor is
     overwritten in place, and the state is returned with its ints (steps,
     counters) from the file. With ``generator``, its state is restored too
     when the checkpoint holds one from a generator on the same kind of
-    device."""
+    device. ``shardings`` ({name: spec}): a leaf split across the ranks
+    takes this rank's part of the saved full value."""
     partial = isinstance(like, Subset)
     if partial:
         like = like.state
@@ -328,6 +363,11 @@ def restore(ckpt_dir: str, like, step: Optional[int] = None,
     for name, value in live.items():
         if isinstance(value, torch.Tensor):
             src = saved[name]
+            spec = (shardings or {}).get(name)
+            if multihost.is_cross_process_sharded(spec):
+                dim = next(i for i, e in enumerate(spec) if e is not None)
+                k = src.shape[dim] // multihost.process_count()
+                src = src.narrow(dim, multihost.process_index() * k, k)
             if src.shape != value.shape:
                 raise ValueError(f"checkpoint {name}: shape {tuple(src.shape)}, the state "
                                  f"has {tuple(value.shape)}")

@@ -279,8 +279,15 @@ def test_transfer_matches_jax():
                                             torch.as_tensor(target).expand(3))
         np.testing.assert_allclose(got, want, atol=1e-5)
         np.testing.assert_array_equal(fn.numpy(), got)
-    with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
-        cgan.make_transfer_fn(cfg, mesh=object())
+    # on a mesh of one rank the transfer is the same function
+    # (tests/test_torch_parallel.py splits it over two ranks)
+    from gan_class_transfer2_tpu_torch.parallel import mesh as mesh_lib
+
+    one = cgan.make_transfer_fn(cfg, mesh=mesh_lib.make_mesh(device="cpu"))
+    with torch.inference_mode():
+        tv = torch.tensor([1, 2, 0])
+        assert torch.equal(one(cgan.select_generator(state), T(x), tv),
+                           cgan.make_transfer_fn(cfg)(cgan.select_generator(state), T(x), tv))
 
 
 def _class_dirs(root, n=6):

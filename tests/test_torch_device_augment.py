@@ -136,9 +136,13 @@ def test_hbm_dataset_refusals():
         aug.HBMDataset(np.zeros((2, 12, 20, 3), np.uint8), 16, 2, device="cpu")
     with pytest.raises(TypeError, match="uint8 or float32"):
         aug.HBMDataset(np.zeros((2, 16, 16, 3), np.float64), 16, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        aug.HBMDataset(np.zeros((2, 16, 16, 3), np.uint8), 16, 2, sharding=object(),
-                       device="cpu")
+    # a batch sharding (parallel/mesh.py) splits the global batch over the
+    # ranks, which must divide it
+    from gan_class_transfer2_tpu_torch.parallel import mesh as mesh_lib
+
+    with pytest.raises(ValueError, match="not divisible by 2 ranks"):
+        aug.HBMDataset(np.zeros((2, 16, 16, 3), np.uint8), 16, 3,
+                       sharding=mesh_lib.batch_sharding(mesh_lib.Mesh(2, 0, "cpu")))
 
 
 def test_hbm_dataset_defaults_to_the_card():

@@ -181,8 +181,8 @@ def test_distill_step_augments_uint8_batches_on_the_device():
     seen = []
     aug = trainer.augment_if_uint8
 
-    def spy(c, batch, generator):
-        out = aug(c, batch, generator)
+    def spy(c, batch, generator, mesh=None):
+        out = aug(c, batch, generator, mesh)
         seen.append((batch.dtype, out.dtype, tuple(out.shape)))
         return out
 

@@ -191,6 +191,10 @@ def test_run_sampler_benchmark_has_the_jax_keys():
     assert sorted(ours) == sorted(theirs)
     assert ours["sampler_denoiser_calls"] == theirs["sampler_denoiser_calls"] == 4
     assert ours["sampler_mfu"] is None and ours["sampler_images_per_sec"] > 0
-    with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
-        benchmark.run_sampler_benchmark(tiny_test_config(), mesh=type("M", (), {"size": 2})(),
-                                        device="cpu")
+    # a mesh is ported (parallel/mesh.py): one rank here, two in
+    # tests/test_torch_parallel.py
+    from gan_class_transfer2_tpu_torch.parallel import mesh as mesh_lib
+
+    on_mesh = benchmark.run_sampler_benchmark(tiny_test_config(steps=4), batch=2, iters=1,
+                                              mesh=mesh_lib.make_mesh(device="cpu"))
+    assert sorted(on_mesh) == sorted(theirs) and on_mesh["sampler_mesh"] == 1

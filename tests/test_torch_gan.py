@@ -341,8 +341,8 @@ def test_diffaug_draws_are_fresh_on_consecutive_steps(monkeypatch):
     seen = []
     augment = gan.diffaug.augment
 
-    def record(cfg_, generator, x):
-        y = augment(cfg_, generator, x)
+    def record(cfg_, generator, x, mesh=None):
+        y = augment(cfg_, generator, x, mesh)
         seen.append(y.detach().clone())
         return y
 
@@ -374,7 +374,8 @@ def test_uint8_batches_name_the_missing_augment_module(monkeypatch):
     augment = device_augment.augment_batch
     generate = gan._generate
     monkeypatch.setattr(device_augment, "augment_batch",
-                        lambda raw, g, size: seen.append(augment(raw, g, size)) or seen[-1])
+                        lambda raw, g, size, mesh=None: seen.append(augment(raw, g, size, mesh))
+                        or seen[-1])
     monkeypatch.setattr(gan, "_generate", lambda c, m, b: inputs.append(b) or generate(c, m, b))
     _, metrics = gan.make_gan_train_step(cfg)(state, x, x, torch.Generator().manual_seed(0))
     assert len(seen) == 2 and not torch.equal(seen[0], seen[1])  # own draws, same pixels
@@ -438,8 +439,13 @@ def test_transfer_matches_jax_and_selects_the_generator():
                        gan.transfer(cfg, state, T(x), "ab").detach())
     with pytest.raises(ValueError, match="direction"):
         gan.select_generator(state, "AB")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        gan.make_transfer_fn(cfg, mesh=object())
+    # on a mesh of one rank the transfer is the same function
+    # (tests/test_torch_parallel.py splits it over two ranks)
+    from gan_class_transfer2_tpu_torch.parallel import mesh as mesh_lib
+
+    one = gan.make_transfer_fn(cfg, mesh=mesh_lib.make_mesh(device="cpu"))
+    assert torch.equal(one(gan.select_generator(state, "ab"), T(x)), fn(
+        gan.select_generator(state, "ab"), T(x)))
 
 
 # --------------------------------------------------------------------- cli

@@ -345,8 +345,11 @@ def jax_params_np(params):
 
 def test_fid_and_multi_host_are_refused(cfg, tmp_path):
     """FID is ported: fid_samples=4 reserves held-out files (class 0's
-    are the reference set) and no longer raises; multi-host still does.
-    (The name is kept from when both were refused.)"""
+    are the reference set) and no longer raises. Multi-process training is
+    ported too (parallel/multihost.py, tests/test_torch_multihost.py): what
+    is refused now is a rank without a coordinator, which would train
+    alone, and a coordinator without the world size and rank. (The name is
+    kept from when both were refused.)"""
     r = np.random.default_rng(0)
     for i in range(6):
         Image.fromarray(r.integers(0, 256, (18, 18, 3), dtype=np.uint8)).save(
@@ -356,9 +359,10 @@ def test_fid_and_multi_host_are_refused(cfg, tmp_path):
     assert len(runner._eval_files) == 4
     assert not set(runner._eval_files) & set(runner.dataset.files)
     runner.close()
-    for flags in (["--coordinator", "localhost:1234"], ["--num-processes", "2"],
-                  ["--process-id", "0"]):
-        with pytest.raises(NotImplementedError, match="parallel/multihost.py"):
+    for flags, match in ((["--coordinator", "localhost:1234"], "num_processes and process_id"),
+                         (["--num-processes", "2"], "require --coordinator"),
+                         (["--process-id", "1"], "require --coordinator")):
+        with pytest.raises(ValueError, match=match):
             cli.main(["train", "--device", "cpu", *flags])
 
 

@@ -160,7 +160,8 @@ def test_port_imports_no_jax():
         "assert 'gan_class_transfer2_tpu_torch.cli' in names, names\n"
         "new = ['data.native_loader', 'data.cache', 'utils.metrics', 'utils.fid_extractor',\n"
         "       'serve.server', 'serve.aio', 'models.conditional', 'train.conditional_gan',\n"
-        "       'train.conditional_gan_loop', 'train.distill', 'utils.bundle']\n"
+        "       'train.conditional_gan_loop', 'train.distill', 'utils.bundle',\n"
+        "       'parallel.multihost', 'parallel.mesh']\n"
         "missing = [n for n in new if p.__name__ + '.' + n not in names]\n"
         "assert not missing, missing\n"
         "from gan_class_transfer2_tpu_torch.utils import fid_extractor\n"
@@ -281,6 +282,41 @@ def test_diffuse_kernel_matches_plain_on_card(monkeypatch):
         fd.diffuse_fused(buf[1:].view(2, 768), past, table, seed)
     with pytest.raises(TypeError, match="float32"):
         fd.diffuse_fused(x.double(), past, table, seed)
+
+
+@pytest.mark.cuda
+def test_b1s_folds_per_rank_on_card(monkeypatch):
+    """B1s (B1 on one rank's block, the seed folded by the rank's linear
+    position inside the kernel): at batch 16 × 256²×3 split into two blocks
+    of 8, each block at positions 0 and 1 equals B1 on the block with the
+    folded seed bit for bit and its plain version within 4e-6; the two
+    positions draw different ε; one launch a call, counted apart from B1's;
+    the fold leaves the seed's high word alone."""
+    from gan_class_transfer2_tpu_torch.ops import fused_diffusion as fd
+
+    _needs_card(monkeypatch)
+    r = np.random.default_rng(6)
+    seed = torch.tensor([0x7ABC_DEF0_1234_5678], dtype=torch.int64, device="cuda")
+    table = fd.scale_table(200, "quadratic", "cuda")
+    x = torch.from_numpy(r.uniform(-1, 1, (16, 256 * 256 * 3)).astype(np.float32)).cuda()
+    t = torch.from_numpy(r.integers(1, 201, 16).astype(np.int32)).cuda()
+    for block in range(2):
+        xb, tb = x[8 * block:8 * block + 8], t[8 * block:8 * block + 8]
+        for pos in range(2):
+            b1s, b1 = fd.diffuse_fused_sharded.launches, fd.diffuse_fused.launches
+            y = fd.diffuse_fused_sharded(xb, tb, table, seed, pos)
+            torch.cuda.synchronize()
+            assert fd.diffuse_fused_sharded.launches == b1s + 1
+            assert fd.diffuse_fused.launches == b1
+            assert torch.equal(y, fd.diffuse_fused(xb, tb, table, fd.fold_seed(seed, pos)))
+            ref = fd.diffuse_sharded_plain(xb, tb, table, seed, pos)
+            assert (y - ref).abs().max().item() <= 4e-6, (block, pos)
+    noise = torch.tensor([[0.0, 1.0]], device="cuda")
+    zero, t0 = torch.zeros((8, 768), device="cuda"), torch.zeros(8, dtype=torch.int32,
+                                                                   device="cuda")
+    eps = [fd.diffuse_fused_sharded(zero, t0, noise, seed, p) for p in range(2)]
+    assert (eps[0] == eps[1]).double().mean().item() < 1e-3
+    assert int(fd.fold_seed(seed, 1).item()) >> 32 == 0x7ABC_DEF0
 
 
 @pytest.mark.cuda

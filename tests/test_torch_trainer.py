@@ -321,9 +321,9 @@ def test_uint8_batches_name_the_missing_augment_module(monkeypatch):
     calls, augmented = [], []
     augment, differentiate = device_augment.augment_batch, trainer.loss_and_grads
 
-    def spy_augment(r, g, size):
+    def spy_augment(r, g, size, mesh=None):
         calls.append("augment")
-        augmented.append(augment(r, g, size))
+        augmented.append(augment(r, g, size, mesh))
         return augmented[-1]
 
     def spy_differentiate(c, m, batch, g, *a, **k):
@@ -343,6 +343,23 @@ def test_uint8_batches_name_the_missing_augment_module(monkeypatch):
     ("mesh_slice", 2, "mesh_slice"), ("pipeline_stages", 2, "pipeline"),
 ])
 def test_config_refuses_unported_parallelism(field, value, match):
+    """The model and slice mesh axes and pipeline stages are refused by
+    name. zero1 and mesh_data are ported (parallel/mesh.py): the config
+    takes them, make_mesh holds mesh_data to the world size (1 here), and
+    zero1 gates B2 off."""
+    if field in ("zero1", "mesh_data"):
+        cfg = tiny_test_config(**{field: value})
+        assert getattr(cfg, field) == value
+        if field == "mesh_data":
+            from gan_class_transfer2_tpu_torch.parallel import mesh as mesh_lib
+
+            with pytest.raises(ValueError, match=match):
+                mesh_lib.make_mesh(cfg, device="cpu")
+        else:
+            from gan_class_transfer2_tpu_torch.ops import adam_kernel
+
+            assert not adam_kernel.fused_adam_ok(cfg.replace(optimizer="adam_fused"))
+        return
     with pytest.raises(NotImplementedError, match=match):
         tiny_test_config(**{field: value})
 

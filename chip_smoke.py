@@ -103,6 +103,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      [gan-train-cli]'s (--model gan, 16 held-out images a class: exact B3/B4
      launches): finite scores; the extractor's features on the card against
      the CPU; run_sampler_benchmark at batch 16, float32 and bfloat16;
+  14a. inception — InceptionV3 pool3 (utils/inception.py) of the seeded
+     synthetic state dict written as .npz and .pth (no real weights exist
+     here; both load alike): 32 images of 256² on the card against the CPU
+     port within 1e-4 of the scale, both variants; ms per image against the
+     bound (FLOPs from ``profiler.compiled_stats``, fp32 at 67 TFLOP/s);
+     ``cli eval --fid-extractor inception:<npz>`` on [train-cli]'s
+     checkpoint at fid_samples 16: exact B4 launches, finite FID and KID;
+  14b. fid-steps — ``utils/benchmark.steps_to_fixed_fid`` on a full-width
+     GANRunner from the class PNGs with that extractor, target 0, 4 steps
+     checked every 2: (None, a finite FID) at step 4, exact B3/B4 launches,
+     its wall time;
+  14c. profiler — ``profiler.compiled_stats`` of one full-width denoiser
+     forward at batch 16 (fake tensors, no launch) against
+     ``model_flops_per_image``·16; an ``annotate`` range in a trace;
   15. serve — ``serve/server.build_service`` on [train-cli]'s diffusion and
      [gan-train-cli]'s GAN checkpoints behind the threaded Server and the
      AsyncServer on the card: exact B3/B4 launches from HTTP requests
@@ -145,6 +159,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      ``sample_stride`` 100 in the student's config.json, ``cli sample`` of
      the student (2 calls); one distill step timed beside [train]'s; one
      injected full-width step through the kernels and cuDNN (1e-5);
+  21a. dp-distill (before [serve] too) — 2 processes of this script
+     (``--dp-worker distill``) sharing cuda:0 over gloo, each a rank that
+     runs ``cli distill --num-processes 2`` on [train-cli]'s checkpoint:
+     exact B4 launches a rank, equal losses, rank 0 alone writing the
+     student (sample_stride doubled) and the events; one injected two-rank
+     step against one process ([dp-agree]'s bounds); the two-rank step and
+     its gradient all-reduce timed beside [distill]'s step;
   22. bundle (also before [serve]) — ``cli export-model`` of [train-cli]'s,
      [gan-train-cli]'s and [cgan-train-cli]'s checkpoints on the card:
      export, save and load s and MB of each program; the graphs hold B4 and B3 as ``gct2::`` custom ops
@@ -154,6 +175,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      in-process path (1e-4 of the scale, 1 level) with exact launches; the
      card's bundle on the CPU (1e-4); sample ms/image at batch 4 through the
      bundle against in process; B4's host µs direct and through the op;
+  22a. serve-mesh (before [serve]) — ``build_service`` with the host's
+     devices stubbed to [cuda:0, cuda:0] (two in-process replicas, a
+     LocalMesh) on the diffusion, GAN and cGAN checkpoints against one
+     replica: /sample num 1, 3 and 5 (1 level), the stream, /denoise, the
+     transfers (2e-4) of one image (run on the first replica alone) and
+     two (one a replica), their launches exact;
+     exact B3/B4 launches from HTTP on both frontends;
+     /reload swaps both replicas; /sample p50/p99 at concurrency 1 and 8
+     and the card memory of both services;
   23. serve-bundle — ``build_bundle_service`` on the three bundles
      behind both frontends: /sample, /denoise, /transfer ab, ba and ?to= within 1
      level of the bundle in process with exact launches, frontends equal;
@@ -1944,6 +1974,172 @@ def phase_eval(torch, cli, fdc, norm, sampler, cfg, tmp):
     return tuple(total)
 
 
+# ------------------------------------- InceptionV3 FID, steps-to-fixed-FID
+
+
+INCEPTION_BATCH = 32  # [inception]: images of 256² per pool3 call
+
+
+def phase_inception(torch, cli, fdc, sampler, tmp, card):
+    """InceptionV3 pool3 (utils/inception.py) on the card: the seeded
+    synthetic state dict (no real weights exist here; a draw, not a
+    download) written as .npz and .pth in ``tmp``, both loading to equal
+    folded parameters; pool3 of INCEPTION_BATCH 256² images (upsampled to
+    299²) on the card, inside the ieee_fp32 region, against the port on the
+    CPU within 1e-4 of the features' scale, both variants; ms per image
+    against the bound (its FLOPs counted by ``profiler.compiled_stats``,
+    fp32 without TF32 at 67 TFLOP/s); then ``cli eval --fid-extractor
+    inception:<npz>`` on [train-cli]'s checkpoint at fid_samples
+    EVAL_SAMPLES: exact B4 launches, finite FID and KID. Returns (the npz
+    path, the eval's B4 launches)."""
+    from gan_class_transfer2_tpu_torch.utils import inception, profiler
+
+    t_phase = time.perf_counter()
+    sd = inception.synthetic_state_dict(0)
+    npz, pth = os.path.join(tmp, "inception.npz"), os.path.join(tmp, "inception.pth")
+    np.savez(npz, **sd)
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, pth)
+    a, b = inception.load_params(npz), inception.load_params(pth)
+    if any(not torch.equal(a[n][k], b[n][k]) for n in a for k in ("kernel", "bias")):
+        fail("inception: the .npz and the .pth fold to different parameters")
+    on_card = {n: {k: v.cuda() for k, v in p.items()} for n, p in a.items()}
+    x = torch.from_numpy(np.random.default_rng(3).uniform(
+        -1, 1, (INCEPTION_BATCH, 256, 256, 3)).astype(np.float32))
+    xc = x.cuda()
+    errs = {}
+    for variant in ("fid", "torchvision"):
+        want = inception.pool3_features(a, x, variant).numpy()
+        got = inception.pool3_features(on_card, xc, variant).cpu().numpy()
+        if got.shape != (INCEPTION_BATCH, inception.POOL3_DIM) or not np.isfinite(got).all():
+            fail(f"inception: {variant} features {got.shape}, finite {np.isfinite(got).all()}")
+        errs[variant] = float(np.abs(got - want).max() / np.abs(want).max())
+        if not errs[variant] <= 1e-4:
+            fail(f"inception: {variant} pool3 card vs CPU {errs[variant]:.3e} of the scale "
+                 "(bound 1e-4)")
+    flops = profiler.compiled_stats(lambda v: inception.pool3_features(on_card, v),
+                                    xc[:1])["flops"]
+    ms = cuda_ms(lambda: inception.pool3_features(on_card, xc), reps=5, warmup=2)
+    bound = flops / PEAK_FLOPS["float32"] * 1e3
+    print(f"[inception] pool3 of {INCEPTION_BATCH} 256² images (resized to 299²), synthetic "
+          f"state dict (seed 0; .npz = .pth): card vs CPU {errs['fid']:.3e} (fid) / "
+          f"{errs['torchvision']:.3e} (torchvision) of the scale (bound 1e-4); "
+          f"{ms / INCEPTION_BATCH:.4f} ms an image, fp32 IEEE (cuDNN), against a bound of "
+          f"{bound:.4f} ms ({flops / 1e9:.3f} GFLOP an image counted by compiled_stats, at "
+          f"67 TFLOP/s; {bound * INCEPTION_BATCH / ms:.1%} of it) on {card}")
+    del on_card, xc
+
+    ckpt = os.path.join(tmp, "ckpt-cli")
+    from gan_class_transfer2_tpu_torch.utils import checkpoint as ckpt_lib
+
+    dcfg = ckpt_lib.load_config(ckpt)
+    calls = len(sampler.sample_timesteps(dcfg))
+    want = calls * b4_per_call(fdc, dcfg, EVAL_SAMPLES)
+    fdc.down_conv_fused.launches = 0
+    t0 = time.perf_counter()
+    out = _cli_json(cli, ["eval", "--device", "cuda", "--checkpoint-dir", ckpt,
+                          "--fid-samples", str(EVAL_SAMPLES), "--fid-extractor",
+                          f"inception:{npz}"])[-1]
+    secs = time.perf_counter() - t0
+    got = fdc.down_conv_fused.launches
+    if got != want or not (np.isfinite(out.get("fid", np.nan))
+                           and np.isfinite(out.get("kid", np.nan))):
+        fail(f"inception: cli eval --fid-extractor inception: {out}; B4 {got}, expected {want} "
+             f"({calls} calls)")
+    print(f"[inception] cli eval --fid-extractor inception:<npz> on [train-cli]'s checkpoint "
+          f"(step {out['step']}, fid_samples {EVAL_SAMPLES}): fid {out['fid']:.4f}, kid "
+          f"{out['kid']:.4f}; B4 {got}; wall {secs:.2f} s; the phase took "
+          f"{time.perf_counter() - t_phase:.2f} s")
+    torch.cuda.empty_cache()
+    return npz, got
+
+
+def phase_fid_steps(torch, fdc, norm, cfg, tmp, globs, npz, card):
+    """BASELINE.json's second headline metric through
+    ``utils/benchmark.steps_to_fixed_fid``: a full-width ``GANRunner`` (two
+    default generators and discriminators, instance norms, B4, fp32, batch
+    16 a class) on [gan-train-cli]'s class PNGs, EVAL_SAMPLES held-out
+    files a class, the InceptionV3 extractor of [inception]'s npz; target
+    0, max_steps 4, check_every 2. It must return (None, a finite FID)
+    at step 4, with exact B3/B4 launches (4 GAN steps, and one generator
+    forward of the 16 held-out images for each of the 3 scores). Returns
+    (B3, B4)."""
+    from gan_class_transfer2_tpu_torch.train.gan_loop import GANRunner
+    from gan_class_transfer2_tpu_torch.utils import benchmark
+
+    c = cfg.replace(batch_size=TRAIN_BATCH, g_norm="instance", d_norm="instance",
+                    conv_impl="pallas", classes=tuple(globs), fid_samples=EVAL_SAMPLES,
+                    fid_extractor=f"inception:{npz}", checkpoint_dir=None,
+                    log_dir=os.path.join(tmp, "logs-fid-steps"), native_loader=False,
+                    data_workers=2).validate()
+    per_step, b4_step, _ = gan_counts(fdc, c, TRAIN_BATCH)
+    _, _, (b3_fwd, b4_fwd) = gan_counts(fdc, c, EVAL_SAMPLES)
+    want = (4 * sum(per_step.values()) + 3 * b3_fwd, 4 * b4_step + 3 * b4_fwd)
+    runner = GANRunner(c, device="cuda")
+    try:
+        counters = (norm.instance_norm_fused, fdc.down_conv_fused)
+        for k in counters:
+            k.launches = 0
+        t0 = time.perf_counter()
+        steps, fid = benchmark.steps_to_fixed_fid(runner, 0.0, max_steps=4, check_every=2)
+        secs = time.perf_counter() - t0
+        got = tuple(k.launches for k in counters)
+        step = int(runner.state.step)
+    finally:
+        runner.close()
+    if steps is not None or not np.isfinite(fid) or step != 4:
+        fail(f"fid-steps: steps_to_fixed_fid gave ({steps}, {fid}) at step {step}")
+    if got != want:
+        fail(f"fid-steps: launches B3/B4 {got}, expected {want}")
+    print(f"[fid-steps] steps_to_fixed_fid(target 0, max_steps 4, check_every 2) on a "
+          f"full-width GANRunner, InceptionV3 extractor (synthetic weights): ({steps}, "
+          f"{fid:.4f}) at step {step}; launches B3/B4 {got}; wall {secs:.2f} s (4 GAN steps, 3 "
+          f"transfer scores of {EVAL_SAMPLES} images) on {card}")
+    torch.cuda.empty_cache()
+    return got
+
+
+def phase_profiler(torch, fdc, api, cfg, tmp, card):
+    """``utils/profiler.compiled_stats`` of one full-width denoiser forward
+    at batch 16 (the default model, fp32, ``conv_impl="pallas"``): its FLOPs
+    from fake tensors, no launch, against ``model_flops_per_image(cfg)``·16,
+    the analytic forward count; then ``annotate``: its name must appear in
+    a ``profiler.trace`` capture of one forward, with CUDA kernels under it."""
+    from gan_class_transfer2_tpu_torch.models import unet
+    from gan_class_transfer2_tpu_torch.utils import benchmark, profiler
+
+    c = cfg.replace(conv_impl="pallas").validate()
+    model = api.init_denoiser(c, device="cuda")
+    x = torch.rand((TRAIN_BATCH, c.size, c.size, 3), device="cuda") * 2 - 1
+    fdc.down_conv_fused.launches = 0
+    t0 = time.perf_counter()
+    stats = profiler.compiled_stats(lambda v: unet.unet_apply(c, model, v), x)
+    secs = time.perf_counter() - t0
+    analytic = benchmark.model_flops_per_image(c) * TRAIN_BATCH
+    if fdc.down_conv_fused.launches != 0 or not stats["flops"]:
+        fail(f"profiler: compiled_stats launched B4 {fdc.down_conv_fused.launches} times, "
+             f"gave {stats}")
+    diff = stats["flops"] - analytic
+    print(f"[profiler] compiled_stats of one denoiser forward at batch {TRAIN_BATCH} (fake "
+          f"tensors, no launch, {secs:.2f} s): {json.dumps(stats)}; model_flops_per_image x "
+          f"{TRAIN_BATCH} = {analytic}; difference {diff} ({diff / analytic:+.3e})")
+    with profiler.trace(os.path.join(tmp, "trace-annotate")) as prof:
+        with profiler.annotate("gct2_smoke_forward"), torch.inference_mode():
+            unet.unet_apply(c, model, x)
+            torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()}
+    busy = profiler.device_busy_ms(prof)
+    with open(os.path.join(tmp, "trace-annotate", "trace.json")) as fh:
+        in_trace = "gct2_smoke_forward" in fh.read()
+    if "gct2_smoke_forward" not in names or not in_trace or busy <= 0:
+        fail(f"profiler: annotate's range in the capture {('gct2_smoke_forward' in names)}, "
+             f"in trace.json {in_trace}, device busy {busy} ms")
+    print(f"[profiler] annotate('gct2_smoke_forward') around one forward: in key_averages and "
+          f"trace.json; device busy {busy:.3f} ms under it on {card}")
+    fdc.down_conv_fused.launches = 0
+    del model, x
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------ serve
 
 
@@ -2933,7 +3129,8 @@ def phase_distill(torch, cli, fdc, fd, adam_kernel, trainer, sampler, cfg, tmp, 
     sample --checkpoint-dir`` on it (2 calls). Then one distill step timed
     beside [train]'s fp32 step, and one injected full-width step (the same
     t and ε) through the kernel path and cuDNN (``conv_impl="lax"``): losses
-    within 1e-5 relative. Returns the B4 launches of the two commands."""
+    within 1e-5 relative. Returns the B4 launches of the two commands and
+    the step's ms."""
     from gan_class_transfer2_tpu_torch.train import distill
     from gan_class_transfer2_tpu_torch.utils import checkpoint as ckpt_lib
 
@@ -3009,7 +3206,7 @@ def phase_distill(torch, cli, fdc, fd, adam_kernel, trainer, sampler, cfg, tmp, 
           f"1e-5); the phase took {time.perf_counter() - t_phase:.2f} s")
     fdc.down_conv_fused.launches = 0
     torch.cuda.empty_cache()
-    return got[2] + sgot[0]
+    return got[2] + sgot[0], step_ms
 
 
 def _program_ops(path):
@@ -3634,36 +3831,298 @@ def phase_dp_agree(card, train_results):
           f"{r0['replicated']['step_ms']:.2f} ms; peak memory rank 0 {r0['peak_gb']:.2f} GB")
 
 
-def _dp_cli_worker(torch, rank, port, spec):
-    """One rank of a [dp-train] job: ``cli.main`` with the launch counts set
-    to 0 just before and read just after; the logged scalars, checkpoint
-    saves and the weights' checksum recorded."""
+def phase_dp_distill(torch, fdc, sampler, tmp, card, distill_ms):
+    """Distillation over ranks (run beside [distill], before [serve]
+    replaces [train-cli]'s train state with its served part): one job of
+    DP_RANKS processes of this script sharing cuda:0 over gloo
+    (``--dp-worker distill``). Each rank joins the group, then runs ``cli
+    distill --coordinator ... --num-processes 2 --process-id k`` as a rank
+    of it on [train-cli]'s checkpoint (one round of DISTILL_STEPS steps,
+    stride 50 -> 100, global batch 16, its own --out and --log-dir): exact
+    launches a rank (B4 three denoiser calls a step at DP_LOCAL rows, the
+    grids' on rank 0 alone; B1, B1s, B2, B3 none), equal losses on both
+    ranks, the student and the events written by rank 0 alone, its
+    sample_stride doubled. Then one injected full-width step on two ranks
+    against the one-process step on the global batch (loss 1e-5 relative,
+    updates at [dp-agree]'s bounds), the two-rank step timed beside
+    [distill]'s one-process step, and the gradient all-reduce timed. Returns
+    the ranks' B4 launches."""
+    from gan_class_transfer2_tpu_torch.utils import checkpoint as ckpt_lib
+
+    t_phase = time.perf_counter()
+    ckpt = os.path.join(tmp, "ckpt-cli")
+    dcfg = ckpt_lib.load_config(ckpt)
+    stride = 2 * dcfg.sample_stride
+    grid = (len(sampler.sample_timesteps(dcfg))
+            + len(sampler.sample_timesteps(dcfg.replace(sample_stride=stride))))
+    b4, b4_grid = b4_per_call(fdc, dcfg, DP_LOCAL), b4_per_call(fdc, dcfg, 6)
+    outs = [os.path.join(tmp, f"ckpt-dp-distill-r{k}") for k in range(DP_RANKS)]
+    logs = [os.path.join(tmp, f"logs-dp-distill-r{k}") for k in range(DP_RANKS)]
+    specs = [{"ckpt": ckpt, "args": ["distill", "--device", "cuda", "--checkpoint-dir", ckpt,
+                                     "--out", outs[k], "--log-dir", logs[k],
+                                     "--distill-steps", str(DISTILL_STEPS)]}
+             for k in range(DP_RANKS)]
+    (res,) = _dp_jobs([("distill", specs)])
+    r0, r1 = res
+    for k, r in enumerate(res):
+        want = {"B1": 0, "B1s": 0, "B2": 0, "B3": 0,
+                "B4": 3 * DISTILL_STEPS * b4 + (grid * b4_grid if k == 0 else 0)}
+        if r["rc"] != 0 or r["launches"] != want:
+            fail(f"dp-distill rank {k}: rc {r['rc']}, launches {r['launches']}, expected {want}")
+    tag = f"distill_loss/stride_{stride}"
+    losses = [[v for t, v, _ in r["scalars"] if t == tag] for r in res]
+    if not losses[0] or losses[0] != losses[1] or not all(np.isfinite(losses[0])):
+        fail(f"dp-distill: the ranks' losses {losses}")
+    if r0["saves"] != 1 or r1["saves"] != 0 or os.path.exists(outs[1]) or os.path.exists(logs[1]):
+        fail(f"dp-distill: saves rank 0 {r0['saves']}, rank 1 {r1['saves']}; rank 1's --out "
+             f"{os.path.exists(outs[1])}, --log-dir {os.path.exists(logs[1])}")
+    if ckpt_lib.load_config(outs[0]).sample_stride != stride or not glob.glob(
+            os.path.join(logs[0], "*", "*", "events.out.tfevents.*")):
+        fail("dp-distill: rank 0's student lacks sample_stride "
+             f"{stride} or its events")
+    print(f"[dp-distill] cli distill on 2 ranks sharing cuda:0 (gloo), stride "
+          f"{dcfg.sample_stride} -> {stride}, {DISTILL_STEPS} steps at global batch "
+          f"{TRAIN_BATCH} ({DP_LOCAL} rows a rank): launches rank 0 {r0['launches']}, rank 1 "
+          f"{r1['launches']}; losses equal on both ranks {[round(v, 7) for v in losses[0]]}; "
+          f"rank 0 alone wrote the student (sample_stride {stride}) and the events; wall "
+          f"{r0['secs']:.2f} s")
+    if not r0["rel"] <= 1e-5 or not r0["share"] <= 1e-4:
+        fail(f"dp-distill: injected step loss rel {r0['rel']}, share {r0['share']}")
+    print(f"[dp-distill] one injected full-width distill step, 2 ranks x {DP_LOCAL} rows "
+          f"against one process x {TRAIN_BATCH}: loss {r0['loss']:.7f} vs {r0['ref_loss']:.7f} "
+          f"(rel {r0['rel']:.2e}, bound 1e-5); updates max|Δ2 − Δ1| {r0['max_diff']:.3e}, "
+          f"share beyond 1e-3·lr {r0['share']:.2e} (bound 1e-4)")
+    print(f"[dp-distill] the distill step on 2 ranks sharing one {card}, fp32 kernel path, "
+          f"global batch {TRAIN_BATCH}: {r0['step_ms']:.2f} ms against [distill]'s one-process "
+          f"step {distill_ms:.2f} ms in this run; the gradient all-reduce "
+          f"({r0['grad_mb']:.1f} MB over gloo) {r0['allreduce_ms']:.2f} ms; peak memory rank 0 "
+          f"{r0['peak_gb']:.2f} GB; not a multi-card number; the phase took "
+          f"{time.perf_counter() - t_phase:.2f} s")
+    return r0["launches"]["B4"] + r1["launches"]["B4"]
+
+
+def phase_serve_mesh(torch, fdc, norm, sampler, png, tmp, globs, card):
+    """Serving over in-process replicas: ``build_service`` with the host's
+    device list stubbed to [cuda:0, cuda:0] (two replicas of every serving
+    module on the one card, a ``parallel/mesh.LocalMesh``) on [train-cli]'s
+    diffusion, [gan-train-cli]'s GAN and [cgan-train-cli]'s cGAN
+    checkpoints, against ``build_service`` without the stub (one replica),
+    in-process from the same generator state: /sample num 1, 3 and 5 within
+    1 level, the stream and /denoise within 2e-4, /transfer ab, ba and ?to=
+    within 2e-4, of one image (the first replica alone) and of two (one a
+    replica), with exact launches. From HTTP on both frontends: exact B3/B4
+    launches (each replica runs its block; a request of one image, the
+    first replica alone), equal bytes, within 1 level / 2e-4 of the
+    one-replica service. /reload swaps both replicas. Then p50/p99 of
+    /sample npy at concurrency 1 and 8 for both services, and the card
+    memory each service holds. Returns the (B3, B4) launches of the checked
+    requests."""
+    import gc
+    import io
+
+    from gan_class_transfer2_tpu_torch.parallel import mesh as mesh_lib
+    from gan_class_transfer2_tpu_torch.serve import server as srv_mod
+    from gan_class_transfer2_tpu_torch.serve.aio import AsyncServer
+    from gan_class_transfer2_tpu_torch.utils import checkpoint as ckpt_lib
+
+    t_phase = time.perf_counter()
+    launches = _Launches(norm.instance_norm_fused, fdc.down_conv_fused)
+    reset = launches.reset
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # equal requests, equal bytes
+    kinds = {"diffusion": "ckpt-cli", "gan": "ckpt-gan", "cgan": "ckpt-cgan"}
+    cfgs = {m: ckpt_lib.load_config(os.path.join(tmp, d)).replace(
+        checkpoint_dir=os.path.join(tmp, d)).validate() for m, d in kinds.items()}
+    mem, plain, meshed = {}, {}, {}
+    real = mesh_lib.local_devices
+    for m, c in cfgs.items():
+        for name, out in (("one", plain), ("two", meshed)):
+            gc.collect()
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            if name == "two":
+                mesh_lib.local_devices = lambda device: [torch.device("cuda", 0)] * 2
+            try:
+                out[m] = srv_mod.build_service(c, m, "cuda")
+            finally:
+                mesh_lib.local_devices = real
+            mem[(m, name)] = torch.cuda.memory_allocated() - before
+        if plain[m].mesh is not None or meshed[m].mesh is None or meshed[m].mesh.size != 2:
+            fail(f"serve-mesh: {m}: meshes {plain[m].mesh} / {meshed[m].mesh}")
+    print("[serve-mesh] services built, one replica / two on cuda:0: card memory "
+          + ", ".join(f"{m} {mem[(m, 'one')] / 2**20:.1f} / {mem[(m, 'two')] / 2**20:.1f} MiB"
+                      for m in cfgs) + f" ({card})")
+    dcfg, gcfg, kcfg = cfgs["diffusion"], cfgs["gan"], cfgs["cgan"]
+    size, calls = dcfg.size, len(sampler.sample_timesteps(dcfg))
+    raw = png.read_png(sorted(glob.glob(globs[0]))[0])
+    off = (raw.shape[0] - size) // 2
+    img = np.ascontiguousarray(raw[off:off + size, off:off + size])
+    buf = io.BytesIO()
+    np.save(buf, img)
+    body_npy = buf.getvalue()
+    x = srv_mod._decode_image(body_npy, size)
+    d1, d2 = plain["diffusion"], meshed["diffusion"]
+
+    def same_noise(fn1, fn2, svc1, svc2):
+        state = svc1._gen.get_state()
+        a = fn1()
+        svc2._gen.set_state(state)
+        return a, fn2()
+
+    # ---- in process: the two-replica service against the one-replica one;
+    # a batch of one runs whole on the first replica, two or more split
+    for num in (1, 3, 5):
+        a, b = same_noise(lambda: d1._run_sample(num), lambda: d2._run_sample(num), d1, d2)
+        lv = _levels(b, a, f"/sample num {num}, two replicas against one")
+        bucket = d2._pad_bucket(num)
+        rows = f"{bucket // 2} rows a replica" if bucket >= 2 else "on the first replica"
+        print(f"[serve-mesh] sample num {num} (bucket {bucket}, {rows}): "
+              f"{lv[0]} level(s) on {lv[1]:.2e} of the values from one replica")
+    _, _, (b3_g, b4_g) = gan_counts(fdc, gcfg, 1)
+    _, _, (b3_k, b4_k) = gan_counts(fdc, kcfg, 1, conditional=True)
+    b4_d = b4_per_call(fdc, dcfg, 1)
+    errs = {}
+    for n in (2, 1):  # a block of one image a replica, then one image on the first
+        xs = np.concatenate([x, x[:, ::-1]])[:n]
+        a, b = same_noise(lambda: list(d1._sample_stream_impl(n, 2)),
+                          lambda: list(d2._sample_stream_impl(n, 2)), d1, d2)
+        errs[f"stream num {n}"] = max(float(np.abs(u - v).max()) for u, v in zip(a, b))
+        launches.reset()
+        a, b = same_noise(lambda: d1._run_denoise(xs), lambda: d2._run_denoise(xs), d1, d2)
+        launches.take((0, b4_per_call(fdc, dcfg, n) + n * b4_d),
+                      f"in-process /denoise of {n} on one and two replicas")
+        errs[f"denoise {n}"] = float(np.abs(a - b).max())
+        for d in ("ab", "ba"):
+            a = plain["gan"]._run_transfer(xs, d)
+            launches.reset()
+            b = meshed["gan"]._run_transfer(xs, d)
+            launches.take((n * b3_g, n * b4_g), f"in-process transfer {d} of {n} over two replicas")
+            errs[f"transfer {d} {n}"] = float(np.abs(a - b).max())
+        tgt = np.array([2, 0], np.int32)[:n]
+        a = plain["cgan"]._run_cgan_transfer(xs, tgt)
+        launches.reset()
+        b = meshed["cgan"]._run_cgan_transfer(xs, tgt)
+        launches.take((n * b3_k, n * b4_k), f"in-process transfer_to of {n} over two replicas")
+        errs[f"transfer_to {n}"] = float(np.abs(a - b).max())
+    if not all(e <= 2e-4 for e in errs.values()):
+        fail(f"serve-mesh: two replicas against one: {errs} (bound 2e-4)")
+    print(f"[serve-mesh] two replicas against one (2 images: one a replica; 1 image: on the "
+          f"first, launches exact), max|Δ| (bound 2e-4): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+
+    # ---- HTTP: exact launches on both frontends, bytes equal, one replica's answer
+    servers = {m: (srv_mod.Server(s).start(), AsyncServer(s).start()) for m, s in meshed.items()}
+    ports = {m: tuple(s.port for s in pair) for m, pair in servers.items()}
+    checks = [("diffusion", "/sample", json.dumps({"num": 3, "format": "npy"}).encode(),
+               (0, 2 * calls * b4_per_call(fdc, dcfg, 2))),
+              ("diffusion", "/sample", json.dumps({"num": 1, "format": "npy"}).encode(),
+               (0, calls * b4_d)),
+              ("diffusion", "/denoise?format=npy", body_npy, (0, b4_d)),
+              ("gan", "/transfer?direction=ab&format=npy", body_npy, (b3_g, b4_g)),
+              ("cgan", "/transfer?to=2&format=npy", body_npy, (b3_k, b4_k))]
+    for m, path, body, want in checks:
+        got, gen_state = _both(meshed[m], ports[m], path, body, launches, want,
+                               f"two replicas {m} {path}")
+        if path == "/sample":  # the one-replica service on the same noise
+            num = got.shape[0]
+            plain[m]._gen.set_state(gen_state)
+            lv = _levels(got, plain[m]._run_sample(num), f"/sample num {num} over HTTP against "
+                         "one replica")
+        else:
+            lv = None
+        print(f"[serve-mesh] {m} {path} {len(body)} B over two replicas: launches B3/B4 {want} "
+              f"per frontend, "
+              f"threaded = aio bytes" + ("" if lv is None else
+                                         f"; {lv[0]} level(s) on {lv[1]:.2e} from one replica"))
+    old = list(d2._replicas)
+    step = json.loads(_ok(ports["diffusion"][0], "/reload"))["step"]
+    if len(d2._replicas) != 2 or any(n is o for n, o in zip(d2._replicas, old)) \
+            or step != d1.step:
+        fail(f"serve-mesh: /reload gave step {step} and replicas {d2._replicas}")
+    del old
+    reset()
+    print(f"[serve-mesh] /reload swapped both replicas (step {step}); launches B3/B4 from the "
+          f"checked requests {tuple(launches.total)}; the checks took "
+          f"{time.perf_counter() - t_phase:.2f} s")
+    torch.backends.cudnn.deterministic = deterministic
+
+    # ---- measured and printed: latency and the peak memory of a request
+    one = srv_mod.Server(d1).start()
+    body = json.dumps({"num": 1, "format": "npy"}).encode()
+    for name, port in (("one replica", one.port), ("two replicas", ports["diffusion"][0])):
+        for conc, per_thread in ((1, 120), (8, 25)):
+            p50, p99, top, n = _latency(port, "/sample", body, conc, per_thread)
+            print(f"[serve-mesh] latency /sample npy, {name}, concurrency {conc}: p50 "
+                  f"{p50:.3f} ms, p99 {p99:.3f} ms, max {top:.3f} ms over {n} requests ({card})")
+    for name, svc in (("one replica", d1), ("two replicas", d2)):
+        gc.collect()
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        svc._run_sample(16)
+        torch.cuda.synchronize()
+        print(f"[serve-mesh] {name}: one /sample device batch of 16 peaks "
+              f"{(torch.cuda.max_memory_allocated() - resident) / 2**20:.1f} MiB above the "
+              f"{resident / 2**20:.1f} MiB every service of the phase holds ({card})")
+    one.stop()
+    for pair in servers.values():
+        for s in pair:
+            s.stop()
+    for s in plain.values():
+        s.close()
+    reset()
+    print(f"[serve-mesh] the phase took {time.perf_counter() - t_phase:.2f} s")
+    torch.cuda.empty_cache()
+    return tuple(launches.total)
+
+
+def _rank_cli(rank, port, spec):
+    """``cli.main`` as this rank of a [dp-train] or [dp-distill] job, with
+    the launch counts set to 0 just before and read just after, the logged
+    scalars (every rank's writer, the coordinator's real one or a
+    NullWriter) and the checkpoint saves recorded. Returns {"rc", "secs",
+    "launches", "scalars", "saves"}."""
     from gan_class_transfer2_tpu_torch import cli
     from gan_class_transfer2_tpu_torch.ops import adam_kernel
     from gan_class_transfer2_tpu_torch.ops import fused_diffusion as fd
     from gan_class_transfer2_tpu_torch.ops import fused_down_conv as fdc
     from gan_class_transfer2_tpu_torch.ops import norm
-    from gan_class_transfer2_tpu_torch.parallel import mesh as mesh_lib
-    from gan_class_transfer2_tpu_torch.train import conditional_gan_loop, gan_loop, loop
     from gan_class_transfer2_tpu_torch.utils import checkpoint as ckpt_lib
     from gan_class_transfer2_tpu_torch.utils import tensorboard as tb
 
-    scalars, saves, closing = [], [0], {}
-    write = tb.SummaryWriter.scalar
+    scalars, saves = [], [0]
+    write, save = tb.SummaryWriter.scalar, ckpt_lib.save
 
     def scalar(self, tag, value, step):
         scalars.append((tag, float(value), int(step)))
         if isinstance(self, tb.SummaryWriter):
             write(self, tag, value, step)
 
-    tb.SummaryWriter.scalar = tb.NullWriter.scalar = scalar
-    save = ckpt_lib.save
-
     def counted_save(*a, **k):
         saves[0] += 1
         return save(*a, **k)
 
+    tb.SummaryWriter.scalar = tb.NullWriter.scalar = scalar
     ckpt_lib.save = counted_save
+    counters = {"B1": fd.diffuse_fused, "B1s": fd.diffuse_fused_sharded,
+                "B2": adam_kernel.adam_fused, "B3": norm.instance_norm_fused,
+                "B4": fdc.down_conv_fused}
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main([*spec["args"], "--coordinator", f"127.0.0.1:{port}", "--num-processes",
+                   str(DP_RANKS), "--process-id", str(rank)])
+    return {"rc": rc, "secs": time.perf_counter() - t0, "scalars": scalars, "saves": saves[0],
+            "launches": {k: c.launches for k, c in counters.items()}}
+
+
+def _dp_cli_worker(torch, rank, port, spec):
+    """One rank of a [dp-train] job (``_rank_cli``), with the weights'
+    checksum recorded when the runner closes."""
+    from gan_class_transfer2_tpu_torch.parallel import mesh as mesh_lib
+    from gan_class_transfer2_tpu_torch.train import conditional_gan_loop, gan_loop, loop
+
+    closing = {}
     for cls in (loop.Runner, gan_loop.GANRunner, conditional_gan_loop.ConditionalGANRunner):
         def close(self, _close=cls.close):
             closing["checksum"] = float(sum(
@@ -3673,20 +4132,11 @@ def _dp_cli_worker(torch, rank, port, spec):
             return _close(self)
 
         cls.close = close
-    counters = {"B1": fd.diffuse_fused, "B1s": fd.diffuse_fused_sharded,
-                "B2": adam_kernel.adam_fused, "B3": norm.instance_norm_fused,
-                "B4": fdc.down_conv_fused}
-    for c in counters.values():
-        c.launches = 0
-    t0 = time.perf_counter()
-    rc = cli.main([*spec["args"], "--coordinator", f"127.0.0.1:{port}", "--num-processes",
-                   str(DP_RANKS), "--process-id", str(rank)])
-    secs = time.perf_counter() - t0
+    out = _rank_cli(rank, port, spec)
     print("DPRESULT " + json.dumps({
-        "rank": rank, "launches": {k: c.launches for k, c in counters.items()},
-        "scalars": scalars, "saves": saves[0], "secs": secs,
-        "peak_gb": torch.cuda.max_memory_allocated() / 1e9, **closing}), flush=True)
-    return rc
+        "rank": rank, **out, "peak_gb": torch.cuda.max_memory_allocated() / 1e9, **closing}),
+        flush=True)
+    return out["rc"]
 
 
 def _dp_agree_worker(torch, rank, port):
@@ -3716,17 +4166,8 @@ def _dp_agree_worker(torch, rank, port):
     p0 = [p.detach().to(dev) for p in init.parameters()]
     sync = torch.cuda.synchronize
 
-    def timed(fn, reps=3, ranks=True):
-        times = []
-        for _ in range(reps):
-            sync()
-            if ranks:  # start every rank together (rank 0's one-process step alone)
-                multihost.barrier()
-            t1 = time.perf_counter()
-            fn()
-            sync()
-            times.append(time.perf_counter() - t1)
-        return float(np.median(times)) * 1e3
+    def timed(fn, reps=3, ranks=True):  # ranks=False: rank 0's one-process step alone
+        return _ranks_ms(torch, multihost, fn, reps, ranks)
 
     def run(c, on_mesh):
         model = copy.deepcopy(init).to(dev)
@@ -3805,14 +4246,100 @@ def _dp_agree_worker(torch, rank, port):
     return 0
 
 
+def _ranks_ms(torch, multihost, fn, reps=3, ranks=True):
+    """Median ms of ``fn`` over ``reps`` runs, each started on every rank
+    together (a barrier first, with ``ranks``) and ended by a synchronise."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        if ranks:
+            multihost.barrier()
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    return float(np.median(times)) * 1e3
+
+
+def _dp_distill_worker(torch, rank, port, spec):
+    """One rank of [dp-distill] (see phase_dp_distill): it joins the group
+    itself, so that ``cli distill --coordinator`` runs as a rank of it and
+    leaves it to this worker for the injected step and the timing."""
+    from gan_class_transfer2_tpu_torch.parallel import mesh as mesh_lib
+    from gan_class_transfer2_tpu_torch.parallel import multihost
+    from gan_class_transfer2_tpu_torch.train import distill, trainer
+    from gan_class_transfer2_tpu_torch.utils import checkpoint as ckpt_lib
+
+    multihost.initialize(f"127.0.0.1:{port}", DP_RANKS, rank, device="cuda")
+    mesh = mesh_lib.make_mesh(device="cuda")
+    out = _rank_cli(rank, port, spec)
+    rc = out["rc"]
+
+    # one injected full-width step: two ranks against one process (rank 0)
+    c = ckpt_lib.load_config(spec["ckpt"]).replace(conv_impl="pallas").validate()
+    teacher = trainer.eval_model(ckpt_lib.restore(spec["ckpt"],
+                                                  trainer.init_state(c, device="cuda")))
+    stride = 2 * c.sample_stride
+    opt = distill.distill_opt_config(c, 100)
+    r = np.random.default_rng(9)
+    x = torch.from_numpy(r.uniform(-1, 1, (TRAIN_BATCH, c.size, c.size, 3))
+                         .astype(np.float32)).cuda()
+    grid = np.asarray(distill.student_grid(c, stride), np.int32)
+    t = torch.from_numpy(grid[r.integers(0, len(grid), TRAIN_BATCH)]).cuda()
+    eps = torch.from_numpy(r.standard_normal(tuple(x.shape)).astype(np.float32)).cuda()
+    p0 = [p.detach().clone() for p in teacher.parameters()]
+
+    def injected(m):
+        st = distill.init_student(opt, teacher, m)
+        rows = [mesh_lib.local_rows(v, m) for v in (x, t, eps)]
+        st, loss = distill.make_distill_step(opt, stride, m)(st, teacher, rows[0], None,
+                                                             t=rows[1], epsilon=rows[2])
+        return float(loss), [p.detach() - q for p, q in zip(st.model.parameters(), p0)]
+
+    if rank == 0:
+        ref_loss, ref_delta = injected(None)
+    loss, delta = injected(mesh)
+    if rank == 0:
+        lr = opt.learning_rate
+        diff = torch.cat([(a - b).abs().flatten() for a, b in zip(delta, ref_delta)])
+        out.update(loss=loss, ref_loss=ref_loss, rel=abs(loss - ref_loss) / abs(ref_loss),
+                   max_diff=diff.max().item(), share=(diff > 1e-3 * lr).double().mean().item())
+        del ref_delta, diff
+    del delta
+    # the two-rank step on drawn t and ε, timed; the gradient all-reduce
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    holder = [distill.init_student(opt, teacher, mesh)]
+    step = distill.make_distill_step(opt, stride, mesh)
+    xb = mesh_lib.local_rows(x, mesh)
+
+    def one():
+        holder[0], _ = step(holder[0], teacher, xb, gen)
+
+    for _ in range(2):
+        one()
+    out["step_ms"] = _ranks_ms(torch, multihost, one, reps=5)
+    del holder
+    grads = [torch.randn_like(p) for p in p0]
+    out["grad_mb"] = sum(g.numel() for g in grads) * 4 / 1e6
+    out["allreduce_ms"] = _ranks_ms(torch, multihost, lambda: multihost.all_reduce_mean(grads),
+                                    reps=5)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    multihost.shutdown()
+    print("DPRESULT " + json.dumps(out), flush=True)
+    return rc
+
+
 def dp_worker(argv):
-    """``python3 chip_smoke.py --dp-worker <cli|agree> <rank> <port> <spec JSON>``:
-    one rank of a [dp-train] or [dp-agree] job (started by _dp_jobs)."""
+    """``python3 chip_smoke.py --dp-worker <cli|agree|distill> <rank> <port> <spec JSON>``:
+    one rank of a [dp-train], [dp-agree] or [dp-distill] job (started by
+    _dp_jobs)."""
     mode, rank, port, spec = argv[0], int(argv[1]), argv[2], json.loads(argv[3])
     import torch
 
     if mode == "cli":
         return _dp_cli_worker(torch, rank, port, spec)
+    if mode == "distill":
+        return _dp_distill_worker(torch, rank, port, spec)
     return _dp_agree_worker(torch, rank, port)
 
 
@@ -3913,6 +4440,11 @@ def main():
     cli_b3, cli_b4 = phase_gan_train_cli(torch, cli, fdc, norm, cfg, files.name, globs)
     print(f"[gan-train-cli] took {time.perf_counter() - t0:.2f} s")
     eval_b3, eval_b4 = phase_eval(torch, cli, fdc, norm, sampler, cfg, files.name)
+    t0 = time.perf_counter()
+    npz, inception_b4 = phase_inception(torch, cli, fdc, sampler, files.name, card)
+    fid_b3, fid_b4 = phase_fid_steps(torch, fdc, norm, cfg, files.name, globs, npz, card)
+    phase_profiler(torch, fdc, api, cfg, files.name, card)
+    t_new = time.perf_counter() - t0
 
     from gan_class_transfer2_tpu_torch.train import conditional_gan as cgan
 
@@ -3933,11 +4465,20 @@ def main():
     # [distill] and [bundle] read the train states that [serve] replaces
     # with its served part for the reload test, so they come first
     t0 = time.perf_counter()
-    distill_b4 = phase_distill(torch, cli, fdc, fd, adam_kernel, trainer, sampler, cfg,
-                               files.name, train_results)
+    distill_b4, distill_ms = phase_distill(torch, cli, fdc, fd, adam_kernel, trainer, sampler,
+                                           cfg, files.name, train_results)
+    t1 = time.perf_counter()
+    dp_distill_b4 = phase_dp_distill(torch, fdc, sampler, files.name, card, distill_ms)
+    t_mid = time.perf_counter() - t1
     dirs, (bundle_b3, bundle_b4) = phase_bundle(torch, cli, fdc, norm, sampler, gan, cgan, png,
                                                 files.name, card)
-    t_db = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    mesh_b3, mesh_b4 = phase_serve_mesh(torch, fdc, norm, sampler, png, files.name, globs, card)
+    t_mid += time.perf_counter() - t1
+    t_db = time.perf_counter() - t0 - t_mid
+    t_new += t_mid
+    print(f"[serve-mesh] [inception], [fid-steps], [profiler], [dp-distill] and [serve-mesh] "
+          f"took {t_new:.2f} s")
     serve_b3, serve_b4 = phase_serve(torch, fdc, norm, sampler, gan, png, files.name, globs,
                                      card)
     cls_b3, cls_b4 = phase_serve_classes(torch, fdc, norm, sampler, cgan, png, files.name, globs3,
@@ -3956,12 +4497,14 @@ def main():
           f"{time.perf_counter() - t0:.2f} s")
     for name in ("diffuse_f32", "adam_f32m", "down_conv_k4s2_f32"):
         train_launches[name] += dp_launches[name]
+    train_launches["down_conv_k4s2_f32"] += inception_b4 + dp_distill_b4
     files.cleanup()
     gan_launches["float32"] = (
         gan_launches["float32"][0] + cli_b3 + eval_b3 + serve_b3 + cgan_launches["float32"][0]
-        + cgan_b3 + cls_b3 + bundle_b3 + sb_b3 + dp_launches["instance_norm_f32"],
+        + cgan_b3 + cls_b3 + bundle_b3 + sb_b3 + dp_launches["instance_norm_f32"] + fid_b3
+        + mesh_b3,
         gan_launches["float32"][1] + cli_b4 + eval_b4 + serve_b4 + cgan_launches["float32"][1]
-        + cgan_b4 + cls_b4 + distill_b4 + bundle_b4 + sb_b4)
+        + cgan_b4 + cls_b4 + distill_b4 + bundle_b4 + sb_b4 + fid_b4 + mesh_b4)
     gan_launches["bfloat16"] = tuple(a + b for a, b in zip(gan_launches["bfloat16"],
                                                            cgan_launches["bfloat16"]))
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
@@ -3974,9 +4517,10 @@ def main():
     # batch 16; launches are the main-path runs' (sample, edit, train,
     # train-hbm, train-cli, train-resume, cache, gan, gan-train-cli, eval,
     # cond-train-cli, cgan, cgan-train-cli, serve, distill, bundle,
-    # serve-bundle and dp-train's ranks for the down conv; gan, gan-train-cli,
-    # eval, cgan, cgan-train-cli, serve, bundle, serve-bundle and dp-train's
-    # GAN ranks for the instance norm; the train phases, cache,
+    # serve-bundle, dp-train's ranks, inception's eval, fid-steps, dp-distill's
+    # ranks and serve-mesh for the down conv; gan, gan-train-cli, eval, cgan,
+    # cgan-train-cli, serve, bundle, serve-bundle, dp-train's GAN ranks,
+    # fid-steps and serve-mesh for the instance norm; the train phases, cache,
     # cond-train-cli and dp-train's world-size-1 run for B1 and B2;
     # dp-train's diffusion ranks for B1s)
     source = "gan_class_transfer2_tpu_torch/csrc/down_conv.cu"

@@ -37,7 +37,8 @@ and TensorBoard events
 out, resuming from ``--checkpoint-dir`` when it holds a checkpoint;
 ``--resilient N`` restarts from the last checkpoint after a failed step.
 ``--coordinator HOST:PORT --num-processes N --process-id K`` makes the
-process rank K of an N-process data-parallel job (``parallel/multihost.py``:
+process rank K of an N-process data-parallel job (``train``, ``gan-train``,
+``cgan-train`` and ``distill``; ``parallel/multihost.py``:
 gloo on the CPU and for ranks that share a card, nccl when each has its
 own); start one such process per rank, e.g. on one host
 
@@ -199,10 +200,7 @@ def main(argv=None) -> int:
         p.add_argument("--config", type=str, default=None, help="config JSON")
         p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
         _add_config_args(p)
-        if cmd in ("train", "gan-train", "cgan-train"):
-            p.add_argument("--resilient", type=int, default=0, metavar="N",
-                           help="restart up to N times from the last checkpoint on a "
-                                "step failure (requires --checkpoint-dir)")
+        if cmd in ("train", "gan-train", "cgan-train", "distill"):
             # the JAX CLI's multi-host launch flags (parallel/multihost.py)
             p.add_argument("--coordinator", type=str, default=None, metavar="HOST:PORT",
                            help="rank 0's address: join a multi-process data-parallel job")
@@ -210,6 +208,10 @@ def main(argv=None) -> int:
                            help="the job's processes (ranks), each on one device")
             p.add_argument("--process-id", type=int, default=None,
                            help="this process's rank in [0, --num-processes)")
+        if cmd in ("train", "gan-train", "cgan-train"):
+            p.add_argument("--resilient", type=int, default=0, metavar="N",
+                           help="restart up to N times from the last checkpoint on a "
+                                "step failure (requires --checkpoint-dir)")
         elif cmd == "bench":
             p.add_argument("--bench-steps", type=int, default=30)
         elif cmd == "profile":
@@ -340,12 +342,24 @@ def _serve(cfg: Config, args) -> int:
 
 def _join_process_group(args) -> bool:
     """Join the job's process group when ``--coordinator`` names one (before
-    anything touches a device); True when joined. Without it, more than
-    one process or a rank other than 0 is refused: every process would
-    train alone, each its own model, without saying so."""
+    anything touches a device); True when this call joined it. A group the
+    caller already runs in is left to the caller, and must be the one the
+    flags name (its world size and this process's rank), or the job would
+    not be the one asked for. Without ``--coordinator``, more than one
+    process or a rank other than 0 is refused: every process would train
+    alone, each its own model, without saying so."""
+    import torch.distributed as dist
+
     from .parallel import multihost
 
     if args.coordinator:
+        if dist.is_available() and dist.is_initialized():
+            have = (multihost.process_count(), multihost.process_index())
+            if have != (args.num_processes, args.process_id):
+                raise ValueError(
+                    f"--num-processes {args.num_processes} --process-id {args.process_id}: "
+                    f"this process already runs as rank {have[1]} of a group of {have[0]}")
+            return False
         multihost.initialize(args.coordinator, args.num_processes, args.process_id,
                              device=args.device)
         return True
@@ -654,16 +668,39 @@ def _distill(cfg: Config, args) -> int:
     a drop-in student checkpoint whose config.json carries the final
     sample_stride. The teacher is the latest checkpoint's EMA (its params
     without one); the fid_samples held-out files stay out of the batches;
-    a conditional checkpoint distills on labeled round-robin batches."""
+    a conditional checkpoint distills on labeled round-robin batches.
+
+    With ``--coordinator`` the process is a rank of a data-parallel job, as
+    for ``train`` (JAX distills over its mesh as it trains,
+    cli.py:727-748): each rank reads its share of the files and its rows
+    of every global batch, the step averages over the ranks, and only the
+    coordinator writes the student and the TensorBoard grids. An
+    indivisible batch is refused by the datasets, as JAX's multi-host
+    pipeline refuses it."""
+    from .parallel import multihost
+
+    _require_checkpoint(cfg, "distillation needs a trained teacher")
+    joined = _join_process_group(args)
+    try:
+        return _distill_ranks(cfg, args)
+    finally:
+        if joined:
+            multihost.shutdown()
+
+
+def _distill_ranks(cfg: Config, args) -> int:
     from .data import pipeline
     from .models.api import resolve_device
+    from .parallel import mesh as mesh_lib
+    from .parallel import multihost
     from .train import distill as distill_lib
     from .train import trainer
     from .utils import checkpoint as ckpt_lib
     from .utils import tensorboard as tb
 
-    _require_checkpoint(cfg, "distillation needs a trained teacher")
-    device = resolve_device(args.device)
+    mesh = mesh_lib.make_mesh(cfg, device=resolve_device(args.device))
+    device = mesh.device
+    coordinator = multihost.is_coordinator()
     state = ckpt_lib.restore(cfg.checkpoint_dir, trainer.init_state(cfg, device=device))
     teacher = trainer.eval_model(state)
     target = args.target_stride or 2 * max(cfg.sample_stride, 1)
@@ -677,15 +714,19 @@ def _distill(cfg: Config, args) -> int:
         except FileNotFoundError:
             files_per_class = None  # make_datasets raises with the pattern
     dsets = pipeline.make_datasets(cfg, files_per_class=files_per_class, device=device)
-    writer = tb.SummaryWriter(tb.reference_log_dir(cfg.log_dir))
+    writer = (tb.SummaryWriter(tb.reference_log_dir(cfg.log_dir)) if coordinator
+              else tb.NullWriter())
     try:
         dataset = pipeline.LabeledDataset(dsets) if cfg.num_classes > 0 else dsets[0]
+        # alike on every rank: the draws are the global batch's
         generator = torch.Generator(device=device).manual_seed(cfg.seed + 101)
         student, stride = distill_lib.progressive_distill(
             cfg, teacher, pipeline.DeviceIterator(dataset, device), target,
             args.distill_steps, generator,
-            on_loss=lambda s, i, loss: writer.scalar(f"distill_loss/stride_{s}", loss, i))
-        _log_distill_grids(cfg, teacher, student, stride, writer)
+            on_loss=lambda s, i, loss: writer.scalar(f"distill_loss/stride_{s}", loss, i),
+            mesh=mesh)
+        if coordinator:
+            _log_distill_grids(cfg, teacher, student, stride, writer)
     finally:
         writer.close()
         for d in dsets:
@@ -693,6 +734,8 @@ def _distill(cfg: Config, args) -> int:
                 d.close()
 
     student_cfg = cfg.replace(sample_stride=stride, checkpoint_dir=args.out)
+    if not coordinator:
+        return 0
     with torch.no_grad():
         for p, s in zip(state.model.parameters(), student.parameters()):
             p.copy_(s)

@@ -19,7 +19,10 @@ Three pieces, as for every kernel of the port:
     version on a CPU one), its fake implementation gives the output's shape
     over a symbolic batch. Eager calls go to ``_forward`` directly (a Python
     custom op adds dispatcher time to every call, PERF.md); the op is taken
-    while ``torch.compiler.is_exporting()``.
+    while ``torch.compiler.is_exporting()``, and for a fake tensor (shapes
+    only, ``utils/profiler.compiled_stats``), which the flop counter counts
+    by the formula registered for the op (the launch wrapper never sees a
+    fake tensor).
 
 The backward follows pallas_conv.py:149-165, where it is XLA convs outside
 any Pallas kernel; here they are cuDNN's (``torch.nn.grad``) on the card:
@@ -40,6 +43,8 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 
@@ -231,6 +236,13 @@ def _(x, kernel, bias, relu):
     return x.new_empty((b, h // 2, w // 2, kernel.shape[3]))
 
 
+@register_flop_formula(torch.ops.gct2.down_conv_k4s2)
+def _down_conv_flops(x_shape, kernel_shape, bias_shape, relu, out_shape=None, **kwargs) -> int:
+    """2 per multiply-add: B·(H/2)·(W/2)·16·C·O."""
+    b, h, w, c = x_shape
+    return 2 * b * (h // 2) * (w // 2) * 16 * c * kernel_shape[3]
+
+
 class DownConv(torch.autograd.Function):
     """B4 with the backward of pallas_conv.py:149-165."""
 
@@ -266,9 +278,10 @@ def down_conv_fused(x, kernel, bias, relu: bool = True):
     """relu(conv_k4s2_SAME(x, kernel) + bias): x (B,H,W,C) NHWC, kernel
     (4,4,C,O) HWIO, bias (O,), differentiable in all three. A CPU tensor
     takes the plain version; a CUDA tensor launches the kernel on the
-    current stream or raises. Under ``torch.export`` (inference) the forward
-    is the custom op ``gct2::down_conv_k4s2``."""
-    if torch.compiler.is_exporting():
+    current stream or raises. Under ``torch.export`` (inference) and for a
+    fake tensor (shapes only, ``utils/profiler.compiled_stats``; forward
+    only) the forward is the custom op ``gct2::down_conv_k4s2``."""
+    if torch.compiler.is_exporting() or isinstance(x, FakeTensor):
         return down_conv_op(x, kernel, bias, relu)
     return DownConv.apply(x, kernel, bias, relu)
 

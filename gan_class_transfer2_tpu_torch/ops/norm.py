@@ -20,7 +20,8 @@ The reference model has no normalization; the GAN-mode models do
     so that ``torch.export`` (utils/bundle.py) holds the kernel by name
     (``instance_norm_fused`` on any device, a fake implementation of x's
     shape); eager calls go to ``instance_norm_fused`` directly, the op is
-    taken while ``torch.compiler.is_exporting()``, as for B4.
+    taken while ``torch.compiler.is_exporting()`` and for a fake tensor, as
+    for B4.
 
 The JAX package sends a norm to its Pallas kernel only on a TPU, for
 ``C % 128 == 0`` and a per-sample block of at most 6 MB (``_use_pallas``,
@@ -45,6 +46,7 @@ from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch._subclasses.fake_tensor import FakeTensor
 
 from . import _build
 
@@ -202,8 +204,9 @@ class InstanceNorm(torch.autograd.Function):
 def instance_norm(x, gamma, beta):
     """Per-(sample, channel) normalization over (H, W) with affine γ/β.
     x: (B, H, W, C); gamma/beta: (C,). Under ``torch.export`` (inference)
-    the forward is the custom op ``gct2::instance_norm``."""
-    if torch.compiler.is_exporting():
+    and for a fake tensor (shapes only, ``utils/profiler.compiled_stats``;
+    forward only) the forward is the custom op ``gct2::instance_norm``."""
+    if torch.compiler.is_exporting() or isinstance(x, FakeTensor):
         return instance_norm_op(x.contiguous(), gamma, beta)
     return InstanceNorm.apply(x.contiguous(), gamma, beta)
 

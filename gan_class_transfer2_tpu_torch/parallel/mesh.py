@@ -32,12 +32,32 @@ world size, and the collectives are written out:
     zero-padded, and gather the result (``shard_sample_batch``,
     ``make_data_parallel_apply``, ``sampler_eval``).
 
+Serving runs in one process over the host's devices, as JAX serves over
+``make_mesh(devices=jax.local_devices())`` (serve/server.py:1233-1241):
+``make_mesh(devices=[...])`` gives a ``LocalMesh`` of in-process replicas,
+no process group. ``replicate`` puts a copy of a module on each of its
+devices (the first may be the module itself), and ``shard_sample_batch``,
+``gather_rows`` and ``make_data_parallel_apply`` split rows over the
+replicas, zero-padded to the extent, run each block on its replica's
+device and gather the blocks onto the first device. The blocks run one
+after another from the calling thread, each with its device current: the
+launches are asynchronous, so separate cards run their blocks together,
+and threads of their own would only contend for the GIL (on four H100s
+they made /sample slower, tools/serve_replicas_torch.py). A batch of fewer
+rows than replicas is not padded up to the mesh: it runs whole on the
+first replica, since a small batch is paced by its launches and more
+replicas would only add launches. Two replicas may name the same device
+(how one card and the CPU hold the code): each is still a copy of its
+own.
+
 Tensor, pipeline and spatial parallelism (the ``model`` and ``slice`` axes)
 are not ported: a mesh is ``data`` × 1.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import sys
 from typing import NamedTuple
 
@@ -65,6 +85,33 @@ class Mesh:
         return f"Mesh(data={self.size}, rank={self.rank}, device={self.device})"
 
 
+class LocalMesh:
+    """In-process replicas over local ``devices`` as a ``data`` × 1 mesh
+    (serving): ``size`` replicas, the first device ``device``, where
+    gathered results land."""
+
+    axis_names = ("data", "model")
+
+    def __init__(self, devices):
+        self.devices = [_indexed(torch.device(d)) for d in devices]
+        if not self.devices:
+            raise ValueError("a local mesh needs at least one device")
+        self.size = len(self.devices)
+        self.device = self.devices[0]
+        self.shape = {"data": self.size, "model": 1}
+
+    def __repr__(self):
+        return f"LocalMesh({[str(d) for d in self.devices]})"
+
+
+def _indexed(device: torch.device) -> torch.device:
+    """``cuda`` as the current card's ``cuda:<i>``, as a module's parameters
+    report it; any other device as it is."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 class Sharding(NamedTuple):
     """A partition of an array over ``mesh``: ``spec`` names the mesh axis
     each leading dim is split over (``("data",)`` for a batch, ``()``
@@ -78,16 +125,26 @@ class Sharding(NamedTuple):
         return self.mesh.device
 
 
-def make_mesh(cfg=None, device="cuda", data: int = 0, model: int = 1, slices: int = 1) -> Mesh:
+def make_mesh(cfg=None, device="cuda", data: int = 0, model: int = 1, slices: int = 1,
+              devices=None):
     """The data-parallel mesh of this process group on ``device`` (this
     rank's card under ``multihost``'s rule for ``cuda``). ``data`` (or
-    ``cfg.mesh_data``) is 0 for the world size, or must equal it."""
+    ``cfg.mesh_data``) is 0 for the world size, or must equal it.
+
+    ``devices``: a ``LocalMesh`` of in-process replicas on those devices
+    instead (serving; ``data`` 0 or their count)."""
     if cfg is not None:
         data, model, slices = cfg.mesh_data, cfg.mesh_model, cfg.mesh_slice
     if max(model, 1) > 1 or max(slices, 1) > 1:
         raise NotImplementedError(
             "make_mesh: the model and slice axes (tensor and multi-slice parallelism) are "
             "not ported to PyTorch yet; the port's mesh is data x 1")
+    if devices is not None:
+        devices = [resolve_device(d) for d in devices]
+        if data not in (0, len(devices)):
+            raise ValueError(f"mesh 1x{data}x1 over {len(devices)} local devices: data must "
+                             f"be 0 or {len(devices)}")
+        return LocalMesh(devices)
     world = multihost.process_count()
     if data <= 0:
         data = world
@@ -96,6 +153,28 @@ def make_mesh(cfg=None, device="cuda", data: int = 0, model: int = 1, slices: in
                          f"process group has {world}; mesh_data must be 0 or {world}")
     dev = multihost.local_device(resolve_device(device))
     return Mesh(data, multihost.process_index(), dev)
+
+
+def local_devices(device="cuda") -> list:
+    """This host's devices of ``device``'s type: every card for ``cuda``
+    (``torch.cuda.device_count()``), the one CPU for ``cpu``."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [torch.device(dev.type)]
+
+
+def replicate(module, mesh):
+    """``module`` placed over ``mesh``: itself without a mesh or on a mesh
+    of one device; on a ``LocalMesh`` a list of one replica a device, the
+    first ``module`` itself when it lives on the first device, the others
+    copies that take no gradient."""
+    if mesh is None or mesh.size <= 1:
+        return module
+    first = module if next(module.parameters()).device == mesh.devices[0] else (
+        copy.deepcopy(module).to(mesh.devices[0]).requires_grad_(False))
+    return [first] + [copy.deepcopy(module).to(d).requires_grad_(False)
+                      for d in mesh.devices[1:]]
 
 
 def data_axis_size(mesh: Mesh) -> int:
@@ -358,41 +437,74 @@ def shard_sample_batch(batch, mesh):
     """This rank's rows of ``batch`` zero-padded to a multiple of the data
     extent (mesh.py:289), and the real count: the sampler's batch runs
     split over the ranks instead of whole on each; ``gather_rows`` puts
-    the result back together. Padded rows run on zeros and are cut off."""
+    the result back together. Padded rows run on zeros and are cut off.
+    On a ``LocalMesh``: the list of every replica's block, each on its
+    replica's device."""
     n = batch.shape[0]
     if mesh is None or mesh.size <= 1:
         return batch, n
     pad = (-n) % mesh.size
     if pad:
         batch = torch.cat([batch, batch.new_zeros((pad,) + tuple(batch.shape[1:]))], 0)
+    if isinstance(mesh, LocalMesh):
+        return [block.to(d) for block, d in zip(batch.chunk(mesh.size), mesh.devices)], n
     return local_rows(batch, mesh), n
 
 
 def gather_rows(local, mesh, n: int, dim: int = 0):
     """Every rank's ``local`` block concatenated along ``dim`` in rank
     order, cut to ``n`` rows there (a collective on a mesh of more than one
-    rank)."""
-    if mesh is not None and mesh.size > 1:
+    rank). On a ``LocalMesh``, ``local`` is the list of the replicas'
+    blocks, gathered onto the first device."""
+    if isinstance(mesh, LocalMesh) and mesh.size > 1:
+        local = torch.cat([b.to(mesh.device) for b in local], dim)
+    elif mesh is not None and mesh.size > 1:
         local = torch.cat(multihost.all_gather(local.contiguous()), dim)
     return local.narrow(dim, 0, n)
+
+
+def _on_replicas(mesh: LocalMesh, fn, args: list) -> list:
+    """``[fn(*args[i]) for each replica i]`` in turn from the calling
+    thread, each with its replica's device current (the kernels' launches
+    then switch no device)."""
+    outs = []
+    for dev, a in zip(mesh.devices, args):
+        with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+            outs.append(fn(*a))
+    return outs
 
 
 def make_data_parallel_apply(mesh, fn):
     """``fn(params, batch, *extras)`` with the leading-axis batch split over
     the ranks (mesh.py:315): the batch and each extra whose leading dim
     matches it (a class vector) are zero-padded to the data extent, each
-    rank applies ``fn`` to its rows, and the rows are gathered and cut back.
-    ``fn`` itself on a mesh of one rank."""
+    rank applies ``fn`` to its rows, and the rows are gathered and cut back
+    (each tensor of a tuple ``fn`` returns). ``fn`` itself on a mesh of one
+    rank. On a ``LocalMesh``, ``params`` is ``replicate``'s list and each
+    replica in turn applies ``fn`` to its block on its device; a batch of
+    fewer rows than replicas runs whole on the first."""
     if mesh is None or mesh.size <= 1:
         return fn
 
     def wrapped(params, batch, *extras):
         n = batch.shape[0]
+        split = [isinstance(e, torch.Tensor) and e.ndim >= 1 and e.shape[0] == n for e in extras]
+        if isinstance(mesh, LocalMesh) and n < mesh.size:
+            dev = mesh.device
+            return fn(params[0], batch.to(dev), *(e.to(dev) if s else e
+                                                  for e, s in zip(extras, split)))
         local, real = shard_sample_batch(batch, mesh)
-        ex = tuple(shard_sample_batch(e, mesh)[0]
-                   if isinstance(e, torch.Tensor) and e.ndim >= 1 and e.shape[0] == n else e
-                   for e in extras)
-        return gather_rows(fn(params, local, *ex), mesh, real)
+        ex = [shard_sample_batch(e, mesh)[0] if s else e for e, s in zip(extras, split)]
+        if isinstance(mesh, LocalMesh):  # each output as the list of the replicas' blocks
+            outs = _on_replicas(mesh, fn, [
+                (params[i], local[i], *(e[i] if s else e for e, s in zip(ex, split)))
+                for i in range(mesh.size)])
+            out = tuple(map(list, zip(*outs))) if isinstance(outs[0], tuple) else outs
+        else:
+            out = fn(params, local, *ex)
+        if isinstance(out, tuple):
+            return tuple(gather_rows(o, mesh, real) for o in out)
+        return gather_rows(out, mesh, real)
 
     return wrapped
 

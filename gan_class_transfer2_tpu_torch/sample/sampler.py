@@ -135,17 +135,28 @@ def sample(cfg, model, init_batch, class_idx=None, snapshots: bool = True) -> Sa
     return SampleResult(x_theta, snaps)
 
 
-def make_segment_fn(cfg, class_idx=None):
+def make_segment_fn(cfg, class_idx=None, mesh=None):
     """Partial reverse diffusion: ``seg(model, x̂, ε̂, ts)`` advances the state
     over the timesteps ``ts`` (serve/server.py streams with it), conditioned
-    on ``class_idx``."""
+    on ``class_idx``.
+
+    ``mesh``: the (x̂, ε̂) batch and the class vector are split over the
+    mesh and the blocks gathered (``parallel/mesh.make_data_parallel_apply``;
+    on a ``LocalMesh`` ``model`` is the list of replicas); the caller pads
+    the batch to a multiple of the data extent
+    (serve/server.ModelService._pad_bucket)."""
+    from ..parallel import mesh as mesh_lib
+
+    def advance(model, x_theta, epsilon_theta, c, ts):
+        for t in ts:
+            x_theta, epsilon_theta = step(cfg, model, x_theta, epsilon_theta, t, c)
+        return x_theta, epsilon_theta
+
+    advance = mesh_lib.make_data_parallel_apply(mesh, advance)
 
     @torch.inference_mode()
     def seg(model, x_theta, epsilon_theta, ts):
-        for t in ts:
-            x_theta, epsilon_theta = step(cfg, model, x_theta, epsilon_theta, int(t),
-                                           class_idx)
-        return x_theta, epsilon_theta
+        return advance(model, x_theta, epsilon_theta, class_idx, tuple(int(t) for t in ts))
 
     return seg
 

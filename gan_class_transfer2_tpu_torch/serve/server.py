@@ -27,12 +27,22 @@ keyed by edit name).
 
 What differs from the JAX package, and why:
 
-  * One card and one process. ``ModelService`` holds the modules that serve
-    (the denoiser or its EMA, the generators or their EMAs) as
-    ``nn.Module``s on ``device`` (the card unless the caller asks for the
-    CPU), and of the states it is given nothing else: no optimizer moments,
-    no discriminators. ``mesh=`` with more than one device raises
-    ``NotImplementedError`` naming parallel/mesh.py.
+  * One process. ``ModelService`` holds the modules that serve (the
+    denoiser or its EMA, the generators or their EMAs) as ``nn.Module``s on
+    ``device`` (the card unless the caller asks for the CPU), and of the
+    states it is given nothing else: no optimizer moments, no
+    discriminators. ``mesh=`` (a ``parallel/mesh.LocalMesh`` or a list of
+    devices of the service's type) serves over in-process replicas, as JAX
+    serves over its local mesh: each serving module is copied to every
+    device, a power-of-two bucket of at least the replica count is padded
+    to a multiple of it, and /sample, streams, /denoise and the transfers
+    split their batch over the replicas, one block after another
+    (``make_data_parallel_apply``); /edit runs on the first, and
+    so does a batch of fewer rows than replicas, unpadded (JAX pads it to
+    the mesh; here each replica would add a sampler pass of launches to a
+    request the host paces). ``build_service`` builds that mesh when the
+    host has more than one card. A bundle is served without a mesh, as in
+    JAX.
   * A compiled bundle (``bundle=``, utils/bundle.py; ``build_bundle_service``)
     serves /sample, /denoise and /transfer from its programs behind the same
     batchers, with the same uint8 quantisation on the device; /edit,
@@ -77,6 +87,7 @@ import torch
 
 from ..data.pipeline import DecoderUnavailable, decode_rgb
 from ..models.api import resolve_device
+from ..parallel import mesh as mesh_lib
 from ..sample import sampler
 from ..train import conditional_gan as cgan_lib
 from ..train import gan as gan_lib
@@ -417,11 +428,6 @@ class TargetedImageBatcher(SampleBatcher):
         return self._targeted_run(imgs, targets)
 
 
-def _mesh_size(mesh) -> int:
-    size = getattr(mesh, "size", None)
-    return int(size) if size is not None else len(mesh)
-
-
 def _device_of(module) -> torch.device:
     return next(module.parameters()).device
 
@@ -476,19 +482,22 @@ class ModelService:
     generator when kept). With none, a diffusion state is initialised from
     ``cfg.seed``. Each must live on ``device``; the service keeps only its
     serving part (``_serving_part``), as ``self.state``, ``self.gan_state``
-    and ``self.cgan_state``."""
+    and ``self.cgan_state``.
+
+    ``mesh``: a ``parallel/mesh.LocalMesh`` (or its list of devices, all of
+    ``device``'s type) to serve over in-process replicas; one device (or
+    None) is the plain path. A bundle is served without one."""
 
     EDIT_NAMES = ("pixelate", "shift", "quantise")
 
     def __init__(self, cfg, state=None, gan_state=None, cgan_state=None, mesh=None,
                  bundle=None, device="cuda"):
-        if mesh is not None and _mesh_size(mesh) > 1:
-            raise NotImplementedError(
-                "ModelService(mesh=...): serving over a device mesh (parallel/mesh.py) is "
-                "not ported to PyTorch yet; the port serves on one card")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.bundle = bundle
+        if bundle is not None:
+            mesh = None  # a bundle's programs are sealed: served replicated, as in JAX
+        self.mesh = self._local_mesh(mesh)
         if bundle is not None and bundle.device.type != self.device.type:
             raise ValueError(f"the bundle runs on {bundle.device}, the service on {self.device}")
         self._lock = threading.Lock()  # the device: one program at a time
@@ -519,29 +528,38 @@ class ModelService:
         }
         self._max_queue = cfg.serve_max_queue
         self._max_wait = cfg.serve_batch_wait_ms / 1000.0
+        # the serving modules as the programs take them: a module, or on a
+        # mesh the list of its replicas (mesh.replicate)
+        self._sample_fn = mesh_lib.make_data_parallel_apply(
+            self.mesh, lambda m, init, c: sampler.sample(cfg, m, init, c, snapshots=False).images)
+        self._preview_fn = mesh_lib.make_data_parallel_apply(
+            self.mesh, lambda m, x, noise: sampler.preview(cfg, m, x, noise)[0])
         if self.state is not None:
             self._model = self.state.model
+            self._replicas = mesh_lib.replicate(self._model, self.mesh)
             self._batcher = SampleBatcher(self._run_sample, max_wait_s=self._max_wait,
                                           max_queue=self._max_queue)
             self._denoise_batcher = ImageBatcher(self._run_denoise, max_wait_s=self._max_wait,
                                                  max_queue=self._max_queue)
         if self.gan_state is not None:
-            self._generators = {"ab": self.gan_state.g_ab, "ba": self.gan_state.g_ba}
-            self._gan_transfer = gan_lib.make_transfer_fn(cfg)
+            self._generators = {"ab": mesh_lib.replicate(self.gan_state.g_ab, self.mesh),
+                                "ba": mesh_lib.replicate(self.gan_state.g_ba, self.mesh)}
+            self._gan_transfer = gan_lib.make_transfer_fn(cfg, self.mesh)
             self._transfer_batchers = {
                 d: ImageBatcher(lambda imgs, d=d: self._run_transfer(imgs, d),
                                 max_wait_s=self._max_wait, max_queue=self._max_queue)
                 for d in ("ab", "ba")
             }
         if self.cgan_state is not None:
-            self._cgan_transfer = cgan_lib.make_transfer_fn(cfg)
+            self._cgan_generator = mesh_lib.replicate(self.cgan_state.generator, self.mesh)
+            self._cgan_transfer = cgan_lib.make_transfer_fn(cfg, self.mesh)
             self._cgan_batcher = TargetedImageBatcher(
                 self._run_cgan_transfer, max_wait_s=self._max_wait, max_queue=self._max_queue)
         if bundle is not None:
             # the artifact's programs behind the same batchers; a surface
             # whose program the bundle lacks stays unserved
             progs = set(bundle.programs)
-            self._model = None
+            self._model = self._replicas = None
             if "sample" in progs:
                 self._batcher = SampleBatcher(self._run_sample, max_wait_s=self._max_wait,
                                               max_queue=self._max_queue)
@@ -561,6 +579,20 @@ class ModelService:
                     self._run_cgan_transfer, max_wait_s=self._max_wait,
                     max_queue=self._max_queue)
 
+    def _local_mesh(self, mesh):
+        """``mesh`` as a ``LocalMesh`` of more than one device, or None;
+        its devices must be of the service's type (a state on another
+        device is refused likewise)."""
+        if mesh is None:
+            return None
+        if not isinstance(mesh, mesh_lib.LocalMesh):
+            mesh = mesh_lib.LocalMesh(mesh)
+        wrong = [str(d) for d in mesh.devices if d.type != self.device.type]
+        if wrong:
+            raise ValueError(f"the mesh's devices {wrong} are not of the service's device "
+                             f"{self.device}")
+        return mesh if mesh.size > 1 else None
+
     # ----------------------------------------------------- device programs
 
     def _noise(self, shape) -> torch.Tensor:
@@ -578,29 +610,44 @@ class ModelService:
             c[:num] = classes
         return torch.from_numpy(c).to(self.device)
 
-    def _sample_prog(self, model, init, class_idx=None) -> torch.Tensor:
-        """Reverse diffusion from ``init``, quantised to uint8 on the device
-        (clip, then truncate, as JAX's program casts): the fetch to the host
-        is then a quarter of float32's bytes."""
+    def _sample_prog(self, models, init, class_idx=None) -> torch.Tensor:
+        """Reverse diffusion from ``init`` (split over the mesh's replicas
+        when serving over one), quantised to uint8 on the device (clip, then
+        truncate, as JAX's program casts): the fetch to the host is then a
+        quarter of float32's bytes."""
         if self.bundle is not None:
             images = self.bundle.call("sample", init, *(() if class_idx is None else (class_idx,)))
         else:
-            images = sampler.sample(self.cfg, model, init, class_idx, snapshots=False).images
+            images = self._sample_fn(models, init, class_idx)
         with torch.inference_mode():
             return torch.clamp((images * 0.5 + 0.5) * 255.0, 0, 255).to(torch.uint8)
+
+    def _pad_bucket(self, num: int) -> int:
+        """The power-of-two bucket, rounded up to a multiple of the mesh's
+        data extent when serving over one (server.py:602-609). A bucket
+        smaller than the extent stays as it is: it runs whole on the first
+        replica (``make_data_parallel_apply``), where JAX pads it to the
+        mesh, since a small batch is paced by its launches and each more
+        replica adds a sampler pass of them."""
+        padded = _pow2(num)
+        extent = 1 if self.mesh is None else mesh_lib.data_axis_size(self.mesh)
+        if padded >= extent:
+            padded += (-padded) % extent
+        return padded
 
     def _run_sample(self, num: int, classes=None) -> np.ndarray:
         """One coalesced device call for ``num`` images, padded to a bucket;
         ``classes``: the per-sample class vector (conditional checkpoints)."""
-        padded = _pow2(num)
+        padded = self._pad_bucket(num)
         c = self._classes(classes, num, padded)
         self._bump("device_batches")
         with self._lock:
             init = self._noise((padded, self.cfg.size, self.cfg.size, 3))
-            return self._sample_prog(self._model, init, c)[:num].cpu().numpy()
+            return self._sample_prog(self._replicas, init, c)[:num].cpu().numpy()
 
     def _pad_pow2(self, imgs: np.ndarray):
-        """Pad an image batch to its power-of-two bucket."""
+        """Pad an image batch to its power-of-two bucket (the programs pad it
+        to the mesh's extent themselves, make_data_parallel_apply)."""
         padded = _pow2(imgs.shape[0])
         if padded == imgs.shape[0]:
             return imgs, imgs.shape[0]
@@ -622,7 +669,7 @@ class ModelService:
                 out = self.bundle.call("preview", self._to_device(x), noise,
                                        *(() if c is None else (c,)))
             else:
-                out = sampler.preview(self.cfg, self._model, self._to_device(x), noise)[0]
+                out = self._preview_fn(self._replicas, self._to_device(x), noise)
             return out[:n].cpu().numpy()
 
     def _run_transfer(self, imgs: np.ndarray, direction: str) -> np.ndarray:
@@ -647,7 +694,7 @@ class ModelService:
             if self.bundle is not None:
                 out = self.bundle.call("transfer", self._to_device(x), target)
             else:
-                out = self._cgan_transfer(self.cgan_state.generator, self._to_device(x), target)
+                out = self._cgan_transfer(self._cgan_generator, self._to_device(x), target)
             return out[:n].cpu().numpy()
 
     # ----------------------------------------------------------- state
@@ -701,15 +748,22 @@ class ModelService:
                     raise  # step still there: a genuine restore error
                 time.sleep(0.1)  # raced the pruner; re-resolve and retry
                 continue
+            state, gan_state, cgan_state = new
+            # every replica is copied before the lock and swapped under it
+            def place(module):
+                return mesh_lib.replicate(module, self.mesh)
+
+            replicas = place(state.model) if state is not None else None
+            generators = (None if gan_state is None else
+                          {"ab": place(gan_state.g_ab), "ba": place(gan_state.g_ba)})
+            cgan_generator = place(cgan_state.generator) if cgan_state is not None else None
             with self._lock:
-                state, gan_state, cgan_state = new
                 if state is not None:
-                    self.state, self._model = state, state.model
+                    self.state, self._model, self._replicas = state, state.model, replicas
                 if gan_state is not None:
-                    self.gan_state = gan_state
-                    self._generators = {"ab": gan_state.g_ab, "ba": gan_state.g_ba}
+                    self.gan_state, self._generators = gan_state, generators
                 if cgan_state is not None:
-                    self.cgan_state = cgan_state
+                    self.cgan_state, self._cgan_generator = cgan_state, cgan_generator
                 self._bump("reloads")
             return self.step
         raise RuntimeError("reload kept racing checkpoint pruning; raise checkpoint_keep")
@@ -813,10 +867,10 @@ class ModelService:
 
     def _sample_stream_impl(self, num: int, segments: int, class_idx: Optional[int] = None):
         self._bump("requests_stream")
-        padded = _pow2(num)
+        padded = self._pad_bucket(num)
         segment = sampler.make_segment_fn(
             self.cfg, None if class_idx is None else self._classes(
-                np.full((num,), class_idx, np.int32), num, padded))
+                np.full((num,), class_idx, np.int32), num, padded), mesh=self.mesh)
         ts_all = sampler.sample_timesteps(self.cfg)
         # more segments than timesteps is meaningless
         segments = min(max(int(segments), 1), len(ts_all))
@@ -824,8 +878,8 @@ class ModelService:
             x = e = self._noise((padded, self.cfg.size, self.cfg.size, 3))
             # pin the CURRENT denoiser for the whole stream: a /reload
             # between segments must not advance this trajectory with
-            # another checkpoint's weights (reload swaps in a new module)
-            model = self._model
+            # another checkpoint's weights (reload swaps in new modules)
+            model = self._replicas
         for ts in np.array_split(ts_all, segments):
             if len(ts) == 0:
                 continue
@@ -1078,11 +1132,15 @@ class Server:
 def build_service(cfg, model: str = "diffusion", device="cuda") -> ModelService:
     """The ModelService the serve command runs: the latest checkpoint in
     ``cfg.checkpoint_dir`` restored (a warning and random weights from
-    ``cfg.seed`` when there is none), on ``device``. The checkpoint's
-    train-time mesh settings are ignored: the port serves on one card."""
+    ``cfg.seed`` when there is none), on ``device``, served over a
+    ``LocalMesh`` of every local card when the host has more than one
+    (server.py:1223-1271). The checkpoint's train-time mesh settings are
+    ignored: serving replicates over whatever devices this host has."""
     if model not in ("diffusion", "gan", "cgan"):
         raise ValueError(f"model must be diffusion | gan | cgan, got {model!r}")
     device = resolve_device(device)
+    local = mesh_lib.local_devices(device)
+    mesh = mesh_lib.make_mesh(devices=local) if len(local) > 1 else None
     has_ckpt = bool(cfg.checkpoint_dir) and ckpt_lib.latest_step(cfg.checkpoint_dir) is not None
     if not has_ckpt:
         print(f"warning: no checkpoint found in {cfg.checkpoint_dir!r}; "
@@ -1091,16 +1149,16 @@ def build_service(cfg, model: str = "diffusion", device="cuda") -> ModelService:
         gan_state = gan_lib.init_gan_state(cfg, device=device)
         if has_ckpt:
             gan_state = ckpt_lib.restore(cfg.checkpoint_dir, gan_state)
-        return ModelService(cfg, gan_state=gan_state, device=device)
+        return ModelService(cfg, gan_state=gan_state, mesh=mesh, device=device)
     if model == "cgan":
         cgan_state = cgan_lib.init_conditional_gan_state(cfg, device=device)
         if has_ckpt:
             cgan_state = ckpt_lib.restore(cfg.checkpoint_dir, cgan_state)
-        return ModelService(cfg, cgan_state=cgan_state, device=device)
+        return ModelService(cfg, cgan_state=cgan_state, mesh=mesh, device=device)
     state = trainer_lib.init_state(cfg, device=device)
     if has_ckpt:
         state = ckpt_lib.restore(cfg.checkpoint_dir, state)
-    return ModelService(cfg, state=state, device=device)
+    return ModelService(cfg, state=state, mesh=mesh, device=device)
 
 
 def build_bundle_service(bundle_path: str, overrides=None, device="cuda") -> ModelService:

@@ -175,7 +175,9 @@ def make_transfer_fn(cfg, mesh=None):
     """``(generator_module, images, target_vec) -> transferred`` under
     inference mode, on the images' device; on a mesh of more than one rank
     the images and targets are split over the ranks and the result
-    gathered (``parallel/mesh.make_data_parallel_apply``)."""
+    gathered, and on a serving ``LocalMesh`` over its replicas, the
+    generator then being ``mesh.replicate``'s list
+    (``parallel/mesh.make_data_parallel_apply``)."""
 
     @torch.inference_mode()
     def fn(model, images, targets):

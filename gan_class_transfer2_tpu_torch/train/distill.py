@@ -25,8 +25,16 @@ What differs from the JAX package, and why:
     denoiser calls of a step (the teacher's two, the student's one) under
     ``conv_impl="pallas"``; the student's backward goes through cuDNN
     around it.
-  * One card: ``mesh=`` with more than one device raises (parallel/mesh.py
-    is not ported yet).
+  * Over the ranks of a process group (``mesh=``, parallel/mesh.make_mesh,
+    where JAX jits the step over its device mesh, distill.py:243-287): t,
+    ε and the uint8 augment are drawn for the global batch from a generator
+    alike on every rank, each rank takes its rows (``global_rows``,
+    ``local_rows``) and runs both teacher forwards and the student on them,
+    and one ``all_reduce`` averages the gradients and the loss
+    (``trainer.average_over_ranks``): two ranks equal one process on the
+    same global batch and generator state. Under ``zero1`` each rank keeps
+    its slice of the optimizer state (``mesh.zero1_update``), as JAX's
+    state shardings slice it.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from ..core import diffusion
 from ..core.schedule import alpha_dash
 from ..models import api as model_api
 from ..models import unet
+from ..parallel import mesh as mesh_lib
 from . import trainer as trainer_lib
 
 
@@ -124,29 +133,32 @@ def x_to_prediction(cfg, x_target, z_t, t):
     return eps  # epsilon
 
 
-def draw(cfg, batch, generator, stride: int):
+def draw(cfg, batch, generator, stride: int, mesh=None):
     """The step's draws (distill.py:147-160): ``t`` uniform on the student
     grid, (B,) int32, and ε ~ N(0, 1) of the batch's shape, from
-    ``generator`` (on the batch's device or the CPU), on the batch's device."""
+    ``generator`` (on the batch's device or the CPU), on the batch's device.
+    On a mesh the draws are the global batch's and ``batch`` holds this
+    rank's rows of it, which the draws are cut to."""
     grid = torch.as_tensor(student_grid(cfg, stride), dtype=torch.int32)
-    b = batch.shape[0]
-    idx = torch.randint(0, grid.shape[0], (b,), generator=generator, device=generator.device)
-    t = grid.to(generator.device)[idx].to(batch.device)
-    epsilon = torch.randn(batch.shape, generator=generator, device=generator.device,
-                          dtype=batch.dtype).to(batch.device)
-    return t, epsilon
+    n = mesh_lib.global_rows(batch.shape[0], mesh)
+    idx = torch.randint(0, grid.shape[0], (n,), generator=generator, device=generator.device)
+    t = mesh_lib.local_rows(grid.to(generator.device)[idx], mesh).to(batch.device)
+    epsilon = torch.randn((n, *batch.shape[1:]), generator=generator, device=generator.device,
+                          dtype=batch.dtype)
+    return t, mesh_lib.local_rows(epsilon, mesh).to(batch.device)
 
 
 def distill_loss(cfg, student, teacher, batch, generator, stride: int, class_idx=None, *,
-                 t=None, epsilon=None):
+                 t=None, epsilon=None, mesh=None):
     """Draw (t, ε) on the student grid (or take the injected ``t``, (B,)
     integers, and ``epsilon``), build z_t from data, and regress the
     student's prediction onto the two-teacher-step target, in the model's
     prediction space (with the trainer's prediction_weighting factor when
-    configured)."""
+    configured). On a mesh: this rank's rows, of draws made for the global
+    batch."""
     b = batch.shape[0]
     if t is None or epsilon is None:
-        t_draw, eps_draw = draw(cfg, batch, generator, stride)
+        t_draw, eps_draw = draw(cfg, batch, generator, stride, mesh)
         t = t_draw if t is None else t
         epsilon = eps_draw if epsilon is None else epsilon
     t = torch.as_tensor(t).to(device=batch.device, dtype=torch.float32).reshape(b, 1, 1, 1)
@@ -179,18 +191,27 @@ def distill_opt_config(cfg, steps: int):
     )
 
 
-def make_distill_step(cfg, stride: int):
+def make_distill_step(cfg, stride: int, mesh=None):
     """``step(state, teacher, batch, generator, *, t=None, epsilon=None) ->
     (state, loss)``: one distillation step (distill.py:210-230). ``state``
     is a ``trainer.TrainState`` over the student (updated in place);
     uint8 batches run the on-device augment first, as the train step does;
     the update is the optax-form optimizer's, then the EMA blend gated as in
-    ``trainer.ema_update``. The loss is a float32 tensor (no host sync)."""
+    ``trainer.ema_update``. The loss is a float32 tensor (no host sync).
+
+    ``mesh``: the step over the ranks of a process group (distill.py:233,
+    ``make_parallel_distill_step``): ``batch`` (and an injected ``t`` and
+    ``epsilon``) are this rank's rows of the global batch, the gradients
+    and the loss are averaged over the ranks, and the loss returned is the
+    global batch's."""
     _validate(cfg, stride)
     optimizer = trainer_lib.make_optimizer(cfg)
+    if mesh is not None and mesh.size <= 1:
+        mesh = None
+    zero1 = bool(cfg.zero1) and mesh is not None
 
     def step(state, teacher, batch, generator, *, t=None, epsilon=None):
-        batch = trainer_lib.fold_and_augment(cfg, batch, generator)
+        batch = trainer_lib.fold_and_augment(cfg, batch, generator, mesh)
         label = None
         if isinstance(batch, dict):
             label = batch.get("label")
@@ -198,41 +219,53 @@ def make_distill_step(cfg, stride: int):
         params = list(state.model.parameters())
         with unet.ieee_fp32(torch.float32, batch.device):
             loss = distill_loss(cfg, state.model, teacher, batch, generator, stride,
-                                class_idx=label, t=t, epsilon=epsilon)
+                                class_idx=label, t=t, epsilon=epsilon, mesh=mesh)
             grads = torch.autograd.grad(loss, params)
-        updates, opt_state = optimizer.update(list(grads), state.opt_state, params)
-        trainer_lib.apply_updates(params, updates)
+        grads, (loss,) = trainer_lib.average_over_ranks(mesh, grads, [loss.detach()])
+        opt_state = trainer_lib.update_params(optimizer, state.opt_state, params, grads, mesh,
+                                              zero1)
         ema = trainer_lib.ema_update(cfg, state.ema_params, params, opt_state)
         return trainer_lib.TrainState(state.step + 1, state.model, opt_state, ema,
-                                      state.scale_state), loss.detach()
+                                      state.scale_state), loss
 
     return step
 
 
-def init_student(cfg, teacher) -> trainer_lib.TrainState:
+def init_student(cfg, teacher, mesh=None) -> trainer_lib.TrainState:
     """A round's state: the student a trainable copy of the teacher, a fresh
     optimizer state over it (of ``cfg``, the round's optimizer config) and
-    an EMA copy when ``cfg.ema_decay > 0``."""
+    an EMA copy when ``cfg.ema_decay > 0``; on a mesh of more than one rank
+    under ``cfg.zero1``, the optimizer state sliced as ``state_shardings``
+    splits it."""
     student = copy.deepcopy(teacher).requires_grad_(True)
     params = list(student.parameters())
     ema = [p.detach().clone() for p in params] if cfg.ema_decay > 0 else None
-    return trainer_lib.TrainState(0, student, trainer_lib.make_optimizer(cfg).init(params), ema)
+    state = trainer_lib.TrainState(0, student, trainer_lib.make_optimizer(cfg).init(params), ema)
+    if cfg.zero1 and mesh is not None and mesh.size > 1:
+        state = mesh_lib.shard_state(state, mesh_lib.state_shardings(state, mesh, True), mesh)
+    return state
 
 
 def distill_round(cfg, teacher, data_iter, stride: int, steps: int,
                   generator: torch.Generator, log=print, on_loss=None, mesh=None):
     """One halving round: a student initialised from ``teacher`` (left
-    untouched: its calls run without gradient), trained ``steps`` optimizer steps to stride ``stride`` on
-    the round-sized schedule of :func:`distill_opt_config`. Returns
-    (student module, final loss): the EMA weights when ``cfg.ema_decay >
-    0``."""
-    if mesh is not None and (mesh.size if hasattr(mesh, "size") else len(mesh)) > 1:
-        raise NotImplementedError(
-            "distill_round(mesh=...): data-parallel distillation over a device mesh "
-            "(parallel/mesh.py) is not ported to PyTorch yet; the port distills on one card")
+    untouched: its calls run without gradient), trained ``steps`` optimizer
+    steps to stride ``stride`` on the round-sized schedule of
+    :func:`distill_opt_config`. Returns (student module, final loss): the
+    EMA weights when ``cfg.ema_decay > 0``.
+
+    ``mesh``: the process group's mesh (``parallel/mesh.make_mesh``);
+    ``data_iter`` then yields this rank's rows of each global batch and
+    ``generator`` is alike on every rank (``make_distill_step``). A mesh of
+    another kind (a ``LocalMesh``, a list of devices) is refused."""
+    if mesh is not None and not isinstance(mesh, mesh_lib.Mesh):
+        raise TypeError(
+            f"distill_round(mesh={mesh!r}): distillation runs over the ranks of a process "
+            "group (parallel/mesh.make_mesh()); in-process replicas (make_mesh(devices=...)) "
+            "only serve")
     opt_cfg = distill_opt_config(cfg, steps)
-    state = init_student(opt_cfg, teacher)
-    step_fn = make_distill_step(opt_cfg, stride)
+    state = init_student(opt_cfg, teacher, mesh)
+    step_fn = make_distill_step(opt_cfg, stride, mesh)
     loss = float("nan")
     sync_every = getattr(cfg, "host_sync_every", 0) or steps
     for i in range(steps):

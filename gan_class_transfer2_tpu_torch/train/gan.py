@@ -298,8 +298,9 @@ def select_generator(state: GANState, direction: str = "ab", use_ema: bool = Tru
 def make_transfer_fn(cfg, mesh=None):
     """``(generator_module, images) -> transferred`` under inference mode, on
     the images' device; on a mesh of more than one rank the images are
-    split over the ranks and the result gathered
-    (``parallel/mesh.make_data_parallel_apply``)."""
+    split over the ranks and the result gathered, and on a serving
+    ``LocalMesh`` over its replicas, the generator then being
+    ``mesh.replicate``'s list (``parallel/mesh.make_data_parallel_apply``)."""
     from ..parallel import mesh as mesh_lib
 
     @torch.inference_mode()

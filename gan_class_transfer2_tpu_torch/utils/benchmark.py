@@ -1,6 +1,7 @@
 """Throughput benchmarks — counterpart of
-gan_class_transfer2_tpu/utils/benchmark.py (``model_flops_per_image``,
-``run_benchmark``, ``run_sampler_benchmark``): images per second of the
+gan_class_transfer2_tpu/utils/benchmark.py (``steps_to_fixed_fid``,
+``model_flops_per_image``, ``run_benchmark``, ``run_sampler_benchmark``):
+the GAN steps to a transfer-quality target, and images per second of the
 train step on a synthetic batch resident on the device, with the same JSON
 keys as the JAX package's ``bench`` command, and of the reverse-diffusion
 sampler. Warmup is excluded from the timing; each timed loop ends in
@@ -40,6 +41,37 @@ class BenchResult:
             "vs_baseline": round(self.vs_baseline, 3),
             **self.extra,
         })
+
+
+def steps_to_fixed_fid(runner, target_fid: float, max_steps: int = 20_000,
+                       check_every: int = 500, direction: str = "ab", metric: str = "fid"):
+    """BASELINE.json's second headline metric: train the class-transfer GAN
+    until its transfer score reaches ``target_fid``; returns (steps, score),
+    or (None, the last score) when ``max_steps`` runs out.
+
+    ``runner``: a ``train.gan_loop.GANRunner``, trained ``check_every`` steps
+    at a time (``fit(epochs=1, steps_per_epoch=check_every,
+    log_samples=False)``) and scored by ``transfer_scores(direction)``.
+    ``metric``: "fid" (the BASELINE-named metric) or "kid" (comparable
+    across eval-set sizes, docs/FID.md)."""
+    def _score():
+        scores = runner.transfer_scores(direction)
+        if scores is None:  # degenerate eval sets: fail loudly here
+            raise ValueError(
+                "steps_to_fixed_fid needs >= 2 held-out images per class "
+                "(transfer_scores returned None); raise fid_samples or "
+                "supply bigger class globs"
+            )
+        return scores[metric]
+
+    steps_done = int(runner.state.step)
+    score = _score()
+    while score > target_fid and steps_done < max_steps:
+        runner.fit(epochs=1, steps_per_epoch=check_every, log_samples=False)
+        steps_done = int(runner.state.step)
+        score = _score()
+        print(f"steps_to_fixed_{metric}: step {steps_done} {metric} {score:.4f}", flush=True)
+    return (steps_done if score <= target_fid else None), score
 
 
 def _peak_tflops(compute_dtype: str, device: torch.device):

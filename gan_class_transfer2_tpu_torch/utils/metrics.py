@@ -14,9 +14,9 @@ What differs from the JAX module, and why:
     ``torch.Generator``: ``jax.random`` cannot be reproduced, so the two
     packages' ``random`` scores differ unless the JAX kernels are carried
     across with ``random_feature_params_from_numpy``.
-  * ``inception:`` / ``inception-tv:`` extractors need ``utils/inception.py``,
-    which is not ported, and InceptionV3 weights, which the repo does not
-    hold; they raise ``NotImplementedError``.
+  * ``inception:`` / ``inception-tv:`` extractors are ``utils/inception.py``'s
+    pool3 features of the named weights file, on the device the metric
+    runs on.
 
 The Fréchet distance is exact: ``|μ₁−μ₂|² + tr(Σ₁+Σ₂−2·(Σ₁Σ₂)^{1/2})``.
 """
@@ -126,13 +126,18 @@ def get_extractor(name: str = "auto") -> Callable:
 
     ``trained``: the pinned committed classifier (utils/fid_extractor.py);
     ``random``: the fixed-seed random-conv projection;
-    ``auto``: trained when its weights file exists, else random."""
+    ``auto``: trained when its weights file exists, else random;
+    ``inception:<path>``: InceptionV3 pool3 (utils/inception.py) of a
+    standard state-dict file (.pth/.npz), the FID papers publish;
+    ``inception-tv:<path>``: the same weights, stock torchvision pooling."""
     from . import fid_extractor
 
     if name.startswith("inception:") or name.startswith("inception-tv:"):
-        raise NotImplementedError(
-            f"extractor {name!r}: InceptionV3 features (utils/inception.py) are not ported "
-            "to PyTorch yet, and its weights are not in the repo; use trained, random or auto")
+        from . import inception
+
+        kind, _, path = name.partition(":")
+        return inception.features_from_file(
+            path, variant="fid" if kind == "inception" else "torchvision")
     if name == "auto":
         name = "trained" if fid_extractor.available() else "random"
     if name == "trained":

@@ -7,7 +7,12 @@
     ``{"ms", "calls", "op"}`` rows sorted by time, the top N (the JAX
     parser's rows, read from the profiler instead of an xplane file);
   * ``StepTimer`` — wall-clock step times, each lap ending in a
-    synchronising fetch of a value the step produced.
+    synchronising fetch of a value the step produced;
+  * ``annotate(name)`` — a named range in the capture
+    (``torch.profiler.record_function``), JAX's ``TraceAnnotation``;
+  * ``compiled_stats(fn, *args)`` — the FLOPs of a call without running it
+    on real data, with JAX's keys (``flops``, ``bytes_accessed``,
+    ``memory_mb``).
 """
 
 from __future__ import annotations
@@ -38,6 +43,35 @@ def trace(log_dir: str):
     finally:
         prof.stop()
         prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def annotate(name: str):
+    """A context naming the enclosed region in a ``trace`` capture (a host
+    range, with the CUDA kernels it launches under it)."""
+    return torch.profiler.record_function(name)
+
+
+def compiled_stats(fn, *args) -> dict:
+    """The cost of ``fn(*args)`` without running it on real data: ``fn`` runs
+    once on fake tensors of the arguments' shapes, dtypes and devices
+    (``FakeTensorMode``; parameters it closes over are taken in as fakes),
+    under ``torch.utils.flop_counter.FlopCounterMode``.
+
+    ``flops``: the counter's total: 2 per multiply-add of the matrix
+    products and convolutions, forward and any backward ``fn`` takes
+    (B4's custom op ``gct2::down_conv_k4s2`` included); elementwise work is
+    not counted, where XLA's cost analysis counts it. ``bytes_accessed``
+    and ``memory_mb`` are always None: eager PyTorch has no compiled
+    program whose traffic or temporary buffers could be read before it
+    runs (JAX gives None where a backend lacks them, too)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+        fake = [mode.from_tensor(a) if isinstance(a, torch.Tensor) else a for a in args]
+        with FlopCounterMode(display=False) as counter:
+            fn(*fake)
+    return {"flops": counter.get_total_flops(), "bytes_accessed": None, "memory_mb": None}
 
 
 def _kernels(prof):

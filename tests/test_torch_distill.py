@@ -261,10 +261,16 @@ def test_progressive_distill_refuses_unreachable_strides(sample_stride, target):
 
 
 def test_distill_round_over_a_mesh_is_refused():
+    """Distillation over the ranks of a process group is ported (two gloo
+    ranks: tests/test_torch_parallel.py); what is still refused is a mesh
+    that is no process-group mesh: a list of device names, or the serving
+    mesh of in-process replicas."""
+    from gan_class_transfer2_tpu_torch.parallel import mesh as mesh_lib
+
     _, cfg, _, model = _setup()
-    with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
-        distill.distill_round(cfg, model, iter(()), 2, 1, torch.Generator(),
-                              mesh=["cuda:0", "cuda:1"])
+    for mesh in (["cuda:0", "cuda:1"], mesh_lib.make_mesh(devices=["cpu", "cpu"])):
+        with pytest.raises(TypeError, match="ranks of a process group"):
+            distill.distill_round(cfg, model, iter(()), 2, 1, torch.Generator(), mesh=mesh)
 
 
 def test_student_grid_is_the_sampler_schedule():

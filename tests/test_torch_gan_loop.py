@@ -255,3 +255,27 @@ def test_cli_gan_train_from_png_folders(tmp_path, capsys):
     assert set(TAGS) <= {e[1] for e in jtb.read_events(events)}
     assert ckpt_lib.load_config(ckpt).classes == (str(tmp_path / "a" / "*.png"),
                                                   str(tmp_path / "b" / "*.png"))
+
+
+def test_steps_to_fixed_fid_harness(tmp_path, capsys):
+    """The twin of tests/test_gan_loop.py's harness test: an unreachable
+    target within a 2-step budget returns (None, a finite score) at step 2,
+    printing JAX's trajectory line; a target already met returns the step
+    without training; degenerate eval sets raise JAX's ValueError."""
+    from gan_class_transfer2_tpu_torch.utils.benchmark import steps_to_fixed_fid
+
+    runner = _runner(_cfg(tmp_path, steps_per_epoch=1, learning_rate=1e-4, checkpoint_dir=None,
+                          fid_samples=4))
+    try:
+        steps, fid = steps_to_fixed_fid(runner, target_fid=0.0, max_steps=2, check_every=2)
+        assert steps is None and np.isfinite(fid)
+        assert int(runner.state.step) == 2
+        assert f"steps_to_fixed_fid: step 2 fid {fid:.4f}" in capsys.readouterr().out
+        steps, kid = steps_to_fixed_fid(runner, target_fid=1e12, max_steps=4, check_every=2,
+                                        metric="kid")
+        assert steps == 2 and np.isfinite(kid) and int(runner.state.step) == 2
+        runner.transfer_scores = lambda direction: None
+        with pytest.raises(ValueError, match=">= 2 held-out images per class"):
+            steps_to_fixed_fid(runner, target_fid=0.0, max_steps=2, check_every=2)
+    finally:
+        runner.close()

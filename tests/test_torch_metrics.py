@@ -131,9 +131,11 @@ def test_get_extractor_names_and_errors_match_jax():
     for mod in (m, jm):
         with pytest.raises(ValueError, match="unknown extractor 'banana'"):
             mod.get_extractor("banana")
-    for name in ("inception:/w.pth", "inception-tv:/w.pth"):
-        with pytest.raises(NotImplementedError, match="utils/inception.py"):
-            m.get_extractor(name)
+    # a missing weights file: JAX's FileNotFoundError, from both packages
+    for name in ("inception:/no/such/w.pth", "inception-tv:/no/such/w.pth"):
+        for mod in (m, jm):
+            with pytest.raises(FileNotFoundError, match="Inception weights not found"):
+                mod.get_extractor(name)
 
 
 def test_guards_and_pixel_metrics_equal_jax():

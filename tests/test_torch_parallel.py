@@ -89,6 +89,7 @@ def run(tmp_path_factory):
     out_dir = str(tmp_path_factory.mktemp("dp"))
     jax_ref = _write_injected(os.path.join(out_dir, "injected.pt"))
     one_opt = worker.write_one_process_checkpoint(out_dir)
+    worker.write_distill_teacher(out_dir)
     port = _free_port()
     procs = [subprocess.Popen(
         [sys.executable, os.path.join(TESTS, "torch_dp_worker.py"), str(k), str(RANKS),
@@ -98,7 +99,8 @@ def run(tmp_path_factory):
     ref = {"diffusion": {k: worker.run_diffusion(k, mesh1) for k in worker.DIFFUSION_CASES},
            "gan": {k: worker.run_gan(k, mesh1) for k in worker.GAN_CASES},
            "cgan": {k: worker.run_cgan(k, mesh1) for k in worker.CGAN_CASES},
-           "sampling": worker.run_sampling(mesh1)}
+           "sampling": worker.run_sampling(mesh1),
+           "distill": {k: worker.run_distill(k, mesh1) for k in worker.DISTILL_CASES}}
     outs = [p.communicate(timeout=600)[0] for p in procs]
     for p, out in zip(procs, outs):
         assert p.returncode == 0, f"rank failed:\n{out[-4000:]}"
@@ -397,3 +399,54 @@ def test_eval_fn_shards_sampler_over_data_and_matches_single_device(run):
         assert torch.equal(got["fetched"], torch.from_numpy(worker._np(9, (worker.GLOBAL, 3))))
         assert got["bench_mesh"] == 2
     assert ref["bench_mesh"] == 1
+
+
+@pytest.mark.parametrize("case", list(worker.DISTILL_CASES))
+def test_two_rank_distill_round_matches_one_process(run, case):
+    """The twin of tests/test_distill.py's mesh test: a distillation round
+    over two ranks (the global batch's draws, both teacher forwards on each
+    rank's rows, gradients and loss averaged) equals one process on the
+    same batches and generator state, loss and weights at JAX's 1e-5; a
+    uint8 stream, and labeled batches of a conditional model under ZeRO-1."""
+    ref = run["ref"]["distill"][case]
+    for r in run["ranks"]:
+        got = r["distill"][case]
+        np.testing.assert_allclose(got["losses"], ref["losses"], rtol=1e-5, atol=1e-5)
+        assert got["loss"] == pytest.approx(ref["loss"], rel=1e-5, abs=1e-5)
+        for a, b in zip(got["params"], ref["params"]):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-5)
+    _same_on_every_rank(run["ranks"], "distill", case, "params")
+
+
+def test_cli_distill_over_two_ranks_writes_once(run):
+    """``cli distill --num-processes 2``: both ranks log the same losses,
+    rank 0 alone writes the student (sample_stride doubled) and the
+    TensorBoard events."""
+    import glob
+    import json
+
+    d = run["dir"]
+    r0, r1 = (r["cli_distill"] for r in run["ranks"])
+    assert r0["rc"] == r1["rc"] == 0
+    assert len(r0["loss_lines"]) == 2 and r0["loss_lines"] == r1["loss_lines"]
+    assert "wrote distilled student (sample_stride=2" in r0["printed"]
+    assert "wrote distilled student" not in r1["printed"]
+    with open(os.path.join(d, "student-r0", "config.json")) as fh:
+        assert json.load(fh)["sample_stride"] == 2
+    assert ckpt_lib.latest_step(os.path.join(d, "student-r0")) == 3
+    assert not os.path.exists(os.path.join(d, "student-r1"))
+    assert glob.glob(os.path.join(d, "dlogs-r0", "*", "*", "events.out.tfevents.*"))
+    assert not os.path.exists(os.path.join(d, "dlogs-r1"))
+
+
+def test_cli_refuses_flags_that_name_another_group(run):
+    """A CLI call inside a running process group whose --num-processes or
+    --process-id differ from the group's is refused before it runs, on
+    every rank, and writes nothing."""
+    d = run["dir"]
+    for rank, r in enumerate(run["ranks"]):
+        msgs = r["cli_distill"]["refused"]
+        assert len(msgs) == 2 and all(m is not None for m in msgs), msgs
+        for m in msgs:
+            assert f"already runs as rank {rank} of a group of 2" in m
+        assert not os.path.exists(os.path.join(d, f"refused-r{rank}"))

@@ -161,7 +161,7 @@ def test_port_imports_no_jax():
         "new = ['data.native_loader', 'data.cache', 'utils.metrics', 'utils.fid_extractor',\n"
         "       'serve.server', 'serve.aio', 'models.conditional', 'train.conditional_gan',\n"
         "       'train.conditional_gan_loop', 'train.distill', 'utils.bundle',\n"
-        "       'parallel.multihost', 'parallel.mesh']\n"
+        "       'parallel.multihost', 'parallel.mesh', 'utils.inception']\n"
         "missing = [n for n in new if p.__name__ + '.' + n not in names]\n"
         "assert not missing, missing\n"
         "from gan_class_transfer2_tpu_torch.utils import fid_extractor\n"
@@ -598,3 +598,73 @@ def test_bundle_sample_launches_b4_on_card(monkeypatch, tmp_path):
     want = sampler.sample(cfg, state.model, x, snapshots=False).images
     scale = max(1.0, want.abs().max().item())
     assert (got - want).abs().max().item() <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_inception_pool3_on_card_matches_the_cpu(monkeypatch):
+    """InceptionV3 pool3 on the card (cuDNN convs inside the port's
+    ieee_fp32 region) against the port on the CPU, both variants, on the
+    seeded synthetic state dict, upsampled 256² and downsampled 320²
+    inputs: within 1e-4 of the features' scale (IEEE float32 sums in other
+    orders through 94 convs)."""
+    from gan_class_transfer2_tpu_torch.utils import inception
+
+    _needs_card(monkeypatch)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)  # the region turns it off
+    params = inception.fold_state_dict(inception.synthetic_state_dict(0))
+    on_card = {k: {n: t.cuda() for n, t in p.items()} for k, p in params.items()}
+    r = np.random.default_rng(3)
+    for shape in ((2, 256, 256, 3), (1, 320, 320, 3)):
+        x = torch.from_numpy(r.uniform(-1, 1, shape).astype(np.float32))
+        for variant in ("fid", "torchvision"):
+            want = inception.pool3_features(params, x, variant).numpy()
+            got = inception.pool3_features(on_card, x.cuda(), variant).cpu().numpy()
+            scale = np.abs(want).max()
+            assert np.abs(got - want).max() <= 1e-4 * scale, (shape, variant)
+    assert torch.backends.cudnn.allow_tf32  # restored after the region
+
+
+@pytest.mark.cuda
+def test_two_replica_service_on_card_equals_one_replica(monkeypatch):
+    """A service over two replicas sharing cuda:0 (parallel/mesh.LocalMesh)
+    against the service without a mesh on the same weights: /sample num 3
+    within 1 level on at most 1e-3 of the values, /denoise within 2e-4;
+    each replica's block launches B4 once per admitted down conv a
+    denoiser call, so the two-replica sample launches exactly 2 × that;
+    /sample num 1 runs on the first replica alone, with one replica's
+    launches."""
+    from gan_class_transfer2_tpu_torch.parallel import mesh as mesh_lib
+    from gan_class_transfer2_tpu_torch.sample import sampler
+    from gan_class_transfer2_tpu_torch.serve.server import ModelService
+    from gan_class_transfer2_tpu_torch.train import trainer
+
+    _needs_card(monkeypatch)
+    cfg = tiny_test_config(size=32, pixel_size=128, max_size=128, block_depth=1,
+                           conv_impl="pallas", sample_stride=3)
+    state = trainer.init_state(cfg, torch.Generator().manual_seed(0), device="cuda")
+    one = ModelService(cfg, state=state, device="cuda")
+    two = ModelService(cfg, state=state, mesh=mesh_lib.make_mesh(devices=["cuda:0", "cuda:0"]),
+                       device="cuda")
+    try:
+        calls = len(sampler.sample_timesteps(cfg))
+        fdc.down_conv_fused.launches = 0
+        a = one.sample(3)
+        assert fdc.down_conv_fused.launches == 2 * calls  # 2 admitted down convs a call
+        fdc.down_conv_fused.launches = 0
+        b = two.sample(3)
+        assert fdc.down_conv_fused.launches == 2 * 2 * calls
+        diff = np.abs(a.astype(np.int16) - b.astype(np.int16))
+        assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3
+        fdc.down_conv_fused.launches = 0
+        a = one.sample(1)
+        alone = fdc.down_conv_fused.launches
+        fdc.down_conv_fused.launches = 0
+        b = two.sample(1)  # fewer rows than replicas: the first replica alone
+        assert alone > 0 and fdc.down_conv_fused.launches == alone
+        diff = np.abs(a.astype(np.int16) - b.astype(np.int16))
+        assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3
+        img = np.random.default_rng(0).uniform(-1, 1, (1, 32, 32, 3)).astype(np.float32)
+        np.testing.assert_allclose(two.denoise(img), one.denoise(img), rtol=2e-4, atol=2e-4)
+    finally:
+        one.close()
+        two.close()

@@ -287,7 +287,10 @@ def test_sample_stream_matches_full_sampler(server):
 
 def test_service_refuses_what_is_not_ported(tmp_path):
     cfg = tiny_test_config()
-    with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
+    # serving over replicas is ported (tests/test_torch_serve_mesh.py): a
+    # mesh whose devices are not of the service's type is refused, as a
+    # state on another device is
+    with pytest.raises(ValueError, match="not of the service's device cpu"):
         ModelService(cfg, mesh=["cuda:0", "cuda:1"], device="cpu")
     # bundles are ported (tests/test_torch_serve_bundle.py): a directory that
     # holds none is refused by name, as JAX's load_bundle refuses it

@@ -7,8 +7,12 @@ module: tests/test_torch_parallel.py spawns
 once per rank; each rank runs every scenario with the mesh of the group and
 writes its results to <dir>/rank<k>.pt. The tests run the same scenario
 functions in one process, on a mesh of one rank and the whole global batch,
-for the reference, and compare."""
+for the reference, and compare. Last, each rank runs ``cli distill`` as a
+rank of the same group on the teacher checkpoint the test wrote
+(``write_distill_teacher``)."""
 
+import contextlib
+import io
 import os
 import sys
 
@@ -19,12 +23,13 @@ if REPO not in sys.path:
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from gan_class_transfer2_tpu_torch import cli  # noqa: E402
 from gan_class_transfer2_tpu_torch.config import Config, tiny_test_config  # noqa: E402
 from gan_class_transfer2_tpu_torch.models import api  # noqa: E402
 from gan_class_transfer2_tpu_torch.parallel import mesh as mesh_lib  # noqa: E402
 from gan_class_transfer2_tpu_torch.parallel import multihost  # noqa: E402
 from gan_class_transfer2_tpu_torch.train import conditional_gan as cgan  # noqa: E402
-from gan_class_transfer2_tpu_torch.train import gan, trainer  # noqa: E402
+from gan_class_transfer2_tpu_torch.train import distill, gan, trainer  # noqa: E402
 from gan_class_transfer2_tpu_torch.utils import checkpoint as ckpt_lib  # noqa: E402
 
 GLOBAL = 4  # the global batch: 2 rows a rank on 2 ranks
@@ -202,6 +207,76 @@ def run_sampling(mesh):
             "fetched": multihost.host_fetch(batch, ("data",)), "bench_mesh": bench["sampler_mesh"]}
 
 
+# a uint8 stream (the step's augment) as JAX's mesh test distills, and
+# labeled float batches of a conditional model under ZeRO-1
+DISTILL_CASES = {"uint8": dict(), "labeled-zero1": dict(num_classes=3, zero1=True)}
+
+
+def run_distill(name, mesh):
+    """One distill_round (3 steps, stride 2) over ``mesh`` from the same
+    teacher and generator state, each rank on its rows of every global
+    batch; the loss of each logged step and the student's weights."""
+    overrides = DISTILL_CASES[name]
+    cfg = tiny_test_config(batch_size=GLOBAL, **overrides)
+    teacher = api.init_denoiser(cfg, torch.Generator().manual_seed(2), device="cpu")
+    r = np.random.default_rng(5)
+    batches = []
+    for _ in range(3):
+        if name == "uint8":
+            batches.append(mesh_lib.local_rows(torch.from_numpy(r.integers(
+                0, 256, (GLOBAL, 20, 20, 3), dtype=np.uint8)), mesh))
+        else:
+            batches.append({"image": mesh_lib.local_rows(torch.from_numpy(
+                r.uniform(-1, 1, (GLOBAL, 16, 16, 3)).astype(np.float32)), mesh),
+                "label": mesh_lib.local_rows(torch.tensor([2, 0, 1, 1]), mesh)})
+    losses = []
+    student, loss = distill.distill_round(
+        cfg, teacher, iter(batches), 2, 3, torch.Generator().manual_seed(17),
+        log=lambda *_: None, on_loss=lambda s, i, v: losses.append(v), mesh=mesh)
+    return {"loss": loss, "losses": losses, "params": _params(student)}
+
+
+def write_distill_teacher(out_dir):
+    """A teacher checkpoint (EMA kept) and 8 PNGs for ``cli distill``:
+    ``out_dir/teacher``, ``out_dir/pngs``."""
+    from gan_class_transfer2_tpu_torch.data import synthetic
+
+    pngs = os.path.join(out_dir, "pngs")
+    synthetic.save_as_pngs(synthetic.circles(8, 20), pngs)
+    cfg = tiny_test_config(batch_size=GLOBAL, ema_decay=0.9, native_loader=False,
+                           dataset_pattern=os.path.join(pngs, "*.png"))
+    state = trainer.init_state(cfg, torch.Generator().manual_seed(4), device="cpu")
+    ckpt_lib.save(os.path.join(out_dir, "teacher"), state._replace(step=3), cfg)
+
+
+def run_cli_distill(rank, world, port, out_dir):
+    """``cli distill`` as a rank of the running group: its own --out and
+    --log-dir, so that what a rank writes shows; the loss lines it
+    printed."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["distill", "--device", "cpu", "--coordinator", f"127.0.0.1:{port}",
+                       "--num-processes", str(world), "--process-id", str(rank),
+                       "--checkpoint-dir", os.path.join(out_dir, "teacher"),
+                       "--out", os.path.join(out_dir, f"student-r{rank}"),
+                       "--log-dir", os.path.join(out_dir, f"dlogs-r{rank}"),
+                       "--distill-steps", "2"])
+    printed = buf.getvalue()
+    # flags that name another group than the running one are refused
+    refused = []
+    for flags in (["--num-processes", str(world + 1), "--process-id", str(rank)],
+                  ["--num-processes", str(world), "--process-id", str(world - 1 - rank)]):
+        try:
+            cli.main(["distill", "--device", "cpu", "--coordinator", f"127.0.0.1:{port}",
+                      *flags, "--checkpoint-dir", os.path.join(out_dir, "teacher"),
+                      "--out", os.path.join(out_dir, f"refused-r{rank}")])
+            refused.append(None)
+        except ValueError as e:
+            refused.append(str(e))
+    return {"rc": rc, "loss_lines": [ln for ln in printed.splitlines() if "loss=" in ln],
+            "printed": printed, "refused": refused}
+
+
 def run_all(mesh, out_dir):
     return {
         "diffusion": {k: run_diffusion(k, mesh, out_dir if k == "zero1" else None)
@@ -210,6 +285,7 @@ def run_all(mesh, out_dir):
         "cgan": {k: run_cgan(k, mesh) for k in CGAN_CASES},
         "injected": run_injected(os.path.join(out_dir, "injected.pt"), mesh),
         "sampling": run_sampling(mesh),
+        "distill": {k: run_distill(k, mesh) for k in DISTILL_CASES},
     }
 
 
@@ -221,6 +297,7 @@ def main():
         mesh = mesh_lib.make_mesh(device="cpu")
         assert (mesh.size, mesh.rank) == (world, rank), mesh
         out = run_all(mesh, out_dir)
+        out["cli_distill"] = run_cli_distill(rank, world, port, out_dir)
         out["coordinator"] = multihost.is_coordinator()
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:

@@ -184,6 +184,39 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      exact B3/B4 launches from HTTP on both frontends;
      /reload swaps both replicas; /sample p50/p99 at concurrency 1 and 8
      and the card memory of both services;
+  22b. tp-kernel (before [serve], as every phase down to 22f) — B4
+     on a rank's output channels under tensor parallelism: the four
+     full-width down convs with O halved (the local shapes of
+     ``mesh_model=2``) at batch 16, float32 and bfloat16, against the plain
+     version ([train-kernel]'s bounds) and timed beside cuDNN on the same
+     local shape and the bound; a local shape the gate refuses is named;
+  22c. tp-agree, tp-gan, slice — one job of 2 processes of this script
+     (``--dp-worker tp``) sharing cuda:0 over gloo as ``mesh_model=2``: one
+     injected full-width float32 step (B4 on the kernel path) against one
+     process (loss 1e-5 relative, updates at [dp-agree]'s bounds), half of
+     every split kernel's bytes a rank, B4's launches as the local gate
+     predicts, step, gather and all-reduce ms; one cycle-GAN step with B3,
+     B4 and R1 at the default width, batch 8 a class: equal metrics on both
+     ranks, g_loss and d_loss within [gan-agree]'s 1e-5 of one process,
+     launches equal to one process's; ``mesh_slice=2`` against flat data
+     parallelism (one injected step each, [dp-agree]'s bounds);
+  22d. tp-train — ``cli train --mesh-model 2 --num-processes 2`` (2 ranks
+     of ``--dp-worker cli``) from the uint8 pool, 4 steps, a save and one
+     log_sample (the EMA gathered whole, the sampler data-parallel): exact
+     launches, equal metrics; the checkpoint restored in this process
+     equals the weights the ranks gathered, bit for bit, and ``cli sample``
+     runs from it;
+  22e. spatial-kernel — B1s on height blocks: the batch of 16 × 256² as
+     the two blocks of a 2-way spatial grid (positions 0, 1) and the four
+     of a 2 × 2 data × spatial grid (positions 0–3): bit for bit B1 with the
+     folded seed, the positions' ε different, a block timed beside its
+     byte bound;
+  22f. spatial-agree — 2 processes (``--dp-worker spatial``) as 2 height
+     shards: ``make_spatial_unet_apply`` against ``unet_apply`` at the
+     default width (1e-4 of the scale); one injected full-width spatial
+     step and one on the data × spatial layout (data 1 × spatial 2) at
+     batch 16 against one process, step and halo ms; 2 generator-driven
+     steps on the fused path: B1s once a step a rank;
   23. serve-bundle — ``build_bundle_service`` on the three bundles
      behind both frontends: /sample, /denoise, /transfer ab, ba and ?to= within 1
      level of the bundle in process with exact launches, frontends equal;
@@ -608,15 +641,18 @@ def phase_reference(torch, api, sampler):
         fail(f"tiny training on the card differs from the CPU by {rel} relative")
 
 
-def b4_per_call(fdc, cfg, batch):
+def b4_per_call(fdc, cfg, batch, model=1):
     """Down convs of one denoiser call that the B4 gate admits (4 at the
     default width: 128²→…→16² inputs with C ≥ 128; the stem has C = 3, or
-    3 + class_embed_dim in the class-conditional model)."""
+    3 + class_embed_dim in the class-conditional model). Under
+    ``mesh_model=model`` the gate sees each rank's local kernel, its
+    output channels cut by the TP rule."""
     stem = 3 + (cfg.class_embed_dim if cfg.num_classes > 0 else 0)
     n, c = 0, cfg.pixel_size if cfg.block_depth else stem
     for i in range(cfg.octaves):
         f, hw = cfg.octave_filters(i), cfg.size >> i
-        n += fdc.supported((batch, hw, hw, c), (4, 4, c, f))
+        local = f // model if f % model == 0 and f >= 2 * model else f
+        n += fdc.supported((batch, hw, hw, c), (4, 4, c, local))
         c = f
     return n
 
@@ -4122,12 +4158,22 @@ def _dp_cli_worker(torch, rank, port, spec):
     from gan_class_transfer2_tpu_torch.parallel import mesh as mesh_lib
     from gan_class_transfer2_tpu_torch.train import conditional_gan_loop, gan_loop, loop
 
+    from gan_class_transfer2_tpu_torch.train import trainer
+
     closing = {}
     for cls in (loop.Runner, gan_loop.GANRunner, conditional_gan_loop.ConditionalGANRunner):
         def close(self, _close=cls.close):
-            closing["checksum"] = float(sum(
-                t.double().sum() for p, t in mesh_lib._leaves(self.state)
-                if not mesh_lib._is_opt_state_path(p)))
+            if mesh_lib.model_axis_size(self.mesh) > 1:  # the weights and EMA gathered whole
+                whole = [p.detach() for m in (
+                    mesh_lib.whole_module(self.state.model, self.mesh),
+                    mesh_lib.whole_module(trainer.eval_model(self.state), self.mesh))
+                    for p in m.parameters()]
+                closing["whole_sha"] = _sha(whole)
+                closing["checksum"] = float(sum(t.double().sum() for t in whole))
+            else:
+                closing["checksum"] = float(sum(
+                    t.double().sum() for p, t in mesh_lib._leaves(self.state)
+                    if not mesh_lib._is_opt_state_path(p)))
             closing["step"] = int(self.state.step)
             return _close(self)
 
@@ -4236,10 +4282,604 @@ def _dp_agree_worker(torch, rank, port):
     grads = [torch.randn_like(p) for p in p0]
     out["grad_mb"] = sum(g.numel() for g in grads) * 4 / 1e6
     out["allreduce_ms"] = timed(lambda: multihost.all_reduce_mean(grads), reps=5)
-    half = torch.cat([mesh_lib._slice(g, mesh).reshape(-1) for g in grads
+    half = torch.cat([mesh_lib._data_slice(g, mesh).reshape(-1) for g in grads
                       if mesh_lib._zero1_spec(g, mesh)])
     out["gather_mb"] = half.numel() * 4 / 1e6
     out["gather_ms"] = timed(lambda: multihost.all_gather(half), reps=5)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    multihost.shutdown()
+    print("DPRESULT " + json.dumps(out), flush=True)
+    return 0
+
+
+# ------------------------------------------------------- tensor parallelism
+
+TP_RANKS = 2  # [tp-*]: mesh_model of the jobs; the ranks share cuda:0 over gloo
+TP_GAN_BATCH = 8  # [tp-gan]: images a class (two full GAN steps' activations on one card)
+
+
+def phase_tp_kernel(torch, F, fdc, card):
+    """B4 at the local shapes of ``mesh_model=2``: each full-width down conv
+    with its output channels halved, batch 16, float32 and bfloat16,
+    against the plain version (KERNEL_RTOL of max|y|), and timed beside
+    cuDNN on the same local shape and the bound. Returns {dtype: sums over
+    the four shapes}."""
+    from gan_class_transfer2_tpu_torch.models import unet
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    out = {}
+    # IEEE float32 for the plain version and cuDNN, as [kernel] runs them:
+    # the phases before this one train under torch's TF32 default
+    with unet.ieee_fp32(torch.float32, torch.device("cuda")):
+        for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            out[dtype_name] = _tp_kernel_dtype(torch, F, fdc, card, gen, dtype_name, dtype)
+    return out
+
+
+def _tp_kernel_dtype(torch, F, fdc, card, gen, dtype_name, dtype):
+    """phase_tp_kernel at one dtype: the sums over the four shapes."""
+    s = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, max_abs_err=0.0, shapes=0)
+    for (hw, c, o) in SHAPES:
+        ol = o // TP_RANKS
+        if not fdc.supported((TRAIN_BATCH, hw, hw, c), (4, 4, c, ol)):
+            print(f"[tp-kernel] {dtype_name} {hw}²×{c} -> {ol} (of {o}): the gate refuses "
+                  "this local shape; cuDNN runs it")
+            continue
+        x = torch.randn((TRAIN_BATCH, hw, hw, c), generator=gen, device="cuda").to(dtype)
+        k = (torch.randn((4, 4, c, ol), generator=gen, device="cuda") / (16 * c) ** 0.5
+             ).to(dtype)
+        b = (torch.randn((ol,), generator=gen, device="cuda") * 0.1).to(dtype)
+        before = fdc.down_conv_fused.launches
+        with torch.inference_mode():
+            y = fdc.down_conv_fused(x, k, b)
+            ref = fdc.down_conv_plain(x, k, b)
+            torch.cuda.synchronize()
+            err = (y.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            if not err <= KERNEL_RTOL[dtype_name] * scale:
+                fail(f"tp-kernel {dtype_name} x{tuple(x.shape)}->{ol}: max|err| {err} > "
+                     f"{KERNEL_RTOL[dtype_name]} x max|y| {scale}")
+            x_lib = x.permute(0, 3, 1, 2)
+            w_lib = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            ms = cuda_ms(lambda: fdc.down_conv_fused(x, k, b))
+            plain_ms = cuda_ms(lambda: fdc.down_conv_plain(x, k, b), reps=5)
+            lib_ms = cuda_ms(lambda: torch.relu_(F.conv2d(x_lib, w_lib, b, stride=2,
+                                                          padding=1)))
+        fdc.down_conv_fused.launches = before  # comparison launches do not count
+        h2 = hw // 2
+        flops = 2 * TRAIN_BATCH * h2 * h2 * ol * 16 * c
+        nbytes = x.element_size() * (x.numel() + k.numel() + b.numel() + y.numel())
+        flops_ms, bytes_ms = flops / PEAK_FLOPS[dtype_name] * 1e3, _bytes_ms(nbytes)
+        bound = max(flops_ms, bytes_ms)
+        plan = fdc.plan(TRAIN_BATCH, hw, hw, c, ol, dtype)
+        print(f"[tp-kernel] {dtype_name} x{tuple(x.shape)} -> {ol} (a rank's half of {o}): "
+              f"max|err| {err:.3e} (max|y| {scale:.3f}); plan {plan.blocks} blocks (split "
+              f"{plan.split}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN "
+              f"{lib_ms:.4f} ms on the same local shape, bound {bound:.4f} ms "
+              f"({'operations' if flops_ms >= bytes_ms else 'bytes'}) = {bound / ms:.1%}")
+        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                       ("bound_ms", bound)):
+            s[key] += v
+        s["max_abs_err"] = max(s["max_abs_err"], err)
+        s["shapes"] += 1
+        del x, k, b, y, ref, x_lib, w_lib
+    print(f"[tp-kernel] {dtype_name} batch {TRAIN_BATCH}, {s['shapes']} local shapes: kernel "
+          f"{s['ms']:.4f} ms, plain {s['plain_ms']:.4f} ms, cuDNN {s['library_ms']:.4f} ms, "
+          f"bound {s['bound_ms']:.4f} ms = {s['bound_ms'] / s['ms']:.1%} of bound, on {card}")
+    torch.cuda.empty_cache()
+    return s
+
+
+def phase_tp(fdc, cfg, card):
+    """[tp-agree], [tp-gan] and [slice]: one job of 2 ranks (``--dp-worker
+    tp``) sharing cuda:0 over gloo (see _tp_worker); the checks and the
+    prints. Returns {kernel row name: main-path launches}."""
+    (res,) = _dp_jobs([("tp", [{}] * DP_RANKS)])
+    r0, r1 = res
+    a, b = r0["tp"], r1["tp"]
+    b4 = b4_per_call(fdc, cfg, TRAIN_BATCH, TP_RANKS)
+    if a["checksum"] != b["checksum"]:
+        fail("tp-agree: the ranks' gathered weights differ")
+    for k, r in enumerate((a, b)):
+        if r["launches"] != {"B2": 0, "B4": b4}:
+            fail(f"tp-agree rank {k}: launches {r['launches']}, expected B2 0, B4 {b4} (the "
+                 "local gate's down convs of one forward)")
+        if r["kernel_bytes"] != r["want_kernel_bytes"]:
+            fail(f"tp-agree rank {k}: kernels {r['kernel_bytes']} B a rank, expected "
+                 f"{r['want_kernel_bytes']} (half of each split one) of "
+                 f"{r['full_kernel_bytes']}")
+    ok = a["rel"] <= 1e-5 and a["share"] <= 1e-4
+    comm = a["comm"]
+    print(f"[tp-agree] mesh_model=2, one injected step at {cfg.size}², batch {TRAIN_BATCH}, fp32 "
+          f"kernel path (B4 on the local shapes; B2 off at world size 2): loss "
+          f"{a['loss']:.7f} vs one process {r0['ref']['loss']:.7f} (rel {a['rel']:.2e}, bound "
+          f"1e-5); updates gathered whole: max|Δ2 − Δ1| {a['max_diff']:.3e}, share beyond "
+          f"1e-3·lr {a['share']:.2e} (bound 1e-4); {a['split']} kernels split, "
+          f"{a['kernel_bytes'] / 1e6:.1f} MB of kernels a rank of "
+          f"{a['full_kernel_bytes'] / 1e6:.1f}; launches a rank {a['launches']} (predicted B4 {b4}); step {a['step_ms']:.2f} ms "
+          f"(one process {r0['ref']['step_ms']:.2f} ms); one step with each collective timed "
+          f"(synchronised): gathers {comm['calls'].get('gather', 0)} x, "
+          f"{comm['bytes'].get('gather', 0) / 1e9:.3f} GB sent a rank, "
+          f"{comm['ms'].get('gather', 0.0):.2f} ms; input-gradient all-reduces "
+          f"{comm['calls'].get('reduce', 0)} x, {comm['bytes'].get('reduce', 0) / 1e9:.3f} GB, "
+          f"{comm['ms'].get('reduce', 0.0):.2f} ms; the timed step {comm['step_ms']:.2f} ms — "
+          f"2 ranks sharing one {card} over gloo, not a multi-card number")
+    if not ok:
+        fail(f"tp-agree: loss rel {a['rel']}, share {a['share']}")
+    ga, gb, gref = r0["gan"], r1["gan"], r0["gan_ref"]
+    if ga["metrics"] != gb["metrics"]:
+        fail(f"tp-gan: the ranks' metrics differ: {ga['metrics']} vs {gb['metrics']}")
+    if ga["launches"] != gref["launches"] or gb["launches"] != gref["launches"]:
+        fail(f"tp-gan: launches {ga['launches']} / {gb['launches']}, one process "
+             f"{gref['launches']}")
+    rel = {k: abs(ga["metrics"][k] - gref["metrics"][k]) / abs(gref["metrics"][k])
+           for k in ("g_loss", "d_loss")}
+    print(f"[tp-gan] mesh_model=2, one cycle-GAN step at {cfg.size}², batch {TP_GAN_BATCH} a "
+          f"class, B3 and B4, R1 (weight 1): metrics equal on both ranks; g_loss "
+          f"{ga['metrics']['g_loss']:.7f} vs one process {gref['metrics']['g_loss']:.7f} (rel "
+          f"{rel['g_loss']:.2e}), d_loss {ga['metrics']['d_loss']:.7f} vs "
+          f"{gref['metrics']['d_loss']:.7f} (rel {rel['d_loss']:.2e}), r1 "
+          f"{ga['metrics']['r1']:.6g} vs {gref['metrics']['r1']:.6g}; bound 1e-5 "
+          f"([gan-agree]'s); the sgd updates gathered whole against one process: G max "
+          f"{ga['g_diff']:.3e}, D max {ga['d_diff']:.3e} of the largest update; launches a rank "
+          f"B3/B4 {ga['launches']} (one process {gref['launches']}); the second step "
+          f"{ga['step_ms']:.1f} ms (one process {gref['step_ms']:.1f} ms) on {card}")
+    if not max(rel.values()) <= 1e-5:
+        fail(f"tp-gan: losses {rel} beyond 1e-5 of one process")
+    sa, flat = r0["slice"], r0["flat"]
+    rel_s = abs(sa["loss"] - flat["loss"]) / abs(flat["loss"])
+    print(f"[slice] mesh_slice=2 on 2 ranks (batch over ('slice', 'data')) against flat data "
+          f"parallelism, one injected step at {cfg.size}², batch {TRAIN_BATCH}: loss "
+          f"{sa['loss']:.7f} vs {flat['loss']:.7f} (rel {rel_s:.2e}, bound 1e-5); updates max "
+          f"|Δ| {sa['max_diff']:.3e}, share beyond 1e-3·lr {sa['share']:.2e} (bound 1e-4); "
+          f"launches a rank {sa['launches']}")
+    if not rel_s <= 1e-5 or not sa["share"] <= 1e-4 or r1["slice"]["checksum"] != sa["checksum"]:
+        fail(f"slice: loss rel {rel_s}, share {sa['share']}, or the ranks differ")
+    return {"down_conv_k4s2_f32": a["launches"]["B4"] + b["launches"]["B4"]
+            + ga["launches"][1] + gb["launches"][1] + sa["launches"]["B4"]
+            + r1["slice"]["launches"]["B4"],
+            "instance_norm_f32": ga["launches"][0] + gb["launches"][0]}
+
+
+def phase_tp_train(torch, cli, fdc, fd, trainer, sampler, cfg, tmp, card):
+    """[tp-train]: ``cli train --mesh-model 2 --num-processes 2`` from the
+    uint8 pool of the PNGs under ``tmp``, 4 steps, a save and one
+    log_sample; the checkpoint restored here equals the weights and EMA the
+    ranks gathered when they closed (hashes of their bytes); ``cli sample``
+    from it in this process. Returns {kernel row name: launches}."""
+    from gan_class_transfer2_tpu_torch.utils import checkpoint as ckpt_lib
+
+    ckpt = os.path.join(tmp, "ckpt-tp")
+    specs = [{"args": _train_cli(cfg, tmp, f"logs-tp-r{k}", "ckpt-tp", "--data-hbm", "288",
+                                 "--epochs", "1", "--log-images-every", "1", "--ema-decay",
+                                 "0.99", "--mesh-model", str(TP_RANKS))}
+             for k in range(DP_RANKS)]
+    t0 = time.perf_counter()
+    (res,) = _dp_jobs([("cli", specs)])
+    secs = time.perf_counter() - t0
+    b4 = b4_per_call(fdc, cfg, TRAIN_BATCH, TP_RANKS)
+    calls = 1 + cfg.steps + len(sampler.sample_timesteps(cfg.replace(sample_stride=50)))
+    want = {"B1": 0, "B1s": CLI_STEPS, "B2": 0, "B3": 0,
+            "B4": CLI_STEPS * b4 + calls * b4_per_call(fdc, cfg, TRAIN_BATCH)}
+    for k, r in enumerate(res):
+        if r["launches"] != want:
+            fail(f"tp-train rank {k}: launches {r['launches']}, expected {want}")
+    _dp_same(res, "tp-train")
+    if res[0]["whole_sha"] != res[1]["whole_sha"]:
+        fail("tp-train: the ranks gathered different weights")
+    cfg_ck = ckpt_lib.load_config(ckpt)
+    state = ckpt_lib.restore(ckpt, trainer.init_state(cfg_ck.replace(mesh_model=1),
+                                                      device="cuda"))
+    got = _sha([p.detach() for p in state.model.parameters()] + list(state.ema_params))
+    if cfg_ck.mesh_model != TP_RANKS or got != res[0]["whole_sha"]:
+        fail(f"tp-train: the checkpoint (mesh_model {cfg_ck.mesh_model}) restored in one "
+             "process is not the ranks' gathered weights and EMA bit for bit")
+    before = fdc.down_conv_fused.launches
+    out = os.path.join(tmp, "tp-samples")
+    rc = cli.main(["sample", "--device", "cuda", "--checkpoint-dir", ckpt, "--num", "2",
+                   "--out", out])
+    fdc.down_conv_fused.launches = before
+    if rc != 0 or len(glob.glob(os.path.join(out, "*.png"))) != 2:
+        fail(f"tp-train: cli sample from the checkpoint returned {rc}")
+    loss = _dp_scalars(res[0], "loss")
+    print(f"[tp-train] cli train --mesh-model 2, 2 ranks sharing one {card} (gloo), global batch "
+          f"{TRAIN_BATCH} on both (data extent 1), {CLI_STEPS} steps from the uint8 pool + one "
+          f"log_sample on the EMA gathered whole: launches a rank {res[0]['launches']} (B4 "
+          f"{b4} a step on the local shapes, {b4_per_call(fdc, cfg, TRAIN_BATCH)} a sampler "
+          f"call on the whole model); epoch loss {loss[0]:.7f} on both ranks; the checkpoint "
+          f"restored in one process equals the gathered weights and EMA bit for bit "
+          f"(sha256 {got[:12]}); cli sample from it: 2 PNGs; "
+          f"{_dp_scalars(res[0], 'images_per_sec')[0]:.3f} img/s, wall {secs:.2f} s")
+    del state
+    torch.cuda.empty_cache()
+    return {"down_conv_k4s2_f32": sum(r["launches"]["B4"] for r in res),
+            "diffuse_sharded_f32": sum(r["launches"]["B1s"] for r in res)}
+
+
+def _sha(tensors):
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def phase_spatial_kernel(torch, fd, cfg, card):
+    """B1s on height blocks: the batch of 16 × 256²×3 as the 2 blocks of a
+    2-way spatial grid (16 × 128 rows, positions 0, 1) and the 4 of a 2 × 2
+    data × spatial grid (8 × 128 rows, positions d·2 + s): each bit for bit
+    B1 on its block with the folded seed, within B1's bound of the plain
+    version, distinct positions' ε different; one block timed beside its
+    byte bound. Returns its summary."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    x = torch.rand((TRAIN_BATCH, cfg.size, cfg.size, 3), generator=gen, device="cuda") * 2 - 1
+    t = torch.randint(1, cfg.steps + 1, (TRAIN_BATCH,), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    seed = torch.randint(0, 2**62, (1,), generator=gen, device="cuda")
+    table = fd.scale_table(cfg.steps, cfg.schedule, "cuda")
+    counts = fd.diffuse_fused.launches, fd.diffuse_fused_sharded.launches
+    h = cfg.size // 2
+    grids = {"2-way spatial": [(slice(None), s, s) for s in range(2)],
+             "2x2 data x spatial": [(slice(d * 8, d * 8 + 8), s, d * 2 + s)
+                                    for d in range(2) for s in range(2)]}
+    err, blocks = 0.0, {}
+    for name, cells in grids.items():
+        eps = []
+        for rows, s, pos in cells:
+            xb = x[rows, s * h:(s + 1) * h].contiguous().reshape(x[rows].shape[0], -1)
+            tb = t[rows].contiguous()
+            if not fd.fused_sharded_ok(cfg, tuple(x.shape), {"data": 2, "spatial": 2}
+                                       if "data" in name else {"spatial": 2},
+                                       ("data", "spatial") if "data" in name
+                                       else (None, "spatial")):
+                fail(f"spatial-kernel: fused_sharded_ok refuses the {name} grid")
+            y = fd.diffuse_fused_sharded(xb, tb, table, seed, pos)
+            b1 = fd.diffuse_fused(xb, tb, table, fd.fold_seed(seed, pos))
+            ref = fd.diffuse_sharded_plain(xb, tb, table, seed, pos)
+            torch.cuda.synchronize()
+            if not torch.equal(y, b1):
+                fail(f"spatial-kernel: {name} position {pos} differs from B1 with the folded "
+                     "seed")
+            err = max(err, (y - ref).abs().max().item())
+            noise = torch.tensor([[0.0, 1.0]], device="cuda")
+            eps.append(fd.diffuse_fused_sharded(torch.zeros_like(xb), torch.zeros_like(tb),
+                                                noise, seed, pos))
+            blocks[name] = (xb, tb, pos)
+        same = max((a == b).double().mean().item() for i, a in enumerate(eps)
+                   for b in eps[:i])
+        if same > 1e-3:
+            fail(f"spatial-kernel: two positions of the {name} grid drew the same ε in "
+                 f"{same:.2%} of the elements")
+    if not err <= DIFFUSE_ATOL:
+        fail(f"spatial-kernel: B1s vs plain max|err| {err} > {DIFFUSE_ATOL}")
+    out = {}
+    for name, (xb, tb, pos) in blocks.items():
+        call = lambda: fd.diffuse_fused_sharded(xb, tb, table, seed, pos)  # noqa: E731
+        ms = cuda_ms(call, reps=50)
+        scrub = torch.empty(16 * 2**20, device="cuda")
+        cold_ms = device_ms(call, "diffuse", before=lambda: scrub.fill_(1.0))
+        elems = xb.numel()
+        bytes_ms = _bytes_ms(8 * elems)
+        ops = DIFFUSE_INT_PER_ELEMENT * elems, DIFFUSE_FLOAT_PER_ELEMENT * elems
+        ops_ms = max(ops[0] / INT32_RATE, (ops[0] + ops[1]) / DISPATCH_RATE) * 1e3
+        out[name] = dict(ms=ms, cold_ms=cold_ms, bound_ms=max(bytes_ms, ops_ms),
+                         shape=tuple(xb.shape))
+        print(f"[spatial-kernel] B1s on a block of the {name} grid, {tuple(xb.shape)} "
+              f"(position {pos}): kernel {ms:.4f} ms back to back, device {cold_ms:.4f} ms "
+              f"L2 cold; bound {max(bytes_ms, ops_ms):.4f} ms "
+              f"({'operations' if ops_ms >= bytes_ms else 'bytes'}: "
+              f"{8 * elems / 1e6:.2f} MB) on {card}")
+        del scrub
+    fd.diffuse_fused.launches, fd.diffuse_fused_sharded.launches = counts
+    print(f"[spatial-kernel] both grids: every block bit for bit B1 with the folded seed; "
+          f"max|err| vs plain {err:.3e} (bound {DIFFUSE_ATOL}); distinct positions' ε differ; "
+          "these launches are comparisons (the main path's are [spatial-agree]'s)")
+    del x
+    return out
+
+
+def phase_spatial_agree(card):
+    """[spatial-agree]: one job of 2 ranks (``--dp-worker spatial``) as 2
+    height shards of cuda:0 (see _spatial_worker). Returns {kernel row
+    name: main-path launches}."""
+    (res,) = _dp_jobs([("spatial", [{}] * DP_RANKS)])
+    r0, r1 = res
+    fw = r0["forward"]
+    print(f"[spatial-agree] make_spatial_unet_apply on 2 height shards of {r0['size'] // 2} rows "
+          f"at {r0['size']}², batch 4: max|err| {fw['err']:.3e} of max|y| {fw['scale']:.3f} "
+          f"against unet_apply on the card (bound 1e-4 of the scale)")
+    if not fw["err"] <= 1e-4 * fw["scale"]:
+        fail(f"spatial-agree: the sharded forward differs by {fw['err']}")
+    for name in ("spatial", "dp_spatial"):
+        a = r0[name]
+        if a["checksum"] != r1[name]["checksum"]:
+            fail(f"spatial-agree {name}: the ranks' weights differ")
+        halo = a["comm"]
+        print(f"[spatial-agree] {name}: one injected step at {r0['size']}², batch "
+              f"{TRAIN_BATCH}, 2 height shards: loss {a['loss']:.7f} vs one process "
+              f"{r0['ref']['loss']:.7f} (rel {a['rel']:.2e}, bound 1e-5); updates max|Δ2 − Δ1| "
+              f"{a['max_diff']:.3e}, share beyond 1e-3·lr {a['share']:.2e} (bound 1e-4); step "
+              f"{a['step_ms']:.2f} ms (one process {r0['ref']['step_ms']:.2f} ms); one step with "
+              f"each collective timed: halos {halo['calls'].get('halo', 0)} x, "
+              f"{halo['bytes'].get('halo', 0) / 1e6:.2f} MB sent a rank, "
+              f"{halo['ms'].get('halo', 0.0):.2f} ms; gradient all-reduce "
+              f"{halo['ms'].get('grad', 0.0):.2f} ms — 2 ranks sharing one {card}")
+        if not a["rel"] <= 1e-5 or not a["share"] <= 1e-4:
+            fail(f"spatial-agree {name}: loss rel {a['rel']}, share {a['share']}")
+    f0, f1 = r0["fused"], r1["fused"]
+    want = {"B1": 0, "B1s": 2}
+    if f0["launches"] != want or f1["launches"] != want or f0["losses"] != f1["losses"]:
+        fail(f"spatial-agree fused: launches {f0['launches']} / {f1['launches']} (expected "
+             f"{want}), losses {f0['losses']} / {f1['losses']}")
+    print(f"[spatial-agree] 2 generator-driven steps on the fused path (B1s on each rank's "
+          f"(8, 128, 256, 3) block at its spatial index): launches a rank {f0['launches']}, "
+          f"losses {f0['losses']} on both ranks")
+    return {"diffuse_sharded_f32": f0["launches"]["B1s"] + f1["launches"]["B1s"]}
+
+
+def _tp_worker(torch, rank, port):
+    """One rank of [tp-agree], [tp-gan] and [slice] (see phase_tp)."""
+    from gan_class_transfer2_tpu_torch.config import Config
+    from gan_class_transfer2_tpu_torch.models import api
+    from gan_class_transfer2_tpu_torch.ops import adam_kernel
+    from gan_class_transfer2_tpu_torch.ops import fused_down_conv as fdc
+    from gan_class_transfer2_tpu_torch.ops import norm
+    from gan_class_transfer2_tpu_torch.parallel import mesh as mesh_lib
+    from gan_class_transfer2_tpu_torch.parallel import multihost
+    from gan_class_transfer2_tpu_torch.train import gan, trainer
+
+    dev = "cuda"
+    torch.backends.cudnn.allow_tf32 = False
+    multihost.initialize(f"127.0.0.1:{port}", DP_RANKS, rank, device=dev)
+    mesh = mesh_lib.make_mesh(device=dev, model=TP_RANKS)
+    lr = 1e-3
+    cfg = Config().replace(batch_size=TRAIN_BATCH, conv_impl="pallas", optimizer="adam_fused",
+                           lr_schedule="constant", learning_rate=lr).validate()
+    r = np.random.default_rng(9)
+    x = torch.from_numpy(r.uniform(-1, 1, (TRAIN_BATCH, cfg.size, cfg.size, 3))
+                         .astype(np.float32)).to(dev)
+    t = torch.from_numpy(r.integers(1, cfg.steps + 1, TRAIN_BATCH).astype(np.int32))
+    eps = torch.from_numpy(r.standard_normal(tuple(x.shape)).astype(np.float32)).to(dev)
+    init = api.init_denoiser(cfg, device="cpu")
+    p0 = [p.detach().to(dev) for p in init.parameters()]
+    sync = torch.cuda.synchronize
+
+    def kernel_bytes(model):
+        return sum(p.numel() * p.element_size() for p in model.parameters() if p.ndim == 4)
+
+    def run(on, check_ref=None):
+        """One injected step on mesh ``on`` (None: one process)."""
+        model = copy.deepcopy(init).to(dev)
+        state = trainer.TrainState(0, model, trainer.make_optimizer(cfg).init(
+            list(model.parameters())), None, None)
+        res = {}
+        rows = (x, t, eps)
+        if on is not None:
+            res["full_kernel_bytes"] = kernel_bytes(model)
+            sh = mesh_lib.state_shardings(state, on)
+            res["want_kernel_bytes"] = sum(
+                p.numel() * p.element_size() // (TP_RANKS if sh[f"model.{k}"] else 1)
+                for k, p in model.named_parameters() if p.ndim == 4)
+            state = mesh_lib.shard_state(state, sh, on)
+            res["kernel_bytes"] = kernel_bytes(model)
+            res["split"] = sum(1 for n, s in sh.items() if s and n.startswith("model."))
+            rows = tuple(mesh_lib.local_rows(v, on) for v in rows)
+        step = trainer.make_injected_train_step(cfg, on)
+        fdc.down_conv_fused.launches = adam_kernel.adam_fused.launches = 0
+        state, loss = step(state, *rows)
+        sync()
+        res["launches"] = {"B2": adam_kernel.adam_fused.launches,
+                           "B4": fdc.down_conv_fused.launches}
+        fdc.down_conv_fused.launches = adam_kernel.adam_fused.launches = 0
+        whole = mesh_lib.whole_module(model, on) if on is not None else model
+        res["loss"] = float(loss)
+        res["delta"] = [(p.detach() - q) for p, q in zip(whole.parameters(), p0)]
+        res["checksum"] = float(sum(p.detach().double().sum() for p in whole.parameters()))
+        del whole
+        holder = [state]
+
+        def again():
+            holder[0], _ = step(holder[0], *rows)
+
+        res["step_ms"] = _ranks_ms(torch, multihost, again, 3, ranks=on is not None)
+        if on is not None:
+            multihost.comm.reset()
+            multihost.comm.timing = True
+            t1 = time.perf_counter()
+            again()
+            sync()
+            res["comm"] = {"step_ms": (time.perf_counter() - t1) * 1e3,
+                           "calls": dict(multihost.comm.calls),
+                           "bytes": dict(multihost.comm.bytes),
+                           "ms": {k: v * 1e3 for k, v in multihost.comm.seconds.items()}}
+            multihost.comm.timing = False
+        if check_ref is not None:
+            res["rel"] = abs(res["loss"] - check_ref["loss"]) / abs(check_ref["loss"])
+            diff = torch.cat([(a - b).abs().flatten()
+                              for a, b in zip(res["delta"], check_ref["delta"])])
+            res["max_diff"] = diff.max().item()
+            res["share"] = (diff > 1e-3 * lr).double().mean().item()
+        fdc.down_conv_fused.launches = adam_kernel.adam_fused.launches = 0
+        return res
+
+    out = {}
+    ref = run(None) if rank == 0 else None  # one process (B2 on), rank 0 alone
+    multihost.barrier()
+    if rank == 0:
+        out["ref"] = {"loss": ref["loss"], "step_ms": ref["step_ms"]}
+    res = run(mesh, ref)
+    del res["delta"]
+    out["tp"] = res
+    torch.cuda.empty_cache()
+
+    # [tp-gan]: a cycle-GAN step, B3 and B4, R1 on
+    gcfg = Config().replace(batch_size=TP_GAN_BATCH, g_norm="instance", d_norm="instance",
+                            conv_impl="pallas", optimizer="sgd", lr_schedule="constant",
+                            learning_rate=1e-2, r1_weight=1.0).validate()
+    rg = np.random.default_rng(12)
+    a_img, b_img = (torch.from_numpy(rg.uniform(-1, 1, (TP_GAN_BATCH, gcfg.size, gcfg.size, 3))
+                                     .astype(np.float32)).to(dev) for _ in range(2))
+    nets = ("g_ab", "g_ba", "d_a", "d_b")
+
+    def gan_run(on):
+        state = gan.init_gan_state(gcfg, torch.Generator().manual_seed(0), device=dev)
+        before = {n: [p.detach().clone() for p in getattr(state, n).parameters()] for n in nets}
+        if on is not None:
+            state = mesh_lib.shard_state(state, mesh_lib.state_shardings(state, on), on)
+            step = mesh_lib.make_parallel_gan_train_step(gcfg, on)
+        else:
+            step = gan.make_gan_train_step(gcfg)
+        norm.instance_norm_fused.launches = fdc.down_conv_fused.launches = 0
+        state, m = step(state, a_img, b_img, torch.Generator(device=dev))
+        sync()
+        res = {"launches": [norm.instance_norm_fused.launches, fdc.down_conv_fused.launches],
+               "metrics": {k: float(v) for k, v in m.items()}}
+        res["delta"] = {n: [(p.detach() - q) for p, q in zip(
+            mesh_lib.whole_module(getattr(state, n), on).parameters() if on is not None
+            else getattr(state, n).parameters(), before[n])] for n in nets}
+        holder = [state]
+
+        def again():
+            holder[0], _ = step(holder[0], a_img, b_img, torch.Generator(device=dev))
+
+        res["step_ms"] = _ranks_ms(torch, multihost, again, 1, ranks=on is not None)
+        norm.instance_norm_fused.launches = fdc.down_conv_fused.launches = 0
+        return res
+
+    gref = gan_run(None) if rank == 0 else None
+    torch.cuda.empty_cache()
+    multihost.barrier()
+    g = gan_run(mesh)
+    if rank == 0:
+        for kind, names in (("g_diff", ("g_ab", "g_ba")), ("d_diff", ("d_a", "d_b"))):
+            largest = max(u.abs().max().item() for n in names for u in gref["delta"][n])
+            g[kind] = max((u - v).abs().max().item() for n in names
+                          for u, v in zip(g["delta"][n], gref["delta"][n])) / largest
+        del gref["delta"]
+        out["gan_ref"] = gref
+    del g["delta"]
+    out["gan"] = g
+    torch.cuda.empty_cache()
+
+    # [slice]: mesh_slice=2 against flat data parallelism
+    flat = run(mesh_lib.make_mesh(device=dev))
+    sl = run(mesh_lib.make_mesh(device=dev, slices=2), flat)
+    for d in (flat, sl):
+        del d["delta"], d["comm"]
+    out["flat"], out["slice"] = flat, sl
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    multihost.shutdown()
+    print("DPRESULT " + json.dumps(out), flush=True)
+    return 0
+
+
+def _spatial_worker(torch, rank, port):
+    """One rank of [spatial-agree] (see phase_spatial_agree)."""
+    from gan_class_transfer2_tpu_torch.config import Config
+    from gan_class_transfer2_tpu_torch.models import api, unet
+    from gan_class_transfer2_tpu_torch.ops import fused_diffusion as fd
+    from gan_class_transfer2_tpu_torch.parallel import multihost
+    from gan_class_transfer2_tpu_torch.parallel import spatial_train, spatial_unet
+    from gan_class_transfer2_tpu_torch.train import trainer
+
+    dev = "cuda"
+    torch.backends.cudnn.allow_tf32 = False
+    multihost.initialize(f"127.0.0.1:{port}", DP_RANKS, rank, device=dev)
+    mesh = spatial_train.make_spatial_mesh(device=dev)
+    sync = torch.cuda.synchronize
+    lr = 1e-3
+    cfg = Config().replace(batch_size=TRAIN_BATCH, optimizer="adam_tf", lr_schedule="constant",
+                           learning_rate=lr, fused_diffusion=False).validate()
+    out = {"size": cfg.size}
+    r = np.random.default_rng(5)
+    init = api.init_denoiser(cfg, device="cpu")
+    model = copy.deepcopy(init).to(dev)
+    x4 = torch.from_numpy(r.uniform(-1, 1, (4, cfg.size, cfg.size, 3)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        y = spatial_unet.make_spatial_unet_apply(cfg, mesh)(
+            model, spatial_train.local_block(x4, mesh).contiguous())
+        full = torch.cat(multihost.all_gather(y.contiguous(), "spatial"), 1)
+        if rank == 0:
+            want = unet.unet_apply(cfg, model, x4)
+            out["forward"] = {"err": (full - want).abs().max().item(),
+                              "scale": want.abs().max().item()}
+    del model, y, full
+    x = torch.from_numpy(r.uniform(-1, 1, (TRAIN_BATCH, cfg.size, cfg.size, 3))
+                         .astype(np.float32)).to(dev)
+    t = torch.from_numpy(r.integers(1, cfg.steps + 1, TRAIN_BATCH).astype(np.int32))
+    eps = torch.from_numpy(r.standard_normal(tuple(x.shape)).astype(np.float32)).to(dev)
+    p0 = [p.detach().to(dev) for p in init.parameters()]
+
+    def fresh():
+        m = copy.deepcopy(init).to(dev)
+        return trainer.TrainState(0, m, trainer.make_optimizer(cfg).init(list(m.parameters())),
+                                  None, None)
+
+    if rank == 0:  # one process, rank 0 alone
+        state = fresh()
+        step = trainer.make_injected_train_step(cfg)
+        state, loss = step(state, x, t, eps)
+        sync()
+        ref = {"loss": float(loss),
+               "delta": [p.detach() - q for p, q in zip(state.model.parameters(), p0)]}
+        holder = [state]
+
+        def again():
+            holder[0], _ = step(holder[0], x, t, eps)
+
+        ref["step_ms"] = _ranks_ms(torch, multihost, again, 3, ranks=False)
+        out["ref"] = {"loss": ref["loss"], "step_ms": ref["step_ms"]}
+        del holder, state
+    multihost.barrier()
+    for name, m in (("spatial", mesh), ("dp_spatial", spatial_train.make_dp_spatial_mesh(
+            1, DP_RANKS, device=dev))):
+        make = (spatial_train.make_spatial_train_step if name == "spatial"
+                else spatial_train.make_dp_spatial_train_step)
+        step = make(cfg, m)
+        rows = (spatial_train.local_block(x, m).contiguous(), spatial_train.local_rows(t, m),
+                spatial_train.local_block(eps, m).contiguous())
+        state = fresh()
+        state, loss = step(state, rows[0], None, t_int=rows[1], epsilon=rows[2])
+        sync()
+        res = {"loss": float(loss), "checksum": float(sum(
+            p.detach().double().sum() for p in state.model.parameters()))}
+        if rank == 0:
+            res["rel"] = abs(res["loss"] - ref["loss"]) / abs(ref["loss"])
+            diff = torch.cat([(p.detach() - q - d).abs().flatten() for p, q, d in zip(
+                state.model.parameters(), p0, ref["delta"])])
+            res["max_diff"] = diff.max().item()
+            res["share"] = (diff > 1e-3 * lr).double().mean().item()
+        holder = [state]
+
+        def again():
+            holder[0], _ = step(holder[0], rows[0], None, t_int=rows[1], epsilon=rows[2])
+
+        res["step_ms"] = _ranks_ms(torch, multihost, again, 3)
+        multihost.comm.reset()
+        multihost.comm.timing = True
+        again()
+        sync()
+        res["comm"] = {"calls": dict(multihost.comm.calls), "bytes": dict(multihost.comm.bytes),
+                       "ms": {k: v * 1e3 for k, v in multihost.comm.seconds.items()}}
+        multihost.comm.timing = False
+        out[name] = res
+        del holder, state
+        torch.cuda.empty_cache()
+    # the fused path: 2 generator-driven steps, B1s on each rank's block
+    fcfg = cfg.replace(fused_diffusion=True, batch_size=8)
+    state = fresh()
+    step = spatial_train.make_spatial_train_step(fcfg, mesh)
+    xb = spatial_train.local_block(x[:8], mesh).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    fd.diffuse_fused.launches = fd.diffuse_fused_sharded.launches = 0
+    losses = []
+    for _ in range(2):
+        state, loss = step(state, xb, gen)
+        losses.append(float(loss))
+    out["fused"] = {"launches": {"B1": fd.diffuse_fused.launches,
+                                 "B1s": fd.diffuse_fused_sharded.launches},
+                    "losses": losses}
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     multihost.shutdown()
     print("DPRESULT " + json.dumps(out), flush=True)
@@ -4330,8 +4970,9 @@ def _dp_distill_worker(torch, rank, port, spec):
 
 
 def dp_worker(argv):
-    """``python3 chip_smoke.py --dp-worker <cli|agree|distill> <rank> <port> <spec JSON>``:
-    one rank of a [dp-train], [dp-agree] or [dp-distill] job (started by
+    """``python3 chip_smoke.py --dp-worker <cli|agree|distill|tp|spatial> <rank> <port> <spec
+    JSON>``: one rank of a [dp-train], [dp-agree], [dp-distill], [tp-train],
+    [tp-agree]/[tp-gan]/[slice] or [spatial-agree] job (started by
     _dp_jobs)."""
     mode, rank, port, spec = argv[0], int(argv[1]), argv[2], json.loads(argv[3])
     import torch
@@ -4340,6 +4981,10 @@ def dp_worker(argv):
         return _dp_cli_worker(torch, rank, port, spec)
     if mode == "distill":
         return _dp_distill_worker(torch, rank, port, spec)
+    if mode == "tp":
+        return _tp_worker(torch, rank, port)
+    if mode == "spatial":
+        return _spatial_worker(torch, rank, port)
     return _dp_agree_worker(torch, rank, port)
 
 
@@ -4479,6 +5124,19 @@ def main():
     t_new += t_mid
     print(f"[serve-mesh] [inception], [fid-steps], [profiler], [dp-distill] and [serve-mesh] "
           f"took {t_new:.2f} s")
+    t0 = time.perf_counter()
+    tp_rows = phase_tp_kernel(torch, F, fdc, card)
+    tp_launches = phase_tp(fdc, cfg, card)
+    for name, n in phase_tp_train(torch, cli, fdc, fd, trainer, sampler, cfg, files.name,
+                                  card).items():
+        tp_launches[name] = tp_launches.get(name, 0) + n
+    spatial_rows = phase_spatial_kernel(torch, fd, cfg, card)
+    tp_launches["diffuse_sharded_f32"] += phase_spatial_agree(card)["diffuse_sharded_f32"]
+    print(f"[spatial-agree] [tp-kernel], [tp-agree], [tp-gan], [slice], [tp-train], "
+          f"[spatial-kernel] and [spatial-agree] took {time.perf_counter() - t0:.2f} s; B4 on "
+          f"the TP local shapes fp32 {tp_rows['float32']['ms']:.4f} ms / bf16 "
+          f"{tp_rows['bfloat16']['ms']:.4f} ms; B1s on a 2-way height block "
+          f"{spatial_rows['2-way spatial']['ms']:.4f} ms")
     serve_b3, serve_b4 = phase_serve(torch, fdc, norm, sampler, gan, png, files.name, globs,
                                      card)
     cls_b3, cls_b4 = phase_serve_classes(torch, fdc, norm, sampler, cgan, png, files.name, globs3,
@@ -4497,7 +5155,10 @@ def main():
           f"{time.perf_counter() - t0:.2f} s")
     for name in ("diffuse_f32", "adam_f32m", "down_conv_k4s2_f32"):
         train_launches[name] += dp_launches[name]
-    train_launches["down_conv_k4s2_f32"] += inception_b4 + dp_distill_b4
+    train_launches["down_conv_k4s2_f32"] += (inception_b4 + dp_distill_b4
+                                             + tp_launches["down_conv_k4s2_f32"])
+    dp_launches["diffuse_sharded_f32"] += tp_launches["diffuse_sharded_f32"]
+    dp_launches["instance_norm_f32"] += tp_launches["instance_norm_f32"]
     files.cleanup()
     gan_launches["float32"] = (
         gan_launches["float32"][0] + cli_b3 + eval_b3 + serve_b3 + cgan_launches["float32"][0]
@@ -4522,7 +5183,9 @@ def main():
     # cgan-train-cli, serve, bundle, serve-bundle, dp-train's GAN ranks,
     # fid-steps and serve-mesh for the instance norm; the train phases, cache,
     # cond-train-cli and dp-train's world-size-1 run for B1 and B2;
-    # dp-train's diffusion ranks for B1s)
+    # dp-train's diffusion ranks for B1s; since PR 13 tp-agree's, tp-gan's,
+    # slice's and tp-train's ranks for the down conv, tp-gan's for the
+    # instance norm, tp-train's and spatial-agree's ranks for B1s)
     source = "gan_class_transfer2_tpu_torch/csrc/down_conv.cu"
     replaces = "gan_class_transfer2_tpu/ops/pallas_conv.py:36"
     rows = []

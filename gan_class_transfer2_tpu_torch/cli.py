@@ -48,9 +48,14 @@ own); start one such process per rank, e.g. on one host
 
 ``--batch-size`` is the global batch; each rank reads its share of the
 files and its rows of the batch, only rank 0 writes, and ``--zero1 true``
-slices the optimizer state over the ranks. ``bench`` trains ``--bench-steps`` steps
-(after 3 untimed ones) on a synthetic batch resident on the device and
-prints one JSON line with the JAX package's keys (img/s, step ms, MFU).
+slices the optimizer state over the ranks. ``--mesh-model M`` splits
+every conv's output channels over M ranks (tensor parallelism, each data
+group of M ranks reading the same rows) and ``--mesh-slice S`` adds a
+slice axis over the data groups; the grid ``S × D × M`` must take the
+whole group (``--mesh-data 0``: the rest). ``bench`` trains
+``--bench-steps`` steps (after 3 untimed ones) on a synthetic batch
+resident on the device and prints one JSON line with the JAX package's
+keys (img/s, step ms, MFU), over the group's grid under ``--coordinator``.
 ``train`` with ``--num-classes`` > 0 trains the class-conditional denoiser on
 round-robin labeled batches of ``--classes``; ``sample`` and ``edit`` take
 ``--class-idx`` on such a checkpoint. ``profile`` runs two warm training
@@ -124,7 +129,7 @@ _FIELDS = (
     "weight_decay", "ema_decay", "grad_clip_norm", "grad_accum", "loss",
     "prediction_weighting", "loss_scale", "dynamic_loss_scale",
     "loss_scale_growth_interval", "fused_diffusion", "steps_per_epoch", "epochs",
-    "host_sync_every", "mesh_data", "zero1",
+    "host_sync_every", "mesh_data", "mesh_model", "mesh_slice", "zero1",
     # GAN mode
     "gan_loss", "adversarial_weight", "cycle_weight", "identity_weight",
     "reconstruction_weight", "d_learning_rate", "d_pixel_size", "d_octaves",
@@ -200,7 +205,7 @@ def main(argv=None) -> int:
         p.add_argument("--config", type=str, default=None, help="config JSON")
         p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
         _add_config_args(p)
-        if cmd in ("train", "gan-train", "cgan-train", "distill"):
+        if cmd in ("train", "gan-train", "cgan-train", "distill", "bench"):
             # the JAX CLI's multi-host launch flags (parallel/multihost.py)
             p.add_argument("--coordinator", type=str, default=None, metavar="HOST:PORT",
                            help="rank 0's address: join a multi-process data-parallel job")
@@ -318,11 +323,31 @@ def main(argv=None) -> int:
     if args.command == "serve":
         return _serve(cfg, args)
     if args.command == "bench":
-        from .utils.benchmark import run_benchmark
-
-        print(run_benchmark(cfg, steps=args.bench_steps, device=args.device).to_json())
-        return 0
+        return _bench(cfg, args)
     return _profile(cfg, args)
+
+
+def _bench(cfg: Config, args) -> int:
+    """``bench`` on the process group's grid (utils/benchmark.py:158 makes
+    the mesh from the config); rank 0 prints."""
+    from .parallel import mesh as mesh_lib
+    from .parallel import multihost
+    from .utils.benchmark import run_benchmark
+
+    joined = _join_process_group(args)
+    try:
+        mesh = None
+        if multihost.process_count() > 1:
+            from .models.api import resolve_device
+
+            mesh = mesh_lib.make_mesh(cfg, device=resolve_device(args.device))
+        result = run_benchmark(cfg, steps=args.bench_steps, device=args.device, mesh=mesh)
+        if multihost.is_coordinator():
+            print(result.to_json())
+        return 0
+    finally:
+        if joined:
+            multihost.shutdown()
 
 
 def _serve(cfg: Config, args) -> int:

@@ -283,14 +283,7 @@ class Config:
                 f"pipeline_stages={self.pipeline_stages} cannot exceed "
                 f"octaves={self.octaves} (stages own octave bands)"
             )
-        # the port's refusals: features whose modules are not ported yet
-        for name in ("mesh_model", "mesh_slice"):
-            if getattr(self, name) > 1:
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)}: device meshes (parallel/mesh.py) "
-                    "are not ported to PyTorch yet; the port trains on one card "
-                    "(mesh_data=0 or 1)"
-                )
+        # the port's refusal: a feature whose module is not ported yet
         if self.pipeline_stages > 1:
             raise NotImplementedError(
                 f"pipeline_stages={self.pipeline_stages}: pipeline parallelism "

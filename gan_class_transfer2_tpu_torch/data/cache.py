@@ -87,9 +87,12 @@ class AugmentedCachedDataset(CachedDataset):
         if sharding is not None:
             self._mesh = sharding.mesh
             device = sharding.device
-            if batch_size % sharding.mesh.size:
+            from ..parallel import mesh as mesh_lib
+
+            extent = mesh_lib.data_axis_size(sharding.mesh)
+            if batch_size % extent:
                 raise ValueError(f"global batch {batch_size} not divisible by "
-                                 f"{sharding.mesh.size} ranks")
+                                 f"{extent} ranks")
         super().__init__(path, batch_size, seed)
         if self.store < size:
             raise ValueError(f"cache store={self.store} smaller than crop size={size}")

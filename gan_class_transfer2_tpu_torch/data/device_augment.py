@@ -99,9 +99,10 @@ class HBMDataset:
         if sharding is not None:
             self._mesh = sharding.mesh
             device = sharding.device
-            if batch_size % sharding.mesh.size:
+            extent = mesh_lib.data_axis_size(sharding.mesh)
+            if batch_size % extent:
                 raise ValueError(f"global batch {batch_size} not divisible by "
-                                 f"{sharding.mesh.size} ranks")
+                                 f"{extent} ranks")
         pool = images if torch.is_tensor(images) else torch.from_numpy(np.ascontiguousarray(images))
         if pool.dtype == torch.uint8:
             if pool.shape[1] < size or pool.shape[2] < size:

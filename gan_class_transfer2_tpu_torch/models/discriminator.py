@@ -8,7 +8,8 @@ first, CycleGAN's convention), then ``leaky_relu(0.2)``; a 1×1 dense head
 gives PatchGAN per-patch logits or, without ``patch_discriminator``, one
 mean-pooled logit per image; with ``num_classes > 0`` a projection term
 ``<embed_y, feat>`` is added. The down convs go to the hand-written B4
-kernel under ``conv_impl="pallas"`` where its gate admits the shape.
+kernel under ``conv_impl="pallas"`` where its gate admits the shape, on a
+rank's output channels under tensor parallelism (``parallel/tensor``).
 
 ``Discriminator`` holds the parameters under the JAX pytree's names
 (``convs.1.norm.gamma`` ↔ ``params["convs"][1]["norm"]["gamma"]``), float32;
@@ -25,6 +26,7 @@ from torch import nn
 from ..ops import conv as conv_ops
 from ..ops import init as init_ops
 from ..ops import norm as norm_ops
+from ..parallel import tensor
 from .api import resolve_device
 from .unet import DTYPES, Conv
 
@@ -90,8 +92,9 @@ def discriminator_apply(cfg, model: Discriminator, x, class_idx=None):
     dtype = DTYPES[cfg.compute_dtype]
     h = x.to(dtype)
     for layer in model.convs:
-        h = conv_ops.down_conv(h, layer.kernel.to(dtype), layer.bias.to(dtype), cfg.conv_impl,
-                               relu=False)
+        h = tensor.layer_apply(
+            layer, dtype, lambda x, k, b: conv_ops.down_conv(x, k, b, cfg.conv_impl, relu=False),
+            h)
         if hasattr(layer, "norm"):
             h = norm_ops.apply_norm(cfg.d_norm, h, layer.norm)
         h = F.leaky_relu(h, 0.2)

@@ -15,6 +15,11 @@ skips are never materialised (``concat_elision``): a level returns a
 (branch, skip) pair and each consumer splits its kernel along input channels.
 The timestep is ignored unless ``per_step_output``.
 
+Under tensor parallelism (``parallel/mesh.shard_state``) a conv layer may
+hold only this rank's output channels; every conv goes through
+``parallel/tensor.layer_apply``, which gathers them, so what the forward
+computes does not change.
+
 GAN mode (``g_norm`` other than ``"none"``) adds ``down_norm``/``up_norm``
 (γ ones, β zeros) to every octave, under the JAX pytree's names, and runs
 each k4/s2 conv without its ReLU, then the norm, then the ReLU
@@ -34,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops import conv as conv_ops
 from ..ops import init as init_ops
 from ..ops import norm as norm_ops
+from ..parallel import tensor
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -139,33 +145,42 @@ class Denoiser(nn.Module):
 
 def _conv_relu(layers, h, dtype):
     for layer in layers:
-        h = conv_ops.conv2d(h, layer.kernel.to(dtype), layer.bias.to(dtype), stride=1, relu=True)
+        h = tensor.layer_apply(layer, dtype, _conv3_relu, h)
     return h
+
+
+def _conv3_relu(x, kernel, bias):
+    return conv_ops.conv2d(x, kernel, bias, stride=1, relu=True)
 
 
 def _pair_block_conv(h, layer, dtype):
     """Conv over a logical concat kept as an unmaterialised pair:
     conv(concat(a, b), K) = conv(a, K[:, :, :ca]) + conv(b, K[:, :, ca:])."""
-    kernel, bias = layer.kernel.to(dtype), layer.bias.to(dtype)
     if not isinstance(h, tuple):
-        return conv_ops.conv2d(h, kernel, bias, stride=1, relu=True)
-    a, b = h
-    ca = a.shape[-1]
-    ya = conv_ops.conv2d(a, kernel[:, :, :ca], None, stride=1)
-    yb = conv_ops.conv2d(b, kernel[:, :, ca:], bias, stride=1)
-    return torch.relu(ya + yb)
+        return tensor.layer_apply(layer, dtype, _conv3_relu, h)
+
+    def pair(a, b, kernel, bias):
+        ca = a.shape[-1]
+        ya = conv_ops.conv2d(a, kernel[:, :, :ca], None, stride=1)
+        yb = conv_ops.conv2d(b, kernel[:, :, ca:], bias, stride=1)
+        return torch.relu(ya + yb)
+
+    return tensor.layer_apply(layer, dtype, pair, *h)
 
 
 def _pair_up_conv(h, layer, impl, dtype, relu: bool = True):
-    kernel, bias = layer.kernel.to(dtype), layer.bias.to(dtype)
     if not isinstance(h, tuple):
-        return conv_ops.up_conv(h, kernel, bias, impl, relu=relu)
-    a, b = h
-    ca = a.shape[-1]
-    ya = conv_ops.up_conv(a, kernel[:, :, :ca], None, impl, relu=False)
-    yb = conv_ops.up_conv(b, kernel[:, :, ca:], bias, impl, relu=False)
-    s = ya + yb
-    return torch.relu(s) if relu else s
+        return tensor.layer_apply(
+            layer, dtype, lambda x, k, b: conv_ops.up_conv(x, k, b, impl, relu=relu), h)
+
+    def pair(a, b, kernel, bias):
+        ca = a.shape[-1]
+        ya = conv_ops.up_conv(a, kernel[:, :, :ca], None, impl, relu=False)
+        yb = conv_ops.up_conv(b, kernel[:, :, ca:], bias, impl, relu=False)
+        s = ya + yb
+        return torch.relu(s) if relu else s
+
+    return tensor.layer_apply(layer, dtype, pair, *h)
 
 
 def _pair_dense(h, layer, dtype):
@@ -188,10 +203,10 @@ def octave_down(cfg, level, h, dtype):
     """One octave's descent: down conv (+ norm) + block_in. Returns
     ``(h, skip)``."""
     inp = h
-    down = level.down
     normed = cfg.g_norm != "none"
-    h = conv_ops.down_conv(h, down.kernel.to(dtype), down.bias.to(dtype), cfg.conv_impl,
-                           relu=not normed)
+    h = tensor.layer_apply(
+        level.down, dtype,
+        lambda x, k, b: conv_ops.down_conv(x, k, b, cfg.conv_impl, relu=not normed), h)
     if normed:
         h = torch.relu(norm_ops.apply_norm(cfg.g_norm, h, level.down_norm))
     return _conv_relu(level.block_in, h, dtype), inp

@@ -1,3 +1,4 @@
-"""Multi-process data parallelism: the process group (``multihost``) and the
-data-parallel mesh, its ZeRO-1 optimizer sharding and its parallel steps
-(``mesh``)."""
+"""Parallelism over processes: the process group (``multihost``), the
+rank grid with its data, tensor and multi-slice parallelism and ZeRO-1
+(``mesh``, with the tensor-parallel conv's collectives in ``tensor``), and
+spatial sharding (``spatial``, ``spatial_unet``, ``spatial_train``)."""

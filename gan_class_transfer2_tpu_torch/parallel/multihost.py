@@ -23,15 +23,33 @@ Backend and device, by rule, decided before any collective runs
 local rank has a card of its own (device ``cuda:{local_rank}``), gloo when
 ranks share a card (device ``cuda:{local_rank % device_count}``), since
 nccl refuses two ranks on one device. gloo takes CUDA tensors in
-``all_reduce``, ``broadcast`` and ``all_gather`` itself (it copies them
-through host memory; checked on an H100 with torch 2.11), so no path here
-stages them. The ranks of a job run on one host: the local rank is the
+``all_reduce``, ``broadcast`` and ``all_gather`` itself, over the world
+and over subgroups (it copies them through host memory; checked on an
+H100 with torch 2.11, tools/gloo_cuda_probe.py), so no path here stages
+them. Its ``send``/``recv`` and ``batch_isend_irecv`` do not take them
+(the same probe: ``writev ... Bad address``, and a rank killed), so no
+path here sends point to point: the halos of ``parallel/spatial`` ride an
+``all_gather``. The ranks of a job run on one host: the local rank is the
 rank.
+
+Axes. ``parallel/mesh.make_mesh`` lays the ranks out as a grid of named
+axes (``slice``, ``data``, ``model``; ``parallel/spatial_train`` adds
+``spatial``) and registers each here (``set_axes``): the subgroup of the
+ranks that differ only in that axis, its size and this rank's index along
+it, plus ``batch``, the ranks that hold different rows of a batch (the
+``slice`` × ``data`` extent, indexed by the data coordinate). Every
+collective below takes an optional ``axis`` and then runs over that
+subgroup; a partition spec names the axes a dim is split over, and
+``host_fetch``, ``local_part`` and ``is_cross_process_sharded`` read the
+axes from it. Without a registered grid, ``data`` and ``batch`` are the
+world and any other axis has size 1.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import time
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -50,6 +68,95 @@ def process_index() -> int:
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank()
     return 0
+
+
+class CommStats:
+    """Calls, bytes sent and (while ``timing``) seconds of the collectives of
+    the tensor-parallel convs (``gather``, ``reduce``), the halo exchanges
+    (``halo``) and the gradient all-reduces (``grad``), by kind. Timing
+    synchronises the device before and after each collective, so it is off
+    unless a measurement turns it on; counting costs a dict update."""
+
+    def __init__(self):
+        self.timing = False
+        self.reset()
+
+    def reset(self):
+        self.calls, self.bytes, self.seconds = {}, {}, {}
+
+    @contextlib.contextmanager
+    def record(self, kind: str, t: torch.Tensor):
+        self.calls[kind] = self.calls.get(kind, 0) + 1
+        self.bytes[kind] = self.bytes.get(kind, 0) + t.numel() * t.element_size()
+        if not self.timing:
+            yield
+            return
+        if t.is_cuda:
+            torch.cuda.synchronize(t.device)
+        t0 = time.perf_counter()
+        yield
+        if t.is_cuda:
+            torch.cuda.synchronize(t.device)
+        self.seconds[kind] = self.seconds.get(kind, 0.0) + time.perf_counter() - t0
+
+
+comm = CommStats()
+
+
+class Axis(NamedTuple):
+    """One axis of the rank grid: ``group`` the subgroup of the ranks that
+    differ only along it (None: the whole world), its ``size`` and this
+    rank's ``index`` along it."""
+
+    group: object
+    size: int
+    index: int
+
+
+_AXES: dict = {}
+
+
+def set_axes(axes: dict) -> None:
+    """Register the rank grid's axes ({name: Axis}) for the collectives and
+    specs of this module (``parallel/mesh.make_mesh`` does); replaces the
+    axes of the same names."""
+    _AXES.update(axes)
+
+
+def axis(name: str) -> Axis:
+    """The registered axis ``name``; without one, ``data`` and ``batch`` are
+    the world and any other axis is this rank alone."""
+    got = _AXES.get(name)
+    if got is not None:
+        return got
+    if name in ("data", "batch"):
+        return Axis(None, process_count(), process_index())
+    return Axis(None, 1, 0)
+
+
+def _resolve(ax) -> tuple:
+    """(group, size) of an axis given by name, as an ``Axis``, or None (the
+    world)."""
+    if ax is None:
+        return None, process_count()
+    if isinstance(ax, str):
+        ax = axis(ax)
+    return ax.group, ax.size
+
+
+def data_count() -> int:
+    """The ranks that hold different rows of a batch (slice × data)."""
+    return axis("batch").size
+
+
+def data_index() -> int:
+    """This rank's data coordinate: ``slice·data + data``, the block of a
+    batch it holds; the model ranks of one data group share it."""
+    return axis("batch").index
+
+
+def _entry_axes(entry) -> tuple:
+    return () if entry is None else (entry if isinstance(entry, tuple) else (entry,))
 
 
 def backend_and_device(device_type: str, local_rank: int, local_world: int,
@@ -126,7 +233,9 @@ def barrier() -> None:
 
 
 def host_local_batch_size(global_batch: int) -> int:
-    n = process_count()
+    """This rank's rows of a global batch: it over the data extent (the
+    model ranks of one data group load the same rows)."""
+    n = data_count()
     if global_batch % n != 0:
         raise ValueError(f"global batch {global_batch} not divisible by {n} hosts")
     return global_batch // n
@@ -173,7 +282,8 @@ def is_cross_process_sharded(spec) -> bool:
     batch. The one definition of this test: ``host_fetch``, the
     checkpoint's save and restore and the runners' save gates all route on
     it."""
-    return process_count() > 1 and any(e is not None for e in (spec or ()))
+    return process_count() > 1 and any(
+        axis(name).size > 1 for e in (spec or ()) for name in _entry_axes(e))
 
 
 def any_cross_process_sharded(shardings) -> bool:
@@ -181,8 +291,39 @@ def any_cross_process_sharded(shardings) -> bool:
     return any(is_cross_process_sharded(s) for s in (shardings or {}).values())
 
 
-def _gather_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
-    return torch.cat(all_gather(x), dim)
+def gather_split(x: torch.Tensor, spec, axes=None) -> torch.Tensor:
+    """The full value of ``x``, this rank's part of a tensor split by
+    ``spec`` (one entry per dim: None, an axis name or a tuple of names,
+    the first the major one): every split dim all-gathered over its axes,
+    the minor axis first. A collective over those axes. ``axes``: a
+    function of an axis name to its ``Axis`` (a mesh's ``axis``), the
+    registered axes by default."""
+    axes = axes or axis
+    for dim, entry in enumerate(spec or ()):
+        for name in reversed(_entry_axes(entry)):
+            if axes(name).size > 1:
+                if dim >= x.ndim:
+                    raise ValueError(f"spec {spec} does not fit a leaf of shape "
+                                     f"{tuple(x.shape)}")
+                x = torch.cat(all_gather(x, axes(name)), dim)
+    return x
+
+
+def local_part(full: torch.Tensor, spec, axes=None) -> torch.Tensor:
+    """This rank's part of ``full`` under ``spec`` (a view): each split dim
+    cut into the product of its axes' sizes, the block at this rank's
+    linear index over them (the first axis the major one). ``axes`` as
+    ``gather_split``'s."""
+    axes = axes or axis
+    for dim, entry in enumerate(spec or ()):
+        k, lin = 1, 0
+        for name in _entry_axes(entry):
+            a = axes(name)
+            k, lin = k * a.size, lin * a.size + a.index
+        if k > 1:
+            n = full.shape[dim] // k
+            full = full.narrow(dim, lin * n, n)
+    return full
 
 
 def host_fetch(tree, spec=None):
@@ -195,25 +336,26 @@ def host_fetch(tree, spec=None):
     def one(path, leaf):
         s = spec.get(".".join(map(str, path))) if isinstance(spec, dict) else spec
         if is_cross_process_sharded(s):
-            dim = next(i for i, e in enumerate(s) if e is not None)
-            if dim < 0 or dim >= leaf.ndim:
-                raise ValueError(f"spec {s} does not fit a leaf of shape {tuple(leaf.shape)}")
-            leaf = _gather_dim(leaf.detach(), dim)
+            leaf = gather_split(leaf.detach(), s)
         return leaf.detach().to("cpu", copy=True)
 
     return tree_map(one, _as_tensors(tree))
 
 
-def all_reduce_mean(tensors: list) -> list:
-    """The mean over the ranks of each tensor of ``tensors``, through one
-    ``all_reduce`` of a flat float32 buffer; each result keeps its tensor's
-    shape and dtype. The inputs themselves in one process."""
-    n = process_count()
+def all_reduce_mean(tensors: list, axis_name=None, mean: bool = True) -> list:
+    """The mean (or, ``mean=False``, the sum) over the ranks of ``axis_name``
+    (an axis's name or ``Axis``; the world when None) of each tensor of
+    ``tensors``, through one ``all_reduce`` of a flat float32 buffer; each
+    result keeps its tensor's shape and dtype. The inputs themselves on an
+    axis of one rank."""
+    group, n = _resolve(axis_name)
     if n == 1:
         return list(tensors)
     flat = torch.cat([t.detach().reshape(-1).to(torch.float32) for t in tensors])
-    dist.all_reduce(flat)
-    flat.div_(n)
+    with comm.record("grad", flat):
+        dist.all_reduce(flat, group=group)
+    if mean:
+        flat.div_(n)
     out, i = [], 0
     for t in tensors:
         k = t.numel()
@@ -222,18 +364,24 @@ def all_reduce_mean(tensors: list) -> list:
     return out
 
 
-def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
-    """The sum over the ranks of ``t`` (a new tensor)."""
+def all_reduce_sum(t: torch.Tensor, axis_name=None) -> torch.Tensor:
+    """The sum over the ranks of ``axis_name`` (as ``all_reduce_mean``'s)
+    of ``t`` (a new tensor)."""
     out = t.detach().clone()
-    if process_count() > 1:
-        dist.all_reduce(out)
+    group, n = _resolve(axis_name)
+    if n > 1:
+        dist.all_reduce(out, group=group)
     return out
 
 
-def all_gather(t: torch.Tensor) -> list:
-    """Every rank's ``t`` (all of one shape and dtype), in rank order."""
-    parts = [torch.empty_like(t) for _ in range(process_count())]
-    dist.all_gather(parts, t.contiguous())
+def all_gather(t: torch.Tensor, axis_name=None) -> list:
+    """Every rank's ``t`` (all of one shape and dtype) over ``axis_name``
+    (as ``all_reduce_mean``'s), in the order of the axis's index."""
+    group, n = _resolve(axis_name)
+    if n == 1:
+        return [t]
+    parts = [torch.empty_like(t) for _ in range(n)]
+    dist.all_gather(parts, t.contiguous(), group=group)
     return parts
 
 
@@ -245,13 +393,14 @@ def is_coordinator() -> bool:
 
 
 def shard_files_for_host(files: list) -> list:
-    """This rank's share of a file list (round robin by rank), so each
-    process decodes 1/N of the data."""
-    n = process_count()
+    """This rank's share of a file list (round robin by data coordinate), so
+    each data group decodes 1/N of the data and the model ranks of a group
+    read the same files."""
+    n = data_count()
     if n == 1:
         return files
-    shard = files[process_index()::n]
+    shard = files[data_index()::n]
     if not shard:
-        raise ValueError(f"host {process_index()}/{n} got no files "
+        raise ValueError(f"host {data_index()}/{n} got no files "
                          f"(dataset has only {len(files)})")
     return shard

@@ -104,7 +104,7 @@ def conditional_gan_train_step(cfg, g_optimizer, d_optimizer, state: Conditional
     w_cycle = annealed_weight(cfg, cfg.cycle_weight, cfg.cycle_weight_final, state.step)
     w_ident = annealed_weight(cfg, cfg.identity_weight, cfg.identity_weight_final, state.step)
     g_model, d_model = state.generator, state.discriminator
-    gp, dp = list(g_model.parameters()), list(d_model.parameters())
+    gp, dp = mesh_lib.params_of(g_model), mesh_lib.params_of(d_model)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
 
     def gen(x, c):

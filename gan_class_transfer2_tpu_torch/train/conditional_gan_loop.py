@@ -100,8 +100,9 @@ class ConditionalGANRunner(ResilientRunnerMixin):
         when kept; with ``fid_samples > 0`` the transfer FID/KID of every
         ordered class pair."""
         if self._fixed is None:  # every rank's rows (a collective on every rank)
-            self._fixed = multihost.host_fetch(next(self.data_iter)["image"],
-                                               ("data",)).to(self.device)
+            self._fixed = multihost.host_fetch(
+                mesh_lib.share_batch(next(self.data_iter)["image"], self.mesh),
+                mesh_lib.batch_sharding(self.mesh).spec).to(self.device)
         for target in range(self.cfg.num_classes):
             out = self._transfer(self._fixed, target)
             self.writer.image(f"transfer_to_{target}", out.float().cpu().numpy() * 0.5 + 0.5,

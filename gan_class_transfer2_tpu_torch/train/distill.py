@@ -33,8 +33,10 @@ What differs from the JAX package, and why:
     and one ``all_reduce`` averages the gradients and the loss
     (``trainer.average_over_ranks``): two ranks equal one process on the
     same global batch and generator state. Under ``zero1`` each rank keeps
-    its slice of the optimizer state (``mesh.zero1_update``), as JAX's
-    state shardings slice it.
+    its slice of the optimizer state (``mesh.sharded_update``), as JAX's
+    state shardings slice it; under ``mesh_model`` > 1 the student holds
+    this rank's kernel slices (the teacher stays whole) and the round's
+    student comes back whole (``mesh.whole_module``).
 """
 
 from __future__ import annotations
@@ -211,12 +213,13 @@ def make_distill_step(cfg, stride: int, mesh=None):
     zero1 = bool(cfg.zero1) and mesh is not None
 
     def step(state, teacher, batch, generator, *, t=None, epsilon=None):
-        batch = trainer_lib.fold_and_augment(cfg, batch, generator, mesh)
+        batch = trainer_lib.fold_and_augment(cfg, mesh_lib.share_batch(batch, mesh), generator,
+                                             mesh)
         label = None
         if isinstance(batch, dict):
             label = batch.get("label")
             batch = batch["image"]
-        params = list(state.model.parameters())
+        params = mesh_lib.params_of(state.model)
         with unet.ieee_fp32(torch.float32, batch.device):
             loss = distill_loss(cfg, state.model, teacher, batch, generator, stride,
                                 class_idx=label, t=t, epsilon=epsilon, mesh=mesh)
@@ -235,14 +238,16 @@ def init_student(cfg, teacher, mesh=None) -> trainer_lib.TrainState:
     """A round's state: the student a trainable copy of the teacher, a fresh
     optimizer state over it (of ``cfg``, the round's optimizer config) and
     an EMA copy when ``cfg.ema_decay > 0``; on a mesh of more than one rank
-    under ``cfg.zero1``, the optimizer state sliced as ``state_shardings``
-    splits it."""
+    under ``cfg.zero1`` or tensor parallelism, the state sliced as
+    ``state_shardings`` splits it (the teacher stays whole and runs alike on
+    every rank of a model group)."""
     student = copy.deepcopy(teacher).requires_grad_(True)
     params = list(student.parameters())
     ema = [p.detach().clone() for p in params] if cfg.ema_decay > 0 else None
     state = trainer_lib.TrainState(0, student, trainer_lib.make_optimizer(cfg).init(params), ema)
-    if cfg.zero1 and mesh is not None and mesh.size > 1:
-        state = mesh_lib.shard_state(state, mesh_lib.state_shardings(state, mesh, True), mesh)
+    if mesh is not None and mesh.size > 1 and (cfg.zero1 or mesh_lib.model_axis_size(mesh) > 1):
+        state = mesh_lib.shard_state(state, mesh_lib.state_shardings(state, mesh, cfg.zero1),
+                                     mesh)
     return state
 
 
@@ -278,7 +283,8 @@ def distill_round(cfg, teacher, data_iter, stride: int, steps: int,
                 on_loss(stride, i + 1, loss)
         elif (i + 1) % sync_every == 0:
             float(loss_dev)  # bounded in-flight work (Config.host_sync_every)
-    return trainer_lib.eval_model(state).requires_grad_(False), loss
+    student = trainer_lib.eval_model(state).requires_grad_(False)
+    return mesh_lib.whole_module(student, mesh), loss
 
 
 def progressive_distill(cfg, teacher, data_iter, target_stride: int, steps_per_round: int,

@@ -35,7 +35,11 @@ What differs from the JAX package, and why:
     metrics are averaged over the ranks by one ``all_reduce`` after both
     ``autograd.grad`` calls. R1's double backward stays on the rank: the
     mean over the global batch is the mean of the ranks' means, their
-    batches being equal.
+    batches being equal. Under tensor parallelism (``mesh_model`` > 1) the
+    four nets hold this rank's kernel slices and their convs gather the
+    output channels (``parallel/tensor``); R1's double backward runs
+    through those collectives, whose backwards are themselves
+    differentiable.
 """
 
 from __future__ import annotations
@@ -75,11 +79,12 @@ def _d_optimizer(cfg):
 
 
 def g_params(state: GANState) -> list:
-    return list(state.g_ab.parameters()) + list(state.g_ba.parameters())
+    """G_AB's then G_BA's parameters (a ``parallel/mesh.Params``)."""
+    return mesh_lib.params_of(state.g_ab, state.g_ba)
 
 
 def d_params(state: GANState) -> list:
-    return list(state.d_a.parameters()) + list(state.d_b.parameters())
+    return mesh_lib.params_of(state.d_a, state.d_b)
 
 
 def _ema_copy(model):

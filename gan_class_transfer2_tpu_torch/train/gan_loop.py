@@ -90,8 +90,10 @@ class GANRunner(ResilientRunnerMixin):
         training streams at the first call, as in JAX) with the EMA
         generators when kept: A→B, B→A and A→B→A."""
         if self._fixed_a is None:  # every rank's rows (a collective on every rank)
-            self._fixed_a = multihost.host_fetch(next(self.iter_a), ("data",)).to(self.device)
-            self._fixed_b = multihost.host_fetch(next(self.iter_b), ("data",)).to(self.device)
+            spec = mesh_lib.batch_sharding(self.mesh).spec
+            a, b = (mesh_lib.share_batch(next(it), self.mesh) for it in (self.iter_a, self.iter_b))
+            self._fixed_a = multihost.host_fetch(a, spec).to(self.device)
+            self._fixed_b = multihost.host_fetch(b, spec).to(self.device)
         fake_b = self._transfer(self._fixed_a, "ab")
         fake_a = self._transfer(self._fixed_b, "ba")
         cycled = self._transfer(fake_b, "ba")
@@ -127,8 +129,9 @@ class GANRunner(ResilientRunnerMixin):
             it = iter(self.dataset_a if cls == "a" else self.dataset_b)
             chunks = []
             while sum(len(x) for x in chunks) < n:
-                chunks.append(multihost.host_fetch(torch.as_tensor(next(it)).float(),
-                                                   ("data",)).numpy())
+                chunks.append(multihost.host_fetch(
+                    torch.as_tensor(next(it)).float(),
+                    mesh_lib.batch_sharding(self.mesh).spec).numpy())
             out = np.concatenate(chunks, 0)[:n]
         self._eval_cache[cls] = out
         return out

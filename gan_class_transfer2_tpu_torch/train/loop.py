@@ -7,10 +7,11 @@ What differs from the JAX package, and why:
 
   * One device a process (``device``, the card unless the caller asks for
     the CPU; on the card, this rank's under ``parallel/multihost``'s
-    rule); the mesh is the data-parallel world of the process group
-    (``parallel/mesh.make_mesh``, one rank without one). The state comes
-    from ``mesh.init_sharded_state`` (its optimizer state sliced under
-    ``zero1``) and the step from ``mesh.make_parallel_train_step``; at
+    rule); the mesh is the process group's grid (``parallel/mesh.make_mesh``
+    from ``mesh_data``/``mesh_model``/``mesh_slice``, one rank without a
+    group). The state comes from ``mesh.init_sharded_state`` (its kernels
+    sliced under ``mesh_model``, its optimizer state under ``zero1``) and
+    the step from ``mesh.make_parallel_train_step``; at
     world size 1 both are the one-process state and step (B1 unfolded, B2
     on). Only the coordinator writes checkpoints, events, config.json and
     images; every rank computes, and each loads its share of the files and
@@ -72,6 +73,7 @@ class Runner(ResilientRunnerMixin):
             self.mesh, lambda model, init: sampler.sample(self.cfg, model, init,
                                                           snapshots=False).images)
         self._ema_model = None
+        self._ema_local = None
 
         # held-out eval split (FID hygiene, as in JAX): with FID on and the
         # datasets built here, fid_samples files per class are reserved for
@@ -126,13 +128,27 @@ class Runner(ResilientRunnerMixin):
             self.example_image = on_device(fr.uniform(-1, 1, (1, cfg.size, cfg.size, 3)))
 
     # ------------------------------------------------------------------ eval
+    def _eval_model(self):
+        """The weights to sample from (the EMA when kept), whole. Under
+        tensor parallelism the rank's kernel slices are gathered once a call
+        (``mesh.whole_module``, a collective of the model group) and the
+        sampler runs data-parallel on the whole model: one gather a split
+        kernel, where tensor-parallel convs would take one a conv in each of
+        the sampler's denoiser calls."""
+        if mesh_lib.model_axis_size(self.mesh) > 1:
+            self._ema_local = trainer.eval_model(self.state, self._ema_local)
+            self._ema_model = mesh_lib.whole_module(self._ema_local, self.mesh,
+                                                    self._ema_model)
+        else:
+            self._ema_model = trainer.eval_model(self.state, self._ema_model)
+        return self._ema_model
+
     def log_sample(self, epoch: int):
         """Per-epoch eval with the EMA params when kept: preview, inversion,
         edits and sampling (the sampler's batch split over the ranks),
         logged under the reference's TensorBoard tags (train.py:323-496).
         Every rank runs it; the coordinator writes."""
-        self._ema_model = trainer.eval_model(self.state, self._ema_model)
-        out = self.eval_fn(self._ema_model, self.example_image, self.noise_bank,
+        out = self.eval_fn(self._eval_model(), self.example_image, self.noise_bank,
                            self.dictionary)
         out = {k: v.float().cpu().numpy() for k, v in out.items()}
         self.writer.image("denoised", out["denoised"] * 0.5 + 0.5, epoch)
@@ -164,7 +180,7 @@ class Runner(ResilientRunnerMixin):
         cfg = self.cfg
         n = cfg.fid_samples
         if model is None:
-            model = self._ema_model = trainer.eval_model(self.state, self._ema_model)
+            model = self._eval_model()
         ref = self._fid_reference_set(n)
         if n < 2 or len(ref) < 2:
             print(f"quality_scores skipped: need >= 2 samples and reference "
@@ -202,8 +218,9 @@ class Runner(ResilientRunnerMixin):
                 if isinstance(batch, dict):  # labeled batches
                     batch = batch["image"]
                 # every rank's rows: the same reference set on every rank
-                data.append(multihost.host_fetch(torch.as_tensor(batch).float(),
-                                                 ("data",)).numpy())
+                data.append(multihost.host_fetch(
+                    torch.as_tensor(batch).float(),
+                    mesh_lib.batch_sharding(self.mesh).spec).numpy())
             out = np.concatenate(data, 0)[:n]
         self._fid_reference = out
         return out

@@ -35,9 +35,12 @@ What differs from the JAX package, and why:
     parameters are drawn for the global batch and the rank takes its rows
     (trainer.py:283-284 draws over the global shape), the fused path runs
     B1s with the rank's position, and the gradients and the loss are
-    averaged over the ranks by one ``all_reduce`` before the update (and
-    before the non-finite test). The update runs on the rank's ZeRO-1
-    slices under ``cfg.zero1`` (``update_params``).
+    averaged over the data extent by one ``all_reduce`` before the update
+    (and before the non-finite test). Under tensor parallelism the model
+    holds this rank's kernel slices and its convs gather their output
+    channels (``parallel/tensor``), so the prediction and the loss are
+    whole on every rank. The update runs on the rank's parts under
+    ``cfg.zero1`` or tensor parallelism (``update_params``).
 """
 
 from __future__ import annotations
@@ -369,7 +372,9 @@ def draw_and_diffuse(cfg, batch, generator, *, t_int=None, epsilon_in=None, mesh
     and B1 itself are the only launches: B1 gathers its scales by t. On a
     mesh of more than one rank the draws are the global batch's and the
     fused path is B1s at the rank's position, when ``fused_sharded_ok``
-    (trainer.py:288-311)."""
+    (trainer.py:288-311). The position is the data coordinate: JAX folds
+    only the batch spec's axes (kernels.py:247-259), so the model ranks of
+    a data group draw the same ε."""
     b, dev = batch.shape[0], batch.device
     n = mesh_lib.global_rows(b, mesh)
     if t_int is None:
@@ -381,14 +386,14 @@ def draw_and_diffuse(cfg, batch, generator, *, t_int=None, epsilon_in=None, mesh
     fused = fused_diffusion.use_fused(cfg, batch.shape, epsilon_in)
     sharded = mesh is not None and mesh.size > 1
     if fused and sharded:
-        fused = fused_diffusion.fused_sharded_ok(cfg, (n, *batch.shape[1:]), mesh.size,
-                                                 ("data",))
+        fused = fused_diffusion.fused_sharded_ok(cfg, (n, *batch.shape[1:]),
+                                                 mesh_lib.data_axis_size(mesh), ("data",))
     if fused:
         seed = torch.randint(0, 2**62, (1,), generator=generator, device=generator.device,
                              dtype=torch.int64).to(dev)
         if sharded:
             noised = fused_diffusion.forward_diffuse_fused_sharded(cfg, batch, t_int, seed,
-                                                                   mesh.rank)
+                                                                   mesh.data_index)
         else:
             noised = fused_diffusion.forward_diffuse_fused(cfg, batch, t_int, seed)
         epsilon, t = None, None  # ε never materialised; the x target needs no ᾱ(t)
@@ -478,13 +483,15 @@ def _select(pred, new, old):
 
 
 def average_over_ranks(mesh, grads, metrics):
-    """``(grads, metrics)`` averaged over the ranks of ``mesh`` by one
-    ``all_reduce``: the gradient and the metrics of the global batch
-    (each rank's batch is an equal share of it). As they are in one
-    process."""
+    """``(grads, metrics)`` averaged over the batch axis of ``mesh`` (the
+    ranks of this rank's model coordinate) by one ``all_reduce``: the
+    gradient and the metrics of the global batch (each data group's batch
+    is an equal share of it). Never over a model group: there the
+    gradients of whole leaves are alike and those of split kernels are each
+    rank's own. As they are in one process."""
     if mesh is None or mesh.size == 1:
         return list(grads), metrics
-    values = multihost.all_reduce_mean([*grads, *metrics])
+    values = multihost.all_reduce_mean([*grads, *metrics], mesh.axis("batch"))
     return values[:len(grads)], values[len(grads):]
 
 
@@ -492,11 +499,12 @@ def average_over_ranks(mesh, grads, metrics):
 def update_params(optimizer, opt_state, params, grads, mesh=None, zero1: bool = False,
                   finite=None):
     """``optimizer.update`` and its in-place apply (only where ``finite``,
-    when given); under ``zero1`` on a mesh of more than one rank, on this
-    rank's slices (``parallel/mesh.zero1_update``). Returns the new
-    optimizer state."""
-    if zero1 and mesh is not None and mesh.size > 1:
-        return mesh_lib.zero1_update(optimizer, opt_state, params, grads, mesh, finite)
+    when given); under ``zero1`` or tensor parallelism on a mesh of more
+    than one rank, on this rank's parts (``parallel/mesh.sharded_update``;
+    ``params`` then a ``mesh.Params``, which knows the split kernels).
+    Returns the new optimizer state."""
+    if mesh_lib.needs_sharded_update(mesh, zero1):
+        return mesh_lib.sharded_update(optimizer, opt_state, params, grads, mesh, zero1, finite)
     updates, new_state = optimizer.update(grads, opt_state, params)
     if finite is None:
         apply_updates(params, updates)
@@ -527,7 +535,7 @@ def train_step(cfg, optimizer, state: TrainState, batch, generator, mesh=None):
         scale = state.scale_state.scale
     else:
         scale = cfg.loss_scale if cfg.loss_scale > 0 else None
-    params = list(state.model.parameters())
+    params = mesh_lib.params_of(state.model)
     loss, grads = loss_and_grads(cfg, state.model, batch, generator, scale, mesh=mesh)
     grads, (loss,) = average_over_ranks(mesh, grads, [loss])
     if scale is not None:
@@ -540,6 +548,9 @@ def train_step(cfg, optimizer, state: TrainState, batch, generator, mesh=None):
         # skip the whole update on any non-finite gradient and halve the
         # scale; double it after growth_interval clean steps (train.py:82-83)
         finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+        if mesh_lib.model_axis_size(mesh) > 1:  # split kernels: every part finite
+            bad = multihost.all_reduce_sum((~finite).to(torch.float32), mesh.axis("model"))
+            finite = bad == 0
         new_opt = update_params(optimizer, state.opt_state, params, grads, mesh, cfg.zero1,
                                 finite)
         opt_state = _select(finite, new_opt, state.opt_state)
@@ -608,7 +619,7 @@ def make_injected_train_step(cfg, mesh=None):
         loss, grads = loss_and_grads(cfg, state.model, batch, None, t_int=t_int,
                                      epsilon_in=epsilon, mesh=mesh)
         grads, (loss,) = average_over_ranks(mesh, grads, [loss])
-        params = list(state.model.parameters())
+        params = mesh_lib.params_of(state.model)
         opt_state = _apply(cfg, optimizer, state, params, grads, mesh)
         return state._replace(step=state.step + 1, opt_state=opt_state), loss
 

@@ -133,39 +133,53 @@ def _synchronize(device):
 
 
 def run_benchmark(cfg, steps: int = 30, warmup: int = 3, baseline_ips: float | None = None,
-                  device="cuda") -> BenchResult:
+                  device="cuda", mesh=None) -> BenchResult:
     """Time ``steps`` train steps (after ``warmup`` untimed ones) of the
-    default train step on a synthetic batch resident on ``device``."""
+    default train step on a synthetic batch resident on ``device``. On a
+    process group's ``mesh`` (``parallel/mesh.make_mesh``, benchmark.py:158)
+    the sharded state and the parallel step, each rank on its rows of the
+    batch; every rank times the same steps, bracketed by barriers."""
     from ..models.api import resolve_device
+    from ..parallel import mesh as mesh_lib
+    from ..parallel import multihost
     from ..train import trainer
 
-    device = resolve_device(device)
-    state = trainer.init_state(cfg, device=device)
-    step_fn = trainer.make_train_step(cfg)
-    generator = torch.Generator(device=device).manual_seed(cfg.seed)
     r = np.random.default_rng(0)
     batch = torch.from_numpy(
-        r.uniform(-1, 1, (cfg.batch_size, cfg.size, cfg.size, 3)).astype(np.float32)
-    ).to(device)
+        r.uniform(-1, 1, (cfg.batch_size, cfg.size, cfg.size, 3)).astype(np.float32))
+    if mesh is not None and mesh.size > 1:
+        device = mesh.device
+        state, _ = mesh_lib.init_sharded_state(cfg, mesh)
+        step_fn = mesh_lib.make_parallel_train_step(cfg, mesh)
+        batch = mesh_lib.local_rows(batch, mesh)
+    else:
+        device = resolve_device(device)
+        state = trainer.init_state(cfg, device=device)
+        step_fn = trainer.make_train_step(cfg)
+    generator = torch.Generator(device=device).manual_seed(cfg.seed)
+    batch = batch.to(device)
 
     for _ in range(warmup):
         state, loss = step_fn(state, batch, generator)
     _synchronize(device)
+    multihost.barrier()
     t0 = time.perf_counter()
     for _ in range(steps):
         state, loss = step_fn(state, batch, generator)
     _synchronize(device)
+    multihost.barrier()
     dt = time.perf_counter() - t0
 
     ips = steps * cfg.batch_size / dt
+    n_chips = mesh.size if mesh is not None else 1
     train_flops_per_image = 3 * model_flops_per_image(cfg)
-    tflops = train_flops_per_image * ips / 1e12
+    tflops = train_flops_per_image * ips / n_chips / 1e12
     peak = _peak_tflops(cfg.compute_dtype, device)
     return BenchResult(
         metric="train_images_per_sec_per_chip",
-        value=ips,
+        value=ips / n_chips,
         unit="images/sec/chip",
-        vs_baseline=(ips / baseline_ips) if baseline_ips else 0.0,
+        vs_baseline=(ips / n_chips / baseline_ips) if baseline_ips else 0.0,
         extra={
             "images_per_sec": round(ips, 3),
             "step_ms": round(dt / steps * 1000, 3),
@@ -173,7 +187,7 @@ def run_benchmark(cfg, steps: int = 30, warmup: int = 3, baseline_ips: float | N
             "size": cfg.size,
             "compute_dtype": cfg.compute_dtype,
             "conv_impl": cfg.conv_impl,
-            "n_chips": 1,
+            "n_chips": n_chips,
             "backend": device.type,
             "model_tflops_per_chip": round(tflops, 3),
             "train_flops_per_image": train_flops_per_image,
@@ -219,7 +233,7 @@ def run_sampler_benchmark(cfg, batch: int = 8, iters: int = 3, mesh=None,
     # forward-only: each visited timestep is one denoiser forward
     n_calls = len(sampler.sample_timesteps(cfg))
     ips = batch * iters / dt
-    ranks = mesh.size if mesh is not None else 1
+    ranks = mesh_lib.data_axis_size(mesh) if mesh is not None else 1
     tflops = ips / ranks * n_calls * model_flops_per_image(cfg) / 1e12
     peak = _peak_tflops(cfg.compute_dtype, device)
     return {

@@ -343,7 +343,9 @@ def restore(ckpt_dir: str, like, step: Optional[int] = None,
     counters) from the file. With ``generator``, its state is restored too
     when the checkpoint holds one from a generator on the same kind of
     device. ``shardings`` ({name: spec}): a leaf split across the ranks
-    takes this rank's part of the saved full value."""
+    (a ZeRO-1 moment, a kernel under tensor parallelism) takes this rank's
+    part of the saved full value, by its coordinates on the registered
+    grid (``multihost.local_part``)."""
     partial = isinstance(like, Subset)
     if partial:
         like = like.state
@@ -365,9 +367,7 @@ def restore(ckpt_dir: str, like, step: Optional[int] = None,
             src = saved[name]
             spec = (shardings or {}).get(name)
             if multihost.is_cross_process_sharded(spec):
-                dim = next(i for i, e in enumerate(spec) if e is not None)
-                k = src.shape[dim] // multihost.process_count()
-                src = src.narrow(dim, multihost.process_index() * k, k)
+                src = multihost.local_part(src, spec)
             if src.shape != value.shape:
                 raise ValueError(f"checkpoint {name}: shape {tuple(src.shape)}, the state "
                                  f"has {tuple(value.shape)}")

@@ -136,8 +136,10 @@ def test_make_mesh_follows_the_world_size():
     assert mesh_lib.make_mesh(tiny_test_config(mesh_data=1), device="cpu").size == 1
     with pytest.raises(ValueError, match="mesh_data must be 0 or 1"):
         mesh_lib.make_mesh(tiny_test_config(mesh_data=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="model and slice axes"):
+    with pytest.raises(ValueError, match="mesh 1x1x2 needs 2 devices, have 1"):
         mesh_lib.make_mesh(device="cpu", model=2)
+    with pytest.raises(ValueError, match="mesh 2x1x1 needs 2 devices, have 1"):
+        mesh_lib.make_mesh(device="cpu", slices=2)
     assert mesh_lib.batch_sharding(m).spec == ("data",) and mesh_lib.replicated_sharding(m).spec == ()
     assert mesh_lib.data_axis_size(mesh_lib.Mesh(4, 1, "cpu")) == 4
 
@@ -227,6 +229,46 @@ def test_sharded_pools_yield_each_ranks_rows_of_the_one_process_batch(tmp_path):
         mesh_lib.Mesh(2, r, "cpu")))) for r in range(2)]
     for _ in range(3):
         assert torch.equal(torch.cat([next(it) for it in ranks]), next(one))
+
+
+def test_registered_grid_keys_files_rows_and_parts_by_data_coordinate(monkeypatch):
+    """With a grid registered (as make_mesh registers it: here rank 6 of a
+    slice 2 × data 2 × model 2 grid, at slice 1, data 1, model 0; no
+    collective needed), files, batch sizes and the parts of split leaves
+    follow the rank's coordinates: the data coordinate 3 of 4 for files and
+    rows, model-major for a ('model', 'data') split."""
+    from gan_class_transfer2_tpu_torch.parallel import multihost
+
+    m = mesh_lib.Mesh(2, 6, "cpu", model=2, slices=2)
+    monkeypatch.setattr(multihost, "_AXES", {})
+    monkeypatch.setattr(multihost, "process_count", lambda: 8)
+    multihost.set_axes({n: m.axis(n) for n in ("slice", "data", "model", "batch")})
+    assert multihost.data_index() == 3 and multihost.data_count() == 4
+    assert multihost.shard_files_for_host([f"f{i}" for i in range(9)]) == ["f3", "f7"]
+    assert multihost.host_local_batch_size(16) == 4
+    full = torch.arange(16.0)
+    assert torch.equal(multihost.local_part(full, (("model", "data"),)), full[4:8])
+    assert torch.equal(multihost.local_part(full, (("slice", "data"),)), full[12:16])
+    assert torch.equal(multihost.local_part(full, ("model",)), full[0:8])
+    assert multihost.is_cross_process_sharded(("model",))
+    assert not multihost.is_cross_process_sharded((None,))
+
+
+def test_whole_module_and_params_know_the_split_kernels():
+    """shard_state on rank 1 of model 2 (no collective is needed to slice)
+    leaves each split kernel's second half in place, marks its layer, and
+    Params flags exactly those kernels."""
+    m = mesh_lib.Mesh(1, 1, "cpu", model=2)
+    cfg = tiny_test_config()
+    full, _ = mesh_lib.init_sharded_state(cfg, mesh_lib.Mesh(1, 0, "cpu"))
+    state, sh = mesh_lib.init_sharded_state(cfg, m)
+    params = mesh_lib.params_of(state.model)
+    names = [k for k, _ in state.model.named_parameters()]
+    for name, p, q, tp in zip(names, params, full.model.parameters(), params.tp):
+        assert tp == bool(sh[f"model.{name}"]), name
+        want = q.detach().chunk(2, -1)[1] if tp else q.detach()
+        assert torch.equal(p.detach(), want), name
+    assert state.model.octaves[0].down.tp == "model" and not hasattr(state.model.head, "tp")
 
 
 def test_warn_misaligned_batch(capsys):

@@ -343,25 +343,28 @@ def test_uint8_batches_name_the_missing_augment_module(monkeypatch):
     ("mesh_slice", 2, "mesh_slice"), ("pipeline_stages", 2, "pipeline"),
 ])
 def test_config_refuses_unported_parallelism(field, value, match):
-    """The model and slice mesh axes and pipeline stages are refused by
-    name. zero1 and mesh_data are ported (parallel/mesh.py): the config
-    takes them, make_mesh holds mesh_data to the world size (1 here), and
+    """Pipeline stages are refused by name. zero1 and the mesh axes are
+    ported (parallel/mesh.py): the config takes them, make_mesh holds the
+    grid to the world size (1 here, JAX's "needs N devices" error), and
     zero1 gates B2 off."""
-    if field in ("zero1", "mesh_data"):
-        cfg = tiny_test_config(**{field: value})
-        assert getattr(cfg, field) == value
-        if field == "mesh_data":
-            from gan_class_transfer2_tpu_torch.parallel import mesh as mesh_lib
-
-            with pytest.raises(ValueError, match=match):
-                mesh_lib.make_mesh(cfg, device="cpu")
-        else:
-            from gan_class_transfer2_tpu_torch.ops import adam_kernel
-
-            assert not adam_kernel.fused_adam_ok(cfg.replace(optimizer="adam_fused"))
+    if field == "pipeline_stages":
+        with pytest.raises(NotImplementedError, match=match):
+            tiny_test_config(**{field: value})
         return
-    with pytest.raises(NotImplementedError, match=match):
-        tiny_test_config(**{field: value})
+    cfg = tiny_test_config(**{field: value})
+    assert getattr(cfg, field) == value
+    if field == "zero1":
+        from gan_class_transfer2_tpu_torch.ops import adam_kernel
+
+        assert not adam_kernel.fused_adam_ok(cfg.replace(optimizer="adam_fused"))
+        return
+    from gan_class_transfer2_tpu_torch.parallel import mesh as mesh_lib
+
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
+        mesh_lib.make_mesh(cfg, device="cpu")
+    if field == "mesh_data":
+        with pytest.raises(ValueError, match=match):
+            mesh_lib.make_mesh(cfg, device="cpu")
 
 
 def test_unfused_step_matches_the_jax_step_on_injected_draws():

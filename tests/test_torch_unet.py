@@ -131,8 +131,9 @@ def test_init_is_seeded_glorot():
 
 
 def test_refused_features_name_the_missing_piece():
-    with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
-        tiny_test_config(mesh_model=2)
+    with pytest.raises(NotImplementedError, match="parallel/pipeline.py"):
+        tiny_test_config(pipeline_stages=2)
+    assert tiny_test_config(mesh_model=2).mesh_model == 2  # tensor parallelism is ported
     assert tiny_test_config(zero1=True).zero1  # ZeRO-1 is ported (parallel/mesh.py)
     assert tiny_test_config(num_classes=2).num_classes == 2  # the conditional model is ported
     with pytest.raises(ValueError, match="unknown norm"):

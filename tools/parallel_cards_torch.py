@@ -1,0 +1,268 @@
+#!/usr/bin/env python3
+"""Tensor parallelism and spatial sharding of the PyTorch port over four
+ranks, each on a card of its own over nccl (``parallel/multihost``'s rule:
+nccl when every rank has a card, gloo when ranks share one).
+
+Two grids at the reference's full width (``Config()``: 256², 41.7 M
+parameters), global batch 16, float32, one injected step each from the
+same weights, t and ε:
+
+  * data 2 × model 2 (``parallel/mesh.make_mesh(data=2, model=2)``): each
+    conv's output channels split over the model pair, B4 on the local
+    shapes (``conv_impl="pallas"``), the gradients averaged over the data
+    pair;
+  * data 2 × spatial 2 (``parallel/spatial_train.make_dp_spatial_mesh``):
+    the batch over the data pair, every activation's height over the
+    spatial pair, the gradients summed over all four.
+
+Each is held against one process's injected step on the same global batch
+(run first on rank 0 alone): the loss within 1e-5 relative, the updates
+beyond 1e-3 of the learning rate on at most 1e-4 of the elements (the
+bounds of ``chip_smoke.py``'s ``[dp-agree]``). Timed: the step (median of
+3, every rank started together) and, in one further step with each
+collective synchronised, the tensor-parallel gathers and input-gradient
+all-reduces, the halos and the gradient all-reduce. Printed: the cards'
+names and power limits, and one JSON object as the last line (also
+written to ``--out``). Exit 1 when a check fails.
+
+  python tools/parallel_cards_torch.py --out chiprun_out/parallel_cards.json
+  python tools/parallel_cards_torch.py --device cpu --tiny   # a rehearsal
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import json
+import os
+import socket
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+RANKS = 4
+BATCH = 16
+LR = 1e-3
+
+
+def _config(tiny: bool):
+    from gan_class_transfer2_tpu_torch.config import Config, tiny_test_config
+
+    if tiny:
+        return tiny_test_config(size=32, batch_size=BATCH, optimizer="adam_tf",
+                                lr_schedule="constant", learning_rate=LR, conv_impl="pallas")
+    return Config().replace(batch_size=BATCH, optimizer="adam_tf", lr_schedule="constant",
+                            learning_rate=LR, conv_impl="pallas").validate()
+
+
+def _rank(rank: int, port: int, device: str, tiny: bool, queue) -> None:
+    import torch
+
+    from gan_class_transfer2_tpu_torch.models import api
+    from gan_class_transfer2_tpu_torch.ops import fused_down_conv as fdc
+    from gan_class_transfer2_tpu_torch.parallel import mesh as mesh_lib
+    from gan_class_transfer2_tpu_torch.parallel import multihost, spatial_train
+    from gan_class_transfer2_tpu_torch.train import trainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    multihost.initialize(f"127.0.0.1:{port}", RANKS, rank, device=device)
+    cuda = device == "cuda"
+    dev = multihost.local_device(device)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    cfg = _config(tiny)
+    r = np.random.default_rng(9)
+    x = torch.from_numpy(r.uniform(-1, 1, (BATCH, cfg.size, cfg.size, 3))
+                         .astype(np.float32)).to(dev)
+    t = torch.from_numpy(r.integers(1, cfg.steps + 1, BATCH).astype(np.int32))
+    eps = torch.from_numpy(r.standard_normal(tuple(x.shape)).astype(np.float32)).to(dev)
+    init = api.init_denoiser(cfg, device="cpu")
+    p0 = [p.detach().to(dev) for p in init.parameters()]
+
+    def fresh():
+        model = copy.deepcopy(init).to(dev)
+        return trainer.TrainState(0, model, trainer.make_optimizer(cfg).init(
+            list(model.parameters())), None, None)
+
+    def timed(fn, reps=3, together=True):
+        times = []
+        for _ in range(reps):
+            sync()
+            if together:
+                multihost.barrier()
+            t1 = time.perf_counter()
+            fn()
+            sync()
+            times.append((time.perf_counter() - t1) * 1e3)
+        return float(np.median(times))
+
+    out = {"rank": rank, "device": str(dev),
+           "backend": torch.distributed.get_backend()}
+    ref = None
+    if rank == 0:  # one process on the whole batch, rank 0 alone
+        state = fresh()
+        step = trainer.make_injected_train_step(cfg)
+        state, loss = step(state, x, t, eps)
+        sync()
+        ref = {"loss": float(loss),
+               "delta": [p.detach() - q for p, q in zip(state.model.parameters(), p0)]}
+        holder = [state]
+
+        def again():
+            holder[0], _ = step(holder[0], x, t, eps)
+
+        out["one_process"] = {"loss": ref["loss"], "step_ms": timed(again, together=False)}
+        del holder, state
+    multihost.barrier()
+
+    def check(res, whole):
+        if ref is None:
+            return
+        res["rel"] = abs(res["loss"] - ref["loss"]) / abs(ref["loss"])
+        diff = torch.cat([(p.detach() - q - d).abs().flatten()
+                          for p, q, d in zip(whole.parameters(), p0, ref["delta"])])
+        res["max_diff"] = diff.max().item()
+        res["share"] = (diff > 1e-3 * LR).double().mean().item()
+        res["ok"] = res["rel"] <= 1e-5 and res["share"] <= 1e-4
+
+    def comm_step(fn):
+        multihost.comm.reset()
+        multihost.comm.timing = True
+        t1 = time.perf_counter()
+        fn()
+        sync()
+        multihost.comm.timing = False
+        return {"step_ms": (time.perf_counter() - t1) * 1e3,
+                "calls": dict(multihost.comm.calls),
+                "mb": {k: v / 1e6 for k, v in multihost.comm.bytes.items()},
+                "ms": {k: v * 1e3 for k, v in multihost.comm.seconds.items()}}
+
+    # data 2 x model 2
+    mesh = mesh_lib.make_mesh(device=device, data=2, model=2)
+    state = fresh()
+    state = mesh_lib.shard_state(state, mesh_lib.state_shardings(state, mesh), mesh)
+    rows = tuple(mesh_lib.local_rows(v, mesh) for v in (x, t, eps))
+    step = trainer.make_injected_train_step(cfg, mesh)
+    fdc.down_conv_fused.launches = 0
+    state, loss = step(state, *rows)
+    sync()
+    res = {"loss": float(loss), "b4_launches": fdc.down_conv_fused.launches,
+           "coords": dict(mesh.coords)}
+    whole = mesh_lib.whole_module(state.model, mesh)
+    check(res, whole)
+    del whole
+    holder = [state]
+
+    def tp_again():
+        holder[0], _ = step(holder[0], *rows)
+
+    res["step_ms"] = timed(tp_again)
+    res["comm"] = comm_step(tp_again)
+    out["dp_tp"] = res
+    del holder, state
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # data 2 x spatial 2
+    smesh = spatial_train.make_dp_spatial_mesh(2, 2, device=device)
+    step = spatial_train.make_dp_spatial_train_step(cfg, smesh)
+    rows = (spatial_train.local_block(x, smesh).contiguous(), spatial_train.local_rows(t, smesh),
+            spatial_train.local_block(eps, smesh).contiguous())
+    state = fresh()
+    state, loss = step(state, rows[0], None, t_int=rows[1], epsilon=rows[2])
+    sync()
+    res = {"loss": float(loss), "coords": dict(smesh.coords)}
+    check(res, state.model)
+    holder = [state]
+
+    def sp_again():
+        holder[0], _ = step(holder[0], rows[0], None, t_int=rows[1], epsilon=rows[2])
+
+    res["step_ms"] = timed(sp_again)
+    res["comm"] = comm_step(sp_again)
+    out["dp_spatial"] = res
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else None
+    multihost.shutdown()
+    queue.put(out)
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    p.add_argument("--tiny", action="store_true",
+                   help="a 32² tiny config instead of the full width (a rehearsal)")
+    p.add_argument("--out", default=None, help="also write the JSON object here")
+    args = p.parse_args(argv)
+    import torch
+    import torch.multiprocessing as mp
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("parallel_cards_torch: no CUDA card (pass --device cpu for a rehearsal)",
+              file=sys.stderr)
+        return 1
+    cards = []
+    if args.device == "cuda":
+        cards = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()
+        for line in cards:
+            print(line)
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=_rank, args=(k, port, args.device, args.tiny, queue))
+             for k in range(RANKS)]
+    for proc in procs:
+        proc.start()
+    results = []
+    try:
+        for _ in procs:
+            results.append(queue.get(timeout=1800))
+    finally:
+        for proc in procs:
+            proc.join(120)
+            if proc.is_alive():
+                proc.terminate()
+    results.sort(key=lambda r: r["rank"])
+    r0 = results[0]
+    summary = {"cards": cards, "device_count": torch.cuda.device_count() if args.device == "cuda"
+               else 0, "backend": r0["backend"], "ranks": [r["device"] for r in results],
+               "batch": BATCH, "tiny": args.tiny, "one_process": r0["one_process"]}
+    ok = True
+    for name in ("dp_tp", "dp_spatial"):
+        a = r0[name]
+        same = len({r[name]["loss"] for r in results}) == 1
+        ok = ok and a["ok"] and same
+        summary[name] = dict(a, losses_equal_on_all_ranks=same)
+        c = a["comm"]
+        print(f"{name}: loss {a['loss']:.7f} vs one process {r0['one_process']['loss']:.7f} "
+              f"(rel {a['rel']:.2e}); updates max|Δ| {a['max_diff']:.3e}, share beyond "
+              f"1e-3·lr {a['share']:.2e}; step {a['step_ms']:.2f} ms (one process "
+              f"{r0['one_process']['step_ms']:.2f} ms); collectives of one timed step "
+              f"({c['step_ms']:.2f} ms): " + ", ".join(
+                  f"{k} {c['calls'][k]} x {c['mb'][k]:.1f} MB {c['ms'].get(k, 0.0):.2f} ms"
+                  for k in sorted(c["calls"])))
+    summary["peak_gb"] = [r["peak_gb"] for r in results]
+    summary["ok"] = ok
+    line = json.dumps(summary)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as fh:
+            fh.write(line + "\n")
+    print(line)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -217,6 +217,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      step and one on the data × spatial layout (data 1 × spatial 2) at
      batch 16 against one process, step and halo ms; 2 generator-driven
      steps on the fused path: B1s once a step a rank;
+  22g. pp-agree (before [serve], as 22h and 22i) — pipeline parallelism
+     (parallel/pipeline.py) at the default width, batch 16, fp32, every
+     stage on cuda:0, through the kernels: stages 2 × microbatches 2, 3 ×
+     4, and 2 × 2 with 2 in-process replicas (PP × DP), each one step from
+     the same weights and generator state as the one-process step (loss
+     1e-5 relative, updates at [dp-agree]'s bounds), exact launches (B1 1, B4
+     2·4·M·replicas, B2 one a stage), the step timed beside the one-process
+     step; one bfloat16 pipeline step with a finite loss;
+  22h. pp-train — ``cli train --pipeline-stages 2 --pipeline-microbatches
+     2`` from the uint8 pool, 4 steps with an EMA, one log_sample and a
+     save: exact launches, a finite loss; ``cli sample`` restores the
+     checkpoint in one process;
+  22i. plan — ``cli plan --json`` on 1 and 4 cards, diffusion and gan; the
+     planner's fp32 img/s at 256² batch 20 (no grid point) against ``cli
+     bench`` there in this run, within 25%;
   23. serve-bundle — ``build_bundle_service`` on the three bundles
      behind both frontends: /sample, /denoise, /transfer ab, ba and ?to= within 1
      level of the bundle in process with exact launches, frontends equal;
@@ -4618,6 +4633,192 @@ def phase_spatial_agree(card):
     return {"diffuse_sharded_f32": f0["launches"]["B1s"] + f1["launches"]["B1s"]}
 
 
+PP_CASES = ((2, 2, 1), (3, 4, 1), (2, 2, 2))  # [pp-agree]: stages, microbatches, mesh_data
+
+
+def _pp_counts(fdc, adam_kernel, pipeline, cfg, tr):
+    """The pipeline step's exact launches (B1, B4, B2): one B1 for the
+    whole batch's draws; B4 in every octave's descent twice a microbatch
+    replica (the no-grad forward and the stage's recompute); one B2 call a
+    stage over its leaves."""
+    from gan_class_transfer2_tpu_torch.models import unet
+
+    rows = TRAIN_BATCH // (tr.n_micro * tr.dp)
+    b4 = 2 * tr.n_micro * tr.dp * b4_per_call(fdc, cfg, rows)
+    index = pipeline.stage_indices(unet.Denoiser(cfg), tr.plan)
+    b2 = sum(adam_kernel.launches_per_step(len(ix)) for ix in index)
+    return 1, b4, b2
+
+
+def phase_pp_agree(torch, fdc, fd, adam_kernel, trainer, cfg, card):
+    """Pipeline parallelism (parallel/pipeline.py) at the default width,
+    batch 16, float32, every stage on cuda:0, through the kernels (B1 in
+    the prep, B4 in every descent and its recompute, B2 a stage): stages 2
+    with microbatches 2, stages 3 with 4, and 2 stages x 2 in-process
+    replicas (PP x DP on cuda:0), each one step from the same weights and
+    generator state as the one-process step: the loss within 1e-5 relative,
+    the updates beyond 1e-3·lr on at most 1e-4 of the elements
+    ([train-agree]'s bounds; constant lr 1e-3); exact launches; the step
+    timed beside the one-process step in the same run; one bfloat16
+    pipeline step with a finite loss. Returns the pipeline steps'
+    launches by kernel name."""
+    from gan_class_transfer2_tpu_torch.parallel import pipeline
+
+    lr = 1e-3
+    base = cfg.replace(batch_size=TRAIN_BATCH, conv_impl="pallas", optimizer="adam_fused",
+                       fused_diffusion=True, lr_schedule="constant", learning_rate=lr).validate()
+    x = torch.from_numpy(np.random.default_rng(11).uniform(
+        -1, 1, (TRAIN_BATCH, cfg.size, cfg.size, 3)).astype(np.float32)).cuda()
+    counters = (fd.diffuse_fused, fdc.down_conv_fused, adam_kernel.adam_fused)
+    total = {"diffuse_f32": 0, "down_conv_k4s2_f32": 0, "adam_f32m": 0}
+
+    def one_step(step, state, seed):
+        saved = [c.launches for c in counters]
+        state, loss = step(state, x, torch.Generator(device="cuda").manual_seed(seed))
+        torch.cuda.synchronize()
+        got = tuple(c.launches - n for c, n in zip(counters, saved))
+        return state, float(loss), got
+
+    def step_ms(step, state, reps=3):
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        state, _ = step(state, x, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            state, loss = step(state, x, gen)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    t_phase = time.perf_counter()
+    state = trainer.init_state(base, device="cuda")
+    p0 = [p.detach().clone() for p in state.model.parameters()]
+    state, ref_loss, ref_launches = one_step(trainer.make_train_step(base), state, 5)
+    ref_delta = [p.detach() - q for p, q in zip(state.model.parameters(), p0)]
+    one_ms = step_ms(trainer.make_train_step(base), state)
+    del state
+    print(f"[pp-agree] one process, {cfg.size}², batch {TRAIN_BATCH}, fp32 kernel path: loss "
+          f"{ref_loss:.7f}, launches B1/B4/B2 {ref_launches}, step {one_ms:.2f} ms")
+    for stages, micro, dp in PP_CASES:
+        c = base.replace(pipeline_stages=stages, pipeline_microbatches=micro, mesh_data=dp)
+        tr = pipeline.PipelineTrainer(c, devices=["cuda:0"])
+        st = tr.init_state()
+        st, loss, got = one_step(tr.step, st, 5)
+        want = _pp_counts(fdc, adam_kernel, pipeline, c, tr)
+        for name, n in zip(("diffuse_f32", "down_conv_k4s2_f32", "adam_f32m"), got):
+            total[name] += n
+        delta = [p.detach() - q for p, q in zip(st.model.parameters(), p0)]
+        rel = abs(loss - ref_loss) / abs(ref_loss)
+        diff = torch.cat([(a - b).abs().flatten() for a, b in zip(delta, ref_delta)])
+        share = (diff > 1e-3 * lr).double().mean().item()
+        ms = step_ms(tr.step, st)
+        name = f"stages {stages} x microbatches {micro}" + (f" x {dp} replicas" if dp > 1 else "")
+        print(f"[pp-agree] {name} (plan {tr.plan}, all on cuda:0): loss {loss:.7f} (rel "
+              f"{rel:.2e}, bound 1e-5); updates: max|Δpp − Δ1| {diff.max().item():.3e}, share "
+              f"beyond 1e-3·lr {share:.2e} (bound 1e-4); launches B1/B4/B2 {got} (expected "
+              f"{want}); step {ms:.2f} ms against the one process's {one_ms:.2f} ms in this run "
+              f"({card})")
+        if got != want:
+            fail(f"pp-agree {name}: launches B1/B4/B2 {got}, expected {want}")
+        if not rel <= 1e-5 or not share <= 1e-4:
+            fail(f"pp-agree {name}: loss rel {rel}, share {share}")
+        del st, tr
+    c = base.replace(pipeline_stages=2, pipeline_microbatches=2, compute_dtype="bfloat16")
+    tr = pipeline.PipelineTrainer(c, devices=["cuda:0"])
+    st, loss, got = one_step(tr.step, tr.init_state(), 5)
+    ms = step_ms(tr.step, st)
+    print(f"[pp-agree] bfloat16, stages 2 x microbatches 2: loss {loss:.7f}, launches B1/B4 "
+          f"(bf16)/B2 {got}, step {ms:.2f} ms")
+    if not np.isfinite(loss):
+        fail(f"pp-agree bfloat16: loss {loss}")
+    print(f"[pp-agree] the phase took {time.perf_counter() - t_phase:.2f} s")
+    return total
+
+
+def phase_pp_train(torch, cli, fdc, fd, adam_kernel, sampler, cfg, tmp, card):
+    """[pp-train]: ``cli train --pipeline-stages 2 --pipeline-microbatches
+    2`` (every stage on cuda:0) from the uint8 pool of the PNGs under
+    ``tmp``, CLI_STEPS steps with an EMA, a save and one log_sample (on the
+    EMA gathered to stage 0's device): exact B1/B2/B4 launches, a finite
+    loss, the checkpoint; then ``cli sample`` restores it in one process.
+    Returns {kernel row name: launches}."""
+    from gan_class_transfer2_tpu_torch.utils import checkpoint as ckpt_lib
+
+    ckpt = os.path.join(tmp, "ckpt-pp")
+    args = _train_cli(cfg, tmp, "logs-pp", "ckpt-pp", "--data-hbm", "288", "--epochs", "1",
+                      "--log-images-every", "1", "--ema-decay", "0.99", "--pipeline-stages", "2",
+                      "--pipeline-microbatches", "2")
+    got, secs = _run_cli(cli, (fd.diffuse_fused, adam_kernel.adam_fused, fdc.down_conv_fused),
+                         args)
+    b4 = b4_per_call(fdc, cfg, TRAIN_BATCH)
+    calls = 1 + cfg.steps + len(sampler.sample_timesteps(cfg.replace(sample_stride=50)))
+    want = (CLI_STEPS, 2 * CLI_STEPS, CLI_STEPS * 2 * 2 * b4 + calls * b4)
+    if got != want:
+        fail(f"pp-train: launches B1/B2/B4 {got}, expected {want} ({CLI_STEPS} steps of 2 "
+             f"stages x 2 microbatches, {calls} denoiser calls in one log_sample)")
+    ev = _events(os.path.join(tmp, "logs-pp"))
+    loss = ev["loss"][0][1]
+    if not np.isfinite(loss) or ckpt_lib.all_steps(ckpt) != [CLI_STEPS]:
+        fail(f"pp-train: loss {loss}, checkpoints {ckpt_lib.all_steps(ckpt)}")
+    out = os.path.join(tmp, "pp-samples")
+    before = fdc.down_conv_fused.launches
+    rc = cli.main(["sample", "--device", "cuda", "--checkpoint-dir", ckpt, "--num", "2",
+                   "--out", out])
+    fdc.down_conv_fused.launches = before
+    if rc != 0 or len(glob.glob(os.path.join(out, "*.png"))) != 2:
+        fail(f"pp-train: cli sample from the pipeline's checkpoint returned {rc}")
+    print(f"[pp-train] cli train --pipeline-stages 2 --pipeline-microbatches 2 on one {card} "
+          f"(both stages on cuda:0), batch {TRAIN_BATCH}, {CLI_STEPS} steps from the uint8 pool + "
+          f"one log_sample on the EMA + a save: launches B1/B2/B4 {got} (B4 {2 * 2 * b4} a step: "
+          f"the forward and the recompute of 2 microbatches); epoch loss {loss:.7f}, "
+          f"{ev['images_per_sec'][0][1]:.3f} img/s; checkpoint step {CLI_STEPS} restored by a "
+          f"one-process cli sample (2 PNGs); wall {secs:.2f} s")
+    torch.cuda.empty_cache()
+    return {"diffuse_f32": got[0], "adam_f32m": got[1], "down_conv_k4s2_f32": got[2]}
+
+
+PLAN_HELD_OUT = (256, 20)  # [plan]: not a point of the planner's grid, not a multiple of 8
+
+
+def phase_plan(torch, cli, cfg, card):
+    """[plan]: ``cli plan --json`` for 1 and 4 cards, diffusion and gan, at
+    batch 16: the keys, a chosen strategy on one card with a prediction;
+    then the planner's float32 img/s at PLAN_HELD_OUT against ``cli
+    bench`` there in this run: within 25%."""
+    import contextlib
+    import io
+
+    from gan_class_transfer2_tpu_torch.parallel import planner
+
+    for chips in (1, 4):
+        for model in ("diffusion", "gan"):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["plan", "--json", "--chips", str(chips), "--model", model,
+                               "--batch-size", str(TRAIN_BATCH)])
+            res = json.loads(buf.getvalue())
+            if rc != 0 or res["chosen"] is None or res["hbm_gb"] != 80.0:
+                fail(f"plan {model} on {chips}: rc {rc}, chosen {res.get('chosen')}")
+            best = res["candidates"][0]
+            print(f"[plan] {model}, {chips} card(s), batch {TRAIN_BATCH}, fp32: chosen "
+                  f"{res['chosen']} ({res['cli_flags']}), {best['total_gb']} GB a card, "
+                  f"pred {best['pred_img_s']} img/s; {len(res['candidates'])} candidates")
+            if chips == 1 and best["pred_img_s"] is None:
+                fail(f"plan {model} on one card: no prediction")
+    size, batch = PLAN_HELD_OUT
+    c = cfg.replace(size=size, batch_size=batch).validate()
+    pred = planner.predict_ips_per_chip(c, batch)
+    bench = _cli_json(cli, ["bench", "--device", "cuda", *_width(c), *KERNEL_PATH,
+                            "--compute-dtype", "float32", "--batch-size", str(batch),
+                            "--bench-steps", str(BENCH_STEPS)])[-1]
+    got = bench["images_per_sec"]
+    err = pred / got - 1
+    print(f"[plan] held out {size}² batch {batch} fp32 (no grid point): the planner predicts "
+          f"{pred:.3f} img/s, cli bench measured {got:.3f} img/s in this run ({err:+.2%}, bound "
+          f"25%) on {card}")
+    if abs(err) > 0.25:
+        fail(f"plan: the prediction at {PLAN_HELD_OUT} is off by {err:.1%}")
+
+
 def _tp_worker(torch, rank, port):
     """One rank of [tp-agree], [tp-gan] and [slice] (see phase_tp)."""
     from gan_class_transfer2_tpu_torch.config import Config
@@ -5137,6 +5338,13 @@ def main():
           f"the TP local shapes fp32 {tp_rows['float32']['ms']:.4f} ms / bf16 "
           f"{tp_rows['bfloat16']['ms']:.4f} ms; B1s on a 2-way height block "
           f"{spatial_rows['2-way spatial']['ms']:.4f} ms")
+    t0 = time.perf_counter()
+    pp_launches = phase_pp_agree(torch, fdc, fd, adam_kernel, trainer, cfg, card)
+    for name, n in phase_pp_train(torch, cli, fdc, fd, adam_kernel, sampler, cfg, files.name,
+                                  card).items():
+        pp_launches[name] += n
+    phase_plan(torch, cli, cfg, card)
+    print(f"[plan] [pp-agree], [pp-train] and [plan] took {time.perf_counter() - t0:.2f} s")
     serve_b3, serve_b4 = phase_serve(torch, fdc, norm, sampler, gan, png, files.name, globs,
                                      card)
     cls_b3, cls_b4 = phase_serve_classes(torch, fdc, norm, sampler, cgan, png, files.name, globs3,
@@ -5154,7 +5362,7 @@ def main():
     print(f"[dp-agree] [dp-kernel], [dp-train] and [dp-agree] took "
           f"{time.perf_counter() - t0:.2f} s")
     for name in ("diffuse_f32", "adam_f32m", "down_conv_k4s2_f32"):
-        train_launches[name] += dp_launches[name]
+        train_launches[name] += dp_launches[name] + pp_launches[name]
     train_launches["down_conv_k4s2_f32"] += (inception_b4 + dp_distill_b4
                                              + tp_launches["down_conv_k4s2_f32"])
     dp_launches["diffuse_sharded_f32"] += tp_launches["diffuse_sharded_f32"]
@@ -5185,7 +5393,8 @@ def main():
     # cond-train-cli and dp-train's world-size-1 run for B1 and B2;
     # dp-train's diffusion ranks for B1s; since PR 13 tp-agree's, tp-gan's,
     # slice's and tp-train's ranks for the down conv, tp-gan's for the
-    # instance norm, tp-train's and spatial-agree's ranks for B1s)
+    # instance norm, tp-train's and spatial-agree's ranks for B1s; the
+    # pipeline phases' (pp-agree's steps, pp-train's) for B1, B2 and B4)
     source = "gan_class_transfer2_tpu_torch/csrc/down_conv.cu"
     replaces = "gan_class_transfer2_tpu/ops/pallas_conv.py:36"
     rows = []

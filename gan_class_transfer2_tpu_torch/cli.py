@@ -130,6 +130,7 @@ _FIELDS = (
     "prediction_weighting", "loss_scale", "dynamic_loss_scale",
     "loss_scale_growth_interval", "fused_diffusion", "steps_per_epoch", "epochs",
     "host_sync_every", "mesh_data", "mesh_model", "mesh_slice", "zero1",
+    "pipeline_stages", "pipeline_microbatches", "pipeline_cuts",
     # GAN mode
     "gan_loss", "adversarial_weight", "cycle_weight", "identity_weight",
     "reconstruction_weight", "d_learning_rate", "d_pixel_size", "d_octaves",
@@ -200,7 +201,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="gan_class_transfer2_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
     for cmd in ("train", "gan-train", "cgan-train", "sample", "edit", "export-weights",
-                "export-model", "distill", "eval", "build-cache", "bench", "profile", "serve"):
+                "export-model", "distill", "eval", "build-cache", "bench", "profile", "serve",
+                "plan"):
         p = sub.add_parser(cmd)
         p.add_argument("--config", type=str, default=None, help="config JSON")
         p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
@@ -247,6 +249,20 @@ def main(argv=None) -> int:
                                 "checkpoint: config + weights come from the artifact; "
                                 "sample/denoise/transfer per its programs (edit/stream/"
                                 "reload stay checkpoint-only)")
+        elif cmd == "plan":
+            p.add_argument("--model", type=str, default="diffusion",
+                           choices=("diffusion", "gan", "cgan"),
+                           help="workload kind: diffusion gets the full strategy enumeration; "
+                                "gan/cgan get DP planning over their exact state trees")
+            p.add_argument("--chips", type=int, default=8,
+                           help="the budget of H100 cards to plan for (default 8)")
+            p.add_argument("--hbm-gb", type=float, default=80.0,
+                           help="device memory per card in GB (default 80 = one H100)")
+            p.add_argument("--budget-frac", type=float, default=0.75,
+                           help="fraction of the card's memory to plan to (headroom for the "
+                                "caching allocator and cuDNN workspaces)")
+            p.add_argument("--json", action="store_true",
+                           help="emit the full machine-readable plan instead of the table")
         elif cmd == "build-cache":
             p.add_argument("--out", type=str, required=True, help="cache file path")
             p.add_argument("--store", type=int, default=0,
@@ -324,7 +340,22 @@ def main(argv=None) -> int:
         return _serve(cfg, args)
     if args.command == "bench":
         return _bench(cfg, args)
+    if args.command == "plan":
+        return _plan(cfg, args)
     return _profile(cfg, args)
+
+
+def _plan(cfg: Config, args) -> int:
+    """Recommend a parallelism strategy for this workload and card budget
+    (parallel/planner.py): analytic, on meta tensors, no card touched."""
+    import json
+
+    from .parallel import planner
+
+    result = planner.plan(cfg, args.chips, hbm_gb=args.hbm_gb, budget_frac=args.budget_frac,
+                          model=args.model)
+    print(json.dumps(result) if args.json else planner.format_plan(result))
+    return 0
 
 
 def _bench(cfg: Config, args) -> int:

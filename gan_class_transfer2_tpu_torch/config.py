@@ -6,11 +6,11 @@ packages. The port imports nothing of the JAX package, so the dataclass is
 repeated here. Comments that explain a field's meaning live beside the JAX
 copy; this copy adds what the port does differently:
 
-  * ``validate`` refuses the features the port does not have yet (the
-    model and slice mesh axes, pipeline stages) with a NotImplementedError
-    that names the missing piece, instead of ignoring them. ``zero1`` and
-    ``mesh_data`` are data parallelism over processes (parallel/mesh.py,
-    which holds ``mesh_data`` to the world size).
+  * ``validate`` makes the JAX package's checks and no more: every feature
+    is ported. The mesh axes and ``zero1`` run over processes
+    (parallel/mesh.py holds the grid to the world size); the pipeline's
+    compositional refusals are raised where JAX raises them, when
+    ``parallel/pipeline.PipelineTrainer`` is built.
   * ``conv_impl="pallas"`` selects the hand-written CUDA down-conv kernel
     (ops/fused_down_conv.py), the port's counterpart of the Pallas kernel.
     Instance norm always runs the hand-written CUDA kernel on the card
@@ -169,7 +169,7 @@ class Config:
         )
 
     def validate(self) -> "Config":
-        """The JAX package's checks, then the port's refusals."""
+        """The JAX package's checks."""
         if self.size % (2**self.octaves) != 0:
             raise ValueError(
                 f"size={self.size} not divisible by 2**octaves={2**self.octaves}"
@@ -282,12 +282,6 @@ class Config:
             raise ValueError(
                 f"pipeline_stages={self.pipeline_stages} cannot exceed "
                 f"octaves={self.octaves} (stages own octave bands)"
-            )
-        # the port's refusal: a feature whose module is not ported yet
-        if self.pipeline_stages > 1:
-            raise NotImplementedError(
-                f"pipeline_stages={self.pipeline_stages}: pipeline parallelism "
-                "(parallel/pipeline.py) is not ported to PyTorch yet"
             )
         return self
 

@@ -77,8 +77,8 @@ replicas would only add launches. Two replicas may name the same device
 (how one card and the CPU hold the code): each is still a copy of its
 own.
 
-Pipeline parallelism is not ported (``config.py`` refuses
-``pipeline_stages > 1``); spatial sharding is ``parallel/spatial_train``.
+Pipeline parallelism is ``parallel/pipeline`` (one process, stages on
+local devices); spatial sharding is ``parallel/spatial_train``.
 """
 
 from __future__ import annotations

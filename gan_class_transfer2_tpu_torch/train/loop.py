@@ -16,6 +16,11 @@ What differs from the JAX package, and why:
     on). Only the coordinator writes checkpoints, events, config.json and
     images; every rank computes, and each loads its share of the files and
     its rows of the batch (``pipeline.make_datasets``).
+  * With ``pipeline_stages > 1`` the step is ``parallel/pipeline``'s
+    (one process, the stages on local devices, as JAX's Runner takes it,
+    loop.py:31-66): the state is placed on the stage devices (again after
+    a restore), and the data, the generator and ``log_sample`` live on
+    stage 0's first device, the EMA gathered there.
   * Randomness is one ``torch.Generator`` on the device, seeded from
     ``cfg.seed`` (through ``step_seed``, so it does not repeat the init's
     draws) and carried in each checkpoint: JAX folds the step number into
@@ -60,14 +65,28 @@ class Runner(ResilientRunnerMixin):
     def __init__(self, cfg: Config, dataset=None, log_dir: Optional[str] = None,
                  device="cuda"):
         self.cfg = cfg.validate()
-        self.mesh = mesh_lib.make_mesh(cfg, device=resolve_device(device))
-        self.device = self.mesh.device
+        # pipeline parallelism (parallel/pipeline.py): the PipelineTrainer
+        # owns the stage devices; the data, the generator and the eval
+        # programs live on stage 0's first device, with no mesh
+        self._pipeline = None
+        if cfg.pipeline_stages > 1:
+            from ..parallel import pipeline as pipeline_lib
+
+            self._pipeline = pipeline_lib.PipelineTrainer(cfg, device=device)
+            self.mesh, self.device = None, self._pipeline.devices[0]
+        else:
+            self.mesh = mesh_lib.make_mesh(cfg, device=resolve_device(device))
+            self.device = self.mesh.device
         self._is_coordinator = multihost.is_coordinator()
         self.generator = torch.Generator(device=self.device).manual_seed(step_seed(cfg.seed, 17))
-        self.state, self.shardings = mesh_lib.init_sharded_state(cfg, self.mesh)
+        if self._pipeline is not None:
+            self.state, self.shardings = self._pipeline.init_state(), None
+        else:
+            self.state, self.shardings = mesh_lib.init_sharded_state(cfg, self.mesh)
         if cfg.checkpoint_dir and ckpt_lib.latest_step(cfg.checkpoint_dir) is not None:
             self._restore_checkpoint()
-        self.train_step = mesh_lib.make_parallel_train_step(cfg, self.mesh)
+        self.train_step = (self._pipeline.step if self._pipeline is not None
+                           else mesh_lib.make_parallel_train_step(cfg, self.mesh))
         self.eval_fn = mesh_lib.make_parallel_eval_fn(cfg, self.mesh)
         self._metric_sampler = mesh_lib.make_data_parallel_apply(
             self.mesh, lambda model, init: sampler.sample(self.cfg, model, init,
@@ -139,6 +158,9 @@ class Runner(ResilientRunnerMixin):
             self._ema_local = trainer.eval_model(self.state, self._ema_local)
             self._ema_model = mesh_lib.whole_module(self._ema_local, self.mesh,
                                                     self._ema_model)
+        elif self._pipeline is not None:  # the stages' weights on stage 0's device
+            self._ema_local = trainer.eval_model(self.state, self._ema_local)
+            self._ema_model = self._pipeline.gather_params(self._ema_local)
         else:
             self._ema_model = trainer.eval_model(self.state, self._ema_model)
         return self._ema_model
@@ -218,9 +240,9 @@ class Runner(ResilientRunnerMixin):
                 if isinstance(batch, dict):  # labeled batches
                     batch = batch["image"]
                 # every rank's rows: the same reference set on every rank
-                data.append(multihost.host_fetch(
-                    torch.as_tensor(batch).float(),
-                    mesh_lib.batch_sharding(self.mesh).spec).numpy())
+                spec = mesh_lib.batch_sharding(self.mesh).spec if self.mesh else None
+                data.append(multihost.host_fetch(torch.as_tensor(batch).float(),
+                                                 spec).numpy())
             out = np.concatenate(data, 0)[:n]
         self._fid_reference = out
         return out

@@ -151,10 +151,16 @@ class ResilientRunnerMixin:
             self._ckpt_saver = None
 
     def _restore_checkpoint(self):
-        """Restore the latest checkpoint into the live state and generator."""
+        """Restore the latest checkpoint into the live state and generator;
+        on the pipeline path, then placed on the stage devices again (its
+        replicas refreshed), as JAX's runner and restart do
+        (loop.py:55-62, resilience.py:366-372)."""
         self.state = ckpt_lib.restore(self.cfg.checkpoint_dir, self.state,
                                       generator=self.generator,
                                       shardings=getattr(self, "shardings", None))
+        pipeline = getattr(self, "_pipeline", None)
+        if pipeline is not None:
+            self.state = pipeline.place_state(self.state)
 
     def _restore_data_state(self):
         """Apply the latest checkpoint's data-position sidecar to the

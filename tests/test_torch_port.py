@@ -162,7 +162,8 @@ def test_port_imports_no_jax():
         "       'serve.server', 'serve.aio', 'models.conditional', 'train.conditional_gan',\n"
         "       'train.conditional_gan_loop', 'train.distill', 'utils.bundle',\n"
         "       'parallel.multihost', 'parallel.mesh', 'utils.inception', 'parallel.tensor',\n"
-        "       'parallel.spatial', 'parallel.spatial_unet', 'parallel.spatial_train']\n"
+        "       'parallel.spatial', 'parallel.spatial_unet', 'parallel.spatial_train',\n"
+        "       'parallel.pipeline', 'parallel.planner']\n"
         "missing = [n for n in new if p.__name__ + '.' + n not in names]\n"
         "assert not missing, missing\n"
         "from gan_class_transfer2_tpu_torch.utils import fid_extractor\n"

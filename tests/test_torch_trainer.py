@@ -343,15 +343,19 @@ def test_uint8_batches_name_the_missing_augment_module(monkeypatch):
     ("mesh_slice", 2, "mesh_slice"), ("pipeline_stages", 2, "pipeline"),
 ])
 def test_config_refuses_unported_parallelism(field, value, match):
-    """Pipeline stages are refused by name. zero1 and the mesh axes are
-    ported (parallel/mesh.py): the config takes them, make_mesh holds the
-    grid to the world size (1 here, JAX's "needs N devices" error), and
-    zero1 gates B2 off."""
-    if field == "pipeline_stages":
-        with pytest.raises(NotImplementedError, match=match):
-            tiny_test_config(**{field: value})
-        return
+    """Every parallel axis is ported now: the config takes each. zero1 and
+    the mesh axes are held by make_mesh to the world size (1 here, JAX's
+    "needs N devices" error), and zero1 gates B2 off; pipeline stages build
+    a PipelineTrainer (parallel/pipeline.py), which refuses what JAX's
+    refuses, by JAX's message (ZeRO-1 here)."""
     cfg = tiny_test_config(**{field: value})
+    if field == "pipeline_stages":
+        from gan_class_transfer2_tpu_torch.parallel import pipeline
+
+        assert pipeline.PipelineTrainer(cfg, device="cpu").plan == ((0, 1), (1, 2))
+        with pytest.raises(ValueError, match="already partitions optimizer state by stage"):
+            pipeline.PipelineTrainer(cfg.replace(zero1=True), device="cpu")
+        return
     assert getattr(cfg, field) == value
     if field == "zero1":
         from gan_class_transfer2_tpu_torch.ops import adam_kernel

@@ -131,8 +131,12 @@ def test_init_is_seeded_glorot():
 
 
 def test_refused_features_name_the_missing_piece():
-    with pytest.raises(NotImplementedError, match="parallel/pipeline.py"):
-        tiny_test_config(pipeline_stages=2)
+    from gan_class_transfer2_tpu_torch.parallel import pipeline
+
+    cfg = tiny_test_config(pipeline_stages=2)  # pipeline parallelism is ported
+    # what the pipeline cannot take it refuses by name, as JAX does
+    with pytest.raises(ValueError, match="unconditional Denoiser only"):
+        pipeline.PipelineTrainer(cfg.replace(num_classes=2), device="cpu")
     assert tiny_test_config(mesh_model=2).mesh_model == 2  # tensor parallelism is ported
     assert tiny_test_config(zero1=True).zero1  # ZeRO-1 is ported (parallel/mesh.py)
     assert tiny_test_config(num_classes=2).num_classes == 2  # the conditional model is ported

@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
-"""Tensor parallelism and spatial sharding of the PyTorch port over four
-ranks, each on a card of its own over nccl (``parallel/multihost``'s rule:
-nccl when every rank has a card, gloo when ranks share one).
+"""Tensor parallelism, spatial sharding and pipeline parallelism of the
+PyTorch port over four cards of one host.
+
+``--part grids``: tensor parallelism and spatial sharding over four ranks,
+each on a card of its own over nccl (``parallel/multihost``'s rule: nccl
+when every rank has a card, gloo when ranks share one).
 
 Two grids at the reference's full width (``Config()``: 256², 41.7 M
 parameters), global batch 16, float32, one injected step each from the
@@ -21,11 +24,21 @@ beyond 1e-3 of the learning rate on at most 1e-4 of the elements (the
 bounds of ``chip_smoke.py``'s ``[dp-agree]``). Timed: the step (median of
 3, every rank started together) and, in one further step with each
 collective synchronised, the tensor-parallel gathers and input-gradient
-all-reduces, the halos and the gradient all-reduce. Printed: the cards'
-names and power limits, and one JSON object as the last line (also
-written to ``--out``). Exit 1 when a check fails.
+all-reduces, the halos and the gradient all-reduce.
+
+``--part pipeline``: ``parallel/pipeline.PipelineTrainer`` in this one
+process over 2 and 4 cards (stage s on ``cuda:s``) and as 2 stages × 2
+replicas, one generator-driven step each from the same weights and
+generator state as the one-process step on ``cuda:0`` (same bounds), then
+the step (median of 3) and the time the host took to return from it,
+peak memory a card, and the planner's prediction for the same layout
+beside it.
+
+Printed: the cards' names and power limits, and one JSON object as the
+last line (also written to ``--out``). Exit 1 when a check fails.
 
   python tools/parallel_cards_torch.py --out chiprun_out/parallel_cards.json
+  python tools/parallel_cards_torch.py --part pipeline --out pipeline_cards.json
   python tools/parallel_cards_torch.py --device cpu --tiny   # a rehearsal
 """
 
@@ -194,11 +207,99 @@ def _rank(rank: int, port: int, device: str, tiny: bool, queue) -> None:
     queue.put(out)
 
 
+PIPELINES = ((2, 2, 1), (2, 4, 1), (4, 4, 1), (4, 8, 1), (2, 2, 2))  # stages, micro, data
+
+
+def _pipelines(device: str, tiny: bool) -> dict:
+    """``--part pipeline``: each layout of PIPELINES against the one-process
+    step, in this process."""
+    import torch
+
+    from gan_class_transfer2_tpu_torch.parallel import pipeline, planner
+    from gan_class_transfer2_tpu_torch.train import trainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    cuda = device == "cuda"
+    cards = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())] if cuda
+             else [torch.device("cpu")] * RANKS)
+    dev0 = cards[0]
+    cfg = _config(tiny).replace(optimizer="adam_fused", fused_diffusion=True)
+    cfg = (cfg.replace(octaves=4) if tiny else cfg).validate()  # 4 stages need 4 octaves
+    x = torch.from_numpy(np.random.default_rng(9).uniform(
+        -1, 1, (BATCH, cfg.size, cfg.size, 3)).astype(np.float32)).to(dev0)
+
+    def sync():
+        if cuda:
+            for d in cards:
+                torch.cuda.synchronize(d)
+
+    def run(step, state):
+        """(step ms, host ms: when the step returned, before the cards
+        finished), medians of 3 after a warm step."""
+        gen = torch.Generator(device=dev0).manual_seed(1)
+        times = []
+        for _ in range(4):
+            t1 = time.perf_counter()
+            state, _ = step(state, x, gen)
+            t2 = time.perf_counter()
+            sync()
+            times.append(((time.perf_counter() - t1) * 1e3, (t2 - t1) * 1e3))
+        return tuple(float(np.median([t[k] for t in times[1:]])) for k in (0, 1))
+
+    state = trainer.init_state(cfg, device=dev0)
+    p0 = [p.detach().clone() for p in state.model.parameters()]
+    step = trainer.make_train_step(cfg)
+    state, ref_loss = step(state, x, torch.Generator(device=dev0).manual_seed(5))
+    sync()
+    delta = [p.detach() - q for p, q in zip(state.model.parameters(), p0)]
+    one_ms, one_host = run(step, trainer.init_state(cfg, device=dev0))
+    del state
+    out = {"one_process": {"loss": float(ref_loss), "step_ms": one_ms, "host_ms": one_host},
+           "layouts": []}
+    for stages, micro, data in PIPELINES:
+        c = cfg.replace(pipeline_stages=stages, pipeline_microbatches=micro, mesh_data=data)
+        need = stages * data
+        if cuda:
+            torch.cuda.empty_cache()
+            for d in cards:
+                torch.cuda.reset_peak_memory_stats(d)
+        tr = pipeline.PipelineTrainer(c, devices=cards[:need])
+        st = tr.init_state()
+        st, loss = tr.step(st, x, torch.Generator(device=dev0).manual_seed(5))
+        sync()
+        diff = torch.cat([(p.detach().to(dev0) - q - d).abs().flatten()
+                          for p, q, d in zip(st.model.parameters(), p0, delta)])
+        ms, host = run(tr.step, st)
+        name = f"PP{stages}×DP{data}"
+        pred = next((k for k in planner.plan(c, need)["candidates"] if k["name"] == name), {})
+        res = {"stages": stages, "microbatches": micro, "data": data, "plan": tr.plan,
+               "devices": [str(d) for row in tr.stage_devices for d in row],
+               "loss": float(loss), "rel": abs(float(loss) - float(ref_loss)) / abs(float(ref_loss)),
+               "max_diff": diff.max().item(), "share": (diff > 1e-3 * LR).double().mean().item(),
+               "step_ms": ms, "host_ms": host, "planner_pred_img_s": pred.get("pred_img_s"),
+               "planner_microbatches": pred.get("overrides", {}).get("pipeline_microbatches"),
+               "peak_gb": [torch.cuda.max_memory_allocated(d) / 1e9 for d in cards[:need]]
+               if cuda else None}
+        res["ok"] = res["rel"] <= 1e-5 and res["share"] <= 1e-4
+        out["layouts"].append(res)
+        print(f"{name} M={micro} on {res['devices']} (plan {tr.plan}): loss rel {res['rel']:.2e}, "
+              f"updates beyond 1e-3·lr {res['share']:.2e}; step {ms:.2f} ms "
+              f"({BATCH / ms * 1e3:.1f} img/s; the host returned after {host:.2f} ms) against "
+              f"one process's {one_ms:.2f} ms ({one_host:.2f}); the "
+              f"planner predicts {res['planner_pred_img_s']} img/s (its M "
+              f"{res['planner_microbatches']}); peak GB a card {res['peak_gb']}", flush=True)
+        del st, tr
+    out["ok"] = all(r["ok"] for r in out["layouts"])
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     p.add_argument("--tiny", action="store_true",
                    help="a 32² tiny config instead of the full width (a rehearsal)")
+    p.add_argument("--part", choices=("grids", "pipeline"), default="grids",
+                   help="the rank grids over nccl (TP, spatial) or the one-process pipeline")
     p.add_argument("--out", default=None, help="also write the JSON object here")
     args = p.parse_args(argv)
     import torch
@@ -215,6 +316,10 @@ def main(argv=None) -> int:
             capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()
         for line in cards:
             print(line)
+    if args.part == "pipeline":
+        summary = dict(_pipelines(args.device, args.tiny), cards=cards, batch=BATCH,
+                       tiny=args.tiny)
+        return _emit(summary, args.out)
     s = socket.socket()
     s.bind(("127.0.0.1", 0))
     port = s.getsockname()[1]
@@ -255,13 +360,17 @@ def main(argv=None) -> int:
                   for k in sorted(c["calls"])))
     summary["peak_gb"] = [r["peak_gb"] for r in results]
     summary["ok"] = ok
+    return _emit(summary, args.out)
+
+
+def _emit(summary: dict, out) -> int:
     line = json.dumps(summary)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as fh:
+    if out:
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "w") as fh:
             fh.write(line + "\n")
     print(line)
-    return 0 if ok else 1
+    return 0 if summary["ok"] else 1
 
 
 if __name__ == "__main__":

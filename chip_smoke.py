@@ -80,7 +80,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      cluster size) and at a large mean (3·N(0, 1) + 100), float32 and
      bfloat16: forward, and dx, dγ, dβ of its autograd Function against
      autograd through the plain version; kernel, plain version,
-     F.instance_norm and the backward timed beside the byte bound. B4 with
+     F.instance_norm, the backward and F.instance_norm's autograd backward
+     timed beside the byte bound. B4 with
      ``relu=False`` (every GAN down conv) at its four shapes at batch 16;
   10. gan — the user's entry point, ``cli.main(["profile", "--model", "gan",
      ...])``, at the default width (two default U-Net generators, two
@@ -210,13 +211,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      the two blocks of a 2-way spatial grid (positions 0, 1) and the four
      of a 2 × 2 data × spatial grid (positions 0–3): bit for bit B1 with the
      folded seed, the positions' ε different, a block timed beside its
-     byte bound;
+     byte bound (cold: the median of 24 launches over rotating inputs);
+     B3 over height blocks at every norm layer's block of the default
+     model on 2 shards at batch 16, float32 and bfloat16: the stats launch
+     against the plain triples, the apply launch against the plain version
+     from the merged statistics and against B3's plain version on the
+     whole image (B3's bounds), device ms beside the byte bound;
   22f. spatial-agree — 2 processes (``--dp-worker spatial``) as 2 height
      shards: ``make_spatial_unet_apply`` against ``unet_apply`` at the
      default width (1e-4 of the scale); one injected full-width spatial
      step and one on the data × spatial layout (data 1 × spatial 2) at
-     batch 16 against one process, step and halo ms; 2 generator-driven
-     steps on the fused path: B1s once a step a rank;
+     batch 16 against one process, step and halo ms; one injected step
+     each with g_norm instance (B3 over height blocks, 2 launches a norm
+     layer, a rank and a forward) and batch, per_step_output, the dct and
+     mse_multiscale losses, dynamic loss scaling and a uint8 pool, each
+     against one process with exact launches; 2 generator-driven steps on
+     the fused path: B1s once a step a rank;
   22g. pp-agree (before [serve], as 22h and 22i) — pipeline parallelism
      (parallel/pipeline.py) at the default width, batch 16, fp32, every
      stage on cuda:0, through the kernels: stages 2 × microbatches 2, 3 ×
@@ -256,7 +266,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   26. dp-agree (last) — 2 processes: one injected full-width step on 2
      ranks, replicated and under ZeRO-1, against the one-process step on
      the global batch ([train-agree]'s bounds); the optimizer bytes a rank
-     holds; the gradient all-reduce and ZeRO-1's all-gather timed. Every
+     holds; a GAN step with batch norms in G and D and R1 (statistics over
+     both ranks' rows) against one process; an injected step of a
+     batch-norm denoiser under remat (the recompute on autograd's device
+     thread) against one process; the gradient all-reduce and ZeRO-1's
+     all-gather timed. Every
      two-rank time is of 2 ranks sharing one card, not a multi-card number.
 
 The last two lines of its output are a JSON line of per-kernel results and
@@ -361,10 +375,9 @@ def cuda_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, match, reps=20, before=None):
+def device_ms(fn, match, reps=20):
     """Device time of one call of fn, over its CUDA kernels whose name
-    contains ``match`` (torch.profiler); ``before`` runs ahead of each call,
-    outside the count (an L2 scrub)."""
+    contains ``match`` (torch.profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -373,11 +386,90 @@ def device_ms(fn, match, reps=20, before=None):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            if before is not None:
-                before()
             fn()
         torch.cuda.synchronize()
     return sum(e.device_time_total for e in prof.key_averages() if match in e.key) / reps / 1e3
+
+
+L2_BYTES = 50 * 2**20  # H100 SXM: 50 MB of L2
+
+
+def queued_ms(fn, reps=10):
+    """Device ms of one ``fn()`` back to back: ``reps`` calls enqueued behind
+    a wait kernel of ~10 ms and timed between two CUDA events, so the
+    host's launch time is hidden (the device's gaps between kernels are
+    not)."""
+    import torch
+
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_times(run, match, expected):
+    """The device ms of each kernel whose name holds ``match`` that ``run()``
+    launches, in launch order, from one torch.profiler session; a second
+    session when the first did not see ``expected`` of them; None when
+    neither did (the profiler dropped device events)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        events = sorted((e.time_range.start, e.time_range.elapsed_us() / 1e3)
+                        for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA and match in e.name)
+        if len(events) == expected:
+            return [ms for _, ms in events]
+    return None
+
+
+def cold_device_ms(make_inputs, call, match, reps=24):
+    """Device time of single launches of ``call(*inputs)`` with L2 cold: the
+    inputs rotate over copies (``make_inputs(i)``) that together hold more
+    than twice the L2, so a launch's inputs were last touched over 100 MB
+    before; each launch's kernel time (those whose name holds ``match``)
+    read from torch.profiler's events, or, when the profiler drops them,
+    from CUDA events around each launch (then an upper bound: the launch's
+    own latency included). Returns ``(median, min, max)`` ms over ``reps``
+    launches."""
+    import torch
+
+    sets = [make_inputs(0)]
+    per = sum(t.numel() * t.element_size() for t in sets[0])
+    sets += [make_inputs(i) for i in range(1, 2 * L2_BYTES // per + 2)]
+    for args in sets:
+        call(*args)
+
+    def run():
+        for k in range(reps):
+            call(*sets[k % len(sets)])
+
+    times = kernel_times(run, match, reps)
+    if times is None:
+        print(f"cold timing of {match!r}: the profiler dropped device events; CUDA events "
+              "around each launch instead", flush=True)
+        times = []
+        for k in range(reps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            call(*sets[k % len(sets)])
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+    del sets
+    return float(np.median(times)), min(times), max(times)
 
 
 def host_ms(fn, reps=50):
@@ -720,14 +812,18 @@ def phase_train_kernels(torch, F, fdc, fd, adam_kernel, api, cfg):
         fail(f"diffuse kernel noise has mean {mean}, std {std}")
     call = lambda: fd.diffuse_fused(x, t, table, seed)  # noqa: E731
     ms = cuda_ms(call, reps=50)
-    scrub = torch.empty(16 * 2**20, device="cuda")  # 64 MB written between launches: L2 cold
     dev_ms = device_ms(call, "diffuse")
-    cold_ms = device_ms(call, "diffuse", before=lambda: scrub.fill_(1.0))
+    # the bytes the kernel moves: x read and y written, t and the (T + 1, 2)
+    # table read
+    nbytes = 8 * x.numel() + 4 * t.numel() + 4 * table.numel()
+    cold_ms, cold_lo, cold_hi = cold_device_ms(
+        lambda i: (torch.rand_like(x),), lambda xi: fd.diffuse_fused(xi, t, table, seed),
+        "diffuse")
     wrapper_ms = host_ms(call)
     plain_ms = cuda_ms(lambda: fd.diffuse_plain(x, t, table, seed), reps=5)
     fd.diffuse_fused.launches = before
     elems = x.numel()
-    bytes_ms = _bytes_ms(8 * elems)
+    bytes_ms = _bytes_ms(nbytes)
     ops = DIFFUSE_INT_PER_ELEMENT * elems, DIFFUSE_FLOAT_PER_ELEMENT * elems
     ops_ms = max(ops[0] / INT32_RATE, (ops[0] + ops[1]) / DISPATCH_RATE) * 1e3
     bound = max(bytes_ms, ops_ms)
@@ -738,14 +834,18 @@ def phase_train_kernels(torch, F, fdc, fd, adam_kernel, api, cfg):
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": None,
         "device_ms": dev_ms, "device_cold_ms": cold_ms, "host_ms": wrapper_ms}
+    if not cold_ms >= bytes_ms:
+        fail(f"B1: a cold device time of {cold_ms} ms is below the byte bound {bytes_ms} ms: "
+             "the reading is impossible, not fast")
     print(f"[train-kernel] B1 diffuse x{tuple(x.shape)}: max|err| {err:.3e} (bound "
           f"{DIFFUSE_ATOL}), repeat bit-identical; noise mean {mean:.2e} std {std:.5f}; kernel "
           f"{ms:.4f} ms back to back (host-included), device {dev_ms:.4f} ms L2 warm, "
-          f"{cold_ms:.4f} ms cold, the wrapper's host {wrapper_ms:.4f} ms a call; plain "
+          f"{cold_ms:.4f} ms cold (median of 24 launches over rotating inputs, "
+          f"{cold_lo:.4f}–{cold_hi:.4f}), the wrapper's host {wrapper_ms:.4f} ms a call; plain "
           f"{plain_ms:.4f} ms; bound {bound:.4f} ms ({rows['diffuse_f32']['bound_by']}: bytes "
           f"{bytes_ms:.4f}, operations {ops_ms:.4f}) = {bound / cold_ms:.1%} of the cold device "
           f"time; no one-call library yardstick")
-    del x, y, ref, eps, scrub
+    del x, y, ref, eps
 
     # ---- B2: every leaf of the default model, float32 and bfloat16 moments
     model = api.init_denoiser(cfg, device="cuda")
@@ -1591,7 +1691,8 @@ def phase_gan_kernels(torch, F, fdc, norm, cfg):
     gen = torch.Generator(device="cuda").manual_seed(11)
     rows = {}
     for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        s = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bwd_ms=0.0, err=0.0)
+        s = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bwd_ms=0.0, lib_bwd_ms=0.0,
+                 err=0.0)
         worst = {"y": 0.0, "dx": 0.0, "dgamma": 0.0, "dbeta": 0.0}
         for (hw, c), n in sorted(per_step.items(), reverse=True):
             x = (torch.randn((TRAIN_BATCH, hw, hw, c), generator=gen, device="cuda") * 3 + 2)
@@ -1628,6 +1729,14 @@ def phase_gan_kernels(torch, F, fdc, norm, cfg):
             xl, gl, bl = x.permute(0, 3, 1, 2), g.to(dtype), b.to(dtype)
             lib_ms = cuda_ms(lambda: F.instance_norm(xl, weight=gl, bias=bl, eps=1e-5))
             bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves[0], dy, retain_graph=True))
+            # the library's backward of the same function: F.instance_norm's
+            # autograd on the NCHW view, dx, dγ and dβ
+            lib_in = [xl.detach().requires_grad_(), gl.clone().requires_grad_(),
+                      bl.clone().requires_grad_()]
+            lib_out = F.instance_norm(lib_in[0], weight=lib_in[1], bias=lib_in[2], eps=1e-5)
+            dy_l = dy.permute(0, 3, 1, 2)
+            lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, lib_in, dy_l,
+                                                             retain_graph=True))
             norm.instance_norm_fused.launches = before  # comparison launches do not count
             nbytes = 2 * x.numel() * x.element_size() + 2 * 4 * c  # x in, y out; γ, β
             bound = _bytes_ms(nbytes)
@@ -1636,20 +1745,22 @@ def phase_gan_kernels(torch, F, fdc, norm, cfg):
                   f"{plan.cluster} ({plan.blocks} blocks, chunk {plan.chunk} px); max|err| "
                   f"{err:.3e} (max|y| {scale:.3f}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"F.instance_norm {lib_ms:.4f} ms, bound {bound:.4f} ms (bytes) = "
-                  f"{bound / ms:.1%} of bound; backward (torch ops) {bwd_ms:.4f} ms, its bound "
+                  f"{bound / ms:.1%} of bound; backward (torch ops) {bwd_ms:.4f} ms, "
+                  f"F.instance_norm's backward {lib_bwd_ms:.4f} ms, its bound "
                   f"{1.5 * bound:.4f} ms (bytes: x and dy read, dx written)")
             for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
-                         ("bound_ms", bound), ("bwd_ms", bwd_ms)):
+                         ("bound_ms", bound), ("bwd_ms", bwd_ms), ("lib_bwd_ms", lib_bwd_ms)):
                 s[k] += n * v
-            del x, y, yp, dy, leaves, out, ref, got, want, xl
+            del x, y, yp, dy, leaves, out, ref, got, want, xl, lib_in, lib_out, dy_l
         print(f"[gan-kernel] B3 {dtype_name}: {sum(per_step.values())} launches a step over "
               f"{len(per_step)} shapes; max error relative to the largest value: y "
               f"{worst['y']:.2e} (bound {IN_RTOL[dtype_name]}), dx {worst['dx']:.2e}, dγ "
               f"{worst['dgamma']:.2e}, dβ {worst['dbeta']:.2e} (bound "
               f"{IN_GRAD_RTOL[dtype_name]}); a step's norms: kernel {s['ms']:.4f} ms, plain "
               f"{s['plain_ms']:.4f} ms, F.instance_norm {s['library_ms']:.4f} ms, bound "
-              f"{s['bound_ms']:.4f} ms (bytes); backward (torch ops) {s['bwd_ms']:.4f} ms, its "
-              f"bound {1.5 * s['bound_ms']:.4f} ms (bytes)")
+              f"{s['bound_ms']:.4f} ms (bytes); backward (torch ops) {s['bwd_ms']:.4f} ms, "
+              f"F.instance_norm's backward {s['lib_bwd_ms']:.4f} ms, its bound "
+              f"{1.5 * s['bound_ms']:.4f} ms (bytes)")
         # a large mean, x = 3·N(0, 1) + 100: where a one-pass E[x²] − m² loses
         # the variance's digits; the kernel's Welford/Chan combine must not
         for shape in ((TRAIN_BATCH, 64, 64, 256), (TRAIN_BATCH, 256, 256, 64)):
@@ -3616,12 +3727,14 @@ def phase_dp_kernel(torch, fd, cfg, card):
     xb, tb = blocks[1]
     call = lambda: fd.diffuse_fused_sharded(xb, tb, table, seed, 1)  # noqa: E731
     ms = cuda_ms(call, reps=50)
-    scrub = torch.empty(16 * 2**20, device="cuda")  # 64 MB written between launches: L2 cold
-    cold_ms = device_ms(call, "diffuse", before=lambda: scrub.fill_(1.0))
+    nbytes = 8 * xb.numel() + 4 * tb.numel() + 4 * table.numel()
+    cold_ms, cold_lo, cold_hi = cold_device_ms(
+        lambda i: (torch.rand_like(xb),),
+        lambda xi: fd.diffuse_fused_sharded(xi, tb, table, seed, 1), "diffuse")
     plain_ms = cuda_ms(lambda: fd.diffuse_sharded_plain(xb, tb, table, seed, 1), reps=5)
     fd.diffuse_fused.launches, fd.diffuse_fused_sharded.launches = counts
     elems = xb.numel()
-    bytes_ms = _bytes_ms(8 * elems)
+    bytes_ms = _bytes_ms(nbytes)
     ops = DIFFUSE_INT_PER_ELEMENT * elems, DIFFUSE_FLOAT_PER_ELEMENT * elems
     ops_ms = max(ops[0] / INT32_RATE, (ops[0] + ops[1]) / DISPATCH_RATE) * 1e3
     bound = max(bytes_ms, ops_ms)
@@ -3631,15 +3744,19 @@ def phase_dp_kernel(torch, fd, cfg, card):
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": None,
            "device_cold_ms": cold_ms}
+    if not cold_ms >= bytes_ms:
+        fail(f"dp-kernel: a cold device time of {cold_ms} ms is below the byte bound "
+             f"{bytes_ms} ms: the reading is impossible, not fast")
     print(f"[dp-kernel] B1s, batch {TRAIN_BATCH} × {cfg.size}²×3 in {DP_RANKS} blocks of "
           f"{DP_LOCAL}, positions 0 and 1: bit for bit B1 with the folded seed; max|err| vs plain "
           f"{err:.3e} (bound {DIFFUSE_ATOL}); the positions' ε agree in {same:.2e} of the "
           f"elements; one block of {DP_LOCAL}: kernel {ms:.4f} ms back to back, device "
-          f"{cold_ms:.4f} ms L2 cold, plain {plain_ms:.4f} ms; bound {bound:.4f} ms "
-          f"({row['bound_by']}: {8 * elems / 1e6:.2f} MB, {bytes_ms * 1e3:.2f} us at 3.35 TB/s; "
+          f"{cold_ms:.4f} ms L2 cold (median of 24 launches over rotating inputs, "
+          f"{cold_lo:.4f}–{cold_hi:.4f}), plain {plain_ms:.4f} ms; bound {bound:.4f} ms "
+          f"({row['bound_by']}: {nbytes / 1e6:.2f} MB, {bytes_ms * 1e3:.2f} us at 3.35 TB/s; "
           f"operations {ops_ms * 1e3:.2f} us) on {card}; launches in this phase are comparisons "
           "(the main path's are [dp-train]'s)")
-    del x, blocks, eps, scrub
+    del x, blocks, eps
     return row
 
 
@@ -3839,10 +3956,14 @@ def phase_dp_agree(card, train_results):
     """A two-rank injected step, replicated and under ZeRO-1, against the
     one-process injected step on the same global batch and weights at the
     default width (run in rank 0), [train-agree]'s bounds; the bytes of
-    optimizer state a rank holds; the two-rank train step on the kernel
-    path (B1s, B4; B2 gated off) timed beside [train]'s one-process step,
-    replicated and ZeRO-1; the gradient all-reduce and ZeRO-1's all-gather
-    timed. Returns nothing: every check is here."""
+    optimizer state a rank holds; an injected step of a batch-norm
+    denoiser under remat (its recompute in the backward, on autograd's
+    device thread, takes both ranks' statistics again) and a batch-norm GAN
+    step (the statistics over both ranks' rows, R1's double backward
+    through them) against one process; the two-rank train step on the kernel path (B1s, B4; B2 gated
+    off) timed beside [train]'s one-process step, replicated and ZeRO-1;
+    the gradient all-reduce and ZeRO-1's all-gather timed. Returns the
+    batch-norm GAN ranks' B4 launches."""
     (res,) = _dp_jobs([("agree", [{}] * DP_RANKS)])
     r0, r1 = res
     for zero1 in ("replicated", "zero1"):
@@ -3866,6 +3987,32 @@ def phase_dp_agree(card, train_results):
             fail(f"dp-agree {zero1}: loss rel {a['rel']}, share {a['share']}")
     if not r0["zero1"]["opt_bytes"] < 0.6 * r0["replicated"]["opt_bytes"]:
         fail("dp-agree: ZeRO-1 did not halve the optimizer state a rank holds")
+    a, b = r0["remat_batch"], r1["remat_batch"]
+    if a["checksum"] != b["checksum"]:
+        fail("dp-agree batch-norm remat: the ranks' weights differ")
+    if a["launches"]["B2"] != 0 or a["launches"]["B4"] <= 0:
+        fail(f"dp-agree batch-norm remat: launches {a['launches']}")
+    print(f"[dp-agree] batch-norm remat (g_norm=batch, remat, SGD with momentum lr 1e-3, B4 down "
+          f"convs; the recompute on autograd's device thread): one injected step, 2 ranks x "
+          f"{DP_LOCAL} rows against one process x {TRAIN_BATCH}: loss {a['loss']:.7f} vs "
+          f"{a['ref_loss']:.7f} (rel {a['rel']:.2e}, bound 1e-5); updates: max|Δ2 − Δ1| "
+          f"{a['max_diff']:.3e}, share beyond 1e-3·lr {a['share']:.2e} (bound 1e-4); launches a "
+          f"rank {a['launches']}; step {a['step_ms']:.2f} ms")
+    if not a["rel"] <= 1e-5 or not a["share"] <= 1e-4:
+        fail(f"dp-agree batch-norm remat: loss rel {a['rel']}, share {a['share']}")
+    g0, g1 = r0["gan_batch"], r1["gan_batch"]
+    if g0["checksum"] != g1["checksum"] or g0["metrics"] != g1["metrics"]:
+        fail("dp-agree batch-norm GAN: the ranks' weights or metrics differ")
+    if g0["launches"]["B4"] <= 0 or g0["launches"]["B3"] != 0:
+        fail(f"dp-agree batch-norm GAN: launches {g0['launches']}")
+    print(f"[dp-agree] batch-norm GAN (g_norm=d_norm=batch, R1 weight 1, no DiffAugment, SGD "
+          f"lr 1e-3, B4 down convs): one step, 2 ranks x {DP_LOCAL} rows a class against one "
+          f"process x {TRAIN_BATCH}: metrics {g0['metrics']} vs {g0['ref']} (worst rel "
+          f"{g0['rel']:.2e}, bound 1e-5); updates of the four nets max|Δ2 − Δ1| "
+          f"{g0['max_diff']:.3e}, share beyond 1e-3·lr {g0['share']:.2e} (bound 1e-4); "
+          f"launches a rank {g0['launches']}")
+    if not g0["rel"] <= 1e-5 or not g0["share"] <= 1e-4:
+        fail(f"dp-agree batch-norm GAN: metrics rel {g0['rel']}, share {g0['share']}")
     one = train_results[("float32", "kernels")]
     for name in ("replicated", "zero1"):
         ms = r0["train_ms"][name]
@@ -3880,6 +4027,7 @@ def phase_dp_agree(card, train_results):
           f"({r0['gather_mb']:.1f} MB a rank) {r0['gather_ms']:.2f} ms; ZeRO-1 step "
           f"{r0['zero1']['step_ms']:.2f} ms against the replicated two-rank step "
           f"{r0['replicated']['step_ms']:.2f} ms; peak memory rank 0 {r0['peak_gb']:.2f} GB")
+    return {"down_conv_k4s2_f32": g0["launches"]["B4"] + g1["launches"]["B4"]}
 
 
 def phase_dp_distill(torch, fdc, sampler, tmp, card, distill_ms):
@@ -4230,8 +4378,9 @@ def _dp_agree_worker(torch, rank, port):
     def timed(fn, reps=3, ranks=True):  # ranks=False: rank 0's one-process step alone
         return _ranks_ms(torch, multihost, fn, reps, ranks)
 
-    def run(c, on_mesh):
-        model = copy.deepcopy(init).to(dev)
+    def run(c, on_mesh, net=init):
+        start = [p.detach().to(dev) for p in net.parameters()]
+        model = copy.deepcopy(net).to(dev)
         state = trainer.TrainState(0, model, trainer.make_optimizer(c).init(
             list(model.parameters())), None, None)
         rows = (x, t, eps)
@@ -4246,7 +4395,7 @@ def _dp_agree_worker(torch, rank, port):
         out = {"loss": float(loss),
                "launches": {"B2": adam_kernel.adam_fused.launches,
                             "B4": fdc.down_conv_fused.launches},
-               "delta": [(p.detach() - q) for p, q in zip(model.parameters(), p0)],
+               "delta": [(p.detach() - q) for p, q in zip(model.parameters(), start)],
                "checksum": float(sum(p.detach().double().sum() for p in model.parameters())),
                "opt_bytes": mesh_lib.opt_state_bytes(state)}
         if on_mesh:
@@ -4261,19 +4410,34 @@ def _dp_agree_worker(torch, rank, port):
         out["step_ms"] = timed(again, ranks=on_mesh)
         return out
 
-    out = {}
-    if rank == 0:
-        ref = run(cfg, False)  # one process: B2 on
-        out["ref"] = {"loss": ref["loss"], "step_ms": ref["step_ms"]}
-    for name, zero1 in (("replicated", False), ("zero1", True)):
-        res = run(cfg.replace(zero1=zero1), True)
+    def against(res, ref):  # rank 0: the two-rank step against the one process's
         if rank == 0:
             res["rel"] = abs(res["loss"] - ref["loss"]) / abs(ref["loss"])
             diff = torch.cat([(a - b).abs().flatten() for a, b in zip(res["delta"], ref["delta"])])
             res["max_diff"] = diff.max().item()
             res["share"] = (diff > 1e-3 * lr).double().mean().item()
         del res["delta"]
-        out[name] = res
+        return res
+
+    out = {}
+    if rank == 0:
+        ref = run(cfg, False)  # one process: B2 on
+        out["ref"] = {"loss": ref["loss"], "step_ms": ref["step_ms"]}
+    for name, zero1 in (("replicated", False), ("zero1", True)):
+        out[name] = against(run(cfg.replace(zero1=zero1), True), ref if rank == 0 else None)
+    # batch norms under remat: the inner octaves are recomputed in the
+    # backward on autograd's device thread, and must take the statistics
+    # over both ranks' rows again (SGD with momentum: a conv bias ahead of a
+    # norm has only rounding noise for a gradient, which Adam's normalised
+    # step would turn into updates of either sign)
+    bcfg = cfg.replace(g_norm="batch", remat=True, optimizer="momentum").validate()
+    bnet = api.init_denoiser(bcfg, device="cpu")
+    bref = run(bcfg, False, bnet) if rank == 0 else None
+    out["remat_batch"] = against(run(bcfg, True, bnet), bref)
+    if rank == 0:
+        out["remat_batch"]["ref_loss"] = bref["loss"]
+        del bref
+    out["gan_batch"] = _dp_gan_batch(torch, rank, mesh, base)
     # the train step on the kernel path, timed (B1s and B4; B2 is gated off)
     out["train_ms"] = {}
     tc = base.replace(batch_size=TRAIN_BATCH, conv_impl="pallas", optimizer="adam_fused",
@@ -4305,6 +4469,59 @@ def _dp_agree_worker(torch, rank, port):
     multihost.shutdown()
     print("DPRESULT " + json.dumps(out), flush=True)
     return 0
+
+
+def _dp_gan_batch(torch, rank, mesh, base):
+    """One cycle-GAN step at full width with batch norms in both generators
+    and discriminators, R1 (its double backward through the norms), no
+    DiffAugment (the step draws nothing), B4 for the down convs: the
+    two-rank step on each rank's 8 rows a class against the one-process
+    step on the 16 (rank 0 alone). Returns the metrics, their relative
+    error, the update share, the launches and a checksum."""
+    from gan_class_transfer2_tpu_torch.ops import fused_down_conv as fdc
+    from gan_class_transfer2_tpu_torch.ops import norm
+    from gan_class_transfer2_tpu_torch.parallel import mesh as mesh_lib
+    from gan_class_transfer2_tpu_torch.parallel import multihost
+    from gan_class_transfer2_tpu_torch.train import gan
+
+    lr = 1e-3
+    cfg = base.replace(batch_size=TRAIN_BATCH, g_norm="batch", d_norm="batch", r1_weight=1.0,
+                       diffaug="", optimizer="sgd", learning_rate=lr, lr_schedule="constant",
+                       conv_impl="pallas").validate()
+    r = np.random.default_rng(10)
+    a, b = (torch.from_numpy(r.uniform(-1, 1, (TRAIN_BATCH, cfg.size, cfg.size, 3))
+                             .astype(np.float32)).cuda() for _ in range(2))
+
+    def nets(st):
+        return [p.detach().clone() for m in (st.g_ab, st.g_ba, st.d_a, st.d_b)
+                for p in m.parameters()]
+
+    p0 = nets(gan.init_gan_state(cfg, device="cuda"))
+    if rank == 0:
+        st, m = gan.make_gan_train_step(cfg)(gan.init_gan_state(cfg, device="cuda"), a, b, None)
+        ref = {k: float(v) for k, v in m.items()}
+        ref_delta = [p - q for p, q in zip(nets(st), p0)]
+        del st
+    multihost.barrier()
+    counts = fdc.down_conv_fused.launches, norm.instance_norm_fused.launches
+    st, m = mesh_lib.make_parallel_gan_train_step(cfg, mesh)(
+        gan.init_gan_state(cfg, device="cuda"), mesh_lib.local_rows(a, mesh),
+        mesh_lib.local_rows(b, mesh), None)
+    torch.cuda.synchronize()
+    res = {"metrics": {k: float(v) for k, v in m.items()},
+           "launches": {"B4": fdc.down_conv_fused.launches - counts[0],
+                        "B3": norm.instance_norm_fused.launches - counts[1]},
+           "checksum": float(sum(p.double().sum() for p in nets(st)))}
+    if rank == 0:
+        res["ref"] = ref
+        res["rel"] = max(abs(res["metrics"][k] - v) / max(abs(v), 1e-12) for k, v in ref.items())
+        diff = torch.cat([(p - q - d).abs().flatten() for p, q, d in zip(nets(st), p0, ref_delta)])
+        res["max_diff"] = diff.max().item()
+        res["share"] = (diff > 1e-3 * lr).double().mean().item()
+        del ref_delta, diff
+    del st, p0
+    torch.cuda.empty_cache()
+    return res
 
 
 # ------------------------------------------------------- tensor parallelism
@@ -4572,26 +4789,128 @@ def phase_spatial_kernel(torch, fd, cfg, card):
     for name, (xb, tb, pos) in blocks.items():
         call = lambda: fd.diffuse_fused_sharded(xb, tb, table, seed, pos)  # noqa: E731
         ms = cuda_ms(call, reps=50)
-        scrub = torch.empty(16 * 2**20, device="cuda")
-        cold_ms = device_ms(call, "diffuse", before=lambda: scrub.fill_(1.0))
+        nbytes = 8 * xb.numel() + 4 * tb.numel() + 4 * table.numel()
+        cold_ms, cold_lo, cold_hi = cold_device_ms(
+            lambda i: (torch.rand_like(xb),),
+            lambda xi: fd.diffuse_fused_sharded(xi, tb, table, seed, pos), "diffuse")
         elems = xb.numel()
-        bytes_ms = _bytes_ms(8 * elems)
+        bytes_ms = _bytes_ms(nbytes)
+        if not cold_ms >= bytes_ms:
+            fail(f"spatial-kernel: B1s's cold device time {cold_ms} ms on the {name} grid is "
+                 f"below its byte bound {bytes_ms} ms: the reading is impossible, not fast")
         ops = DIFFUSE_INT_PER_ELEMENT * elems, DIFFUSE_FLOAT_PER_ELEMENT * elems
         ops_ms = max(ops[0] / INT32_RATE, (ops[0] + ops[1]) / DISPATCH_RATE) * 1e3
         out[name] = dict(ms=ms, cold_ms=cold_ms, bound_ms=max(bytes_ms, ops_ms),
                          shape=tuple(xb.shape))
         print(f"[spatial-kernel] B1s on a block of the {name} grid, {tuple(xb.shape)} "
               f"(position {pos}): kernel {ms:.4f} ms back to back, device {cold_ms:.4f} ms "
-              f"L2 cold; bound {max(bytes_ms, ops_ms):.4f} ms "
+              f"L2 cold (median of 24 launches over rotating inputs, {cold_lo:.4f}–"
+              f"{cold_hi:.4f}); bound {max(bytes_ms, ops_ms):.4f} ms "
               f"({'operations' if ops_ms >= bytes_ms else 'bytes'}: "
-              f"{8 * elems / 1e6:.2f} MB) on {card}")
-        del scrub
+              f"{nbytes / 1e6:.2f} MB) on {card}")
     fd.diffuse_fused.launches, fd.diffuse_fused_sharded.launches = counts
     print(f"[spatial-kernel] both grids: every block bit for bit B1 with the folded seed; "
           f"max|err| vs plain {err:.3e} (bound {DIFFUSE_ATOL}); distinct positions' ε differ; "
           "these launches are comparisons (the main path's are [spatial-agree]'s)")
     del x
     return out
+
+
+SPATIAL_SHARDS = 2  # [spatial-*]: the height shards of the spatial jobs
+
+
+def spatial_norm_shapes(cfg, shards=SPATIAL_SHARDS, batch=TRAIN_BATCH):
+    """The (B, h, W, C) block a rank holds at every norm layer of ``cfg``'s
+    denoiser under ``g_norm`` on ``shards`` height shards: each octave's
+    down conv output, then its up conv output (models/unet.py)."""
+    out = []
+    for i in range(cfg.octaves):
+        d, u = cfg.size >> (i + 1), cfg.size >> i
+        out += [(batch, d // shards, d, cfg.octave_filters(i)),
+                (batch, u // shards, u, cfg.octave_up_filters(i))]
+    return out
+
+
+def phase_spatial_norm(torch, norm, cfg, card):
+    """B3 over height blocks at every norm layer's block of the default
+    model on 2 height shards at batch 16, float32 and bfloat16: the block's
+    triples (stats launch) against the plain version's, the two blocks'
+    triples merged, y (apply launch) against the plain version from the
+    same statistics, and the pair against B3's plain version on the whole
+    image; both launches timed beside their byte bound (x read twice, y
+    written once). Returns the float32 row without launches: times and
+    bound summed over one forward's norm layers of a rank."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    rows = {}
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        s = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, device_ms=0.0, err=0.0, worst=0.0)
+        for shape in spatial_norm_shapes(cfg):
+            c = shape[-1]
+            whole = (torch.randn((shape[0], 2 * shape[1], *shape[2:]), generator=gen,
+                                 device="cuda") * 3 + 2).to(dtype)
+            x, other = (blk.contiguous() for blk in whole.chunk(2, 1))
+            g = 1 + 0.2 * torch.randn((c,), generator=gen, device="cuda")
+            b = 0.2 * torch.randn((c,), generator=gen, device="cuda")
+            before = norm.block_stats.launches, norm.block_apply.launches
+            part = norm.block_stats(x)
+            want = norm.block_stats_plain(x)
+            # the triples: counts exact, means and M2 within 1e-5 of their largest
+            m2_err = ((part[..., 2] - want[..., 2]).abs().max() / want[..., 2].abs().max()).item()
+            mean_err = ((part[..., 1] - want[..., 1]).abs().max()
+                        / want[..., 1].abs().max()).item()
+            if not (m2_err <= 1e-5 and mean_err <= 1e-5
+                    and torch.equal(part[..., 0], want[..., 0])):
+                fail(f"spatial-kernel: B3 block stats {dtype_name} x{shape}: mean error "
+                     f"{mean_err}, M2 error {m2_err} of the largest")
+            mean, rstd = norm.merge_block_stats(torch.stack([part, norm.block_stats(other)]))
+            y = norm.block_apply(x, mean, rstd, g, b)
+            ref = norm.block_apply_plain(x, mean, rstd, g, b)
+            full = norm.instance_norm_plain(whole, g, b)[:, :shape[1]]
+            torch.cuda.synchronize()
+            scale = ref.float().abs().max().item()
+            err = (y.float() - ref.float()).abs().max().item()
+            err_whole = (y.float() - full.float()).abs().max().item()
+            if not err <= IN_RTOL[dtype_name] * scale or not (
+                    err_whole <= IN_RTOL[dtype_name] * scale):
+                fail(f"spatial-kernel: B3 over height blocks {dtype_name} x{shape}: max|err| "
+                     f"{err} against the plain version, {err_whole} against B3's plain "
+                     f"version on the whole image, > {IN_RTOL[dtype_name]} x max|y| {scale}")
+            ms = cuda_ms(lambda: norm.block_stats(x)) + cuda_ms(
+                lambda: norm.block_apply(x, mean, rstd, g, b))
+            dev_ms = queued_ms(lambda: (norm.block_stats(x),
+                                        norm.block_apply(x, mean, rstd, g, b)))
+            plain_ms = cuda_ms(lambda: norm.block_stats_plain(x)) + cuda_ms(
+                lambda: norm.block_apply_plain(x, mean, rstd, g, b))
+            norm.block_stats.launches, norm.block_apply.launches = before
+            nbytes = 3 * x.numel() * x.element_size() + 4 * 4 * shape[0] * c + 2 * 4 * c
+            bound = _bytes_ms(nbytes)
+            print(f"[spatial-kernel] B3 over height blocks {dtype_name}, a block "
+                  f"{tuple(x.shape)} of 2: stats + apply max|err| {err:.3e} (vs the whole "
+                  f"image {err_whole:.3e}, max|y| {scale:.3f}, bound {IN_RTOL[dtype_name]} x); "
+                  f"triples: mean {mean_err:.2e}, M2 {m2_err:.2e} of the largest; device "
+                  f"{dev_ms:.4f} ms (behind a queued wait), back to back {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms; bound {bound:.4f} ms (bytes, {nbytes / 1e6:.2f} MB) = "
+                  f"{bound / dev_ms:.1%} of the device time; library none; on {card}")
+            for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound),
+                         ("device_ms", dev_ms)):
+                s[k] += v
+            s["err"] = max(s["err"], err, err_whole)
+            s["worst"] = max(s["worst"], err / scale, err_whole / scale)
+            del whole, x, other, y, ref, full
+        print(f"[spatial-kernel] B3 over height blocks {dtype_name}: one forward's "
+              f"{len(spatial_norm_shapes(cfg))} norm layers a rank (2 launches each): device "
+              f"{s['device_ms']:.4f} ms, back to back {s['ms']:.4f} ms, plain "
+              f"{s['plain_ms']:.4f} ms, bound {s['bound_ms']:.4f} ms (bytes); worst error "
+              f"{s['worst']:.2e} of max|y| (bound {IN_RTOL[dtype_name]}); these launches are "
+              f"comparisons (the main path's are [spatial-agree]'s)")
+        rows[dtype_name] = {
+            "name": f"instance_norm_blocks_{'f32' if dtype_name == 'float32' else 'bf16'}",
+            "route": "cuda", "source": "gan_class_transfer2_tpu_torch/csrc/instance_norm.cu",
+            "replaces": "gan_class_transfer2_tpu/ops/norm.py:48", "launches": 0,
+            "max_abs_err": s["err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
+            "bound_ms": s["bound_ms"], "bound_by": "bytes", "library_ms": None}
+        torch.cuda.empty_cache()
+    return rows["float32"]
 
 
 def phase_spatial_agree(card):
@@ -4622,6 +4941,28 @@ def phase_spatial_agree(card):
               f"{halo['ms'].get('grad', 0.0):.2f} ms — 2 ranks sharing one {card}")
         if not a["rel"] <= 1e-5 or not a["share"] <= 1e-4:
             fail(f"spatial-agree {name}: loss rel {a['rel']}, share {a['share']}")
+    norm_layers = 2 * r0["octaves"]  # a down and an up norm an octave
+    blocks = 0
+    for name, _ in SPATIAL_CASES:
+        a, b = r0["options"][name], r1["options"][name]
+        want = {"B3 blocks": 2 * norm_layers if name == "g_norm=instance" else 0, "B3": 0,
+                "B1/B1s": 0}
+        if a["checksum"] != b["checksum"]:
+            fail(f"spatial-agree {name}: the ranks' weights differ")
+        if a["launches"] != want or b["launches"] != want:
+            fail(f"spatial-agree {name}: launches {a['launches']} / {b['launches']} (expected "
+                 f"{want} a rank: 2 a norm layer and forward)")
+        if name == "dynamic loss scale" and a.get("scale") != [2.0**15, 1]:
+            fail(f"spatial-agree {name}: the scale state {a.get('scale')} after a finite step")
+        print(f"[spatial-agree] {name}: one injected step at {r0['size']}², batch "
+              f"{TRAIN_BATCH}, 2 height shards: loss {a['loss']:.7f} vs one process "
+              f"{a['ref_loss']:.7f} (rel {a['rel']:.2e}, bound 1e-5); updates max|Δ2 − Δ1| "
+              f"{a['max_diff']:.3e}, share beyond 1e-3·lr {a['share']:.2e} (bound 1e-4); "
+              f"launches a rank {a['launches']}" + (f"; scale state {a['scale']}"
+                                                   if "scale" in a else ""))
+        if not a["rel"] <= 1e-5 or not a["share"] <= 1e-4:
+            fail(f"spatial-agree {name}: loss rel {a['rel']}, share {a['share']}")
+        blocks += a["launches"]["B3 blocks"] + b["launches"]["B3 blocks"]
     f0, f1 = r0["fused"], r1["fused"]
     want = {"B1": 0, "B1s": 2}
     if f0["launches"] != want or f1["launches"] != want or f0["losses"] != f1["losses"]:
@@ -4630,7 +4971,8 @@ def phase_spatial_agree(card):
     print(f"[spatial-agree] 2 generator-driven steps on the fused path (B1s on each rank's "
           f"(8, 128, 256, 3) block at its spatial index): launches a rank {f0['launches']}, "
           f"losses {f0['losses']} on both ranks")
-    return {"diffuse_sharded_f32": f0["launches"]["B1s"] + f1["launches"]["B1s"]}
+    return {"diffuse_sharded_f32": f0["launches"]["B1s"] + f1["launches"]["B1s"],
+            "instance_norm_blocks_f32": blocks}
 
 
 PP_CASES = ((2, 2, 1), (3, 4, 1), (2, 2, 2))  # [pp-agree]: stages, microbatches, mesh_data
@@ -4992,7 +5334,7 @@ def _spatial_worker(torch, rank, port):
     lr = 1e-3
     cfg = Config().replace(batch_size=TRAIN_BATCH, optimizer="adam_tf", lr_schedule="constant",
                            learning_rate=lr, fused_diffusion=False).validate()
-    out = {"size": cfg.size}
+    out = {"size": cfg.size, "octaves": cfg.octaves}
     r = np.random.default_rng(5)
     init = api.init_denoiser(cfg, device="cpu")
     model = copy.deepcopy(init).to(dev)
@@ -5067,6 +5409,7 @@ def _spatial_worker(torch, rank, port):
         out[name] = res
         del holder, state
         torch.cuda.empty_cache()
+    out["options"] = _spatial_options(torch, rank, mesh, cfg, x, t, eps, lr)
     # the fused path: 2 generator-driven steps, B1s on each rank's block
     fcfg = cfg.replace(fused_diffusion=True, batch_size=8)
     state = fresh()
@@ -5085,6 +5428,98 @@ def _spatial_worker(torch, rank, port):
     multihost.shutdown()
     print("DPRESULT " + json.dumps(out), flush=True)
     return 0
+
+
+# [spatial-agree]'s cases of what JAX's GSPMD step takes besides the plain
+# step: SGD with momentum under the norms (a conv bias ahead of a norm has
+# no true gradient, only rounding noise, which Adam would scale to ±lr)
+SPATIAL_CASES = (("g_norm=instance", dict(g_norm="instance", optimizer="momentum")),
+                 ("g_norm=batch", dict(g_norm="batch", optimizer="momentum")),
+                 ("per_step_output", dict(per_step_output=True)),
+                 ("loss=dct", dict(loss="dct")),
+                 ("loss=mse_multiscale", dict(loss="mse_multiscale")),
+                 ("dynamic loss scale", dict(dynamic_loss_scale=True)),
+                 ("uint8 pool", {}))
+SPATIAL_POOL = (32, 288, 288)  # [spatial-agree]'s uint8 pool: images (N, H, W)
+
+
+def _spatial_options(torch, rank, mesh, cfg, x, t, eps, lr):
+    """One injected full-width step on the 2 height shards for each of
+    SPATIAL_CASES against the one-process injected step on the same
+    weights, t and ε (rank 0 alone); the uint8 case draws its rows from a
+    raw HBMDataset under the spatial mesh (both ranks the same rows) and
+    crops them with the step's generator, the one process with the same
+    draws. Returns {case: loss, rel, update share, launches, checksum}."""
+    from gan_class_transfer2_tpu_torch.data import device_augment
+    from gan_class_transfer2_tpu_torch.models import api
+    from gan_class_transfer2_tpu_torch.ops import fused_diffusion as fd
+    from gan_class_transfer2_tpu_torch.ops import norm
+    from gan_class_transfer2_tpu_torch.parallel import multihost, spatial_train
+    from gan_class_transfer2_tpu_torch.parallel.mesh import Sharding
+    from gan_class_transfer2_tpu_torch.train import trainer
+
+    dev = x.device
+    pool = torch.from_numpy(np.random.default_rng(8).integers(0, 256, (*SPATIAL_POOL, 3),
+                                                               dtype=np.uint8))
+    out = {}
+    for name, over in SPATIAL_CASES:
+        c = cfg.replace(**over).validate()
+        init = api.init_denoiser(c, device="cpu")  # seed 0, alike on both ranks
+        p0 = [p.detach().to(dev) for p in init.parameters()]
+
+        def fresh():
+            m = copy.deepcopy(init).to(dev)
+            scale = None
+            if c.dynamic_loss_scale:
+                scale = trainer.ScaleState(torch.tensor(2.0**15, device=dev),
+                                           torch.zeros((), dtype=torch.int32, device=dev))
+            return trainer.TrainState(0, m, trainer.make_optimizer(c).init(
+                list(m.parameters())), None, scale)
+
+        gen = None
+        batch, whole = spatial_train.local_block(x, mesh).contiguous(), x
+        if name == "uint8 pool":
+            hbm = device_augment.HBMDataset(pool, c.size, TRAIN_BATCH, seed=4, raw=True,
+                                            sharding=Sharding(mesh, (None, "spatial")),
+                                            device=dev)
+            batch = next(iter(hbm))
+            whole = device_augment.augment_batch(batch, torch.Generator(device=dev)
+                                                 .manual_seed(21), c.size)
+            gen = torch.Generator(device=dev).manual_seed(21)
+        res = {}
+        if rank == 0:
+            state, loss = trainer.make_injected_train_step(c)(fresh(), whole, t, eps)
+            torch.cuda.synchronize()
+            ref_loss = float(loss)
+            ref = [p.detach() - q for p, q in zip(state.model.parameters(), p0)]
+            del state
+        multihost.barrier()
+        step = spatial_train.make_spatial_train_step(c, mesh)
+        counts = (norm.block_launches(), norm.instance_norm_fused.launches,
+                  fd.diffuse_fused.launches + fd.diffuse_fused_sharded.launches)
+        state, loss = step(fresh(), batch, gen, t_int=spatial_train.local_rows(t, mesh),
+                           epsilon=spatial_train.local_block(eps, mesh).contiguous())
+        torch.cuda.synchronize()
+        res["launches"] = {"B3 blocks": norm.block_launches() - counts[0],
+                           "B3": norm.instance_norm_fused.launches - counts[1],
+                           "B1/B1s": fd.diffuse_fused.launches
+                           + fd.diffuse_fused_sharded.launches - counts[2]}
+        res["loss"] = float(loss)
+        res["checksum"] = float(sum(p.detach().double().sum() for p in state.model.parameters()))
+        if state.scale_state is not None:
+            res["scale"] = [float(state.scale_state.scale), int(state.scale_state.good_steps)]
+        if rank == 0:
+            res["rel"] = abs(res["loss"] - ref_loss) / abs(ref_loss)
+            res["ref_loss"] = ref_loss
+            diff = torch.cat([(p.detach() - q - d).abs().flatten() for p, q, d in zip(
+                state.model.parameters(), p0, ref)])
+            res["max_diff"] = diff.max().item()
+            res["share"] = (diff > 1e-3 * c.learning_rate).double().mean().item()
+            del ref, diff
+        out[name] = res
+        del state, init, p0
+        torch.cuda.empty_cache()
+    return out
 
 
 def _ranks_ms(torch, multihost, fn, reps=3, ranks=True):
@@ -5332,7 +5767,9 @@ def main():
                                   card).items():
         tp_launches[name] = tp_launches.get(name, 0) + n
     spatial_rows = phase_spatial_kernel(torch, fd, cfg, card)
-    tp_launches["diffuse_sharded_f32"] += phase_spatial_agree(card)["diffuse_sharded_f32"]
+    blocks_row = phase_spatial_norm(torch, norm, cfg, card)
+    spatial_launches = phase_spatial_agree(card)
+    tp_launches["diffuse_sharded_f32"] += spatial_launches["diffuse_sharded_f32"]
     print(f"[spatial-agree] [tp-kernel], [tp-agree], [tp-gan], [slice], [tp-train], "
           f"[spatial-kernel] and [spatial-agree] took {time.perf_counter() - t0:.2f} s; B4 on "
           f"the TP local shapes fp32 {tp_rows['float32']['ms']:.4f} ms / bf16 "
@@ -5358,13 +5795,14 @@ def main():
     dp_row = phase_dp_kernel(torch, fd, cfg, card)
     dp_launches = phase_dp_train(torch, cli, fdc, fd, adam_kernel, norm, sampler, cfg, files.name,
                                  globs, globs3, train_results, card)
-    phase_dp_agree(card, train_results)
+    agree_launches = phase_dp_agree(card, train_results)
     print(f"[dp-agree] [dp-kernel], [dp-train] and [dp-agree] took "
           f"{time.perf_counter() - t0:.2f} s")
     for name in ("diffuse_f32", "adam_f32m", "down_conv_k4s2_f32"):
         train_launches[name] += dp_launches[name] + pp_launches[name]
     train_launches["down_conv_k4s2_f32"] += (inception_b4 + dp_distill_b4
-                                             + tp_launches["down_conv_k4s2_f32"])
+                                             + tp_launches["down_conv_k4s2_f32"]
+                                             + agree_launches["down_conv_k4s2_f32"])
     dp_launches["diffuse_sharded_f32"] += tp_launches["diffuse_sharded_f32"]
     dp_launches["instance_norm_f32"] += tp_launches["instance_norm_f32"]
     files.cleanup()
@@ -5394,7 +5832,10 @@ def main():
     # dp-train's diffusion ranks for B1s; since PR 13 tp-agree's, tp-gan's,
     # slice's and tp-train's ranks for the down conv, tp-gan's for the
     # instance norm, tp-train's and spatial-agree's ranks for B1s; the
-    # pipeline phases' (pp-agree's steps, pp-train's) for B1, B2 and B4)
+    # pipeline phases' (pp-agree's steps, pp-train's) for B1, B2 and B4;
+    # spatial-agree's g_norm=instance step for B3 over height blocks, whose
+    # times and bound sum one forward's 12 norm layers of a rank, and
+    # dp-agree's batch-norm GAN ranks for the down conv)
     source = "gan_class_transfer2_tpu_torch/csrc/down_conv.cu"
     replaces = "gan_class_transfer2_tpu/ops/pallas_conv.py:36"
     rows = []
@@ -5420,6 +5861,7 @@ def main():
     rows.append(dict(dp_row, launches=dp_launches["diffuse_sharded_f32"]))
     for dtype, row in gan_rows.items():
         rows.append(dict(row, launches=gan_launches[dtype][0]))
+    rows.append(dict(blocks_row, launches=spatial_launches["instance_norm_blocks_f32"]))
     for row in rows:
         if row["launches"] <= 0:
             fail(f"kernel {row['name']} was not launched on the main path")

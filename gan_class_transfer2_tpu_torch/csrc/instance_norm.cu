@@ -50,6 +50,19 @@
 //     64 KB cut the blocks an SM holds, and the kernel is bound by the
 //     latency of its loads, not by their bytes.
 //
+// Height blocks (the spatial path, parallel/spatial_unet.py). A rank that
+// holds rows s·h … (s+1)·h − 1 of every image needs statistics over the whole
+// image, so the one launch above splits into two around a gather:
+//   * stats: the same pass 1 and cluster combine, and the cluster's rank-0
+//     block writes the block's (count, mean, M2) per (sample, channel) to a
+//     float32 (B, C, 3) array; no pass 2;
+//   * apply: pass 2 alone, from a float32 (B, C, 2) array of (mean, r) that
+//     the caller merged from every rank's triples (Chan's rule in rank
+//     order, ops/norm.py), over the same cluster split of the block.
+// Between them ops/norm.py all-gathers the triples over the spatial axis. The
+// single-launch entry points are unchanged: their kernel is MODE 0 of the
+// same template, the two new ones MODE 1 and 2.
+//
 // Each entry point launches on the given stream, allocates nothing and
 // returns cudaGetLastError() (or cudaErrorInvalidValue for a shape or plan it
 // refuses).
@@ -114,11 +127,15 @@ __device__ __forceinline__ uint4 load_vec(const T* x, size_t i, int c, int C, bo
   return u;
 }
 
-template <typename T>
+enum Mode { FULL = 0, STATS = 1, APPLY = 2 };
+
+// MODE FULL: y from x. STATS: the block's triples to stats (B, C, 3), no y.
+// APPLY: y from x and the given (mean, r) in stats (B, C, 2).
+template <typename T, int MODE>
 __global__ void __launch_bounds__(THREADS)
 instance_norm_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
-                     const float* __restrict__ beta, T* __restrict__ y, int HW, int C,
-                     int chunk) {
+                     const float* __restrict__ beta, T* __restrict__ y,
+                     float* __restrict__ stats, int HW, int C, int chunk) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int TX = CHB / VEC;     // threads along the channels
   constexpr int TY = THREADS / TX;  // pixel lanes
@@ -135,6 +152,15 @@ instance_norm_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
   const int p_begin = min(rank * chunk, HW), p_end = min(p_begin + chunk, HW);
   const size_t row0 = static_cast<size_t>(blockIdx.y) * HW;  // this sample's first pixel
 
+  if constexpr (MODE == APPLY) {
+    if (threadIdx.x < CHB) {
+      const int ch = group * CHB + threadIdx.x;
+      const size_t at = (static_cast<size_t>(blockIdx.y) * C + min(ch, C - 1)) * 2;
+      s_m[threadIdx.x] = stats[at];
+      s_r[threadIdx.x] = stats[at + 1];
+    }
+    __syncthreads();
+  } else {
   // pass 1: each thread's triples over pixels p_begin + ty + k·TY
   Stats st[VEC];
 #pragma unroll
@@ -209,11 +235,23 @@ instance_norm_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
       const float* rm2 = cluster.map_shared_rank(&s_m2[0][0], r);
       t = combine(t, Stats{rn[ch], rmean[ch], rm2[ch]});
     }
-    const float var = t.n > 0.f ? fmaxf(__fdiv_rn(t.m2, t.n), 0.f) : 0.f;
-    s_m[ch] = t.mean;
-    s_r[ch] = __frcp_rn(__fsqrt_rn(__fadd_rn(var, EPS)));
+    if constexpr (MODE == STATS) {
+      const int cg_ch = group * CHB + ch;
+      if (rank == 0 && cg_ch < C) {
+        float* o = stats + (static_cast<size_t>(blockIdx.y) * C + cg_ch) * 3;
+        o[0] = t.n;
+        o[1] = t.mean;
+        o[2] = t.m2;
+      }
+    } else {
+      const float var = t.n > 0.f ? fmaxf(__fdiv_rn(t.m2, t.n), 0.f) : 0.f;
+      s_m[ch] = t.mean;
+      s_r[ch] = __frcp_rn(__fsqrt_rn(__fadd_rn(var, EPS)));
+    }
   }
   cluster.sync();
+  }
+  if constexpr (MODE == STATS) return;
   if (c >= C || p_begin >= p_end) return;
 
   // pass 2: y = ((x − m)·r)·γ + β over the same pixels, last group first
@@ -259,9 +297,9 @@ instance_norm_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* gamma, const void* beta, void* y, int B, int HW, int C,
-           int cluster, void* stream) {
+template <typename T, int MODE>
+int launch(const void* x, const void* gamma, const void* beta, void* y, void* stats, int B,
+           int HW, int C, int cluster, void* stream) {
   if (B <= 0 || B > 65535 || HW <= 0 || C <= 0 || cluster < 1 || cluster > MAX_CLUSTER)
     return static_cast<int>(cudaErrorInvalidValue);
   const int chunk = (HW + cluster - 1) / cluster;
@@ -278,8 +316,9 @@ int launch(const void* x, const void* gamma, const void* beta, void* y, int B, i
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, instance_norm_kernel<T>, static_cast<const T*>(x), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<T*>(y), HW, C, chunk);
+      &cfg, instance_norm_kernel<T, MODE>, static_cast<const T*>(x),
+      static_cast<const float*>(gamma), static_cast<const float*>(beta), static_cast<T*>(y),
+      static_cast<float*>(stats), HW, C, chunk);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -291,11 +330,41 @@ int launch(const void* x, const void* gamma, const void* beta, void* y, int B, i
 extern "C" int gct2_instance_norm_f32(const void* x, const void* gamma, const void* beta,
                                       void* y, int B, int HW, int C, int cluster,
                                       void* stream) {
-  return launch<float>(x, gamma, beta, y, B, HW, C, cluster, stream);
+  return launch<float, FULL>(x, gamma, beta, y, nullptr, B, HW, C, cluster, stream);
 }
 
 extern "C" int gct2_instance_norm_bf16(const void* x, const void* gamma, const void* beta,
                                        void* y, int B, int HW, int C, int cluster,
                                        void* stream) {
-  return launch<__nv_bfloat16>(x, gamma, beta, y, B, HW, C, cluster, stream);
+  return launch<__nv_bfloat16, FULL>(x, gamma, beta, y, nullptr, B, HW, C, cluster, stream);
+}
+
+// Height blocks. stats: the block's (count, mean, M2) per (sample, channel),
+// float32 (B, C, 3), written; x as above.
+extern "C" int gct2_instance_norm_stats_f32(const void* x, void* stats, int B, int HW, int C,
+                                            int cluster, void* stream) {
+  return launch<float, STATS>(x, nullptr, nullptr, nullptr, stats, B, HW, C, cluster, stream);
+}
+
+extern "C" int gct2_instance_norm_stats_bf16(const void* x, void* stats, int B, int HW, int C,
+                                             int cluster, void* stream) {
+  return launch<__nv_bfloat16, STATS>(x, nullptr, nullptr, nullptr, stats, B, HW, C, cluster,
+                                      stream);
+}
+
+// mean_r: the merged (mean, r = 1/√(v + 1e-5)) per (sample, channel), float32
+// (B, C, 2), read; y = ((x − mean)·r)·γ + β as the single launch computes it.
+extern "C" int gct2_instance_norm_apply_f32(const void* x, const void* mean_r,
+                                            const void* gamma, const void* beta, void* y,
+                                            int B, int HW, int C, int cluster, void* stream) {
+  return launch<float, APPLY>(x, gamma, beta, y, const_cast<void*>(mean_r), B, HW, C, cluster,
+                              stream);
+}
+
+extern "C" int gct2_instance_norm_apply_bf16(const void* x, const void* mean_r,
+                                             const void* gamma, const void* beta, void* y,
+                                             int B, int HW, int C, int cluster,
+                                             void* stream) {
+  return launch<__nv_bfloat16, APPLY>(x, gamma, beta, y, const_cast<void*>(mean_r), B, HW, C,
+                                      cluster, stream);
 }

@@ -233,13 +233,19 @@ def octave_up(cfg, level, h, inp, dtype):
 def unet_head(cfg, model, h, t, dtype):
     """post_block + Dense head (+ the vestigial per-step gather on t−1)."""
     h = _blocks_after_pair(model.post_block, h, dtype)
-    pred = _pair_dense(h, model.head, dtype)
-    if cfg.per_step_output:
-        b, hh, ww, _ = pred.shape
-        pred = pred.reshape(b, hh, ww, cfg.steps, 3)
-        t_idx = (t.reshape(b, 1, 1, 1, 1).long() - 1).expand(b, hh, ww, 1, 3)
-        pred = torch.gather(pred, 3, t_idx)[..., 0, :]
-    return pred
+    return per_step_gather(cfg, _pair_dense(h, model.head, dtype), t)
+
+
+def per_step_gather(cfg, pred, t):
+    """The head's (B, H, W, steps·3) output at each sample's step t − 1
+    under ``per_step_output`` (unet.py:226-233); ``pred`` itself otherwise.
+    Per sample and pixel, so a block of rows gathers alike."""
+    if not cfg.per_step_output:
+        return pred
+    b, hh, ww, _ = pred.shape
+    pred = pred.reshape(b, hh, ww, cfg.steps, 3)
+    t_idx = (t.reshape(b, 1, 1, 1, 1).long() - 1).expand(b, hh, ww, 1, 3)
+    return torch.gather(pred, 3, t_idx)[..., 0, :]
 
 
 _FP32_LOCK = threading.Lock()
@@ -290,9 +296,12 @@ def unet_apply(cfg, model: Denoiser, x, t=None):
     ``jax.checkpoint`` at unet.py:255-257): ``rec(i + 1, ·)`` runs under
     ``torch.utils.checkpoint``, which keeps only its input and recomputes
     the rest when the gradient needs it. The recompute holds its own
-    ``ieee_fp32`` region, so it runs in IEEE float32 whoever calls the
-    backward; B4's autograd Function is recomputed as it ran."""
+    ``ieee_fp32`` region and reopens the ranks over which the forward took
+    batch norm's statistics (``ops/norm.stats_over``), so it runs as the
+    forward ran on whatever thread autograd calls it (on the card, its
+    device thread); B4's autograd Function is recomputed as it ran."""
     dtype = DTYPES[cfg.compute_dtype]
+    stats = norm_ops.stats_names()
     with ieee_fp32(dtype, x.device):
         h = _conv_relu(model.pre_block, x.to(dtype), dtype)
 
@@ -309,7 +318,7 @@ def unet_apply(cfg, model: Denoiser, x, t=None):
             return octave_up(cfg, level, h, inp, dtype)
 
         def _inner(i, h):
-            with ieee_fp32(dtype, h.device):
+            with ieee_fp32(dtype, h.device), norm_ops.stats_over(*stats):
                 return rec(i, h)
 
         h = rec(0, h) if cfg.octaves > 0 else _conv_relu(model.middle, h, dtype)

@@ -36,18 +36,53 @@ R1's double backward through a normalised discriminator (train/gan.py
 ``r1_penalty``) differentiates this backward once more and needs the
 ∂(m, r)/∂x terms, which JAX gets because its residuals are traced functions
 of x (norm.py:103-106).
+
+Statistics across ranks. JAX runs a step over its mesh as one program over
+the global arrays, so a norm's statistics span whatever the mesh splits.
+Here each rank holds a block, and two routes take the collectives:
+
+  * ``batch_norm`` over the ranks of registered axes (``parallel/multihost``
+    ``set_axes``): the steps over a mesh open ``stats_over("batch")`` around
+    their forward (the spatial body ``stats_over("data", "spatial")``), and
+    every batch norm inside sums its per-channel sums and counts, then its
+    centred sums of squares, over those ranks (JAX's two-pass
+    ``mean(square(x − m))`` over the global batch). The sums are
+    ``sum_over_ranks``, an autograd Function that keeps its axes for the
+    backward: its adjoint is the same sum of the cotangents (each rank's
+    loss a summand of the global one) and is itself that Function, so R1's
+    double backward differentiates through it, on whatever thread autograd
+    runs it. A forward recomputed in the backward (``cfg.remat``'s
+    checkpoints) reopens the context it ran under
+    (``models/unet.unet_apply``). Outside the context (one process, a
+    sampler, a server) nothing changes;
+  * B3 over height blocks (``instance_norm_blocks``): a rank holds rows of
+    every image, so each (b, c) statistic spans the spatial group's
+    blocks. Two launches of csrc/instance_norm.cu a norm: ``block_stats``
+    (the block's count, mean and M2 per (b, c) by Welford, the kernel's
+    statistics phase and cluster split) and, after an ``all_gather`` of the
+    (s, B, C, 3) triples and Chan's merge in rank order (every rank then
+    holds bit-identical statistics), ``block_apply`` (normalise and affine
+    in one read and one write). Its backward sums the per-(b, c) Σg and
+    Σg·x̂ of the block over the group (one ``all_reduce``) and forms dx in
+    torch ops, as B3's; dγ and dβ are the block's own, summed by the
+    step's gradient all-reduce. The spatial step has no R1, so this
+    backward is not differentiated again.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import threading
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch._subclasses.fake_tensor import FakeTensor
 
+from ..parallel import multihost
 from . import _build
 
 _EPS = 1e-5
@@ -128,36 +163,47 @@ def instance_norm_fused(x, gamma, beta):
         return instance_norm_plain(x, gamma, beta)
     if dev.type != "cuda":
         raise ValueError(f"instance_norm_fused: no kernel for device {dev}")
-    if x.dtype not in _ENTRY:
-        raise TypeError(f"instance_norm_fused: float32 or bfloat16 only, got {x.dtype}")
-    if x.dim() != 4 or not x.is_contiguous():
-        raise ValueError(f"instance_norm_fused: x must be contiguous NHWC, got {tuple(x.shape)}")
+    _check(x, gamma, beta, "instance_norm_fused")
     b, h, w, c = x.shape
-    if tuple(gamma.shape) != (c,) or tuple(beta.shape) != (c,):
-        raise ValueError(f"instance_norm_fused: gamma/beta must be ({c},)")
-    if gamma.device != dev or beta.device != dev:
-        raise ValueError("instance_norm_fused: x, gamma and beta must share a device")
-    if b > 65535:
-        raise ValueError(f"instance_norm_fused: batch {b} exceeds the grid's 65535")
-    p = plan(b, h, w, c)
     # γ and β go over as float32 (no copy for the float32 parameters); the
     # kernel rounds them to x's dtype, as the Pallas wrapper does (norm.py:76)
     g, bt = _f32(gamma), _f32(beta)
     y = torch.empty_like(x)
-    args = (x.data_ptr(), g.data_ptr(), bt.data_ptr(), y.data_ptr(), b, h * w, c, p.cluster)
-    fn = _entry(x.dtype)
+    _launch(_entry(x.dtype), (x.data_ptr(), g.data_ptr(), bt.data_ptr(), y.data_ptr(), b,
+                              h * w, c, plan(b, h, w, c).cluster), dev, "instance_norm")
+    instance_norm_fused.launches += 1
+    return y
+
+
+instance_norm_fused.launches = 0
+
+
+def _check(x, gamma, beta, who):
+    """What a launch of B3's kernel takes: x contiguous NHWC float32 or
+    bfloat16 of at most 65535 samples; γ and β (C,) on x's device."""
+    if x.dtype not in _ENTRY:
+        raise TypeError(f"{who}: float32 or bfloat16 only, got {x.dtype}")
+    if x.dim() != 4 or not x.is_contiguous():
+        raise ValueError(f"{who}: x must be contiguous NHWC, got {tuple(x.shape)}")
+    c = x.shape[-1]
+    if gamma is not None:
+        if tuple(gamma.shape) != (c,) or tuple(beta.shape) != (c,):
+            raise ValueError(f"{who}: gamma/beta must be ({c},)")
+        if gamma.device != x.device or beta.device != x.device:
+            raise ValueError(f"{who}: x, gamma and beta must share a device")
+    if x.shape[0] > 65535:
+        raise ValueError(f"{who}: batch {x.shape[0]} exceeds the grid's 65535")
+
+
+def _launch(fn, args, dev, what):
+    """``fn(*args, stream)`` on device ``dev``'s current stream."""
     if dev.index == torch.cuda.current_device():
         err = fn(*args, _build.current_stream(dev.index))
     else:
         with torch.cuda.device(dev):  # the launch goes to the current device
             err = fn(*args, _build.current_stream(dev.index))
     if err != 0:
-        raise RuntimeError(f"instance_norm kernel launch failed: CUDA error {err}")
-    instance_norm_fused.launches += 1
-    return y
-
-
-instance_norm_fused.launches = 0
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
 def _in_bwd(x, gamma, dy):
@@ -211,14 +257,233 @@ def instance_norm(x, gamma, beta):
     return InstanceNorm.apply(x.contiguous(), gamma, beta)
 
 
+# ------------------------------------------------------- across ranks
+
+_RANKS = threading.local()  # .names: the axes a step's norm statistics span
+
+
+@contextlib.contextmanager
+def stats_over(*names):
+    """Within: batch norm's statistics span the ranks of the registered
+    axes ``names`` (``multihost.axis``; an axis of one rank adds nothing).
+    Read when a batch norm's forward runs: the steps over a mesh hold it
+    around their forward. It is this thread's and ends with the block."""
+    saved = getattr(_RANKS, "names", ())
+    _RANKS.names = tuple(names)
+    try:
+        yield
+    finally:
+        _RANKS.names = saved
+
+
+def stats_names() -> tuple:
+    """The axes' names of the open ``stats_over`` (none outside one): what a
+    recomputed forward reopens."""
+    return getattr(_RANKS, "names", ())
+
+
+def rank_axes() -> list:
+    """The ``multihost.Axis`` of each name of the open ``stats_over`` that
+    spans more than one rank."""
+    return [a for a in (multihost.axis(n) for n in stats_names()) if a.size > 1]
+
+
+def _all_reduce(x, axes):
+    out = x.contiguous().clone()
+    for ax in axes:
+        with multihost.comm.record("norm", out):
+            dist.all_reduce(out, group=ax.group)
+    return out
+
+
+class _SumOverRanks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes):
+        ctx.axes = axes
+        return _all_reduce(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _SumOverRanks.apply(g, ctx.axes), None
+
+
+def sum_over_ranks(x, axes):
+    """The sum of ``x`` over the ranks of ``axes`` (a list of
+    ``multihost.Axis``), the same on each; differentiable any number of
+    times, its adjoint the sum of the ranks' cotangents."""
+    return _SumOverRanks.apply(x, axes) if axes else x
+
+
 def batch_norm(x, gamma, beta, eps: float = _EPS):
     """Training-mode batch norm: stats over (B, H, W) per channel
-    (norm.py:125-133)."""
+    (norm.py:125-133), and over the ranks of the open ``stats_over``: the
+    sums and the count summed over them, then the centred squares."""
+    axes = rank_axes()
     xf = x.float()
-    m = xf.mean(dim=(0, 1, 2), keepdim=True)
-    v = torch.square(xf - m).mean(dim=(0, 1, 2), keepdim=True)
+    if not axes:
+        m = xf.mean(dim=(0, 1, 2), keepdim=True)
+        v = torch.square(xf - m).mean(dim=(0, 1, 2), keepdim=True)
+    else:
+        c = x.shape[-1]
+        local = torch.cat([xf.sum(dim=(0, 1, 2)), xf.new_full((1,), xf.numel() // c)])
+        total = sum_over_ranks(local, axes)
+        count = total[c]
+        m = (total[:c] / count).reshape(1, 1, 1, c)
+        v = (sum_over_ranks(torch.square(xf - m).sum(dim=(0, 1, 2)), axes) / count).reshape(
+            1, 1, 1, c)
     y = (xf - m) * torch.rsqrt(v + eps) * gamma.float() + beta.float()
     return y.to(x.dtype)
+
+
+# ---------------------------------------------- B3 over height blocks
+
+_BLOCK_ENTRY = {
+    "stats": {torch.float32: "gct2_instance_norm_stats_f32",
+              torch.bfloat16: "gct2_instance_norm_stats_bf16"},
+    "apply": {torch.float32: "gct2_instance_norm_apply_f32",
+              torch.bfloat16: "gct2_instance_norm_apply_bf16"},
+}
+
+
+def _block_entry(kind, dtype):
+    key = (kind, dtype)
+    fn = _FNS.get(key)
+    if fn is None:
+        fn = _FNS[key] = getattr(_build.load("instance_norm"), _BLOCK_ENTRY[kind][dtype])
+        n_ptr = 2 if kind == "stats" else 5
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def block_stats_plain(x):
+    """A block's (count, mean, M2) per (sample, channel) in plain PyTorch:
+    float32 (B, C, 3), two passes."""
+    xf = x.float()
+    m = xf.mean(dim=(1, 2))
+    m2 = torch.square(xf - m[:, None, None, :]).sum(dim=(1, 2))
+    return torch.stack([torch.full_like(m, x.shape[1] * x.shape[2]), m, m2], -1)
+
+
+def block_stats(x):
+    """A block's (count, mean, M2) per (sample, channel), float32 (B, C, 3):
+    the plain version for a CPU tensor, B3's statistics phase on the card
+    for a CUDA tensor (or an exception). x (B, h, W, C) contiguous."""
+    dev = x.device
+    if dev.type == "cpu":
+        return block_stats_plain(x)
+    if dev.type != "cuda":
+        raise ValueError(f"block_stats: no kernel for device {dev}")
+    _check(x, None, None, "block_stats")
+    b, h, w, c = x.shape
+    out = torch.empty((b, c, 3), dtype=torch.float32, device=dev)
+    _launch(_block_entry("stats", x.dtype),
+            (x.data_ptr(), out.data_ptr(), b, h * w, c, plan(b, h, w, c).cluster), dev,
+            "instance_norm stats")
+    block_stats.launches += 1
+    return out
+
+
+block_stats.launches = 0
+
+
+def merge_block_stats(parts):
+    """Every block's triples (s, B, C, 3), merged by Chan's rule in block
+    order: ``(mean, r)`` float32 (B, C) each, r = 1/√(var + 1e-5), the
+    variance clamped at 0 as the kernel clamps it."""
+    n, mean, m2 = parts[0].unbind(-1)
+    for p in parts[1:]:
+        nb, mb, m2b = p.unbind(-1)
+        tot = n + nb
+        d = mb - mean
+        f = nb / tot
+        mean = mean + d * f
+        m2 = m2 + m2b + d * d * n * f
+        n = tot
+    var = torch.clamp(m2 / n, min=0.0)
+    return mean, torch.rsqrt(var + _EPS)
+
+
+def block_apply_plain(x, mean, rstd, gamma, beta):
+    """``((x − mean)·r)·γ + β`` in plain PyTorch, mean and r (B, C), γ and β
+    first rounded to x's dtype (as B3); returns x's dtype."""
+    g = gamma.to(x.dtype).float()
+    b = beta.to(x.dtype).float()
+    y = (x.float() - mean[:, None, None, :]) * rstd[:, None, None, :] * g + b
+    return y.to(x.dtype)
+
+
+def block_apply(x, mean, rstd, gamma, beta):
+    """Normalise and affine of a block from given statistics: the plain
+    version for a CPU tensor, B3's second phase on the card for a CUDA
+    tensor (or an exception)."""
+    dev = x.device
+    if dev.type == "cpu":
+        return block_apply_plain(x, mean, rstd, gamma, beta)
+    if dev.type != "cuda":
+        raise ValueError(f"block_apply: no kernel for device {dev}")
+    _check(x, gamma, beta, "block_apply")
+    b, h, w, c = x.shape
+    mr = torch.stack([_f32(mean), _f32(rstd)], -1).contiguous()
+    g, bt = _f32(gamma), _f32(beta)
+    y = torch.empty_like(x)
+    _launch(_block_entry("apply", x.dtype),
+            (x.data_ptr(), mr.data_ptr(), g.data_ptr(), bt.data_ptr(), y.data_ptr(), b, h * w, c,
+             plan(b, h, w, c).cluster), dev, "instance_norm apply")
+    block_apply.launches += 1
+    return y
+
+
+block_apply.launches = 0
+
+
+def block_launches() -> int:
+    """Launches of B3 over height blocks so far (both phases)."""
+    return block_stats.launches + block_apply.launches
+
+
+def _gather_stats(part, ax):
+    if ax.size == 1:
+        return part[None]
+    with multihost.comm.record("norm", part):
+        return torch.stack(multihost.all_gather(part, ax))
+
+
+class InstanceNormBlocks(torch.autograd.Function):
+    """B3 over the height blocks of a spatial axis ``ax``: statistics of the
+    whole image from every rank's block, y this rank's block."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, ax):
+        mean, rstd = merge_block_stats(_gather_stats(block_stats(x), ax))
+        ctx.save_for_backward(x, gamma, mean, rstd)
+        ctx.ax = ax
+        return block_apply(x, mean, rstd, gamma, beta)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma, mean, rstd = ctx.saved_tensors
+        ax = ctx.ax
+        dy = dy.float()
+        xhat = (x.float() - mean[:, None, None, :]) * rstd[:, None, None, :]
+        dgamma = torch.sum(dy * xhat, dim=(0, 1, 2)).to(gamma.dtype)
+        dbeta = torch.sum(dy, dim=(0, 1, 2)).to(gamma.dtype)
+        g = dy * gamma.float()
+        sums = torch.stack([g.sum(dim=(1, 2)), (g * xhat).sum(dim=(1, 2))])
+        if ax.size > 1:
+            sums = _all_reduce(sums, [ax])
+        count = x.shape[1] * x.shape[2] * ax.size
+        mean_g, mean_gx = (sums / count)[:, :, None, None, :].unbind(0)
+        dx = rstd[:, None, None, :] * (g - mean_g - xhat * mean_gx)
+        return dx.to(x.dtype), dgamma, dbeta, None
+
+
+def instance_norm_blocks(x, gamma, beta, ax):
+    """Instance norm of the images whose rows ``x`` (B, h, W, C) holds, the
+    other rows on the other ranks of the spatial axis ``ax`` (a
+    ``multihost.Axis``): every (b, c) statistic spans all of them. Equal
+    blocks (the spatial path's) on every rank."""
+    return InstanceNormBlocks.apply(x.contiguous(), gamma, beta, ax)
 
 
 class Norm(nn.Module):

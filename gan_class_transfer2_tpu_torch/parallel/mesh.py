@@ -303,8 +303,9 @@ def replicate(module, mesh):
 
 
 def data_axis_size(mesh: Mesh) -> int:
-    """The data-parallel extent of the mesh (slice × data, mesh.py:281)."""
-    return mesh.shape["data"] * mesh.shape.get("slice", 1)
+    """The data-parallel extent of the mesh (slice × data, mesh.py:281; 1
+    on a spatial mesh, which has no data axis)."""
+    return mesh.shape.get("data", 1) * mesh.shape.get("slice", 1)
 
 
 def model_axis_size(mesh) -> int:
@@ -326,6 +327,19 @@ def replicated_sharding(mesh: Mesh) -> Sharding:
 def global_rows(n_local: int, mesh) -> int:
     """The global batch of which a rank holds ``n_local`` rows."""
     return n_local * (data_axis_size(mesh) if mesh is not None else 1)
+
+
+def norm_stats(mesh):
+    """The context in which a step or program over ``mesh`` runs its norms:
+    batch norm's statistics over the ``batch`` axis (``ops/norm.stats_over``),
+    as JAX's jit over the mesh takes them over the global batch, on a
+    process-group mesh of more than one rank; nothing otherwise (no mesh, a
+    ``LocalMesh``, one rank)."""
+    from ..ops import norm
+
+    if mesh is None or isinstance(mesh, LocalMesh) or mesh.size <= 1:
+        return contextlib.nullcontext()
+    return norm.stats_over("batch")
 
 
 def local_rows(x, mesh):
@@ -794,7 +808,8 @@ def make_data_parallel_apply(mesh, fn):
                 for i in range(mesh.size)])
             out = tuple(map(list, zip(*outs))) if isinstance(outs[0], tuple) else outs
         else:
-            out = fn(params, local, *ex)
+            with norm_stats(mesh):  # JAX normalises the padded batch whole
+                out = fn(params, local, *ex)
         if isinstance(out, tuple):
             return tuple(gather_rows(o, mesh, real) for o in out)
         return gather_rows(out, mesh, real)
@@ -822,7 +837,8 @@ def sampler_eval(cfg, mesh: Mesh | None = None):
         _, epsilon_theta = sampler.invert(cfg, model, example_image)
         batch = sampler.edit_noise(cfg, epsilon_theta, dictionary, noise_bank)
         local, n = shard_sample_batch(batch, mesh)
-        result = sampler.sample(cfg, model, local)
+        with norm_stats(mesh):  # the padded batch's statistics, as JAX's
+            result = sampler.sample(cfg, model, local)
         snaps = gather_rows(result.snapshots, mesh, n, dim=1)
         return {
             "denoised": denoised,

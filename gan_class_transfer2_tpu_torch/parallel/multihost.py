@@ -72,8 +72,10 @@ def process_index() -> int:
 
 class CommStats:
     """Calls, bytes sent and (while ``timing``) seconds of the collectives of
-    the tensor-parallel convs (``gather``, ``reduce``), the halo exchanges
-    (``halo``) and the gradient all-reduces (``grad``), by kind. Timing
+    the tensor-parallel convs (``gather``, ``reduce``; the spatial step's
+    height gather is a ``gather`` too), the halo exchanges (``halo``), the
+    norms' statistics across ranks (``norm``) and the gradient all-reduces
+    (``grad``), by kind. Timing
     synchronises the device before and after each collective, so it is off
     unless a measurement turns it on; counting costs a dict update."""
 

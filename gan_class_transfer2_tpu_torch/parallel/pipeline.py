@@ -43,7 +43,12 @@ own in one process; here each stage has in-process replicas on its ``dp``
 devices (as ``LocalMesh`` serves), each microbatch's rows split over them.
 The replicas run in turn from the calling thread, each stage's gradients
 are summed onto its first device before the update, and the updated
-weights are copied back to the replicas. Single-process, as JAX's.
+weights are copied back to the replicas. Batch norms (``g_norm="batch"``)
+take their statistics over the whole microbatch, as JAX's stage program
+over its data devices does; replicas that run in turn cannot share a
+norm's sums mid-forward, so under batch norm each microbatch runs whole
+on its stage's first device and the other replicas stay idle.
+Single-process, as JAX's.
 """
 
 from __future__ import annotations
@@ -371,6 +376,9 @@ class PipelineTrainer:
         self.n_micro = cfg.pipeline_microbatches or cfg.pipeline_stages
         self.plan = plan_stages(cfg, self.n_stages)
         self.dp = max(cfg.mesh_data, 1)
+        # the replicas a microbatch's rows split over: one under batch norm,
+        # whose statistics span the microbatch (see the module's docstring)
+        self.replicas = 1 if cfg.g_norm == "batch" else self.dp
         need = self.n_stages * self.dp
         if devices is None:
             devices = mesh_lib.local_devices(resolve_device(device))
@@ -492,6 +500,7 @@ class PipelineTrainer:
         if (b // M) % D:
             raise ValueError(
                 f"PP x DP needs the microbatch ({b // M}) divisible by mesh_data={D}")
+        D = self.replicas
         if state.model is not self._model:
             self._bind(state.model)
         stages, index = self._stages, self._index

@@ -8,6 +8,10 @@ appends the neighbours' boundary rows (``halo_exchange``); the global
 edge gets zeros, which is exactly TF-'SAME' padding (1, 1) in height for
 the k4/s2 and k3/s1 convs of the model.
 
+``gather_height`` puts a block's images back together where a function
+spans the height (the ``dct`` and ``mse_multiscale`` losses of the spatial
+step).
+
 JAX moves the halo with ``ppermute``. Here one ``all_gather`` over the
 axis moves every rank's ``hi`` first and ``lo`` last rows, and each rank
 keeps its neighbours': one collective a halo, of ``(lo + hi)`` rows a
@@ -32,13 +36,14 @@ def _resolve(ax):
     return multihost.axis(ax) if isinstance(ax, str) else ax
 
 
-def _exchange(send: torch.Tensor, ax) -> list:
-    """Every rank's ``send`` on the axis, in index order."""
+def _exchange(send: torch.Tensor, ax, kind: str = "halo") -> list:
+    """Every rank's ``send`` on the axis, in index order (counted as
+    ``kind`` by ``multihost.comm``)."""
     if ax.size == 1:
         return [send]
     send = send.contiguous()
     parts = [torch.empty_like(send) for _ in range(ax.size)]
-    with multihost.comm.record("halo", send):
+    with multihost.comm.record(kind, send):
         dist.all_gather(parts, send, group=ax.group)
     return parts
 
@@ -78,6 +83,27 @@ def halo_exchange(x, ax="spatial", lo: int = 1, hi: int = 1):
     if lo == 0 and hi == 0:
         return x
     return _Halo.apply(x, _resolve(ax), lo, hi)
+
+
+class _GatherHeight(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax, ctx.h = ax, x.shape[1]
+        return torch.cat(_exchange(x, ax, "gather"), 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        ax, h = ctx.ax, ctx.h
+        return g.narrow(1, ax.index * h, h).contiguous(), None
+
+
+def gather_height(x, ax="spatial"):
+    """The whole height of this rank's (B, h, W, C) block: every rank's
+    block of the axis ``ax`` in index order, by one ``all_gather``. The
+    adjoint keeps this rank's rows of the cotangent: every rank computes
+    the same function of the whole (a loss whose transform spans the
+    height), so the rows' gradient is its own."""
+    return _GatherHeight.apply(x, _resolve(ax))
 
 
 def local_conv(x, kernel, bias, stride: int, relu: bool):

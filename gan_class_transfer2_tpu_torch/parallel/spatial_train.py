@@ -15,17 +15,29 @@ U-Net forward replaced by the height-sharded body of ``spatial_unet``:
     position over the batch spec's axes, JAX's fold (kernels.py:247-259):
     the spatial index under ``P(None, 'spatial')``, ``data·S + spatial``
     under ``P('data', 'spatial')``;
-  * the loss is the global mean: the rank's sum over the global count,
-    summed over the ranks; the parameters are whole on every rank, so
-    their gradients are summed over every rank by one ``all_reduce``
-    before the optimizer's update, which each rank then applies alike.
+  * a uint8 batch is the rank's rows of the global batch, whole images
+    (``HBMDataset`` under a spatial mesh gives every spatial rank of a data
+    group the same rows): the step crops, flips and normalises them with
+    the global batch's draws (``data/device_augment``), as the one-process
+    step does, then takes the rank's block of rows;
+  * the loss is the global mean. ``mse`` and ``l1``: the rank's sum over
+    the global count, summed over the ranks. ``dct`` and ``mse_multiscale``
+    transform whole images, so the prediction and the target are gathered
+    over ``spatial`` (``spatial.gather_height``, whose adjoint keeps the
+    rank's rows) and every rank of a data group takes the one-process loss
+    of its rows' whole images over the data extent; the parameters'
+    gradients are then the one-process ones once summed over every rank;
+  * the parameters are whole on every rank, so their gradients are summed
+    over every rank by one ``all_reduce`` before the optimizer's update,
+    which each rank then applies alike (``trainer.finish_step``: the
+    summed gradients are the same on every rank, so dynamic loss
+    scaling's non-finite gate skips or applies on every rank alike; B2 is
+    gated off at more than one rank, as in JAX);
+  * the body (``spatial_unet.make_local_apply``) takes ``g_norm`` (B3 over
+    height blocks, batch norm over data × spatial) and ``per_step_output``.
 
 The ranks are laid out as JAX's ``reshape(data, spatial)``, the spatial
-axis fastest. What the hand-written body cannot take is refused by name:
-a conditional model (JAX's own refusal), ``per_step_output`` and
-``g_norm`` (``spatial_unet``'s), the ``dct`` and ``mse_multiscale``
-losses (their transforms span the height axis), dynamic loss scaling, and
-uint8 batches (the on-device crop spans it too).
+axis fastest. Only a conditional model is refused, by JAX's message.
 """
 
 from __future__ import annotations
@@ -33,11 +45,13 @@ from __future__ import annotations
 import torch
 
 from ..core import diffusion
+from ..data import device_augment
 from ..ops import fused_diffusion
 from ..train import trainer
 from . import multihost
 from .mesh import Grid, Sharding, grid_groups
-from .spatial_unet import make_spatial_unet_apply
+from .spatial import gather_height
+from .spatial_unet import make_local_apply
 
 
 class SpatialMesh(Grid):
@@ -120,20 +134,27 @@ def _check(cfg):
             "spatial training supports the unconditional Denoiser only "
             "(num_classes == 0)"
         )
-    if cfg.loss not in ("mse", "l1"):
-        raise NotImplementedError(
-            f"loss={cfg.loss!r} is not supported by the spatial step: its transform "
-            "spans the sharded height axis; use mse or l1")
-    if cfg.dynamic_loss_scale:
-        raise NotImplementedError("dynamic_loss_scale is not supported by the spatial step")
 
 
-def _local_loss(cfg, target, prediction, count: int):
-    """The rank's share of the global mean loss: its sum over ``count``."""
-    d = target.to(torch.float32) - prediction.to(torch.float32)
-    if cfg.loss == "mse":
-        return torch.sum(torch.square(d)) / count
-    return torch.sum(torch.maximum(d, -d)) / count  # l1 (train.py:267-270)
+def _local_loss(cfg, target, prediction, count: int, mesh):
+    """``(for the gradient, for the sum)``: the rank's share of the global
+    mean loss. ``mse``/``l1``: its sum over ``count``, both. The whole-image
+    losses: the one-process loss of its data rows' whole images over the
+    data extent, for the gradient (summed over the spatial ranks each row
+    block's gradient counts once), and that over the spatial extent too
+    for the loss's sum over every rank."""
+    if cfg.loss in ("mse", "l1"):
+        d = target.to(torch.float32) - prediction.to(torch.float32)
+        if cfg.loss == "mse":
+            share = torch.sum(torch.square(d)) / count
+        else:
+            share = torch.sum(torch.maximum(d, -d)) / count  # l1 (train.py:267-270)
+        return share, share
+    sp = mesh.axis("spatial")
+    whole = trainer.compute_loss(cfg, gather_height(target.to(torch.float32), sp),
+                                 gather_height(prediction.to(torch.float32), sp))
+    share = whole / mesh.axis("data").size
+    return share, share / sp.size
 
 
 def _make_sharded_train_step(cfg, mesh: SpatialMesh, batch_sh: Sharding):
@@ -143,8 +164,11 @@ def _make_sharded_train_step(cfg, mesh: SpatialMesh, batch_sh: Sharding):
     when injected. One builder for the spatial and DP × spatial steps:
     they differ only in the batch spec (spatial_train.py:59)."""
     _check(cfg)
-    apply = make_spatial_unet_apply(cfg, mesh)
+    apply = make_local_apply(cfg, mesh)
     optimizer = trainer.make_optimizer(cfg)
+    # the state is whole on every rank (JAX replicates it): no ZeRO-1 slices;
+    # the mesh's size gates B2 off
+    whole = cfg.replace(zero1=False)
     spec = batch_sh.spec
     extents = {"data": mesh.axis("data").size, "spatial": mesh.axis("spatial").size}
     # the linear position over the batch spec's axes (kernels.py:247-259)
@@ -152,9 +176,11 @@ def _make_sharded_train_step(cfg, mesh: SpatialMesh, batch_sh: Sharding):
         mesh.coords["spatial"])
 
     def step(state, batch, generator, *, t_int=None, epsilon=None):
-        if batch.dtype == torch.uint8:
-            raise TypeError("the spatial step takes float batches: the on-device crop of a "
-                            "uint8 batch spans the sharded height axis")
+        if batch.dtype == torch.uint8:  # the rank's rows, whole: augment, then its block
+            s = mesh.axis("spatial")
+            batch = device_augment.augment_batch(batch, generator, cfg.size, mesh)
+            h = batch.shape[1] // s.size
+            batch = batch[:, s.index * h:(s.index + 1) * h]
         batch = batch.contiguous()
         b, h, w, c = batch.shape
         big = (b * extents["data"], h * extents["spatial"], w, c)
@@ -168,7 +194,7 @@ def _make_sharded_train_step(cfg, mesh: SpatialMesh, batch_sh: Sharding):
             fused_diffusion.fused_sharded_ok(cfg, big, extents, spec))
         model = state.model
         params = list(model.parameters())
-        scale = cfg.loss_scale if cfg.loss_scale > 0 else None
+        scale = trainer.loss_scale(cfg, state)
         with torch.no_grad():
             if fused:
                 seed = torch.randint(0, 2**62, (1,), generator=generator,
@@ -189,20 +215,14 @@ def _make_sharded_train_step(cfg, mesh: SpatialMesh, batch_sh: Sharding):
         from ..models import unet
 
         with unet.ieee_fp32(torch.float32, dev):
-            pred = apply(model, noised).to(torch.float32) * pred_scale
-            loss = _local_loss(cfg, target, pred, count)
+            pred = apply(model, noised, t_int[:, 0, 0, 0]).to(torch.float32) * pred_scale
+            loss, share = _local_loss(cfg, target, pred, count, mesh)
             if scale is not None:
-                loss = loss * scale
+                loss, share = loss * scale, share * scale
             grads = torch.autograd.grad(loss, params)
-        summed = multihost.all_reduce_mean([*grads, loss.detach()], None, mean=False)
-        grads, loss = summed[:-1], summed[-1]
-        if scale is not None:
-            loss = loss / scale
-            grads = [g / scale for g in grads]
-        opt_state = trainer.update_params(optimizer, state.opt_state, params, grads)
-        ema = trainer.ema_update(cfg, state.ema_params, params, opt_state)
-        return trainer.TrainState(state.step + 1, model, opt_state, ema,
-                                   state.scale_state), loss
+        summed = multihost.all_reduce_mean([*grads, share.detach()], None, mean=False)
+        return trainer.finish_step(whole, optimizer, state, params, summed[:-1], summed[-1],
+                                   scale, mesh)
 
     return step
 

@@ -486,7 +486,8 @@ class ModelService:
 
     ``mesh``: a ``parallel/mesh.LocalMesh`` (or its list of devices, all of
     ``device``'s type) to serve over in-process replicas; one device (or
-    None) is the plain path. A bundle is served without one."""
+    None) is the plain path. A bundle, and a model with batch norms
+    (``g_norm="batch"``), are served without one."""
 
     EDIT_NAMES = ("pixelate", "shift", "quantise")
 
@@ -497,6 +498,11 @@ class ModelService:
         self.bundle = bundle
         if bundle is not None:
             mesh = None  # a bundle's programs are sealed: served replicated, as in JAX
+        if cfg.g_norm == "batch":
+            # batch norm's statistics span the device batch, which JAX's
+            # program normalises whole: every batch runs whole on the first
+            # replica's device
+            mesh = None
         self.mesh = self._local_mesh(mesh)
         if bundle is not None and bundle.device.type != self.device.type:
             raise ValueError(f"the bundle runs on {bundle.device}, the service on {self.device}")

@@ -113,7 +113,7 @@ def conditional_gan_train_step(cfg, g_optimizer, d_optimizer, state: Conditional
     def disc(x, c):
         return d_lib.discriminator_apply(cfg, d_model, x, c)
 
-    with unet.ieee_fp32(torch.float32, dev):
+    with unet.ieee_fp32(torch.float32, dev), mesh_lib.norm_stats(mesh):
         # ---- G: D enters as a constant of this derivative
         with _constant(dp):
             fake = gen(images, targets)

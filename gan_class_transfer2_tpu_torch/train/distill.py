@@ -220,7 +220,7 @@ def make_distill_step(cfg, stride: int, mesh=None):
             label = batch.get("label")
             batch = batch["image"]
         params = mesh_lib.params_of(state.model)
-        with unet.ieee_fp32(torch.float32, batch.device):
+        with unet.ieee_fp32(torch.float32, batch.device), mesh_lib.norm_stats(mesh):
             loss = distill_loss(cfg, state.model, teacher, batch, generator, stride,
                                 class_idx=label, t=t, epsilon=epsilon, mesh=mesh)
             grads = torch.autograd.grad(loss, params)

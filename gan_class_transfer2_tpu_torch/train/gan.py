@@ -190,8 +190,9 @@ def gan_train_step(cfg, g_optimizer, d_optimizer, state: GANState, batch_a, batc
     def disc(d_model, x):
         return d_lib.discriminator_apply(cfg, d_model, x)
 
-    # IEEE float32 convs from the first forward through both gradient calls
-    with unet.ieee_fp32(torch.float32, batch_a.device):
+    # IEEE float32 convs from the first forward through both gradient calls;
+    # batch norms over the mesh's rows (parallel/mesh.norm_stats)
+    with unet.ieee_fp32(torch.float32, batch_a.device), mesh_lib.norm_stats(mesh):
         # ---- G: D enters as a constant of this derivative
         with _constant(dp):
             fake_b = _generate(cfg, state.g_ab, batch_a)

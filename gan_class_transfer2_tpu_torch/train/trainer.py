@@ -460,9 +460,10 @@ def loss_and_grads(cfg, model, batch, generator, scale=None, *, t_int=None, epsi
     ``model.parameters()``, the loss multiplied by ``scale`` when given (the
     grads then too). float32 convs and matmuls stay IEEE float32 from the
     forward through the backward (``unet.ieee_fp32``): cuDNN would otherwise
-    compute the weight and input gradients in TF32."""
+    compute the weight and input gradients in TF32. On a mesh, batch norms
+    take the statistics of the global batch (``mesh.norm_stats``)."""
     params = list(model.parameters())
-    with unet.ieee_fp32(torch.float32, _image(batch).device):
+    with unet.ieee_fp32(torch.float32, _image(batch).device), mesh_lib.norm_stats(mesh):
         loss = diffusion_loss(cfg, model, batch, generator, t_int=t_int, epsilon_in=epsilon_in,
                               mesh=mesh)
         if scale is not None:
@@ -530,14 +531,32 @@ def train_step(cfg, optimizer, state: TrainState, batch, generator, mesh=None):
     float32 tensor on the batch's device (no host sync). On a mesh,
     ``batch`` is this rank's rows and the loss the global batch's."""
     batch = fold_and_augment(cfg, batch, generator, mesh)
-    dynamic = cfg.dynamic_loss_scale
-    if dynamic:
-        scale = state.scale_state.scale
-    else:
-        scale = cfg.loss_scale if cfg.loss_scale > 0 else None
+    scale = loss_scale(cfg, state)
     params = mesh_lib.params_of(state.model)
     loss, grads = loss_and_grads(cfg, state.model, batch, generator, scale, mesh=mesh)
     grads, (loss,) = average_over_ranks(mesh, grads, [loss])
+    return finish_step(cfg, optimizer, state, params, grads, loss, scale, mesh)
+
+
+def loss_scale(cfg, state: TrainState):
+    """What the step multiplies its loss by: the dynamic scale's tensor,
+    the static ``loss_scale``, or None."""
+    if cfg.dynamic_loss_scale:
+        return state.scale_state.scale
+    return cfg.loss_scale if cfg.loss_scale > 0 else None
+
+
+def finish_step(cfg, optimizer, state: TrainState, params, grads, loss, scale, mesh=None):
+    """The step after its gradients (trainer.py:405-442): ``grads`` and
+    ``loss`` taken with the loss multiplied by ``scale`` (None, the static
+    loss scale, or the dynamic scale's tensor) and already reduced over the
+    ranks, so that every rank decides alike. Unscales them; under dynamic
+    loss scaling skips the whole update on a non-finite gradient and
+    halves the scale, doubles it after ``loss_scale_growth_interval``
+    clean steps; applies the update (on the rank's parts on ``mesh``; B2
+    only on a mesh of one rank) and the EMA. Returns ``(new_state,
+    loss)``."""
+    dynamic = cfg.dynamic_loss_scale
     if scale is not None:
         inv = 1.0 / scale
         loss = loss * inv

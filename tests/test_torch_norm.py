@@ -1,5 +1,6 @@
 """Port parity of ops/norm.py: instance norm (B3's plain version and its
-autograd Function), batch norm and apply_norm against
+autograd Function, and B3 over height blocks: per-block triples merged in
+block order), batch norm and apply_norm against
 gan_class_transfer2_tpu.ops.norm on the same numpy inputs, on the CPU.
 
 Tolerances, each with its reason:
@@ -169,3 +170,63 @@ def test_instance_norm_plan_below_the_cluster():
     last four blocks empty; C = 96 gives three channel groups."""
     p = norm.plan(1, 2, 2, 96)
     assert (p.cluster, p.chunk, p.blocks) == (8, 1, 24)
+
+
+# ------------------------------------------------- B3 over height blocks
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_height_blocks_merged_match_the_jax_reference(shards, dtype):
+    """B3 over height blocks in one process, its plain version: each block's
+    (count, mean, M2), the triples merged by Chan's rule in block order,
+    each block normalised from the merged statistics; the blocks side by
+    side equal JAX's ``_instance_norm_ref`` on the whole image (its
+    bounds: 1e-5 absolute in float32, 1.6e-2 in bfloat16)."""
+    x, g, b = _inputs(40, b=3, hw=16, seed=4)
+    tdt = getattr(torch, dtype)
+    xt = T(x).to(tdt)
+    blocks = xt.chunk(shards, 1)
+    parts = torch.stack([norm.block_stats_plain(blk) for blk in blocks])
+    assert parts.shape == (shards, 3, 40, 3)
+    assert torch.equal(parts[..., 0], torch.full((shards, 3, 40), 16.0 * 16 / shards))
+    mean, rstd = norm.merge_block_stats(parts)
+    got = torch.cat([norm.block_apply_plain(blk, mean, rstd, T(g), T(b)) for blk in blocks], 1)
+    assert got.dtype == tdt
+    want = np.asarray(jnp.asarray(jnorm._instance_norm_ref(
+        jnp.asarray(x).astype(getattr(jnp, dtype)), jnp.asarray(g), jnp.asarray(b)),
+        jnp.float32))
+    tol = 1e-5 if dtype == "float32" else 1.6e-2
+    np.testing.assert_allclose(got.float().numpy(), want, atol=tol * max(1.0, np.abs(want).max()))
+    # one block is the whole image: the single-launch route's function
+    whole = norm.block_apply_plain(xt, *norm.merge_block_stats(norm.block_stats_plain(xt)[None]),
+                                   T(g), T(b))
+    np.testing.assert_allclose(whole.float().numpy(),
+                               norm.instance_norm_plain(xt, T(g), T(b)).float().numpy(),
+                               atol=tol * max(1.0, np.abs(want).max()))
+
+
+def test_block_wrappers_refuse_devices_without_a_kernel():
+    x = torch.empty((1, 4, 4, 8), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        norm.block_stats(x)
+    with pytest.raises(ValueError, match="no kernel"):
+        norm.block_apply(x, torch.zeros(1, 8, device="meta"), torch.ones(1, 8, device="meta"),
+                         torch.ones(8, device="meta"), torch.zeros(8, device="meta"))
+
+
+def test_stats_over_ranks_of_one_is_plain_batch_norm_and_ends_with_its_block():
+    """Outside a process group every registered axis spans one rank, so
+    batch norm under ``stats_over`` is the plain one; the context is the
+    block's and this thread's."""
+    x, g, b = _inputs(8, b=3, hw=4, seed=2)
+    want = norm.batch_norm(T(x), T(g), T(b))
+    with norm.stats_over("batch", "spatial"):
+        assert norm.stats_names() == ("batch", "spatial")
+        assert norm.rank_axes() == []
+        got = norm.batch_norm(T(x), T(g), T(b))
+        with norm.stats_over():
+            assert norm.rank_axes() == []
+    assert torch.equal(got, want)
+    assert norm._RANKS.names == ()
+

@@ -32,7 +32,11 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from jax.sharding import Mesh as JMesh  # noqa: E402
+
 from gan_class_transfer2_tpu import config as jconfig  # noqa: E402
+from gan_class_transfer2_tpu.parallel import mesh as jmesh  # noqa: E402
+from gan_class_transfer2_tpu.train import gan as jgan  # noqa: E402
 from gan_class_transfer2_tpu.train import trainer as jtrainer  # noqa: E402
 from gan_class_transfer2_tpu_torch.config import Config, tiny_test_config  # noqa: E402
 from gan_class_transfer2_tpu_torch.ops import adam_kernel  # noqa: E402
@@ -55,12 +59,15 @@ def _free_port() -> int:
     return port
 
 
-def _write_injected(path):
+def _write_injected(path, **overrides):
     """A JAX TrainState moved off its init by one JAX injected step, carried
     into the port, with a global batch, t and ε; and JAX's injected step on
-    them (the reference)."""
+    them (the reference). With ``overrides`` (batch norm) the reference
+    step runs with the batch split over a 2-device data mesh, as JAX's
+    ``make_parallel_train_step`` runs it: the norm's statistics are the
+    global batch's."""
     jcfg = jconfig.tiny_test_config(batch_size=worker.GLOBAL, learning_rate=1e-3, warm_up=1,
-                                    optimizer="adam_fused")
+                                    **(overrides or dict(optimizer="adam_fused")))
     r = np.random.default_rng(21)
     st = jtrainer.init_state(jcfg, jax.random.PRNGKey(1))
     step = jtrainer.make_injected_train_step(jcfg)
@@ -71,14 +78,64 @@ def _write_injected(path):
     x = r.uniform(-1, 1, x0.shape).astype(np.float32)
     t = np.array([2, 9, 5, 3], np.int32)
     eps = r.normal(size=x.shape).astype(np.float32)
-    jnew, jloss = step(jax.tree_util.tree_map(jnp.asarray, jst), jnp.asarray(x), t,
-                       jnp.asarray(eps))
+    if overrides:
+        dp = JMesh(np.asarray(jax.devices()[:RANKS]).reshape(RANKS, 1), ("data", "model"))
+        rows = jmesh.batch_sharding(dp)
+        on = jax.device_put(jax.tree_util.tree_map(jnp.asarray, jst),
+                            jmesh.state_shardings(jst, dp))
+        jnew, jloss = step(on, jax.device_put(x, rows), jax.device_put(t, rows),
+                           jax.device_put(eps, rows))
+    else:
+        jnew, jloss = step(jax.tree_util.tree_map(jnp.asarray, jst), jnp.asarray(x), t,
+                           jnp.asarray(eps))
     cfg = Config.from_json(jcfg.to_json())
     torch.save({"config": cfg.to_json(),
                 "state": weights.from_jax_train_state(cfg, jst, device="cpu"),
                 "x": torch.from_numpy(x), "t": torch.from_numpy(t), "eps": torch.from_numpy(eps)},
                path)
     return float(jloss), jax.tree_util.tree_map(np.asarray, jnew.params)
+
+
+def _write_gan_batch(path):
+    """A JAX GANState with batch norms in G and D (biases, γ and β
+    perturbed), carried into the port with two class batches; JAX's
+    ``make_parallel_gan_train_step`` (R1, no DiffAugment) on a 2-device
+    data mesh from it: the reference metrics and nets."""
+    jcfg = jconfig.tiny_test_config(batch_size=worker.GLOBAL, learning_rate=0.1,
+                                    lr_schedule="constant", optimizer="sgd", r1_weight=1.0,
+                                    g_norm="batch", d_norm="batch", donate_state=False)
+    st = jgan.init_gan_state(jcfg, jax.random.PRNGKey(0))
+    r = np.random.default_rng(31)
+
+    def perturb(tree):
+        def leaf(path, p):
+            key = getattr(path[-1], "key", None)
+            if key in ("bias", "beta"):
+                return (r.normal(size=p.shape) * 0.1).astype(np.float32)
+            if key == "gamma":
+                return r.normal(1.0, 0.3, p.shape).astype(np.float32)
+            return np.asarray(p)
+
+        return jax.tree_util.tree_map_with_path(leaf, tree)
+
+    st = jax.tree_util.tree_map(np.asarray, st._replace(
+        g_ab=perturb(st.g_ab), g_ba=perturb(st.g_ba), d_a=perturb(st.d_a), d_b=perturb(st.d_b)))
+    a, b = (r.uniform(-1, 1, (worker.GLOBAL, 16, 16, 3)).astype(np.float32) for _ in range(2))
+    dp = JMesh(np.asarray(jax.devices()[:RANKS]).reshape(RANKS, 1), ("data", "model"))
+    new, metrics = jmesh.make_parallel_gan_train_step(jcfg, dp)(
+        jax.tree_util.tree_map(jnp.asarray, st), jnp.asarray(a), jnp.asarray(b),
+        jax.random.PRNGKey(5))
+    cfg = Config.from_json(jcfg.to_json())
+    torch.save({"config": cfg.to_json(), "state": st, "a": torch.from_numpy(a),
+                "b": torch.from_numpy(b)}, path)
+    new = jax.tree_util.tree_map(np.asarray, new)
+    port = weights.from_jax_gan_state(cfg, new, device="cpu")
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "nets": {n: [p.detach() for p in getattr(port, n).parameters()]
+                     for n in ("g_ab", "g_ba", "d_a", "d_b")},
+            "before": {n: [p.detach() for p in getattr(
+                weights.from_jax_gan_state(cfg, st, device="cpu"), n).parameters()]
+                for n in ("g_ab", "g_ba", "d_a", "d_b")}}
 
 
 @pytest.fixture(scope="module")
@@ -88,6 +145,9 @@ def run(tmp_path_factory):
     1's results], "ref": the one-process results, ...}."""
     out_dir = str(tmp_path_factory.mktemp("dp"))
     jax_ref = _write_injected(os.path.join(out_dir, "injected.pt"))
+    jax_batch = _write_injected(os.path.join(out_dir, "injected-batch.pt"), optimizer="sgd",
+                                g_norm="batch")
+    jax_gan = _write_gan_batch(os.path.join(out_dir, "gan-batch.pt"))
     one_opt = worker.write_one_process_checkpoint(out_dir)
     worker.write_distill_teacher(out_dir)
     port = _free_port()
@@ -100,13 +160,16 @@ def run(tmp_path_factory):
            "gan": {k: worker.run_gan(k, mesh1) for k in worker.GAN_CASES},
            "cgan": {k: worker.run_cgan(k, mesh1) for k in worker.CGAN_CASES},
            "sampling": worker.run_sampling(mesh1),
-           "distill": {k: worker.run_distill(k, mesh1) for k in worker.DISTILL_CASES}}
+           "distill": {k: worker.run_distill(k, mesh1) for k in worker.DISTILL_CASES},
+           "remat_thread": worker.run_remat_backward_on_another_thread(mesh1),
+           "carried_gan": worker.run_carried_gan(os.path.join(out_dir, "gan-batch.pt"), mesh1)}
     outs = [p.communicate(timeout=600)[0] for p in procs]
     for p, out in zip(procs, outs):
         assert p.returncode == 0, f"rank failed:\n{out[-4000:]}"
     ranks = [torch.load(os.path.join(out_dir, f"rank{k}.pt"), weights_only=False)
              for k in range(RANKS)]
-    return {"ranks": ranks, "ref": ref, "jax": jax_ref, "one_opt": one_opt, "dir": out_dir}
+    return {"ranks": ranks, "ref": ref, "jax": jax_ref, "jax_batch": jax_batch,
+            "jax_gan": jax_gan, "one_opt": one_opt, "dir": out_dir}
 
 
 def _close(got, want, atol):
@@ -306,12 +369,28 @@ def test_dp_step_matches_one_process(run, case):
     assert len(set(ref["losses"])) == 2 and np.isfinite(ref["losses"]).all()
     _same_on_every_rank(ranks, "diffusion", case, "params")
     _close(got[0]["params"], ref["params"], atol=1e-4 if "bf16" in case else 1e-6)
-    init = mesh_lib.init_sharded_state(tiny_test_config(), mesh_lib.make_mesh(device="cpu"))[0]
+    norm = worker.DIFFUSION_CASES[case].get("g_norm", "none")
+    init = mesh_lib.init_sharded_state(tiny_test_config(g_norm=norm),
+                                       mesh_lib.make_mesh(device="cpu"))[0]
     moved = max((a - b).abs().max().item()
                 for a, b in zip(got[0]["params"], init.model.parameters()))
     assert moved > 1e-3  # the steps did update the weights
     if "ema" in ref:
         _close(got[1]["ema"], ref["ema"], atol=1e-6)
+
+
+def test_remat_recompute_takes_the_ranks_statistics_on_any_thread(run):
+    """Under ``remat`` the inner octaves are recomputed in the backward,
+    which on the card runs on autograd's device thread, not the one that
+    opened the step's statistics context: with the backward on another
+    thread, the two ranks' summed gradients of a batch-norm denoiser still
+    equal one process's on the global batch."""
+    ref = run["ref"]["remat_thread"]
+    for r in run["ranks"]:
+        got = r["remat_thread"]
+        np.testing.assert_allclose(got["loss"], ref["loss"], rtol=1e-5)
+        _close(got["grads"], ref["grads"], atol=1e-5 * max(g.abs().max().item()
+                                                           for g in ref["grads"]))
 
 
 @pytest.mark.parametrize("case", [c for c in worker.DIFFUSION_CASES if c.startswith("zero1")])
@@ -335,7 +414,9 @@ def test_parallel_gan_step_matches_one_process(run, case):
     """One cycle-GAN step (DiffAugment drawn for the global batch, R1's
     double backward on each rank, instance norms, EMA) on two ranks equals
     the one-process step (test_parallel.py:92,353); the transfer split over
-    the ranks equals the one-process transfer."""
+    the ranks equals the one-process transfer (with batch norms, that of
+    the batch zero-padded to the ranks, whose padding rows JAX's statistics
+    take too)."""
     got = [r["gan"][case] for r in run["ranks"]]
     ref = run["ref"]["gan"][case]
     assert got[0]["metrics"] == got[1]["metrics"]
@@ -345,14 +426,16 @@ def test_parallel_gan_step_matches_one_process(run, case):
     _same_on_every_rank(run["ranks"], "gan", case, "params")
     _close(got[0]["params"], ref["params"], atol=1e-6)
     assert got[0]["transfer"].shape == (3, 16, 16, 3)
-    np.testing.assert_allclose(got[1]["transfer"].numpy(), ref["transfer"].numpy(), atol=1e-5)
+    want = ref["transfer_padded" if "batch" in case else "transfer"]
+    np.testing.assert_allclose(got[1]["transfer"].numpy(), want.numpy(), atol=1e-5)
 
 
 @pytest.mark.parametrize("case", list(worker.CGAN_CASES))
 def test_parallel_conditional_gan_step_matches_one_process(run, case):
     """One conditional-GAN step (targets drawn for the global batch) on two
     ranks equals the one-process step (test_parallel.py:393); so does the
-    split transfer to per-image classes."""
+    split transfer to per-image classes (with batch norms, that of the
+    zero-padded batch, as for the GAN)."""
     got = [r["cgan"][case] for r in run["ranks"]]
     ref = run["ref"]["cgan"][case]
     assert got[0]["metrics"] == got[1]["metrics"]
@@ -360,21 +443,56 @@ def test_parallel_conditional_gan_step_matches_one_process(run, case):
         np.testing.assert_allclose(got[0]["metrics"][k], v, rtol=1e-5, err_msg=k)
     _same_on_every_rank(run["ranks"], "cgan", case, "params")
     _close(got[0]["params"], ref["params"], atol=1e-4 if "bf16" in case else 1e-6)
-    np.testing.assert_allclose(got[0]["transfer"].numpy(), ref["transfer"].numpy(), atol=1e-5)
+    want = ref["transfer_padded" if "batch" in case else "transfer"]
+    np.testing.assert_allclose(got[0]["transfer"].numpy(), want.numpy(), atol=1e-5)
 
 
-@pytest.mark.parametrize("zero1", [False, True], ids=["replicated", "zero1"])
-def test_two_rank_injected_step_matches_jax(run, zero1):
+@pytest.mark.parametrize("norm, zero1", [("none", False), ("none", True), ("batch", False),
+                                         ("batch", True)],
+                         ids=["replicated", "zero1", "batch-replicated", "batch-zero1"])
+def test_two_rank_injected_step_matches_jax(run, norm, zero1):
     """From a JAX state carried into the port, one injected step on two
     ranks (each on its rows of the batch, t and ε; B2 gated off by the
     world size, so the optax-form update) equals JAX's step on the global
-    batch at the one-process injected step's bounds."""
-    jloss, jparams = run["jax"]
+    batch at the one-process injected step's bounds; with batch norms in
+    the denoiser, JAX's step on a 2-device data mesh (the statistics of
+    the global batch, not of a rank's rows)."""
+    jloss, jparams = run["jax"] if norm == "none" else run["jax_batch"]
+    key = "injected" if norm == "none" else "injected_batch"
     for r in run["ranks"]:
-        got = r["injected"][zero1]
+        got = r[key][zero1]
         np.testing.assert_allclose(got["loss"], jloss, rtol=2e-5, atol=1e-7)
-        model = weights.from_jax_params(tiny_test_config(), jparams, device="cpu")
+        model = weights.from_jax_params(tiny_test_config(g_norm=norm), jparams, device="cpu")
         _close(got["params"], [p.detach() for p in model.parameters()], atol=2e-5)
+
+
+def test_two_rank_batch_norm_gan_step_matches_jax_mesh_step(run):
+    """A cycle-GAN step with batch norms in both generators and both
+    discriminators and R1's double backward through them, on two ranks
+    from a carried JAX state, equals the one-process step and JAX's
+    ``make_parallel_gan_train_step`` on a 2-device data mesh: the
+    statistics span both ranks' rows in the forward, the backward and the
+    double backward. Metrics rtol 1e-5; SGD updates within 1e-5 of each
+    net's largest update (test_torch_gan.py's bound)."""
+    want, ref = run["jax_gan"], run["ref"]["carried_gan"]
+    got = [r["carried_gan"] for r in run["ranks"]]
+    assert got[0]["metrics"] == got[1]["metrics"] and "r1" in want["metrics"]
+    assert sorted(got[0]["metrics"]) == sorted(want["metrics"])
+    for k, v in want["metrics"].items():
+        np.testing.assert_allclose(got[0]["metrics"][k], v, rtol=1e-5, atol=1e-7, err_msg=k)
+        np.testing.assert_allclose(got[0]["metrics"][k], ref["metrics"][k], rtol=1e-5,
+                                   atol=1e-7, err_msg=k)
+    for net, before in want["before"].items():
+        deltas = [b - a for a, b in zip(before, want["nets"][net])]
+        largest = max(d.abs().max().item() for d in deltas)
+        assert largest > 0, net
+        for rank in got:
+            for a, b, d in zip(rank["nets"][net], before, deltas):
+                assert ((a - b) - d).abs().max().item() <= 1e-5 * largest, net
+        for a, b in zip(got[0]["nets"][net], ref["nets"][net]):
+            assert (a - b).abs().max().item() <= 1e-5 * largest, net
+        for a, b in zip(got[0]["nets"][net], got[1]["nets"][net]):
+            assert torch.equal(a, b), net
 
 
 def test_zero1_checkpoint_moves_between_world_sizes(run):

@@ -164,11 +164,10 @@ def test_two_pipeline_steps_track_the_one_process_run():
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6, rtol=0)
 
 
-@pytest.mark.parametrize("stages, micro, dp", [(2, 2, 1), (3, 4, 1), (2, 2, 2)])
-def test_pipeline_step_matches_jax_pipeline_step(stages, micro, dp):
+def _against_jax_pipeline(stages, micro, dp, **extra):
     jcfg = jconfig.tiny_test_config(octaves=3, batch_size=8, learning_rate=LR, warm_up=1,
                                     pipeline_stages=stages, pipeline_microbatches=micro,
-                                    mesh_data=dp, donate_state=False)
+                                    mesh_data=dp, donate_state=False, **extra)
     r = np.random.default_rng(21)
     one = jcfg.replace(pipeline_stages=1, pipeline_microbatches=0, mesh_data=0)
     st = jtrainer.init_state(one, jax.random.PRNGKey(1))
@@ -193,6 +192,31 @@ def test_pipeline_step_matches_jax_pipeline_step(stages, micro, dp):
                                    device="cpu")
     for a, b in zip(state.model.parameters(), want.parameters()):
         np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(), atol=2e-5, rtol=0)
+    return float(loss)
+
+
+@pytest.mark.parametrize("stages, micro, dp", [(2, 2, 1), (3, 4, 1), (2, 2, 2)])
+def test_pipeline_step_matches_jax_pipeline_step(stages, micro, dp):
+    _against_jax_pipeline(stages, micro, dp)
+
+
+@pytest.mark.parametrize("dp", [1, 2])
+def test_batch_norm_statistics_are_each_microbatch_s_as_in_jax(dp):
+    """With batch norms in the denoiser each microbatch takes its own
+    statistics, as in JAX's pipeline (a stage program runs on one
+    microbatch, over its data devices under PP × DP): the step equals
+    JAX's at its bounds, and differs from the one-process step on the whole
+    batch."""
+    loss = _against_jax_pipeline(2, 2, dp, g_norm="batch", optimizer="momentum")
+    cfg = _cfg(pipeline_microbatches=2, mesh_data=dp, g_norm="batch", optimizer="momentum")
+    one = Config.from_json(cfg.to_json()).replace(pipeline_stages=1, pipeline_microbatches=0,
+                                                 mesh_data=0)
+    x = _batch(cfg)
+    tr = pipeline.PipelineTrainer(cfg, device="cpu")
+    _, pp = tr.step(tr.init_state(), x, torch.Generator().manual_seed(7))
+    _, whole = trainer.make_train_step(one)(trainer.init_state(one, device="cpu"), x,
+                                            torch.Generator().manual_seed(7))
+    assert np.isfinite(loss) and abs(float(pp) - float(whole)) > 1e-4 * abs(float(whole))
 
 
 def test_step_refuses_a_batch_the_microbatches_do_not_divide():

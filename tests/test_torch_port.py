@@ -220,6 +220,37 @@ def test_fused_down_conv_kernel_matches_plain_on_card(monkeypatch):
 
 
 @pytest.mark.cuda
+def test_height_block_kernels_match_plain_on_card(monkeypatch):
+    """The two launches of B3 over height blocks against their plain
+    versions at a GAN map's block (256² of 64 channels as 2 blocks of 128
+    rows, batch 4) and a ragged channel count, both dtypes: the triples'
+    mean and M2 within 1e-5 relative, y within B3's bounds of max|y|; one
+    launch each a call."""
+    from gan_class_transfer2_tpu_torch.ops import norm
+
+    _needs_card(monkeypatch)
+    r = np.random.default_rng(3)
+    for shape in ((4, 128, 256, 64), (3, 9, 17, 40)):
+        x = torch.from_numpy(r.normal(2.0, 3.0, shape).astype(np.float32)).cuda()
+        g = torch.from_numpy(r.normal(1.0, 0.2, shape[-1]).astype(np.float32)).cuda()
+        b = torch.from_numpy(r.normal(0.0, 0.2, shape[-1]).astype(np.float32)).cuda()
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+            xd = x.to(dtype)
+            before = norm.block_launches()
+            part = norm.block_stats(xd)
+            want = norm.block_stats_plain(xd)
+            torch.testing.assert_close(part, want, rtol=1e-5,
+                                       atol=1e-5 * float(want[..., 2].abs().max()))
+            mean, rstd = norm.merge_block_stats(torch.stack([part, part]))
+            y = norm.block_apply(xd, mean, rstd, g, b)
+            ref = norm.block_apply_plain(xd, mean, rstd, g, b)
+            torch.cuda.synchronize()
+            assert norm.block_launches() == before + 2
+            err = (y.float() - ref.float()).abs().max().item()
+            assert err <= tol * ref.float().abs().max().item(), (shape, dtype, err)
+
+
+@pytest.mark.cuda
 def test_down_conv_gradient_matches_plain_autograd_on_card(monkeypatch):
     """B4's backward (cuDNN's input and weight gradients around the kernel's
     forward) against autograd through the plain version, at one full-width

@@ -181,6 +181,90 @@ def test_service_transfer_and_denoise_over_mesh_match_single_device():
             s.close()
 
 
+def _jax_batch_norm_gan():
+    """A JAX GANState with batch norms in the generators (γ, β and biases
+    perturbed), carried into the port; (JAX config, JAX state, the port's
+    config and state)."""
+    import jax
+
+    from gan_class_transfer2_tpu import config as jconfig
+    from gan_class_transfer2_tpu.train import gan as jgan
+    from gan_class_transfer2_tpu_torch.config import Config
+    from gan_class_transfer2_tpu_torch.utils import weights
+
+    jcfg = jconfig.tiny_test_config(g_norm="batch", d_norm="batch", ema_decay=0.9)
+    st = jgan.init_gan_state(jcfg, jax.random.PRNGKey(3))
+    r = np.random.default_rng(4)
+
+    def leaf(path, p):
+        key = getattr(path[-1], "key", None)
+        if key in ("bias", "beta"):
+            return (r.normal(size=p.shape) * 0.1).astype(np.float32)
+        if key == "gamma":
+            return r.normal(1.0, 0.3, p.shape).astype(np.float32)
+        return np.asarray(p)
+
+    st = jax.tree_util.tree_map(np.asarray, st._replace(
+        ema_g_ab=jax.tree_util.tree_map_with_path(leaf, st.ema_g_ab)))
+    cfg = Config.from_json(jcfg.to_json())
+    return jcfg, st, cfg, weights.from_jax_gan_state(cfg, st, device="cpu")
+
+
+def test_batch_norm_service_runs_each_batch_whole_as_jax_does():
+    """A model with batch norms serves without its replica mesh: the
+    statistics span the device batch, which JAX's ``make_data_parallel_apply``
+    normalises whole over its data devices. A transfer of 4 images (a
+    batch 2 replicas divide) equals JAX's over a 2-device data mesh at the
+    one-forward bound, 2e-4."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh as JMesh
+
+    from gan_class_transfer2_tpu.parallel import mesh as jmesh
+    from gan_class_transfer2_tpu.train import gan as jgan
+
+    jcfg, jst, cfg, gs = _jax_batch_norm_gan()
+    img = _image(cfg, 4, seed=5)
+    dp = JMesh(np.asarray(jax.devices()[:2]).reshape(2, 1), ("data", "model"))
+    want = np.asarray(jmesh.make_data_parallel_apply(
+        dp, lambda st, x: jgan.transfer(jcfg, st, x, "ab"))(
+        jax.tree_util.tree_map(jnp.asarray, jst), jnp.asarray(img)))
+    svc = ModelService(cfg, gan_state=gs, mesh=_mesh(2), device="cpu")
+    try:
+        assert svc.mesh is None
+        np.testing.assert_allclose(svc._run_transfer(img, "ab"), want, rtol=2e-4, atol=2e-4)
+    finally:
+        svc.close()
+
+
+def test_batch_norm_service_records_the_padding_gap():
+    """The gap ROADMAP.md files under Queue C: at a bucket the replicas do
+    not divide (4 images on 3 devices) JAX zero-pads the batch to 6 and its
+    padding rows enter the statistics; the port runs the 4 whole, as JAX
+    does on one device. Pinned so that closing the gap shows here."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh as JMesh
+
+    from gan_class_transfer2_tpu.parallel import mesh as jmesh
+    from gan_class_transfer2_tpu.train import gan as jgan
+
+    jcfg, jst, cfg, gs = _jax_batch_norm_gan()
+    img = _image(cfg, 4, seed=6)
+    tree = jax.tree_util.tree_map(jnp.asarray, jst)
+    fn = lambda st, x: jgan.transfer(jcfg, st, x, "ab")  # noqa: E731
+    one = np.asarray(jax.jit(fn)(tree, jnp.asarray(img)))
+    three = JMesh(np.asarray(jax.devices()[:3]).reshape(3, 1), ("data", "model"))
+    padded = np.asarray(jmesh.make_data_parallel_apply(three, fn)(tree, jnp.asarray(img)))
+    svc = ModelService(cfg, gan_state=gs, mesh=_mesh(3), device="cpu")
+    try:
+        got = svc._run_transfer(img, "ab")
+    finally:
+        svc.close()
+    np.testing.assert_allclose(got, one, rtol=2e-4, atol=2e-4)
+    assert np.abs(padded - one).max() > 1e-2
+
+
 def test_build_service_uses_a_mesh_on_a_multi_device_host(tmp_path, monkeypatch):
     """With more than one local device (the count stubbed to 2 CPUs), the
     serve command's service restores the checkpoint, replicates it and

@@ -15,7 +15,10 @@ shards against the one-process gradients 1e-6 absolute on O(1e-2) values.
 The train steps: losses rtol 1e-5, weights atol 1e-6 against the port's
 one-process step (a global mean summed from shards in another order);
 against JAX the one-process injected step's bounds (loss rtol 2e-5,
-weights atol 2e-5, test_torch_trainer.py)."""
+weights atol 2e-5, test_torch_trainer.py). B3 over height blocks against
+JAX's instance norm on the gathered image: B3's bounds, 1e-5 of max|y|
+in float32 and 1e-2 in bfloat16, forward and VJP (gradients of the
+bfloat16 input 4e-2, [gan-kernel]'s)."""
 
 import os
 import socket
@@ -73,6 +76,20 @@ def _collect(mode, procs, out_dir):
             for k in range(len(procs))]
 
 
+def _one_process_options(path):
+    """The port's one-process injected step for each spatial option (the
+    uint8 case on the batch the crop makes)."""
+    out = {}
+    for tag, d in torch.load(path, weights_only=False).items():
+        cfg = Config.from_json(d["config"])
+        init = [p.detach().clone() for p in d["state"].model.parameters()]
+        state, loss = trainer.make_injected_train_step(cfg)(d["state"], d["x"], d["t"], d["eps"])
+        out[tag] = {"loss": float(loss), "init": init,
+                    "params": [p.detach().clone() for p in state.model.parameters()],
+                    "cfg": cfg}
+    return out
+
+
 def _one_process_steps(injected_path):
     """The port's one-process references of run_spatial_steps."""
     saved = torch.load(injected_path, weights_only=False)
@@ -111,10 +128,14 @@ def _unsharded(tag):
 def run(tmp_path_factory):
     out_dir = str(tmp_path_factory.mktemp("spatial"))
     jax_refs = grid_jax_refs.write_injected(os.path.join(out_dir, "injected.pt"))
+    jax_refs["options"] = grid_jax_refs.write_options(
+        os.path.join(out_dir, "options.pt"), worker.SPATIAL_OPTIONS,
+        (worker.GLOBAL, 32, 32, 3), worker.RAW_SIDE)
     procs2 = _spawn("spatial2", 2, out_dir)
     procs4 = _spawn("spatial4", 4, out_dir)
     ref = {tag: _unsharded(tag) for tag in ("base", "depth1", "concat")}
     ref["steps"] = _one_process_steps(os.path.join(out_dir, "injected.pt"))
+    ref["options"] = _one_process_options(os.path.join(out_dir, "options.pt"))
     return {"two": _collect("spatial2", procs2, out_dir),
             "four": _collect("spatial4", procs4, out_dir), "ref": ref, "jax": jax_refs}
 
@@ -192,14 +213,27 @@ def test_spatial_unet_forward_and_gradients(run, tag):
                 np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6, err_msg=label)
 
 
-@pytest.mark.parametrize("mesh", ["two", "four"], ids=["spatial", "dp-spatial"])
-def test_spatial_train_step_matches_one_process_and_jax(run, mesh):
+OPTION_CASES = [(m, o) for o in worker.SPATIAL_OPTIONS for m in ("two", "four")]
+
+
+@pytest.mark.parametrize(
+    "mesh, option", [("two", None), ("four", None)] + OPTION_CASES,
+    ids=["spatial", "dp-spatial"] + [f"{'spatial' if m == 'two' else 'dp-spatial'}-{o}"
+                                     for m, o in OPTION_CASES])
+def test_spatial_train_step_matches_one_process_and_jax(run, mesh, option):
     """One injected step on 2 height shards (and on a 2 × 2 data × spatial
     mesh) from a carried JAX state equals the port's one-process injected
     step and JAX's injected step with the height split over a spatial mesh
     (GSPMD's halos, as make_spatial_train_step runs); two generator-driven
     steps equal the one-process train_step on the same generator state,
-    EMA included (test_spatial_train.py:12,37)."""
+    EMA included (test_spatial_train.py:12,37). Each ``option`` (instance
+    and batch norms, the per-step head, the dct and multiscale losses,
+    dynamic loss scaling, a uint8 batch) is one injected step from a JAX
+    state of its config against the one-process step and JAX's GSPMD step
+    on the same mesh shape."""
+    if option is not None:
+        _option_matches(run, mesh, option)
+        return
     ref = run["ref"]["steps"]
     jloss, jparams = run["jax"]["spatial"]
     want = grid_jax_refs.port_params(jparams)
@@ -215,6 +249,81 @@ def test_spatial_train_step_matches_one_process_and_jax(run, mesh):
                         ref["drawn"]["params"] + ref["drawn"]["ema"]):
             np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6)
         assert np.isfinite(got["fused_loss"])
+
+
+def _option_matches(run, mesh, option):
+    ref = run["ref"]["options"][option]
+    jloss, jparams = run["jax"]["options"][option]["spatial" if mesh == "two" else "dp"]
+    want = grid_jax_refs.port_params(jparams, ref["cfg"])
+    init = ref["init"]
+    moved = max((a - b).abs().max().item() for a, b in zip(ref["params"], init))
+    assert moved > 100 * 1e-6
+    for r in run[mesh]:
+        got = r["options"][option]
+        np.testing.assert_allclose(got["loss"], ref["loss"], rtol=1e-5)
+        np.testing.assert_allclose(got["loss"], jloss, rtol=2e-5)
+        assert len(got["params"]) == len(want) == len(ref["params"])
+        for a, b, c in zip(got["params"], ref["params"], want):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6)
+            np.testing.assert_allclose(a.numpy(), c.numpy(), atol=2e-5)
+        if option == "dynamic":  # a finite step: the scale kept, one good step counted
+            assert got["scale"] == (2.0**15, 1)
+        else:
+            assert got["scale"] is None
+
+
+def test_b3_over_height_blocks_matches_jax_instance_norm(run):
+    """B3 over height blocks (its plain version), on 2 and 4 height shards
+    and a 2 × 2 data × spatial mesh: the blocks side by side equal JAX's
+    instance_norm on the whole image, and the blocks' dx and the ranks'
+    summed dγ and dβ equal JAX's VJP, float32 and bfloat16."""
+    from gan_class_transfer2_tpu.ops import norm as jnorm
+
+    r = np.random.default_rng(12)
+    x = (r.normal(size=(2, 16, 8, 40)) * 2 + 0.5).astype(np.float32)
+    dy = r.normal(size=x.shape).astype(np.float32)
+    gamma = r.normal(1.0, 0.3, 40).astype(np.float32)
+    beta = r.normal(0.0, 0.3, 40).astype(np.float32)
+    for name, jdt, y_tol, g_tol in (("float32", jnp.float32, 1e-5, 1e-5),
+                                    ("bfloat16", jnp.bfloat16, 1e-2, 4e-2)):
+        xj = jnp.asarray(x).astype(jdt)
+        y, vjp = jax.vjp(lambda a, g, b: jnorm.instance_norm(a, g, b), xj, jnp.asarray(gamma),
+                         jnp.asarray(beta))
+        dx, dg, db = vjp(jnp.asarray(dy).astype(jdt))
+        want = {"y": y, "dx": dx, "dgamma": dg, "dbeta": db}
+        want = {k: np.asarray(jnp.asarray(v, jnp.float32)) for k, v in want.items()}
+        for label, ranks, n, coords in _meshes(run):
+            for key, tol in (("y", y_tol), ("dx", g_tol)):
+                got = _assemble(ranks, coords, lambda q: q["b3"][name][key])
+                scale = np.abs(want[key]).max()
+                assert np.abs(got.numpy() - want[key]).max() <= tol * scale, (label, name, key)
+            for q in ranks:
+                for key in ("dgamma", "dbeta"):
+                    scale = np.abs(want[key]).max()
+                    err = np.abs(q["b3"][name][key].numpy() - want[key]).max()
+                    assert err <= g_tol * scale, (label, name, key)
+
+
+def test_uint8_pool_gives_every_spatial_rank_its_data_group_s_rows(run):
+    """A raw uint8 HBMDataset under a spatial mesh: every spatial rank of a
+    data group draws the same rows (whole images, which the step crops),
+    and the data groups' rows together are the one-process draw."""
+    from gan_class_transfer2_tpu_torch.data import device_augment
+
+    pool = torch.from_numpy(np.random.default_rng(6).integers(
+        0, 256, (6, worker.RAW_SIDE, worker.RAW_SIDE, 3), dtype=np.uint8))
+    one = next(iter(device_augment.HBMDataset(pool, 32, worker.GLOBAL, seed=1, raw=True,
+                                              device="cpu")))
+    # the two-rank job's options ran on its 2-way mesh, the four-rank job's
+    # on its 2 x 2 one
+    for label, ranks, coords in (("2-way", run["two"], [(0, k) for k in range(2)]),
+                                 ("2x2", run["four"], [(k // 2, k % 2) for k in range(4)])):
+        groups = {}
+        for q, (d, _) in zip(ranks, coords):
+            groups.setdefault(d, []).append(q["options"]["pool"])
+        for rows in groups.values():
+            assert all(torch.equal(rows[0], other) for other in rows[1:]), label
+        assert torch.equal(torch.cat([groups[d][0] for d in sorted(groups)]), one), label
 
 
 def test_b1s_positions_of_a_height_split():
@@ -245,11 +354,15 @@ def test_refusals_by_jax_message():
     """JAX's refusals, by message: a bottleneck the shards do not divide,
     per_step_output, g_norm (spatial_unet.py:186-205), a conditional model
     (spatial_train.py:64), an odd shard height (spatial.py:74), and the
-    mesh that needs more ranks than the group (:25, :44)."""
+    mesh that needs more ranks than the group (:25, :44). The train step,
+    JAX's GSPMD step, takes what make_spatial_unet_apply refuses and the
+    rest of the trainer's options: the dct and multiscale losses, norms,
+    the per-step head, dynamic loss scaling."""
 
     class Mesh:
         def __init__(self, n):
             self.n = n
+            self.coords = {"data": 0, "spatial": 0}
 
         def axis(self, name):
             from gan_class_transfer2_tpu_torch.parallel.multihost import Axis
@@ -265,8 +378,10 @@ def test_refusals_by_jax_message():
         spatial_unet.make_spatial_unet_apply(cfg.replace(g_norm="instance"), Mesh(2))
     with pytest.raises(ValueError, match="unconditional Denoiser only"):
         spatial_train.make_spatial_train_step(cfg.replace(num_classes=2), Mesh(2))
-    with pytest.raises(NotImplementedError, match="dct"):
-        spatial_train.make_spatial_train_step(cfg.replace(loss="dct"), Mesh(2))
+    for taken in (dict(loss="dct"), dict(loss="mse_multiscale"), dict(g_norm="instance"),
+                  dict(g_norm="batch"), dict(per_step_output=True),
+                  dict(dynamic_loss_scale=True)):
+        assert callable(spatial_train.make_spatial_train_step(cfg.replace(**taken), Mesh(2)))
     with pytest.raises(ValueError, match="even per-shard height, got 3"):
         spatial.sharded_down_conv(torch.zeros(1, 3, 4, 2), torch.zeros(4, 4, 2, 2),
                                   torch.zeros(2), Mesh(1).axis("spatial"))

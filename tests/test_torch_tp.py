@@ -99,10 +99,12 @@ def run(tmp_path_factory):
            "runner": worker.runner_save(1, ref_dir),
            "gan_runner": worker.run_tp_gan_runner(1, ref_dir),
            "distill": worker.run_tp_distill(mesh1), "bench": worker.run_tp_bench(mesh1),
-           "tp4": worker.run_tp4(mesh1, ref_dir)}
+           "tp4": worker.run_tp4(mesh1, ref_dir), "tp4_batch": worker.run_tp4_batch(mesh1)}
     ranks = _collect("tp2", procs2, out_dir)
-    ranks4 = [r["tp4"] for r in _collect("tp4", procs4, out_dir)]
-    return {"ranks": ranks, "ranks4": ranks4, "ref": ref, "jax": jax_refs,
+    got4 = _collect("tp4", procs4, out_dir)
+    ranks4 = [r["tp4"] for r in got4]
+    return {"ranks": ranks, "ranks4": ranks4, "batch4": [r["tp4_batch"] for r in got4],
+            "ref": ref, "jax": jax_refs,
             "one": one_leaves, "one_state": one_state, "dir": out_dir}
 
 
@@ -358,6 +360,19 @@ def test_slice_mesh_equals_flat_data_parallelism(run):
 
 
 # ----------------------------------------------------------- four ranks
+
+
+def test_dp_tp_batch_norm_on_four_ranks_matches_one_process(run):
+    """data 2 × model 2 with batch norms in the denoiser: each norm's
+    statistics span both data groups' rows (the gathered activations are
+    whole on each model rank), so two steps equal the one-process steps
+    on the global batch; the ranks hold the same whole weights."""
+    ranks, ref = run["batch4"], run["ref"]["tp4_batch"]
+    for r in ranks:
+        np.testing.assert_allclose(r["losses"], ref["losses"], rtol=1e-5)
+        _close(r["params"], ref["params"], atol=1e-6)
+    for r in ranks[1:]:
+        _same(r["params"], ranks[0]["params"])
 
 
 def test_dp_tp_zero1_on_four_ranks_matches_one_process(run):

@@ -15,6 +15,7 @@ import contextlib
 import io
 import os
 import sys
+import threading
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
@@ -25,12 +26,13 @@ import torch  # noqa: E402
 
 from gan_class_transfer2_tpu_torch import cli  # noqa: E402
 from gan_class_transfer2_tpu_torch.config import Config, tiny_test_config  # noqa: E402
-from gan_class_transfer2_tpu_torch.models import api  # noqa: E402
+from gan_class_transfer2_tpu_torch.models import api, unet  # noqa: E402
 from gan_class_transfer2_tpu_torch.parallel import mesh as mesh_lib  # noqa: E402
 from gan_class_transfer2_tpu_torch.parallel import multihost  # noqa: E402
 from gan_class_transfer2_tpu_torch.train import conditional_gan as cgan  # noqa: E402
 from gan_class_transfer2_tpu_torch.train import distill, gan, trainer  # noqa: E402
 from gan_class_transfer2_tpu_torch.utils import checkpoint as ckpt_lib  # noqa: E402
+from gan_class_transfer2_tpu_torch.utils import weights  # noqa: E402
 
 GLOBAL = 4  # the global batch: 2 rows a rank on 2 ranks
 
@@ -44,15 +46,25 @@ DIFFUSION_CASES = {
     "zero1-clip-decay-dynamic": dict(optimizer="adam", grad_clip_norm=0.05, weight_decay=0.1,
                                      dynamic_loss_scale=True, zero1=True),
     "zero1-momentum": dict(optimizer="momentum", zero1=True),
+    # batch norm in the denoiser: statistics over the global batch, as
+    # JAX's jit over the mesh takes them; SGD with momentum, since a conv
+    # bias ahead of a norm has no true gradient (no Adam, see below)
+    "batch-momentum": dict(optimizer="momentum", g_norm="batch"),
+    "zero1-batch-momentum": dict(optimizer="momentum", g_norm="batch", zero1=True),
+    # the inner octaves recomputed in the backward take the same statistics
+    "batch-remat-momentum": dict(optimizer="momentum", g_norm="batch", remat=True),
 }
 # Adam without instance norms: a conv bias ahead of an instance norm has no
 # true gradient, only rounding noise, which Adam's normalised step turns
 # into updates of either sign on either side
 INSTANCE = dict(g_norm="instance", d_norm="instance")
+BATCH = dict(g_norm="batch", d_norm="batch")
 GAN_CASES = {"sgd-instance": dict(optimizer="sgd", **INSTANCE),
-             "zero1-adam_tf": dict(optimizer="adam_tf", zero1=True)}
+             "zero1-adam_tf": dict(optimizer="adam_tf", zero1=True),
+             "sgd-batch": dict(optimizer="sgd", **BATCH)}
 CGAN_CASES = {"momentum-instance": dict(optimizer="momentum", **INSTANCE),
-              "zero1-bf16": dict(optimizer="adam_tf", moment_dtype="bfloat16", zero1=True)}
+              "zero1-bf16": dict(optimizer="adam_tf", moment_dtype="bfloat16", zero1=True),
+              "momentum-batch": dict(optimizer="momentum", **BATCH)}
 
 
 def _np(seed, shape, lo=-1.0, hi=1.0):
@@ -143,11 +155,16 @@ def run_gan(name, mesh):
     a = mesh_lib.local_rows(torch.from_numpy(_np(4, (GLOBAL, 16, 16, 3))), mesh)
     b = mesh_lib.local_rows(torch.from_numpy(_np(5, (GLOBAL, 16, 16, 3))), mesh)
     state, metrics = step(state, a, b, torch.Generator().manual_seed(11))
-    transfer = gan.make_transfer_fn(cfg, mesh)(gan.select_generator(state, "ab"),
-                                              torch.from_numpy(_np(6, (3, 16, 16, 3))))
+    g_ab = gan.select_generator(state, "ab")
+    images = torch.from_numpy(_np(6, (3, 16, 16, 3)))
+    transfer = gan.make_transfer_fn(cfg, mesh)(g_ab, images)
+    # the 3 images zero-padded to the ranks' 4, as the split transfer pads
+    # them, run whole: with batch norms the padding rows enter JAX's
+    # statistics too
+    padded = gan.make_transfer_fn(cfg)(g_ab, torch.cat([images, torch.zeros(1, 16, 16, 3)]))
     return {"metrics": {k: float(v) for k, v in metrics.items()},
             "params": _params(state.g_ab, state.g_ba, state.d_a, state.d_b, state.ema_g_ab),
-            "transfer": transfer.clone()}
+            "transfer": transfer.clone(), "transfer_padded": padded[:3].clone()}
 
 
 def run_cgan(name, mesh):
@@ -160,11 +177,35 @@ def run_cgan(name, mesh):
     batch = {"image": mesh_lib.local_rows(torch.from_numpy(_np(7, (GLOBAL, 16, 16, 3))), mesh),
              "label": mesh_lib.local_rows(torch.tensor([0, 2, 1, 1]), mesh)}
     state, metrics = step(state, batch, torch.Generator().manual_seed(13))
-    transfer = cgan.make_transfer_fn(cfg, mesh)(state.generator,
-                                               torch.from_numpy(_np(8, (3, 16, 16, 3))),
-                                               torch.tensor([2, 0, 1]))
+    images = torch.from_numpy(_np(8, (3, 16, 16, 3)))
+    transfer = cgan.make_transfer_fn(cfg, mesh)(state.generator, images, torch.tensor([2, 0, 1]))
+    padded = cgan.make_transfer_fn(cfg)(state.generator,
+                                        torch.cat([images, torch.zeros(1, 16, 16, 3)]),
+                                        torch.tensor([2, 0, 1, 0]))
     return {"metrics": {k: float(v) for k, v in metrics.items()},
-            "params": _params(state.generator, state.discriminator), "transfer": transfer.clone()}
+            "params": _params(state.generator, state.discriminator), "transfer": transfer.clone(),
+            "transfer_padded": padded[:3].clone()}
+
+
+def run_remat_backward_on_another_thread(mesh):
+    """The gradient of Σ prediction² over the global batch for a denoiser
+    with batch norms under ``remat``, the backward run on another thread
+    than the forward, as autograd's device threads run it on the card:
+    the inner octaves recomputed there must take the ranks' statistics as
+    the forward did. The rank's gradients summed over the ranks."""
+    cfg = tiny_test_config(batch_size=GLOBAL, g_norm="batch", remat=True)
+    model = api.init_denoiser(cfg, torch.Generator().manual_seed(3), device="cpu")
+    x = mesh_lib.local_rows(torch.from_numpy(_np(10, (GLOBAL, 16, 16, 3))), mesh)
+    params = list(model.parameters())
+    with mesh_lib.norm_stats(mesh):
+        loss = torch.sum(torch.square(unet.unet_apply(cfg, model, x)))
+    grads = []
+    backward = threading.Thread(target=lambda: grads.extend(torch.autograd.grad(loss, params)))
+    backward.start()
+    backward.join()
+    assert len(grads) == len(params), "the backward thread failed"
+    summed = multihost.all_reduce_mean([*grads, loss.detach()], None, mean=False)
+    return {"grads": [g.clone() for g in summed[:-1]], "loss": float(summed[-1])}
 
 
 def run_injected(path, mesh):
@@ -182,6 +223,21 @@ def run_injected(path, mesh):
         state, loss = trainer.make_injected_train_step(cfg, mesh)(state, *rows)
         out[zero1] = {"loss": float(loss), "params": _params(state.model)}
     return out
+
+
+def run_carried_gan(path, mesh):
+    """One cycle-GAN step (batch norms in G and D, R1, no DiffAugment: the
+    step draws nothing) from the JAX state saved at ``path`` on its saved
+    class batches; the metrics and every net's weights."""
+    saved = torch.load(path, weights_only=False)
+    cfg = Config.from_json(saved["config"])
+    state = weights.from_jax_gan_state(cfg, saved["state"], device="cpu")
+    a, b = (mesh_lib.local_rows(saved[k], mesh) for k in ("a", "b"))
+    state, metrics = mesh_lib.make_parallel_gan_train_step(cfg, mesh)(
+        state, a, b, torch.Generator().manual_seed(0))
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "nets": {n: [p.detach().clone() for p in getattr(state, n).parameters()]
+                     for n in ("g_ab", "g_ba", "d_a", "d_b")}}
 
 
 def run_sampling(mesh):
@@ -207,9 +263,11 @@ def run_sampling(mesh):
             "fetched": multihost.host_fetch(batch, ("data",)), "bench_mesh": bench["sampler_mesh"]}
 
 
-# a uint8 stream (the step's augment) as JAX's mesh test distills, and
-# labeled float batches of a conditional model under ZeRO-1
-DISTILL_CASES = {"uint8": dict(), "labeled-zero1": dict(num_classes=3, zero1=True)}
+# a uint8 stream (the step's augment) as JAX's mesh test distills,
+# labeled float batches of a conditional model under ZeRO-1, and a uint8
+# stream into a student (and teacher) with batch norms
+DISTILL_CASES = {"uint8": dict(), "labeled-zero1": dict(num_classes=3, zero1=True),
+                 "batch-momentum": dict(g_norm="batch", optimizer="momentum")}
 
 
 def run_distill(name, mesh):
@@ -222,7 +280,7 @@ def run_distill(name, mesh):
     r = np.random.default_rng(5)
     batches = []
     for _ in range(3):
-        if name == "uint8":
+        if name != "labeled-zero1":
             batches.append(mesh_lib.local_rows(torch.from_numpy(r.integers(
                 0, 256, (GLOBAL, 20, 20, 3), dtype=np.uint8)), mesh))
         else:
@@ -284,8 +342,11 @@ def run_all(mesh, out_dir):
         "gan": {k: run_gan(k, mesh) for k in GAN_CASES},
         "cgan": {k: run_cgan(k, mesh) for k in CGAN_CASES},
         "injected": run_injected(os.path.join(out_dir, "injected.pt"), mesh),
+        "injected_batch": run_injected(os.path.join(out_dir, "injected-batch.pt"), mesh),
+        "carried_gan": run_carried_gan(os.path.join(out_dir, "gan-batch.pt"), mesh),
         "sampling": run_sampling(mesh),
         "distill": {k: run_distill(k, mesh) for k in DISTILL_CASES},
+        "remat_thread": run_remat_backward_on_another_thread(mesh),
     }
 
 

@@ -11,10 +11,12 @@ functions in one process for the reference, and compare:
   * ``tp2``: two ranks as ``mesh_model=2`` (the diffusion, GAN and cGAN
     steps, an injected step from a carried JAX state, checkpoints both
     ways, a Runner's save, ``cli train --mesh-model 2``);
-  * ``tp4``: four ranks as data 2 × model 2 under ZeRO-1;
+  * ``tp4``: four ranks as data 2 × model 2 under ZeRO-1, and with batch
+    norms;
   * ``spatial2`` / ``spatial4``: height shards (the halo, the down conv,
-    the U-Net forward and gradients, the spatial train steps) on a
-    2-way and a 4-way spatial mesh and a 2 × 2 data × spatial mesh."""
+    the U-Net forward and gradients, B3 over height blocks, the spatial
+    train steps and each option they take) on a 2-way and a 4-way spatial
+    mesh and a 2 × 2 data × spatial mesh."""
 
 import contextlib
 import io
@@ -324,9 +326,35 @@ def run_tp4(mesh, out_dir):
             "coords": dict(mesh.coords)}
 
 
+def run_tp4_batch(mesh):
+    """data 2 × model 2 with batch norms in the denoiser (SGD with
+    momentum, ZeRO-1): two steps; the statistics span the data pair, the
+    model pair of a data group computes them alike."""
+    cfg = tiny_test_config(batch_size=GLOBAL, learning_rate=1e-2, warm_up=1,
+                           optimizer="momentum", g_norm="batch", zero1=True)
+    state, _ = mesh_lib.init_sharded_state(cfg, mesh)
+    step = mesh_lib.make_parallel_train_step(cfg, mesh)
+    batch = mesh_lib.local_rows(torch.from_numpy(_np(3, (GLOBAL, 16, 16, 3))), mesh)
+    gen = torch.Generator().manual_seed(7)
+    losses = []
+    for _ in range(2):
+        state, loss = step(state, batch, gen)
+        losses.append(float(loss))
+    return {"losses": losses, "params": _whole(mesh, state.model)}
+
+
 # -------------------------------------------------------------- spatial
 
 SPATIAL_CFG = dict(size=32, pixel_size=4, max_size=8, octaves=2)
+# what JAX's GSPMD step takes and the spatial step now takes too: norms
+# (instance: B3 over height blocks; batch: over data × spatial), the
+# per-step head, the whole-image losses, dynamic loss scaling, a uint8
+# batch of 40² images the step crops to 32²
+SPATIAL_OPTIONS = {"instance": dict(g_norm="instance"), "batch": dict(g_norm="batch"),
+                   "per_step": dict(per_step_output=True), "dct": dict(loss="dct"),
+                   "multiscale": dict(loss="mse_multiscale"),
+                   "dynamic": dict(dynamic_loss_scale=True), "uint8": dict()}
+RAW_SIDE = 40
 
 
 def spatial_model(cfg, seed=0):
@@ -363,6 +391,31 @@ def run_spatial(mesh):
         grads = torch.autograd.grad((y ** 2).sum() / count, list(model.parameters()))
         grads = multihost.all_reduce_mean(list(grads), None, mean=False)
         out[tag] = {"y": y.detach().clone(), "grads": grads}
+    out["b3"] = run_b3_blocks(mesh)
+    return out
+
+
+def run_b3_blocks(mesh):
+    """B3 over height blocks (the plain version on the CPU) on this rank's
+    block of a (2, 16, 8, 40) batch, float32 and bfloat16: y, and the VJP
+    of a drawn cotangent (dx the block's; dγ and dβ summed over every
+    rank, as the step's gradient all-reduce sums them)."""
+    from gan_class_transfer2_tpu_torch.ops import norm
+
+    r = np.random.default_rng(12)
+    x = torch.from_numpy((r.normal(size=(2, 16, 8, 40)) * 2 + 0.5).astype(np.float32))
+    dy = torch.from_numpy(r.normal(size=x.shape).astype(np.float32))
+    gamma = torch.from_numpy(r.normal(1.0, 0.3, 40).astype(np.float32))
+    beta = torch.from_numpy(r.normal(0.0, 0.3, 40).astype(np.float32))
+    out = {}
+    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        xl = spatial_train.local_block(x, mesh).to(dtype).contiguous().requires_grad_()
+        g, b = gamma.clone().requires_grad_(), beta.clone().requires_grad_()
+        y = norm.instance_norm_blocks(xl, g, b, mesh.axis("spatial"))
+        dx, dg, db = torch.autograd.grad(
+            y, (xl, g, b), spatial_train.local_block(dy, mesh).to(dtype).contiguous())
+        dg, db = multihost.all_reduce_mean([dg, db], None, mean=False)
+        out[name] = {"y": y.detach().float(), "dx": dx.float(), "dgamma": dg, "dbeta": db}
     return out
 
 
@@ -403,6 +456,41 @@ def run_spatial_steps(mesh, injected_path):
     return out
 
 
+def run_spatial_options(mesh, path):
+    """One injected step for each of SPATIAL_OPTIONS from the JAX states
+    saved at ``path`` (grid_jax_refs.write_options) on this rank's block of
+    the batch, t and ε (a uint8 batch: the rank's rows of whole images and
+    a generator for the crop's draws); the loss, the whole weights and the
+    loss-scale state. Then a uint8 pool (``HBMDataset``, raw) under the
+    mesh: the rows each rank draws."""
+    from gan_class_transfer2_tpu_torch.data import device_augment
+    from gan_class_transfer2_tpu_torch.parallel.mesh import Sharding
+
+    dp = "data" in mesh.shape
+    make = spatial_train.make_dp_spatial_train_step if dp else spatial_train.make_spatial_train_step
+    out = {}
+    for tag, d in torch.load(path, weights_only=False).items():
+        cfg = Config.from_json(d["config"])
+        rows = (spatial_train.local_rows(d["t"], mesh),
+                spatial_train.local_block(d["eps"], mesh).contiguous())
+        if d["raw"] is not None:
+            batch, gen = spatial_train.local_rows(d["raw"], mesh), torch.Generator().manual_seed(3)
+        else:
+            batch, gen = spatial_train.local_block(d["x"], mesh).contiguous(), None
+        state, loss = make(cfg, mesh)(d["state"], batch, gen, t_int=rows[0], epsilon=rows[1])
+        out[tag] = {"loss": float(loss),
+                    "params": [p.detach().clone() for p in state.model.parameters()],
+                    "scale": None if state.scale_state is None else
+                    (float(state.scale_state.scale), int(state.scale_state.good_steps))}
+    pool = torch.from_numpy(np.random.default_rng(6).integers(0, 256, (6, RAW_SIDE, RAW_SIDE, 3),
+                                                               dtype=np.uint8))
+    spec = ("data", "spatial") if dp else (None, "spatial")
+    hbm = device_augment.HBMDataset(pool, 32, GLOBAL, seed=1, raw=True,
+                                    sharding=Sharding(mesh, spec), device="cpu")
+    out["pool"] = next(iter(hbm)).clone()
+    return out
+
+
 def _mode_runs(mode, rank, world, port, out_dir):
     if mode == "tp2":
         mesh = mesh_lib.make_mesh(device="cpu", model=2)
@@ -421,16 +509,19 @@ def _mode_runs(mode, rank, world, port, out_dir):
         out["cli_train"] = run_cli_train(rank, world, port, out_dir)
         return out
     if mode == "tp4":
-        return {"tp4": run_tp4(mesh_lib.make_mesh(device="cpu", data=2, model=2), out_dir)}
+        mesh = mesh_lib.make_mesh(device="cpu", data=2, model=2)
+        return {"tp4": run_tp4(mesh, out_dir), "tp4_batch": run_tp4_batch(mesh)}
     if mode == "spatial2":
         mesh = spatial_train.make_spatial_mesh(device="cpu")
         return {"spatial": run_spatial(mesh),
-                "steps": run_spatial_steps(mesh, os.path.join(out_dir, "injected.pt"))}
+                "steps": run_spatial_steps(mesh, os.path.join(out_dir, "injected.pt")),
+                "options": run_spatial_options(mesh, os.path.join(out_dir, "options.pt"))}
     if mode == "spatial4":
         out = {"spatial": run_spatial(spatial_train.make_spatial_mesh(device="cpu"))}
         mesh = spatial_train.make_dp_spatial_mesh(2, 2, device="cpu")
         out["dp"] = run_spatial(mesh)
         out["steps"] = run_spatial_steps(mesh, os.path.join(out_dir, "injected.pt"))
+        out["options"] = run_spatial_options(mesh, os.path.join(out_dir, "options.pt"))
         return out
     raise ValueError(mode)
 

@@ -184,7 +184,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      two (one a replica), their launches exact;
      exact B3/B4 launches from HTTP on both frontends;
      /reload swaps both replicas; /sample p50/p99 at concurrency 1 and 8
-     and the card memory of both services;
+     and the card memory of both services; a batch-norm GAN service over
+     the two replicas: /transfer of 1 image padded to 2 rows (JAX's
+     padding) and run whole, against the CPU service's (2e-4);
   22b. tp-kernel (before [serve], as every phase down to 22f) — B4
      on a rank's output channels under tensor parallelism: the four
      full-width down convs with O halved (the local shapes of
@@ -224,9 +226,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      batch 16 against one process, step and halo ms; one injected step
      each with g_norm instance (B3 over height blocks, 2 launches a norm
      layer, a rank and a forward) and batch, per_step_output, the dct and
-     mse_multiscale losses, dynamic loss scaling and a uint8 pool, each
-     against one process with exact launches; 2 generator-driven steps on
-     the fused path: B1s once a step a rank;
+     mse_multiscale losses, dynamic loss scaling, a uint8 pool, remat,
+     and remat with g_norm instance, each against one process with exact
+     launches (the remat step's B3-block launches: the forward's and its
+     recompute's, equal on both ranks), the remat steps' halo counts and
+     each rank's peak memory beside the same step's without remat; 2
+     generator-driven steps on the fused path: B1s once a step a rank;
   22g. pp-agree (before [serve], as 22h and 22i) — pipeline parallelism
      (parallel/pipeline.py) at the default width, batch 16, fp32, every
      stage on cuda:0, through the kernels: stages 2 × microbatches 2, 3 ×
@@ -234,7 +239,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      the same weights and generator state as the one-process step (loss
      1e-5 relative, updates at [dp-agree]'s bounds), exact launches (B1 1, B4
      2·4·M·replicas, B2 one a stage), the step timed beside the one-process
-     step; one bfloat16 pipeline step with a finite loss;
+     step, the 2 × 2 × 2 step with its replicas in threads too; 2 × 2 with
+     2 replicas under batch norm (threads that sum each norm's statistics,
+     SGD with momentum, its wait bounded) against the pipeline without
+     replicas; one bfloat16 pipeline step with a finite loss;
   22h. pp-train — ``cli train --pipeline-stages 2 --pipeline-microbatches
      2`` from the uint8 pool, 4 steps with an EMA, one log_sample and a
      save: exact launches, a finite loss; ``cli sample`` restores the
@@ -4243,6 +4251,35 @@ def phase_serve_mesh(torch, fdc, norm, sampler, png, tmp, globs, card):
     print(f"[serve-mesh] /reload swapped both replicas (step {step}); launches B3/B4 from the "
           f"checked requests {tuple(launches.total)}; the checks took "
           f"{time.perf_counter() - t_phase:.2f} s")
+
+    # ---- batch norm: the bucket padded to the replicas' extent as JAX pads
+    # it, then run whole on the first device, against the CPU service
+    from gan_class_transfer2_tpu_torch.train import gan as gan_lib
+
+    bcfg = gcfg.replace(g_norm="batch", checkpoint_dir="").validate()
+    services = {}
+    for dev, devices in (("cuda", [torch.device("cuda", 0)] * 2), ("cpu", ["cpu", "cpu"])):
+        gs = gan_lib.init_gan_state(bcfg, torch.Generator().manual_seed(3), device=dev)
+        services[dev] = srv_mod.ModelService(bcfg, gan_state=gs, mesh=devices, device=dev)
+    bn, bn_cpu = services["cuda"], services["cpu"]
+    if bn.mesh is not None or bn._pad_bucket(1) != 2:
+        fail(f"serve-mesh batch norm: mesh {bn.mesh}, bucket of 1 {bn._pad_bucket(1)}")
+    _, _, (_, b4_bn) = gan_counts(fdc, bcfg, 2)
+    reset()
+    got = bn._run_transfer(x, "ab")
+    launches.take((0, b4_bn), "batch-norm /transfer of 1 image, 2 rows on the first device")
+    want = bn_cpu._run_transfer(x, "ab")
+    alone = gan_lib.make_transfer_fn(bcfg)(bn_cpu._generators["ab"], torch.from_numpy(x)).numpy()
+    err = float(np.abs(got - want).max())
+    print(f"[serve-mesh] batch-norm GAN over two replicas: /transfer ab of 1 image padded to "
+          f"{bn._pad_bucket(1)} rows and run whole on cuda:0, launches B3/B4 (0, {b4_bn}); "
+          f"max|Δ| against the CPU service {err:.3e} (bound 2e-4); the padding row moves the "
+          f"answer by {float(np.abs(want - alone).max()):.3e} from the image run alone")
+    if not err <= 2e-4:
+        fail(f"serve-mesh batch norm: /transfer differs from the CPU service by {err}")
+    for svc in services.values():
+        svc.close()
+    del services, bn, bn_cpu
     torch.backends.cudnn.deterministic = deterministic
 
     # ---- measured and printed: latency and the peak memory of a request
@@ -4800,10 +4837,12 @@ def phase_spatial_kernel(torch, fd, cfg, card):
                  f"below its byte bound {bytes_ms} ms: the reading is impossible, not fast")
         ops = DIFFUSE_INT_PER_ELEMENT * elems, DIFFUSE_FLOAT_PER_ELEMENT * elems
         ops_ms = max(ops[0] / INT32_RATE, (ops[0] + ops[1]) / DISPATCH_RATE) * 1e3
+        plain_ms = cuda_ms(lambda: fd.diffuse_sharded_plain(xb, tb, table, seed, pos), reps=10)
         out[name] = dict(ms=ms, cold_ms=cold_ms, bound_ms=max(bytes_ms, ops_ms),
-                         shape=tuple(xb.shape))
+                         plain_ms=plain_ms, shape=tuple(xb.shape))
         print(f"[spatial-kernel] B1s on a block of the {name} grid, {tuple(xb.shape)} "
-              f"(position {pos}): kernel {ms:.4f} ms back to back, device {cold_ms:.4f} ms "
+              f"(position {pos}): kernel {ms:.4f} ms back to back (plain {plain_ms:.4f} ms), "
+              f"device {cold_ms:.4f} ms "
               f"L2 cold (median of 24 launches over rotating inputs, {cold_lo:.4f}–"
               f"{cold_hi:.4f}); bound {max(bytes_ms, ops_ms):.4f} ms "
               f"({'operations' if ops_ms >= bytes_ms else 'bytes'}: "
@@ -4943,10 +4982,15 @@ def phase_spatial_agree(card):
             fail(f"spatial-agree {name}: loss rel {a['rel']}, share {a['share']}")
     norm_layers = 2 * r0["octaves"]  # a down and an up norm an octave
     blocks = 0
-    for name, _ in SPATIAL_CASES:
+    for name, over in SPATIAL_CASES:
         a, b = r0["options"][name], r1["options"][name]
-        want = {"B3 blocks": 2 * norm_layers if name == "g_norm=instance" else 0, "B3": 0,
-                "B1/B1s": 0}
+        forward = 2 * norm_layers if "g_norm=instance" in name else 0
+        want = {"B3 blocks": forward, "B3": 0, "B1/B1s": 0}
+        recompute = a["launches"]["B3 blocks"] - forward
+        if over.get("remat") and forward:  # and its recompute's, as counted: the ranks agree
+            if recompute <= 0:
+                fail(f"spatial-agree {name}: B3-block launches {a['launches']}: no recompute")
+            want["B3 blocks"] = forward + recompute
         if a["checksum"] != b["checksum"]:
             fail(f"spatial-agree {name}: the ranks' weights differ")
         if a["launches"] != want or b["launches"] != want:
@@ -4962,6 +5006,17 @@ def phase_spatial_agree(card):
                                                    if "scale" in a else ""))
         if not a["rel"] <= 1e-5 or not a["share"] <= 1e-4:
             fail(f"spatial-agree {name}: loss rel {a['rel']}, share {a['share']}")
+        if over.get("remat"):
+            halos = [a["comm"].get("halo", 0), b["comm"].get("halo", 0)]
+            without = [a["halos_without"], b["halos_without"]]
+            if halos[0] != halos[1] or without[0] != without[1] or not halos[0] > without[0]:
+                fail(f"spatial-agree {name}: halos {halos} against {without} without remat")
+            print(f"[spatial-agree] {name}: halo exchanges a step {halos[0]} on both ranks "
+                  f"against {without[0]} without remat; B3 over height blocks "
+                  f"{a['launches']['B3 blocks']} = the forward's {forward} + the recompute's "
+                  f"{recompute}; the step's peak memory above what was resident before it, "
+                  f"rank 0 / rank 1: {a['peak_mb']:.1f} / {b['peak_mb']:.1f} MiB with remat, "
+                  f"{a['peak_mb_without']:.1f} / {b['peak_mb_without']:.1f} MiB without ({card})")
         blocks += a["launches"]["B3 blocks"] + b["launches"]["B3 blocks"]
     f0, f1 = r0["fused"], r1["fused"]
     want = {"B1": 0, "B1s": 2}
@@ -4989,7 +5044,32 @@ def _pp_counts(fdc, adam_kernel, pipeline, cfg, tr):
     b4 = 2 * tr.n_micro * tr.dp * b4_per_call(fdc, cfg, rows)
     index = pipeline.stage_indices(unet.Denoiser(cfg), tr.plan)
     b2 = sum(adam_kernel.launches_per_step(len(ix)) for ix in index)
-    return 1, b4, b2
+    return 1, b4, b2 if adam_kernel.fused_adam_ok(cfg) else 0
+
+
+def _bounded(fn, seconds, what):
+    """``fn()`` in a thread of its own, waited for at most ``seconds``: a
+    call that never returns (a deadlock) ends this script by name."""
+    import threading
+
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn()
+        except BaseException as e:  # noqa: BLE001 — raised below
+            box["err"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(seconds)
+    if t.is_alive():
+        print(f"chip_smoke: FAIL: {what}: no return in {seconds} s (a deadlock?)",
+              file=sys.stderr, flush=True)
+        os._exit(1)  # the stuck thread would hold the interpreter's exit
+    if "err" in box:
+        raise box["err"]
+    return box["out"]
 
 
 def phase_pp_agree(torch, fdc, fd, adam_kernel, trainer, cfg, card):
@@ -5001,9 +5081,13 @@ def phase_pp_agree(torch, fdc, fd, adam_kernel, trainer, cfg, card):
     generator state as the one-process step: the loss within 1e-5 relative,
     the updates beyond 1e-3·lr on at most 1e-4 of the elements
     ([train-agree]'s bounds; constant lr 1e-3); exact launches; the step
-    timed beside the one-process step in the same run; one bfloat16
-    pipeline step with a finite loss. Returns the pipeline steps'
-    launches by kernel name."""
+    timed beside the one-process step in the same run; 2 stages x 2
+    microbatches x 2 replicas under batch norm, SGD with momentum, the
+    replicas in threads that sum each norm's statistics (taking turns on
+    the host), against the pipeline without
+    replicas (each microbatch's statistics whole) at the same bounds, its
+    wait bounded; one bfloat16 pipeline step with a finite loss. Returns
+    the pipeline steps' launches by kernel name."""
     from gan_class_transfer2_tpu_torch.parallel import pipeline
 
     lr = 1e-3
@@ -5040,6 +5124,7 @@ def phase_pp_agree(torch, fdc, fd, adam_kernel, trainer, cfg, card):
     del state
     print(f"[pp-agree] one process, {cfg.size}², batch {TRAIN_BATCH}, fp32 kernel path: loss "
           f"{ref_loss:.7f}, launches B1/B4/B2 {ref_launches}, step {one_ms:.2f} ms")
+    turns_ms = {}
     for stages, micro, dp in PP_CASES:
         c = base.replace(pipeline_stages=stages, pipeline_microbatches=micro, mesh_data=dp)
         tr = pipeline.PipelineTrainer(c, devices=["cuda:0"])
@@ -5054,16 +5139,54 @@ def phase_pp_agree(torch, fdc, fd, adam_kernel, trainer, cfg, card):
         share = (diff > 1e-3 * lr).double().mean().item()
         ms = step_ms(tr.step, st)
         name = f"stages {stages} x microbatches {micro}" + (f" x {dp} replicas" if dp > 1 else "")
+        if dp > 1:
+            turns_ms[dp] = ms
         print(f"[pp-agree] {name} (plan {tr.plan}, all on cuda:0): loss {loss:.7f} (rel "
               f"{rel:.2e}, bound 1e-5); updates: max|Δpp − Δ1| {diff.max().item():.3e}, share "
               f"beyond 1e-3·lr {share:.2e} (bound 1e-4); launches B1/B4/B2 {got} (expected "
-              f"{want}); step {ms:.2f} ms against the one process's {one_ms:.2f} ms in this run "
-              f"({card})")
+              f"{want}); step {ms:.2f} ms against the one process's {one_ms:.2f} ms in "
+              f"this run ({card})")
         if got != want:
             fail(f"pp-agree {name}: launches B1/B4/B2 {got}, expected {want}")
         if not rel <= 1e-5 or not share <= 1e-4:
             fail(f"pp-agree {name}: loss rel {rel}, share {share}")
         del st, tr
+    # batch norm: the 2 replicas of a stage a thread each, taking turns on
+    # the host and summing each norm's statistics; the reference is the pipeline without
+    # replicas, whose stages take each microbatch's statistics whole
+    c = base.replace(pipeline_stages=2, pipeline_microbatches=2, mesh_data=2, g_norm="batch",
+                     optimizer="momentum")
+    name = "batch norm, stages 2 x microbatches 2 x 2 replicas"
+    ref_tr = pipeline.PipelineTrainer(c.replace(mesh_data=1), devices=["cuda:0"])
+    pb = [p.detach().clone() for p in ref_tr.init_state().model.parameters()]
+    st, b_ref, _ = one_step(ref_tr.step, ref_tr.init_state(), 5)
+    b_delta = [p.detach() - q for p, q in zip(st.model.parameters(), pb)]
+    ref_ms = step_ms(ref_tr.step, st, reps=6)
+    del st, ref_tr
+    tr = pipeline.PipelineTrainer(c, devices=["cuda:0"])
+    st = tr.init_state()
+    st, loss, got = _bounded(lambda: one_step(tr.step, st, 5), 300, f"pp-agree {name}")
+    want = _pp_counts(fdc, adam_kernel, pipeline, c, tr)
+    for key, n in zip(("diffuse_f32", "down_conv_k4s2_f32", "adam_f32m"), got):
+        total[key] += n
+    delta = [p.detach() - q for p, q in zip(st.model.parameters(), pb)]
+    rel = abs(loss - b_ref) / abs(b_ref)
+    diff = torch.cat([(a - b).abs().flatten() for a, b in zip(delta, b_delta)])
+    share = (diff > 1e-3 * lr).double().mean().item()
+    counts = dict(tr.counts)
+    ms = _bounded(lambda: step_ms(tr.step, st, reps=6), 300, f"pp-agree {name}, timed")
+    print(f"[pp-agree] {name} (threads on cuda:0): loss {loss:.7f} against the pipeline "
+          f"without replicas {b_ref:.7f} (rel {rel:.2e}, bound 1e-5); updates: max|Δ − Δref| "
+          f"{diff.max().item():.3e}, share beyond 1e-3·lr {share:.2e} (bound 1e-4); launches "
+          f"B1/B4/B2 {got} (expected {want}); rows a replica {counts['rows']}, statistics sums "
+          f"{counts['sums']}, autograd.grad calls {counts['grads']}; step {ms:.2f} ms against "
+          f"{ref_ms:.2f} ms without replicas and {turns_ms[2]:.2f} ms for the 2 x 2 x 2 step "
+          f"without batch norm, its replicas in turn ({card})")
+    if got != want:
+        fail(f"pp-agree {name}: launches B1/B4/B2 {got}, expected {want}")
+    if not rel <= 1e-5 or not share <= 1e-4 or not counts["sums"]:
+        fail(f"pp-agree {name}: loss rel {rel}, share {share}, counts {counts}")
+    del st, tr
     c = base.replace(pipeline_stages=2, pipeline_microbatches=2, compute_dtype="bfloat16")
     tr = pipeline.PipelineTrainer(c, devices=["cuda:0"])
     st, loss, got = one_step(tr.step, tr.init_state(), 5)
@@ -5439,7 +5562,10 @@ SPATIAL_CASES = (("g_norm=instance", dict(g_norm="instance", optimizer="momentum
                  ("loss=dct", dict(loss="dct")),
                  ("loss=mse_multiscale", dict(loss="mse_multiscale")),
                  ("dynamic loss scale", dict(dynamic_loss_scale=True)),
-                 ("uint8 pool", {}))
+                 ("uint8 pool", {}),
+                 ("remat", dict(remat=True)),
+                 ("remat + g_norm=instance", dict(remat=True, g_norm="instance",
+                                                  optimizer="momentum")))
 SPATIAL_POOL = (32, 288, 288)  # [spatial-agree]'s uint8 pool: images (N, H, W)
 
 
@@ -5449,7 +5575,9 @@ def _spatial_options(torch, rank, mesh, cfg, x, t, eps, lr):
     weights, t and ε (rank 0 alone); the uint8 case draws its rows from a
     raw HBMDataset under the spatial mesh (both ranks the same rows) and
     crops them with the step's generator, the one process with the same
-    draws. Returns {case: loss, rel, update share, launches, checksum}."""
+    draws. Returns {case: loss, rel, update share, launches, checksum,
+    collectives by kind, the step's peak MiB above what was resident
+    before it (and, for a remat case, the same step's without remat)}."""
     from gan_class_transfer2_tpu_torch.data import device_augment
     from gan_class_transfer2_tpu_torch.models import api
     from gan_class_transfer2_tpu_torch.ops import fused_diffusion as fd
@@ -5495,11 +5623,18 @@ def _spatial_options(torch, rank, mesh, cfg, x, t, eps, lr):
             del state
         multihost.barrier()
         step = spatial_train.make_spatial_train_step(c, mesh)
+        state = fresh()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        multihost.comm.reset()
         counts = (norm.block_launches(), norm.instance_norm_fused.launches,
                   fd.diffuse_fused.launches + fd.diffuse_fused_sharded.launches)
-        state, loss = step(fresh(), batch, gen, t_int=spatial_train.local_rows(t, mesh),
+        state, loss = step(state, batch, gen, t_int=spatial_train.local_rows(t, mesh),
                            epsilon=spatial_train.local_block(eps, mesh).contiguous())
         torch.cuda.synchronize()
+        res["peak_mb"] = (torch.cuda.max_memory_allocated() - resident) / 2**20
+        res["comm"] = dict(multihost.comm.calls)
         res["launches"] = {"B3 blocks": norm.block_launches() - counts[0],
                            "B3": norm.instance_norm_fused.launches - counts[1],
                            "B1/B1s": fd.diffuse_fused.launches
@@ -5516,8 +5651,22 @@ def _spatial_options(torch, rank, mesh, cfg, x, t, eps, lr):
             res["max_diff"] = diff.max().item()
             res["share"] = (diff > 1e-3 * c.learning_rate).double().mean().item()
             del ref, diff
+        del state
+        if c.remat:  # the same step without remat, in its place: its peak and its halos
+            plain = fresh()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            multihost.comm.reset()
+            spatial_train.make_spatial_train_step(c.replace(remat=False), mesh)(
+                plain, batch, gen, t_int=spatial_train.local_rows(t, mesh),
+                epsilon=spatial_train.local_block(eps, mesh).contiguous())
+            torch.cuda.synchronize()
+            res["peak_mb_without"] = (torch.cuda.max_memory_allocated() - resident) / 2**20
+            res["halos_without"] = multihost.comm.calls.get("halo", 0)
+            del plain
         out[name] = res
-        del state, init, p0
+        del init, p0
         torch.cuda.empty_cache()
     return out
 

@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -32,6 +33,17 @@ NVCC_FLAGS = (
 HOST_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared", "-Wall", "-pthread")
 
 _loaded: dict = {}
+# one build or load at a time: replicas in threads of one process (the
+# pipeline's) may reach a kernel's first launch together
+_LOAD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
+def count(fn) -> None:
+    """One more launch on ``fn.launches`` (a kernel wrapper's count), under a
+    lock: threads that run replicas launch at once."""
+    with _COUNT_LOCK:
+        fn.launches += 1
 
 
 def _nvcc() -> str:
@@ -85,10 +97,13 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        path = library_path(name)
-        if not path.exists():
-            build_all([name])
-        lib = _loaded[name] = ctypes.CDLL(str(path))
+        with _LOAD_LOCK:
+            lib = _loaded.get(name)
+            if lib is None:
+                path = library_path(name)
+                if not path.exists():
+                    build_all([name])
+                lib = _loaded[name] = ctypes.CDLL(str(path))
     return lib
 
 

@@ -190,7 +190,7 @@ def diffuse_fused(x, t, table, seed):
             return diffuse_plain(x, t, table, seed)
         raise ValueError(f"diffuse_fused: no kernel for device {x.device}")
     out = _launch(x, t, table, seed, 0)
-    diffuse_fused.launches += 1
+    _build.count(diffuse_fused)
     return out
 
 
@@ -207,7 +207,7 @@ def diffuse_fused_sharded(x, t, table, seed, position: int):
             return diffuse_sharded_plain(x, t, table, seed, position)
         raise ValueError(f"diffuse_fused_sharded: no kernel for device {x.device}")
     out = _launch(x, t, table, seed, fold_word(position))
-    diffuse_fused_sharded.launches += 1
+    _build.count(diffuse_fused_sharded)
     return out
 
 

@@ -218,7 +218,7 @@ def _forward(x, kernel, bias, relu: bool):
             err = fn(*args, _build.current_stream(dev.index))
     if err != 0:
         raise RuntimeError(f"down_conv kernel launch failed: CUDA error {err}")
-    down_conv_fused.launches += 1
+    _build.count(down_conv_fused)
     return y
 
 

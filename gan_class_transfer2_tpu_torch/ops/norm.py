@@ -171,7 +171,7 @@ def instance_norm_fused(x, gamma, beta):
     y = torch.empty_like(x)
     _launch(_entry(x.dtype), (x.data_ptr(), g.data_ptr(), bt.data_ptr(), y.data_ptr(), b,
                               h * w, c, plan(b, h, w, c).cluster), dev, "instance_norm")
-    instance_norm_fused.launches += 1
+    _build.count(instance_norm_fused)
     return y
 
 
@@ -259,7 +259,8 @@ def instance_norm(x, gamma, beta):
 
 # ------------------------------------------------------- across ranks
 
-_RANKS = threading.local()  # .names: the axes a step's norm statistics span
+_RANKS = threading.local()  # .names: the axes a step's norm statistics span;
+# .replica: (ReplicaGroup, index) of a replica thread (over_replicas)
 
 
 @contextlib.contextmanager
@@ -314,23 +315,118 @@ def sum_over_ranks(x, axes):
     return _SumOverRanks.apply(x, axes) if axes else x
 
 
+class ReplicaGroup:
+    """``size`` threads of one process, each running a replica on its rows
+    of a batch, that sum batch norm's statistics between them (the
+    pipeline's PP × DP replicas). The threads take turns, in replica
+    order: one runs until its next norm posts its part of the sums, then
+    hands the turn on, and when the turn comes back every part is posted,
+    so it adds the parts in replica order on its own device (every replica
+    normalises with the same bits) and runs on. One thread is on the host
+    at a time, so a device's stream takes the replicas' launches in a
+    fixed order and no thread waits for the GIL, which every torch call
+    lets go of and takes back; the launches stay asynchronous on the
+    devices. Sums alternate between two banks of
+    slots: a bank is written again only after every replica has read it.
+    The sum is plain torch ops, differentiable, so its adjoint is an
+    ordinary edge of the graph: no wait is left in the backward, which on
+    the card runs on autograd's one thread a device. A wait longer than
+    ``timeout`` seconds, or ``abort`` (a replica that raised), breaks every
+    wait with ``threading.BrokenBarrierError``."""
+
+    def __init__(self, size: int, timeout: float = 600.0):
+        self.size = size
+        self.timeout = timeout
+        self._cond = threading.Condition()
+        self.sums = 0  # sums taken (each one a call from every replica)
+        self.clear()
+
+    def clear(self):
+        """Drop the slots' tensors and give replica 0 the turn (between runs
+        of the replicas' threads)."""
+        self._banks = [[None] * self.size, [None] * self.size]
+        self._reads = [0] * self.size
+        self._turn = 0
+        self._broken = False
+
+    def wait_turn(self, index: int):
+        with self._cond:
+            ok = self._cond.wait_for(lambda: self._broken or self._turn == index, self.timeout)
+            if self._broken or not ok:
+                self._broken = True
+                self._cond.notify_all()
+                raise threading.BrokenBarrierError(f"replica {index}: the group is broken")
+
+    def pass_turn(self, index: int):
+        with self._cond:
+            self._turn = (index + 1) % self.size
+            self._cond.notify_all()
+
+    def abort(self):
+        with self._cond:
+            self._broken = True
+            self._cond.notify_all()
+
+    def sum(self, x, index: int):
+        """Σ over the replicas of their ``x`` (this thread's is replica
+        ``index``'s), on ``x``'s device."""
+        slots = self._banks[self._reads[index] % 2]
+        self._reads[index] += 1
+        slots[index] = x
+        self.pass_turn(index)
+        self.wait_turn(index)
+        total = slots[0].to(x.device)
+        for part in slots[1:]:
+            total = total + part.to(x.device)
+        if index == 0:
+            self.sums += 1
+        return total
+
+
+@contextlib.contextmanager
+def over_replicas(group, index: int):
+    """Within (this thread): batch norm's statistics also span the replicas
+    of ``group`` (a ``ReplicaGroup``; None adds nothing), this thread being
+    replica ``index``: it waits for its turn on entry and hands the turn on
+    at the end, or breaks the group's waits if the block raises."""
+    saved = getattr(_RANKS, "replica", None)
+    if group is not None:
+        group.wait_turn(index)
+    _RANKS.replica = None if group is None else (group, index)
+    try:
+        yield
+    except BaseException:
+        if group is not None:
+            group.abort()
+        raise
+    else:
+        if group is not None:
+            group.pass_turn(index)
+    finally:
+        _RANKS.replica = saved
+
+
 def batch_norm(x, gamma, beta, eps: float = _EPS):
     """Training-mode batch norm: stats over (B, H, W) per channel
-    (norm.py:125-133), and over the ranks of the open ``stats_over``: the
-    sums and the count summed over them, then the centred squares."""
+    (norm.py:125-133), and over the ranks of the open ``stats_over`` and
+    the replicas of the open ``over_replicas``: the sums and the count
+    summed over them, then the centred squares."""
     axes = rank_axes()
+    replica = getattr(_RANKS, "replica", None)
     xf = x.float()
-    if not axes:
+    if not axes and replica is None:
         m = xf.mean(dim=(0, 1, 2), keepdim=True)
         v = torch.square(xf - m).mean(dim=(0, 1, 2), keepdim=True)
     else:
+        def total(part):
+            part = sum_over_ranks(part, axes)
+            return part if replica is None else replica[0].sum(part, replica[1])
+
         c = x.shape[-1]
-        local = torch.cat([xf.sum(dim=(0, 1, 2)), xf.new_full((1,), xf.numel() // c)])
-        total = sum_over_ranks(local, axes)
-        count = total[c]
-        m = (total[:c] / count).reshape(1, 1, 1, c)
-        v = (sum_over_ranks(torch.square(xf - m).sum(dim=(0, 1, 2)), axes) / count).reshape(
-            1, 1, 1, c)
+        sums = total(torch.cat([xf.sum(dim=(0, 1, 2)), xf.new_full((1,), xf.numel() // c)]))
+        count = sums[c]
+        m = (sums[:c] / count).reshape(1, 1, 1, c)
+        v = (total(torch.square(xf - m).sum(dim=(0, 1, 2))) / count).reshape(1, 1, 1, c)
     y = (xf - m) * torch.rsqrt(v + eps) * gamma.float() + beta.float()
     return y.to(x.dtype)
 
@@ -380,7 +476,7 @@ def block_stats(x):
     _launch(_block_entry("stats", x.dtype),
             (x.data_ptr(), out.data_ptr(), b, h * w, c, plan(b, h, w, c).cluster), dev,
             "instance_norm stats")
-    block_stats.launches += 1
+    _build.count(block_stats)
     return out
 
 
@@ -430,7 +526,7 @@ def block_apply(x, mean, rstd, gamma, beta):
     _launch(_block_entry("apply", x.dtype),
             (x.data_ptr(), mr.data_ptr(), g.data_ptr(), bt.data_ptr(), y.data_ptr(), b, h * w, c,
              plan(b, h, w, c).cluster), dev, "instance_norm apply")
-    block_apply.launches += 1
+    _build.count(block_apply)
     return y
 
 

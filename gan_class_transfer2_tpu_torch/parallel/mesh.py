@@ -750,12 +750,18 @@ def shard_sample_batch(batch, mesh):
     n = batch.shape[0]
     if mesh is None or mesh.size <= 1:
         return batch, n
-    pad = (-n) % data_axis_size(mesh)
-    if pad:
-        batch = torch.cat([batch, batch.new_zeros((pad,) + tuple(batch.shape[1:]))], 0)
+    batch = pad_rows(batch, data_axis_size(mesh))
     if isinstance(mesh, LocalMesh):
         return [block.to(d) for block, d in zip(batch.chunk(mesh.size), mesh.devices)], n
     return local_rows(batch, mesh), n
+
+
+def pad_rows(batch, extent: int):
+    """``batch`` with zero rows appended up to a multiple of ``extent``."""
+    pad = (-batch.shape[0]) % extent
+    if not pad:
+        return batch
+    return torch.cat([batch, batch.new_zeros((pad,) + tuple(batch.shape[1:]))], 0)
 
 
 def gather_rows(local, mesh, n: int, dim: int = 0):
@@ -813,6 +819,28 @@ def make_data_parallel_apply(mesh, fn):
         if isinstance(out, tuple):
             return tuple(gather_rows(o, mesh, real) for o in out)
         return gather_rows(out, mesh, real)
+
+    return wrapped
+
+
+def make_padded_apply(extent: int, fn):
+    """``fn(params, batch, *extras)`` run whole on the batch zero-padded to a
+    multiple of ``extent`` (and each extra whose leading dim matches it),
+    each output cut back to the real rows: the rows JAX's
+    ``make_data_parallel_apply`` runs over ``extent`` data devices
+    (mesh.py:315), where a batch norm's statistics span the padded batch.
+    ``fn`` itself for an extent of 1."""
+    if extent <= 1:
+        return fn
+
+    def wrapped(params, batch, *extras):
+        n = batch.shape[0]
+        ex = [pad_rows(e, extent) if isinstance(e, torch.Tensor) and e.ndim >= 1
+              and e.shape[0] == n else e for e in extras]
+        out = fn(params, pad_rows(batch, extent), *ex)
+        if isinstance(out, tuple):
+            return tuple(o[:n] for o in out)
+        return out[:n]
 
     return wrapped
 

@@ -48,6 +48,7 @@ world and any other axis has size 1.
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from typing import NamedTuple, Optional
 
@@ -77,19 +78,24 @@ class CommStats:
     norms' statistics across ranks (``norm``) and the gradient all-reduces
     (``grad``), by kind. Timing
     synchronises the device before and after each collective, so it is off
-    unless a measurement turns it on; counting costs a dict update."""
+    unless a measurement turns it on; counting costs a dict update, under
+    a lock: a recompute in the backward counts from autograd's device
+    thread."""
 
     def __init__(self):
         self.timing = False
+        self._lock = threading.Lock()
         self.reset()
 
     def reset(self):
-        self.calls, self.bytes, self.seconds = {}, {}, {}
+        with self._lock:
+            self.calls, self.bytes, self.seconds = {}, {}, {}
 
     @contextlib.contextmanager
     def record(self, kind: str, t: torch.Tensor):
-        self.calls[kind] = self.calls.get(kind, 0) + 1
-        self.bytes[kind] = self.bytes.get(kind, 0) + t.numel() * t.element_size()
+        with self._lock:
+            self.calls[kind] = self.calls.get(kind, 0) + 1
+            self.bytes[kind] = self.bytes.get(kind, 0) + t.numel() * t.element_size()
         if not self.timing:
             yield
             return
@@ -99,7 +105,8 @@ class CommStats:
         yield
         if t.is_cuda:
             torch.cuda.synchronize(t.device)
-        self.seconds[kind] = self.seconds.get(kind, 0.0) + time.perf_counter() - t0
+        with self._lock:
+            self.seconds[kind] = self.seconds.get(kind, 0.0) + time.perf_counter() - t0
 
 
 comm = CommStats()

@@ -13,8 +13,9 @@ microbatch runs first, without autograd, and stashes each stage's input and
 its stage-local skips; the backward runs in reverse microbatch order, each
 stage recomputing its forward under autograd and calling
 ``torch.autograd.grad`` with the cotangents from downstream (GPipe remat,
-as JAX's ``jax.vjp`` inside each jitted stage VJP). The recompute holds its
-own ``unet.ieee_fp32`` region: it runs outside the forward's.
+as JAX's ``jax.vjp`` inside each jitted stage VJP), once for all of its
+replicas. The recompute holds its own ``unet.ieee_fp32`` region: it runs
+outside the forward's.
 
 Semantics: exactly the one-process ``trainer.train_step`` at the same
 global batch. The draws are made once for the full batch on stage 0's
@@ -41,13 +42,22 @@ stage. A boundary activation (an ``(h, skip)`` pair under
 copy. PP × DP (``mesh_data`` > 1): JAX gives each stage a data mesh of its
 own in one process; here each stage has in-process replicas on its ``dp``
 devices (as ``LocalMesh`` serves), each microbatch's rows split over them.
-The replicas run in turn from the calling thread, each stage's gradients
-are summed onto its first device before the update, and the updated
-weights are copied back to the replicas. Batch norms (``g_norm="batch"``)
-take their statistics over the whole microbatch, as JAX's stage program
-over its data devices does; replicas that run in turn cannot share a
-norm's sums mid-forward, so under batch norm each microbatch runs whole
-on its stage's first device and the other replicas stay idle.
+Each stage's gradients are summed onto its first device before the
+update, and the updated weights are copied back to the replicas. Batch
+norms (``g_norm="batch"``) take their statistics over the whole
+microbatch, as JAX's stage program over its data devices does: each
+replica runs in a thread of its own with its device current (threads
+kept while the trainer lives, so each keeps its cuDNN plans), and the
+replicas sum each norm's per-channel sums, count and centred squares
+between them (``ops/norm.ReplicaGroup``, the two-pass formula of
+``batch_norm`` over ranks). The threads take turns on the host, one at a
+time from one norm to the next, so only their devices' work overlaps.
+That sum is a plain differentiable op, so the one ``autograd.grad`` of a
+stage program, called from the calling thread, carries its adjoint as a
+graph edge: no replica waits for another inside the backward, which on
+the card runs on autograd's one thread a device and would deadlock
+replicas sharing one. Without batch norm the replicas run in turn from
+the calling thread (threads measured no faster on one card; PERF.md §6).
 Single-process, as JAX's.
 """
 
@@ -56,6 +66,9 @@ from __future__ import annotations
 import contextlib
 import copy
 import itertools
+import queue
+import threading
+import weakref
 from typing import List, Sequence, Tuple
 
 import torch
@@ -64,6 +77,7 @@ from torch import nn
 from ..models import unet
 from ..models.api import resolve_device
 from ..ops import adam_kernel
+from ..ops import norm as norm_ops
 from . import mesh as mesh_lib
 from . import multihost
 
@@ -311,6 +325,79 @@ def _on(device):
     return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
+class _ReplicaThreads:
+    """One thread a replica, kept while its trainer lives: the PyTorch
+    state a thread keeps for itself (cuDNN's execution plans among it)
+    then serves every step, where threads made afresh for each stage
+    program would build it again each time."""
+
+    def __init__(self, n: int):
+        self._inbox = [queue.SimpleQueue() for _ in range(n)]
+        self._done: queue.SimpleQueue = queue.SimpleQueue()
+        self._threads = [threading.Thread(target=self._serve, args=(r,), name=f"replica-{r}",
+                                          daemon=True) for r in range(n)]
+        for t in self._threads:
+            t.start()
+
+    def _serve(self, r: int):
+        while True:
+            job = self._inbox[r].get()
+            if job is None:
+                return
+            job(r)
+            # hold nothing of the step while waiting: the job's closure
+            # reaches the trainer, which must stay free to go
+            job = None
+            self._done.put(r)
+
+    def run(self, job):
+        """``job(r)`` handed to every replica's thread; returns when all
+        have ended (``job`` keeps its own errors)."""
+        for q in self._inbox:
+            q.put(job)
+        for _ in self._inbox:
+            self._done.get()
+
+    def stop(self):
+        """End the threads (when the trainer goes, or at exit; a collection
+        that a replica's own thread runs leaves that thread to end alone)."""
+        for q in self._inbox:
+            q.put(None)
+        for t in self._threads:
+            if t is not threading.current_thread():
+                t.join()
+
+
+def _each_replica(fn, n: int, group, threads) -> list:
+    """``[fn(r) for r in range(n)]``: on ``threads`` (a ``_ReplicaThreads``),
+    each replica on its own thread under the caller's grad mode, in
+    ``group``'s statistics (``ops/norm.over_replicas``: the threads take
+    turns between the norms' sums), the caller waiting for all; without,
+    in turn from the caller's thread. A replica that raises breaks the
+    group's waits, and the first error (not a broken wait) is raised
+    here."""
+    if threads is None:
+        return [fn(r) for r in range(n)]
+    grad = torch.is_grad_enabled()
+    out, errors = [None] * n, [None] * n
+
+    def job(r):
+        try:
+            with torch.set_grad_enabled(grad), norm_ops.over_replicas(group, r):
+                out[r] = fn(r)
+        except BaseException as e:  # noqa: BLE001 — raised in the caller
+            errors[r] = e
+
+    threads.run(job)
+    if group is not None:
+        group.clear()
+    failed = [e for e in errors if e is not None]
+    if failed:
+        raise next((e for e in failed if not isinstance(e, threading.BrokenBarrierError)),
+                   failed[0])
+    return out
+
+
 @contextlib.contextmanager
 def _recompute(device):
     """A stage's recompute and backward on ``device``: autograd on, in IEEE
@@ -376,9 +463,11 @@ class PipelineTrainer:
         self.n_micro = cfg.pipeline_microbatches or cfg.pipeline_stages
         self.plan = plan_stages(cfg, self.n_stages)
         self.dp = max(cfg.mesh_data, 1)
-        # the replicas a microbatch's rows split over: one under batch norm,
-        # whose statistics span the microbatch (see the module's docstring)
-        self.replicas = 1 if cfg.g_norm == "batch" else self.dp
+        # of the last step: rows each replica's stage forward ran
+        # ([stage][replica]), autograd.grad calls, the replica group's sums
+        # (two a batch norm)
+        self.counts: dict = {}
+        self._threads = None  # the replicas' threads, made at their first use
         need = self.n_stages * self.dp
         if devices is None:
             devices = mesh_lib.local_devices(resolve_device(device))
@@ -500,11 +589,18 @@ class PipelineTrainer:
         if (b // M) % D:
             raise ValueError(
                 f"PP x DP needs the microbatch ({b // M}) divisible by mesh_data={D}")
-        D = self.replicas
         if state.model is not self._model:
             self._bind(state.model)
         stages, index = self._stages, self._index
         rows = b // (M * D)
+        # batch norm's statistics span a microbatch's replicas: their
+        # threads sum them at each norm
+        group = norm_ops.ReplicaGroup(D) if D > 1 and cfg.g_norm == "batch" else None
+        if group is not None and self._threads is None:
+            self._threads = _ReplicaThreads(D)
+            weakref.finalize(self, self._threads.stop)
+        threads = None if group is None else self._threads
+        counts = self.counts = {"rows": [[0] * D for _ in range(S)], "grads": 0}
 
         def part(x, m, r):  # microbatch m's rows on replica r
             if not isinstance(x, torch.Tensor) or x.ndim == 0:
@@ -515,20 +611,26 @@ class PipelineTrainer:
         def dev(s, r):
             return self.stage_devices[s][r]
 
+        def each(fn):
+            return _each_replica(fn, D, group, threads)
+
         # ---- forward: every microbatch's chain, without autograd; stash
         # each stage's inputs and its stage-local skips
         x_in = [[[None] * D for _ in range(S)] for _ in range(M)]
         skips = [[[None] * D for _ in range(S)] for _ in range(M)]
         h_up = [[[None] * D for _ in range(S)] for _ in range(M)]
-        with torch.no_grad(), unet.ieee_fp32(torch.float32, dev0):
-            for m, r in itertools.product(range(M), range(D)):
+
+        def forward(r):
+            for m in range(M):
                 h = _to(part(noised, m, r), dev(0, r))
                 for s in range(S - 1):
                     x_in[m][s][r] = h
+                    counts["rows"][s][r] += h.shape[0]
                     with _on(dev(s, r)):
                         h, skips[m][s][r] = _stage_down(cfg, stages[s][r], h, s == 0)
                     h = _to(h, dev(s + 1, r))
                 x_in[m][S - 1][r] = h
+                counts["rows"][S - 1][r] += h.shape[0]
                 with _on(dev(S - 1, r)):
                     h = _stage_mid(cfg, stages[S - 1][r], h)
                 for s in range(S - 2, -1, -1):
@@ -537,10 +639,14 @@ class PipelineTrainer:
                         with _on(dev(s, r)):
                             h = _stage_up(cfg, stages[s][r], h, skips[m][s][r])
 
+        with torch.no_grad(), unet.ieee_fp32(torch.float32, dev0):
+            each(forward)
+
         # ---- backward in reverse microbatch order: each stage recomputes
-        # its forward under autograd (its own ieee_fp32 region) and takes
-        # the gradients of its parameters and inputs for the cotangents
-        # from downstream
+        # its forward under autograd, every replica's, and one
+        # ``autograd.grad`` from this thread takes the gradients of all the
+        # replicas' parameters and inputs for the cotangents from downstream
+        # (under batch norm the replicas' graphs meet at the norms' sums)
         g: list = [None] * S
         losses = []
 
@@ -552,57 +658,87 @@ class PipelineTrainer:
                 g[s] = [a if x is None else (x if a is None else a + x)
                         for a, x in zip(g[s], grads)]
 
-        def grad(s, r, outputs, inputs, cts):
-            params = list(stages[s][r].parameters())
+        def grad(s, outputs, inputs, cts):
+            """``outputs``, ``inputs`` and ``cts``: a list for each replica;
+            returns the inputs' gradients, a list for each replica."""
+            params = [list(stages[s][r].parameters()) for r in range(D)]
             # an output that needs no gradient (stage 0's first skip without
             # a pre_block: the noised input itself) passes no cotangent
             live = [(o, torch.zeros_like(o) if c is None else c)
-                    for o, c in zip(outputs, cts) if o.requires_grad]
-            out = torch.autograd.grad([o for o, _ in live], params + inputs,
-                                      [c for _, c in live], allow_unused=True)
-            acc(s, out[:len(params)])
-            return list(out[len(params):])
+                    for r in range(D) for o, c in zip(outputs[r], cts[r]) if o.requires_grad]
+            wrt = [x for r in range(D) for x in params[r] + inputs[r]]
+            with _recompute(dev(s, 0)):
+                out = torch.autograd.grad([o for o, _ in live], wrt, [c for _, c in live],
+                                          allow_unused=True)
+            counts["grads"] += 1
+            ins, k = [], 0
+            for r in range(D):
+                n = len(params[r])
+                acc(s, out[k:k + n])
+                ins.append(list(out[k + n:k + n + len(inputs[r])]))
+                k += n + len(inputs[r])
+            return ins
 
         ct = torch.full((), 1.0 / (M * D), dtype=torch.float32, device=dev0)
+        h_ct = [None] * D
         for m in range(M - 1, -1, -1):
-            loss_m = []
-            for r in range(D):
+            def loss_program(r):
                 d0 = dev(0, r)
                 with _recompute(d0):
                     hi = _leaf(h_up[m][0][r], True)
                     si = [_leaf(x, True) for x in skips[m][0][r]]
                     loss = _stage_loss(cfg, stages[0][r], hi, si, _to(part(target, m, r), d0),
                                        _to(part(pred_scale, m, r), d0), _to(part(t_b, m, r), d0))
-                    out = grad(0, r, [loss], _flat(hi) + si, [_to(ct, d0)])
-                loss_m.append(_to(loss.detach(), dev0))
+                return hi, si, loss
+
+            rec = each(loss_program)
+            outs = grad(0, [[loss] for _, _, loss in rec], [_flat(hi) + si for hi, si, _ in rec],
+                        [[_to(ct, dev(0, r))] for r in range(D)])
+            loss_m = [_to(loss.detach(), dev0) for _, _, loss in rec]
+            losses.append(sum(loss_m[1:], loss_m[0]) / D)
+            sk_ct = [[None] * S for _ in range(D)]
+            for r, (hi, _, _) in enumerate(rec):
                 nh = len(_flat(hi))
-                h_ct, sk_ct = _like(hi, out[:nh]), [out[nh:]] + [None] * (S - 1)
-                for s in range(1, S - 1):
-                    ds = dev(s, r)
-                    with _recompute(ds):
+                h_ct[r], sk_ct[r][0] = _like(hi, outs[r][:nh]), outs[r][nh:]
+            for s in range(1, S - 1):
+                def up_program(r, s=s):
+                    with _recompute(dev(s, r)):
                         hi = _leaf(h_up[m][s][r], True)
                         si = [_leaf(x, True) for x in skips[m][s][r]]
-                        ho = _stage_up(cfg, stages[s][r], hi, si)
-                        out = grad(s, r, _flat(ho), _flat(hi) + si, _flat(_to(h_ct, ds)))
+                        return hi, si, _stage_up(cfg, stages[s][r], hi, si)
+
+                rec = each(up_program)
+                outs = grad(s, [_flat(ho) for _, _, ho in rec],
+                            [_flat(hi) + si for hi, si, _ in rec],
+                            [_flat(_to(h_ct[r], dev(s, r))) for r in range(D)])
+                for r, (hi, _, _) in enumerate(rec):
                     nh = len(_flat(hi))
-                    h_ct, sk_ct[s] = _like(hi, out[:nh]), out[nh:]
-                dl = dev(S - 1, r)
-                with _recompute(dl):
+                    h_ct[r], sk_ct[r][s] = _like(hi, outs[r][:nh]), outs[r][nh:]
+
+            def mid_program(r):
+                with _recompute(dev(S - 1, r)):
                     x = _leaf(x_in[m][S - 1][r], True)
-                    ho = _stage_mid(cfg, stages[S - 1][r], x)
-                    (x_ct,) = grad(S - 1, r, _flat(ho), [x], _flat(_to(h_ct, dl)))
-                for s in range(S - 2, -1, -1):
-                    ds = dev(s, r)
-                    with _recompute(ds):
+                    return x, _stage_mid(cfg, stages[S - 1][r], x)
+
+            rec = each(mid_program)
+            outs = grad(S - 1, [_flat(ho) for _, ho in rec], [[x] for x, _ in rec],
+                        [_flat(_to(h_ct[r], dev(S - 1, r))) for r in range(D)])
+            x_ct = [o[0] for o in outs]
+            for s in range(S - 2, -1, -1):
+                def down_program(r, s=s):
+                    with _recompute(dev(s, r)):
                         x = _leaf(x_in[m][s][r], s > 0)
-                        ho, so = _stage_down(cfg, stages[s][r], x, s == 0)
-                        out = grad(s, r, [ho, *so], [x] if s > 0 else [],
-                                   [_to(x_ct, ds), *sk_ct[s]])
-                    if s > 0:
-                        (x_ct,) = out
-            losses.append(sum(loss_m[1:], loss_m[0]) / D)
+                        return x, _stage_down(cfg, stages[s][r], x, s == 0)
+
+                rec = each(down_program)
+                outs = grad(s, [[ho, *so] for _, (ho, so) in rec],
+                            [[x] if s > 0 else [] for x, _ in rec],
+                            [[_to(x_ct[r], dev(s, r)), *sk_ct[r][s]] for r in range(D)])
+                if s > 0:
+                    x_ct = [o[0] for o in outs]
             # this microbatch's stash is dead once its backward has drained
             x_in[m] = skips[m] = h_up[m] = None
+        counts["sums"] = 0 if group is None else group.sums
 
         grads = [[torch.zeros_like(p) if x is None else x
                   for x, p in zip(g[s], stages[s][0].parameters())] for s in range(S)]

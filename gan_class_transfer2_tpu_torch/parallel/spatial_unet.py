@@ -32,12 +32,16 @@ through ``make_local_apply``, which takes both, as JAX's GSPMD step does:
     data and spatial ranks (``ops/norm.batch_norm`` under the body's
     ``stats_over("data", "spatial")``);
   * ``per_step_output``: the head's gather on t − 1, per sample and pixel,
-    so local (each rank holds all of its samples' steps).
+    so local (each rank holds all of its samples' steps);
+  * ``remat``: each inner octave under ``torch.utils.checkpoint``, as in
+    ``models/unet.py``; its recompute re-runs the octave's halos and norm
+    collectives in the backward.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..models import unet
 from ..ops import conv as conv_ops
@@ -120,8 +124,15 @@ def _post_blocks(layers, h, dtype, ax):
 
 def _local_unet(cfg, model, x, ax, t=None):
     """The shard-local body (spatial_unet.py:138); ``t`` (B,) the samples'
-    steps under ``per_step_output``."""
+    steps under ``per_step_output``. ``cfg.remat`` checkpoints each inner
+    octave as ``unet.unet_apply`` does: its recompute runs on whatever
+    thread autograd calls it (on the card, its device thread), so it
+    reopens the forward's ``ieee_fp32`` region and statistics axes, and
+    re-runs the octave's halo exchanges and norm collectives. Every rank
+    recomputes the same checkpoints in the same order, whatever its data,
+    so the collectives of the recompute line up as the forward's do."""
     dtype = unet.DTYPES[cfg.compute_dtype]
+    stats = norm_ops.stats_names()
     x = x.to(dtype)
     h = _apply_block(model.pre_block, x, dtype, ax)
 
@@ -131,7 +142,10 @@ def _local_unet(cfg, model, x, ax, t=None):
         h = _down(cfg, h, level, dtype, ax)
         h = _apply_block(level.block_in, h, dtype, ax)
         if i + 1 < cfg.octaves:
-            h = rec(i + 1, h)
+            if cfg.remat and torch.is_grad_enabled():
+                h = checkpoint(inner, i + 1, h, use_reentrant=False)
+            else:
+                h = rec(i + 1, h)
         else:
             h = _apply_block(model.middle, h, dtype, ax)
         h = _post_blocks(level.block_out, h, dtype, ax)
@@ -144,6 +158,10 @@ def _local_unet(cfg, model, x, ax, t=None):
         if cfg.skip_mode == "residual":
             return inp + conv_ops.dense(h, level.skip_dense.to(dtype)).to(inp.dtype)
         return h
+
+    def inner(i, h):
+        with unet.ieee_fp32(dtype, h.device), norm_ops.stats_over(*stats):
+            return rec(i, h)
 
     h = rec(0, h) if cfg.octaves > 0 else _apply_block(model.middle, h, dtype, ax)
     h = _post_blocks(model.post_block, h, dtype, ax)
@@ -182,7 +200,9 @@ def make_local_apply(cfg, mesh, axis: str = "spatial"):
     the rank's samples): the spatial train step's body. Only the shard
     count is refused. Its batch norms take their statistics over the
     ``data`` and ``axis`` ranks (the axes ``parallel/spatial_train``
-    registers)."""
+    registers). ``cfg.remat`` rematerialises each inner octave in the
+    backward, as ``unet.unet_apply`` does (JAX's spatial step runs the
+    unchanged ``unet_apply``, whose octaves sit in ``jax.checkpoint``)."""
     ax = mesh.axis(axis)
     _check_shards(cfg, ax.size)
 

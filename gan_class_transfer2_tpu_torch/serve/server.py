@@ -42,7 +42,10 @@ What differs from the JAX package, and why:
     the mesh; here each replica would add a sampler pass of launches to a
     request the host paces). ``build_service`` builds that mesh when the
     host has more than one card. A bundle is served without a mesh, as in
-    JAX.
+    JAX. A model with batch norms keeps only the mesh's data extent: every
+    device batch, the smallest too, is zero-padded to a multiple of it as
+    JAX pads it, and runs whole on ``device`` (``make_padded_apply``), so
+    the padding rows enter the statistics as in JAX's program.
   * A compiled bundle (``bundle=``, utils/bundle.py; ``build_bundle_service``)
     serves /sample, /denoise and /transfer from its programs behind the same
     batchers, with the same uint8 quantisation on the device; /edit,
@@ -74,6 +77,7 @@ from __future__ import annotations
 
 import base64
 import copy
+import functools
 import io
 import json
 import sys
@@ -486,8 +490,11 @@ class ModelService:
 
     ``mesh``: a ``parallel/mesh.LocalMesh`` (or its list of devices, all of
     ``device``'s type) to serve over in-process replicas; one device (or
-    None) is the plain path. A bundle, and a model with batch norms
-    (``g_norm="batch"``), are served without one."""
+    None) is the plain path. A bundle is served without one. A model with
+    batch norms (``g_norm="batch"``) keeps only the mesh's data extent:
+    each device batch is zero-padded to a multiple of it, as JAX pads it,
+    and runs whole on the service's device, so the padding rows enter the
+    statistics as they do in JAX's program over its data devices."""
 
     EDIT_NAMES = ("pixelate", "shift", "quantise")
 
@@ -498,12 +505,15 @@ class ModelService:
         self.bundle = bundle
         if bundle is not None:
             mesh = None  # a bundle's programs are sealed: served replicated, as in JAX
-        if cfg.g_norm == "batch":
-            # batch norm's statistics span the device batch, which JAX's
-            # program normalises whole: every batch runs whole on the first
-            # replica's device
-            mesh = None
         self.mesh = self._local_mesh(mesh)
+        # > 1 under batch norm: the data extent every device batch is
+        # zero-padded to before it runs whole on the service's device
+        self._pad_extent = 1
+        if cfg.g_norm == "batch" and self.mesh is not None:
+            # batch norm's statistics span the device batch, which JAX's
+            # program zero-pads to the mesh's data extent and normalises
+            # whole over its data devices
+            self._pad_extent, self.mesh = mesh_lib.data_axis_size(self.mesh), None
         if bundle is not None and bundle.device.type != self.device.type:
             raise ValueError(f"the bundle runs on {bundle.device}, the service on {self.device}")
         self._lock = threading.Lock()  # the device: one program at a time
@@ -538,8 +548,10 @@ class ModelService:
         # mesh the list of its replicas (mesh.replicate)
         self._sample_fn = mesh_lib.make_data_parallel_apply(
             self.mesh, lambda m, init, c: sampler.sample(cfg, m, init, c, snapshots=False).images)
-        self._preview_fn = mesh_lib.make_data_parallel_apply(
-            self.mesh, lambda m, x, noise: sampler.preview(cfg, m, x, noise)[0])
+        # the one-forward programs under batch norm: JAX's padded rows, whole
+        padded = functools.partial(mesh_lib.make_padded_apply, self._pad_extent)
+        self._preview_fn = padded(mesh_lib.make_data_parallel_apply(
+            self.mesh, lambda m, x, noise: sampler.preview(cfg, m, x, noise)[0]))
         if self.state is not None:
             self._model = self.state.model
             self._replicas = mesh_lib.replicate(self._model, self.mesh)
@@ -550,7 +562,7 @@ class ModelService:
         if self.gan_state is not None:
             self._generators = {"ab": mesh_lib.replicate(self.gan_state.g_ab, self.mesh),
                                 "ba": mesh_lib.replicate(self.gan_state.g_ba, self.mesh)}
-            self._gan_transfer = gan_lib.make_transfer_fn(cfg, self.mesh)
+            self._gan_transfer = padded(gan_lib.make_transfer_fn(cfg, self.mesh))
             self._transfer_batchers = {
                 d: ImageBatcher(lambda imgs, d=d: self._run_transfer(imgs, d),
                                 max_wait_s=self._max_wait, max_queue=self._max_queue)
@@ -558,7 +570,7 @@ class ModelService:
             }
         if self.cgan_state is not None:
             self._cgan_generator = mesh_lib.replicate(self.cgan_state.generator, self.mesh)
-            self._cgan_transfer = cgan_lib.make_transfer_fn(cfg, self.mesh)
+            self._cgan_transfer = padded(cgan_lib.make_transfer_fn(cfg, self.mesh))
             self._cgan_batcher = TargetedImageBatcher(
                 self._run_cgan_transfer, max_wait_s=self._max_wait, max_queue=self._max_queue)
         if bundle is not None:
@@ -630,12 +642,17 @@ class ModelService:
 
     def _pad_bucket(self, num: int) -> int:
         """The power-of-two bucket, rounded up to a multiple of the mesh's
-        data extent when serving over one (server.py:602-609). A bucket
-        smaller than the extent stays as it is: it runs whole on the first
-        replica (``make_data_parallel_apply``), where JAX pads it to the
-        mesh, since a small batch is paced by its launches and each more
-        replica adds a sampler pass of them."""
+        data extent when serving over one (server.py:602-609). Without batch
+        norms a bucket smaller than the extent stays as it is: it runs
+        whole on the first replica (``make_data_parallel_apply``), where JAX
+        pads it to the mesh, since a small batch is paced by its launches
+        and each more replica adds a sampler pass of them; no row's answer
+        depends on the others'. Under batch norm every bucket is rounded up,
+        the smallest too (1 image on 2 devices is 2 rows), because the
+        padding rows enter the statistics as in JAX."""
         padded = _pow2(num)
+        if self._pad_extent > 1:
+            return padded + (-padded) % self._pad_extent
         extent = 1 if self.mesh is None else mesh_lib.data_axis_size(self.mesh)
         if padded >= extent:
             padded += (-padded) % extent
@@ -653,7 +670,8 @@ class ModelService:
 
     def _pad_pow2(self, imgs: np.ndarray):
         """Pad an image batch to its power-of-two bucket (the programs pad it
-        to the mesh's extent themselves, make_data_parallel_apply)."""
+        to the mesh's extent themselves: ``make_data_parallel_apply``, or
+        ``make_padded_apply`` under batch norm)."""
         padded = _pow2(imgs.shape[0])
         if padded == imgs.shape[0]:
             return imgs, imgs.shape[0]

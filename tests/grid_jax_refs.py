@@ -105,9 +105,9 @@ def write_options(path, options, shape, raw_side):
     saved, refs = {}, {}
     for k, (tag, over) in enumerate(options.items()):
         r = np.random.default_rng(50 + k)
-        jcfg = jconfig.tiny_test_config(size=size, pixel_size=4, max_size=8, octaves=2,
-                                        batch_size=b, learning_rate=1e-2, warm_up=1,
-                                        optimizer="momentum", **over)
+        jcfg = jconfig.tiny_test_config(**{
+            **dict(size=size, pixel_size=4, max_size=8, octaves=2, batch_size=b,
+                   learning_rate=1e-2, warm_up=1, optimizer="momentum"), **over})
         st = jtrainer.init_state(jcfg, jax.random.PRNGKey(1))
         st = jax.tree_util.tree_map(np.asarray, st._replace(params=_perturbed(st.params, k)))
         raw = None

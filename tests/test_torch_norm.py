@@ -230,3 +230,62 @@ def test_stats_over_ranks_of_one_is_plain_batch_norm_and_ends_with_its_block():
     assert torch.equal(got, want)
     assert norm._RANKS.names == ()
 
+
+
+def test_batch_norm_over_replica_threads_matches_jax_on_the_whole_batch():
+    """Two threads, each with its rows of a batch, in one ``ReplicaGroup``:
+    each normalises its rows with the whole batch's statistics, the same
+    bits on both (JAX's ``batch_norm`` of the whole batch, 1e-5), and one
+    ``autograd.grad`` from this thread over both threads' outputs gives
+    the whole batch's gradients (JAX's ``jax.vjp`` of ``batch_norm``, 1e-5
+    for x and 1e-4 for γ, a sum over the batch): the sum's adjoint is a
+    graph edge, with no wait in the backward. A thread that raises breaks
+    the other's wait, and the context ends with its block."""
+    import threading
+
+    x, g, b = _inputs(8, b=4, hw=4, seed=5)
+    dy = np.random.default_rng(6).normal(size=x.shape).astype(np.float32)
+    group = norm.ReplicaGroup(2, timeout=60)
+    xs = [T(x[2 * r:2 * r + 2]).requires_grad_() for r in range(2)]
+    gs = [T(g).requires_grad_() for _ in range(2)]
+    ys = [None, None]
+
+    def run(r):
+        with norm.over_replicas(group, r):
+            ys[r] = norm.batch_norm(xs[r], gs[r], T(b))
+
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert group.sums == 2 and norm._RANKS.__dict__.get("replica") is None
+    want = np.asarray(jnorm.batch_norm(jnp.asarray(x), g, b))
+    np.testing.assert_allclose(torch.cat(ys).detach().numpy(), want, atol=1e-5)
+    grads = torch.autograd.grad(ys, xs + gs, [T(dy[:2]), T(dy[2:])])
+    _, vjp = jax.vjp(lambda xx, gg: jnorm.batch_norm(xx, gg, jnp.asarray(b)),
+                     jnp.asarray(x), jnp.asarray(g))
+    ref = [np.asarray(a) for a in vjp(jnp.asarray(dy))]
+    np.testing.assert_allclose(torch.cat(grads[:2]).numpy(), ref[0], atol=1e-5)
+    np.testing.assert_allclose((grads[2] + grads[3]).numpy(), ref[1], atol=1e-4)
+
+    group.clear()
+    errors = [None, None]
+
+    def failing(r):
+        try:
+            with norm.over_replicas(group, r):
+                if r == 1:
+                    group.abort()
+                    raise RuntimeError("replica 1")
+                norm.batch_norm(xs[r], gs[r], T(b))
+        except Exception as e:  # noqa: BLE001
+            errors[r] = e
+
+    threads = [threading.Thread(target=failing, args=(r,)) for r in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(30)
+    assert not any(t.is_alive() for t in threads)
+    assert isinstance(errors[0], threading.BrokenBarrierError)

@@ -219,6 +219,83 @@ def test_batch_norm_statistics_are_each_microbatch_s_as_in_jax(dp):
     assert np.isfinite(loss) and abs(float(pp) - float(whole)) > 1e-4 * abs(float(whole))
 
 
+def test_batch_norm_replicas_run_in_threads_and_share_their_statistics():
+    """PP × DP 2 under batch norm: each replica's stage forward runs its own
+    rows of every microbatch, in a thread of its own (the threads take
+    turns on the host between the norms); the replicas' group
+    sums each norm's statistics (two sums) once a microbatch in the
+    forward (which stops short of stage 0's ascent) and once in the
+    recompute; one ``autograd.grad`` a stage
+    program and microbatch takes every replica's gradients (not one a
+    replica: on the card a barrier in autograd's backward would deadlock
+    replicas that share a device). The step equals the pipeline without
+    replicas, whose stages take each microbatch's statistics whole."""
+    cfg = _cfg(pipeline_microbatches=2, mesh_data=2, g_norm="batch", optimizer="momentum")
+    x = _batch(cfg)
+    tr = pipeline.PipelineTrainer(cfg, device="cpu")
+    st, loss = tr.step(tr.init_state(), x, torch.Generator().manual_seed(7))
+    S, M, D = 2, 2, 2
+    rows = cfg.batch_size // (M * D)
+    c = tr.counts
+    assert tr._threads is not None and c["rows"] == [[M * rows] * D] * S
+    # a down and an up norm an octave; the no-grad forward stops short of
+    # stage 0's ascent, which only its recompute (with the loss) runs
+    norms, ups0 = 2 * cfg.octaves, tr.plan[0][1] - tr.plan[0][0]
+    assert c["sums"] == 2 * M * ((norms - ups0) + norms)
+    assert c["grads"] == M * (2 * S - 1)
+    one = pipeline.PipelineTrainer(cfg.replace(mesh_data=1), device="cpu")
+    ref, ref_loss = one.step(one.init_state(), x, torch.Generator().manual_seed(7))
+    assert one.counts["sums"] == 0 and one._threads is None
+    np.testing.assert_allclose(float(loss), float(ref_loss), rtol=1e-6)
+    for a, b in zip(_flat(st), _flat(ref)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6, rtol=0)
+
+
+def test_replica_threads_end_when_their_trainer_goes():
+    """The replicas' threads hold nothing of a step once it has ended: a
+    trainer that used them is freed when its last reference goes, and its
+    threads end with it (its weights do not stay for the life of the
+    process)."""
+    import gc
+    import weakref
+
+    cfg = _cfg(pipeline_microbatches=2, mesh_data=2, g_norm="batch", optimizer="momentum")
+    tr = pipeline.PipelineTrainer(cfg, device="cpu")
+    tr.step(tr.init_state(), _batch(cfg), torch.Generator().manual_seed(7))
+    threads = list(tr._threads._threads)
+    assert all(t.is_alive() for t in threads)
+    ref = weakref.ref(tr)
+    del tr
+    gc.collect()
+    assert ref() is None
+    for t in threads:
+        t.join(30)
+    assert not any(t.is_alive() for t in threads)
+
+
+def test_a_replica_s_error_surfaces_in_the_caller(monkeypatch):
+    """A replica thread that raises aborts the group's waits: the step
+    raises its error at once, with no hang, and the trainer steps again."""
+    import threading
+
+    cfg = _cfg(pipeline_microbatches=2, mesh_data=2, g_norm="batch", optimizer="momentum")
+    tr = pipeline.PipelineTrainer(cfg, device="cpu")
+    state = tr.init_state()
+    mid = pipeline._stage_mid
+
+    def failing(*a, **k):
+        if threading.current_thread().name == "replica-1":
+            raise RuntimeError("replica 1 failed")
+        return mid(*a, **k)
+
+    monkeypatch.setattr(pipeline, "_stage_mid", failing)
+    with pytest.raises(RuntimeError, match="replica 1 failed"):
+        tr.step(state, _batch(cfg), torch.Generator().manual_seed(7))
+    monkeypatch.setattr(pipeline, "_stage_mid", mid)
+    _, loss = tr.step(state, _batch(cfg), torch.Generator().manual_seed(7))
+    assert np.isfinite(float(loss))
+
+
 def test_step_refuses_a_batch_the_microbatches_do_not_divide():
     cfg = _cfg(batch_size=4, pipeline_microbatches=2)
     tr = pipeline.PipelineTrainer(cfg, device="cpu")

@@ -237,11 +237,11 @@ def test_batch_norm_service_runs_each_batch_whole_as_jax_does():
         svc.close()
 
 
-def test_batch_norm_service_records_the_padding_gap():
-    """The gap ROADMAP.md files under Queue C: at a bucket the replicas do
-    not divide (4 images on 3 devices) JAX zero-pads the batch to 6 and its
-    padding rows enter the statistics; the port runs the 4 whole, as JAX
-    does on one device. Pinned so that closing the gap shows here."""
+def _batch_norm_transfer_against_jax(n_images, n_devices, seed):
+    """The port's batch-norm GAN service over ``n_devices`` CPU replicas and
+    JAX's ``make_data_parallel_apply`` over as many host devices, on one
+    transfer of ``n_images``; (the port's answer, JAX's, JAX's on one
+    device, the service's padded bucket)."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import Mesh as JMesh
@@ -250,19 +250,95 @@ def test_batch_norm_service_records_the_padding_gap():
     from gan_class_transfer2_tpu.train import gan as jgan
 
     jcfg, jst, cfg, gs = _jax_batch_norm_gan()
-    img = _image(cfg, 4, seed=6)
+    img = _image(cfg, n_images, seed=seed)
     tree = jax.tree_util.tree_map(jnp.asarray, jst)
     fn = lambda st, x: jgan.transfer(jcfg, st, x, "ab")  # noqa: E731
     one = np.asarray(jax.jit(fn)(tree, jnp.asarray(img)))
-    three = JMesh(np.asarray(jax.devices()[:3]).reshape(3, 1), ("data", "model"))
-    padded = np.asarray(jmesh.make_data_parallel_apply(three, fn)(tree, jnp.asarray(img)))
-    svc = ModelService(cfg, gan_state=gs, mesh=_mesh(3), device="cpu")
+    jm = JMesh(np.asarray(jax.devices()[:n_devices]).reshape(n_devices, 1), ("data", "model"))
+    want = np.asarray(jmesh.make_data_parallel_apply(jm, fn)(tree, jnp.asarray(img)))
+    svc = ModelService(cfg, gan_state=gs, mesh=_mesh(n_devices), device="cpu")
     try:
-        got = svc._run_transfer(img, "ab")
+        assert svc.mesh is None  # every batch runs whole on the service's device
+        return svc._run_transfer(img, "ab"), want, one, svc._pad_bucket(n_images)
     finally:
         svc.close()
-    np.testing.assert_allclose(got, one, rtol=2e-4, atol=2e-4)
-    assert np.abs(padded - one).max() > 1e-2
+
+
+def test_batch_norm_service_records_the_padding_gap():
+    """At a bucket the replicas do not divide (4 images on 3 devices) JAX
+    zero-pads the batch to 6 and its padding rows enter the statistics; the
+    service pads it so too, then runs the 6 rows whole on its device, and
+    answers as JAX's ``make_data_parallel_apply`` over 3 host devices does
+    at the one-forward bound, 2e-4. The padding moves the answer: it stands
+    more than 1e-2 from the unpadded batch's."""
+    got, want, one, bucket = _batch_norm_transfer_against_jax(4, 3, seed=6)
+    assert bucket == 6
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+    assert np.abs(want - one).max() > 1e-2
+
+
+def test_batch_norm_service_pads_a_bucket_smaller_than_the_mesh():
+    """One image on 2 devices: JAX pads it to 2 rows, and so does the
+    batch-norm service (where a model without batch norms runs it alone),
+    at the one-forward bound against JAX's 2-device program."""
+    got, want, one, bucket = _batch_norm_transfer_against_jax(1, 2, seed=7)
+    assert bucket == 2
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+    assert np.abs(want - one).max() > 1e-2
+
+
+def test_batch_norm_diffusion_service_pads_its_buckets_and_denoise_rows():
+    """A batch-norm denoiser over 2 replicas against JAX's service over a
+    2-device data mesh, on the same weights: every /sample bucket, the
+    smallest too, rounds up to the extent as JAX's ``_pad_bucket`` does
+    (without batch norms a bucket of one stays one); /sample of 1 image
+    equals JAX's sample program on the same noise at the padded bucket,
+    within 1 level; /denoise of 1 image equals JAX's preview program
+    (``make_data_parallel_apply``: its batch and noise zero-padded to 2
+    rows inside the program) at the one-forward bound, 2e-4, and the
+    padding moves the answer."""
+    import jax
+
+    from gan_class_transfer2_tpu import config as jconfig
+    from gan_class_transfer2_tpu.parallel import mesh as jmesh
+    from gan_class_transfer2_tpu.serve.server import ModelService as JService
+    from gan_class_transfer2_tpu.train import trainer as jtrainer
+    from gan_class_transfer2_tpu_torch.config import Config
+    from gan_class_transfer2_tpu_torch.sample import sampler
+    from gan_class_transfer2_tpu_torch.utils import weights
+
+    jcfg = jconfig.tiny_test_config(g_norm="batch")
+    jstate = jax.tree_util.tree_map(np.asarray, jtrainer.init_state(jcfg, jax.random.PRNGKey(0)))
+    cfg = Config.from_json(jcfg.to_json())
+    state = weights.from_jax_train_state(cfg, jstate, device="cpu")
+    jsvc = JService(jcfg, state=jstate,
+                    mesh=jmesh.make_mesh(devices=jax.devices()[:2], data=2, model=1))
+    svc = ModelService(cfg, state=state, mesh=_mesh(2), device="cpu")
+    plain = ModelService(tiny_test_config(), mesh=_mesh(2), device="cpu")
+
+    def replay(shape):  # the service's next noise of ``shape``
+        return torch.randn(shape, generator=torch.Generator().set_state(svc._gen.get_state()))
+
+    try:
+        assert svc.mesh is None and plain.mesh is not None
+        assert [svc._pad_bucket(n) for n in (1, 2, 3, 5)] == [2, 2, 4, 8]
+        assert [jsvc._pad_bucket(n) for n in (1, 2, 3, 5)] == [2, 2, 4, 8]
+        assert [plain._pad_bucket(n) for n in (1, 2, 3, 5)] == [1, 2, 4, 8]
+        init = replay((2, cfg.size, cfg.size, 3))
+        got = svc.sample(1)
+        assert got.shape == (1, cfg.size, cfg.size, 3)
+        _levels(got, np.asarray(jsvc._sample(jsvc._params, init.numpy(), None))[:1])
+        img = _image(cfg, 1, seed=8)
+        noise = replay(img.shape)
+        got = svc._run_denoise(img)
+        want = np.asarray(jsvc._preview(jsvc._params, img, noise.numpy()))
+        np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+        alone = sampler.preview(cfg, state.model, torch.from_numpy(img), noise)[0]
+        assert np.abs(got - alone.numpy()).max() > 1e-4
+    finally:
+        jsvc.close()
+        svc.close()
+        plain.close()
 
 
 def test_build_service_uses_a_mesh_on_a_multi_device_host(tmp_path, monkeypatch):

@@ -228,9 +228,12 @@ def test_spatial_train_step_matches_one_process_and_jax(run, mesh, option):
     steps equal the one-process train_step on the same generator state,
     EMA included (test_spatial_train.py:12,37). Each ``option`` (instance
     and batch norms, the per-step head, the dct and multiscale losses,
-    dynamic loss scaling, a uint8 batch) is one injected step from a JAX
-    state of its config against the one-process step and JAX's GSPMD step
-    on the same mesh shape."""
+    dynamic loss scaling, a uint8 batch, remat alone and under instance
+    norms) is one injected step from a JAX state of its config against the
+    one-process step and JAX's GSPMD step on the same mesh shape. A remat
+    option also shows its recompute: its halo exchanges (and B3's block
+    gathers) outnumber those of the same step without remat, alike on
+    every rank."""
     if option is not None:
         _option_matches(run, mesh, option)
         return
@@ -270,6 +273,16 @@ def _option_matches(run, mesh, option):
             assert got["scale"] == (2.0**15, 1)
         else:
             assert got["scale"] is None
+    if ref["cfg"].remat:
+        # the recompute is seen: more halo exchanges (and, under instance
+        # norms, more of B3's block gathers) than the same step without
+        # remat, the same count on every rank
+        counts = [r["options"][option]["comm"] for r in run[mesh]]
+        without = [r["options"][option]["comm_without_remat"] for r in run[mesh]]
+        assert all(c == counts[0] for c in counts) and all(w == without[0] for w in without)
+        kinds = ["halo"] + (["norm"] if ref["cfg"].g_norm == "instance" else [])
+        for kind in kinds:
+            assert counts[0][kind] > without[0].get(kind, 0) > 0, (kind, counts[0], without[0])
 
 
 def test_b3_over_height_blocks_matches_jax_instance_norm(run):

@@ -349,11 +349,14 @@ SPATIAL_CFG = dict(size=32, pixel_size=4, max_size=8, octaves=2)
 # what JAX's GSPMD step takes and the spatial step now takes too: norms
 # (instance: B3 over height blocks; batch: over data × spatial), the
 # per-step head, the whole-image losses, dynamic loss scaling, a uint8
-# batch of 40² images the step crops to 32²
+# batch of 40² images the step crops to 32², and remat (alone and under
+# instance norms: the recompute re-runs the halos and B3's block gathers)
 SPATIAL_OPTIONS = {"instance": dict(g_norm="instance"), "batch": dict(g_norm="batch"),
                    "per_step": dict(per_step_output=True), "dct": dict(loss="dct"),
                    "multiscale": dict(loss="mse_multiscale"),
-                   "dynamic": dict(dynamic_loss_scale=True), "uint8": dict()}
+                   "dynamic": dict(dynamic_loss_scale=True), "uint8": dict(),
+                   "remat": dict(remat=True),
+                   "remat-instance": dict(remat=True, g_norm="instance", optimizer="momentum")}
 RAW_SIDE = 40
 
 
@@ -462,7 +465,9 @@ def run_spatial_options(mesh, path):
     the batch, t and ε (a uint8 batch: the rank's rows of whole images and
     a generator for the crop's draws); the loss, the whole weights and the
     loss-scale state. Then a uint8 pool (``HBMDataset``, raw) under the
-    mesh: the rows each rank draws."""
+    mesh: the rows each rank draws. Each option's collectives over the step
+    are counted by kind (``multihost.comm``), and a remat option's again
+    with remat off."""
     from gan_class_transfer2_tpu_torch.data import device_augment
     from gan_class_transfer2_tpu_torch.parallel.mesh import Sharding
 
@@ -477,11 +482,18 @@ def run_spatial_options(mesh, path):
             batch, gen = spatial_train.local_rows(d["raw"], mesh), torch.Generator().manual_seed(3)
         else:
             batch, gen = spatial_train.local_block(d["x"], mesh).contiguous(), None
+        multihost.comm.reset()
         state, loss = make(cfg, mesh)(d["state"], batch, gen, t_int=rows[0], epsilon=rows[1])
         out[tag] = {"loss": float(loss),
                     "params": [p.detach().clone() for p in state.model.parameters()],
                     "scale": None if state.scale_state is None else
-                    (float(state.scale_state.scale), int(state.scale_state.good_steps))}
+                    (float(state.scale_state.scale), int(state.scale_state.good_steps)),
+                    "comm": dict(multihost.comm.calls)}
+        if cfg.remat:  # the same step without remat, for its collectives' count
+            multihost.comm.reset()
+            make(cfg.replace(remat=False), mesh)(state, batch, gen, t_int=rows[0],
+                                                 epsilon=rows[1])
+            out[tag]["comm_without_remat"] = dict(multihost.comm.calls)
     pool = torch.from_numpy(np.random.default_rng(6).integers(0, 256, (6, RAW_SIDE, RAW_SIDE, 3),
                                                                dtype=np.uint8))
     spec = ("data", "spatial") if dp else (None, "spatial")

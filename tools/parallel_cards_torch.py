@@ -32,13 +32,19 @@ replicas, one generator-driven step each from the same weights and
 generator state as the one-process step on ``cuda:0`` (same bounds), then
 the step (median of 3) and the time the host took to return from it,
 peak memory a card, and the planner's prediction for the same layout
-beside it.
+beside it. With ``--norm batch`` the generator takes batch norms: each
+layout with replicas is held against and timed beside the same layout
+without them (each microbatch's statistics whole on its stage's first
+card; the one-process step takes the whole batch's, another answer),
+its replicas a thread each on cards of their own, summing each norm's
+statistics; SGD with momentum there.
 
 Printed: the cards' names and power limits, and one JSON object as the
 last line (also written to ``--out``). Exit 1 when a check fails.
 
   python tools/parallel_cards_torch.py --out chiprun_out/parallel_cards.json
   python tools/parallel_cards_torch.py --part pipeline --out pipeline_cards.json
+  python tools/parallel_cards_torch.py --part pipeline --norm batch --out pipeline_bn.json
   python tools/parallel_cards_torch.py --device cpu --tiny   # a rehearsal
 """
 
@@ -210,9 +216,10 @@ def _rank(rank: int, port: int, device: str, tiny: bool, queue) -> None:
 PIPELINES = ((2, 2, 1), (2, 4, 1), (4, 4, 1), (4, 8, 1), (2, 2, 2))  # stages, micro, data
 
 
-def _pipelines(device: str, tiny: bool) -> dict:
+def _pipelines(device: str, tiny: bool, norm: str) -> dict:
     """``--part pipeline``: each layout of PIPELINES against the one-process
-    step, in this process."""
+    step, in this process; under ``norm="batch"`` each layout with replicas
+    against the same layout without them."""
     import torch
 
     from gan_class_transfer2_tpu_torch.parallel import pipeline, planner
@@ -224,7 +231,10 @@ def _pipelines(device: str, tiny: bool) -> dict:
              else [torch.device("cpu")] * RANKS)
     dev0 = cards[0]
     cfg = _config(tiny).replace(optimizer="adam_fused", fused_diffusion=True)
-    cfg = (cfg.replace(octaves=4) if tiny else cfg).validate()  # 4 stages need 4 octaves
+    cfg = (cfg.replace(octaves=4) if tiny else cfg)  # 4 stages need 4 octaves
+    if norm == "batch":  # SGD with momentum, as chip_smoke.py's [pp-agree] under batch norm
+        cfg = cfg.replace(g_norm=norm, optimizer="momentum")
+    cfg = cfg.validate()
     x = torch.from_numpy(np.random.default_rng(9).uniform(
         -1, 1, (BATCH, cfg.size, cfg.size, 3)).astype(np.float32)).to(dev0)
 
@@ -246,19 +256,32 @@ def _pipelines(device: str, tiny: bool) -> dict:
             times.append(((time.perf_counter() - t1) * 1e3, (t2 - t1) * 1e3))
         return tuple(float(np.median([t[k] for t in times[1:]])) for k in (0, 1))
 
-    state = trainer.init_state(cfg, device=dev0)
-    p0 = [p.detach().clone() for p in state.model.parameters()]
-    step = trainer.make_train_step(cfg)
-    state, ref_loss = step(state, x, torch.Generator(device=dev0).manual_seed(5))
-    sync()
-    delta = [p.detach() - q for p, q in zip(state.model.parameters(), p0)]
-    one_ms, one_host = run(step, trainer.init_state(cfg, device=dev0))
-    del state
-    out = {"one_process": {"loss": float(ref_loss), "step_ms": one_ms, "host_ms": one_host},
-           "layouts": []}
+    def reference(c):
+        """(loss, updates, step ms, host ms) of the one-process step, or
+        under batch norm of the layout ``c`` without replicas."""
+        if norm == "batch":
+            tr = pipeline.PipelineTrainer(c.replace(mesh_data=1),
+                                          devices=cards[:c.pipeline_stages])
+            state, step = tr.init_state(), tr.step
+        else:
+            state, step = trainer.init_state(cfg, device=dev0), trainer.make_train_step(cfg)
+        state, loss = step(state, x, torch.Generator(device=dev0).manual_seed(5))
+        sync()
+        delta = [p.detach().to(dev0) - q for p, q in zip(state.model.parameters(), p0)]
+        return (float(loss), delta) + run(step, state)
+
+    p0 = [p.detach().clone() for p in trainer.init_state(cfg, device=dev0).model.parameters()]
+    out = {"norm": norm, "layouts": []}
+    if norm != "batch":
+        ref_loss, delta, one_ms, one_host = reference(cfg)
+        out["one_process"] = {"loss": ref_loss, "step_ms": one_ms, "host_ms": one_host}
     for stages, micro, data in PIPELINES:
         c = cfg.replace(pipeline_stages=stages, pipeline_microbatches=micro, mesh_data=data)
         need = stages * data
+        if norm == "batch":
+            if data == 1:
+                continue
+            ref_loss, delta, one_ms, one_host = reference(c)
         if cuda:
             torch.cuda.empty_cache()
             for d in cards:
@@ -272,7 +295,9 @@ def _pipelines(device: str, tiny: bool) -> dict:
         ms, host = run(tr.step, st)
         name = f"PP{stages}×DP{data}"
         pred = next((k for k in planner.plan(c, need)["candidates"] if k["name"] == name), {})
+        against = f"PP{stages}×DP1" if norm == "batch" else "one process"
         res = {"stages": stages, "microbatches": micro, "data": data, "plan": tr.plan,
+               "against": against, "against_step_ms": one_ms, "against_host_ms": one_host,
                "devices": [str(d) for row in tr.stage_devices for d in row],
                "loss": float(loss), "rel": abs(float(loss) - float(ref_loss)) / abs(float(ref_loss)),
                "max_diff": diff.max().item(), "share": (diff > 1e-3 * LR).double().mean().item(),
@@ -285,7 +310,7 @@ def _pipelines(device: str, tiny: bool) -> dict:
         print(f"{name} M={micro} on {res['devices']} (plan {tr.plan}): loss rel {res['rel']:.2e}, "
               f"updates beyond 1e-3·lr {res['share']:.2e}; step {ms:.2f} ms "
               f"({BATCH / ms * 1e3:.1f} img/s; the host returned after {host:.2f} ms) against "
-              f"one process's {one_ms:.2f} ms ({one_host:.2f}); the "
+              f"{against}'s {one_ms:.2f} ms ({one_host:.2f}); the "
               f"planner predicts {res['planner_pred_img_s']} img/s (its M "
               f"{res['planner_microbatches']}); peak GB a card {res['peak_gb']}", flush=True)
         del st, tr
@@ -300,6 +325,9 @@ def main(argv=None) -> int:
                    help="a 32² tiny config instead of the full width (a rehearsal)")
     p.add_argument("--part", choices=("grids", "pipeline"), default="grids",
                    help="the rank grids over nccl (TP, spatial) or the one-process pipeline")
+    p.add_argument("--norm", choices=("none", "batch"), default="none",
+                   help="--part pipeline: the generator's norms (batch: the layouts with "
+                        "replicas against the same without)")
     p.add_argument("--out", default=None, help="also write the JSON object here")
     args = p.parse_args(argv)
     import torch
@@ -317,7 +345,7 @@ def main(argv=None) -> int:
         for line in cards:
             print(line)
     if args.part == "pipeline":
-        summary = dict(_pipelines(args.device, args.tiny), cards=cards, batch=BATCH,
+        summary = dict(_pipelines(args.device, args.tiny, args.norm), cards=cards, batch=BATCH,
                        tiny=args.tiny)
         return _emit(summary, args.out)
     s = socket.socket()

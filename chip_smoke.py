@@ -216,9 +216,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      byte bound (cold: the median of 24 launches over rotating inputs);
      B3 over height blocks at every norm layer's block of the default
      model on 2 shards at batch 16, float32 and bfloat16: the stats launch
-     against the plain triples, the apply launch against the plain version
-     from the merged statistics and against B3's plain version on the
-     whole image (B3's bounds), device ms beside the byte bound;
+     against the plain triples, the merge-and-apply launch against the
+     plain merge and apply and against B3's plain version on the whole
+     image (B3's bounds), device and back-to-back ms beside the byte bound,
+     the stats launch beside torch.var_mean (float32), one norm layer's
+     forward's device operations against the first design's;
   22f. spatial-agree — 2 processes (``--dp-worker spatial``) as 2 height
      shards: ``make_spatial_unet_apply`` against ``unet_apply`` at the
      default width (1e-4 of the scale); one injected full-width spatial
@@ -4870,27 +4872,140 @@ def spatial_norm_shapes(cfg, shards=SPATIAL_SHARDS, batch=TRAIN_BATCH):
     return out
 
 
+def device_ops(run):
+    """The names of the device operations (kernels, copies, fills) that
+    ``run()`` puts on the card, from one torch.profiler session."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):  # a session that saw nothing dropped its device events
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            return names
+    return names
+
+
+def spatial_norm_layer_ops(torch, norm, x, other, g, b, count=False):
+    """One norm layer's forward over height blocks as the main path runs it
+    (``instance_norm_blocks`` on a rank of a 2-rank axis), with the other
+    rank's triples copied into the buffer in place of the gather; beside
+    it the first design's sequence rebuilt from its pieces (the stats
+    launch, the gathered list's stack, ``merge_block_stats``, the stack of
+    (mean, r), an apply launch). Returns (device ops of the layer and of
+    the first design's sequence under torch.profiler, each None unless
+    ``count``: the profiler drops device events after many sessions in one
+    process, so the script counts them in a fresh one, ``--norm-ops``; B3
+    launches of the layer; the layer's and the sequence's ms back to back,
+    host included)."""
+    from gan_class_transfer2_tpu_torch.parallel import multihost
+
+    theirs = norm.block_stats(other)
+    bsz = x.shape[0]
+    saved = norm._gather_into
+    norm._gather_into = lambda parts, mine, group=None: parts[bsz:].copy_(theirs)
+    try:
+        def layer():
+            return norm.instance_norm_blocks(x, g, b, multihost.Axis(None, 2, 0))
+
+        before = norm.block_launches()
+        layer()
+        launches = norm.block_launches() - before
+        ops = device_ops(layer) if count else None
+        layer_ms = cuda_ms(layer)
+    finally:
+        norm._gather_into = saved
+
+    one = theirs[None].contiguous()  # the stand-in apply launch's input, made beforehand
+
+    def first_design():
+        parts = torch.stack([norm.block_stats(x), theirs])
+        mean, rstd = norm.merge_block_stats(parts)
+        torch.stack([mean, rstd], -1).contiguous()
+        norm.block_merge_apply(x, one, g, b)
+
+    first = device_ops(first_design) if count else None
+    return ops, first, launches, layer_ms, cuda_ms(first_design)
+
+
+def _norm_layer_inputs(torch, shape, dtype, gen):
+    """One norm layer's inputs at a rank's block ``shape`` of 2 height
+    shards: the image whose top half the rank holds, its two halves, γ, β."""
+    c = shape[-1]
+    whole = (torch.randn((shape[0], 2 * shape[1], *shape[2:]), generator=gen, device="cuda")
+             * 3 + 2).to(dtype)
+    x, other = (blk.contiguous() for blk in whole.chunk(2, 1))
+    g = 1 + 0.2 * torch.randn((c,), generator=gen, device="cuda")
+    b = 0.2 * torch.randn((c,), generator=gen, device="cuda")
+    return whole, x, other, g, b
+
+
+def norm_ops_worker():
+    """``python3 chip_smoke.py --norm-ops``: one norm layer's forward over
+    height blocks at the default model's first norm block, float32 and
+    bfloat16, its device operations and the first design's counted under
+    torch.profiler in a fresh process; one NORMOPS JSON line."""
+    import torch
+
+    from gan_class_transfer2_tpu_torch.config import Config
+    from gan_class_transfer2_tpu_torch.ops import norm
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    shape = spatial_norm_shapes(Config().validate())[0]
+    out = {}
+    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        _, x, other, g, b = _norm_layer_inputs(torch, shape, dtype, gen)
+        ops, first, launches, _, _ = spatial_norm_layer_ops(torch, norm, x, other, g, b,
+                                                            count=True)
+        out[name] = {"ops": ops, "first": first, "launches": launches}
+    print("NORMOPS " + json.dumps(out), flush=True)
+    return 0
+
+
 def phase_spatial_norm(torch, norm, cfg, card):
     """B3 over height blocks at every norm layer's block of the default
     model on 2 height shards at batch 16, float32 and bfloat16: the block's
-    triples (stats launch) against the plain version's, the two blocks'
-    triples merged, y (apply launch) against the plain version from the
-    same statistics, and the pair against B3's plain version on the whole
-    image; both launches timed beside their byte bound (x read twice, y
-    written once). Returns the float32 row without launches: times and
-    bound summed over one forward's norm layers of a rank."""
+    triples (stats launch) against the plain version's, the merge-and-apply
+    launch from the two blocks' triples against the plain merge and apply
+    and against B3's plain version on the whole image; the pair timed on
+    the device and back to back beside its byte bound (x read twice, y
+    written once), the stats launch alone beside ``torch.var_mean`` (float32:
+    the statistics' one library call); one layer's forward's device
+    operations under torch.profiler and its ms back to back beside the first
+    design's sequence. Returns the float32 row without
+    launches: times and bound summed over one forward's norm layers of a
+    rank."""
+    done = subprocess.run([sys.executable, os.path.abspath(__file__), "--norm-ops"], cwd=HERE,
+                          capture_output=True, text=True, timeout=300)
+    line = next((ln for ln in done.stdout.splitlines() if ln.startswith("NORMOPS ")), None)
+    if done.returncode != 0 or line is None:
+        fail(f"spatial-kernel: --norm-ops exited {done.returncode}:\n"
+             f"{(done.stdout + done.stderr)[-3000:]}")
+    layer_ops = json.loads(line[len("NORMOPS "):])
     gen = torch.Generator(device="cuda").manual_seed(17)
     rows = {}
     for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        s = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, device_ms=0.0, err=0.0, worst=0.0)
+        s = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, device_ms=0.0, stats_ms=0.0,
+                 var_mean_ms=0.0, layer_ms=0.0, first_ms=0.0, err=0.0, worst=0.0)
+        counted = layer_ops[dtype_name]
+        ops, first = counted["ops"], counted["first"]
+        if counted["launches"] != 2 or not 2 <= len(ops) <= 3:
+            fail(f"spatial-kernel: one norm layer's forward launched {counted['launches']} B3 "
+                 f"kernels and {len(ops)} device operations {ops} (expected 2, and 2 or 3: "
+                 "the stats, the gather's stand-in copy, the merge-and-apply)")
+        print(f"[spatial-kernel] B3 over height blocks {dtype_name}: one norm layer's forward "
+              f"as the main path runs it, a 2-rank axis with the gather a copy (a fresh "
+              f"process, torch.profiler): {len(ops)} device operations ({counted['launches']} "
+              f"B3 launches + the copy); the first design's sequence rebuilt from its pieces: "
+              f"{len(first)} device operations ({', '.join(n[:24] for n in first)})")
         for shape in spatial_norm_shapes(cfg):
             c = shape[-1]
-            whole = (torch.randn((shape[0], 2 * shape[1], *shape[2:]), generator=gen,
-                                 device="cuda") * 3 + 2).to(dtype)
-            x, other = (blk.contiguous() for blk in whole.chunk(2, 1))
-            g = 1 + 0.2 * torch.randn((c,), generator=gen, device="cuda")
-            b = 0.2 * torch.randn((c,), generator=gen, device="cuda")
-            before = norm.block_stats.launches, norm.block_apply.launches
+            whole, x, other, g, b = _norm_layer_inputs(torch, shape, dtype, gen)
+            before = norm.block_stats.launches, norm.block_merge_apply.launches
             part = norm.block_stats(x)
             want = norm.block_stats_plain(x)
             # the triples: counts exact, means and M2 within 1e-5 of their largest
@@ -4901,47 +5016,72 @@ def phase_spatial_norm(torch, norm, cfg, card):
                     and torch.equal(part[..., 0], want[..., 0])):
                 fail(f"spatial-kernel: B3 block stats {dtype_name} x{shape}: mean error "
                      f"{mean_err}, M2 error {m2_err} of the largest")
-            mean, rstd = norm.merge_block_stats(torch.stack([part, norm.block_stats(other)]))
-            y = norm.block_apply(x, mean, rstd, g, b)
-            ref = norm.block_apply_plain(x, mean, rstd, g, b)
+            parts = torch.stack([part, norm.block_stats(other)])
+            y, mean, rstd = norm.block_merge_apply(x, parts, g, b)
+            m_ref, r_ref = norm.merge_block_stats(parts)
+            ref = norm.block_apply_plain(x, m_ref, r_ref, g, b)
             full = norm.instance_norm_plain(whole, g, b)[:, :shape[1]]
             torch.cuda.synchronize()
             scale = ref.float().abs().max().item()
             err = (y.float() - ref.float()).abs().max().item()
             err_whole = (y.float() - full.float()).abs().max().item()
+            r_err = ((rstd - r_ref).abs() / r_ref).max().item()
             if not err <= IN_RTOL[dtype_name] * scale or not (
                     err_whole <= IN_RTOL[dtype_name] * scale):
                 fail(f"spatial-kernel: B3 over height blocks {dtype_name} x{shape}: max|err| "
                      f"{err} against the plain version, {err_whole} against B3's plain "
                      f"version on the whole image, > {IN_RTOL[dtype_name]} x max|y| {scale}")
+            if not torch.equal(mean, m_ref) or not r_err <= 2.4e-7:
+                fail(f"spatial-kernel: B3 over height blocks {dtype_name} x{shape}: the merged "
+                     f"mean differs from merge_block_stats's, or r by {r_err} relative (2 ulp)")
             ms = cuda_ms(lambda: norm.block_stats(x)) + cuda_ms(
-                lambda: norm.block_apply(x, mean, rstd, g, b))
+                lambda: norm.block_merge_apply(x, parts, g, b))
             dev_ms = queued_ms(lambda: (norm.block_stats(x),
-                                        norm.block_apply(x, mean, rstd, g, b)))
+                                        norm.block_merge_apply(x, parts, g, b)))
+            stats_ms = queued_ms(lambda: norm.block_stats(x))
             plain_ms = cuda_ms(lambda: norm.block_stats_plain(x)) + cuda_ms(
-                lambda: norm.block_apply_plain(x, mean, rstd, g, b))
-            norm.block_stats.launches, norm.block_apply.launches = before
+                lambda: norm.block_merge_apply_plain(x, parts, g, b))
+            var_mean = ""
+            if dtype == torch.float32:
+                vm_ms = queued_ms(lambda: torch.var_mean(x, dim=(1, 2), correction=0))
+                s["var_mean_ms"] += vm_ms
+                var_mean = f", torch.var_mean {vm_ms:.4f} ms"
+            _, _, launches, layer_ms, first_ms = spatial_norm_layer_ops(torch, norm, x, other,
+                                                                        g, b)
+            if launches != 2:
+                fail(f"spatial-kernel: a norm layer's forward at x{shape} launched {launches} "
+                     "B3 kernels (expected 2)")
+            s["layer_ms"] += layer_ms
+            s["first_ms"] += first_ms
+            norm.block_stats.launches, norm.block_merge_apply.launches = before
             nbytes = 3 * x.numel() * x.element_size() + 4 * 4 * shape[0] * c + 2 * 4 * c
             bound = _bytes_ms(nbytes)
+            stats_bound = _bytes_ms(x.numel() * x.element_size() + 12 * shape[0] * c)
             print(f"[spatial-kernel] B3 over height blocks {dtype_name}, a block "
-                  f"{tuple(x.shape)} of 2: stats + apply max|err| {err:.3e} (vs the whole "
-                  f"image {err_whole:.3e}, max|y| {scale:.3f}, bound {IN_RTOL[dtype_name]} x); "
-                  f"triples: mean {mean_err:.2e}, M2 {m2_err:.2e} of the largest; device "
-                  f"{dev_ms:.4f} ms (behind a queued wait), back to back {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms; bound {bound:.4f} ms (bytes, {nbytes / 1e6:.2f} MB) = "
-                  f"{bound / dev_ms:.1%} of the device time; library none; on {card}")
+                  f"{tuple(x.shape)} of 2, plan {tuple(norm.block_plan(*shape, dtype))}: stats "
+                  f"+ merge-and-apply max|err| {err:.3e} (vs the whole image {err_whole:.3e}, "
+                  f"max|y| {scale:.3f}, bound {IN_RTOL[dtype_name]} x); triples: mean "
+                  f"{mean_err:.2e}, M2 {m2_err:.2e} of the largest; r {r_err:.1e} relative; "
+                  f"device {dev_ms:.4f} ms (behind a queued wait), back to back {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms; bound {bound:.4f} ms (bytes, {nbytes / 1e6:.2f} MB) "
+                  f"= {bound / dev_ms:.1%} of the device time; the stats launch alone "
+                  f"{stats_ms:.4f} ms (bound {stats_bound:.4f}){var_mean}; on {card}")
             for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound),
-                         ("device_ms", dev_ms)):
+                         ("device_ms", dev_ms), ("stats_ms", stats_ms)):
                 s[k] += v
             s["err"] = max(s["err"], err, err_whole)
             s["worst"] = max(s["worst"], err / scale, err_whole / scale)
             del whole, x, other, y, ref, full
         print(f"[spatial-kernel] B3 over height blocks {dtype_name}: one forward's "
               f"{len(spatial_norm_shapes(cfg))} norm layers a rank (2 launches each): device "
-              f"{s['device_ms']:.4f} ms, back to back {s['ms']:.4f} ms, plain "
-              f"{s['plain_ms']:.4f} ms, bound {s['bound_ms']:.4f} ms (bytes); worst error "
-              f"{s['worst']:.2e} of max|y| (bound {IN_RTOL[dtype_name]}); these launches are "
-              f"comparisons (the main path's are [spatial-agree]'s)")
+              f"{s['device_ms']:.4f} ms = {s['bound_ms'] / s['device_ms']:.1%} of the bound, "
+              f"back to back {s['ms']:.4f} ms, plain {s['plain_ms']:.4f} ms, bound "
+              f"{s['bound_ms']:.4f} ms (bytes); the stats launches alone {s['stats_ms']:.4f} ms"
+              + (f", torch.var_mean {s['var_mean_ms']:.4f} ms" if s["var_mean_ms"] else "")
+              + f"; a layer's forward with the gather's stand-in, host included, summed "
+              f"{s['layer_ms']:.4f} ms against the first design's sequence {s['first_ms']:.4f} "
+              f"ms; worst error {s['worst']:.2e} of max|y| (bound {IN_RTOL[dtype_name]}); these "
+              f"launches are comparisons (the main path's are [spatial-agree]'s)")
         rows[dtype_name] = {
             "name": f"instance_norm_blocks_{'f32' if dtype_name == 'float32' else 'bf16'}",
             "route": "cuda", "source": "gan_class_transfer2_tpu_torch/csrc/instance_norm.cu",
@@ -6025,4 +6165,6 @@ def main():
 if __name__ == "__main__":
     if len(sys.argv) > 1 and sys.argv[1] == "--dp-worker":
         sys.exit(dp_worker(sys.argv[2:]))
+    if len(sys.argv) > 1 and sys.argv[1] == "--norm-ops":
+        sys.exit(norm_ops_worker())
     sys.exit(main())

@@ -52,16 +52,35 @@
 //
 // Height blocks (the spatial path, parallel/spatial_unet.py). A rank that
 // holds rows s·h … (s+1)·h − 1 of every image needs statistics over the whole
-// image, so the one launch above splits into two around a gather:
-//   * stats: the same pass 1 and cluster combine, and the cluster's rank-0
-//     block writes the block's (count, mean, M2) per (sample, channel) to a
-//     float32 (B, C, 3) array; no pass 2;
-//   * apply: pass 2 alone, from a float32 (B, C, 2) array of (mean, r) that
-//     the caller merged from every rank's triples (Chan's rule in rank
-//     order, ops/norm.py), over the same cluster split of the block.
-// Between them ops/norm.py all-gathers the triples over the spatial axis. The
-// single-launch entry points are unchanged: their kernel is MODE 0 of the
-// same template, the two new ones MODE 1 and 2.
+// image, so a norm takes two launches of kernels of their own around a
+// gather (the single launch above is untouched). A group is a sample's 32
+// channels, as above.
+//   * stats: each group's (count, mean, M2) per channel over the block,
+//     float32, written to the rank's slot of an (s, B, C, 3) buffer. Each
+//     thread sums d = x − K and d² over its pixels, K the value of the
+//     block's first pixel in the same channel (the shift: x − K is exact in
+//     bfloat16 and close to the data's spread, so a large mean does not
+//     cancel): one subtract, one add and one FFMA an element, no division,
+//     with its next 8 pixels' loads in flight during this 8's arithmetic.
+//     Its lanes' sums are added by warp shuffles in a fixed order, then its
+//     warps' in warp order in shared memory, and the block's sums become
+//     (n, K + S₁/n, S₂ − S₁²/n) once. Where a group's pixels need more than
+//     one SM (block_plan's cluster S > 1, the large maps), S blocks of a
+//     cluster split them and rank 0 combines the S block triples by Chan's
+//     rule in rank order through distributed shared memory;
+//   * merge and apply: the block's y = ((x − m)·r)·γ + β, with (m, r)
+//     merged in the launch from the gathered (s, B, C, 3) triples by Chan's
+//     rule in rank order 0 … s−1 (the formulas and the order of
+//     ops/norm.merge_block_stats, _rn intrinsics only, so every rank merging
+//     the same buffer holds bit-identical statistics), r = 1/√(v + 1e-5);
+//     the first block of each group writes (m, r) to a float32 (B, C, 2)
+//     array for the backward. No cluster: S blocks split the pixels, each
+//     merging its group's triples itself (a few loads);
+//   * the small maps (ops/norm.block_plan): a group takes wpg warps (1, 2, 4
+//     or 8) and a block of up to 8 warps holds several groups, so a map of 8
+//     pixels keeps its lanes busy and launches with no cluster attribute, no
+//     cluster.sync() and, where a group is one warp, no __syncthreads.
+// Between them ops/norm.py all-gathers the triples over the spatial axis.
 //
 // Each entry point launches on the given stream, allocates nothing and
 // returns cudaGetLastError() (or cudaErrorInvalidValue for a shape or plan it
@@ -127,15 +146,12 @@ __device__ __forceinline__ uint4 load_vec(const T* x, size_t i, int c, int C, bo
   return u;
 }
 
-enum Mode { FULL = 0, STATS = 1, APPLY = 2 };
-
-// MODE FULL: y from x. STATS: the block's triples to stats (B, C, 3), no y.
-// APPLY: y from x and the given (mean, r) in stats (B, C, 2).
-template <typename T, int MODE>
+// y from x: the single launch
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
 instance_norm_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
-                     const float* __restrict__ beta, T* __restrict__ y,
-                     float* __restrict__ stats, int HW, int C, int chunk) {
+                     const float* __restrict__ beta, T* __restrict__ y, int HW, int C,
+                     int chunk) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int TX = CHB / VEC;     // threads along the channels
   constexpr int TY = THREADS / TX;  // pixel lanes
@@ -152,15 +168,6 @@ instance_norm_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
   const int p_begin = min(rank * chunk, HW), p_end = min(p_begin + chunk, HW);
   const size_t row0 = static_cast<size_t>(blockIdx.y) * HW;  // this sample's first pixel
 
-  if constexpr (MODE == APPLY) {
-    if (threadIdx.x < CHB) {
-      const int ch = group * CHB + threadIdx.x;
-      const size_t at = (static_cast<size_t>(blockIdx.y) * C + min(ch, C - 1)) * 2;
-      s_m[threadIdx.x] = stats[at];
-      s_r[threadIdx.x] = stats[at + 1];
-    }
-    __syncthreads();
-  } else {
   // pass 1: each thread's triples over pixels p_begin + ty + k·TY
   Stats st[VEC];
 #pragma unroll
@@ -235,23 +242,11 @@ instance_norm_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
       const float* rm2 = cluster.map_shared_rank(&s_m2[0][0], r);
       t = combine(t, Stats{rn[ch], rmean[ch], rm2[ch]});
     }
-    if constexpr (MODE == STATS) {
-      const int cg_ch = group * CHB + ch;
-      if (rank == 0 && cg_ch < C) {
-        float* o = stats + (static_cast<size_t>(blockIdx.y) * C + cg_ch) * 3;
-        o[0] = t.n;
-        o[1] = t.mean;
-        o[2] = t.m2;
-      }
-    } else {
-      const float var = t.n > 0.f ? fmaxf(__fdiv_rn(t.m2, t.n), 0.f) : 0.f;
-      s_m[ch] = t.mean;
-      s_r[ch] = __frcp_rn(__fsqrt_rn(__fadd_rn(var, EPS)));
-    }
+    const float var = t.n > 0.f ? fmaxf(__fdiv_rn(t.m2, t.n), 0.f) : 0.f;
+    s_m[ch] = t.mean;
+    s_r[ch] = __frcp_rn(__fsqrt_rn(__fadd_rn(var, EPS)));
   }
   cluster.sync();
-  }
-  if constexpr (MODE == STATS) return;
   if (c >= C || p_begin >= p_end) return;
 
   // pass 2: y = ((x − m)·r)·γ + β over the same pixels, last group first
@@ -297,9 +292,9 @@ instance_norm_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
   }
 }
 
-template <typename T, int MODE>
-int launch(const void* x, const void* gamma, const void* beta, void* y, void* stats, int B,
-           int HW, int C, int cluster, void* stream) {
+template <typename T>
+int launch(const void* x, const void* gamma, const void* beta, void* y, int B, int HW, int C,
+           int cluster, void* stream) {
   if (B <= 0 || B > 65535 || HW <= 0 || C <= 0 || cluster < 1 || cluster > MAX_CLUSTER)
     return static_cast<int>(cudaErrorInvalidValue);
   const int chunk = (HW + cluster - 1) / cluster;
@@ -316,10 +311,336 @@ int launch(const void* x, const void* gamma, const void* beta, void* y, void* st
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, instance_norm_kernel<T, MODE>, static_cast<const T*>(x),
-      static_cast<const float*>(gamma), static_cast<const float*>(beta), static_cast<T*>(y),
-      static_cast<float*>(stats), HW, C, chunk);
+      &cfg, instance_norm_kernel<T>, static_cast<const T*>(x), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), static_cast<T*>(y), HW, C, chunk);
   if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------------------ height blocks
+
+constexpr int WARPS = THREADS / 32;  // the most warps a height-block thread block holds
+
+// Where a thread of a height-block launch works. Group q = b·NG + g holds
+// sample b's 32 channels g·32 … g·32 + 31. A block of wpb warps
+// (blockDim.x / 32) holds G = wpb / wpg groups, each taking wpg consecutive
+// warps; with S > 1 the S consecutive blocks x·S … x·S + S − 1 split its
+// pixels into chunks [rank·chunk, (rank + 1)·chunk) ∩ [0, HW). In a warp,
+// lane = ly·TX + tx: tx picks VEC = 16/sizeof(T) channels, ly one of LY =
+// VEC pixels; the group's pixel lane pl = wl·LY + ly takes pixels p_begin +
+// pl + k·L, L = wpg·LY.
+template <typename T>
+struct Place {
+  static constexpr int VEC = 16 / sizeof(T);
+  static constexpr int TX = CHB / VEC;  // lanes along the channels
+  static constexpr int LY = 32 / TX;    // pixel lanes of a warp
+  int lane, warp, gi, wl, q, b, g, c, rank, p_begin, p_end, pl, L;
+  bool live;
+  __device__ Place(int NQ, int HW, int C, int wpg, int S, int chunk) {
+    lane = threadIdx.x % 32;
+    warp = threadIdx.x / 32;
+    gi = warp / wpg;
+    wl = warp % wpg;
+    const int G = static_cast<int>(blockDim.x / 32) / wpg;
+    rank = static_cast<int>(blockIdx.x) % S;
+    q = static_cast<int>(blockIdx.x) / S * G + gi;
+    live = q < NQ;
+    const int NG = (C + CHB - 1) / CHB;
+    b = live ? q / NG : 0;
+    g = q % NG;
+    c = g * CHB + (lane % TX) * VEC;
+    p_begin = min(rank * chunk, HW);
+    p_end = min(p_begin + chunk, HW);
+    pl = wl * LY + lane / TX;
+    L = wpg * LY;
+  }
+};
+
+// UNROLL pixels p0 + u·L of a lane from src (pixel p0, channel c), u·step
+// apart; a pixel at or past p_end takes K's bits (d = 0)
+template <typename T>
+__device__ __forceinline__ void load_group(const T* src, size_t step, int p0, int L, int p_end,
+                                           int c, int C, bool vec_ok, uint4 kraw,
+                                           uint4 (&raw)[UNROLL]) {
+  if (p0 + (UNROLL - 1) * L < p_end) {
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) raw[u] = load_vec(src + u * step, 0, c, C, vec_ok);
+  } else {
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u)
+      raw[u] = p0 + u * L < p_end ? load_vec(src + u * step, 0, c, C, vec_ok) : kraw;
+  }
+}
+
+// (n, mean, M2) of n pixels from their sums Σd, Σd² about K
+__device__ __forceinline__ Stats from_sums(float n, float s1, float s2, float k) {
+  if (n == 0.f) return {0.f, 0.f, 0.f};
+  const float t = __fdiv_rn(s1, n);
+  return {n, __fadd_rn(k, t), fmaxf(__fsub_rn(s2, __fmul_rn(s1, t)), 0.f)};
+}
+
+__device__ __forceinline__ void store_stats(float* o, Stats t) {
+  o[0] = t.n;
+  o[1] = t.mean;
+  o[2] = t.m2;
+}
+
+// The block's (count, mean, M2) per (sample, channel) into stats (B, C, 3).
+template <typename T, bool CLUSTER>
+__global__ void __launch_bounds__(THREADS)
+block_stats_kernel(const T* __restrict__ x, float* __restrict__ stats, int NQ, int HW, int C,
+                   int wpg, int S, int chunk) {
+  using P = Place<T>;
+  constexpr int VEC = P::VEC, TX = P::TX;
+  __shared__ float sh[WARPS][CHB][3];  // each warp's (Σd, Σd², K) of each channel
+  __shared__ float s_blk[3][CHB];      // the block's triples, read by the cluster's rank 0
+  const P at(NQ, HW, C, wpg, CLUSTER ? S : 1, chunk);
+  const bool vec_ok = C % VEC == 0;
+  const size_t row0 = static_cast<size_t>(at.b) * HW;
+
+  float s1[VEC], s2[VEC], k[VEC];
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) s1[v] = s2[v] = k[v] = 0.f;
+  if (at.live && at.c < C && at.p_begin < at.p_end) {
+    // K: the block's first pixel; a masked load stands in K's bits (d = 0)
+    const uint4 kraw = load_vec(x, (row0 + at.p_begin) * C + at.c, at.c, C, vec_ok);
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) k[v] = to_float(reinterpret_cast<const T*>(&kraw)[v]);
+    // UNROLL pixels a lane in flight, the next UNROLL loaded before this
+    // group's arithmetic (8 warps an SM at the large maps cannot hide a
+    // load's latency behind each other's arithmetic)
+    const size_t step = static_cast<size_t>(at.L) * C;
+    const int span = at.L * UNROLL;
+    uint4 raw[UNROLL], next[UNROLL];
+    load_group(x + (row0 + at.p_begin + at.pl) * C + at.c, step, at.p_begin + at.pl, at.L,
+               at.p_end, at.c, C, vec_ok, kraw, raw);
+    for (int p0 = at.p_begin + at.pl; p0 < at.p_end; p0 += span) {
+      if (p0 + span < at.p_end)
+        load_group(x + (row0 + p0 + span) * C + at.c, step, p0 + span, at.L, at.p_end, at.c, C,
+                   vec_ok, kraw, next);
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) {
+          const float d = __fsub_rn(to_float(reinterpret_cast<const T*>(&raw[u])[v]), k[v]);
+          s1[v] = __fadd_rn(s1[v], d);
+          s2[v] = __fmaf_rn(d, d, s2[v]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) raw[u] = next[u];
+    }
+  }
+  // the warp's pixel lanes, added by shuffles: lane ly takes ly + off
+#pragma unroll
+  for (int off = 16; off >= TX; off >>= 1) {
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) {
+      s1[v] = __fadd_rn(s1[v], __shfl_down_sync(0xffffffffu, s1[v], off));
+      s2[v] = __fadd_rn(s2[v], __shfl_down_sync(0xffffffffu, s2[v], off));
+    }
+  }
+  if (at.lane < TX) {
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) {
+      sh[at.warp][at.lane * VEC + v][0] = s1[v];
+      sh[at.warp][at.lane * VEC + v][1] = s2[v];
+      sh[at.warp][at.lane * VEC + v][2] = k[v];
+    }
+  }
+  if (wpg > 1) {
+    __syncthreads();
+  } else {
+    __syncwarp();
+  }
+  // the group's warps in warp order, a lane a channel; then its triple
+  const int w0 = at.gi * wpg, cl = at.lane, ch = at.g * CHB + cl;
+  Stats t = {0.f, 0.f, 0.f};
+  if (at.wl == 0) {
+    float a1 = sh[w0][cl][0], a2 = sh[w0][cl][1];
+    for (int w = 1; w < wpg; ++w) {
+      a1 = __fadd_rn(a1, sh[w0 + w][cl][0]);
+      a2 = __fadd_rn(a2, sh[w0 + w][cl][1]);
+    }
+    t = from_sums(static_cast<float>(at.p_end - at.p_begin), a1, a2, sh[w0][cl][2]);
+  }
+  if constexpr (CLUSTER) {
+    // one group a block, its triples in warp 0: rank 0 combines the S
+    // blocks' in rank order; the second sync keeps every block alive until
+    // it has read
+    cg::cluster_group cluster = cg::this_cluster();
+    if (at.warp == 0) {
+      s_blk[0][cl] = t.n;
+      s_blk[1][cl] = t.mean;
+      s_blk[2][cl] = t.m2;
+    }
+    cluster.sync();
+    if (at.rank == 0 && at.warp == 0) {
+      t = {0.f, 0.f, 0.f};
+      for (int r = 0; r < S; ++r) {
+        const float* o = cluster.map_shared_rank(&s_blk[0][0], r);
+        t = combine(t, Stats{o[cl], o[CHB + cl], o[2 * CHB + cl]});
+      }
+      if (at.live && ch < C) store_stats(stats + (static_cast<size_t>(at.b) * C + ch) * 3, t);
+    }
+    cluster.sync();
+  } else {
+    if (at.wl == 0 && at.live && ch < C)
+      store_stats(stats + (static_cast<size_t>(at.b) * C + ch) * 3, t);
+  }
+}
+
+// y = ((x − m)·r)·γ + β of the block, (m, r) merged here from parts (s, B,
+// C, 3) in rank order; the group's first block writes (m, r) to mean_r (B, C, 2).
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+block_apply_kernel(const T* __restrict__ x, const float* __restrict__ parts, int s,
+                   const float* __restrict__ gamma, const float* __restrict__ beta,
+                   T* __restrict__ y, float* __restrict__ mean_r, int NQ, int B, int HW, int C,
+                   int wpg, int S, int chunk) {
+  using P = Place<T>;
+  constexpr int VEC = P::VEC, TX = P::TX;
+  __shared__ float s_m[WARPS][CHB], s_r[WARPS][CHB];  // by group of the block
+  const P at(NQ, HW, C, wpg, S, chunk);
+  const bool vec_ok = C % VEC == 0;
+  const size_t row0 = static_cast<size_t>(at.b) * HW;
+
+  // Chan's merge in rank order, as ops/norm.merge_block_stats: a lane a channel
+  const int ch = at.g * CHB + at.lane;
+  if (at.wl == 0 && at.live && ch < C) {
+    const size_t bc = static_cast<size_t>(at.b) * C + ch;
+    const size_t stride = static_cast<size_t>(B) * C * 3;
+    float n = parts[bc * 3], mean = parts[bc * 3 + 1], m2 = parts[bc * 3 + 2];
+    for (int r = 1; r < s; ++r) {
+      const float* pr = parts + r * stride + bc * 3;
+      const float nb = pr[0], mb = pr[1], m2b = pr[2];
+      const float tot = __fadd_rn(n, nb);
+      const float d = __fsub_rn(mb, mean);
+      const float f = __fdiv_rn(nb, tot);
+      mean = __fadd_rn(mean, __fmul_rn(d, f));
+      m2 = __fadd_rn(__fadd_rn(m2, m2b), __fmul_rn(__fmul_rn(__fmul_rn(d, d), n), f));
+      n = tot;
+    }
+    const float var = fmaxf(__fdiv_rn(m2, n), 0.f);
+    const float r = __frcp_rn(__fsqrt_rn(__fadd_rn(var, EPS)));
+    s_m[at.gi][at.lane] = mean;
+    s_r[at.gi][at.lane] = r;
+    if (at.rank == 0) {
+      mean_r[bc * 2] = mean;
+      mean_r[bc * 2 + 1] = r;
+    }
+  }
+  if (wpg > 1) {
+    __syncthreads();
+  } else {
+    __syncwarp();
+  }
+  if (!at.live || at.c >= C || at.p_begin >= at.p_end) return;
+
+  const int tx = at.lane % TX;
+  float m[VEC], r[VEC], g[VEC], b[VEC];
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) {
+    const int cv = min(at.c + v, C - 1);  // lanes past C are computed, never stored
+    m[v] = s_m[at.gi][tx * VEC + v];
+    r[v] = s_r[at.gi][tx * VEC + v];
+    g[v] = round_to(gamma[cv], x);
+    b[v] = round_to(beta[cv], x);
+  }
+  // the chunk backwards: what the stats launch read last comes first
+  const int len = at.p_end - at.p_begin;
+  const int span = at.L * UNROLL;
+  const int iters = at.pl < len ? (len - at.pl + span - 1) / span : 0;
+  const size_t step = static_cast<size_t>(at.L) * C;
+  for (int it = iters - 1; it >= 0; --it) {
+    const int p0 = at.p_begin + at.pl + it * span;
+    const size_t off0 = (row0 + p0) * C + at.c;
+    uint4 raw[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u)
+      if (p0 + u * at.L < at.p_end) raw[u] = load_vec(x + off0 + u * step, 0, at.c, C, vec_ok);
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      if (p0 + u * at.L >= at.p_end) continue;
+      uint4 out;
+      T* o = reinterpret_cast<T*>(&out);
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
+        const float xv = to_float(reinterpret_cast<const T*>(&raw[u])[v]);
+        from_float(&o[v], __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(xv, m[v]), r[v]), g[v]), b[v]));
+      }
+      T* dst = y + off0 + u * step;
+      if (vec_ok && at.c + VEC <= C) {
+        *reinterpret_cast<uint4*>(dst) = out;
+      } else {
+#pragma unroll
+        for (int v = 0; v < VEC; ++v)
+          if (at.c + v < C) dst[v] = o[v];
+      }
+    }
+  }
+}
+
+// The grid of a height-block launch: ⌈NQ / G⌉ · S blocks of wpb warps;
+// false for a plan the kernels do not take.
+struct Grid {
+  int NQ, blocks, chunk;
+};
+
+bool block_grid(int B, int HW, int C, int wpg, int wpb, int S, Grid* out) {
+  if (B <= 0 || HW <= 0 || C <= 0 || wpg < 1 || wpb < wpg || wpb > WARPS || wpb % wpg ||
+      S < 1 || S > MAX_CLUSTER || (S > 1 && wpg != wpb))
+    return false;
+  const long long nq = static_cast<long long>(B) * ((C + CHB - 1) / CHB);
+  const int G = wpb / wpg;
+  const long long blocks = (nq + G - 1) / G * S;
+  if (nq > (1LL << 30) || blocks > 0x7fffffffLL) return false;
+  *out = {static_cast<int>(nq), static_cast<int>(blocks), (HW + S - 1) / S};
+  return true;
+}
+
+template <typename T>
+int launch_block_stats(const void* x, void* stats, int B, int HW, int C, int wpg, int wpb,
+                       int S, void* stream) {
+  Grid grid;
+  if (!block_grid(B, HW, C, wpg, wpb, S, &grid))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const T* xt = static_cast<const T*>(x);
+  float* st = static_cast<float*>(stats);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (S == 1) {
+    block_stats_kernel<T, false><<<grid.blocks, wpb * 32, 0, s>>>(xt, st, grid.NQ, HW, C, wpg, 1,
+                                                                 grid.chunk);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid.blocks);
+  cfg.blockDim = dim3(wpb * 32);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, block_stats_kernel<T, true>, xt, st, grid.NQ,
+                                           HW, C, wpg, S, grid.chunk);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_block_apply(const void* x, const void* parts, int s, const void* gamma,
+                       const void* beta, void* y, void* mean_r, int B, int HW, int C, int wpg,
+                       int wpb, int S, void* stream) {
+  Grid grid;
+  if (s < 1 || !block_grid(B, HW, C, wpg, wpb, S, &grid))
+    return static_cast<int>(cudaErrorInvalidValue);
+  block_apply_kernel<T><<<grid.blocks, wpb * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const float*>(parts), s,
+      static_cast<const float*>(gamma), static_cast<const float*>(beta), static_cast<T*>(y),
+      static_cast<float*>(mean_r), grid.NQ, B, HW, C, wpg, S, grid.chunk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -330,41 +651,45 @@ int launch(const void* x, const void* gamma, const void* beta, void* y, void* st
 extern "C" int gct2_instance_norm_f32(const void* x, const void* gamma, const void* beta,
                                       void* y, int B, int HW, int C, int cluster,
                                       void* stream) {
-  return launch<float, FULL>(x, gamma, beta, y, nullptr, B, HW, C, cluster, stream);
+  return launch<float>(x, gamma, beta, y, B, HW, C, cluster, stream);
 }
 
 extern "C" int gct2_instance_norm_bf16(const void* x, const void* gamma, const void* beta,
                                        void* y, int B, int HW, int C, int cluster,
                                        void* stream) {
-  return launch<__nv_bfloat16, FULL>(x, gamma, beta, y, nullptr, B, HW, C, cluster, stream);
+  return launch<__nv_bfloat16>(x, gamma, beta, y, B, HW, C, cluster, stream);
 }
 
-// Height blocks. stats: the block's (count, mean, M2) per (sample, channel),
-// float32 (B, C, 3), written; x as above.
-extern "C" int gct2_instance_norm_stats_f32(const void* x, void* stats, int B, int HW, int C,
-                                            int cluster, void* stream) {
-  return launch<float, STATS>(x, nullptr, nullptr, nullptr, stats, B, HW, C, cluster, stream);
+// Height blocks; (wpg, wpb, S) is ops/norm.block_plan's (warps a group,
+// warps a block, blocks a group). stats: the block's (count, mean, M2) per
+// (sample, channel), float32 (B, C, 3), written; x as above.
+extern "C" int gct2_instance_norm_block_stats_f32(const void* x, void* stats, int B, int HW,
+                                                  int C, int wpg, int wpb, int S,
+                                                  void* stream) {
+  return launch_block_stats<float>(x, stats, B, HW, C, wpg, wpb, S, stream);
 }
 
-extern "C" int gct2_instance_norm_stats_bf16(const void* x, void* stats, int B, int HW, int C,
-                                             int cluster, void* stream) {
-  return launch<__nv_bfloat16, STATS>(x, nullptr, nullptr, nullptr, stats, B, HW, C, cluster,
-                                      stream);
+extern "C" int gct2_instance_norm_block_stats_bf16(const void* x, void* stats, int B, int HW,
+                                                   int C, int wpg, int wpb, int S,
+                                                   void* stream) {
+  return launch_block_stats<__nv_bfloat16>(x, stats, B, HW, C, wpg, wpb, S, stream);
 }
 
-// mean_r: the merged (mean, r = 1/√(v + 1e-5)) per (sample, channel), float32
-// (B, C, 2), read; y = ((x − mean)·r)·γ + β as the single launch computes it.
-extern "C" int gct2_instance_norm_apply_f32(const void* x, const void* mean_r,
-                                            const void* gamma, const void* beta, void* y,
-                                            int B, int HW, int C, int cluster, void* stream) {
-  return launch<float, APPLY>(x, gamma, beta, y, const_cast<void*>(mean_r), B, HW, C, cluster,
-                              stream);
+// parts: every block's triples, float32 (s, B, C, 3), read; y = ((x − m)·r)·γ
+// + β from their merge; mean_r: the merged (m, r) per (sample, channel),
+// float32 (B, C, 2), written.
+extern "C" int gct2_instance_norm_block_apply_f32(const void* x, const void* parts, int s,
+                                                  const void* gamma, const void* beta, void* y,
+                                                  void* mean_r, int B, int HW, int C, int wpg,
+                                                  int wpb, int S, void* stream) {
+  return launch_block_apply<float>(x, parts, s, gamma, beta, y, mean_r, B, HW, C, wpg, wpb, S,
+                                   stream);
 }
 
-extern "C" int gct2_instance_norm_apply_bf16(const void* x, const void* mean_r,
-                                             const void* gamma, const void* beta, void* y,
-                                             int B, int HW, int C, int cluster,
-                                             void* stream) {
-  return launch<__nv_bfloat16, APPLY>(x, gamma, beta, y, const_cast<void*>(mean_r), B, HW, C,
-                                      cluster, stream);
+extern "C" int gct2_instance_norm_block_apply_bf16(const void* x, const void* parts, int s,
+                                                   const void* gamma, const void* beta, void* y,
+                                                   void* mean_r, int B, int HW, int C, int wpg,
+                                                   int wpb, int S, void* stream) {
+  return launch_block_apply<__nv_bfloat16>(x, parts, s, gamma, beta, y, mean_r, B, HW, C, wpg,
+                                           wpb, S, stream);
 }

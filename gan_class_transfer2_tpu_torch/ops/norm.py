@@ -57,12 +57,21 @@ Here each rank holds a block, and two routes take the collectives:
     sampler, a server) nothing changes;
   * B3 over height blocks (``instance_norm_blocks``): a rank holds rows of
     every image, so each (b, c) statistic spans the spatial group's
-    blocks. Two launches of csrc/instance_norm.cu a norm: ``block_stats``
-    (the block's count, mean and M2 per (b, c) by Welford, the kernel's
-    statistics phase and cluster split) and, after an ``all_gather`` of the
-    (s, B, C, 3) triples and Chan's merge in rank order (every rank then
-    holds bit-identical statistics), ``block_apply`` (normalise and affine
-    in one read and one write). Its backward sums the per-(b, c) Σg and
+    blocks. Two launches of csrc/instance_norm.cu a norm, kernels of their
+    own beside the single launch's: ``block_stats`` writes the block's
+    count, mean and M2 per (b, c) into the rank's slot of an (s·B, C, 3)
+    buffer, which ``all_gather_into_tensor`` fills in place; then
+    ``block_merge_apply`` merges the s triples by Chan's rule in rank order
+    inside the launch (the formulas and order of ``merge_block_stats``, so
+    every rank holds bit-identical statistics), normalises with γ and β in
+    one read and one write, and writes the (mean, r) the backward keeps.
+    ``block_plan`` cuts each block for the card: a (sample, 32-channel
+    group) takes a warp or a few where its pixels are few (no cluster), a
+    block or a cluster of blocks where they are many; the statistics pass
+    sums x − K about the block's first pixel K (3 instructions an element,
+    no division) with the next loads in flight. On the CPU the same route
+    takes the plain pieces (``block_stats_plain``,
+    ``block_merge_apply_plain``). Its backward sums the per-(b, c) Σg and
     Σg·x̂ of the block over the group (one ``all_reduce``) and forms dx in
     torch ops, as B3's; dγ and dβ are the block's own, summed by the
     step's gradient all-reduce. The spatial step has no R1, so this
@@ -434,11 +443,64 @@ def batch_norm(x, gamma, beta, eps: float = _EPS):
 # ---------------------------------------------- B3 over height blocks
 
 _BLOCK_ENTRY = {
-    "stats": {torch.float32: "gct2_instance_norm_stats_f32",
-              torch.bfloat16: "gct2_instance_norm_stats_bf16"},
-    "apply": {torch.float32: "gct2_instance_norm_apply_f32",
-              torch.bfloat16: "gct2_instance_norm_apply_bf16"},
+    "stats": {torch.float32: "gct2_instance_norm_block_stats_f32",
+              torch.bfloat16: "gct2_instance_norm_block_stats_bf16"},
+    "apply": {torch.float32: "gct2_instance_norm_block_apply_f32",
+              torch.bfloat16: "gct2_instance_norm_block_apply_bf16"},
 }
+_BLOCK_ARGS = {
+    # x, stats; B, HW, C, wpg, wpb, S; stream
+    "stats": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    # x, parts, s, gamma, beta, y, mean_r; B, HW, C, wpg, wpb, S; stream
+    "apply": [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 4
+             + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+}
+WARPS = 8  # the most warps of a height-block launch's thread block (256 threads)
+# pixels a lane of a warp should stream before a group takes more warps
+# (tools/kernel_plan_sweep.py b3, PERF.md Findings)
+LANE_PIXELS = 8
+
+
+class BlockPlan(NamedTuple):
+    """How the height-block kernels cut a block (B, h, W, C): a (sample,
+    32-channel group) takes ``wpg`` warps and a thread block ``wpb`` warps
+    (``wpb // wpg`` groups); ``cluster`` blocks split a group's h·W pixels
+    into chunks of ``chunk`` (the stats launch's thread-block cluster; 1:
+    no cluster, one chunk); ``blocks``: the grid's size."""
+
+    wpg: int
+    wpb: int
+    cluster: int
+    chunk: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=None)
+def block_plan(b: int, h: int, w: int, c: int, dtype: torch.dtype,
+               lane_pixels: int = LANE_PIXELS) -> BlockPlan:
+    """The height-block kernels' plan, from the shape alone. A warp reads
+    VEC = 16 / itemsize pixels at a time (4 float32, 8 bfloat16); a group
+    takes the fewest warps (a power of 2, at most ``WARPS``) whose lanes
+    stream at most ``lane_pixels`` pixels each. A group of fewer than
+    ``WARPS`` warps shares its thread block with others, as many as keep
+    ``FILL_TARGET`` blocks on the card; a group of ``WARPS`` warps takes a
+    block, and the smallest cluster (a power of 2, at most
+    ``CLUSTER_MAX``) that puts ``FILL_TARGET`` blocks on the card, as
+    ``plan`` picks for the single launch."""
+    hw = h * w
+    lanes = 16 // dtype.itemsize
+    nq = b * -(-c // CHANNELS)  # (sample, channel group)s
+    wpg = 1
+    while wpg < WARPS and wpg * lanes * lane_pixels < hw:
+        wpg *= 2
+    s, wpb = 1, wpg
+    if wpg == WARPS:
+        while nq * s < FILL_TARGET and s < CLUSTER_MAX and 2 * s <= hw:
+            s *= 2
+    else:
+        while wpb < WARPS and -(-nq * wpg // (2 * wpb)) >= FILL_TARGET:
+            wpb *= 2
+    return BlockPlan(wpg, wpb, s, -(-hw // s), -(-nq * wpg // wpb) * s)
 
 
 def _block_entry(kind, dtype):
@@ -446,8 +508,7 @@ def _block_entry(kind, dtype):
     fn = _FNS.get(key)
     if fn is None:
         fn = _FNS[key] = getattr(_build.load("instance_norm"), _BLOCK_ENTRY[kind][dtype])
-        n_ptr = 2 if kind == "stats" else 5
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = _BLOCK_ARGS[kind]
         fn.restype = ctypes.c_int
     return fn
 
@@ -461,21 +522,29 @@ def block_stats_plain(x):
     return torch.stack([torch.full_like(m, x.shape[1] * x.shape[2]), m, m2], -1)
 
 
-def block_stats(x):
-    """A block's (count, mean, M2) per (sample, channel), float32 (B, C, 3):
-    the plain version for a CPU tensor, B3's statistics phase on the card
-    for a CUDA tensor (or an exception). x (B, h, W, C) contiguous."""
+def block_stats(x, out=None):
+    """A block's (count, mean, M2) per (sample, channel), float32 (B, C, 3),
+    into ``out`` (a contiguous float32 (B, C, 3) on x's device, a rank's
+    slot of the gather's buffer) or a new tensor: the plain version for a
+    CPU tensor, the stats launch on the card for a CUDA tensor (or an
+    exception). x (B, h, W, C) contiguous."""
     dev = x.device
     if dev.type == "cpu":
-        return block_stats_plain(x)
+        got = block_stats_plain(x)
+        return got if out is None else out.copy_(got)
     if dev.type != "cuda":
         raise ValueError(f"block_stats: no kernel for device {dev}")
     _check(x, None, None, "block_stats")
     b, h, w, c = x.shape
-    out = torch.empty((b, c, 3), dtype=torch.float32, device=dev)
+    if out is None:
+        out = torch.empty((b, c, 3), dtype=torch.float32, device=dev)
+    elif (tuple(out.shape) != (b, c, 3) or out.dtype != torch.float32 or out.device != dev
+          or not out.is_contiguous()):
+        raise ValueError(f"block_stats: out must be contiguous float32 ({b}, {c}, 3) on {dev}")
+    p = block_plan(b, h, w, c, x.dtype)
     _launch(_block_entry("stats", x.dtype),
-            (x.data_ptr(), out.data_ptr(), b, h * w, c, plan(b, h, w, c).cluster), dev,
-            "instance_norm stats")
+            (x.data_ptr(), out.data_ptr(), b, h * w, c, p.wpg, p.wpb, p.cluster), dev,
+            "instance_norm block stats")
     _build.count(block_stats)
     return out
 
@@ -509,40 +578,67 @@ def block_apply_plain(x, mean, rstd, gamma, beta):
     return y.to(x.dtype)
 
 
-def block_apply(x, mean, rstd, gamma, beta):
-    """Normalise and affine of a block from given statistics: the plain
-    version for a CPU tensor, B3's second phase on the card for a CUDA
-    tensor (or an exception)."""
+def block_merge_apply_plain(x, parts, gamma, beta):
+    """The merge-and-apply launch's function in plain PyTorch: ``(y, mean,
+    r)`` from a block x and every block's triples ``parts`` (s, B, C, 3)."""
+    mean, rstd = merge_block_stats(parts)
+    return block_apply_plain(x, mean, rstd, gamma, beta), mean, rstd
+
+
+def block_merge_apply(x, parts, gamma, beta):
+    """``(y, mean, r)`` of a block: every block's triples ``parts`` (s, B, C,
+    3) merged in block order and the block normalised with γ and β. The
+    plain version for a CPU tensor; on the card for a CUDA tensor (or an
+    exception) one launch that merges and applies, mean and r (B, C) views
+    of the float32 (B, C, 2) it writes."""
     dev = x.device
     if dev.type == "cpu":
-        return block_apply_plain(x, mean, rstd, gamma, beta)
+        return block_merge_apply_plain(x, parts, gamma, beta)
     if dev.type != "cuda":
-        raise ValueError(f"block_apply: no kernel for device {dev}")
-    _check(x, gamma, beta, "block_apply")
+        raise ValueError(f"block_merge_apply: no kernel for device {dev}")
+    _check(x, gamma, beta, "block_merge_apply")
     b, h, w, c = x.shape
-    mr = torch.stack([_f32(mean), _f32(rstd)], -1).contiguous()
+    if (parts.dim() != 4 or tuple(parts.shape[1:]) != (b, c, 3) or parts.shape[0] < 1
+            or parts.dtype != torch.float32 or parts.device != dev
+            or not parts.is_contiguous()):
+        raise ValueError(f"block_merge_apply: parts must be contiguous float32 (s, {b}, {c}, 3) "
+                         f"on {dev}, got {tuple(parts.shape)} {parts.dtype}")
+    p = block_plan(b, h, w, c, x.dtype)
     g, bt = _f32(gamma), _f32(beta)
     y = torch.empty_like(x)
+    mr = torch.empty((b, c, 2), dtype=torch.float32, device=dev)
     _launch(_block_entry("apply", x.dtype),
-            (x.data_ptr(), mr.data_ptr(), g.data_ptr(), bt.data_ptr(), y.data_ptr(), b, h * w, c,
-             plan(b, h, w, c).cluster), dev, "instance_norm apply")
-    _build.count(block_apply)
-    return y
+            (x.data_ptr(), parts.data_ptr(), parts.shape[0], g.data_ptr(), bt.data_ptr(),
+             y.data_ptr(), mr.data_ptr(), b, h * w, c, p.wpg, p.wpb, p.cluster), dev,
+            "instance_norm block merge and apply")
+    _build.count(block_merge_apply)
+    return y, mr[..., 0], mr[..., 1]
 
 
-block_apply.launches = 0
+block_merge_apply.launches = 0
 
 
 def block_launches() -> int:
-    """Launches of B3 over height blocks so far (both phases)."""
-    return block_stats.launches + block_apply.launches
+    """Launches of B3 over height blocks so far (both kernels)."""
+    return block_stats.launches + block_merge_apply.launches
 
 
-def _gather_stats(part, ax):
-    if ax.size == 1:
-        return part[None]
-    with multihost.comm.record("norm", part):
-        return torch.stack(multihost.all_gather(part, ax))
+# torch 2.13 names the concatenating gather ``all_gather_single`` and warns
+# on the old name, which is all torch 2.11 has
+_gather_into = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+
+
+def _gather_stats(x, ax):
+    """Every rank's block triples (s, B, C, 3) in the order of ``ax``'s
+    index: this rank's stats launch writes its slot of the buffer, the
+    gather (in place) the others'."""
+    b, c = x.shape[0], x.shape[-1]
+    parts = torch.empty((ax.size * b, c, 3), dtype=torch.float32, device=x.device)
+    mine = block_stats(x, out=parts[ax.index * b:(ax.index + 1) * b])
+    if ax.size > 1:
+        with multihost.comm.record("norm", mine):
+            _gather_into(parts, mine, group=ax.group)
+    return parts.view(ax.size, b, c, 3)
 
 
 class InstanceNormBlocks(torch.autograd.Function):
@@ -551,10 +647,10 @@ class InstanceNormBlocks(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, gamma, beta, ax):
-        mean, rstd = merge_block_stats(_gather_stats(block_stats(x), ax))
+        y, mean, rstd = block_merge_apply(x, _gather_stats(x, ax), gamma, beta)
         ctx.save_for_backward(x, gamma, mean, rstd)
         ctx.ax = ax
-        return block_apply(x, mean, rstd, gamma, beta)
+        return y
 
     @staticmethod
     def backward(ctx, dy):

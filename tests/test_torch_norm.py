@@ -204,6 +204,19 @@ def test_height_blocks_merged_match_the_jax_reference(shards, dtype):
     np.testing.assert_allclose(whole.float().numpy(),
                                norm.instance_norm_plain(xt, T(g), T(b)).float().numpy(),
                                atol=tol * max(1.0, np.abs(want).max()))
+    # the merge-and-apply launch's plain version: the same (mean, r) as the
+    # merge, each block's y the same function; the stats launch's slot of the
+    # gather's buffer filled in place
+    buf = torch.zeros((shards * 3, 40, 3))
+    for i, blk in enumerate(blocks):
+        assert norm.block_stats(blk, out=buf[i * 3:(i + 1) * 3]).data_ptr() == buf[i * 3].data_ptr()
+    assert torch.equal(buf.view(shards, 3, 40, 3), parts)
+    outs = [norm.block_merge_apply_plain(blk, parts, T(g), T(b)) for blk in blocks]
+    for _, m, r in outs:
+        assert torch.equal(m, mean) and torch.equal(r, rstd)
+    merged = torch.cat([y for y, _, _ in outs], 1)
+    assert merged.dtype == tdt and torch.equal(merged, got)
+    np.testing.assert_allclose(merged.float().numpy(), want, atol=tol * max(1.0, np.abs(want).max()))
 
 
 def test_block_wrappers_refuse_devices_without_a_kernel():
@@ -211,8 +224,73 @@ def test_block_wrappers_refuse_devices_without_a_kernel():
     with pytest.raises(ValueError, match="no kernel"):
         norm.block_stats(x)
     with pytest.raises(ValueError, match="no kernel"):
-        norm.block_apply(x, torch.zeros(1, 8, device="meta"), torch.ones(1, 8, device="meta"),
-                         torch.ones(8, device="meta"), torch.zeros(8, device="meta"))
+        norm.block_merge_apply(x, torch.zeros(2, 1, 8, 3, device="meta"),
+                               torch.ones(8, device="meta"), torch.zeros(8, device="meta"))
+
+
+# the 12 norm blocks of a spatial rank (the default model on 2 height shards
+# at batch 16: each octave's down norm, then its up norm) and a ragged one
+_BLOCKS = ((16, 64, 128, 128), (16, 128, 256, 64), (16, 32, 64, 256), (16, 64, 128, 128),
+           (16, 16, 32, 512), (16, 32, 64, 256), (16, 8, 16, 512), (16, 16, 32, 512),
+           (16, 4, 8, 512), (16, 8, 16, 512), (16, 2, 4, 512), (16, 4, 8, 512), (3, 9, 17, 40))
+
+
+def _walk(p, b, hw, c, dtype):
+    """csrc/instance_norm.cu's ``Place`` over every thread of a height-block
+    launch: {group q: its merge lanes' owners}, {(q, channel): pixel
+    ranges}."""
+    vec = 16 // dtype.itemsize
+    tx_n = norm.CHANNELS // vec
+    ly_n = 32 // tx_n
+    ng = -(-c // norm.CHANNELS)
+    per_block = p.wpb // p.wpg
+    owners, pixels = {}, {}
+    for blk in range(p.blocks):
+        rank = blk % p.cluster
+        p_begin = min(rank * p.chunk, hw)
+        p_end = min(p_begin + p.chunk, hw)
+        for warp in range(p.wpb):
+            gi, wl = divmod(warp, p.wpg)
+            q = blk // p.cluster * per_block + gi
+            if q >= b * ng:
+                continue
+            if wl == 0 and rank == 0:
+                owners[q] = owners.get(q, 0) + 1
+            for lane in range(32):
+                tx, ly = lane % tx_n, lane // tx_n
+                pl = wl * ly_n + ly
+                for v in range(vec):
+                    ch = q % ng * norm.CHANNELS + tx * vec + v
+                    pixels.setdefault((q, ch), []).append((p_begin + pl, p_end, p.wpg * ly_n))
+    return owners, pixels
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", _BLOCKS, ids=lambda s: "x".join(map(str, s)))
+def test_block_plan_covers_every_group_and_pixel_once(shape, dtype):
+    """The height-block kernels' plan at every norm block of a spatial rank
+    and a ragged one: a grid CUDA launches (blocks ≤ 2³¹ − 1, ≤ 256
+    threads, a cluster of 1–8 that divides the grid and only where a group
+    takes the whole block), and its index map gives every (b, c) one
+    merging warp and every pixel of a group's channel to exactly one thread."""
+    b, h, w, c = shape
+    dt = getattr(torch, dtype)
+    p = norm.block_plan(b, h, w, c, dt)
+    assert norm.block_plan(b, h, w, c, dt) is p  # cached
+    assert 1 <= p.blocks <= 2**31 - 1 and 1 <= p.wpg <= p.wpb <= norm.WARPS
+    assert p.wpb % p.wpg == 0 and p.wpb * 32 <= 1024
+    assert 1 <= p.cluster <= norm.CLUSTER_MAX and p.blocks % p.cluster == 0
+    assert p.cluster == 1 or p.wpg == p.wpb == norm.WARPS
+    assert p.chunk == -(-h * w // p.cluster)
+    owners, pixels = _walk(p, b, h * w, c, dt)
+    ng = -(-c // norm.CHANNELS)
+    assert owners == {q: 1 for q in range(b * ng)}
+    for q in range(b * ng):
+        for ch in range(q % ng * norm.CHANNELS, min(c, (q % ng + 1) * norm.CHANNELS)):
+            got = np.concatenate([np.arange(*r) for r in pixels[(q, ch)]])
+            assert np.array_equal(np.sort(got), np.arange(h * w)), (q, ch)
+    if h * w <= 128:  # the small maps: no cluster, a group smaller than a block
+        assert p.cluster == 1 and p.wpg < norm.WARPS
 
 
 def test_stats_over_ranks_of_one_is_plain_batch_norm_and_ends_with_its_block():

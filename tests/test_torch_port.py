@@ -222,30 +222,56 @@ def test_fused_down_conv_kernel_matches_plain_on_card(monkeypatch):
 @pytest.mark.cuda
 def test_height_block_kernels_match_plain_on_card(monkeypatch):
     """The two launches of B3 over height blocks against their plain
-    versions at a GAN map's block (256² of 64 channels as 2 blocks of 128
-    rows, batch 4) and a ragged channel count, both dtypes: the triples'
-    mean and M2 within 1e-5 relative, y within B3's bounds of max|y|; one
-    launch each a call."""
+    versions, both dtypes, at a GAN map's block (256² of 64 channels as 2
+    blocks of 128 rows, batch 4: a cluster), the small maps of the spatial
+    path (no cluster, a warp or a few a group) and a ragged channel count:
+    the stats launch's triples (mean and M2 within 1e-5 of their largest,
+    counts exact); the merge-and-apply launch from the same gathered
+    triples of 2 and 4 blocks, its mean equal to ``merge_block_stats``'s
+    and r within 2 ulp of it (the kernel's 1/√ is correctly rounded,
+    torch.rsqrt on the card is not), y within B3's bounds of max|y| of
+    ``block_apply_plain`` from those statistics, bit-identical over two
+    calls; and one layer's forward (``instance_norm_blocks`` on an axis of
+    one rank) launching exactly 2 kernels."""
     from gan_class_transfer2_tpu_torch.ops import norm
+    from gan_class_transfer2_tpu_torch.parallel import multihost
 
     _needs_card(monkeypatch)
     r = np.random.default_rng(3)
-    for shape in ((4, 128, 256, 64), (3, 9, 17, 40)):
-        x = torch.from_numpy(r.normal(2.0, 3.0, shape).astype(np.float32)).cuda()
+    for shape in ((4, 128, 256, 64), (16, 2, 4, 512), (16, 8, 16, 512), (3, 9, 17, 40)):
         g = torch.from_numpy(r.normal(1.0, 0.2, shape[-1]).astype(np.float32)).cuda()
         b = torch.from_numpy(r.normal(0.0, 0.2, shape[-1]).astype(np.float32)).cuda()
+        blocks = [torch.from_numpy(r.normal(2.0 + i, 3.0, shape).astype(np.float32)).cuda()
+                  for i in range(4)]
         for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
-            xd = x.to(dtype)
+            xs = [blk.to(dtype) for blk in blocks]
+            parts = []
+            for xd in xs:
+                part = norm.block_stats(xd)
+                want = norm.block_stats_plain(xd)
+                assert torch.equal(part[..., 0], want[..., 0]), (shape, dtype)
+                for k in (1, 2):
+                    err = (part[..., k] - want[..., k]).abs().max().item()
+                    assert err <= 1e-5 * want[..., k].abs().max().item(), (shape, dtype, k, err)
+                parts.append(part)
+            for s in (2, 4):
+                stacked = torch.stack(parts[:s]).contiguous()
+                y, mean, rstd = norm.block_merge_apply(xs[0], stacked, g, b)
+                m_ref, r_ref = norm.merge_block_stats(stacked)
+                ref = norm.block_apply_plain(xs[0], m_ref, r_ref, g, b)
+                torch.cuda.synchronize()
+                assert torch.equal(mean, m_ref), (shape, dtype, s)
+                ulp = torch.nextafter(r_ref, torch.full_like(r_ref, float("inf"))) - r_ref
+                assert ((rstd - r_ref).abs() <= 2 * ulp).all(), (shape, dtype, s)
+                err = (y.float() - ref.float()).abs().max().item()
+                assert err <= tol * ref.float().abs().max().item(), (shape, dtype, s, err)
+                again, _, _ = norm.block_merge_apply(xs[0], stacked, g, b)
+                assert torch.equal(y, again), (shape, dtype, s)
             before = norm.block_launches()
-            part = norm.block_stats(xd)
-            want = norm.block_stats_plain(xd)
-            torch.testing.assert_close(part, want, rtol=1e-5,
-                                       atol=1e-5 * float(want[..., 2].abs().max()))
-            mean, rstd = norm.merge_block_stats(torch.stack([part, part]))
-            y = norm.block_apply(xd, mean, rstd, g, b)
-            ref = norm.block_apply_plain(xd, mean, rstd, g, b)
+            y = norm.instance_norm_blocks(xs[0], g, b, multihost.Axis(None, 1, 0))
             torch.cuda.synchronize()
             assert norm.block_launches() == before + 2
+            ref = norm.instance_norm_plain(xs[0], g, b)
             err = (y.float() - ref.float()).abs().max().item()
             assert err <= tol * ref.float().abs().max().item(), (shape, dtype, err)
 

@@ -8,7 +8,13 @@ its neighbours:
     twice it; device time of the kernel and its split-K sum, by
     torch.profiler;
   * B3 (csrc/instance_norm.cu): at the seven GAN maps at batch 16, every
-    cluster size from 1 to 8 that puts at least 64 blocks on the card;
+    cluster size from 1 to 8 that puts at least 64 blocks on the card; then
+    B3 over height blocks at the 12 norm blocks of a spatial rank (the
+    default model on 2 height shards, batch 16): device time of the stats
+    and merge-and-apply pair under ``norm.block_plan`` with each
+    ``lane_pixels`` (where a group stops being a few warps and takes a
+    block, then a cluster) and, where a group takes a block, each cluster
+    size;
   * the host cost of one B4 call (wrapper, bare C entry, one F.conv2d) at a
     shape whose device time is small;
   * B1 (csrc/diffuse.cu) at batch 16 × 256²×3: device time with L2 warm
@@ -20,12 +26,21 @@ its neighbours:
     step's draw of (t, seed) and its forward diffusion
     (``trainer.draw_and_diffuse``);
   * B1's knobs (``b1-knobs``): groups a thread and the form of Philox's
-    multiply, set by substitution in its source, device time of each.
+    multiply, set by substitution in its source, device time of each;
+  * B3's statistics pass over height blocks (``b3-pass1``), what it is
+    short of: at the two largest norm blocks of a spatial rank (the
+    default model on 2 height shards, batch 16), float32 and bfloat16, the
+    stats launch's device time beside a ladder of streaming kernels built
+    here (the same bytes read 16 bytes a thread, 8 loads in flight, each
+    element widened to float32 and run through 0, 1, 2, 4, 8 or 16 FFMAs):
+    the ladder's first rung is what the loads alone take, and the rung the
+    stats launch matches says how many issue slots an element costs it;
+    then the static SASS of each kernel of csrc/instance_norm.cu by class.
 
 Run it from the root of a checkout on a machine with a card, with the
 sections to run (default all):
 
-    python3 tools/kernel_plan_sweep.py [b4] [b3] [host] [b1] [b1-knobs]
+    python3 tools/kernel_plan_sweep.py [b4] [b3] [host] [b1] [b1-knobs] [b3-pass1]
 """
 
 import collections
@@ -130,6 +145,57 @@ def sweep_b3(gen):
             print(f"[sweep] B3 {str(dtype)[6:]} 16x{hw}²x{c}, plan S {s0}: device us (share of "
                   f"the byte bound) {'; '.join(out)}")
             del x
+
+
+def spatial_blocks():
+    """The 12 (B, h, W, C) norm blocks of a rank: the default model on 2
+    height shards at batch 16, each octave's down norm, then its up norm."""
+    from gan_class_transfer2_tpu_torch.config import Config
+
+    cfg = Config().validate()
+    out = []
+    for i in range(cfg.octaves):
+        d, u = cfg.size >> (i + 1), cfg.size >> i
+        out += [(16, d // 2, d, cfg.octave_filters(i)), (16, u // 2, u, cfg.octave_up_filters(i))]
+    return out
+
+
+LANE_PIXELS = (2, 4, 8, 16, 32, 64)
+
+
+def sweep_b3_blocks(gen):
+    chosen = norm.block_plan
+    totals = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in spatial_blocks():
+            b, h, w, c = shape
+            x = (torch.randn(shape, generator=gen, device="cuda") * 3 + 2).to(dtype)
+            g, bt = torch.ones(c, device="cuda"), torch.zeros(c, device="cuda")
+            parts = torch.stack([norm.block_stats(x), norm.block_stats(x)]).contiguous()
+            nq = b * -(-c // norm.CHANNELS)
+            plans = {f"lane_pixels {n}": chosen(b, h, w, c, dtype, n) for n in LANE_PIXELS}
+            p0 = chosen(b, h, w, c, dtype)
+            if p0.wpg == norm.WARPS:
+                for s in (1, 2, 4, 8):
+                    plans[f"S {s}"] = norm.BlockPlan(p0.wpg, p0.wpb, s, -(-h * w // s), nq * s)
+            out = []
+            for tag, p in plans.items():
+                norm.block_plan = lambda *a, p=p: p
+                try:
+                    us = device_us(lambda: (norm.block_stats(x),
+                                            norm.block_merge_apply(x, parts, g, bt)))
+                finally:
+                    norm.block_plan = chosen
+                totals[(dtype, tag)] = totals.get((dtype, tag), 0.0) + us
+                out.append(f"{tag} (wpg {p.wpg}, wpb {p.wpb}, S {p.cluster}, {p.blocks} blocks) "
+                           f"{us:.1f}")
+            print(f"[sweep] B3 height block {str(dtype)[6:]} {shape}, plan wpg {p0.wpg} wpb "
+                  f"{p0.wpb} S {p0.cluster}: stats + merge-and-apply device us " + "; ".join(out))
+            del x
+    for dtype in (torch.float32, torch.bfloat16):
+        print(f"[sweep] B3 height blocks {str(dtype)[6:]}, the 12 blocks' pairs summed, device "
+              f"us: " + "; ".join(f"{tag} {us:.1f}" for (dt, tag), us in totals.items()
+                                  if dt == dtype and not tag.startswith("S ")))
 
 
 def host_cost(gen):
@@ -353,6 +419,140 @@ def sweep_b1_knobs(gen):
           f"{host_us(lambda: torch.empty_like(xs)):.2f}")
 
 
+# ------------------------------------------------------- B3's pass 1
+
+LADDER_SOURCE = r"""
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// x read once as 16-byte words, 8 in flight a thread (B3's load pattern);
+// each element widened and put through OPS dependent FFMAs (none: its bits
+// folded by XOR, so the loads stay live)
+template <typename T, int OPS>
+__global__ void __launch_bounds__(256) ladder(const uint4* __restrict__ x, size_t n, float* out) {
+  constexpr int VEC = 16 / sizeof(T);
+  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
+  float acc[VEC];
+  uint32_t bits = 0;
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) acc[v] = 0.f;
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < n;
+       i += 8 * stride) {
+    uint4 raw[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      raw[k] = i + k * stride < n ? x[i + k * stride] : make_uint4(0, 0, 0, 0);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      if constexpr (OPS == 0) {
+        bits ^= raw[k].x ^ raw[k].y ^ raw[k].z ^ raw[k].w;
+      } else {
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) {
+          const float e = widen(reinterpret_cast<const T*>(&raw[k])[v]);
+#pragma unroll
+          for (int o = 0; o < OPS; ++o) acc[v] = __fmaf_rn(acc[v], 0.999f, e);
+        }
+      }
+    }
+  }
+  float s = __uint_as_float(bits);
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) s += acc[v];
+  if (s == 1234.5f) out[0] = s;  // never true; keeps the work
+}
+
+template <typename T>
+int run(const void* x, size_t n, void* out, int ops, int blocks, void* stream) {
+  const uint4* xv = static_cast<const uint4*>(x);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (ops) {
+    case 0: ladder<T, 0><<<blocks, 256, 0, s>>>(xv, n, o); break;
+    case 1: ladder<T, 1><<<blocks, 256, 0, s>>>(xv, n, o); break;
+    case 2: ladder<T, 2><<<blocks, 256, 0, s>>>(xv, n, o); break;
+    case 4: ladder<T, 4><<<blocks, 256, 0, s>>>(xv, n, o); break;
+    case 8: ladder<T, 8><<<blocks, 256, 0, s>>>(xv, n, o); break;
+    case 16: ladder<T, 16><<<blocks, 256, 0, s>>>(xv, n, o); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ladder_f32(const void* x, size_t n, void* out, int ops, int blocks, void* s) {
+  return run<float>(x, n, out, ops, blocks, s);
+}
+extern "C" int ladder_bf16(const void* x, size_t n, void* out, int ops, int blocks, void* s) {
+  return run<__nv_bfloat16>(x, n, out, ops, blocks, s);
+}
+"""
+LADDER_OPS = (0, 1, 2, 4, 8, 16)
+
+
+def sass_by_function(so):
+    """{demangled kernel name: Counter of SASS classes} of a built library."""
+    sass = subprocess.run([_tool("cuobjdump"), "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+    out = {}
+    for chunk in re.split(r"\n\s*Function : ", sass)[1:]:
+        name, body = chunk.split("\n", 1)
+        filt = shutil.which("c++filt")
+        if filt:
+            name = subprocess.run([filt, name.strip()], capture_output=True,
+                                  text=True).stdout.strip()
+        counts = collections.Counter()
+        for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)", body):
+            op = m.group(1)
+            counts[next((c for c in B3_SASS if op == c or op.startswith(c + ".")),
+                        "other")] += 1
+        out[name] = counts
+    return out
+
+
+B3_SASS = ("FADD", "FMUL", "FFMA", "MUFU", "FSETP", "CALL", "SHFL", "BAR", "LDG", "STG",
+           "PRMT", "IMAD", "SHF")
+
+
+def sweep_b3_pass1(gen):
+    from gan_class_transfer2_tpu_torch.config import Config
+
+    lib, ptxas, _ = build_variant("ladder", LADDER_SOURCE)
+    cfg = Config().validate()
+    top = (16, cfg.size // 2, cfg.size, cfg.octave_up_filters(0))  # the 256² up norm's block
+    nxt = (16, cfg.size // 4, cfg.size // 2, cfg.octave_filters(0))  # the 128² down norm's
+    stream = _build.current_stream(0)
+    out = torch.zeros(1, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        fn = getattr(lib, "ladder_f32" if dtype == torch.float32 else "ladder_bf16")
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        for shape in (top, nxt):
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            nbytes = x.numel() * x.element_size()
+            bound = nbytes / 3.35e12 * 1e6
+            stats = device_us(lambda: norm.block_stats(x), reps=20)
+            rungs = []
+            for ops in LADDER_OPS:
+                def call(ops=ops):
+                    err = fn(x.data_ptr(), nbytes // 16, out.data_ptr(), ops, 132 * 8, stream)
+                    if err:
+                        raise RuntimeError(f"ladder: CUDA error {err}")
+                rungs.append(f"{ops} FFMA {device_us(call, reps=20):.1f}")
+            print(f"[b3-pass1] {str(dtype)[6:]} block {shape} ({nbytes / 1e6:.1f} MB, read "
+                  f"bound {bound:.1f} us): stats launch {stats:.1f} us = {bound / stats:.0%} of "
+                  f"the bound; streaming ladder (device us; FFMAs an element after widening): "
+                  + "; ".join(rungs))
+            del x
+    for name, counts in sass_by_function(_build.library_path("instance_norm")).items():
+        print(f"[b3-pass1] SASS (static) {name[:90]}: "
+              + ", ".join(f"{c} {counts[c]}" for c in (*B3_SASS, "other")))
+
+
 def cuda_event_us(fn, reps=50):
     """CUDA-event mean over back-to-back calls, as chip_smoke.py times."""
     for _ in range(3):
@@ -366,8 +566,8 @@ def cuda_event_us(fn, reps=50):
     return start.elapsed_time(end) / reps * 1e3
 
 
-SECTIONS = {"b4": sweep_b4, "b3": sweep_b3, "host": host_cost, "b1": sweep_b1,
-            "b1-knobs": sweep_b1_knobs}
+SECTIONS = {"b4": sweep_b4, "b3": lambda gen: (sweep_b3(gen), sweep_b3_blocks(gen)), "host": host_cost, "b1": sweep_b1,
+            "b1-knobs": sweep_b1_knobs, "b3-pass1": sweep_b3_pass1}
 
 
 def main():

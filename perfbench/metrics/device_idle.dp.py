@@ -1,0 +1,10 @@
+"""device_idle.dp: % of the untraced data-parallel training window in which
+no operation but a collective ran on the card, averaged over the cards: 1 −
+(device busy time a unit in the traced window, collectives left out) × (units
+a second untraced)."""
+
+from perfbench.harness import readers
+
+
+def read(run):
+    return readers.idle(run)

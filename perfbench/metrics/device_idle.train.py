@@ -1,0 +1,9 @@
+"""device_idle.train: % of the untraced training window in which no operation
+but a collective ran on the card: 1 − (device busy time a unit in the traced
+window, collectives left out) × (units a second untraced)."""
+
+from perfbench.harness import readers
+
+
+def read(run):
+    return readers.idle(run)

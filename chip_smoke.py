@@ -225,7 +225,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      shards: ``make_spatial_unet_apply`` against ``unet_apply`` at the
      default width (1e-4 of the scale); one injected full-width spatial
      step and one on the data × spatial layout (data 1 × spatial 2) at
-     batch 16 against one process, step and halo ms; one injected step
+     batch 16 against one process, step ms and halo calls; one injected step
      each with g_norm instance (B3 over height blocks, 2 launches a norm
      layer, a rank and a forward) and batch, per_step_output, the dct and
      mse_multiscale losses, dynamic loss scaling, a uint8 pool, remat,
@@ -4668,12 +4668,11 @@ def phase_tp(fdc, cfg, card):
           f"1e-3·lr {a['share']:.2e} (bound 1e-4); {a['split']} kernels split, "
           f"{a['kernel_bytes'] / 1e6:.1f} MB of kernels a rank of "
           f"{a['full_kernel_bytes'] / 1e6:.1f}; launches a rank {a['launches']} (predicted B4 {b4}); step {a['step_ms']:.2f} ms "
-          f"(one process {r0['ref']['step_ms']:.2f} ms); one step with each collective timed "
-          f"(synchronised): gathers {comm['calls'].get('gather', 0)} x, "
-          f"{comm['bytes'].get('gather', 0) / 1e9:.3f} GB sent a rank, "
-          f"{comm['ms'].get('gather', 0.0):.2f} ms; input-gradient all-reduces "
-          f"{comm['calls'].get('reduce', 0)} x, {comm['bytes'].get('reduce', 0) / 1e9:.3f} GB, "
-          f"{comm['ms'].get('reduce', 0.0):.2f} ms; the timed step {comm['step_ms']:.2f} ms — "
+          f"(one process {r0['ref']['step_ms']:.2f} ms); one step's collectives: gathers "
+          f"{comm['calls'].get('gather', 0)} x, "
+          f"{comm['bytes'].get('gather', 0) / 1e9:.3f} GB sent a rank; input-gradient "
+          f"all-reduces {comm['calls'].get('reduce', 0)} x, "
+          f"{comm['bytes'].get('reduce', 0) / 1e9:.3f} GB; that step {comm['step_ms']:.2f} ms — "
           f"2 ranks sharing one {card} over gloo, not a multi-card number")
     if not ok:
         fail(f"tp-agree: loss rel {a['rel']}, share {a['share']}")
@@ -5113,11 +5112,10 @@ def phase_spatial_agree(card):
               f"{TRAIN_BATCH}, 2 height shards: loss {a['loss']:.7f} vs one process "
               f"{r0['ref']['loss']:.7f} (rel {a['rel']:.2e}, bound 1e-5); updates max|Δ2 − Δ1| "
               f"{a['max_diff']:.3e}, share beyond 1e-3·lr {a['share']:.2e} (bound 1e-4); step "
-              f"{a['step_ms']:.2f} ms (one process {r0['ref']['step_ms']:.2f} ms); one step with "
-              f"each collective timed: halos {halo['calls'].get('halo', 0)} x, "
-              f"{halo['bytes'].get('halo', 0) / 1e6:.2f} MB sent a rank, "
-              f"{halo['ms'].get('halo', 0.0):.2f} ms; gradient all-reduce "
-              f"{halo['ms'].get('grad', 0.0):.2f} ms — 2 ranks sharing one {card}")
+              f"{a['step_ms']:.2f} ms (one process {r0['ref']['step_ms']:.2f} ms); one step's "
+              f"halos {halo['calls'].get('halo', 0)} x, "
+              f"{halo['bytes'].get('halo', 0) / 1e6:.2f} MB sent a rank; gradient all-reduces "
+              f"{halo['calls'].get('grad', 0)} x — 2 ranks sharing one {card}")
         if not a["rel"] <= 1e-5 or not a["share"] <= 1e-4:
             fail(f"spatial-agree {name}: loss rel {a['rel']}, share {a['share']}")
     norm_layers = 2 * r0["octaves"]  # a down and an up norm an octave
@@ -5491,15 +5489,12 @@ def _tp_worker(torch, rank, port):
         res["step_ms"] = _ranks_ms(torch, multihost, again, 3, ranks=on is not None)
         if on is not None:
             multihost.comm.reset()
-            multihost.comm.timing = True
             t1 = time.perf_counter()
             again()
             sync()
             res["comm"] = {"step_ms": (time.perf_counter() - t1) * 1e3,
                            "calls": dict(multihost.comm.calls),
-                           "bytes": dict(multihost.comm.bytes),
-                           "ms": {k: v * 1e3 for k, v in multihost.comm.seconds.items()}}
-            multihost.comm.timing = False
+                           "bytes": dict(multihost.comm.bytes)}
         if check_ref is not None:
             res["rel"] = abs(res["loss"] - check_ref["loss"]) / abs(check_ref["loss"])
             diff = torch.cat([(a - b).abs().flatten()
@@ -5663,12 +5658,9 @@ def _spatial_worker(torch, rank, port):
 
         res["step_ms"] = _ranks_ms(torch, multihost, again, 3)
         multihost.comm.reset()
-        multihost.comm.timing = True
         again()
         sync()
-        res["comm"] = {"calls": dict(multihost.comm.calls), "bytes": dict(multihost.comm.bytes),
-                       "ms": {k: v * 1e3 for k, v in multihost.comm.seconds.items()}}
-        multihost.comm.timing = False
+        res["comm"] = {"calls": dict(multihost.comm.calls), "bytes": dict(multihost.comm.bytes)}
         out[name] = res
         del holder, state
         torch.cuda.empty_cache()

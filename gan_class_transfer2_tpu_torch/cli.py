@@ -61,7 +61,9 @@ round-robin labeled batches of ``--classes``; ``sample`` and ``edit`` take
 ``--class-idx`` on such a checkpoint. ``profile`` runs two warm training
 steps of the diffusion model, the cycle-GAN or the conditional GAN, then
 ``--profile-steps`` steps under ``torch.profiler``, and
-prints one JSON row per CUDA kernel and a summary line.
+prints one JSON row per CUDA kernel, one per span of the program's steps
+(``train.*``, ``gan.*``, ``norm.backward``) and a summary line
+(``span_dropped``: spans past the record cap, whose rows then read low).
 
 ``eval`` scores the latest checkpoint in ``--checkpoint-dir`` without
 training (``--model diffusion``: FID/KID of ``fid_samples`` samples against
@@ -808,7 +810,9 @@ def _distill_ranks(cfg: Config, args) -> int:
 
 def _profile(cfg: Config, args) -> int:
     """Trace N training steps and print the CUDA kernel breakdown (the JAX
-    CLI's ``_profile``, cli.py:854-934). Each step draws fresh
+    CLI's ``_profile``, cli.py:854-934), then a row a span of the program
+    (``utils/profiler.span_table``: calls, host ms, self host ms and device
+    ms a step, the last null off the card). Each step draws fresh
     ``[-1, 1)`` batches from ``np.random.default_rng(cfg.seed)`` on the host,
     so every timed step includes their draw and host-to-device copy, as the
     JAX command's does."""
@@ -871,6 +875,10 @@ def _profile(cfg: Config, args) -> int:
     for r in rows:
         r["ms_per_step"] = r.pop("ms") / n
         print(json.dumps(r))
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)  # the spans' CUDA events, resolved below
+    for r in profiler.span_table(profiler.spans(), n):
+        print(json.dumps(r))
     wall = timer.times[0] / n
     busy = profiler.device_busy_ms(prof) / n if device.type == "cuda" else None
     print(json.dumps({
@@ -884,6 +892,7 @@ def _profile(cfg: Config, args) -> int:
                  "no CUDA kernels traced (CPU run); trace.json kept at trace_dir"),
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         "device_busy_ms_per_step": busy,
+        "span_dropped": profiler.dropped(),
         "final": {k: float(v) for k, v in metrics.items()},
     }))
     return 0

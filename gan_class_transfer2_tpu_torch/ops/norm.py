@@ -8,7 +8,8 @@ The reference model has no normalization; the GAN-mode models do
     whose forward is ``instance_norm_fused``, the wrapper of the hand-written
     CUDA kernel in csrc/instance_norm.cu (launch counter
     ``instance_norm_fused.launches``), and whose backward is ``_in_bwd``
-    (norm.py:109-119, plain jnp there, so torch ops here);
+    (norm.py:109-119, plain jnp there, so torch ops here) inside the span
+    ``norm.backward`` (``utils/profiler.annotate``);
   * ``instance_norm_plain`` — ``_instance_norm_ref`` (norm.py:32-45): two-pass
     float32 statistics, ``rsqrt(v + 1e-5)``, with γ and β first rounded to
     x's dtype as the Pallas wrapper rounds them (norm.py:76). The wrapper
@@ -92,6 +93,7 @@ from torch import nn
 from torch._subclasses.fake_tensor import FakeTensor
 
 from ..parallel import multihost
+from ..utils import profiler
 from . import _build
 
 _EPS = 1e-5
@@ -253,7 +255,8 @@ class InstanceNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, gamma = ctx.saved_tensors
-        return _in_bwd(x, gamma, dy)
+        with profiler.annotate("norm.backward"):
+            return _in_bwd(x, gamma, dy)
 
 
 def instance_norm(x, gamma, beta):

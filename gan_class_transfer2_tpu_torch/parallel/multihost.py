@@ -49,7 +49,6 @@ from __future__ import annotations
 
 import contextlib
 import threading
-import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -72,41 +71,28 @@ def process_index() -> int:
 
 
 class CommStats:
-    """Calls, bytes sent and (while ``timing``) seconds of the collectives of
-    the tensor-parallel convs (``gather``, ``reduce``; the spatial step's
-    height gather is a ``gather`` too), the halo exchanges (``halo``), the
-    norms' statistics across ranks (``norm``) and the gradient all-reduces
-    (``grad``), by kind. Timing
-    synchronises the device before and after each collective, so it is off
-    unless a measurement turns it on; counting costs a dict update, under
-    a lock: a recompute in the backward counts from autograd's device
-    thread."""
+    """Calls and bytes sent of the collectives of the tensor-parallel convs
+    (``gather``, ``reduce``; the spatial step's height gather is a
+    ``gather`` too), the halo exchanges (``halo``), the norms' statistics
+    across ranks (``norm``) and the gradient all-reduces (``grad``), by
+    kind. Counting costs a dict update, under a lock: a recompute in the
+    backward counts from autograd's device thread."""
 
     def __init__(self):
-        self.timing = False
         self._lock = threading.Lock()
         self.reset()
 
     def reset(self):
         with self._lock:
-            self.calls, self.bytes, self.seconds = {}, {}, {}
+            self.calls, self.bytes = {}, {}
 
     @contextlib.contextmanager
     def record(self, kind: str, t: torch.Tensor):
+        """Count the collective of ``t`` that the block makes."""
         with self._lock:
             self.calls[kind] = self.calls.get(kind, 0) + 1
             self.bytes[kind] = self.bytes.get(kind, 0) + t.numel() * t.element_size()
-        if not self.timing:
-            yield
-            return
-        if t.is_cuda:
-            torch.cuda.synchronize(t.device)
-        t0 = time.perf_counter()
         yield
-        if t.is_cuda:
-            torch.cuda.synchronize(t.device)
-        with self._lock:
-            self.seconds[kind] = self.seconds.get(kind, 0.0) + time.perf_counter() - t0
 
 
 comm = CommStats()

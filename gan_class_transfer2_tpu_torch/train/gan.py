@@ -56,6 +56,7 @@ from ..models import unet
 from ..models.api import resolve_device
 from ..ops import diffaug
 from ..parallel import mesh as mesh_lib
+from ..utils import profiler
 from . import trainer as trainer_lib
 from .trainer import make_optimizer
 
@@ -174,72 +175,79 @@ def gan_train_step(cfg, g_optimizer, d_optimizer, state: GANState, batch_a, batc
     and the EMAs in place; returns ``(new_state, metrics)`` with float32
     scalar tensors on the batch's device (no host sync); on a mesh, the
     global batch's."""
-    # HBM-resident uint8 batches are cropped, flipped and normalised on the
-    # device, each with its own draws, before anything else (gan.py:151-156)
-    batch_a = trainer_lib.augment_if_uint8(cfg, batch_a, generator, mesh)
-    batch_b = trainer_lib.augment_if_uint8(cfg, batch_b, generator, mesh)
+    with profiler.annotate("gan.step", step=True):
+        # HBM-resident uint8 batches are cropped, flipped and normalised on the
+        # device, each with its own draws, before anything else (gan.py:151-156)
+        batch_a = trainer_lib.augment_if_uint8(cfg, batch_a, generator, mesh)
+        batch_b = trainer_lib.augment_if_uint8(cfg, batch_b, generator, mesh)
 
-    def aug(x):
-        return diffaug.augment(cfg, generator, x, mesh)
+        def aug(x):
+            return diffaug.augment(cfg, generator, x, mesh)
 
-    w_cycle = annealed_weight(cfg, cfg.cycle_weight, cfg.cycle_weight_final, state.step)
-    w_ident = annealed_weight(cfg, cfg.identity_weight, cfg.identity_weight_final, state.step)
-    gp, dp = g_params(state), d_params(state)
-    zero = torch.zeros((), dtype=torch.float32, device=batch_a.device)
+        w_cycle = annealed_weight(cfg, cfg.cycle_weight, cfg.cycle_weight_final, state.step)
+        w_ident = annealed_weight(cfg, cfg.identity_weight, cfg.identity_weight_final, state.step)
+        gp, dp = g_params(state), d_params(state)
+        zero = torch.zeros((), dtype=torch.float32, device=batch_a.device)
 
-    def disc(d_model, x):
-        return d_lib.discriminator_apply(cfg, d_model, x)
+        def disc(d_model, x):
+            return d_lib.discriminator_apply(cfg, d_model, x)
 
-    # IEEE float32 convs from the first forward through both gradient calls;
-    # batch norms over the mesh's rows (parallel/mesh.norm_stats)
-    with unet.ieee_fp32(torch.float32, batch_a.device), mesh_lib.norm_stats(mesh):
-        # ---- G: D enters as a constant of this derivative
-        with _constant(dp):
-            fake_b = _generate(cfg, state.g_ab, batch_a)
-            fake_a = _generate(cfg, state.g_ba, batch_b)
-            adv = (adversarial_loss(cfg, disc(state.d_b, aug(fake_b)), True, True)
-                   + adversarial_loss(cfg, disc(state.d_a, aug(fake_a)), True, True))
-            # zero-weight terms are not computed at all; they report 0
-            cycle = (_l1(_generate(cfg, state.g_ba, fake_b), batch_a)
-                     + _l1(_generate(cfg, state.g_ab, fake_a), batch_b)
-                     if cfg.cycle_term_active else zero)
-            ident = (_l1(_generate(cfg, state.g_ab, batch_b), batch_b)
-                     + _l1(_generate(cfg, state.g_ba, batch_a), batch_a)
-                     if cfg.identity_term_active else zero)
-            recon = (_l1(fake_b, batch_a) + _l1(fake_a, batch_b)
-                     if cfg.reconstruction_weight > 0 else zero)
-            g_loss = (cfg.adversarial_weight * adv + w_cycle * cycle + w_ident * ident
-                      + cfg.reconstruction_weight * recon)
-            g_grads = torch.autograd.grad(g_loss, gp, materialize_grads=True)
+        # IEEE float32 convs from the first forward through both gradient calls;
+        # batch norms over the mesh's rows (parallel/mesh.norm_stats)
+        with unet.ieee_fp32(torch.float32, batch_a.device), mesh_lib.norm_stats(mesh):
+            # ---- G: D enters as a constant of this derivative
+            with _constant(dp):
+                with profiler.annotate("gan.g_forward"):
+                    fake_b = _generate(cfg, state.g_ab, batch_a)
+                    fake_a = _generate(cfg, state.g_ba, batch_b)
+                    adv = (adversarial_loss(cfg, disc(state.d_b, aug(fake_b)), True, True)
+                           + adversarial_loss(cfg, disc(state.d_a, aug(fake_a)), True, True))
+                    # zero-weight terms are not computed at all; they report 0
+                    cycle = (_l1(_generate(cfg, state.g_ba, fake_b), batch_a)
+                             + _l1(_generate(cfg, state.g_ab, fake_a), batch_b)
+                             if cfg.cycle_term_active else zero)
+                    ident = (_l1(_generate(cfg, state.g_ab, batch_b), batch_b)
+                             + _l1(_generate(cfg, state.g_ba, batch_a), batch_a)
+                             if cfg.identity_term_active else zero)
+                    recon = (_l1(fake_b, batch_a) + _l1(fake_a, batch_b)
+                             if cfg.reconstruction_weight > 0 else zero)
+                    g_loss = (cfg.adversarial_weight * adv + w_cycle * cycle + w_ident * ident
+                              + cfg.reconstruction_weight * recon)
+                with profiler.annotate("gan.g_backward"):
+                    g_grads = torch.autograd.grad(g_loss, gp, materialize_grads=True)
 
-        # ---- D on the detached fakes, from the same (not yet updated) params
-        fake_a, fake_b = fake_a.detach(), fake_b.detach()
-        real_a, real_b = aug(batch_a), aug(batch_b)
-        d_loss = (adversarial_loss(cfg, disc(state.d_a, real_a), True, False)
-                  + adversarial_loss(cfg, disc(state.d_a, aug(fake_a)), False, False)
-                  + adversarial_loss(cfg, disc(state.d_b, real_b), True, False)
-                  + adversarial_loss(cfg, disc(state.d_b, aug(fake_b)), False, False)) * 0.5
-        r1 = zero
+            # ---- D on the detached fakes, from the same (not yet updated) params
+            with profiler.annotate("gan.d_forward"):
+                fake_a, fake_b = fake_a.detach(), fake_b.detach()
+                real_a, real_b = aug(batch_a), aug(batch_b)
+                d_loss = (adversarial_loss(cfg, disc(state.d_a, real_a), True, False)
+                          + adversarial_loss(cfg, disc(state.d_a, aug(fake_a)), False, False)
+                          + adversarial_loss(cfg, disc(state.d_b, real_b), True, False)
+                          + adversarial_loss(cfg, disc(state.d_b, aug(fake_b)), False,
+                                             False)) * 0.5
+                r1 = zero
+                if cfg.r1_weight > 0:
+                    # at D's actual input, the augmented reals (augmented R1)
+                    r1 = r1_penalty(cfg, state.d_a, real_a) + r1_penalty(cfg, state.d_b, real_b)
+                    d_loss = d_loss + 0.5 * cfg.r1_weight * r1
+            with profiler.annotate("gan.d_backward"):
+                d_grads = torch.autograd.grad(d_loss, dp, materialize_grads=True)
+
+        metrics = {"g_loss": g_loss.detach(), "d_loss": d_loss.detach(),
+                   "adversarial": adv.detach(), "cycle": cycle.detach(),
+                   "identity": ident.detach()}
         if cfg.r1_weight > 0:
-            # at D's actual input, the augmented reals (augmented R1)
-            r1 = r1_penalty(cfg, state.d_a, real_a) + r1_penalty(cfg, state.d_b, real_b)
-            d_loss = d_loss + 0.5 * cfg.r1_weight * r1
-        d_grads = torch.autograd.grad(d_loss, dp, materialize_grads=True)
-
-    metrics = {"g_loss": g_loss.detach(), "d_loss": d_loss.detach(),
-               "adversarial": adv.detach(), "cycle": cycle.detach(),
-               "identity": ident.detach()}
-    if cfg.r1_weight > 0:
-        metrics["r1"] = r1.detach()
-    g_opt, d_opt, metrics = _update_both(cfg, g_optimizer, d_optimizer, state, gp, dp, g_grads,
-                                         d_grads, metrics, mesh)
-    _ema_step(cfg, state.ema_g_ab, state.g_ab, g_opt)
-    _ema_step(cfg, state.ema_g_ba, state.g_ba, g_opt)
-    if cfg.loss_anneal_steps > 0:
-        # the current effective weights, so the anneal is visible
-        metrics["cycle_weight"] = torch.as_tensor(w_cycle, dtype=torch.float32)
-        metrics["identity_weight"] = torch.as_tensor(w_ident, dtype=torch.float32)
-    return state._replace(step=state.step + 1, g_opt=g_opt, d_opt=d_opt), metrics
+            metrics["r1"] = r1.detach()
+        with profiler.annotate("gan.update"):
+            g_opt, d_opt, metrics = _update_both(cfg, g_optimizer, d_optimizer, state, gp, dp,
+                                                 g_grads, d_grads, metrics, mesh)
+            _ema_step(cfg, state.ema_g_ab, state.g_ab, g_opt)
+            _ema_step(cfg, state.ema_g_ba, state.g_ba, g_opt)
+        if cfg.loss_anneal_steps > 0:
+            # the current effective weights, so the anneal is visible
+            metrics["cycle_weight"] = torch.as_tensor(w_cycle, dtype=torch.float32)
+            metrics["identity_weight"] = torch.as_tensor(w_ident, dtype=torch.float32)
+        return state._replace(step=state.step + 1, g_opt=g_opt, d_opt=d_opt), metrics
 
 
 def _update_both(cfg, g_optimizer, d_optimizer, state, gp, dp, g_grads, d_grads, metrics,

@@ -59,6 +59,7 @@ from ..ops import adam_kernel, fused_diffusion
 from ..ops import image as image_ops
 from ..parallel import mesh as mesh_lib
 from ..parallel import multihost
+from ..utils import profiler
 
 
 class ScaleState(NamedTuple):
@@ -451,7 +452,8 @@ def fold_and_augment(cfg, batch, generator, mesh=None):
     flipped and normalised before t and ε are drawn, outside the
     differentiated region. JAX folds the step number into its key here; the
     port's generator advances with every draw instead."""
-    return augment_if_uint8(cfg, batch, generator, mesh)
+    with profiler.annotate("train.augment"):
+        return augment_if_uint8(cfg, batch, generator, mesh)
 
 
 def loss_and_grads(cfg, model, batch, generator, scale=None, *, t_int=None, epsilon_in=None,
@@ -464,11 +466,13 @@ def loss_and_grads(cfg, model, batch, generator, scale=None, *, t_int=None, epsi
     take the statistics of the global batch (``mesh.norm_stats``)."""
     params = list(model.parameters())
     with unet.ieee_fp32(torch.float32, _image(batch).device), mesh_lib.norm_stats(mesh):
-        loss = diffusion_loss(cfg, model, batch, generator, t_int=t_int, epsilon_in=epsilon_in,
-                              mesh=mesh)
-        if scale is not None:
-            loss = loss * scale
-        grads = torch.autograd.grad(loss, params)
+        with profiler.annotate("train.forward"):
+            loss = diffusion_loss(cfg, model, batch, generator, t_int=t_int,
+                                  epsilon_in=epsilon_in, mesh=mesh)
+            if scale is not None:
+                loss = loss * scale
+        with profiler.annotate("train.backward"):
+            grads = torch.autograd.grad(loss, params)
     return loss.detach(), list(grads)
 
 
@@ -530,12 +534,14 @@ def train_step(cfg, optimizer, state: TrainState, batch, generator, mesh=None):
     parameters in place; returns ``(new_state, loss)`` with the loss a
     float32 tensor on the batch's device (no host sync). On a mesh,
     ``batch`` is this rank's rows and the loss the global batch's."""
-    batch = fold_and_augment(cfg, batch, generator, mesh)
-    scale = loss_scale(cfg, state)
-    params = mesh_lib.params_of(state.model)
-    loss, grads = loss_and_grads(cfg, state.model, batch, generator, scale, mesh=mesh)
-    grads, (loss,) = average_over_ranks(mesh, grads, [loss])
-    return finish_step(cfg, optimizer, state, params, grads, loss, scale, mesh)
+    with profiler.annotate("train.step", step=True):
+        batch = fold_and_augment(cfg, batch, generator, mesh)
+        scale = loss_scale(cfg, state)
+        params = mesh_lib.params_of(state.model)
+        loss, grads = loss_and_grads(cfg, state.model, batch, generator, scale, mesh=mesh)
+        grads, (loss,) = average_over_ranks(mesh, grads, [loss])
+        with profiler.annotate("train.update"):
+            return finish_step(cfg, optimizer, state, params, grads, loss, scale, mesh)
 
 
 def loss_scale(cfg, state: TrainState):

@@ -22,9 +22,9 @@ Each is held against one process's injected step on the same global batch
 (run first on rank 0 alone): the loss within 1e-5 relative, the updates
 beyond 1e-3 of the learning rate on at most 1e-4 of the elements (the
 bounds of ``chip_smoke.py``'s ``[dp-agree]``). Timed: the step (median of
-3, every rank started together) and, in one further step with each
-collective synchronised, the tensor-parallel gathers and input-gradient
-all-reduces, the halos and the gradient all-reduce.
+3, every rank started together) and one further step, with the calls and
+bytes of its tensor-parallel gathers and input-gradient all-reduces, its
+halos and its gradient all-reduce.
 
 ``--part pipeline``: ``parallel/pipeline.PipelineTrainer`` in this one
 process over 2 and 4 cards (stage s on ``cuda:s``) and as 2 stages × 2
@@ -154,15 +154,12 @@ def _rank(rank: int, port: int, device: str, tiny: bool, queue) -> None:
 
     def comm_step(fn):
         multihost.comm.reset()
-        multihost.comm.timing = True
         t1 = time.perf_counter()
         fn()
         sync()
-        multihost.comm.timing = False
         return {"step_ms": (time.perf_counter() - t1) * 1e3,
                 "calls": dict(multihost.comm.calls),
-                "mb": {k: v / 1e6 for k, v in multihost.comm.bytes.items()},
-                "ms": {k: v * 1e3 for k, v in multihost.comm.seconds.items()}}
+                "mb": {k: v / 1e6 for k, v in multihost.comm.bytes.items()}}
 
     # data 2 x model 2
     mesh = mesh_lib.make_mesh(device=device, data=2, model=2)
@@ -382,10 +379,9 @@ def main(argv=None) -> int:
         print(f"{name}: loss {a['loss']:.7f} vs one process {r0['one_process']['loss']:.7f} "
               f"(rel {a['rel']:.2e}); updates max|Δ| {a['max_diff']:.3e}, share beyond "
               f"1e-3·lr {a['share']:.2e}; step {a['step_ms']:.2f} ms (one process "
-              f"{r0['one_process']['step_ms']:.2f} ms); collectives of one timed step "
+              f"{r0['one_process']['step_ms']:.2f} ms); collectives of one step "
               f"({c['step_ms']:.2f} ms): " + ", ".join(
-                  f"{k} {c['calls'][k]} x {c['mb'][k]:.1f} MB {c['ms'].get(k, 0.0):.2f} ms"
-                  for k in sorted(c["calls"])))
+                  f"{k} {c['calls'][k]} x {c['mb'][k]:.1f} MB" for k in sorted(c["calls"])))
     summary["peak_gb"] = [r["peak_gb"] for r in results]
     summary["ok"] = ok
     return _emit(summary, args.out)

@@ -79,15 +79,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      distinct shapes of the cycle-GAN step at batch 16 (each with its plan's
      cluster size) and at a large mean (3·N(0, 1) + 100), float32 and
      bfloat16: forward, and dx, dγ, dβ of its autograd Function against
-     autograd through the plain version; kernel, plain version,
-     F.instance_norm, the backward and F.instance_norm's autograd backward
-     timed beside the byte bound. B4 with
+     autograd through the plain version, and the backward kernel against
+     ``_in_bwd`` (bit-identical twice); kernel, plain version,
+     F.instance_norm, the backward kernel (host included, and device time
+     queued), ``_in_bwd`` and F.instance_norm's autograd backward timed
+     beside the byte bounds. B4 with
      ``relu=False`` (every GAN down conv) at its four shapes at batch 16;
   10. gan — the user's entry point, ``cli.main(["profile", "--model", "gan",
      ...])``, at the default width (two default U-Net generators, two
      default discriminators, 256², batch 16 per class) with instance norms
      and ``--conv-impl pallas``, float32 and bfloat16, 2 + 3 steps: exact B3
-     and B4 launch counts (derived from the config), finite losses, the
+     and B4 launch counts (derived from the config), B3's backward launches
+     (194 a step: 102 norms, D's 10 in G's pass without dγ and dβ) and no
+     torch-op backward, finite losses, the
      trace's top kernels, busy and idle; the step timed without the
      profiler; ``gan.transfer`` at batch 4;
   11. gan-agree — one full-width float32 GAN step under sgd from the same
@@ -364,6 +368,12 @@ IN_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # orders; in bfloat16 the plain version's dγ and dβ pass through γ and β
 # rounded to bf16, and dx is rounded to bf16 on both sides
 IN_GRAD_RTOL = {"float32": 1e-5, "bfloat16": 4e-2}
+# B3's backward kernel vs its plain version ``_in_bwd`` on the same inputs,
+# relative to the largest value: dx 1e-5 in float32 (shifted one-pass sums
+# against two-pass statistics), 1e-2 in bfloat16 (each side rounds its float32
+# dx once); dγ and dβ are float32 sums of the same inputs in other orders
+IN_BWD_RTOL = {"float32": {"dx": 1e-5, "dgamma": 1e-5, "dbeta": 1e-5},
+               "bfloat16": {"dx": 1e-2, "dgamma": 1e-5, "dbeta": 1e-5}}
 
 
 def fail(msg):
@@ -1689,21 +1699,35 @@ def gan_counts(fdc, cfg, batch, conditional=False):
     return dict(per_step), n_g * g_b4 + n_d * d_b4, (sum(g_norms.values()), g_b4)
 
 
+def gan_bwd_launches(fdc, cfg, batch):
+    """B3 backward launches of one unconditional GAN step: two a norm whose γ
+    and β take gradients (G's, and D's in D's pass), one a norm of D in G's
+    pass, where D is a constant (train/gan._constant)."""
+    per_step, _, (g_fwd, _) = gan_counts(fdc, cfg, batch)
+    n_g = 2 + 2 * cfg.cycle_term_active + 2 * cfg.identity_term_active
+    d_apply = (sum(per_step.values()) - n_g * g_fwd) // 6  # D's norms an apply
+    return 2 * n_g * g_fwd + (2 * 1 + 4 * 2) * d_apply
+
+
 def phase_gan_kernels(torch, F, fdc, norm, cfg):
     """B3 against its plain version at the GAN path's distinct shapes at
     batch 16, float32 and bfloat16: the forward and the Function's dx, dγ,
-    dβ (its backward is torch ops) against autograd through the plain
-    version; the kernel, the plain version, F.instance_norm and the
-    backward timed beside the byte bound. Then B4 with ``relu=False`` (every
-    GAN down conv) at its four shapes at batch 16. Returns {dtype: row
-    without launches} with times summed over one step's launches."""
+    dβ (its backward the kernel) against autograd through the plain
+    version, and the backward kernel against ``_in_bwd``; the kernel, the
+    plain version and F.instance_norm timed beside the byte bound, and the
+    backward kernel (host included, and its device time queued), ``_in_bwd``
+    and F.instance_norm's autograd backward beside theirs. Then B4 with
+    ``relu=False`` (every GAN down conv) at its four shapes at batch 16.
+    Returns {dtype: row without launches} with times summed over one step's
+    launches, forward and backward rows."""
     per_step, _, _ = gan_counts(fdc, cfg, TRAIN_BATCH)
     gen = torch.Generator(device="cuda").manual_seed(11)
     rows = {}
     for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        s = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bwd_ms=0.0, lib_bwd_ms=0.0,
-                 err=0.0)
+        s = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bwd_ms=0.0, bwd_dev_ms=0.0,
+                 bwd_plain_ms=0.0, lib_bwd_ms=0.0, err=0.0, bwd_err=0.0)
         worst = {"y": 0.0, "dx": 0.0, "dgamma": 0.0, "dbeta": 0.0}
+        worst_k = {"dx": 0.0, "dgamma": 0.0, "dbeta": 0.0}
         for (hw, c), n in sorted(per_step.items(), reverse=True):
             x = (torch.randn((TRAIN_BATCH, hw, hw, c), generator=gen, device="cuda") * 3 + 2)
             x = x.to(dtype)
@@ -1711,6 +1735,7 @@ def phase_gan_kernels(torch, F, fdc, norm, cfg):
             b = 0.2 * torch.randn((c,), generator=gen, device="cuda")
             dy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
             before = norm.instance_norm_fused.launches
+            before_bwd = norm.instance_norm_bwd_fused.launches
             y = norm.instance_norm_fused(x, g, b)
             yp = norm.instance_norm_plain(x, g, b)
             err = (y.float() - yp.float()).abs().max().item()
@@ -1732,13 +1757,29 @@ def phase_gan_kernels(torch, F, fdc, norm, cfg):
                     fail(f"B3 {gname} {dtype_name} x{tuple(x.shape)}: max|err| {gerr} > "
                          f"{IN_GRAD_RTOL[dtype_name]} x max|{gname}| {gscale}")
                 worst[gname] = max(worst[gname], gerr / gscale)
+            got = norm.instance_norm_bwd_fused(x, g, dy)
+            want = norm._in_bwd(x, g, dy)
+            for gname, a, w in zip(("dx", "dgamma", "dbeta"), got, want):
+                gerr = (a.float() - w.float()).abs().max().item()
+                gscale = w.float().abs().max().item()
+                if not gerr <= IN_BWD_RTOL[dtype_name][gname] * gscale:
+                    fail(f"B3 backward kernel {gname} {dtype_name} x{tuple(x.shape)}: max|err| "
+                         f"{gerr} > {IN_BWD_RTOL[dtype_name][gname]} x max|{gname}| {gscale}")
+                worst_k[gname] = max(worst_k[gname], gerr / gscale)
+                if gname == "dx":
+                    s["bwd_err"] = max(s["bwd_err"], gerr)
+            if not all(torch.equal(a, b_) for a, b_ in zip(got, norm.instance_norm_bwd_fused(
+                    x, g, dy))):
+                fail(f"B3 backward kernel {dtype_name} x{tuple(x.shape)}: two calls differ")
             ms = cuda_ms(lambda: norm.instance_norm_fused(x, g, b))
             plain_ms = cuda_ms(lambda: norm.instance_norm_plain(x, g, b))
             # one library call of the same function: cuDNN/ATen instance norm
             # on the NCHW view of the same NHWC memory
             xl, gl, bl = x.permute(0, 3, 1, 2), g.to(dtype), b.to(dtype)
             lib_ms = cuda_ms(lambda: F.instance_norm(xl, weight=gl, bias=bl, eps=1e-5))
-            bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves[0], dy, retain_graph=True))
+            bwd_ms = cuda_ms(lambda: norm.instance_norm_bwd_fused(x, g, dy))
+            bwd_dev_ms = queued_ms(lambda: norm.instance_norm_bwd_fused(x, g, dy))
+            bwd_plain_ms = cuda_ms(lambda: norm._in_bwd(x, g, dy))
             # the library's backward of the same function: F.instance_norm's
             # autograd on the NCHW view, dx, dγ and dβ
             lib_in = [xl.detach().requires_grad_(), gl.clone().requires_grad_(),
@@ -1747,19 +1788,24 @@ def phase_gan_kernels(torch, F, fdc, norm, cfg):
             dy_l = dy.permute(0, 3, 1, 2)
             lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, lib_in, dy_l,
                                                              retain_graph=True))
-            norm.instance_norm_fused.launches = before  # comparison launches do not count
+            # comparison launches do not count
+            norm.instance_norm_fused.launches = before
+            norm.instance_norm_bwd_fused.launches = before_bwd
             nbytes = 2 * x.numel() * x.element_size() + 2 * 4 * c  # x in, y out; γ, β
             bound = _bytes_ms(nbytes)
-            plan = norm.plan(*x.shape)
+            plan, bplan = norm.plan(*x.shape), norm.block_plan(*x.shape, dtype)
             print(f"[gan-kernel] B3 {dtype_name} x{tuple(x.shape)} (x{n} a step): cluster "
                   f"{plan.cluster} ({plan.blocks} blocks, chunk {plan.chunk} px); max|err| "
                   f"{err:.3e} (max|y| {scale:.3f}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"F.instance_norm {lib_ms:.4f} ms, bound {bound:.4f} ms (bytes) = "
-                  f"{bound / ms:.1%} of bound; backward (torch ops) {bwd_ms:.4f} ms, "
-                  f"F.instance_norm's backward {lib_bwd_ms:.4f} ms, its bound "
-                  f"{1.5 * bound:.4f} ms (bytes: x and dy read, dx written)")
+                  f"{bound / ms:.1%} of bound; backward kernel ({bplan}) {bwd_ms:.4f} ms, "
+                  f"device {bwd_dev_ms:.4f} ms = {1.5 * bound / bwd_dev_ms:.1%} of its bound "
+                  f"{1.5 * bound:.4f} ms (bytes: x and dy read, dx written), plain (_in_bwd, "
+                  f"torch ops) {bwd_plain_ms:.4f} ms, F.instance_norm's backward "
+                  f"{lib_bwd_ms:.4f} ms")
             for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
-                         ("bound_ms", bound), ("bwd_ms", bwd_ms), ("lib_bwd_ms", lib_bwd_ms)):
+                         ("bound_ms", bound), ("bwd_ms", bwd_ms), ("bwd_dev_ms", bwd_dev_ms),
+                         ("bwd_plain_ms", bwd_plain_ms), ("lib_bwd_ms", lib_bwd_ms)):
                 s[k] += n * v
             del x, y, yp, dy, leaves, out, ref, got, want, xl, lib_in, lib_out, dy_l
         print(f"[gan-kernel] B3 {dtype_name}: {sum(per_step.values())} launches a step over "
@@ -1768,28 +1814,46 @@ def phase_gan_kernels(torch, F, fdc, norm, cfg):
               f"{worst['dgamma']:.2e}, dβ {worst['dbeta']:.2e} (bound "
               f"{IN_GRAD_RTOL[dtype_name]}); a step's norms: kernel {s['ms']:.4f} ms, plain "
               f"{s['plain_ms']:.4f} ms, F.instance_norm {s['library_ms']:.4f} ms, bound "
-              f"{s['bound_ms']:.4f} ms (bytes); backward (torch ops) {s['bwd_ms']:.4f} ms, "
-              f"F.instance_norm's backward {s['lib_bwd_ms']:.4f} ms, its bound "
-              f"{1.5 * s['bound_ms']:.4f} ms (bytes)")
+              f"{s['bound_ms']:.4f} ms (bytes); backward kernel {s['bwd_ms']:.4f} ms, device "
+              f"{s['bwd_dev_ms']:.4f} ms ({1.5 * s['bound_ms'] / s['bwd_dev_ms']:.1%} of its "
+              f"bound), plain (_in_bwd) {s['bwd_plain_ms']:.4f} ms, F.instance_norm's "
+              f"backward {s['lib_bwd_ms']:.4f} ms, its bound {1.5 * s['bound_ms']:.4f} ms "
+              f"(bytes); backward kernel against _in_bwd: dx {worst_k['dx']:.2e}, dγ "
+              f"{worst_k['dgamma']:.2e}, dβ {worst_k['dbeta']:.2e} (bounds "
+              f"{IN_BWD_RTOL[dtype_name]})")
         # a large mean, x = 3·N(0, 1) + 100: where a one-pass E[x²] − m² loses
-        # the variance's digits; the kernel's Welford/Chan combine must not
+        # the variance's digits; the kernel's Welford/Chan combine must not,
+        # nor the backward's sums about the sample's first pixel
         for shape in ((TRAIN_BATCH, 64, 64, 256), (TRAIN_BATCH, 256, 256, 64)):
             x = (torch.randn(shape, generator=gen, device="cuda") * 3 + 100).to(dtype)
             g = 1 + 0.2 * torch.randn((shape[3],), generator=gen, device="cuda")
             b = 0.2 * torch.randn((shape[3],), generator=gen, device="cuda")
+            dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
             before = norm.instance_norm_fused.launches
+            before_bwd = norm.instance_norm_bwd_fused.launches
             y = norm.instance_norm_fused(x, g, b)
             yp = norm.instance_norm_plain(x, g, b)
+            got = norm.instance_norm_bwd_fused(x, g, dy)
+            want = norm._in_bwd(x, g, dy)
             norm.instance_norm_fused.launches = before
+            norm.instance_norm_bwd_fused.launches = before_bwd
             err = (y.float() - yp.float()).abs().max().item()
             scale = yp.float().abs().max().item()
+            gerr = {k: (a.float() - w.float()).abs().max().item() / w.float().abs().max().item()
+                    for k, a, w in zip(("dx", "dgamma", "dbeta"), got, want)}
             print(f"[gan-kernel] B3 {dtype_name} large mean x{shape} = 3·N(0,1) + 100: max|err| "
-                  f"{err:.3e} (max|y| {scale:.3f}, bound {IN_RTOL[dtype_name]} x max|y|)")
+                  f"{err:.3e} (max|y| {scale:.3f}, bound {IN_RTOL[dtype_name]} x max|y|); "
+                  f"backward kernel against _in_bwd, relative: "
+                  f"{', '.join(f'{k} {v:.2e}' for k, v in gerr.items())}")
             if not err <= IN_RTOL[dtype_name] * scale:
                 fail(f"B3 {dtype_name} large mean x{shape}: max|err| {err} > "
                      f"{IN_RTOL[dtype_name]} x max|y| {scale}")
+            for k, v in gerr.items():
+                if not v <= IN_BWD_RTOL[dtype_name][k]:
+                    fail(f"B3 backward kernel {k} {dtype_name} large mean x{shape}: {v} > "
+                         f"{IN_BWD_RTOL[dtype_name][k]} of the largest value")
             s["err"] = max(s["err"], err)
-            del x, y, yp
+            del x, y, yp, dy, got, want
         name = f"instance_norm_{'f32' if dtype_name == 'float32' else 'bf16'}"
         rows[dtype_name] = {
             "name": name, "route": "cuda",
@@ -1797,6 +1861,14 @@ def phase_gan_kernels(torch, F, fdc, norm, cfg):
             "replaces": "gan_class_transfer2_tpu/ops/norm.py:48", "launches": 0,
             "max_abs_err": s["err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
             "bound_ms": s["bound_ms"], "bound_by": "bytes", "library_ms": s["library_ms"]}
+        rows[dtype_name + " backward"] = {
+            "name": name.replace("norm", "norm_bwd"), "route": "cuda",
+            "source": "gan_class_transfer2_tpu_torch/csrc/instance_norm.cu",
+            "replaces": "none (gan_class_transfer2_tpu/ops/norm.py:109 is plain jnp)",
+            "launches": 0, "max_abs_err": s["bwd_err"], "ms": s["bwd_ms"],
+            "device_ms": s["bwd_dev_ms"], "plain_ms": s["bwd_plain_ms"],
+            "bound_ms": 1.5 * s["bound_ms"], "bound_by": "bytes",
+            "library_ms": s["lib_bwd_ms"]}
         torch.cuda.empty_cache()
 
     b4_err = {}
@@ -1817,9 +1889,11 @@ def phase_gan(torch, cli, fdc, norm, gan, cfg, tmp):
     ``--conv-impl pallas``), float32 and bfloat16: exact B3 and B4 launch
     counts, finite losses, and the trace's breakdown; then the same step
     timed without the profiler, and ``gan.transfer`` at batch 4. Returns
-    {dtype: (B3 launches, B4 launches)} of the main-path runs."""
+    {dtype: (B3 launches, B4 launches), dtype + " backward": (B3 backward
+    launches,)} of the main-path runs."""
     per_step, b4_step, (b3_fwd, b4_fwd) = gan_counts(fdc, cfg, TRAIN_BATCH)
     b3_step = sum(per_step.values())
+    bwd_step = gan_bwd_launches(fdc, cfg, TRAIN_BATCH)
     steps = GAN_WARM + GAN_PROFILE_STEPS
     print(f"[gan] per step: {b3_step} B3 launches "
           f"({', '.join(f'{n}x{hw}²x{c}' for (hw, c), n in sorted(per_step.items()))}), "
@@ -1833,13 +1907,23 @@ def phase_gan(torch, cli, fdc, norm, gan, cfg, tmp):
                 str(GAN_PROFILE_STEPS), "--trace-dir", os.path.join(tmp, f"gan-{dtype}"),
                 *GAN_FLAGS]
         norm.instance_norm_fused.launches = fdc.down_conv_fused.launches = 0
+        norm.instance_norm_bwd_fused.launches = 0
+        graphs = norm.InstanceNorm.graph_backwards
         *rows, out = _cli_json(cli, args)  # kernel rows, then the summary line
         got = (norm.instance_norm_fused.launches, fdc.down_conv_fused.launches)
         want = (steps * b3_step, steps * b4_step)
         if got != want:
             fail(f"gan {dtype}: B3/B4 launches {got}, expected {want} "
                  f"({b3_step}/{b4_step} a step x {steps} steps)")
+        bwd = norm.instance_norm_bwd_fused.launches
+        graphs = norm.InstanceNorm.graph_backwards - graphs
+        if bwd != steps * bwd_step or graphs:
+            fail(f"gan {dtype}: B3 backward launches {bwd} (expected {steps * bwd_step}, "
+                 f"{bwd_step} a step), torch-op backwards {graphs} (expected 0)")
+        print(f"[gan] {dtype}: B3 backward {bwd} launches over {steps} steps ({bwd_step} a step "
+              f"for {b3_step} norms), torch-op backwards {graphs}")
         launches[dtype] = got
+        launches[dtype + " backward"] = (bwd,)
         final = out["final"]
         if not (np.isfinite(final["g_loss"]) and np.isfinite(final["d_loss"])):
             fail(f"gan {dtype}: losses {final}")
@@ -6102,7 +6186,8 @@ def main():
     # four shapes of one denoiser call at batch 4, its max_abs_err is the
     # worst forward error at batch 4 and 16 (with and without ReLU); the
     # instance norm's times and bound sum one GAN step's 102 launches at
-    # batch 16; launches are the main-path runs' (sample, edit, train,
+    # batch 16 (its backward's row: the step's 102 backwards, launched by
+    # [gan]'s profile steps); launches are the main-path runs' (sample, edit, train,
     # train-hbm, train-cli, train-resume, cache, gan, gan-train-cli, eval,
     # cond-train-cli, cgan, cgan-train-cli, serve, distill, bundle,
     # serve-bundle, dp-train's ranks, inception's eval, fid-steps, dp-distill's
@@ -6140,8 +6225,8 @@ def main():
     for name, row in train_rows.items():
         rows.append(dict(row, launches=train_launches[name]))
     rows.append(dict(dp_row, launches=dp_launches["diffuse_sharded_f32"]))
-    for dtype, row in gan_rows.items():
-        rows.append(dict(row, launches=gan_launches[dtype][0]))
+    for key, row in gan_rows.items():  # B3's forward and backward rows by dtype
+        rows.append(dict(row, launches=gan_launches[key][0]))
     rows.append(dict(blocks_row, launches=spatial_launches["instance_norm_blocks_f32"]))
     for row in rows:
         if row["launches"] <= 0:

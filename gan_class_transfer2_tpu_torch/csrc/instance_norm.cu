@@ -82,6 +82,36 @@
 //     cluster.sync() and, where a group is one warp, no __syncthreads.
 // Between them ops/norm.py all-gathers the triples over the spatial axis.
 //
+// Backward (gct2_instance_norm_bwd_*). It replaces no Pallas kernel: the JAX
+// package's backward of the instance norm is plain jnp
+// (gan_class_transfer2_tpu/ops/norm.py:109-119), and its function here is
+// ops/norm._in_bwd's, at the same precision. From x (B, H, W, C), dy (x's
+// dtype) and γ (float32) it recomputes, per (sample, channel) over the H·W
+// pixels, the statistics in float32 and writes
+//   dx = r·(g − mean(g) − x̂·mean(g·x̂)),  g = dy·γ,  x̂ = (x − m)·r,
+// in float32 rounded once to x's dtype, and, where asked, dγ = Σ dy·x̂ and
+// dβ = Σ dy over (b, h, w), float32.
+//   * Bound on this card: bytes. The least it moves is x and dy read once
+//     and dx written once (3·N elements); a (sample, group) of the large maps
+//     (256²×64, 128²×128 at batch 16) holds 2–8 MB, far past what an SM
+//     keeps, so there x and dy are read twice: 5·N.
+//   * One pass gives every sum: about K, the sample's first pixel in each
+//     channel (the same K in every block of a cluster, so their sums add),
+//     each thread sums d = x − K, d², dy and dy·d over its pixels (the
+//     height-block stats launch's walk and prefetch, block_plan's cut).
+//     Lanes are added by shuffles, warps in warp order, and with a cluster
+//     (S > 1) every block adds the S blocks' sums in rank order through
+//     distributed shared memory, so all hold the same bits. Then, with
+//     t = Σd/n: m = K + t, var = max(Σd² − Σd·t, 0)/n, r = 1/√(var + 1e-5),
+//     Σdy·x̂ = r·(Σdy·d − t·Σdy).
+//   * The same launch then re-reads its chunk of x and dy, last pixels first
+//     (the likeliest still in L2), and writes dx.
+//   * dγ and dβ: the cluster's rank 0 writes each (sample, channel)'s
+//     (Σdy·x̂, Σdy) to a float32 (B, C, 2) buffer, and a second, small
+//     launch adds them in sample order. No floating-point atomics: two calls
+//     give the same bits. Without a buffer (γ and β need no gradient) the
+//     backward is one launch.
+//
 // Each entry point launches on the given stream, allocates nothing and
 // returns cudaGetLastError() (or cudaErrorInvalidValue for a shape or plan it
 // refuses).
@@ -644,6 +674,277 @@ int launch_block_apply(const void* x, const void* parts, int s, const void* gamm
   return static_cast<int>(cudaGetLastError());
 }
 
+// ----------------------------------------------------------------- backward
+
+constexpr int BWD_UNROLL = 4;  // pixels in flight a lane, of x and of dy each
+constexpr int NSUM = 4;        // Σd, Σd², Σdy, Σdy·d
+
+// BWD_UNROLL pixels p0 + u·L of a lane of x and dy (element offset off of
+// pixel p0, channel c), u·step apart; a pixel at or past p_end takes K's
+// bits in x (d = 0) and zeros in dy
+template <typename T>
+__device__ __forceinline__ void load_pair(const T* x, const T* dy, size_t off, size_t step, int p0,
+                                          int L, int p_end, int c, int C, bool vec_ok, uint4 kraw,
+                                          uint4 (&rx)[BWD_UNROLL], uint4 (&rd)[BWD_UNROLL]) {
+  if (p0 + (BWD_UNROLL - 1) * L < p_end) {
+#pragma unroll
+    for (int u = 0; u < BWD_UNROLL; ++u) {
+      rx[u] = load_vec(x + off + u * step, 0, c, C, vec_ok);
+      rd[u] = load_vec(dy + off + u * step, 0, c, C, vec_ok);
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < BWD_UNROLL; ++u) {
+      const bool in = p0 + u * L < p_end;
+      rx[u] = in ? load_vec(x + off + u * step, 0, c, C, vec_ok) : kraw;
+      rd[u] = in ? load_vec(dy + off + u * step, 0, c, C, vec_ok) : make_uint4(0, 0, 0, 0);
+    }
+  }
+}
+
+// dx of the chunk, and (Σdy·x̂, Σdy) per (sample, channel) into parts (B, C,
+// 2) unless it is null. Grid and threads as the height-block stats launch
+// (Place; S > 1 only with a cluster of S blocks).
+template <typename T, bool CLUSTER>
+__global__ void __launch_bounds__(THREADS)
+instance_norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                         const float* __restrict__ gamma, T* __restrict__ dx,
+                         float* __restrict__ parts, int NQ, int HW, int C, int wpg, int S,
+                         int chunk) {
+  using P = Place<T>;
+  constexpr int VEC = P::VEC, TX = P::TX;
+  __shared__ float sh[WARPS][CHB][NSUM + 1];  // each warp's sums of each channel, and K
+  __shared__ float s_blk[NSUM][CHB];          // the block's sums, read by the whole cluster
+  __shared__ float s_co[WARPS][4][CHB];       // by group of the block: m, r, mean g, mean g·x̂
+  const P at(NQ, HW, C, wpg, CLUSTER ? S : 1, chunk);
+  const bool vec_ok = C % VEC == 0;
+  const size_t row0 = static_cast<size_t>(at.b) * HW;
+  const bool work = at.live && at.c < C && at.p_begin < at.p_end;
+
+  float s[NSUM][VEC], k[VEC];
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) {
+    k[v] = 0.f;
+#pragma unroll
+    for (int i = 0; i < NSUM; ++i) s[i][v] = 0.f;
+  }
+  if (work) {
+    const uint4 kraw = load_vec(x, row0 * C + at.c, at.c, C, vec_ok);  // the sample's pixel 0
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) k[v] = to_float(reinterpret_cast<const T*>(&kraw)[v]);
+    const size_t step = static_cast<size_t>(at.L) * C;
+    const int span = at.L * BWD_UNROLL;
+    uint4 rx[BWD_UNROLL], rd[BWD_UNROLL], nx[BWD_UNROLL], nd[BWD_UNROLL];
+    int p0 = at.p_begin + at.pl;
+    load_pair(x, dy, (row0 + p0) * C + at.c, step, p0, at.L, at.p_end, at.c, C, vec_ok, kraw, rx,
+              rd);
+    for (; p0 < at.p_end; p0 += span) {
+      if (p0 + span < at.p_end)
+        load_pair(x, dy, (row0 + p0 + span) * C + at.c, step, p0 + span, at.L, at.p_end, at.c, C,
+                  vec_ok, kraw, nx, nd);
+#pragma unroll
+      for (int u = 0; u < BWD_UNROLL; ++u) {
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) {
+          const float d = __fsub_rn(to_float(reinterpret_cast<const T*>(&rx[u])[v]), k[v]);
+          const float g = to_float(reinterpret_cast<const T*>(&rd[u])[v]);
+          s[0][v] = __fadd_rn(s[0][v], d);
+          s[1][v] = __fmaf_rn(d, d, s[1][v]);
+          s[2][v] = __fadd_rn(s[2][v], g);
+          s[3][v] = __fmaf_rn(g, d, s[3][v]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < BWD_UNROLL; ++u) {
+        rx[u] = nx[u];
+        rd[u] = nd[u];
+      }
+    }
+  }
+  // the warp's pixel lanes, added by shuffles: lane ly takes ly + off
+#pragma unroll
+  for (int off = 16; off >= TX; off >>= 1) {
+#pragma unroll
+    for (int i = 0; i < NSUM; ++i) {
+#pragma unroll
+      for (int v = 0; v < VEC; ++v)
+        s[i][v] = __fadd_rn(s[i][v], __shfl_down_sync(0xffffffffu, s[i][v], off));
+    }
+  }
+  if (at.lane < TX) {
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) {
+#pragma unroll
+      for (int i = 0; i < NSUM; ++i) sh[at.warp][at.lane * VEC + v][i] = s[i][v];
+      sh[at.warp][at.lane * VEC + v][NSUM] = k[v];
+    }
+  }
+  if (wpg > 1) {
+    __syncthreads();
+  } else {
+    __syncwarp();
+  }
+  // the group's warps in warp order, a lane a channel
+  const int w0 = at.gi * wpg, cl = at.lane, ch = at.g * CHB + cl;
+  float t[NSUM];
+#pragma unroll
+  for (int i = 0; i < NSUM; ++i) {
+    t[i] = sh[w0][cl][i];
+    for (int w = 1; w < wpg; ++w) t[i] = __fadd_rn(t[i], sh[w0 + w][cl][i]);
+  }
+  if constexpr (CLUSTER) {
+    // one group a block: every block adds the S blocks' sums in rank order;
+    // the second sync keeps every block alive until all have read
+    cg::cluster_group cluster = cg::this_cluster();
+    if (at.warp == 0) {
+#pragma unroll
+      for (int i = 0; i < NSUM; ++i) s_blk[i][cl] = t[i];
+    }
+    cluster.sync();
+    if (at.warp == 0) {
+      const float* o = cluster.map_shared_rank(&s_blk[0][0], 0);
+#pragma unroll
+      for (int i = 0; i < NSUM; ++i) t[i] = o[i * CHB + cl];
+      for (int r = 1; r < S; ++r) {
+        o = cluster.map_shared_rank(&s_blk[0][0], r);
+#pragma unroll
+        for (int i = 0; i < NSUM; ++i) t[i] = __fadd_rn(t[i], o[i * CHB + cl]);
+      }
+    }
+    cluster.sync();
+  }
+  if (at.wl == 0 && at.live && ch < C) {
+    const float n = static_cast<float>(HW);
+    const float mk = __fdiv_rn(t[0], n);  // m − K
+    const float var = __fdiv_rn(fmaxf(__fsub_rn(t[1], __fmul_rn(t[0], mk)), 0.f), n);
+    const float r = __frcp_rn(__fsqrt_rn(__fadd_rn(var, EPS)));
+    const float sdyx = __fmul_rn(r, __fsub_rn(t[3], __fmul_rn(mk, t[2])));  // Σdy·x̂
+    const float gm = gamma[ch];
+    s_co[at.gi][0][cl] = __fadd_rn(sh[w0][cl][NSUM], mk);
+    s_co[at.gi][1][cl] = r;
+    s_co[at.gi][2][cl] = __fdiv_rn(__fmul_rn(t[2], gm), n);
+    s_co[at.gi][3][cl] = __fdiv_rn(__fmul_rn(sdyx, gm), n);
+    if (parts != nullptr && at.rank == 0) {
+      float* o = parts + (static_cast<size_t>(at.b) * C + ch) * 2;
+      o[0] = sdyx;
+      o[1] = t[2];
+    }
+  }
+  if (wpg > 1) {
+    __syncthreads();
+  } else {
+    __syncwarp();
+  }
+  if (!work) return;
+
+  const int tx = at.lane % TX;
+  float m[VEC], r[VEC], gm[VEC], mg[VEC], mgx[VEC];
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) {
+    const int cv = tx * VEC + v;  // lanes past C are computed, never stored
+    m[v] = s_co[at.gi][0][cv];
+    r[v] = s_co[at.gi][1][cv];
+    mg[v] = s_co[at.gi][2][cv];
+    mgx[v] = s_co[at.gi][3][cv];
+    gm[v] = gamma[min(at.c + v, C - 1)];
+  }
+  // the chunk backwards: what the sums read last comes first
+  const int len = at.p_end - at.p_begin;
+  const int span = at.L * BWD_UNROLL;
+  const int iters = at.pl < len ? (len - at.pl + span - 1) / span : 0;
+  const size_t step = static_cast<size_t>(at.L) * C;
+  for (int it = iters - 1; it >= 0; --it) {
+    const int p0 = at.p_begin + at.pl + it * span;
+    const size_t off0 = (row0 + p0) * C + at.c;
+    uint4 rx[BWD_UNROLL], rd[BWD_UNROLL];
+#pragma unroll
+    for (int u = 0; u < BWD_UNROLL; ++u) {
+      if (p0 + u * at.L < at.p_end) {
+        rx[u] = load_vec(x + off0 + u * step, 0, at.c, C, vec_ok);
+        rd[u] = load_vec(dy + off0 + u * step, 0, at.c, C, vec_ok);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < BWD_UNROLL; ++u) {
+      if (p0 + u * at.L >= at.p_end) continue;
+      uint4 out;
+      T* o = reinterpret_cast<T*>(&out);
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
+        const float xh = __fmul_rn(__fsub_rn(to_float(reinterpret_cast<const T*>(&rx[u])[v]), m[v]),
+                                   r[v]);
+        const float g = __fmul_rn(to_float(reinterpret_cast<const T*>(&rd[u])[v]), gm[v]);
+        from_float(&o[v], __fmul_rn(r[v], __fsub_rn(__fsub_rn(g, mg[v]), __fmul_rn(xh, mgx[v]))));
+      }
+      T* dst = dx + off0 + u * step;
+      if (vec_ok && at.c + VEC <= C) {
+        *reinterpret_cast<uint4*>(dst) = out;
+      } else {
+#pragma unroll
+        for (int v = 0; v < VEC; ++v)
+          if (at.c + v < C) dst[v] = o[v];
+      }
+    }
+  }
+}
+
+// dγ and dβ (C,): each channel's B pairs of parts (B, C, 2) added in sample
+// order
+__global__ void instance_norm_bwd_affine_kernel(const float* __restrict__ parts,
+                                                float* __restrict__ dgamma,
+                                                float* __restrict__ dbeta, int B, int C) {
+  const int c = static_cast<int>(blockIdx.x * blockDim.x + threadIdx.x);
+  if (c >= C) return;
+  float dg = 0.f, db = 0.f;
+  for (int b = 0; b < B; ++b) {
+    const float* p = parts + (static_cast<size_t>(b) * C + c) * 2;
+    dg = __fadd_rn(dg, p[0]);
+    db = __fadd_rn(db, p[1]);
+  }
+  dgamma[c] = dg;
+  dbeta[c] = db;
+}
+
+template <typename T>
+int launch_bwd(const void* x, const void* dy, const void* gamma, void* dx, void* parts,
+               void* dgamma, void* dbeta, int B, int HW, int C, int wpg, int wpb, int S,
+               void* stream) {
+  Grid grid;
+  if (!block_grid(B, HW, C, wpg, wpb, S, &grid) || (parts == nullptr) != (dgamma == nullptr) ||
+      (parts == nullptr) != (dbeta == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const T* xt = static_cast<const T*>(x);
+  const T* dyt = static_cast<const T*>(dy);
+  const float* g = static_cast<const float*>(gamma);
+  T* dxt = static_cast<T*>(dx);
+  float* pt = static_cast<float*>(parts);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (S == 1) {
+    instance_norm_bwd_kernel<T, false><<<grid.blocks, wpb * 32, 0, s>>>(
+        xt, dyt, g, dxt, pt, grid.NQ, HW, C, wpg, 1, grid.chunk);
+  } else {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(grid.blocks);
+    cfg.blockDim = dim3(wpb * 32);
+    cfg.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = S;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t e = cudaLaunchKernelEx(&cfg, instance_norm_bwd_kernel<T, true>, xt, dyt, g,
+                                             dxt, pt, grid.NQ, HW, C, wpg, S, grid.chunk);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || parts == nullptr) return static_cast<int>(e);
+  instance_norm_bwd_affine_kernel<<<(C + 127) / 128, 128, 0, s>>>(
+      pt, static_cast<float*>(dgamma), static_cast<float*>(dbeta), B, C);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x, y: (B, H·W, C) contiguous in x's dtype; gamma, beta: (C,) float32;
@@ -692,4 +993,24 @@ extern "C" int gct2_instance_norm_block_apply_bf16(const void* x, const void* pa
                                                    int wpb, int S, void* stream) {
   return launch_block_apply<__nv_bfloat16>(x, parts, s, gamma, beta, y, mean_r, B, HW, C, wpg,
                                            wpb, S, stream);
+}
+
+// Backward; (wpg, wpb, S) is ops/norm.block_plan's of the whole image. x, dy,
+// dx: (B, H·W, C) contiguous in x's dtype; gamma: (C,) float32; parts: float32
+// (B, C, 2) scratch, dgamma and dbeta: float32 (C,), written; all three null for
+// dx alone (one launch instead of two).
+extern "C" int gct2_instance_norm_bwd_f32(const void* x, const void* dy, const void* gamma,
+                                          void* dx, void* parts, void* dgamma, void* dbeta,
+                                          int B, int HW, int C, int wpg, int wpb, int S,
+                                          void* stream) {
+  return launch_bwd<float>(x, dy, gamma, dx, parts, dgamma, dbeta, B, HW, C, wpg, wpb, S,
+                           stream);
+}
+
+extern "C" int gct2_instance_norm_bwd_bf16(const void* x, const void* dy, const void* gamma,
+                                           void* dx, void* parts, void* dgamma, void* dbeta,
+                                           int B, int HW, int C, int wpg, int wpb, int S,
+                                           void* stream) {
+  return launch_bwd<__nv_bfloat16>(x, dy, gamma, dx, parts, dgamma, dbeta, B, HW, C, wpg, wpb,
+                                   S, stream);
 }

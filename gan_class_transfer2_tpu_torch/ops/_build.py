@@ -39,11 +39,11 @@ _LOAD_LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()
 
 
-def count(fn) -> None:
-    """One more launch on ``fn.launches`` (a kernel wrapper's count), under a
-    lock: threads that run replicas launch at once."""
+def count(fn, name: str = "launches") -> None:
+    """One more on ``fn.launches`` (a kernel wrapper's count; or the counter
+    ``name``), under a lock: threads that run replicas launch at once."""
     with _COUNT_LOCK:
-        fn.launches += 1
+        setattr(fn, name, getattr(fn, name) + 1)
 
 
 def _nvcc() -> str:

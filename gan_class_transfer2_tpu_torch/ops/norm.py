@@ -7,9 +7,12 @@ The reference model has no normalization; the GAN-mode models do
   * ``instance_norm`` — the op: ``InstanceNorm``, an ``autograd.Function``
     whose forward is ``instance_norm_fused``, the wrapper of the hand-written
     CUDA kernel in csrc/instance_norm.cu (launch counter
-    ``instance_norm_fused.launches``), and whose backward is ``_in_bwd``
-    (norm.py:109-119, plain jnp there, so torch ops here) inside the span
-    ``norm.backward`` (``utils/profiler.annotate``);
+    ``instance_norm_fused.launches``), and whose backward, inside the span
+    ``norm.backward`` (``utils/profiler.annotate``), is
+    ``instance_norm_bwd_fused``: a kernel of its own in the same source
+    (norm.py:109-119 is plain jnp, so it replaces no Pallas kernel; launch
+    counter ``instance_norm_bwd_fused.launches``, one launch a norm, two
+    where γ and β need their gradients), whose plain version is ``_in_bwd``;
   * ``instance_norm_plain`` — ``_instance_norm_ref`` (norm.py:32-45): two-pass
     float32 statistics, ``rsqrt(v + 1e-5)``, with γ and β first rounded to
     x's dtype as the Pallas wrapper rounds them (norm.py:76). The wrapper
@@ -31,12 +34,14 @@ Neither binds on Hopper, so there is no such gate here: the kernel takes
 every NHWC shape, the GAN path's 256²×64 up-norm included, which the TPU
 sent to XLA.
 
-The backward recomputes the statistics from the saved input with
-differentiable torch ops, never from values the forward made under no-grad:
-R1's double backward through a normalised discriminator (train/gan.py
-``r1_penalty``) differentiates this backward once more and needs the
-∂(m, r)/∂x terms, which JAX gets because its residuals are traced functions
-of x (norm.py:103-106).
+The backward recomputes the statistics from the saved input, never from
+values the forward made under no-grad. Where the backward is itself recorded
+(``create_graph=True``: R1's double backward through a normalised
+discriminator, train/gan.py ``r1_penalty``, differentiates it once more and
+needs the ∂(m, r)/∂x terms, which JAX gets because its residuals are traced
+functions of x, norm.py:103-106) it is ``_in_bwd``'s differentiable torch
+ops, counted on a CUDA tensor by ``InstanceNorm.graph_backwards``; otherwise
+a CUDA tensor takes the kernel. Grad mode says which, nothing else.
 
 Statistics across ranks. JAX runs a step over its mesh as one program over
 the global arrays, so a norm's statistics span whatever the mesh splits.
@@ -158,11 +163,11 @@ def _entry(dtype):
 
 
 def _f32(t):
-    """A float32 contiguous tensor of ``t``'s values, ``t`` itself if it is one."""
-    t = t.detach()
+    """A float32 contiguous tensor of ``t``'s values (for its pointer), ``t``
+    itself if it is one."""
     if t.dtype != torch.float32:
-        t = t.float()
-    return t if t.is_contiguous() else t.contiguous()
+        t = t.detach().float()
+    return t if t.is_contiguous() else t.detach().contiguous()
 
 
 def instance_norm_fused(x, gamma, beta):
@@ -218,7 +223,9 @@ def _launch(fn, args, dev, what):
 
 
 def _in_bwd(x, gamma, dy):
-    """norm.py:109-119 with (m, r) recomputed from x by differentiable ops."""
+    """norm.py:109-119 with (m, r) recomputed from x by differentiable ops:
+    ``instance_norm_bwd_fused``'s plain version, and the backward that a
+    double backward differentiates."""
     m, r = _stats(x)
     dy = dy.float()
     xhat = (x.float() - m) * r
@@ -244,8 +251,13 @@ def _(x, gamma, beta):
 
 
 class InstanceNorm(torch.autograd.Function):
-    """B3 with the custom VJP of norm.py:95-122. Its backward is made of
-    torch ops on the saved inputs, so it is differentiable again."""
+    """B3 with the custom VJP of norm.py:95-122. Its backward is the kernel
+    on a CUDA tensor, unless autograd records it (grad mode on: a
+    ``create_graph=True`` backward), which takes the torch ops of
+    ``_in_bwd`` on the saved inputs, differentiable again;
+    ``graph_backwards`` counts those on a CUDA tensor."""
+
+    graph_backwards = 0
 
     @staticmethod
     def forward(ctx, x, gamma, beta):
@@ -256,7 +268,14 @@ class InstanceNorm(torch.autograd.Function):
     def backward(ctx, dy):
         x, gamma = ctx.saved_tensors
         with profiler.annotate("norm.backward"):
-            return _in_bwd(x, gamma, dy)
+            if dy.device.type != "cuda":
+                return _in_bwd(x, gamma, dy)
+            if torch.is_grad_enabled():
+                _build.count(InstanceNorm, "graph_backwards")
+                return _in_bwd(x, gamma, dy)
+            _, need_gamma, need_beta = ctx.needs_input_grad
+            dx, dgamma, dbeta = instance_norm_bwd_fused(x, gamma, dy, need_gamma or need_beta)
+            return dx, dgamma if need_gamma else None, dbeta if need_beta else None
 
 
 def instance_norm(x, gamma, beta):
@@ -450,6 +469,8 @@ _BLOCK_ENTRY = {
               torch.bfloat16: "gct2_instance_norm_block_stats_bf16"},
     "apply": {torch.float32: "gct2_instance_norm_block_apply_f32",
               torch.bfloat16: "gct2_instance_norm_block_apply_bf16"},
+    "bwd": {torch.float32: "gct2_instance_norm_bwd_f32",
+            torch.bfloat16: "gct2_instance_norm_bwd_bf16"},
 }
 _BLOCK_ARGS = {
     # x, stats; B, HW, C, wpg, wpb, S; stream
@@ -457,6 +478,8 @@ _BLOCK_ARGS = {
     # x, parts, s, gamma, beta, y, mean_r; B, HW, C, wpg, wpb, S; stream
     "apply": [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 4
              + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    # x, dy, gamma, dx, parts, dgamma, dbeta; B, HW, C, wpg, wpb, S; stream
+    "bwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 }
 WARPS = 8  # the most warps of a height-block launch's thread block (256 threads)
 # pixels a lane of a warp should stream before a group takes more warps
@@ -481,7 +504,8 @@ class BlockPlan(NamedTuple):
 @functools.lru_cache(maxsize=None)
 def block_plan(b: int, h: int, w: int, c: int, dtype: torch.dtype,
                lane_pixels: int = LANE_PIXELS) -> BlockPlan:
-    """The height-block kernels' plan, from the shape alone. A warp reads
+    """The height-block kernels' plan, from the shape alone (and the
+    backward's, ``instance_norm_bwd_fused``, of a whole image). A warp reads
     VEC = 16 / itemsize pixels at a time (4 float32, 8 bfloat16); a group
     takes the fewest warps (a power of 2, at most ``WARPS``) whose lanes
     stream at most ``lane_pixels`` pixels each. A group of fewer than
@@ -514,6 +538,46 @@ def _block_entry(kind, dtype):
         fn.argtypes = _BLOCK_ARGS[kind]
         fn.restype = ctypes.c_int
     return fn
+
+
+def instance_norm_bwd_fused(x, gamma, dy, need_affine=True):
+    """B3's backward ``(dx, dγ, dβ)``: the plain version ``_in_bwd`` for a
+    CPU tensor, the kernel on the current stream for a CUDA tensor (or an
+    exception). x (B, H, W, C) contiguous, float32 or bfloat16; dy of x's
+    shape and dtype; gamma (C,) on x's device. The statistics are recomputed
+    from x in float32, dx is rounded once to x's dtype, dγ and dβ are
+    float32, or None where ``need_affine`` is false (one launch instead of
+    two). The launch cuts the image as ``block_plan`` cuts a height block."""
+    dev = dy.device
+    if dev.type == "cpu":
+        dx, dgamma, dbeta = _in_bwd(x, gamma, dy)
+        return (dx, dgamma, dbeta) if need_affine else (dx, None, None)
+    if dev.type != "cuda":
+        raise ValueError(f"instance_norm_bwd_fused: no kernel for device {dev}")
+    _check(x, gamma, gamma, "instance_norm_bwd_fused")
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"instance_norm_bwd_fused: dy must match x {tuple(x.shape)} {x.dtype} "
+                         f"on {x.device}, got {tuple(dy.shape)} {dy.dtype} on {dy.device}")
+    dy = dy.contiguous()
+    b, h, w, c = x.shape
+    p = block_plan(b, h, w, c, x.dtype)
+    dx = torch.empty_like(x)
+    # the (b, c) sums, dγ and dβ; no view or select of them: each is one
+    # more host call inside the backward
+    out = (None, None, None)
+    if need_affine:
+        out = tuple(torch.empty(n, dtype=torch.float32, device=dev) for n in (b * c * 2, c, c))
+    _launch(_block_entry("bwd", x.dtype),
+            (x.data_ptr(), dy.data_ptr(), _f32(gamma).data_ptr(), dx.data_ptr(),
+             *(None if t is None else t.data_ptr() for t in out), b, h * w, c, p.wpg, p.wpb,
+             p.cluster), dev, "instance_norm backward")
+    _build.count(instance_norm_bwd_fused)
+    if need_affine:
+        _build.count(instance_norm_bwd_fused)
+    return dx, out[1], out[2]
+
+
+instance_norm_bwd_fused.launches = 0
 
 
 def block_stats_plain(x):

@@ -138,6 +138,45 @@ def test_wrapper_refuses_devices_without_a_kernel():
         norm.instance_norm_fused(x, torch.ones(8, device="meta"), torch.zeros(8, device="meta"))
 
 
+def test_backward_wrapper_refuses_devices_without_a_kernel():
+    x = torch.empty((1, 4, 4, 8), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        norm.instance_norm_bwd_fused(x, torch.ones(8, device="meta"), torch.empty_like(x))
+
+
+@pytest.mark.parametrize("need_affine", [True, False])
+def test_backward_wrapper_on_the_cpu_is_the_plain_version(need_affine):
+    """A CPU tensor takes ``_in_bwd`` itself (no launch); without
+    ``need_affine`` dγ and dβ come back as None."""
+    x, g, _ = _inputs(40, b=3, hw=5, seed=4)
+    dy = np.random.default_rng(5).normal(size=x.shape).astype(np.float32)
+    before = norm.instance_norm_bwd_fused.launches
+    got = norm.instance_norm_bwd_fused(T(x), T(g), T(dy), need_affine)
+    want = norm._in_bwd(T(x), T(g), T(dy))
+    assert norm.instance_norm_bwd_fused.launches == before
+    assert torch.equal(got[0], want[0])
+    for a, w in zip(got[1:], want[1:]):
+        assert torch.equal(a, w) if need_affine else a is None
+
+
+@pytest.mark.parametrize("create_graph", [False, True])
+def test_cpu_backward_takes_the_torch_ops_without_counting(create_graph, monkeypatch):
+    """On the CPU ``InstanceNorm.backward`` is ``_in_bwd`` in either grad
+    mode: no kernel launch, and ``graph_backwards`` (the CUDA fallback's
+    count) does not move."""
+    calls = []
+    plain = norm._in_bwd
+    monkeypatch.setattr(norm, "_in_bwd", lambda *a: calls.append(1) or plain(*a))
+    x, g, b = _inputs(8, b=2, hw=4, seed=6)
+    xt, gt = T(x).requires_grad_(), T(g).requires_grad_()
+    launches, graphs = norm.instance_norm_bwd_fused.launches, norm.InstanceNorm.graph_backwards
+    torch.autograd.grad(norm.instance_norm(xt, gt, T(b)).sum(), (xt, gt),
+                        create_graph=create_graph)
+    assert calls == [1]
+    assert norm.instance_norm_bwd_fused.launches == launches
+    assert norm.InstanceNorm.graph_backwards == graphs
+
+
 # the seven (H=W, C) maps of the cycle-GAN step's instance norms at the
 # default width
 _GAN_MAPS = ((256, 64), (128, 128), (64, 256), (32, 512), (16, 512), (8, 512), (4, 512))
@@ -291,6 +330,30 @@ def test_block_plan_covers_every_group_and_pixel_once(shape, dtype):
             assert np.array_equal(np.sort(got), np.arange(h * w)), (q, ch)
     if h * w <= 128:  # the small maps: no cluster, a group smaller than a block
         assert p.cluster == 1 and p.wpg < norm.WARPS
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", _GAN_MAPS, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_backward_plan_covers_every_sample_group_and_pixel_once(shape, dtype):
+    """B3's backward cuts a whole image as ``block_plan`` cuts a height
+    block: at the cycle GAN's maps at batch 16 its index map gives every
+    (sample, group) one summing warp and every pixel of a channel to exactly
+    one thread, clusters only where a group takes a block, and at least 7/8
+    of a wave of blocks on the card."""
+    hw, c = shape
+    dt = getattr(torch, dtype)
+    p = norm.block_plan(16, hw, hw, c, dt)
+    assert 1 <= p.wpg <= p.wpb <= norm.WARPS and p.wpb % p.wpg == 0
+    assert 1 <= p.cluster <= norm.CLUSTER_MAX and p.blocks % p.cluster == 0
+    assert p.cluster == 1 or p.wpg == p.wpb == norm.WARPS
+    assert p.blocks >= norm.FILL_TARGET
+    owners, pixels = _walk(p, 16, hw * hw, c, dt)
+    ng = -(-c // norm.CHANNELS)
+    assert owners == {q: 1 for q in range(16 * ng)}
+    for q in range(16 * ng):
+        for ch in range(q % ng * norm.CHANNELS, (q % ng + 1) * norm.CHANNELS):
+            got = np.concatenate([np.arange(*r) for r in pixels[(q, ch)]])
+            assert np.array_equal(np.sort(got), np.arange(hw * hw)), (q, ch)
 
 
 def test_stats_over_ranks_of_one_is_plain_batch_norm_and_ends_with_its_block():

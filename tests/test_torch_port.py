@@ -511,6 +511,111 @@ def test_instance_norm_kernel_matches_plain_on_card(monkeypatch):
 
 
 @pytest.mark.cuda
+def test_instance_norm_backward_kernel_matches_plain_on_card(monkeypatch):
+    """B3's backward kernel against its plain version ``_in_bwd`` at the
+    cycle GAN's distinct norm shapes at batch 16 (the generators' and the
+    discriminators' maps, 256²×64 down to 4²×512: clusters of 4 and 2 and the
+    small maps' warps), a ragged shape (C = 40, 9×17 pixels) and a large
+    mean (x = 3·N(0, 1) + 100, where sums about 0 would lose the variance's
+    digits), float32 and bfloat16. Tolerances relative to the largest value:
+    dx 1e-5 in float32 (shifted one-pass sums against two-pass statistics,
+    other summation orders) and 1e-2 in bfloat16 (each side rounds its
+    float32 dx once: up to one bf16 spacing, 2^-7 of the value); dγ and dβ
+    1e-5 in both (float32 sums of the same inputs in other orders). Two
+    calls give the same bits; two launches with dγ and dβ, one without (the
+    same dx); and through the Function with γ and β held constant only dx
+    comes back, from one launch."""
+    from gan_class_transfer2_tpu_torch.ops import norm
+
+    _needs_card(monkeypatch)
+    r = np.random.default_rng(21)
+    cases = [((16, hw, hw, c), 2.0) for hw, c in ((256, 64), (128, 128), (64, 256), (32, 512),
+                                                  (16, 512), (8, 512), (4, 512))]
+    cases += [((3, 9, 17, 40), 2.0), ((16, 64, 64, 256), 100.0), ((4, 128, 128, 64), 100.0)]
+    for shape, mean in cases:
+        x = torch.from_numpy(r.normal(mean, 3.0, shape).astype(np.float32)).cuda()
+        g = torch.from_numpy(r.normal(1.0, 0.2, shape[-1]).astype(np.float32)).cuda()
+        dy = torch.from_numpy(r.normal(size=shape).astype(np.float32)).cuda()
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+            xd, dyd = x.to(dtype), dy.to(dtype)
+            before = norm.instance_norm_bwd_fused.launches
+            got = norm.instance_norm_bwd_fused(xd, g, dyd)
+            torch.cuda.synchronize()
+            assert norm.instance_norm_bwd_fused.launches == before + 2
+            want = norm._in_bwd(xd, g, dyd)
+            assert got[0].dtype == dtype and got[1].dtype == got[2].dtype == torch.float32
+            for name, a, w, t in zip(("dx", "dgamma", "dbeta"), got, want, (tol, 1e-5, 1e-5)):
+                err = (a.float() - w.float()).abs().max().item()
+                assert err <= t * w.float().abs().max().item(), (shape, mean, dtype, name, err)
+            again = norm.instance_norm_bwd_fused(xd, g, dyd)
+            for a, b in zip(got, again):
+                assert torch.equal(a, b), (shape, mean, dtype)
+            before = norm.instance_norm_bwd_fused.launches
+            alone = norm.instance_norm_bwd_fused(xd, g, dyd, need_affine=False)
+            assert norm.instance_norm_bwd_fused.launches == before + 1
+            assert alone[1] is None and alone[2] is None and torch.equal(alone[0], got[0])
+            leaf = xd.clone().requires_grad_()
+            before = norm.instance_norm_bwd_fused.launches
+            dx = torch.autograd.grad(norm.instance_norm(leaf, g, g), leaf, dyd)[0]
+            assert norm.instance_norm_bwd_fused.launches == before + 1
+            assert torch.equal(dx, got[0]), (shape, mean, dtype)
+
+
+@pytest.mark.cuda
+def test_recorded_norm_backward_takes_the_torch_ops_on_card(monkeypatch):
+    """Under ``create_graph=True`` (R1's double backward) B3's backward
+    launches no kernel and takes ``_in_bwd``'s torch ops, counted by
+    ``InstanceNorm.graph_backwards``; the double backward then equals
+    autograd twice through the plain forward (within 1e-5 of the largest
+    value: float32 reductions in other orders). A discriminator with
+    instance norms under R1: D's loss gradient through the kernel route
+    equals the one with every norm backward on the torch ops (within 1e-5
+    of the largest gradient), and counts both routes."""
+    from gan_class_transfer2_tpu_torch.config import tiny_test_config
+    from gan_class_transfer2_tpu_torch.models import discriminator as d_lib
+    from gan_class_transfer2_tpu_torch.ops import norm
+    from gan_class_transfer2_tpu_torch.train import gan
+
+    _needs_card(monkeypatch)
+    r = np.random.default_rng(22)
+    x, w = (torch.from_numpy(r.normal(2.0, 3.0, (2, 8, 8, 64)).astype(np.float32)).cuda()
+            for _ in range(2))
+    g = torch.from_numpy(r.normal(1.0, 0.2, 64).astype(np.float32)).cuda()
+    b = torch.zeros(64, device="cuda")
+    pens = []
+    for fn in (norm.instance_norm, norm.instance_norm_plain):
+        xt, gt = x.clone().requires_grad_(), g.clone().requires_grad_()
+        launches, graphs = norm.instance_norm_bwd_fused.launches, norm.InstanceNorm.graph_backwards
+        (dx,) = torch.autograd.grad(torch.sum(w * fn(xt, gt, b)), xt, create_graph=True)
+        if fn is norm.instance_norm:
+            assert norm.instance_norm_bwd_fused.launches == launches
+            assert norm.InstanceNorm.graph_backwards == graphs + 1
+        pen = torch.sum(dx ** 2)
+        pens.append((pen.detach(), *torch.autograd.grad(pen, (gt, xt))))
+    for a, want in zip(*pens):
+        assert (a - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+    cfg = tiny_test_config(d_norm="instance", r1_weight=1.0)
+    d = d_lib.init_discriminator(cfg, torch.Generator().manual_seed(0), device="cuda")
+    real = torch.from_numpy(r.uniform(-1, 1, (2, cfg.size, cfg.size, 3)).astype(np.float32))
+    real = real.cuda()
+    launches, graphs = norm.instance_norm_bwd_fused.launches, norm.InstanceNorm.graph_backwards
+    grads = []
+    for patched in (False, True):
+        if patched:
+            assert norm.instance_norm_bwd_fused.launches > launches
+            assert norm.InstanceNorm.graph_backwards > graphs
+            monkeypatch.setattr(norm, "instance_norm_bwd_fused",
+                                lambda x, g, dy, need: norm._in_bwd(x, g, dy))
+        loss = d_lib.discriminator_apply(cfg, d, real).float().mean() + gan.r1_penalty(cfg, d,
+                                                                                       real)
+        grads.append(torch.autograd.grad(loss, list(d.parameters())))
+    scale = max(w.abs().max().item() for w in grads[1])
+    for a, want in zip(*grads):
+        assert (a - want).abs().max().item() <= 1e-5 * scale
+
+
+@pytest.mark.cuda
 def test_down_conv_without_relu_matches_plain_on_card(monkeypatch):
     """B4 with ``relu=False``, as every down conv of the GAN path calls it
     (a branch of the kernel the diffusion path never takes): forward within

@@ -94,6 +94,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      torch-op backward, finite losses, the
      trace's top kernels, busy and idle; the step timed without the
      profiler; ``gan.transfer`` at batch 4;
+  10a. cyclegan — the published CycleGAN (arXiv 1703.10593) at its widths
+     and the benchmark cell's shapes: ResNet-9 generators (ngf 64), 70×70
+     PatchGANs (ndf 64), least squares, an image pool of 50 a class,
+     bfloat16 with ``conv_impl`` pallas, batch 16 a class: first B3 without
+     γ, β against ``instance_norm_plain`` and ``_in_bwd`` at each of the
+     step's six norm maps, float32 and bfloat16 (forward, the Function's dx,
+     the backward kernel's dx), and B4 (relu=False) at the PatchGAN's C256
+     input against the plain conv, the bfloat16 rows going to the kernels
+     line; then exact B3 forward
+     and backward launches a step (156 each: no norm has γ or β, so no dγ,
+     dβ launch) and B4's (D's C256), ``InstanceNorm.graph_backwards`` 0,
+     the ``resnet.trunk`` span's device ms a step (6 a step), the step's
+     busy time and top kernels in a trace, the step timed without the
+     profiler, and the card's peak memory. ``python3 chip_smoke.py
+     --cyclegan`` runs this phase alone, after the build;
   11. gan-agree — one full-width float32 GAN step under sgd from the same
      state and batches through the kernels and through cuDNN with the
      plain instance norm: losses and each net's update agree;
@@ -927,9 +942,9 @@ def phase_train_kernels(torch, F, fdc, fd, adam_kernel, api, cfg):
     return rows, b4_err
 
 
-def b4_batch16(torch, fdc, gen, dtype_name, dtype, relu, timed=True):
-    """B4 at the four down-conv shapes at batch 16: its forward against the
-    plain version (KERNEL_RTOL of max|y|) and dx, dK, db (cuDNN around the
+def b4_batch16(torch, fdc, gen, dtype_name, dtype, relu, timed=True, shapes=SHAPES):
+    """B4 at ``shapes`` (by default the four down-conv shapes) at batch 16:
+    its forward against the plain version (KERNEL_RTOL of max|y|) and dx, dK, db (cuDNN around the
     kernel) against the plain version's autograd (GRAD_RTOL of the largest
     gradient); with ``timed``, the backward timed against the plain one.
     Returns (max|err| of y, worst relative errors, ReLU mask flips, times)."""
@@ -939,7 +954,7 @@ def b4_batch16(torch, fdc, gen, dtype_name, dtype, relu, timed=True):
     worst = {"y": 0.0, "dx": 0.0, "dK": 0.0, "db": 0.0}
     flips, max_err = 0, 0.0
     with unet.ieee_fp32(torch.float32, torch.device("cuda")):
-        for (hw, c, o) in SHAPES:
+        for (hw, c, o) in shapes:
             xs = torch.randn((TRAIN_BATCH, hw, hw, c), generator=gen, device="cuda").to(dtype)
             k = (torch.randn((4, 4, c, o), generator=gen, device="cuda") / (16 * c) ** 0.5)
             b = torch.randn((o,), generator=gen, device="cuda") * 0.1
@@ -1975,6 +1990,237 @@ def phase_gan(torch, cli, fdc, norm, gan, cfg, tmp):
         del state, step, a, b, x, y
         torch.cuda.empty_cache()
     return launches
+
+
+CYCLEGAN_STEPS = (2, 3, 5)  # warm, traced, timed
+
+
+def cyclegan_norm_maps(cfg):
+    """{(H=W, C): norms a step} of the CycleGAN step: a generator forward's
+    stem, downs, two a residual block and ups (6 forwards a step), a
+    discriminator apply's normed k4/s2 layers and its k4/s1 layer (6
+    applies a step)."""
+    downs = [(cfg.size >> i, cfg.pixel_size << i) for i in range(cfg.octaves + 1)]
+    g = downs + [downs[-1]] * (2 * cfg.resnet_blocks) + downs[-2::-1]
+    hw, d = cfg.size, []
+    for i in range(cfg.d_octaves):
+        hw >>= 1
+        if i:
+            d.append((hw, min(cfg.d_pixel_size << i, cfg.max_size)))
+    d.append((hw - 1, min(cfg.d_pixel_size << cfg.d_octaves, cfg.max_size)))
+    maps = {}
+    for m in g + d:
+        maps[m] = maps.get(m, 0) + 6
+    return maps
+
+
+def phase_cyclegan_kernels(torch, F, fdc, norm, cfg):
+    """B3 without γ, β (``instance_norm_fused(x, None, None)``,
+    ``instance_norm_bwd_fused(x, None, dy, need_affine=False)``) against
+    ``instance_norm_plain`` and ``_in_bwd`` at every distinct norm map of the
+    CycleGAN step at batch 16, float32 and bfloat16, at IN_RTOL and
+    IN_BWD_RTOL; the Function's dx against autograd through the plain
+    version at IN_GRAD_RTOL; then B4 with ``relu=False`` at the PatchGAN's
+    C256 input (16, 64, 64, 128) -> 256 against the plain conv. Returns
+    (the bfloat16 forward and backward rows of the kernels line, times summed
+    over the step's norms, without launches; B4's max|err| by dtype)."""
+    maps = cyclegan_norm_maps(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rows = {}
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        s = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bwd_ms=0.0, bwd_dev_ms=0.0,
+                 bwd_plain_ms=0.0, lib_bwd_ms=0.0, err=0.0, bwd_err=0.0)
+        worst = {"y": 0.0, "dx": 0.0, "dx kernel": 0.0}
+        for (hw, c), n in sorted(maps.items(), reverse=True):
+            shape = (TRAIN_BATCH, hw, hw, c)
+            x = (torch.randn(shape, generator=gen, device="cuda") * 3 + 2).to(dtype)
+            dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            before = norm.instance_norm_fused.launches
+            before_bwd = norm.instance_norm_bwd_fused.launches
+            y = norm.instance_norm_fused(x, None, None)
+            yp = norm.instance_norm_plain(x, None, None)
+            err = (y.float() - yp.float()).abs().max().item()
+            scale = yp.float().abs().max().item()
+            if not err <= IN_RTOL[dtype_name] * scale:
+                fail(f"B3 without affine {dtype_name} x{shape}: max|err| {err} > "
+                     f"{IN_RTOL[dtype_name]} x max|y| {scale}")
+            worst["y"] = max(worst["y"], err / scale)
+            s["err"] = max(s["err"], err)
+            xl = [x.clone().requires_grad_() for _ in range(2)]
+            got = torch.autograd.grad(norm.instance_norm(xl[0], None, None), xl[0], dy)[0]
+            want = torch.autograd.grad(norm.instance_norm_plain(xl[1], None, None), xl[1], dy)[0]
+            gerr = (got.float() - want.float()).abs().max().item()
+            gscale = want.float().abs().max().item()
+            if not gerr <= IN_GRAD_RTOL[dtype_name] * gscale:
+                fail(f"B3 without affine dx {dtype_name} x{shape}: max|err| {gerr} > "
+                     f"{IN_GRAD_RTOL[dtype_name]} x max|dx| {gscale}")
+            worst["dx"] = max(worst["dx"], gerr / gscale)
+            got = norm.instance_norm_bwd_fused(x, None, dy, need_affine=False)
+            want = norm._in_bwd(x, None, dy)[0]
+            if got[1] is not None or got[2] is not None:
+                fail(f"B3 backward kernel without affine {dtype_name} x{shape}: dγ, dβ returned")
+            gerr = (got[0].float() - want.float()).abs().max().item()
+            gscale = want.float().abs().max().item()
+            if not gerr <= IN_BWD_RTOL[dtype_name]["dx"] * gscale:
+                fail(f"B3 backward kernel without affine dx {dtype_name} x{shape}: max|err| "
+                     f"{gerr} > {IN_BWD_RTOL[dtype_name]['dx']} x max|dx| {gscale}")
+            worst["dx kernel"] = max(worst["dx kernel"], gerr / gscale)
+            s["bwd_err"] = max(s["bwd_err"], gerr)
+            ms = cuda_ms(lambda: norm.instance_norm_fused(x, None, None))
+            plain_ms = cuda_ms(lambda: norm.instance_norm_plain(x, None, None))
+            xn = x.permute(0, 3, 1, 2)  # the library's call on the NCHW view
+            lib_ms = cuda_ms(lambda: F.instance_norm(xn, eps=1e-5))
+            bwd_ms = cuda_ms(lambda: norm.instance_norm_bwd_fused(x, None, dy, need_affine=False))
+            bwd_dev_ms = queued_ms(lambda: norm.instance_norm_bwd_fused(x, None, dy,
+                                                                         need_affine=False))
+            bwd_plain_ms = cuda_ms(lambda: norm._in_bwd(x, None, dy))
+            lib_in = xn.detach().requires_grad_()
+            lib_out = F.instance_norm(lib_in, eps=1e-5)
+            dy_l = dy.permute(0, 3, 1, 2)
+            lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, lib_in, dy_l,
+                                                             retain_graph=True))
+            # comparison launches do not count
+            norm.instance_norm_fused.launches = before
+            norm.instance_norm_bwd_fused.launches = before_bwd
+            bound = _bytes_ms(2 * x.numel() * x.element_size())  # x in, y out
+            print(f"[cyclegan-kernel] B3 without affine {dtype_name} x{shape} (x{n} a step): "
+                  f"max|err| {err:.3e} (max|y| {scale:.3f}); kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, F.instance_norm {lib_ms:.4f} ms, bound {bound:.4f} ms; "
+                  f"backward kernel {bwd_ms:.4f} ms, device {bwd_dev_ms:.4f} ms, dx max|err| "
+                  f"{gerr:.3e} (max|dx| {gscale:.3f}), plain {bwd_plain_ms:.4f} ms, "
+                  f"F.instance_norm's backward {lib_bwd_ms:.4f} ms")
+            for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                         ("bound_ms", bound), ("bwd_ms", bwd_ms), ("bwd_dev_ms", bwd_dev_ms),
+                         ("bwd_plain_ms", bwd_plain_ms), ("lib_bwd_ms", lib_bwd_ms)):
+                s[k] += n * v
+            del x, dy, y, yp, xl, got, want, xn, lib_in, lib_out, dy_l
+        print(f"[cyclegan-kernel] B3 without affine {dtype_name}: {sum(maps.values())} norms a "
+              f"step over {len(maps)} maps; max error relative to the largest value: y "
+              f"{worst['y']:.2e} (bound {IN_RTOL[dtype_name]}), the Function's dx "
+              f"{worst['dx']:.2e} (bound {IN_GRAD_RTOL[dtype_name]}), the backward kernel's dx "
+              f"against _in_bwd {worst['dx kernel']:.2e} (bound "
+              f"{IN_BWD_RTOL[dtype_name]['dx']}); a step's norms: kernel {s['ms']:.4f} ms, "
+              f"plain {s['plain_ms']:.4f} ms, bound {s['bound_ms']:.4f} ms; backward kernel "
+              f"{s['bwd_ms']:.4f} ms, device {s['bwd_dev_ms']:.4f} ms, plain "
+              f"{s['bwd_plain_ms']:.4f} ms, bound {1.5 * s['bound_ms']:.4f} ms")
+        torch.cuda.empty_cache()
+        if dtype_name != "bfloat16":  # the cell's path runs bfloat16 alone
+            continue
+        rows[dtype_name] = {
+            "name": "instance_norm_bf16_no_affine", "route": "cuda",
+            "source": "gan_class_transfer2_tpu_torch/csrc/instance_norm.cu",
+            "replaces": "gan_class_transfer2_tpu/ops/norm.py:48", "launches": 0,
+            "max_abs_err": s["err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
+            "bound_ms": s["bound_ms"], "bound_by": "bytes", "library_ms": s["library_ms"]}
+        rows[dtype_name + " backward"] = {
+            "name": "instance_norm_bwd_bf16_no_affine", "route": "cuda",
+            "source": "gan_class_transfer2_tpu_torch/csrc/instance_norm.cu",
+            "replaces": "none (gan_class_transfer2_tpu/ops/norm.py:109 is plain jnp)",
+            "launches": 0, "max_abs_err": s["bwd_err"], "ms": s["bwd_ms"],
+            "device_ms": s["bwd_dev_ms"], "plain_ms": s["bwd_plain_ms"],
+            "bound_ms": 1.5 * s["bound_ms"], "bound_by": "bytes",
+            "library_ms": s["lib_bwd_ms"]}
+    b4_err = {}
+    b4_shape = (cfg.size >> 2, cfg.d_pixel_size << 1, cfg.d_pixel_size << 2)  # D's C256 input
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        b4_err[dtype_name], worst, _, _ = b4_batch16(torch, fdc, gen, dtype_name, dtype,
+                                                     relu=False, timed=False, shapes=(b4_shape,))
+        hw, c, o = b4_shape
+        print(f"[cyclegan-kernel] B4 relu=False {dtype_name} x{(TRAIN_BATCH, hw, hw, c)}->{o}: "
+              f"max error relative to the largest value: y "
+              f"{worst['y']:.2e} (bound {KERNEL_RTOL[dtype_name]}), dx {worst['dx']:.2e}, dK "
+              f"{worst['dK']:.2e}, db {worst['db']:.2e} (bound {GRAD_RTOL[dtype_name]})")
+    return rows, b4_err
+
+
+def cyclegan_config():
+    """The benchmark cell's configuration (``perfbench/configs/cyclegan-r9-256
+    .json``) at batch 16 a class."""
+    from gan_class_transfer2_tpu_torch.config import Config
+
+    return Config(size=256, pixel_size=64, max_size=512, octaves=2, generator="resnet",
+                  resnet_blocks=9, g_norm="instance", d_layout="patchgan70", d_pixel_size=64,
+                  d_octaves=3, d_norm="instance", image_pool=50, gan_loss="lsgan",
+                  identity_weight=5.0, optimizer="adam", learning_rate=2e-4, adam_b1=0.5,
+                  adam_eps=1e-8, lr_schedule="constant", warm_up=0, compute_dtype="bfloat16",
+                  conv_impl="pallas", batch_size=TRAIN_BATCH).validate()
+
+
+def phase_cyclegan(torch, fdc, norm, gan, cfg):
+    """The published CycleGAN's step at the cell's shapes (``[cyclegan]`` in
+    the module docstring). Returns {"bfloat16": (B3 launches, B4
+    launches), "bfloat16 backward": (B3 backward launches,)} of the
+    main-path steps."""
+    from gan_class_transfer2_tpu_torch.utils import profiler
+
+    # every norm without affine has one backward launch
+    b3_step = sum(cyclegan_norm_maps(cfg).values())
+    c, b4_apply = 3, 0
+    for i in range(cfg.d_octaves):
+        f, hw = min(cfg.d_pixel_size * 2**i, cfg.max_size), cfg.size >> i
+        b4_apply += fdc.supported((TRAIN_BATCH, hw, hw, c), (4, 4, c, f))
+        c = f
+    b4_step = 6 * b4_apply
+    warm, traced, timed = CYCLEGAN_STEPS
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    batches = [(torch.rand((TRAIN_BATCH, 286, 286, 3), generator=gen, device="cuda") * 255
+                ).to(torch.uint8) for _ in range(2)]
+    torch.cuda.reset_peak_memory_stats()
+    state = gan.init_gan_state(cfg, device="cuda")
+    step = gan.make_gan_train_step(cfg)
+    for _ in range(warm):
+        state, m = step(state, *batches, gen)
+    float(m["g_loss"])
+    counters = (norm.instance_norm_fused, norm.instance_norm_bwd_fused, fdc.down_conv_fused)
+    for fn in counters:
+        fn.launches = 0
+    graphs = norm.InstanceNorm.graph_backwards
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cyclegan_") as tmp:
+        with profiler.trace(tmp) as prof:
+            for _ in range(traced):
+                state, m = step(state, *batches, gen)
+            loss = float(m["g_loss"]), float(m["d_loss"])
+        torch.cuda.synchronize()
+        recs = profiler.spans()
+        rows = profiler.device_ops(prof, top=10)
+        busy = profiler.device_busy_ms(prof) / traced
+    got = tuple(fn.launches for fn in counters)
+    want = (traced * b3_step, traced * b3_step, traced * b4_step)
+    graphs = norm.InstanceNorm.graph_backwards - graphs
+    if got != want or graphs:
+        fail(f"cyclegan: B3 forward/backward and B4 launches {got}, expected {want} "
+             f"({b3_step}/{b3_step}/{b4_step} a step x {traced}); torch-op backwards {graphs}")
+    if not all(np.isfinite(loss)):
+        fail(f"cyclegan: losses {loss}")
+    trunks = [r["device_ms"] for r in recs if r["name"] == "resnet.trunk"]
+    if len(trunks) != 6 * traced:
+        fail(f"cyclegan: {len(trunks)} resnet.trunk spans over {traced} steps, expected "
+             f"{6 * traced}")
+    pool = profiler.counters()
+    print(f"[cyclegan] bfloat16 batch {TRAIN_BATCH} a class: B3 {b3_step} forward and "
+          f"{b3_step} backward launches a step (no dγ, dβ), B4 {b4_step} a step, "
+          f"InstanceNorm.graph_backwards {graphs}; losses g {loss[0]:.5f} d {loss[1]:.5f}; "
+          f"pool counters {pool}")
+    print(f"[cyclegan] traced: resnet.trunk {sum(trunks) / traced:.3f} device ms a step "
+          f"(6 spans), device busy {busy:.3f} ms a step")
+    for r in rows:
+        print(f"[cyclegan]   {r['ms'] / traced:9.3f} ms x{r['calls'] // traced:<5d} "
+              f"{r['op'][:100]}")
+    times = []
+    for _ in range(timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, *batches, gen)
+        float(m["g_loss"])
+        times.append((time.perf_counter() - t0) * 1e3)
+    med = sorted(times)[len(times) // 2]
+    print(f"[cyclegan] without the profiler {med:.3f} ms a step (median of {timed}: "
+          f"{[round(t, 3) for t in times]}), {2 * TRAIN_BATCH / med * 1e3:.3f} img/s; "
+          f"idle share against the trace's busy time {max(0.0, 1 - busy / med):.1%}; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    del state, step, batches
+    torch.cuda.empty_cache()
+    return {"bfloat16": (got[0], got[2]), "bfloat16 backward": (got[1],)}
 
 
 def _instance_norm_f64(x, gamma, beta):
@@ -5989,6 +6235,27 @@ def dp_worker(argv):
     return _dp_agree_worker(torch, rank, port)
 
 
+def cyclegan_only():
+    """``[build]`` and ``[cyclegan]`` alone."""
+    import torch
+
+    from gan_class_transfer2_tpu_torch.ops import fused_down_conv as fdc
+    from gan_class_transfer2_tpu_torch.ops import norm
+    from gan_class_transfer2_tpu_torch.train import gan
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke test needs an NVIDIA card")
+    phase_build()
+    cfg = cyclegan_config()
+    rows, _ = phase_cyclegan_kernels(torch, torch.nn.functional, fdc, norm, cfg)
+    launches = phase_cyclegan(torch, fdc, norm, gan, cfg)
+    print(json.dumps({"kernels": [dict(row, launches=launches[key][0])
+                                  for key, row in rows.items()]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0)}}))
+    return 0
+
+
 def main():
     try:
         import torch
@@ -6080,6 +6347,9 @@ def main():
     gan_rows, b4_gan_err = phase_gan_kernels(torch, F, fdc, norm, cfg)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_gan_") as tmp:
         gan_launches = phase_gan(torch, cli, fdc, norm, gan, cfg, tmp)
+    cyclegan_cfg = cyclegan_config()
+    cyclegan_rows, b4_cyclegan_err = phase_cyclegan_kernels(torch, F, fdc, norm, cyclegan_cfg)
+    cyclegan_launches = phase_cyclegan(torch, fdc, norm, gan, cyclegan_cfg)
     phase_gan_agree(torch, fdc, norm, gan, cfg)
     phase_gan_reference(torch, fdc, norm, gan)
     t0 = time.perf_counter()
@@ -6179,6 +6449,10 @@ def main():
         + cgan_b4 + cls_b4 + distill_b4 + bundle_b4 + sb_b4 + fid_b4 + mesh_b4)
     gan_launches["bfloat16"] = tuple(a + b for a, b in zip(gan_launches["bfloat16"],
                                                            cgan_launches["bfloat16"]))
+    # the CycleGAN's norms have no affine: rows of their own below; its B4
+    # launches join the down conv's
+    gan_launches["bfloat16"] = (gan_launches["bfloat16"][0],
+                                gan_launches["bfloat16"][1] + cyclegan_launches["bfloat16"][1])
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         fail("jax was imported")
 
@@ -6216,7 +6490,8 @@ def main():
             "name": f"down_conv_k4s2_{'f32' if dtype == 'float32' else 'bf16'}",
             "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches,
-            "max_abs_err": max(s["max_abs_err"], b4_err[dtype], b4_gan_err[dtype]),
+            "max_abs_err": max(s["max_abs_err"], b4_err[dtype], b4_gan_err[dtype],
+                               b4_cyclegan_err[dtype]),
             "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": "operations" if s["flops_ms"] >= s["bytes_ms"] else "bytes",
@@ -6227,6 +6502,8 @@ def main():
     rows.append(dict(dp_row, launches=dp_launches["diffuse_sharded_f32"]))
     for key, row in gan_rows.items():  # B3's forward and backward rows by dtype
         rows.append(dict(row, launches=gan_launches[key][0]))
+    for key, row in cyclegan_rows.items():  # B3 without affine, the CycleGAN's norms
+        rows.append(dict(row, launches=cyclegan_launches[key][0]))
     rows.append(dict(blocks_row, launches=spatial_launches["instance_norm_blocks_f32"]))
     for row in rows:
         if row["launches"] <= 0:
@@ -6244,4 +6521,6 @@ if __name__ == "__main__":
         sys.exit(dp_worker(sys.argv[2:]))
     if len(sys.argv) > 1 and sys.argv[1] == "--norm-ops":
         sys.exit(norm_ops_worker())
+    if len(sys.argv) > 1 and sys.argv[1] == "--cyclegan":
+        sys.exit(cyclegan_only())
     sys.exit(main())

@@ -62,8 +62,10 @@ round-robin labeled batches of ``--classes``; ``sample`` and ``edit`` take
 steps of the diffusion model, the cycle-GAN or the conditional GAN, then
 ``--profile-steps`` steps under ``torch.profiler``, and
 prints one JSON row per CUDA kernel, one per span of the program's steps
-(``train.*``, ``gan.*``, ``norm.backward``) and a summary line
-(``span_dropped``: spans past the record cap, whose rows then read low).
+(``train.*``, ``gan.*``, ``norm.backward``, ``resnet.trunk``) and a summary
+line (``span_dropped``: spans past the record cap, whose rows then read low;
+``counters``: the program's host counters over the traced steps, such as
+``image_pool.queries`` and ``image_pool.images``).
 
 ``eval`` scores the latest checkpoint in ``--checkpoint-dir`` without
 training (``--model diffusion``: FID/KID of ``fid_samples`` samples against
@@ -138,6 +140,7 @@ _FIELDS = (
     "reconstruction_weight", "d_learning_rate", "d_pixel_size", "d_octaves",
     "patch_discriminator", "d_norm", "g_norm", "r1_weight", "diffaug",
     "cycle_weight_final", "identity_weight_final", "loss_anneal_steps",
+    "generator", "resnet_blocks", "d_layout", "image_pool", "adam_b1",
     # io
     "log_dir", "checkpoint_dir", "checkpoint_every", "checkpoint_keep",
     "checkpoint_async", "keep_best", "log_images_every", "fid_samples", "fid_extractor",
@@ -893,6 +896,7 @@ def _profile(cfg: Config, args) -> int:
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         "device_busy_ms_per_step": busy,
         "span_dropped": profiler.dropped(),
+        "counters": profiler.counters(),
         "final": {k: float(v) for k, v in metrics.items()},
     }))
     return 0

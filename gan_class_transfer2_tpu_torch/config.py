@@ -1,20 +1,34 @@
 """Experiment configuration — the port's own copy of the JAX package's Config.
 
-Field names, defaults and JSON form are identical to
-``gan_class_transfer2_tpu/config.py``, so one ``--config`` file drives both
-packages. The port imports nothing of the JAX package, so the dataclass is
-repeated here. Comments that explain a field's meaning live beside the JAX
-copy; this copy adds what the port does differently:
+Field names, defaults and JSON form are those of
+``gan_class_transfer2_tpu/config.py``, and five of the port's own (below),
+so one ``--config`` file drives both packages. The port imports nothing of
+the JAX package, so the dataclass is repeated here. Comments that explain a
+field's meaning live beside the JAX copy; this copy adds what the port does
+differently:
 
-  * ``validate`` makes the JAX package's checks and no more: every feature
-    is ported. The mesh axes and ``zero1`` run over processes
-    (parallel/mesh.py holds the grid to the world size); the pipeline's
-    compositional refusals are raised where JAX raises them, when
-    ``parallel/pipeline.PipelineTrainer`` is built.
+  * ``validate`` makes the JAX package's checks, and those of the port's
+    own fields: every feature is ported. The mesh axes and ``zero1`` run
+    over processes (parallel/mesh.py holds the grid to the world size); the
+    pipeline's compositional refusals are raised where JAX raises them,
+    when ``parallel/pipeline.PipelineTrainer`` is built.
   * ``conv_impl="pallas"`` selects the hand-written CUDA down-conv kernel
     (ops/fused_down_conv.py), the port's counterpart of the Pallas kernel.
     Instance norm always runs the hand-written CUDA kernel on the card
     (ops/norm.py), whatever ``conv_impl``.
+  * The port's own fields, for the published CycleGAN (arXiv 1703.10593;
+    the authors' pytorch-CycleGAN-and-pix2pix): ``generator`` ("unet", or
+    "resnet": models/resnet.py, ``pixel_size`` filters (ngf),
+    ``octaves`` down and up convs, ``resnet_blocks`` residual blocks),
+    ``d_layout`` ("strided", or "patchgan70": the 70×70 PatchGAN of
+    models/discriminator.py, ``d_octaves`` k4/s2 convs, then a k4/s1 conv
+    and a k4/s1 head), ``image_pool`` (fakes kept a class for D's
+    history, 0 = off; train/image_pool.py) and ``adam_b1`` (Adam's β₁).
+    Their defaults are the JAX package's behaviour; ``to_json`` leaves them
+    out at their defaults, so a config the JAX package can express writes
+    the JAX package's JSON, and the JAX package's ``from_json`` drops them.
+    The ResNet generator, the 70×70 PatchGAN and the pool run on one card
+    or over data parallelism only.
 """
 
 from __future__ import annotations
@@ -63,6 +77,7 @@ class Config:
     optimizer: str = "adam"
     moment_dtype: str = "float32"
     learning_rate: float = 2e-5
+    adam_b1: float = 0.9
     warm_up: int = 2_000
     lr_schedule: str = "warmup"
     inverse_time_decay_steps: int = 10_000
@@ -105,6 +120,10 @@ class Config:
     cycle_weight_final: float = -1.0
     identity_weight_final: float = -1.0
     loss_anneal_steps: int = 0
+    generator: str = "unet"  # unet | resnet
+    resnet_blocks: int = 9
+    d_layout: str = "strided"  # strided | patchgan70
+    image_pool: int = 0
 
     # ----------------------------------------------------------- performance
     conv_impl: str = "auto"  # lax | shuffle | pallas | auto (see ops/conv.py)
@@ -168,8 +187,25 @@ class Config:
             self.loss_anneal_steps > 0 and self.identity_weight_final > 0
         )
 
+    @property
+    def published_cyclegan_parts(self) -> bool:
+        """Whether the ResNet generator, the 70×70 PatchGAN or the image pool
+        is asked for: these run on one card or over data parallelism only."""
+        return self.generator != "unet" or self.d_layout != "strided" or self.image_pool > 0
+
+    def refuse_published_cyclegan(self, parallelism: str) -> None:
+        """Raise if ``published_cyclegan_parts`` under ``parallelism`` (tensor,
+        spatial or pipeline), which lays out the U-Net and the strided
+        discriminator only."""
+        if self.published_cyclegan_parts:
+            raise ValueError(
+                f"the ResNet generator, the 70x70 PatchGAN and the image pool (here "
+                f"generator={self.generator!r}, d_layout={self.d_layout!r}, "
+                f"image_pool={self.image_pool}) run on one card or over data parallelism "
+                f"(mesh_data) only, not under {parallelism} parallelism")
+
     def validate(self) -> "Config":
-        """The JAX package's checks."""
+        """The JAX package's checks, and those of the port's own fields."""
         if self.size % (2**self.octaves) != 0:
             raise ValueError(
                 f"size={self.size} not divisible by 2**octaves={2**self.octaves}"
@@ -194,6 +230,31 @@ class Config:
                     f"unknown diffaug policy {aug!r} "
                     "(comma list from color,translation,cutout)"
                 )
+        if self.generator not in ("unet", "resnet"):
+            raise ValueError(f"unknown generator {self.generator!r}")
+        if self.d_layout not in ("strided", "patchgan70"):
+            raise ValueError(f"unknown d_layout {self.d_layout!r}")
+        if self.generator == "resnet" and self.g_norm != "instance":
+            raise ValueError("generator='resnet' takes g_norm='instance' (the published one)")
+        if self.d_layout == "patchgan70":
+            if self.d_norm != "instance" or not self.patch_discriminator:
+                raise ValueError("d_layout='patchgan70' takes d_norm='instance' and "
+                                 "patch_discriminator (the published one)")
+            n = 2 ** (self.d_octaves or self.octaves)
+            if self.size % n or self.size < 3 * n:
+                raise ValueError(f"d_layout='patchgan70' needs size divisible by {n} and at "
+                                 f"least {3 * n} (a 1x1 patch map), got {self.size}")
+        if self.generator == "resnet" and self.remat:
+            raise ValueError("remat recomputes the U-Net's octaves; generator='resnet' has none")
+        if self.resnet_blocks < 0 or self.image_pool < 0:
+            raise ValueError(f"resnet_blocks and image_pool must be >= 0, got "
+                             f"{self.resnet_blocks}, {self.image_pool}")
+        if not 0.0 <= self.adam_b1 < 1.0:
+            raise ValueError(f"adam_b1 must be in [0, 1), got {self.adam_b1}")
+        if self.mesh_model > 1:
+            self.refuse_published_cyclegan("tensor")
+        if self.pipeline_stages > 1:
+            self.refuse_published_cyclegan("pipeline")
         if self.r1_weight < 0:
             raise ValueError(f"r1_weight must be >= 0, got {self.r1_weight}")
         if self.loss_anneal_steps < 0:
@@ -287,7 +348,11 @@ class Config:
 
     # --------------------------------------------------------- serialization
     def to_json(self) -> str:
-        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
+        raw = dataclasses.asdict(self)
+        for name in _PORT_ONLY:
+            if raw[name] == _DEFAULTS[name]:
+                del raw[name]
+        return json.dumps(raw, indent=2, sort_keys=True)
 
     @classmethod
     def from_json(cls, text: str) -> "Config":
@@ -302,6 +367,8 @@ class Config:
 
 
 _FIELD_NAMES = {f.name for f in dataclasses.fields(Config)}
+_DEFAULTS = {f.name: f.default for f in dataclasses.fields(Config)}
+_PORT_ONLY = ("adam_b1", "generator", "resnet_blocks", "d_layout", "image_pool")
 
 
 def tiny_test_config(**overrides) -> Config:

@@ -135,13 +135,13 @@ def launches_per_step(n_leaves: int) -> int:
     return -(-n_leaves // LEAVES_PER_LAUNCH)
 
 
-def step_size(count, lr):
+def step_size(count, lr, b1=B1):
     """``lr·√(1−β₂ᵗ)/(1−β₁ᵗ)`` in float32 with t = count + 1
     (adam_kernel.py:133-137); ``count`` an int32 tensor on the card, ``lr``
     the schedule's float32 tensor."""
     t = (count + 1).to(torch.float32)
     lr = lr.to(torch.float32)
-    alpha = torch.sqrt(1.0 - torch.pow(B2, t)) / (1.0 - torch.pow(B1, t))
+    alpha = torch.sqrt(1.0 - torch.pow(B2, t)) / (1.0 - torch.pow(b1, t))
     return (lr * alpha).to(torch.float32).reshape(1)
 
 
@@ -153,7 +153,7 @@ def fused_adam_apply(cfg, params, opt_state, grads):
     from ..core.schedule import make_lr_schedule
 
     adam_st, sched_st = opt_state
-    s = step_size(adam_st.count, make_lr_schedule(cfg)(sched_st.count))
-    adam_fused(params, adam_st.mu, adam_st.nu, grads, s, cfg.adam_eps)
+    s = step_size(adam_st.count, make_lr_schedule(cfg)(sched_st.count), cfg.adam_b1)
+    adam_fused(params, adam_st.mu, adam_st.nu, grads, s, cfg.adam_eps, cfg.adam_b1)
     return (adam_st._replace(count=adam_st.count + 1),
             sched_st._replace(count=sched_st.count + 1))

@@ -14,11 +14,19 @@ orientation (I = the op's input channels), as in the JAX package.
                          ``supported`` gate admits, the plain conv otherwise:
                          the JAX package's shape gate, not a device fallback.
 
+The published CycleGAN's layers (models/resnet.py, the 70×70 PatchGAN of
+models/discriminator.py) pad explicitly and symmetrically, with zeros or
+mirrored rows: ``conv2d_padded``, ``reflect_pad`` and
+``conv2d_transpose_padded``. TF-SAME would pad their k3/s2 convs (0, 1) and
+cannot express a k4/s1 conv of pad 1 or a transposed conv's output pad.
+
 Float32 compute is IEEE float32, as the JAX package's ``Precision.HIGHEST``;
 models/unet.py turns cuDNN's TF32 off around a float32 forward.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -95,6 +103,88 @@ def conv2d_transpose(x, kernel, bias=None, stride: int = 2, relu: bool = False):
     """TF Conv2DTranspose 'SAME'; kernel HWIO with I = this op's input
     channels. Output spatial = input · stride."""
     return _epilogue(_convt_raw(x, kernel, stride), bias, relu)
+
+
+# --------------------------------------------------------------------------
+# Explicit symmetric padding (the published CycleGAN's layers)
+# --------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _reflect_index(h: int, w: int, p: int, device: torch.device):
+    """Flat indices of ``nn.ReflectionPad2d(p)`` over an (h, w) image: for each
+    padded pixel the pixel it copies (int64, (h+2p)·(w+2p)), and the padded
+    pixels of the border ring with the pixels they copy (the backward's
+    extra sources and their destinations)."""
+    rows = torch.arange(-p, h + p).abs()
+    rows = torch.where(rows > h - 1, 2 * (h - 1) - rows, rows)
+    cols = torch.arange(-p, w + p).abs()
+    cols = torch.where(cols > w - 1, 2 * (w - 1) - cols, cols)
+    src = (rows[:, None] * w + cols[None, :]).flatten()
+    ring = torch.ones(h + 2 * p, w + 2 * p, dtype=torch.bool)
+    ring[p:p + h, p:p + w] = False
+    ring = ring.flatten().nonzero().flatten()
+    return src.to(device), ring.to(device), src[ring].to(device)
+
+
+class _ReflectPad(torch.autograd.Function):
+    """``nn.ReflectionPad2d(p)`` on an NHWC tensor, in place of ``F.pad(...,
+    "reflect")`` on its NCHW view: that runs PyTorch's NCHW pad kernel,
+    whose output and gradient each take a layout copy on the card. Here the
+    forward is one gather of the padded pixels; the backward one copy of
+    the interior's gradient and one ``index_add_`` of the border ring's
+    onto the pixels it mirrors (atomic on the card, as
+    ``reflection_pad2d_backward``'s adds are)."""
+
+    @staticmethod
+    def forward(ctx, x, p):
+        b, h, w, c = x.shape
+        if p >= h or p >= w:
+            raise ValueError(f"reflect pad {p} needs more than {p} rows and columns, got {h}x{w}")
+        ctx.p = p
+        src, _, _ = _reflect_index(h, w, p, x.device)
+        return x.reshape(b, h * w, c).index_select(1, src).view(b, h + 2 * p, w + 2 * p, c)
+
+    @staticmethod
+    def backward(ctx, g):
+        p = ctx.p
+        b, hp, wp, c = g.shape
+        h, w = hp - 2 * p, wp - 2 * p
+        _, ring, dst = _reflect_index(h, w, p, g.device)
+        gx = g[:, p:p + h, p:p + w].contiguous()
+        gx.view(b, h * w, c).index_add_(1, dst, g.reshape(b, hp * wp, c).index_select(1, ring))
+        return gx, None
+
+
+def reflect_pad(x, pad: int):
+    """``x`` (B, H, W, C) with ``pad`` rows and columns mirrored onto each
+    side, the edge not repeated (``nn.ReflectionPad2d``), NHWC-contiguous.
+    ``F.pad(x, ..., "reflect")`` on the NHWC tensor itself would pad W and
+    C; ``_ReflectPad`` pads H and W without a layout copy."""
+    return _ReflectPad.apply(x.contiguous(), pad)
+
+
+def conv2d_padded(x, kernel, bias=None, stride: int = 1, pad: int = 0, reflect: bool = False):
+    """A conv with ``pad`` rows and columns on each side, zeros or mirrored
+    (``reflect``), and ``bias``: ``nn.Conv2d(k, stride, padding=pad)``
+    behind an optional ``nn.ReflectionPad2d(pad)``. NHWC, kernel HWIO."""
+    if reflect and pad:
+        x, pad = reflect_pad(x, pad), 0
+    w = kernel.to(x.dtype).permute(3, 2, 0, 1)
+    b = None if bias is None else bias.to(x.dtype)
+    return _nhwc(F.conv2d(_nchw(x), w, b, stride=stride, padding=pad))
+
+
+def conv2d_transpose_padded(x, kernel, bias=None, stride: int = 2, pad: int = 1,
+                            output_pad: int = 1):
+    """``nn.ConvTranspose2d(k, stride, padding=pad, output_padding=output_pad)``:
+    output (H − 1)·stride − 2·pad + k + output_pad, which for k3/s2 pad 1
+    and output pad 1 is 2·H. NHWC; kernel HWIO in dataflow orientation (I
+    = this op's input channels), as ``conv2d_transpose``'s."""
+    w = kernel.to(x.dtype).permute(2, 3, 0, 1)
+    b = None if bias is None else bias.to(x.dtype)
+    return _nhwc(F.conv_transpose2d(_nchw(x), w, b, stride=stride, padding=pad,
+                                    output_padding=output_pad))
 
 
 # --------------------------------------------------------------------------

@@ -8,7 +8,8 @@ rule (fans computed on TF's (kh, kw, out, in) storage) is explicit:
   * Conv2DTranspose, stored (kh, kw, in, out): fan_in = kh·kw·out, fan_out = kh·kw·in
   * Dense (in, out):                       fan_in = in, fan_out = out
 
-Draws come from an explicit ``torch.Generator``; they are not the JAX
+The published CycleGAN's networks take N(0, 0.02) kernels instead
+(``normal_reset``). Draws come from an explicit ``torch.Generator``; they are not the JAX
 package's numbers (different generators), only the same distribution.
 """
 
@@ -36,3 +37,18 @@ def conv_kernel(generator, kh, kw, in_ch, out_ch, transpose=False):
 
 def dense_kernel(generator, in_ch, out_ch):
     return glorot_uniform(generator, (in_ch, out_ch), in_ch, out_ch)
+
+
+@torch.no_grad()
+def normal_reset(module, generator: torch.Generator, std: float = 0.02):
+    """The published CycleGAN's ``init_weights`` (``init_type="normal"``,
+    gain 0.02): N(0, std²) for every parameter named ``kernel``, zeros for
+    the rest, drawn in ``parameters()`` order from ``generator`` and copied
+    to each parameter's device. Returns ``module``."""
+    for name, p in module.named_parameters():
+        if name.endswith("kernel"):
+            draw = torch.empty(p.shape, dtype=torch.float32, device=generator.device)
+            p.copy_(draw.normal_(0.0, std, generator=generator))
+        else:
+            p.zero_()
+    return module

@@ -90,7 +90,7 @@ import contextlib
 import ctypes
 import functools
 import threading
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -114,8 +114,10 @@ def _stats(x):
 
 def instance_norm_plain(x, gamma, beta):
     """The kernel's function in plain PyTorch: x (B, H, W, C), gamma/beta
-    (C,); returns x's dtype."""
+    (C,), or both None (no affine); returns x's dtype."""
     m, r = _stats(x)
+    if gamma is None:
+        return ((x.float() - m) * r).to(x.dtype)
     g = gamma.to(x.dtype).float()
     b = beta.to(x.dtype).float()
     return ((x.float() - m) * r * g + b).to(x.dtype)
@@ -162,6 +164,24 @@ def _entry(dtype):
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _unit_affine(c: int, device: torch.device):
+    """float32 ones and zeros (C,) on ``device``: what a launch reads as γ and
+    β where the norm has none (the ResNet generator's and the 70×70
+    PatchGAN's). ``y = x̂·1 + 0`` and ``dx`` from ``dy·1`` are exact, so the
+    kernels compute the norm without affine bit for bit; the backward then
+    skips the dγ, dβ launch."""
+    return (torch.ones(c, dtype=torch.float32, device=device),
+            torch.zeros(c, dtype=torch.float32, device=device))
+
+
+def _affine_f32(gamma, beta, c, device):
+    """γ and β as float32 contiguous tensors for a launch's pointers."""
+    if gamma is None:
+        return _unit_affine(c, device)
+    return _f32(gamma), _f32(beta)
+
+
 def _f32(t):
     """A float32 contiguous tensor of ``t``'s values (for its pointer), ``t``
     itself if it is one."""
@@ -173,7 +193,8 @@ def _f32(t):
 def instance_norm_fused(x, gamma, beta):
     """Forward of B3: the plain version for a CPU tensor, the kernel on the
     current stream for a CUDA tensor (or an exception). x (B, H, W, C)
-    contiguous, float32 or bfloat16; gamma/beta (C,) on x's device."""
+    contiguous, float32 or bfloat16; gamma/beta (C,) on x's device, or both
+    None (no affine)."""
     dev = x.device
     if dev.type == "cpu":
         return instance_norm_plain(x, gamma, beta)
@@ -183,7 +204,7 @@ def instance_norm_fused(x, gamma, beta):
     b, h, w, c = x.shape
     # γ and β go over as float32 (no copy for the float32 parameters); the
     # kernel rounds them to x's dtype, as the Pallas wrapper does (norm.py:76)
-    g, bt = _f32(gamma), _f32(beta)
+    g, bt = _affine_f32(gamma, beta, c, dev)
     y = torch.empty_like(x)
     _launch(_entry(x.dtype), (x.data_ptr(), g.data_ptr(), bt.data_ptr(), y.data_ptr(), b,
                               h * w, c, plan(b, h, w, c).cluster), dev, "instance_norm")
@@ -196,12 +217,15 @@ instance_norm_fused.launches = 0
 
 def _check(x, gamma, beta, who):
     """What a launch of B3's kernel takes: x contiguous NHWC float32 or
-    bfloat16 of at most 65535 samples; γ and β (C,) on x's device."""
+    bfloat16 of at most 65535 samples; γ and β (C,) on x's device, or both
+    None."""
     if x.dtype not in _ENTRY:
         raise TypeError(f"{who}: float32 or bfloat16 only, got {x.dtype}")
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError(f"{who}: x must be contiguous NHWC, got {tuple(x.shape)}")
     c = x.shape[-1]
+    if (gamma is None) != (beta is None):
+        raise ValueError(f"{who}: gamma and beta are both given or both None")
     if gamma is not None:
         if tuple(gamma.shape) != (c,) or tuple(beta.shape) != (c,):
             raise ValueError(f"{who}: gamma/beta must be ({c},)")
@@ -225,13 +249,17 @@ def _launch(fn, args, dev, what):
 def _in_bwd(x, gamma, dy):
     """norm.py:109-119 with (m, r) recomputed from x by differentiable ops:
     ``instance_norm_bwd_fused``'s plain version, and the backward that a
-    double backward differentiates."""
+    double backward differentiates. Without γ (None), ``(dx, None, None)``."""
     m, r = _stats(x)
     dy = dy.float()
     xhat = (x.float() - m) * r
-    dgamma = torch.sum(dy * xhat, dim=(0, 1, 2)).to(gamma.dtype)
-    dbeta = torch.sum(dy, dim=(0, 1, 2)).to(gamma.dtype)
-    g = dy * gamma.float()
+    if gamma is None:
+        dgamma = dbeta = None
+        g = dy
+    else:
+        dgamma = torch.sum(dy * xhat, dim=(0, 1, 2)).to(gamma.dtype)
+        dbeta = torch.sum(dy, dim=(0, 1, 2)).to(gamma.dtype)
+        g = dy * gamma.float()
     mean_g = g.mean(dim=(1, 2), keepdim=True)
     mean_gx = (g * xhat).mean(dim=(1, 2), keepdim=True)
     dx = r * (g - mean_g - xhat * mean_gx)
@@ -239,9 +267,11 @@ def _in_bwd(x, gamma, dy):
 
 
 @torch.library.custom_op("gct2::instance_norm", mutates_args=())
-def instance_norm_op(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+def instance_norm_op(x: torch.Tensor, gamma: Optional[torch.Tensor],
+                     beta: Optional[torch.Tensor]) -> torch.Tensor:
     """B3's forward by name: the kernel on a CUDA tensor, the plain version
-    on a CPU one, an exception elsewhere."""
+    on a CPU one, an exception elsewhere; γ and β both None for a norm
+    without affine."""
     return instance_norm_fused(x, gamma, beta)
 
 
@@ -280,10 +310,12 @@ class InstanceNorm(torch.autograd.Function):
 
 def instance_norm(x, gamma, beta):
     """Per-(sample, channel) normalization over (H, W) with affine γ/β.
-    x: (B, H, W, C); gamma/beta: (C,). Under ``torch.export`` (inference)
-    and for a fake tensor (shapes only, ``utils/profiler.compiled_stats``;
-    forward only) the forward is the custom op ``gct2::instance_norm``."""
-    if torch.compiler.is_exporting() or isinstance(x, FakeTensor):
+    x: (B, H, W, C); gamma/beta: (C,), or both None for a norm without
+    affine (no dγ, dβ in the backward). Under ``torch.export`` (inference)
+    and for a fake or meta tensor (shapes only: ``utils/profiler
+    .compiled_stats``, a model built on the meta device; forward only) the
+    forward is the custom op ``gct2::instance_norm``."""
+    if torch.compiler.is_exporting() or isinstance(x, FakeTensor) or x.is_meta:
         return instance_norm_op(x.contiguous(), gamma, beta)
     return InstanceNorm.apply(x.contiguous(), gamma, beta)
 
@@ -544,10 +576,11 @@ def instance_norm_bwd_fused(x, gamma, dy, need_affine=True):
     """B3's backward ``(dx, dγ, dβ)``: the plain version ``_in_bwd`` for a
     CPU tensor, the kernel on the current stream for a CUDA tensor (or an
     exception). x (B, H, W, C) contiguous, float32 or bfloat16; dy of x's
-    shape and dtype; gamma (C,) on x's device. The statistics are recomputed
-    from x in float32, dx is rounded once to x's dtype, dγ and dβ are
-    float32, or None where ``need_affine`` is false (one launch instead of
-    two). The launch cuts the image as ``block_plan`` cuts a height block."""
+    shape and dtype; gamma (C,) on x's device, or None (a norm without
+    affine: read as ones). The statistics are recomputed from x in float32,
+    dx is rounded once to x's dtype, dγ and dβ are float32, or None where
+    ``need_affine`` is false (one launch instead of two). The launch cuts
+    the image as ``block_plan`` cuts a height block."""
     dev = dy.device
     if dev.type == "cpu":
         dx, dgamma, dbeta = _in_bwd(x, gamma, dy)
@@ -568,9 +601,9 @@ def instance_norm_bwd_fused(x, gamma, dy, need_affine=True):
     if need_affine:
         out = tuple(torch.empty(n, dtype=torch.float32, device=dev) for n in (b * c * 2, c, c))
     _launch(_block_entry("bwd", x.dtype),
-            (x.data_ptr(), dy.data_ptr(), _f32(gamma).data_ptr(), dx.data_ptr(),
-             *(None if t is None else t.data_ptr() for t in out), b, h * w, c, p.wpg, p.wpb,
-             p.cluster), dev, "instance_norm backward")
+            (x.data_ptr(), dy.data_ptr(), _affine_f32(gamma, gamma, c, dev)[0].data_ptr(),
+             dx.data_ptr(), *(None if t is None else t.data_ptr() for t in out), b, h * w, c,
+             p.wpg, p.wpb, p.cluster), dev, "instance_norm backward")
     _build.count(instance_norm_bwd_fused)
     if need_affine:
         _build.count(instance_norm_bwd_fused)

@@ -708,6 +708,8 @@ def make_parallel_gan_train_step(cfg, mesh: Mesh):
     the mesh, both class batches split by rows (mesh.py:196)."""
     from ..train import gan
 
+    if model_axis_size(mesh) > 1:
+        cfg.refuse_published_cyclegan("tensor")
     warn_misaligned_batch(cfg, mesh)
     g_opt, d_opt = gan.make_optimizer(cfg), gan._d_optimizer(cfg)
 

@@ -416,14 +416,13 @@ def _abstract_gan_state(cfg, model: str):
     ``device="meta"`` (no draws, no allocation)."""
     from ..models import conditional as cond_lib
     from ..models import discriminator as d_lib
-    from ..models import unet
     from ..train import gan as gan_lib
     from ..train.trainer import make_optimizer
 
     ema = cfg.ema_decay > 0
     with torch.device("meta"):
         if model == "gan":
-            g_ab, g_ba = unet.Denoiser(cfg, out_channels=3), unet.Denoiser(cfg, out_channels=3)
+            g_ab, g_ba = gan_lib.build_generator(cfg), gan_lib.build_generator(cfg)
             d_a, d_b = d_lib.Discriminator(cfg), d_lib.Discriminator(cfg)
             state = gan_lib.GANState(0, g_ab, g_ba, d_a, d_b, None, None, None, None)
             return state._replace(

@@ -134,6 +134,7 @@ def _check(cfg):
             "spatial training supports the unconditional Denoiser only "
             "(num_classes == 0)"
         )
+    cfg.refuse_published_cyclegan("spatial")
 
 
 def _local_loss(cfg, target, prediction, count: int, mesh):

@@ -60,6 +60,10 @@ def init_conditional_gan_state(cfg, generator: torch.Generator | None = None,
     ``device``."""
     if cfg.num_classes < 2:
         raise ValueError("conditional GAN needs Config.num_classes >= 2")
+    if cfg.published_cyclegan_parts:
+        raise ValueError("the conditional GAN takes the conditional U-Net and the strided "
+                         "discriminator, no image pool (generator='unet', "
+                         "d_layout='strided', image_pool=0)")
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)

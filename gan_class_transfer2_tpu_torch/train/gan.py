@@ -2,8 +2,10 @@
 discriminator pairs — counterpart of gan_class_transfer2_tpu/train/gan.py.
 
   * G_AB, G_BA — U-Net generators (``models/unet.Denoiser`` with three
-    output channels);
-  * D_A, D_B — strided-conv discriminators (``models/discriminator``);
+    output channels), or with ``cfg.generator="resnet"`` the published
+    CycleGAN's ResNet generators (``models/resnet``);
+  * D_A, D_B — strided-conv discriminators (``models/discriminator``), or
+    with ``cfg.d_layout="patchgan70"`` the published 70×70 PatchGANs;
   * one step computes G's gradients with D held constant, then D's on
     detached fakes, both from the parameters as they were before the step,
     and only then applies the two updates (gan.py:251-266).
@@ -12,7 +14,10 @@ Loss menu (``cfg.gan_loss``): non-saturating BCE, LSGAN, hinge; plus the
 cycle L1 ‖G_BA(G_AB(a)) − a‖₁, the identity L1 ‖G_AB(b) − b‖₁ and an
 optional reconstruction L1, with the cycle and identity weights optionally
 annealed (``loss_anneal_steps``); optional R1 penalty on D's real inputs;
-DiffAugment on every D input.
+DiffAugment on every D input. With ``cfg.image_pool`` > 0, D sees G's fakes
+through a history of ``image_pool`` images a class (``train/image_pool``,
+the published CycleGAN's), whose draws come after the augment's and before
+DiffAugment's in D's pass, class A's query first.
 
 What differs from the JAX package, and why:
 
@@ -52,25 +57,27 @@ import torch
 import torch.nn.functional as F
 
 from ..models import discriminator as d_lib
-from ..models import unet
+from ..models import resnet, unet
 from ..models.api import resolve_device
 from ..ops import diffaug
 from ..parallel import mesh as mesh_lib
 from ..utils import profiler
+from . import image_pool
 from . import trainer as trainer_lib
 from .trainer import make_optimizer
 
 
 class GANState(NamedTuple):
     step: int
-    g_ab: unet.Denoiser
-    g_ba: unet.Denoiser
+    g_ab: Any  # unet.Denoiser or resnet.ResnetGenerator (``build_generator``)
+    g_ba: Any
     d_a: d_lib.Discriminator
     d_b: d_lib.Discriminator
     g_opt: Any  # over list(g_ab.parameters()) + list(g_ba.parameters())
     d_opt: Any  # over list(d_a.parameters()) + list(d_b.parameters())
-    ema_g_ab: Optional[unet.Denoiser]
-    ema_g_ba: Optional[unet.Denoiser]
+    ema_g_ab: Any
+    ema_g_ba: Any
+    pools: Optional[tuple] = None  # (class A's, class B's) image_pool.ImagePool
 
 
 def _d_optimizer(cfg):
@@ -94,15 +101,24 @@ def _ema_copy(model):
     return ema
 
 
+def build_generator(cfg):
+    """A generator module as ``cfg.generator`` names it, zero-filled on the
+    CPU: the U-Net with three output channels, or the ResNet generator."""
+    if cfg.generator == "resnet":
+        return resnet.ResnetGenerator(cfg)
+    return unet.Denoiser(cfg, out_channels=3)
+
+
 def init_gan_state(cfg, generator: torch.Generator | None = None, device="cuda") -> GANState:
-    """Glorot-initialised G_AB, G_BA, D_A, D_B, drawn in that order from
-    ``generator`` (a CPU generator seeded with ``cfg.seed`` by default),
-    their optimizer states and the generator EMAs, on ``device``."""
+    """G_AB, G_BA, D_A, D_B initialised (Glorot, or the published CycleGAN's
+    N(0, 0.02) for its networks), drawn in that order from ``generator`` (a
+    CPU generator seeded with ``cfg.seed`` by default), their optimizer
+    states, the generator EMAs and the image pools, on ``device``."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
-    g_ab = unet.Denoiser(cfg, out_channels=3).reset_parameters(generator).to(dev)
-    g_ba = unet.Denoiser(cfg, out_channels=3).reset_parameters(generator).to(dev)
+    g_ab = build_generator(cfg).reset_parameters(generator).to(dev)
+    g_ba = build_generator(cfg).reset_parameters(generator).to(dev)
     d_a = d_lib.init_discriminator(cfg, generator, dev)
     d_b = d_lib.init_discriminator(cfg, generator, dev)
     state = GANState(0, g_ab, g_ba, d_a, d_b, None, None, None, None)
@@ -112,6 +128,8 @@ def init_gan_state(cfg, generator: torch.Generator | None = None, device="cuda")
         d_opt=_d_optimizer(cfg).init(d_params(state)),
         ema_g_ab=_ema_copy(g_ab) if ema else None,
         ema_g_ba=_ema_copy(g_ba) if ema else None,
+        pools=(image_pool.init_pools(cfg, unet.DTYPES[cfg.compute_dtype], dev)
+               if cfg.image_pool else None),
     )
 
 
@@ -150,6 +168,8 @@ def annealed_weight(cfg, base: float, final: float, step: int):
 
 
 def _generate(cfg, model, x):
+    if cfg.generator == "resnet":
+        return resnet.resnet_apply(cfg, model, x)
     return unet.unet_apply(cfg, model, x)
 
 
@@ -217,8 +237,13 @@ def gan_train_step(cfg, g_optimizer, d_optimizer, state: GANState, batch_a, batc
                     g_grads = torch.autograd.grad(g_loss, gp, materialize_grads=True)
 
             # ---- D on the detached fakes, from the same (not yet updated) params
+            pools = state.pools
             with profiler.annotate("gan.d_forward"):
                 fake_a, fake_b = fake_a.detach(), fake_b.detach()
+                if pools is not None:  # D sees the fakes through the history
+                    pool_a, fake_a = image_pool.query(pools[0], fake_a, generator, mesh)
+                    pool_b, fake_b = image_pool.query(pools[1], fake_b, generator, mesh)
+                    pools = (pool_a, pool_b)
                 real_a, real_b = aug(batch_a), aug(batch_b)
                 d_loss = (adversarial_loss(cfg, disc(state.d_a, real_a), True, False)
                           + adversarial_loss(cfg, disc(state.d_a, aug(fake_a)), False, False)
@@ -247,7 +272,8 @@ def gan_train_step(cfg, g_optimizer, d_optimizer, state: GANState, batch_a, batc
             # the current effective weights, so the anneal is visible
             metrics["cycle_weight"] = torch.as_tensor(w_cycle, dtype=torch.float32)
             metrics["identity_weight"] = torch.as_tensor(w_ident, dtype=torch.float32)
-        return state._replace(step=state.step + 1, g_opt=g_opt, d_opt=d_opt), metrics
+        return state._replace(step=state.step + 1, g_opt=g_opt, d_opt=d_opt,
+                              pools=pools), metrics
 
 
 def _update_both(cfg, g_optimizer, d_optimizer, state, gp, dp, g_grads, d_grads, metrics,

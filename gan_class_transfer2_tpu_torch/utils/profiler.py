@@ -14,6 +14,9 @@
     a capture runs, a named range in it (``torch.profiler.record_function``)
     and a record of its own (``spans``, ``span_table``, ``reset``,
     ``dropped``); otherwise one flag read;
+  * ``count(name, n)`` — a host counter of the program's own (``counters``),
+    always on, with no device sync: ``image_pool.queries`` and
+    ``image_pool.images`` (train/image_pool.py);
   * ``compiled_stats(fn, *args)`` — the FLOPs of a call without running it
     on real data, with JAX's keys (``flops``, ``bytes_accessed``,
     ``memory_mb``).
@@ -77,6 +80,7 @@ class _Log:
             for r in self.records:
                 self.give(r)
             self.records, self.dropped, self.steps = [], 0, 0
+            self.counts = {}
 
     def stack(self) -> list:
         stack = getattr(self.open, "stack", None)
@@ -174,8 +178,23 @@ def annotate(name: str, step: bool = False):
 
 
 def reset() -> None:
-    """Drop the span records, the count of dropped ones and the step count."""
+    """Drop the span records, the count of dropped ones, the step count and
+    the counters."""
     _log.reset()
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` (a host int: nothing waits for the card) to the counter
+    ``name``, whether or not a capture runs."""
+    with _log.lock:
+        _log.counts[name] = _log.counts.get(name, 0) + n
+
+
+def counters() -> dict:
+    """``{name: total}`` of every counter since the last ``reset`` (which
+    ``trace`` makes on entry)."""
+    with _log.lock:
+        return dict(_log.counts)
 
 
 def dropped() -> int:

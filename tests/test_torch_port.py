@@ -562,6 +562,40 @@ def test_instance_norm_backward_kernel_matches_plain_on_card(monkeypatch):
 
 
 @pytest.mark.cuda
+def test_instance_norm_without_affine_on_card(monkeypatch):
+    """B3 with γ and β absent (the published CycleGAN's norms) at its
+    distinct maps at batch 16 (G's 256²×64, 128²×128, 64²×256; D's 64²×128,
+    32²×256, 31²×512), float32 and bfloat16: the forward and the backward
+    are the affine kernels' with γ = 1, β = 0 bit for bit (x̂·1 + 0 and
+    dy·1 are exact), the forward within the affine test's bounds of the
+    plain version; through the Function one backward launch a norm and no
+    dγ, dβ."""
+    from gan_class_transfer2_tpu_torch.ops import norm
+
+    _needs_card(monkeypatch)
+    r = np.random.default_rng(22)
+    for hw, c in ((256, 64), (128, 128), (64, 256), (64, 128), (32, 256), (31, 512)):
+        x = torch.from_numpy(r.normal(2.0, 3.0, (16, hw, hw, c)).astype(np.float32)).cuda()
+        dy = torch.from_numpy(r.normal(size=x.shape).astype(np.float32)).cuda()
+        ones, zeros = torch.ones(c, device="cuda"), torch.zeros(c, device="cuda")
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+            xd, dyd = x.to(dtype), dy.to(dtype)
+            y = norm.instance_norm_fused(xd, None, None)
+            assert torch.equal(y, norm.instance_norm_fused(xd, ones, zeros)), (hw, c, dtype)
+            want = norm.instance_norm_plain(xd, None, None).float()
+            err = (y.float() - want).abs().max().item()
+            assert err <= tol * want.abs().max().item(), (hw, c, dtype, err)
+            dx, dg, db = norm.instance_norm_bwd_fused(xd, None, dyd, need_affine=False)
+            assert dg is None and db is None
+            assert torch.equal(dx, norm.instance_norm_bwd_fused(xd, ones, dyd, False)[0])
+            leaf = xd.clone().requires_grad_()
+            before = norm.instance_norm_bwd_fused.launches
+            (got,) = torch.autograd.grad(norm.instance_norm(leaf, None, None), leaf, dyd)
+            assert norm.instance_norm_bwd_fused.launches == before + 1
+            assert torch.equal(got, dx), (hw, c, dtype)
+
+
+@pytest.mark.cuda
 def test_recorded_norm_backward_takes_the_torch_ops_on_card(monkeypatch):
     """Under ``create_graph=True`` (R1's double backward) B3's backward
     launches no kernel and takes ``_in_bwd``'s torch ops, counted by

@@ -37,6 +37,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      down-conv shapes at batch 16, float32 and bfloat16: its forward and its
      gradients dx, dK, db (cuDNN around the kernel) against the plain
      version's autograd, and the backward timed;
+  6a. epilogue — the conv epilogue (csrc/conv_epilogue.cu: a pair's sum,
+     bias and ReLU forward; ReLU mask and bias gradient backward) against
+     its plain version at the train cell's up0 and up1 outputs at batch 256
+     and 16, float32 and bfloat16, timed beside the byte bound (up0 at batch
+     256 in bfloat16 must reach 70% of it each way); its launches in one
+     train step at batch 256 and one denoiser call at batch 16 of the cell's
+     configuration, exactly one a conv forward and two a backward, none a
+     torch-op backward. ``python3 chip_smoke.py --epilogue`` runs this phase
+     alone, after the build;
   7. train — the user's entry point, ``cli.main(["bench", ...])``, training
      the default model at batch 16 for 3 + 10 steps in float32 and bfloat16,
      through the kernels (``--conv-impl pallas --optimizer adam_fused
@@ -6235,6 +6244,169 @@ def dp_worker(argv):
     return _dp_agree_worker(torch, rank, port)
 
 
+# [epilogue]: the train cell's two largest up-conv outputs (H = W, C), each
+# the sum of a (branch, skip) pair, with bias and ReLU
+EPILOGUE_SHAPES = (("up0", 256, 64), ("up1", 128, 128))
+EPILOGUE_BATCHES = (256, 16)  # the train cell's batch and the sampler's
+EPILOGUE_RTOL = {"float32": 0.0, "bfloat16": 1e-2}  # as tests/test_torch_conv_epilogue.py
+
+
+def epilogue_config(batch):
+    """The train and sampler cells' configuration (``perfbench/configs/
+    ddpm-unet256.json``: Config()'s widths on the kernel path in bf16)."""
+    from gan_class_transfer2_tpu_torch.config import Config
+
+    return Config(compute_dtype="bfloat16", conv_impl="pallas", optimizer="adam_fused",
+                  fused_diffusion=True, batch_size=batch).validate()
+
+
+def epilogue_per_call(fdc, cfg, batch):
+    """Conv epilogue launches of one denoiser forward: every conv but the
+    head's dense and the down convs B4 takes (whose forward fuses it); a
+    train step adds 2 a conv with bias and ReLU in the backward (gs, then
+    db), B4's backward included. Returns (forward, train step)."""
+    from gan_class_transfer2_tpu_torch.models import unet
+
+    convs = sum(isinstance(m, unet.Conv) for m in unet.Denoiser(cfg).modules()) - 1
+    b4 = b4_per_call(fdc, cfg, batch)
+    return convs - b4, 3 * (convs - b4) + 2 * b4
+
+
+def phase_epilogue(torch, fdc, trainer):
+    """The conv epilogue's kernels against their plain versions at up0's and
+    up1's outputs at batch 256 and 16, float32 and bfloat16: a pair's
+    forward (sum, bias, ReLU) and its backward (ReLU mask, db), worst
+    relative errors, kernel, plain and bound ms (bytes at 3.35 TB/s); the
+    host µs of a call without a gradient against the torch ops; then the
+    launches of one train step of the train cell (batch 256) and one
+    denoiser call of the sampler's (batch 16) against ``epilogue_per_call``
+    with no torch-op backward. Returns the kernels line's row."""
+    from gan_class_transfer2_tpu_torch.models import unet
+    from gan_class_transfer2_tpu_torch.ops import conv_epilogue as ce
+
+    def rel(a, w):
+        return (a.float() - w.float()).abs().max().item() / w.float().abs().max().item()
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    worst = {}
+    timed = {}
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for batch in EPILOGUE_BATCHES:
+            for name, hw, c in EPILOGUE_SHAPES:
+                shape = (batch, hw, hw, c)
+                y, other, g = (torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+                               for _ in range(3))
+                bias = torch.randn(c, generator=gen, device="cuda", dtype=dtype)
+                nbytes = 3 * y.numel() * y.element_size()
+                out = ce.epilogue_fused(y, bias, True, other)
+                want = ce.epilogue_plain(y, bias, True, other)
+                err = rel(out, want)
+                if err > EPILOGUE_RTOL[dtype_name]:
+                    fail(f"epilogue {name} b{batch} {dtype_name}: forward error {err:.3e}")
+                del want
+                gs, db = ce._backward_fused(g, out, True, True, dtype)
+                gw, dbw = ce._backward_plain(g, out, True, True, dtype)
+                db_err = rel(db, dbw)
+                if not torch.equal(gs, gw) or db_err > (1e-5 if dtype_name == "float32" else 1e-2):
+                    fail(f"epilogue {name} b{batch} {dtype_name}: backward gs equal "
+                         f"{torch.equal(gs, gw)}, db error {db_err:.3e}")
+                # a float32 bias (B4's parameter) takes db in float32 whatever g's dtype
+                _, db = ce._backward_fused(g, out, False, True, torch.float32)
+                _, dbw = ce._backward_plain(g, out, False, True, torch.float32)
+                db32_err = rel(db, dbw)
+                if db.dtype != torch.float32 or db32_err > 1e-5:
+                    fail(f"epilogue {name} b{batch} {dtype_name}: float32 db {db.dtype}, error "
+                         f"{db32_err:.3e}")
+                del gs, gw
+                worst[dtype_name] = max(worst.get(dtype_name, 0.0), err)
+                fwd = queued_ms(lambda: ce.epilogue_fused(y, bias, True, other))
+                fwd_plain = queued_ms(lambda: ce.epilogue_plain(y, bias, True, other))
+                bwd = queued_ms(lambda: ce._backward_fused(g, out, True, True, dtype))
+                bwd_plain = queued_ms(lambda: ce._backward_plain(g, out, True, True, dtype))
+                bound = _bytes_ms(nbytes)
+                timed[(dtype_name, batch, name)] = (fwd, bwd, bound, fwd_plain)
+                print(f"[epilogue] {name} {shape} {dtype_name}: forward kernel {fwd:.4f} ms "
+                      f"({bound / fwd:.1%} of bound), plain {fwd_plain:.4f}; backward kernel "
+                      f"{bwd:.4f} ms ({bound / bwd:.1%}), plain {bwd_plain:.4f}; bound "
+                      f"{bound:.4f} ms ({nbytes / 1e9:.3f} GB each way); error out {err:.3e}, "
+                      f"db {db_err:.3e}, float32 db {db32_err:.3e}")
+                del y, other, g, out, bias
+                torch.cuda.empty_cache()
+    print(f"[epilogue] worst relative error of the forward: float32 {worst['float32']:.3e}, "
+          f"bfloat16 {worst['bfloat16']:.3e}")
+    # host time a call on the sampler's path (no gradient): the op against
+    # the torch ops it replaced, at up5's pair (16, 8, 8, 512), where the
+    # device time is small
+    y, other = (torch.randn((16, 8, 8, 512), generator=gen, device="cuda",
+                            dtype=torch.bfloat16) for _ in range(2))
+    bias = torch.randn(512, generator=gen, device="cuda", dtype=torch.bfloat16)
+    with torch.no_grad():
+        host_op = host_ms(lambda: ce.conv_epilogue(y, bias, True, other), reps=2000)
+        host_plain = host_ms(lambda: ce.epilogue_plain(y, bias, True, other), reps=2000)
+    print(f"[epilogue] host µs a call without a gradient (16, 8, 8, 512) bf16: conv_epilogue "
+          f"{host_op * 1e3:.2f}, the torch ops it replaced {host_plain * 1e3:.2f}")
+    fwd, bwd, bound, fwd_plain = timed[("bfloat16", 256, "up0")]
+    if bound / fwd < 0.7 or bound / bwd < 0.7:
+        fail(f"epilogue up0 b256 bf16: forward {bound / fwd:.1%}, backward {bound / bwd:.1%} "
+             "of the byte bound, under 70%")
+
+    # the main paths: one train step of the train cell, one denoiser call of
+    # the sampler's; every epilogue a launch, none a torch-op backward
+    cfg = epilogue_config(256)
+    per_call, per_step = epilogue_per_call(fdc, cfg, 256)
+    state = trainer.init_state(cfg, device="cuda")
+    step = trainer.make_train_step(cfg)
+    xb = torch.rand((256, cfg.size, cfg.size, 3), generator=gen, device="cuda") * 2 - 1
+    state, _ = step(state, xb, gen)
+    # the comparisons and timing loops above do not count
+    ce.conv_epilogue.launches = ce.ConvEpilogue.graph_backwards = 0
+    state, loss = step(state, xb, gen)
+    got = (ce.conv_epilogue.launches, ce.ConvEpilogue.graph_backwards)
+    if got != (per_step, 0) or not np.isfinite(float(loss)):
+        fail(f"epilogue: a train step at batch 256 launched {got[0]} epilogues with {got[1]} "
+             f"torch-op backwards, expected {per_step} and 0 (loss {float(loss)})")
+    model = state.model
+    del state, step, xb
+    torch.cuda.empty_cache()
+    sample_cfg = epilogue_config(16)
+    x = torch.randn((16, cfg.size, cfg.size, 3), generator=gen, device="cuda")
+    with torch.no_grad():
+        ce.conv_epilogue.launches = 0
+        unet.unet_apply(sample_cfg, model, x)
+        call = ce.conv_epilogue.launches
+    if call != epilogue_per_call(fdc, sample_cfg, 16)[0]:
+        fail(f"epilogue: a denoiser call at batch 16 launched {call} epilogues, expected "
+             f"{epilogue_per_call(fdc, sample_cfg, 16)[0]}")
+    print(f"[epilogue] launches: {got[0]} a train step at batch 256 ({per_call} forward, "
+          f"{per_step - per_call} backward), {call} a denoiser call at batch 16; "
+          f"graph_backwards 0")
+    del model
+    torch.cuda.empty_cache()
+    return {"name": "conv_epilogue_bf16", "route": "cuda",
+            "source": "gan_class_transfer2_tpu_torch/csrc/conv_epilogue.cu",
+            "replaces": "none (XLA's fused conv tail; models/unet.py _pair_up_conv)",
+            "launches": got[0], "max_abs_err": worst["bfloat16"],
+            "ms": fwd, "plain_ms": fwd_plain, "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": None}
+
+
+def epilogue_only():
+    """``[build]`` and ``[epilogue]`` alone."""
+    import torch
+
+    from gan_class_transfer2_tpu_torch.ops import fused_down_conv as fdc
+    from gan_class_transfer2_tpu_torch.train import trainer
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke test needs an NVIDIA card")
+    phase_build()
+    row = phase_epilogue(torch, fdc, trainer)
+    print(json.dumps({"kernels": [row]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0)}}))
+    return 0
+
+
 def cyclegan_only():
     """``[build]`` and ``[cyclegan]`` alone."""
     import torch
@@ -6313,6 +6485,7 @@ def main():
     # the loss forward through backward()): train under torch's defaults
     torch.backends.cudnn.allow_tf32 = True
     train_rows, b4_err = phase_train_kernels(torch, F, fdc, fd, adam_kernel, api, cfg)
+    epilogue_row = phase_epilogue(torch, fdc, trainer)
     train_launches, train_results = phase_train(torch, cli, fdc, fd, adam_kernel, trainer, cfg)
     hbm_launches = phase_train_hbm(torch, fdc, fd, adam_kernel, trainer, cfg, train_results)
     for name, n in hbm_launches.items():
@@ -6505,6 +6678,7 @@ def main():
     for key, row in cyclegan_rows.items():  # B3 without affine, the CycleGAN's norms
         rows.append(dict(row, launches=cyclegan_launches[key][0]))
     rows.append(dict(blocks_row, launches=spatial_launches["instance_norm_blocks_f32"]))
+    rows.append(epilogue_row)  # launches: [epilogue]'s train step at batch 256
     for row in rows:
         if row["launches"] <= 0:
             fail(f"kernel {row['name']} was not launched on the main path")
@@ -6523,4 +6697,6 @@ if __name__ == "__main__":
         sys.exit(norm_ops_worker())
     if len(sys.argv) > 1 and sys.argv[1] == "--cyclegan":
         sys.exit(cyclegan_only())
+    if len(sys.argv) > 1 and sys.argv[1] == "--epilogue":
+        sys.exit(epilogue_only())
     sys.exit(main())

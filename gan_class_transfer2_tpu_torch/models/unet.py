@@ -143,27 +143,28 @@ class Denoiser(nn.Module):
         return unet_apply(self.cfg, self, x, t)
 
 
-def _conv_relu(layers, h, dtype):
+def _conv_relu(layers, h, dtype, impl):
     for layer in layers:
-        h = tensor.layer_apply(layer, dtype, _conv3_relu, h)
+        h = tensor.layer_apply(layer, dtype, lambda x, k, b: _conv3_relu(x, k, b, impl), h)
     return h
 
 
-def _conv3_relu(x, kernel, bias):
-    return conv_ops.conv2d(x, kernel, bias, stride=1, relu=True)
+def _conv3_relu(x, kernel, bias, impl):
+    return conv_ops.conv2d(x, kernel, bias, stride=1, relu=True, impl=impl)
 
 
-def _pair_block_conv(h, layer, dtype):
+def _pair_block_conv(h, layer, dtype, impl):
     """Conv over a logical concat kept as an unmaterialised pair:
-    conv(concat(a, b), K) = conv(a, K[:, :, :ca]) + conv(b, K[:, :, ca:])."""
+    conv(concat(a, b), K) = conv(a, K[:, :, :ca]) + conv(b, K[:, :, ca:]);
+    the sum, bias and ReLU in one epilogue (ops/conv.py ``epilogue``)."""
     if not isinstance(h, tuple):
-        return tensor.layer_apply(layer, dtype, _conv3_relu, h)
+        return _conv_relu([layer], h, dtype, impl)
 
     def pair(a, b, kernel, bias):
         ca = a.shape[-1]
         ya = conv_ops.conv2d(a, kernel[:, :, :ca], None, stride=1)
-        yb = conv_ops.conv2d(b, kernel[:, :, ca:], bias, stride=1)
-        return torch.relu(ya + yb)
+        yb = conv_ops.conv2d(b, kernel[:, :, ca:], None, stride=1)
+        return conv_ops.epilogue(yb, bias, True, impl, ya)
 
     return tensor.layer_apply(layer, dtype, pair, *h)
 
@@ -176,9 +177,8 @@ def _pair_up_conv(h, layer, impl, dtype, relu: bool = True):
     def pair(a, b, kernel, bias):
         ca = a.shape[-1]
         ya = conv_ops.up_conv(a, kernel[:, :, :ca], None, impl, relu=False)
-        yb = conv_ops.up_conv(b, kernel[:, :, ca:], bias, impl, relu=False)
-        s = ya + yb
-        return torch.relu(s) if relu else s
+        yb = conv_ops.up_conv(b, kernel[:, :, ca:], None, impl, relu=False)
+        return conv_ops.epilogue(yb, bias, relu, impl, ya)
 
     return tensor.layer_apply(layer, dtype, pair, *h)
 
@@ -192,10 +192,11 @@ def _pair_dense(h, layer, dtype):
     return conv_ops.dense(a, kernel[:ca]) + conv_ops.dense(b, kernel[ca:], bias)
 
 
-def _blocks_after_pair(layers, h, dtype):
+def _blocks_after_pair(layers, h, dtype, impl):
     """A block whose first conv may receive a (branch, skip) pair."""
     for n, layer in enumerate(layers):
-        h = _pair_block_conv(h, layer, dtype) if n == 0 else _conv_relu([layer], h, dtype)
+        h = (_pair_block_conv(h, layer, dtype, impl) if n == 0
+             else _conv_relu([layer], h, dtype, impl))
     return h
 
 
@@ -209,13 +210,13 @@ def octave_down(cfg, level, h, dtype):
         lambda x, k, b: conv_ops.down_conv(x, k, b, cfg.conv_impl, relu=not normed), h)
     if normed:
         h = torch.relu(norm_ops.apply_norm(cfg.g_norm, h, level.down_norm))
-    return _conv_relu(level.block_in, h, dtype), inp
+    return _conv_relu(level.block_in, h, dtype, cfg.conv_impl), inp
 
 
 def octave_up(cfg, level, h, inp, dtype):
     """One octave's ascent: block_out + up conv (+ norm) + skip merge with
     ``inp``."""
-    h = _blocks_after_pair(level.block_out, h, dtype)
+    h = _blocks_after_pair(level.block_out, h, dtype, cfg.conv_impl)
     normed = cfg.g_norm != "none"
     h = _pair_up_conv(h, level.up, cfg.conv_impl, dtype, relu=not normed)
     if normed:
@@ -232,7 +233,7 @@ def octave_up(cfg, level, h, inp, dtype):
 
 def unet_head(cfg, model, h, t, dtype):
     """post_block + Dense head (+ the vestigial per-step gather on t−1)."""
-    h = _blocks_after_pair(model.post_block, h, dtype)
+    h = _blocks_after_pair(model.post_block, h, dtype, cfg.conv_impl)
     return per_step_gather(cfg, _pair_dense(h, model.head, dtype), t)
 
 
@@ -303,7 +304,7 @@ def unet_apply(cfg, model: Denoiser, x, t=None):
     dtype = DTYPES[cfg.compute_dtype]
     stats = norm_ops.stats_names()
     with ieee_fp32(dtype, x.device):
-        h = _conv_relu(model.pre_block, x.to(dtype), dtype)
+        h = _conv_relu(model.pre_block, x.to(dtype), dtype, cfg.conv_impl)
 
         def rec(i, h):
             level = model.octaves[i]
@@ -314,14 +315,15 @@ def unet_apply(cfg, model: Denoiser, x, t=None):
                 else:
                     h = rec(i + 1, h)
             else:
-                h = _conv_relu(model.middle, h, dtype)
+                h = _conv_relu(model.middle, h, dtype, cfg.conv_impl)
             return octave_up(cfg, level, h, inp, dtype)
 
         def _inner(i, h):
             with ieee_fp32(dtype, h.device), norm_ops.stats_over(*stats):
                 return rec(i, h)
 
-        h = rec(0, h) if cfg.octaves > 0 else _conv_relu(model.middle, h, dtype)
+        h = (rec(0, h) if cfg.octaves > 0
+             else _conv_relu(model.middle, h, dtype, cfg.conv_impl))
         return unet_head(cfg, model, h, t, dtype)
 
 

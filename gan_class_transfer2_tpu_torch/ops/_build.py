@@ -139,3 +139,16 @@ def current_stream(index: int) -> int:
     building a Stream object on every launch (4.5 µs a call on the card's
     host, PERF.md Findings)."""
     return torch._C._cuda_getCurrentRawStream(index)
+
+
+def launch(fn, args, index: int, what: str) -> None:
+    """``fn(*args, stream)`` on device ``index``'s current stream, the
+    device made current for the launch where it is not; a non-zero return
+    (a CUDA error) raises RuntimeError naming ``what``."""
+    if index == torch._C._cuda_getDevice():
+        err = fn(*args, current_stream(index))
+    else:
+        with torch.cuda.device(index):  # the launch goes to the current device
+            err = fn(*args, current_stream(index))
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")

@@ -12,7 +12,10 @@ orientation (I = the op's input channels), as in the JAX package.
   * ``pallas``         — the hand-written CUDA k4/s2 down conv
                          (ops/fused_down_conv.py) for the shapes its
                          ``supported`` gate admits, the plain conv otherwise:
-                         the JAX package's shape gate, not a device fallback.
+                         the JAX package's shape gate, not a device fallback;
+                         and every TF-SAME conv's bias, pair sum and ReLU as
+                         the conv epilogue's kernel (ops/conv_epilogue.py)
+                         where the other routes add them in torch ops.
 
 The published CycleGAN's layers (models/resnet.py, the 70×70 PatchGAN of
 models/discriminator.py) pad explicitly and symmetrically, with zeros or
@@ -32,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from . import fused_down_conv
+from .conv_epilogue import conv_epilogue, epilogue_plain
 
 
 def same_pads(in_size: int, k: int, s: int):
@@ -65,17 +69,17 @@ def _conv_strided_raw(x, kernel, stride: int):
     return _nhwc(F.conv2d(xn, w, stride=stride))
 
 
-def _epilogue(y, bias, relu):
-    if bias is not None:
-        y = y + bias.to(y.dtype)
-    if relu:
-        y = torch.relu(y)
-    return y
+def epilogue(y, bias, relu: bool, impl: str, other=None):
+    """A conv's tail ``act(other + (y + bias))``: the conv epilogue's kernel
+    on the ``pallas`` route, the torch ops on the others."""
+    if impl == "pallas":
+        return conv_epilogue(y, bias, relu, other)
+    return epilogue_plain(y, bias, relu, other)
 
 
-def conv2d(x, kernel, bias=None, stride: int = 1, relu: bool = False):
+def conv2d(x, kernel, bias=None, stride: int = 1, relu: bool = False, impl: str = "auto"):
     """TF-SAME conv. kernel HWIO."""
-    return _epilogue(_conv_strided_raw(x, kernel, stride), bias, relu)
+    return epilogue(_conv_strided_raw(x, kernel, stride), bias, relu, impl)
 
 
 def _convt_raw(x, kernel, stride: int):
@@ -99,10 +103,11 @@ def _convt_raw(x, kernel, stride: int):
     return _nhwc(y)
 
 
-def conv2d_transpose(x, kernel, bias=None, stride: int = 2, relu: bool = False):
+def conv2d_transpose(x, kernel, bias=None, stride: int = 2, relu: bool = False,
+                     impl: str = "auto"):
     """TF Conv2DTranspose 'SAME'; kernel HWIO with I = this op's input
     channels. Output spatial = input · stride."""
-    return _epilogue(_convt_raw(x, kernel, stride), bias, relu)
+    return epilogue(_convt_raw(x, kernel, stride), bias, relu, impl)
 
 
 # --------------------------------------------------------------------------
@@ -228,7 +233,7 @@ def conv2d_transpose_shuffle(x, kernel, bias=None, relu: bool = False):
         raise ValueError(f"shuffle transposed conv needs a 4x4 kernel, got {tuple(kernel.shape)}")
     k = _transpose_shuffle_kernel(kernel).to(x.dtype).permute(3, 2, 0, 1)
     y = _nhwc(F.conv2d(_nchw(x), k, padding=1))
-    return _epilogue(depth_to_space(y, 2), bias, relu)
+    return epilogue_plain(depth_to_space(y, 2), bias, relu)
 
 
 def _down_shuffle_kernel(kernel):
@@ -258,7 +263,7 @@ def conv2d_down_shuffle(x, kernel, bias=None, relu: bool = False):
     k = _down_shuffle_kernel(kernel).to(x.dtype).permute(3, 2, 0, 1)
     xs = space_to_depth(F.pad(x, (0, 0, 1, 1, 1, 1)), 2)
     y = _nhwc(F.conv2d(_nchw(xs), k))
-    return _epilogue(y, bias, relu)
+    return epilogue_plain(y, bias, relu)
 
 
 # --------------------------------------------------------------------------
@@ -271,7 +276,7 @@ def down_conv(x, kernel, bias, impl: str = "auto", relu: bool = True):
     if impl == "pallas" and bias is not None:
         if fused_down_conv.supported(tuple(x.shape), tuple(kernel.shape)):
             return fused_down_conv.down_conv_fused(x.contiguous(), kernel, bias, relu)
-        return conv2d(x, kernel, bias, stride=2, relu=relu)
+        return conv2d(x, kernel, bias, stride=2, relu=relu, impl=impl)
     if impl == "shuffle":
         return conv2d_down_shuffle(x, kernel, bias, relu=relu)
     return conv2d(x, kernel, bias, stride=2, relu=relu)
@@ -281,8 +286,8 @@ def up_conv(x, kernel, bias, impl: str = "auto", relu: bool = True):
     """UpShuffle op (reference train.py:145-156): 4×4/s2 transposed conv + ReLU."""
     if impl == "shuffle":
         return conv2d_transpose_shuffle(x, kernel, bias, relu=relu)
-    return conv2d_transpose(x, kernel, bias, stride=2, relu=relu)
+    return conv2d_transpose(x, kernel, bias, stride=2, relu=relu, impl=impl)
 
 
 def dense(x, kernel, bias=None):
-    return _epilogue(torch.matmul(x, kernel.to(x.dtype)), bias, False)
+    return epilogue_plain(torch.matmul(x, kernel.to(x.dtype)), bias)

@@ -232,14 +232,8 @@ def _launch(x, t, table, seed, fold: int):
                          "t (B,) and table (rows, 2) contiguous; one seed")
     out = torch.empty_like(x)
     args = (xp, t.data_ptr(), table.data_ptr(), rows[0], seed.data_ptr(), fold, out.data_ptr(),
-            b, n, _build.current_stream(index))
-    if index == torch.cuda.current_device():
-        err = _entry()(*args)
-    else:
-        with torch.cuda.device(index):  # the launch goes to the current device
-            err = _entry()(*args)
-    if err != 0:
-        raise RuntimeError(f"diffuse kernel launch failed: CUDA error {err}")
+            b, n)
+    _build.launch(_entry(), args, index, "diffuse")
     return out
 
 

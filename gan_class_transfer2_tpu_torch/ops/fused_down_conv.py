@@ -26,7 +26,8 @@ Three pieces, as for every kernel of the port:
 
 The backward follows pallas_conv.py:149-165, where it is XLA convs outside
 any Pallas kernel; here they are cuDNN's (``torch.nn.grad``) on the card:
-the ReLU mask from the saved output, ``db`` the float32 sum over (B, H, W),
+the ReLU mask from the saved output and ``db`` the float32 sum over (B, H,
+W), both the conv epilogue's backward (ops/conv_epilogue.py, one kernel),
 ``dx`` the adjoint of the strided conv, ``dK`` its weight gradient, both
 with the TF-SAME pad (1, 1) of even inputs. Only the gradients autograd
 asks for are computed (the GAN's G step holds D's weights constant), and
@@ -46,7 +47,7 @@ import torch.nn.functional as F
 from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils.flop_counter import register_flop_formula
 
-from . import _build
+from . import _build, conv_epilogue
 
 
 def supported(x_shape, kernel_shape) -> bool:
@@ -210,14 +211,7 @@ def _forward(x, kernel, bias, relu: bool):
     args = (x.data_ptr(), w2.data_ptr(), b2.data_ptr(), y.data_ptr(),
             ws.data_ptr() if ws is not None else None, b, h, w, c, o, p.o_pad, int(relu),
             p.split, *p.box)
-    fn = _entry(x.dtype)
-    if dev.index == torch.cuda.current_device():
-        err = fn(*args, _build.current_stream(dev.index))
-    else:
-        with torch.cuda.device(dev):  # the launch goes to the current device
-            err = fn(*args, _build.current_stream(dev.index))
-    if err != 0:
-        raise RuntimeError(f"down_conv kernel launch failed: CUDA error {err}")
+    _build.launch(_entry(x.dtype), args, dev.index, "down_conv")
     _build.count(down_conv_fused)
     return y
 
@@ -257,20 +251,21 @@ class DownConv(torch.autograd.Function):
     def backward(ctx, g):
         x, kernel, bias, y = ctx.saved_tensors
         need_x, need_k, need_b = ctx.needs_input_grad[:3]
-        if ctx.relu:
-            g = torch.where(y > 0, g, torch.zeros_like(g))
+        # ReLU's mask and db: the conv epilogue's backward (one kernel)
+        g, db = conv_epilogue.epilogue_backward(g, y if ctx.relu else None, need_x or need_k,
+                                                need_b, bias.dtype)
+        dx = dk = None
+        if not (need_x or need_k):
+            return dx, dk, db, None
         gn = g.permute(0, 3, 1, 2)  # NCHW views of the NHWC memory
         xn = x.permute(0, 3, 1, 2)
         w = kernel.to(x.dtype).permute(3, 2, 0, 1)  # OIHW
-        dx = dk = db = None
         if need_x:
             dx = torch.nn.grad.conv2d_input(xn.shape, w, gn, stride=2, padding=1)
             dx = dx.permute(0, 2, 3, 1).to(x.dtype)
         if need_k:
             dk = torch.nn.grad.conv2d_weight(xn, w.shape, gn, stride=2, padding=1)
             dk = dk.permute(2, 3, 1, 0).to(kernel.dtype)
-        if need_b:
-            db = g.float().sum((0, 1, 2)).to(bias.dtype)
         return dx, dk, db, None
 
 

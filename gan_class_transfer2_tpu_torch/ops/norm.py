@@ -206,8 +206,9 @@ def instance_norm_fused(x, gamma, beta):
     # kernel rounds them to x's dtype, as the Pallas wrapper does (norm.py:76)
     g, bt = _affine_f32(gamma, beta, c, dev)
     y = torch.empty_like(x)
-    _launch(_entry(x.dtype), (x.data_ptr(), g.data_ptr(), bt.data_ptr(), y.data_ptr(), b,
-                              h * w, c, plan(b, h, w, c).cluster), dev, "instance_norm")
+    _build.launch(_entry(x.dtype), (x.data_ptr(), g.data_ptr(), bt.data_ptr(), y.data_ptr(), b,
+                                    h * w, c, plan(b, h, w, c).cluster), dev.index,
+                  "instance_norm")
     _build.count(instance_norm_fused)
     return y
 
@@ -233,17 +234,6 @@ def _check(x, gamma, beta, who):
             raise ValueError(f"{who}: x, gamma and beta must share a device")
     if x.shape[0] > 65535:
         raise ValueError(f"{who}: batch {x.shape[0]} exceeds the grid's 65535")
-
-
-def _launch(fn, args, dev, what):
-    """``fn(*args, stream)`` on device ``dev``'s current stream."""
-    if dev.index == torch.cuda.current_device():
-        err = fn(*args, _build.current_stream(dev.index))
-    else:
-        with torch.cuda.device(dev):  # the launch goes to the current device
-            err = fn(*args, _build.current_stream(dev.index))
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
 def _in_bwd(x, gamma, dy):
@@ -600,10 +590,10 @@ def instance_norm_bwd_fused(x, gamma, dy, need_affine=True):
     out = (None, None, None)
     if need_affine:
         out = tuple(torch.empty(n, dtype=torch.float32, device=dev) for n in (b * c * 2, c, c))
-    _launch(_block_entry("bwd", x.dtype),
-            (x.data_ptr(), dy.data_ptr(), _affine_f32(gamma, gamma, c, dev)[0].data_ptr(),
-             dx.data_ptr(), *(None if t is None else t.data_ptr() for t in out), b, h * w, c,
-             p.wpg, p.wpb, p.cluster), dev, "instance_norm backward")
+    _build.launch(_block_entry("bwd", x.dtype),
+                  (x.data_ptr(), dy.data_ptr(), _affine_f32(gamma, gamma, c, dev)[0].data_ptr(),
+                   dx.data_ptr(), *(None if t is None else t.data_ptr() for t in out), b, h * w,
+                   c, p.wpg, p.wpb, p.cluster), dev.index, "instance_norm backward")
     _build.count(instance_norm_bwd_fused)
     if need_affine:
         _build.count(instance_norm_bwd_fused)
@@ -642,9 +632,9 @@ def block_stats(x, out=None):
           or not out.is_contiguous()):
         raise ValueError(f"block_stats: out must be contiguous float32 ({b}, {c}, 3) on {dev}")
     p = block_plan(b, h, w, c, x.dtype)
-    _launch(_block_entry("stats", x.dtype),
-            (x.data_ptr(), out.data_ptr(), b, h * w, c, p.wpg, p.wpb, p.cluster), dev,
-            "instance_norm block stats")
+    _build.launch(_block_entry("stats", x.dtype),
+                  (x.data_ptr(), out.data_ptr(), b, h * w, c, p.wpg, p.wpb, p.cluster), dev.index,
+                  "instance_norm block stats")
     _build.count(block_stats)
     return out
 
@@ -707,10 +697,10 @@ def block_merge_apply(x, parts, gamma, beta):
     g, bt = _f32(gamma), _f32(beta)
     y = torch.empty_like(x)
     mr = torch.empty((b, c, 2), dtype=torch.float32, device=dev)
-    _launch(_block_entry("apply", x.dtype),
-            (x.data_ptr(), parts.data_ptr(), parts.shape[0], g.data_ptr(), bt.data_ptr(),
-             y.data_ptr(), mr.data_ptr(), b, h * w, c, p.wpg, p.wpb, p.cluster), dev,
-            "instance_norm block merge and apply")
+    _build.launch(_block_entry("apply", x.dtype),
+                  (x.data_ptr(), parts.data_ptr(), parts.shape[0], g.data_ptr(), bt.data_ptr(),
+                   y.data_ptr(), mr.data_ptr(), b, h * w, c, p.wpg, p.wpb, p.cluster), dev.index,
+                  "instance_norm block merge and apply")
     _build.count(block_merge_apply)
     return y, mr[..., 0], mr[..., 1]
 

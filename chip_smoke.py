@@ -15,11 +15,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      beside the bound;
   3. sample — the user's entry point, ``cli.main(["sample", ...])``, at the
      default model width (256², 6 octaves, 41.7 M params, T = 200, stride 50)
-     with ``--conv-impl pallas``, in float32 and bfloat16: the kernel's launch
-     count must be 4 per denoiser call, and the images must match the same
-     weights and init batch run with ``--conv-impl lax``; then the sampler's
-     steady-state ms per image (pallas and lax in turns) and a torch.profiler
-     breakdown of one sample call by CUDA kernel;
+     on the card, in float32 and bfloat16: the kernel's launch count must be
+     4 per denoiser call, and the images must match the same weights and
+     init batch sampled by ``cli sample --device cpu`` in the same dtype (the
+     plain versions); then the sampler's steady-state ms per image and a
+     torch.profiler breakdown of one sample call by CUDA kernel;
   4. edit   — ``sampler.edit_image`` (invert → edit noise → decode) on one
      synthetic 256² image through the kernel;
   5. reference — a tiny config sampled on the card and on the CPU (the CPU
@@ -48,9 +48,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      alone, after the build;
   7. train — the user's entry point, ``cli.main(["bench", ...])``, training
      the default model at batch 16 for 3 + 10 steps in float32 and bfloat16,
-     through the kernels (``--conv-impl pallas --optimizer adam_fused
-     --fused-diffusion true``) and through cuDNN and the optax-form Adam
-     (``--conv-impl lax --optimizer adam_tf --fused-diffusion false``): exact
+     through the kernels (``--optimizer adam_fused --fused-diffusion true``)
+     and through the optax-form Adam and unfused diffusion (``--optimizer
+     adam_tf --fused-diffusion false``), B4 and the epilogue in both: exact
      launch counts per step, finite losses, and a torch.profiler breakdown of
      one step of each;
   7b. train-hbm — the same training fed from a uint8 pool in device memory
@@ -61,7 +61,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      step; a ``raw=False`` draw against ``apply_augment``; 3 tiny uint8
      steps on the card and on the CPU, losses alike;
   8. train-agree — one injected full-width step from the same weights, t and
-     ε through the kernel path and the plain path: losses and updates agree;
+     ε through the kernel path on the card and the plain path (the plain
+     versions, optax-form Adam) on the CPU: losses and updates agree;
   8a. loader — the native C++ loader on the card's machine: the codec probe
      (png.h, jpeglib.h, zlib.h, the libraries, Pillow), the library built
      with g++ (a failed build fails the run, nothing falls back), its decode
@@ -97,7 +98,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   10. gan — the user's entry point, ``cli.main(["profile", "--model", "gan",
      ...])``, at the default width (two default U-Net generators, two
      default discriminators, 256², batch 16 per class) with instance norms
-     and ``--conv-impl pallas``, float32 and bfloat16, 2 + 3 steps: exact B3
+     and B4, float32 and bfloat16, 2 + 3 steps: exact B3
      and B4 launch counts (derived from the config), B3's backward launches
      (194 a step: 102 norms, D's 10 in G's pass without dγ and dβ) and no
      torch-op backward, finite losses, the
@@ -106,7 +107,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   10a. cyclegan — the published CycleGAN (arXiv 1703.10593) at its widths
      and the benchmark cell's shapes: ResNet-9 generators (ngf 64), 70×70
      PatchGANs (ndf 64), least squares, an image pool of 50 a class,
-     bfloat16 with ``conv_impl`` pallas, batch 16 a class: first B3 without
+     bfloat16 with B4, batch 16 a class: first B3 without
      γ, β against ``instance_norm_plain`` and ``_in_bwd`` at each of the
      step's six norm maps, float32 and bfloat16 (forward, the Function's dx,
      the backward kernel's dx), and B4 (relu=False) at the PatchGAN's C256
@@ -120,7 +121,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      --cyclegan`` runs this phase alone, after the build;
   11. gan-agree — one full-width float32 GAN step under sgd from the same
      state and batches through the kernels and through cuDNN with the
-     plain instance norm: losses and each net's update agree;
+     plain instance norm and torch-op conv tails: losses and each net's
+     update agree;
   12. gan-reference — a tiny GAN whose discriminators reach B4, 3 steps on
      the card and on the CPU: the losses agree;
   13. gan-train-cli — the user's ``cli.main(["gan-train", ...])`` on the two
@@ -187,7 +189,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      grids' 6, B1 and B2 none), finite losses,
      ``sample_stride`` 100 in the student's config.json, ``cli sample`` of
      the student (2 calls); one distill step timed beside [train]'s; one
-     injected full-width step through the kernels and cuDNN (1e-5);
+     injected full-width step through the kernels on the card and the plain
+     versions on the CPU (1e-5);
   21a. dp-distill (before [serve] too) — 2 processes of this script
      (``--dp-worker distill``) sharing cuda:0 over gloo, each a rank that
      runs ``cli distill --num-processes 2`` on [train-cli]'s checkpoint:
@@ -329,28 +332,30 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # H100 SXM: fp32 without tensor cores; bf16 dense
+# H100 SXM: fp32 without tensor cores; bf16 and fp16 dense
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 SHAPES = ((128, 128, 256), (64, 256, 512), (32, 512, 512), (16, 512, 512))  # (H=W, C, O)
 BATCH = 4
 # kernel vs plain version, relative to max|y|: float32 differs by summation
 # order over 16·C ≤ 8192 terms (~1e-6 seen); bfloat16 by one output rounding
-# (2^-8 ≈ 4e-3 of the value) on top of that
-KERNEL_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# (2^-8 ≈ 4e-3 of the value) on top of that, float16 by one of 2^-11 ≈ 5e-4
+KERNEL_RTOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 2.5e-3}
 # B4's gradients (cuDNN's dgrad and wgrad around the kernel) vs autograd
 # through the plain version, relative to the largest gradient: IEEE float32
 # convs in other summation orders; in bfloat16 the plain gradient is float32
 # rounded once, cuDNN's bf16 dgrad rounds partial sums over 4·O terms too
 GRAD_RTOL = {"float32": 1e-5, "bfloat16": 4e-2}
-# pallas vs lax images, in uint8 levels (1 level = 2/255 of the [-1, 1)
+# card vs CPU images, in uint8 levels (1 level = 2/255 of the [-1, 1)
 # range): float32 paths agree to ~1e-5, so only a rounding flip at a level
-# boundary; bfloat16 paths round differently inside 4 of the 6 down convs
-# (~4e-3 relative each), and 4 denoiser calls carry that to the image
+# boundary; in bfloat16 the CPU's plain versions round the convs' tails
+# after each op where the epilogue rounds once (~4e-3 relative a layer),
+# and 4 denoiser calls carry that to the image
 IMAGE_LEVELS = {"float32": 1, "bfloat16": 6}
 TRAIN_BATCH = 16
 BENCH_STEPS, BENCH_WARMUP = 10, 3  # run_benchmark's warmup default
-KERNEL_PATH = ["--conv-impl", "pallas", "--optimizer", "adam_fused", "--fused-diffusion", "true"]
-PLAIN_PATH = ["--conv-impl", "lax", "--optimizer", "adam_tf", "--fused-diffusion", "false"]
+KERNEL_PATH = ["--optimizer", "adam_fused", "--fused-diffusion", "true"]
+PLAIN_PATH = ["--optimizer", "adam_tf", "--fused-diffusion", "false"]
 # B1 kernel vs plain: the same Philox words; ε may differ by the rounding of
 # log and cos (|ε| < 6, a few float32 ulps); on an H100 they agree bit for bit
 DIFFUSE_ATOL = 4e-6
@@ -374,7 +379,7 @@ INT32_RATE = 132 * 64 * 1.98e9
 DISPATCH_RATE = 132 * 128 * 1.98e9
 HBM_POOL = (128, 288, 288)  # [train-hbm]: uint8 images (N, H, W) in device memory, 31.9 MB
 ADAM_FLOPS_PER_ELEMENT = 12  # 2 mul + add (m), 3 mul + add (v), sqrt, add, mul, div, sub
-GAN_FLAGS = ["--g-norm", "instance", "--d-norm", "instance", "--conv-impl", "pallas"]
+GAN_FLAGS = ["--g-norm", "instance", "--d-norm", "instance"]
 CLI_FILES = (32, 288)  # [train-cli]: PNGs per class (circles, crosses) and their side
 CLI_STEPS = 4  # steps an epoch in [train-cli], [train-resume] and [gan-train-cli]
 EVAL_SAMPLES = 16  # fid_samples of [train-cli] and [eval]: held-out files and samples
@@ -553,7 +558,8 @@ def phase_kernels(torch, F, fdc):
     batch 4)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     summary = {}
-    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16),
+                              ("float16", torch.float16)):
         for batch in (BATCH, TRAIN_BATCH):
             s = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, flops_ms=0.0,
                      bytes_ms=0.0, max_abs_err=0.0)
@@ -623,8 +629,8 @@ def phase_kernels(torch, F, fdc):
 
 
 def phase_sample(fdc, cli, sampler, png, weights_npz, tmp):
-    """The slice through the CLI, per dtype: pallas (counted) and lax, same
-    weights and init batch. Returns per-dtype launches and ms per image."""
+    """The slice through the CLI, per dtype: on the card (counted) and on
+    the CPU, same weights and init batch. Returns per-dtype launches."""
     from gan_class_transfer2_tpu_torch.config import Config
 
     cfg = Config(sample_stride=50).validate()
@@ -632,39 +638,38 @@ def phase_sample(fdc, cli, sampler, png, weights_npz, tmp):
     out = {}
     for dtype in ("float32", "bfloat16"):
         images = {}
-        for impl in ("pallas", "lax"):
-            dest = os.path.join(tmp, f"{dtype}-{impl}")
+        for dev in ("cuda", "cpu"):
+            dest = os.path.join(tmp, f"{dtype}-{dev}")
             fdc.down_conv_fused.launches = 0
-            rc = cli.main(["sample", "--device", "cuda", "--conv-impl", impl,
-                           "--compute-dtype", dtype, "--num", str(BATCH),
-                           "--sample-stride", "50", "--weights", weights_npz,
+            rc = cli.main(["sample", "--device", dev, "--compute-dtype", dtype, "--num",
+                           str(BATCH), "--sample-stride", "50", "--weights", weights_npz,
                            "--out", dest])
             launches = fdc.down_conv_fused.launches
             if rc != 0:
-                fail(f"cli sample {dtype}/{impl} returned {rc}")
-            want = 4 * calls if impl == "pallas" else 0
+                fail(f"cli sample {dtype} on {dev} returned {rc}")
+            want = 4 * calls if dev == "cuda" else 0
             if launches != want:
-                fail(f"{dtype}/{impl}: {launches} kernel launches, expected {want} "
-                     f"(4 per denoiser call x {calls} calls)")
-            if impl == "pallas":
+                fail(f"{dtype} on {dev}: {launches} kernel launches, expected {want} "
+                     f"(4 per denoiser call x {calls} calls on the card)")
+            if dev == "cuda":
                 out[dtype] = {"launches": launches}
             imgs = [png.read_png(os.path.join(dest, f"sample_{i}.png")) for i in range(BATCH)]
             if any(im.shape != (cfg.size, cfg.size, 3) for im in imgs):
-                fail(f"{dtype}/{impl}: PNG shapes {[im.shape for im in imgs]}")
-            images[impl] = np.stack(imgs).astype(np.int64)
-        levels = int(np.abs(images["pallas"] - images["lax"]).max())
+                fail(f"{dtype} on {dev}: PNG shapes {[im.shape for im in imgs]}")
+            images[dev] = np.stack(imgs).astype(np.int64)
+        levels = int(np.abs(images["cuda"] - images["cpu"]).max())
         print(f"[sample] {dtype}: {out[dtype]['launches']} launches over {calls} denoiser "
-              f"calls; pallas vs lax PNGs differ by at most {levels} uint8 levels "
+              f"calls; card vs CPU PNGs differ by at most {levels} uint8 levels "
               f"(tolerance {IMAGE_LEVELS[dtype]})")
         if levels > IMAGE_LEVELS[dtype]:
-            fail(f"{dtype}: pallas and lax images differ by {levels} levels")
+            fail(f"{dtype}: card and CPU images differ by {levels} levels")
         out[dtype]["png_levels"] = levels
     return out, cfg
 
 
 def phase_timing(torch, fdc, sampler, weights, weights_npz, cfg):
     """Steady-state ms per image of the sampler (model loaded, batch on the
-    card), pallas and lax in turns, and their float difference."""
+    card), the median of three runs."""
     from gan_class_transfer2_tpu_torch.models import unet
 
     model = weights.import_flat_weights(unet.Denoiser(cfg), weights.load_flat_npz(weights_npz))
@@ -672,22 +677,18 @@ def phase_timing(torch, fdc, sampler, weights, weights_npz, cfg):
     gen = torch.Generator(device="cuda").manual_seed(1)
     init = torch.randn((BATCH, cfg.size, cfg.size, 3), generator=gen, device="cuda")
     for dtype in ("float32", "bfloat16"):
-        runs = {"pallas": [], "lax": []}
-        final = {}
-        for impl in ("pallas", "lax", "lax", "pallas", "pallas", "lax"):
-            c = cfg.replace(conv_impl=impl, compute_dtype=dtype)
+        c = cfg.replace(compute_dtype=dtype)
+        runs = []
+        for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            final[impl] = sampler.sample(c, model, init, snapshots=False).images
+            final = sampler.sample(c, model, init, snapshots=False).images
             torch.cuda.synchronize()
-            runs[impl].append((time.perf_counter() - t0) * 1e3 / BATCH)
-        if not all(torch.isfinite(v).all() for v in final.values()):
+            runs.append((time.perf_counter() - t0) * 1e3 / BATCH)
+        if not torch.isfinite(final).all():
             fail(f"{dtype}: non-finite sample")
-        diff = (final["pallas"] - final["lax"]).abs().max().item()
-        med = {k: sorted(v)[1] for k, v in runs.items()}
         print(f"[timing] {dtype}: ms per image (median of 3, stride 50, batch {BATCH}) "
-              f"pallas {med['pallas']:.3f}, lax {med['lax']:.3f}; runs {runs}; "
-              f"max|pallas - lax| {diff:.3e}")
+              f"{sorted(runs)[1]:.3f}; runs {runs}")
     phase_profile(torch, sampler, model, cfg, init)
     fdc.down_conv_fused.launches = 0
     return model
@@ -695,30 +696,28 @@ def phase_timing(torch, fdc, sampler, weights, weights_npz, cfg):
 
 def phase_profile(torch, sampler, model, cfg, init):
     """Where a sample's device time goes: torch.profiler over one sample
-    call per (dtype, impl), CUDA kernels only, the top six by self time.
-    The profiler's own overhead inflates the wall time it sees."""
+    call per dtype, CUDA kernels only, the top six by self time. The
+    profiler's own overhead inflates the wall time it sees."""
     from torch.profiler import ProfilerActivity, profile
 
     from gan_class_transfer2_tpu_torch.utils import profiler
 
     for dtype in ("float32", "bfloat16"):
-        for impl in ("pallas", "lax"):
-            c = cfg.replace(conv_impl=impl, compute_dtype=dtype)
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                sampler.sample(c, model, init, snapshots=False)
-                torch.cuda.synchronize()
-                wall = (time.perf_counter() - t0) * 1e3
-            busy = profiler.device_busy_ms(prof)
-            print(f"[profile] {dtype}/{impl}: one sample call (batch {BATCH}, "
-                  f"{len(sampler.sample_timesteps(c))} denoiser calls): kernels busy "
-                  f"{busy:.3f} ms of {wall:.3f} ms wall under the profiler")
-            for r in profiler.device_ops(prof, top=6):
-                print(f"[profile]   {r['ms']:8.3f} ms x{r['calls']:<4d} {r['op'][:100]}")
+        c = cfg.replace(compute_dtype=dtype)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            sampler.sample(c, model, init, snapshots=False)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        busy = profiler.device_busy_ms(prof)
+        print(f"[profile] {dtype}: one sample call (batch {BATCH}, "
+              f"{len(sampler.sample_timesteps(c))} denoiser calls): kernels busy "
+              f"{busy:.3f} ms of {wall:.3f} ms wall under the profiler")
+        for r in profiler.device_ops(prof, top=6):
+            print(f"[profile]   {r['ms']:8.3f} ms x{r['calls']:<4d} {r['op'][:100]}")
 
 
-def phase_edit(torch, fdc, sampler, model, cfg):
-    c = cfg.replace(conv_impl="pallas")
+def phase_edit(torch, fdc, sampler, model, c):
     ramp = torch.linspace(-1, 1, c.size, device="cuda")
     image = torch.stack([ramp[None, :].expand(c.size, c.size),
                          ramp[:, None].expand(c.size, c.size),
@@ -748,14 +747,12 @@ def phase_reference(torch, api, sampler):
     sampler tests' bound against the JAX package)."""
     from gan_class_transfer2_tpu_torch.config import tiny_test_config
 
-    worst = 0.0
-    for impl in ("pallas", "lax"):
-        cfg = tiny_test_config(conv_impl=impl)
-        model = api.init_denoiser(cfg, device="cpu")
-        init = torch.randn((2, cfg.size, cfg.size, 3), generator=torch.Generator().manual_seed(2))
-        cpu = sampler.sample(cfg, model, init).images
-        gpu = sampler.sample(cfg, model.to("cuda"), init.to("cuda")).images.cpu()
-        worst = max(worst, (cpu - gpu).abs().max().item())
+    cfg = tiny_test_config()
+    model = api.init_denoiser(cfg, device="cpu")
+    init = torch.randn((2, cfg.size, cfg.size, 3), generator=torch.Generator().manual_seed(2))
+    cpu = sampler.sample(cfg, model, init).images
+    gpu = sampler.sample(cfg, model.to("cuda"), init.to("cuda")).images.cpu()
+    worst = (cpu - gpu).abs().max().item()
     print(f"[reference] tiny config, card vs CPU: max|diff| {worst:.3e}")
     if not worst <= 1e-4:
         fail(f"tiny sample on the card differs from the CPU path by {worst}")
@@ -1053,10 +1050,9 @@ def phase_train(torch, cli, fdc, fd, adam_kernel, trainer, cfg):
             print(f"[train] {json.dumps(res)}")
             got = (fd.diffuse_fused.launches, adam_kernel.adam_fused.launches,
                    fdc.down_conv_fused.launches)
-            per_step = (0, 0, 0)
-            if path == "kernels":
-                per_step = (1, adam_kernel.launches_per_step(n_leaves),
-                            b4_per_call(fdc, cfg, TRAIN_BATCH))
+            b4 = b4_per_call(fdc, cfg, TRAIN_BATCH)
+            per_step = ((1, adam_kernel.launches_per_step(n_leaves), b4) if path == "kernels"
+                        else (0, 0, b4))
             want = tuple(steps * k for k in per_step)
             if got != want:
                 fail(f"train {dtype}/{path}: launches B1/B2/B4 {got}, expected {want} "
@@ -1078,7 +1074,7 @@ def phase_train(torch, cli, fdc, fd, adam_kernel, trainer, cfg):
                      else zip(PLAIN_PATH[::2], PLAIN_PATH[1::2]))
         c = cfg.replace(batch_size=TRAIN_BATCH, compute_dtype=dtype,
                         moment_dtype="bfloat16" if dtype == "bfloat16" else "float32",
-                        conv_impl=flags["--conv-impl"], optimizer=flags["--optimizer"],
+                        optimizer=flags["--optimizer"],
                         fused_diffusion=flags["--fused-diffusion"] == "true").validate()
         state = trainer.init_state(c, device="cuda")
         step = trainer.make_train_step(c)
@@ -1134,7 +1130,7 @@ def phase_train_hbm(torch, fdc, fd, adam_kernel, trainer, cfg, synthetic):
     for dtype in ("float32", "bfloat16"):
         moments = "bfloat16" if dtype == "bfloat16" else "float32"
         c = cfg.replace(batch_size=TRAIN_BATCH, compute_dtype=dtype, moment_dtype=moments,
-                        conv_impl="pallas", optimizer="adam_fused",
+                        optimizer="adam_fused",
                         fused_diffusion=True).validate()
         data = iter(aug.HBMDataset(pool, c.size, TRAIN_BATCH, seed=0, raw=True, device="cuda"))
         state = trainer.init_state(c, device="cuda")
@@ -1243,10 +1239,11 @@ def phase_train_hbm(torch, fdc, fd, adam_kernel, trainer, cfg, synthetic):
 
 def phase_train_agree(torch, fdc, adam_kernel, api, trainer, cfg, tag="train-agree"):
     """One injected step at full width from the same weights, t and ε (and,
-    for a class-conditional ``cfg``, the same labels):
-    kernel path (B4 fwd+bwd, B2) against plain path (cuDNN, optax-form
-    Adam), float32, constant LR 1e-3 so that the update (≈ ±lr per element
-    on Adam's first step) stands far above a float32 ulp of the weights.
+    for a class-conditional ``cfg``, the same labels): kernel path on the
+    card (B4 fwd+bwd, the conv epilogue, B2) against plain path on the CPU
+    (the plain versions, optax-form Adam), float32, constant LR 1e-3 so that
+    the update (≈ ±lr per element on Adam's first step) stands far above a
+    float32 ulp of the weights.
     Bounds: loss within 1e-5 relative (IEEE float32 convs, other orders);
     updates within 1e-3·lr for all but 1e-4 of the elements (an element
     whose gradient is ~0 may flip its update's sign between two correct
@@ -1264,20 +1261,23 @@ def phase_train_agree(torch, fdc, adam_kernel, api, trainer, cfg, tag="train-agr
     init = api.init_denoiser(cfg, device="cpu")
     p0 = [p.detach().cuda() for p in init.parameters()]
     out = {}
-    for path, impl, opt in (("kernels", "pallas", "adam_fused"), ("plain", "lax", "adam_tf")):
-        c = cfg.replace(batch_size=TRAIN_BATCH, conv_impl=impl, optimizer=opt,
-                        lr_schedule="constant", learning_rate=lr).validate()
-        model = copy.deepcopy(init).cuda()
+    for path, dev, opt in (("kernels", "cuda", "adam_fused"), ("plain", "cpu", "adam_tf")):
+        c = cfg.replace(batch_size=TRAIN_BATCH, optimizer=opt, lr_schedule="constant",
+                        learning_rate=lr).validate()
+        model = copy.deepcopy(init).to(dev)
         opt_state = trainer.make_optimizer(c).init(list(model.parameters()))
         state = trainer.TrainState(0, model, opt_state, None, None)
         b4, b2 = fdc.down_conv_fused.launches, adam_kernel.adam_fused.launches
-        state, loss = trainer.make_injected_train_step(c)(state, batch, t, eps)
+        on_dev = ({k: v.to(dev) for k, v in batch.items()} if isinstance(batch, dict)
+                  else batch.to(dev))
+        state, loss = trainer.make_injected_train_step(c)(state, on_dev, t, eps.to(dev))
         torch.cuda.synchronize()
         launched = (fdc.down_conv_fused.launches - b4, adam_kernel.adam_fused.launches - b2)
         fdc.down_conv_fused.launches, adam_kernel.adam_fused.launches = b4, b2
         if launched != ((b4_per_call(fdc, cfg, TRAIN_BATCH), 1) if path == "kernels" else (0, 0)):
             fail(f"{tag} {path}: B4/B2 launches {launched}")
-        out[path] = (float(loss), [(p.detach() - q) for p, q in zip(model.parameters(), p0)])
+        out[path] = (float(loss),
+                     [(p.detach().cuda() - q) for p, q in zip(model.parameters(), p0)])
         del state, model
     (lk, dk), (lp, dp) = out["kernels"], out["plain"]
     rel = abs(lk - lp) / abs(lp)
@@ -1651,7 +1651,7 @@ def phase_cache(torch, cli, fdc, fd, adam_kernel, cfg, tmp, paeth_glob):
     data, store = cache.read_cache(path)
     if rc != 0 or data.shape != (PAETH_FILES[0], store, store, 3) or store != PAETH_FILES[1]:
         fail(f"cache: build-cache returned {rc}, records {data.shape}")
-    c = cfg.replace(conv_impl="pallas", optimizer="adam_fused", fused_diffusion=True,
+    c = cfg.replace(optimizer="adam_fused", fused_diffusion=True,
                     compute_dtype="float32", batch_size=TRAIN_BATCH, checkpoint_dir=None,
                     log_images_every=0).validate()
     n_leaves = len(list(unet.Denoiser(c).parameters()))
@@ -1910,7 +1910,7 @@ def phase_gan(torch, cli, fdc, norm, gan, cfg, tmp):
     """The GAN slice through its entry point, ``cli profile --model gan``,
     at the default width (both generators the default U-Net, both
     discriminators the default, batch 16 per class, instance norms on,
-    ``--conv-impl pallas``), float32 and bfloat16: exact B3 and B4 launch
+    B4), float32 and bfloat16: exact B3 and B4 launch
     counts, finite losses, and the trace's breakdown; then the same step
     timed without the profiler, and ``gan.transfer`` at batch 4. Returns
     {dtype: (B3 launches, B4 launches), dtype + " backward": (B3 backward
@@ -1961,7 +1961,7 @@ def phase_gan(torch, cli, fdc, norm, gan, cfg, tmp):
 
         # the same step without the profiler, batches already on the card
         c = cfg.replace(batch_size=TRAIN_BATCH, compute_dtype=dtype, g_norm="instance",
-                        d_norm="instance", conv_impl="pallas").validate()
+                        d_norm="instance").validate()
         state = gan.init_gan_state(c, device="cuda")
         step = gan.make_gan_train_step(c)
         gen = torch.Generator(device="cuda").manual_seed(3)
@@ -2152,7 +2152,7 @@ def cyclegan_config():
                   d_octaves=3, d_norm="instance", image_pool=50, gan_loss="lsgan",
                   identity_weight=5.0, optimizer="adam", learning_rate=2e-4, adam_b1=0.5,
                   adam_eps=1e-8, lr_schedule="constant", warm_up=0, compute_dtype="bfloat16",
-                  conv_impl="pallas", batch_size=TRAIN_BATCH).validate()
+                  batch_size=TRAIN_BATCH).validate()
 
 
 def phase_cyclegan(torch, fdc, norm, gan, cfg):
@@ -2240,14 +2240,25 @@ def _instance_norm_f64(x, gamma, beta):
     return (x - m) * (v + 1e-5).rsqrt() * gamma.to(x.dtype) + beta.to(x.dtype)
 
 
+def _no_kernel(t):
+    """``ops/conv._kernels_take`` for the plain and float64 sides of
+    [gan-agree] and [cgan-agree]: every conv's tail in torch ops and every
+    down conv through cuDNN (the kernels take no float64)."""
+    return False
+
+
 def phase_gan_agree(torch, fdc, norm, gan, cfg):
     """One full-width GAN step from the same initial state and batches,
     under ``optimizer="sgd"`` so that each update is −lr times the gradient,
-    three ways: as the entry point runs it in float32 (B3, B4), through
-    cuDNN with the plain instance norm in float32 (``conv_impl="lax"``,
-    ``norm.instance_norm`` swapped for its plain version), and that plain
-    path in float64 (the reference; the losses and D's logits stay float32
-    as the step casts them). Both float32 paths sit at float32's own
+    three ways: as the entry point runs it in float32 (B3, B4, the conv
+    epilogue), through cuDNN with the plain instance norm and torch-op conv
+    tails in float32 (``norm.instance_norm`` swapped for its plain version,
+    ``ops/conv._kernels_take`` for a gate that takes no kernel), and that
+    plain path in float64 (the reference; the losses and D's logits stay
+    float32 as the step casts them). The plain side stays on the card: the
+    bounds are relative to its distance from float64, which is cuDNN's, and
+    the CPU's float32 convs sit closer (the cGAN's discriminator 7.2e-6
+    against the card's 3.7e-5 rms). Both float32 paths sit at float32's own
     distance from the float64 update, ~1e-4 of G's largest update and
     ~1e-3 of D's (at this state D's gradient is a difference of nearly
     equal real and fake terms), and that distance moves between runs
@@ -2260,6 +2271,7 @@ def phase_gan_agree(torch, fdc, norm, gan, cfg):
     path's largest over that kind, plus 1e-6; distances relative to each
     net's largest float64 update."""
     from gan_class_transfer2_tpu_torch.models import unet
+    from gan_class_transfer2_tpu_torch.ops import conv as conv_ops
 
     c = cfg.replace(batch_size=TRAIN_BATCH, g_norm="instance", d_norm="instance",
                     optimizer="sgd", lr_schedule="constant", learning_rate=1e-2).validate()
@@ -2268,31 +2280,33 @@ def phase_gan_agree(torch, fdc, norm, gan, cfg):
                              .astype(np.float32)).cuda() for _ in range(2))
     nets = ("g_ab", "g_ba", "d_a", "d_b")
     out = {}
-    for path, impl in (("kernels", "pallas"), ("plain", "lax"), ("float64", "lax")):
-        cp = c.replace(conv_impl=impl)
-        state = gan.init_gan_state(cp, torch.Generator().manual_seed(0), device="cuda")
+    for path in ("kernels", "plain", "float64"):
+        state = gan.init_gan_state(c, torch.Generator().manual_seed(0), device="cuda")
         xa, xb = a, b
-        kernel_op, f32 = norm.instance_norm, unet.DTYPES["float32"]
-        if path == "plain":  # apply_norm reads the module's instance_norm at each call
+        kernel_op, f32, takes = norm.instance_norm, unet.DTYPES["float32"], conv_ops._kernels_take
+        if path != "kernels":  # the modules read both at each call
+            conv_ops._kernels_take = _no_kernel
+        if path == "plain":
             norm.instance_norm = norm.instance_norm_plain
         if path == "float64":
             norm.instance_norm = _instance_norm_f64
             unet.DTYPES["float32"] = torch.float64  # the models' compute dtype
             for n in nets:
                 getattr(state, n).double()
-            state = state._replace(g_opt=gan.make_optimizer(cp).init(gan.g_params(state)),
-                                   d_opt=gan._d_optimizer(cp).init(gan.d_params(state)))
+            state = state._replace(g_opt=gan.make_optimizer(c).init(gan.g_params(state)),
+                                   d_opt=gan._d_optimizer(c).init(gan.d_params(state)))
             xa, xb = a.double(), b.double()
         before = {n: [p.detach().clone() for p in getattr(state, n).parameters()] for n in nets}
         norm.instance_norm_fused.launches = fdc.down_conv_fused.launches = 0
         try:
-            state, m = gan.make_gan_train_step(cp)(state, xa, xb, torch.Generator(device="cuda"))
+            state, m = gan.make_gan_train_step(c)(state, xa, xb, torch.Generator(device="cuda"))
             torch.cuda.synchronize()
         finally:
             norm.instance_norm, unet.DTYPES["float32"] = kernel_op, f32
+            conv_ops._kernels_take = takes
         launched = (norm.instance_norm_fused.launches, fdc.down_conv_fused.launches)
         norm.instance_norm_fused.launches = fdc.down_conv_fused.launches = 0
-        per_step, b4_step, _ = gan_counts(fdc, cp, TRAIN_BATCH)
+        per_step, b4_step, _ = gan_counts(fdc, c, TRAIN_BATCH)
         want = (sum(per_step.values()), b4_step) if path == "kernels" else (0, 0)
         if launched != want:
             fail(f"gan-agree {path}: B3/B4 launches {launched}, expected {want}")
@@ -2344,8 +2358,7 @@ def phase_gan_reference(torch, fdc, norm, gan):
     from gan_class_transfer2_tpu_torch.config import tiny_test_config
 
     cfg = tiny_test_config(g_norm="instance", d_norm="instance", size=32, d_pixel_size=128,
-                           max_size=256, d_octaves=2, conv_impl="pallas",
-                           lr_schedule="constant", learning_rate=1e-4)
+                           max_size=256, d_octaves=2, lr_schedule="constant", learning_rate=1e-4)
     r = np.random.default_rng(13)
     batches = [tuple(torch.from_numpy(r.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32))
                      for _ in range(2)) for _ in range(3)]
@@ -2381,8 +2394,7 @@ def phase_gan_train_cli(torch, cli, fdc, norm, cfg, tmp, globs):
     transfer tags, the checkpoint. Returns (B3, B4) launches."""
     from gan_class_transfer2_tpu_torch.utils import checkpoint as ckpt_lib
 
-    c = cfg.replace(batch_size=TRAIN_BATCH, g_norm="instance", d_norm="instance",
-                    conv_impl="pallas")
+    c = cfg.replace(batch_size=TRAIN_BATCH, g_norm="instance", d_norm="instance")
     per_step, b4_step, (b3_fwd, b4_fwd) = gan_counts(fdc, c, TRAIN_BATCH)
     want = (CLI_STEPS * sum(per_step.values()) + 3 * b3_fwd, CLI_STEPS * b4_step + 3 * b4_fwd)
     args = ["gan-train", "--device", "cuda", *_width(cfg, ("size", "pixel_size", "max_size",
@@ -2436,8 +2448,7 @@ def phase_eval(torch, cli, fdc, norm, sampler, cfg, tmp):
     sample_calls = len(sampler.sample_timesteps(cfg.replace(sample_stride=50)))
     results = {}
     counters = (norm.instance_norm_fused, fdc.down_conv_fused)
-    c = cfg.replace(batch_size=TRAIN_BATCH, g_norm="instance", d_norm="instance",
-                    conv_impl="pallas")
+    c = cfg.replace(batch_size=TRAIN_BATCH, g_norm="instance", d_norm="instance")
     _, _, (b3_fwd, b4_fwd) = gan_counts(fdc, c, EVAL_SAMPLES)
     wants = {"diffusion": (0, sample_calls * b4_per_call(fdc, cfg, EVAL_SAMPLES)),
              "gan": (2 * b3_fwd, 2 * b4_fwd)}
@@ -2475,7 +2486,7 @@ def phase_eval(torch, cli, fdc, norm, sampler, cfg, tmp):
     for dtype in ("float32", "bfloat16"):
         fdc.down_conv_fused.launches = 0
         res = benchmark.run_sampler_benchmark(
-            cfg.replace(compute_dtype=dtype, conv_impl="pallas", sample_stride=50),
+            cfg.replace(compute_dtype=dtype, sample_stride=50),
             batch=TRAIN_BATCH, iters=3, device="cuda")
         print(f"[eval] run_sampler_benchmark {dtype}, batch {TRAIN_BATCH}, stride 50: "
               f"{json.dumps(res)}")
@@ -2578,7 +2589,7 @@ def phase_fid_steps(torch, fdc, norm, cfg, tmp, globs, npz, card):
     from gan_class_transfer2_tpu_torch.utils import benchmark
 
     c = cfg.replace(batch_size=TRAIN_BATCH, g_norm="instance", d_norm="instance",
-                    conv_impl="pallas", classes=tuple(globs), fid_samples=EVAL_SAMPLES,
+                    classes=tuple(globs), fid_samples=EVAL_SAMPLES,
                     fid_extractor=f"inception:{npz}", checkpoint_dir=None,
                     log_dir=os.path.join(tmp, "logs-fid-steps"), native_loader=False,
                     data_workers=2).validate()
@@ -2611,14 +2622,14 @@ def phase_fid_steps(torch, fdc, norm, cfg, tmp, globs, npz, card):
 
 def phase_profiler(torch, fdc, api, cfg, tmp, card):
     """``utils/profiler.compiled_stats`` of one full-width denoiser forward
-    at batch 16 (the default model, fp32, ``conv_impl="pallas"``): its FLOPs
+    at batch 16 (the default model, fp32, B4): its FLOPs
     from fake tensors, no launch, against ``model_flops_per_image(cfg)``·16,
     the analytic forward count; then ``annotate``: its name must appear in
     a ``profiler.trace`` capture of one forward, with CUDA kernels under it."""
     from gan_class_transfer2_tpu_torch.models import unet
     from gan_class_transfer2_tpu_torch.utils import benchmark, profiler
 
-    c = cfg.replace(conv_impl="pallas").validate()
+    c = cfg.validate()
     model = api.init_denoiser(c, device="cuda")
     x = torch.rand((TRAIN_BATCH, c.size, c.size, 3), device="cuda") * 2 - 1
     fdc.down_conv_fused.launches = 0
@@ -2819,7 +2830,7 @@ def _reload_memory(torch, svc, port, what, card):
 def phase_serve(torch, fdc, norm, sampler, gan, png, tmp, globs, card):
     """The user's serving path: ``serve/server.build_service`` on
     [train-cli]'s diffusion checkpoint (the default width, T = 200, stride
-    50, ``conv_impl="pallas"``) and [gan-train-cli]'s cycle-GAN checkpoint
+    50, B4) and [gan-train-cli]'s cycle-GAN checkpoint
     (instance norms), each behind the threaded ``Server`` and the
     ``AsyncServer`` on port 0, on the card. Exact B3/B4 launches from HTTP
     requests (/sample num 1 and 3: one device batch each; /denoise: one
@@ -3242,7 +3253,7 @@ def phase_cgan(torch, cli, fdc, norm, cgan, cfg, tmp):
     """The conditional GAN through ``cli profile --model cgan`` at the
     default width (the conditional U-Net generator, one projection
     discriminator, 3 classes, batch 16, every source class 0 as the JAX
-    command profiles it, instance norms, ``--conv-impl pallas``), float32
+    command profiles it, instance norms, B4), float32
     and bfloat16, 2 + 3 steps: exact B3 and B4 launches (half the cycle
     GAN's: one generator's fake, cycle and identity, three D applies),
     finite losses, the trace's busy and idle and top kernels; the step timed
@@ -3278,7 +3289,7 @@ def phase_cgan(torch, cli, fdc, norm, cgan, cfg, tmp):
         for r in rows[:8]:
             print(f"[cgan]   {r['ms_per_step']:9.3f} ms x{r['calls']:<5d} {r['op'][:100]}")
         c = c0.replace(batch_size=TRAIN_BATCH, compute_dtype=dtype, g_norm="instance",
-                       d_norm="instance", conv_impl="pallas").validate()
+                       d_norm="instance").validate()
         state = cgan.init_conditional_gan_state(c, device="cuda")
         step = cgan.make_conditional_gan_train_step(c)
         gen = torch.Generator(device="cuda").manual_seed(3)
@@ -3306,16 +3317,18 @@ def phase_cgan(torch, cli, fdc, norm, cgan, cfg, tmp):
 def phase_cgan_agree(torch, fdc, norm, cgan, cfg):
     """One full-width conditional-GAN step with injected targets, under sgd,
     three ways, as [gan-agree] runs the cycle GAN: the entry point in
-    float32 (B3, B4), cuDNN with the plain instance norm in float32, and
-    that plain path in float64. Bounds as [gan-agree]'s: the losses of the
-    two float32 paths within 1e-5 relative; for each net the kernel path's
-    distance from the float64 update at most 2× the plain path's in root
-    mean square and 4× at the largest element, plus 1e-6, relative to the
-    net's largest float64 update. Under ``cudnn.deterministic``: the
+    float32 (B3, B4, the conv epilogue), cuDNN with the plain instance norm
+    and torch-op conv tails in float32, and that plain path in float64.
+    Bounds as [gan-agree]'s: the losses of the two float32 paths within
+    1e-5 relative; for each net the kernel path's distance from the float64
+    update at most 2× the plain path's in root mean square and 4× at the
+    largest element, plus 1e-6, relative to the net's largest float64
+    update. Under ``cudnn.deterministic``: the
     distances then repeat from run to run (with cuDNN's default algorithms
     the plain path's moved by ±10% between runs, the kernel path's largest
     element not at all)."""
     from gan_class_transfer2_tpu_torch.models import unet
+    from gan_class_transfer2_tpu_torch.ops import conv as conv_ops
 
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
@@ -3328,12 +3341,13 @@ def phase_cgan_agree(torch, fdc, norm, cgan, cfg):
     targets = (labels + torch.from_numpy(r.integers(1, 3, TRAIN_BATCH)).cuda()) % 3
     nets = ("generator", "discriminator")
     out = {}
-    for path, impl in (("kernels", "pallas"), ("plain", "lax"), ("float64", "lax")):
-        cp = c.replace(conv_impl=impl)
-        state = cgan.init_conditional_gan_state(cp, torch.Generator().manual_seed(0),
+    for path in ("kernels", "plain", "float64"):
+        state = cgan.init_conditional_gan_state(c, torch.Generator().manual_seed(0),
                                                 device="cuda")
         xb = x
-        kernel_op, f32 = norm.instance_norm, unet.DTYPES["float32"]
+        kernel_op, f32, takes = norm.instance_norm, unet.DTYPES["float32"], conv_ops._kernels_take
+        if path != "kernels":
+            conv_ops._kernels_take = _no_kernel
         if path == "plain":
             norm.instance_norm = norm.instance_norm_plain
         if path == "float64":
@@ -3342,21 +3356,22 @@ def phase_cgan_agree(torch, fdc, norm, cgan, cfg):
             for n in nets:
                 getattr(state, n).double()
             state = state._replace(
-                g_opt=cgan.make_optimizer(cp).init(list(state.generator.parameters())),
-                d_opt=cgan._d_optimizer(cp).init(list(state.discriminator.parameters())))
+                g_opt=cgan.make_optimizer(c).init(list(state.generator.parameters())),
+                d_opt=cgan._d_optimizer(c).init(list(state.discriminator.parameters())))
             xb = x.double()
         before = {n: [p.detach().clone() for p in getattr(state, n).parameters()] for n in nets}
         norm.instance_norm_fused.launches = fdc.down_conv_fused.launches = 0
         try:
-            state, m = cgan.make_conditional_gan_train_step(cp)(
+            state, m = cgan.make_conditional_gan_train_step(c)(
                 state, {"image": xb, "label": labels}, torch.Generator(device="cuda"),
                 targets=targets)
             torch.cuda.synchronize()
         finally:
             norm.instance_norm, unet.DTYPES["float32"] = kernel_op, f32
+            conv_ops._kernels_take = takes
         launched = (norm.instance_norm_fused.launches, fdc.down_conv_fused.launches)
         norm.instance_norm_fused.launches = fdc.down_conv_fused.launches = 0
-        per_step, b4_step, _ = gan_counts(fdc, cp, TRAIN_BATCH, conditional=True)
+        per_step, b4_step, _ = gan_counts(fdc, c, TRAIN_BATCH, conditional=True)
         want = (sum(per_step.values()), b4_step) if path == "kernels" else (0, 0)
         if launched != want:
             fail(f"cgan-agree {path}: B3/B4 launches {launched}, expected {want}")
@@ -3402,8 +3417,7 @@ def phase_cgan_train_cli(torch, cli, fdc, norm, cfg, tmp, globs):
     losses and scores. Returns (B3, B4)."""
     from gan_class_transfer2_tpu_torch.utils import checkpoint as ckpt_lib
 
-    c = cfg.replace(num_classes=3, batch_size=TRAIN_BATCH, g_norm="instance", d_norm="instance",
-                    conv_impl="pallas")
+    c = cfg.replace(num_classes=3, batch_size=TRAIN_BATCH, g_norm="instance", d_norm="instance")
     per_step, b4_step, (b3_fwd, b4_fwd) = gan_counts(fdc, c, TRAIN_BATCH, conditional=True)
     fwd = 3 + 6  # log_sample: three targets of the fixed batch, six pairs' held-out transfers
     want = (CLI_STEPS * sum(per_step.values()) + fwd * b3_fwd, CLI_STEPS * b4_step + fwd * b4_fwd)
@@ -3639,9 +3653,9 @@ def phase_distill(torch, cli, fdc, fd, adam_kernel, trainer, sampler, cfg, tmp, 
     losses, ``sample_stride`` 100 in the student's config.json, ``cli
     sample --checkpoint-dir`` on it (2 calls). Then one distill step timed
     beside [train]'s fp32 step, and one injected full-width step (the same
-    t and ε) through the kernel path and cuDNN (``conv_impl="lax"``): losses
-    within 1e-5 relative. Returns the B4 launches of the two commands and
-    the step's ms."""
+    t and ε) through the kernel path on the card and the plain versions on
+    the CPU: losses within 1e-5 relative. Returns the B4 launches of the two
+    commands and the step's ms."""
     from gan_class_transfer2_tpu_torch.train import distill
     from gan_class_transfer2_tpu_torch.utils import checkpoint as ckpt_lib
 
@@ -3681,7 +3695,7 @@ def phase_distill(torch, cli, fdc, fd, adam_kernel, trainer, sampler, cfg, tmp, 
           f"sample of the student {sgot[0]} B4 ({s_calls} calls); wall {secs:.2f} s")
 
     # the step timed, and one injected step through both paths
-    c = dcfg.replace(conv_impl="pallas").validate()
+    c = dcfg.validate()
     teacher = trainer.eval_model(ckpt_lib.restore(ckpt, trainer.init_state(c, device="cuda")))
     gen = torch.Generator(device="cuda").manual_seed(0)
     batch = torch.rand((TRAIN_BATCH, c.size, c.size, 3), generator=gen, device="cuda") * 2 - 1
@@ -3703,17 +3717,18 @@ def phase_distill(torch, cli, fdc, fd, adam_kernel, trainer, sampler, cfg, tmp, 
     del state
     t, eps = distill.draw(c, batch, gen, stride)
     losses = {}
-    for impl in ("pallas", "lax"):
-        ci = opt.replace(conv_impl=impl)
-        st = distill.init_student(ci, teacher)
-        _, lo = distill.make_distill_step(ci, stride)(st, teacher, batch, None, t=t, epsilon=eps)
-        losses[impl] = float(lo)
-        del st
-    rel = abs(losses["pallas"] - losses["lax"]) / abs(losses["lax"])
+    for dev in ("cuda", "cpu"):
+        tm = teacher if dev == "cuda" else copy.deepcopy(teacher).cpu()
+        st = distill.init_student(opt, tm)
+        _, lo = distill.make_distill_step(opt, stride)(st, tm, batch.to(dev), None,
+                                                       t=t.to(dev), epsilon=eps.to(dev))
+        losses[dev] = float(lo)
+        del st, tm
+    rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
     if not rel <= 1e-5:
         fail(f"distill: injected step losses {losses}, relative {rel:.3e} (bound 1e-5)")
     print(f"[distill] injected full-width step (t {t.tolist()}): loss kernels "
-          f"{losses['pallas']:.9f}, cuDNN {losses['lax']:.9f}, relative {rel:.3e} (bound "
+          f"{losses['cuda']:.9f}, CPU {losses['cpu']:.9f}, relative {rel:.3e} (bound "
           f"1e-5); the phase took {time.perf_counter() - t_phase:.2f} s")
     fdc.down_conv_fused.launches = 0
     torch.cuda.empty_cache()
@@ -4276,7 +4291,7 @@ def phase_dp_train(torch, cli, fdc, fd, adam_kernel, norm, sampler, cfg, tmp, gl
         fail(f"dp-train: the resumed two-rank epoch-1 loss differs by {rel} relative")
     for what, res, cond, fwd in (("gan-train", g, False, 3), ("cgan-train", cg, True, 3)):
         c = cfg.replace(batch_size=DP_LOCAL, g_norm="instance", d_norm="instance",
-                        conv_impl="pallas", num_classes=3 if cond else 0)
+                        num_classes=3 if cond else 0)
         per_step, b4_step, (b3_fwd, b4_fwd) = gan_counts(fdc, c, DP_LOCAL, conditional=cond)
         want_g = {"B1": 0, "B1s": 0, "B2": 0,
                   "B3": CLI_STEPS * sum(per_step.values()) + fwd * b3_fwd,
@@ -4742,7 +4757,7 @@ def _dp_agree_worker(torch, rank, port):
     mesh = mesh_lib.make_mesh(device=dev)
     lr = 1e-3
     base = Config()
-    cfg = base.replace(batch_size=TRAIN_BATCH, conv_impl="pallas", optimizer="adam_fused",
+    cfg = base.replace(batch_size=TRAIN_BATCH, optimizer="adam_fused",
                        lr_schedule="constant", learning_rate=lr).validate()
     r = np.random.default_rng(9)
     x = torch.from_numpy(r.uniform(-1, 1, (TRAIN_BATCH, cfg.size, cfg.size, 3))
@@ -4818,7 +4833,7 @@ def _dp_agree_worker(torch, rank, port):
     out["gan_batch"] = _dp_gan_batch(torch, rank, mesh, base)
     # the train step on the kernel path, timed (B1s and B4; B2 is gated off)
     out["train_ms"] = {}
-    tc = base.replace(batch_size=TRAIN_BATCH, conv_impl="pallas", optimizer="adam_fused",
+    tc = base.replace(batch_size=TRAIN_BATCH, optimizer="adam_fused",
                       fused_diffusion=True).validate()
     gen = torch.Generator(device=dev).manual_seed(0)
     xb = mesh_lib.local_rows(torch.rand((TRAIN_BATCH, tc.size, tc.size, 3), generator=gen,
@@ -4864,8 +4879,8 @@ def _dp_gan_batch(torch, rank, mesh, base):
 
     lr = 1e-3
     cfg = base.replace(batch_size=TRAIN_BATCH, g_norm="batch", d_norm="batch", r1_weight=1.0,
-                       diffaug="", optimizer="sgd", learning_rate=lr, lr_schedule="constant",
-                       conv_impl="pallas").validate()
+                       diffaug="", optimizer="sgd", learning_rate=lr,
+                       lr_schedule="constant").validate()
     r = np.random.default_rng(10)
     a, b = (torch.from_numpy(r.uniform(-1, 1, (TRAIN_BATCH, cfg.size, cfg.size, 3))
                              .astype(np.float32)).cuda() for _ in range(2))
@@ -5568,7 +5583,7 @@ def phase_pp_agree(torch, fdc, fd, adam_kernel, trainer, cfg, card):
     from gan_class_transfer2_tpu_torch.parallel import pipeline
 
     lr = 1e-3
-    base = cfg.replace(batch_size=TRAIN_BATCH, conv_impl="pallas", optimizer="adam_fused",
+    base = cfg.replace(batch_size=TRAIN_BATCH, optimizer="adam_fused",
                        fused_diffusion=True, lr_schedule="constant", learning_rate=lr).validate()
     x = torch.from_numpy(np.random.default_rng(11).uniform(
         -1, 1, (TRAIN_BATCH, cfg.size, cfg.size, 3)).astype(np.float32)).cuda()
@@ -5777,7 +5792,7 @@ def _tp_worker(torch, rank, port):
     multihost.initialize(f"127.0.0.1:{port}", DP_RANKS, rank, device=dev)
     mesh = mesh_lib.make_mesh(device=dev, model=TP_RANKS)
     lr = 1e-3
-    cfg = Config().replace(batch_size=TRAIN_BATCH, conv_impl="pallas", optimizer="adam_fused",
+    cfg = Config().replace(batch_size=TRAIN_BATCH, optimizer="adam_fused",
                            lr_schedule="constant", learning_rate=lr).validate()
     r = np.random.default_rng(9)
     x = torch.from_numpy(r.uniform(-1, 1, (TRAIN_BATCH, cfg.size, cfg.size, 3))
@@ -5855,7 +5870,7 @@ def _tp_worker(torch, rank, port):
 
     # [tp-gan]: a cycle-GAN step, B3 and B4, R1 on
     gcfg = Config().replace(batch_size=TP_GAN_BATCH, g_norm="instance", d_norm="instance",
-                            conv_impl="pallas", optimizer="sgd", lr_schedule="constant",
+                            optimizer="sgd", lr_schedule="constant",
                             learning_rate=1e-2, r1_weight=1.0).validate()
     rg = np.random.default_rng(12)
     a_img, b_img = (torch.from_numpy(rg.uniform(-1, 1, (TP_GAN_BATCH, gcfg.size, gcfg.size, 3))
@@ -6172,7 +6187,7 @@ def _dp_distill_worker(torch, rank, port, spec):
     rc = out["rc"]
 
     # one injected full-width step: two ranks against one process (rank 0)
-    c = ckpt_lib.load_config(spec["ckpt"]).replace(conv_impl="pallas").validate()
+    c = ckpt_lib.load_config(spec["ckpt"]).validate()
     teacher = trainer.eval_model(ckpt_lib.restore(spec["ckpt"],
                                                   trainer.init_state(c, device="cuda")))
     stride = 2 * c.sample_stride
@@ -6248,7 +6263,9 @@ def dp_worker(argv):
 # the sum of a (branch, skip) pair, with bias and ReLU
 EPILOGUE_SHAPES = (("up0", 256, 64), ("up1", 128, 128))
 EPILOGUE_BATCHES = (256, 16)  # the train cell's batch and the sampler's
-EPILOGUE_RTOL = {"float32": 0.0, "bfloat16": 1e-2}  # as tests/test_torch_conv_epilogue.py
+# as tests/test_torch_conv_epilogue.py: the forward, and db
+EPILOGUE_RTOL = {"float32": 0.0, "bfloat16": 1e-2, "float16": 2e-3}
+EPILOGUE_DB_RTOL = {"float32": 1e-5, "bfloat16": 1e-2, "float16": 2e-3}
 
 
 def epilogue_config(batch):
@@ -6256,7 +6273,7 @@ def epilogue_config(batch):
     ddpm-unet256.json``: Config()'s widths on the kernel path in bf16)."""
     from gan_class_transfer2_tpu_torch.config import Config
 
-    return Config(compute_dtype="bfloat16", conv_impl="pallas", optimizer="adam_fused",
+    return Config(compute_dtype="bfloat16", optimizer="adam_fused",
                   fused_diffusion=True, batch_size=batch).validate()
 
 
@@ -6290,7 +6307,8 @@ def phase_epilogue(torch, fdc, trainer):
     gen = torch.Generator(device="cuda").manual_seed(23)
     worst = {}
     timed = {}
-    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16),
+                              ("float16", torch.float16)):
         for batch in EPILOGUE_BATCHES:
             for name, hw, c in EPILOGUE_SHAPES:
                 shape = (batch, hw, hw, c)
@@ -6307,7 +6325,7 @@ def phase_epilogue(torch, fdc, trainer):
                 gs, db = ce._backward_fused(g, out, True, True, dtype)
                 gw, dbw = ce._backward_plain(g, out, True, True, dtype)
                 db_err = rel(db, dbw)
-                if not torch.equal(gs, gw) or db_err > (1e-5 if dtype_name == "float32" else 1e-2):
+                if not torch.equal(gs, gw) or db_err > EPILOGUE_DB_RTOL[dtype_name]:
                     fail(f"epilogue {name} b{batch} {dtype_name}: backward gs equal "
                          f"{torch.equal(gs, gw)}, db error {db_err:.3e}")
                 # a float32 bias (B4's parameter) takes db in float32 whatever g's dtype
@@ -6333,7 +6351,7 @@ def phase_epilogue(torch, fdc, trainer):
                 del y, other, g, out, bias
                 torch.cuda.empty_cache()
     print(f"[epilogue] worst relative error of the forward: float32 {worst['float32']:.3e}, "
-          f"bfloat16 {worst['bfloat16']:.3e}")
+          f"bfloat16 {worst['bfloat16']:.3e}, float16 {worst['float16']:.3e}")
     # host time a call on the sampler's path (no gradient): the op against
     # the torch ops it replaced, at up5's pair (16, 8, 8, 512), where the
     # device time is small

@@ -7,7 +7,7 @@ the same flag names for the Config fields they read:
     python -m gan_class_transfer2_tpu_torch.cli train --dataset-pattern 'data/*.png' \
         --batch-size 16 --checkpoint-dir ckpt --log-dir logs
     python -m gan_class_transfer2_tpu_torch.cli gan-train --classes 'a/*.png' 'b/*.png' \
-        --g-norm instance --d-norm instance --conv-impl pallas
+        --g-norm instance --d-norm instance
     python -m gan_class_transfer2_tpu_torch.cli train --classes 'a/*.png' 'b/*.png' 'c/*.png' \
         --num-classes 3 --checkpoint-dir cckpt
     python -m gan_class_transfer2_tpu_torch.cli cgan-train --classes 'a/*.png' 'b/*.png' \
@@ -25,7 +25,7 @@ the same flag names for the Config fields they read:
         --out data.gct2cache
     python -m gan_class_transfer2_tpu_torch.cli bench --batch-size 16 --bench-steps 10
     python -m gan_class_transfer2_tpu_torch.cli profile --model gan \
-        --g-norm instance --d-norm instance --conv-impl pallas --batch-size 16
+        --g-norm instance --d-norm instance --batch-size 16
     python -m gan_class_transfer2_tpu_torch.cli serve --checkpoint-dir ckpt --port 8080 \
         --model diffusion --frontend threaded
     python -m gan_class_transfer2_tpu_torch.cli serve --bundle bundle/ --port 8080
@@ -122,7 +122,7 @@ _FIELDS = (
     "size", "pixel_size", "max_size", "block_depth", "octaves", "skip_mode",
     "per_step_output", "steps", "num_classes", "class_embed_dim", "schedule",
     "parameterization", "test_step",
-    "bits_per_pixel", "sample_stride", "compute_dtype", "conv_impl",
+    "bits_per_pixel", "sample_stride", "compute_dtype",
     "concat_elision", "remat", "seed",
     # data
     "dataset_pattern", "example_image_path", "classes", "shuffle_buffer", "cache",

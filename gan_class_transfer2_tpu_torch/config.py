@@ -12,10 +12,12 @@ differently:
     over processes (parallel/mesh.py holds the grid to the world size); the
     pipeline's compositional refusals are raised where JAX raises them,
     when ``parallel/pipeline.PipelineTrainer`` is built.
-  * ``conv_impl="pallas"`` selects the hand-written CUDA down-conv kernel
-    (ops/fused_down_conv.py), the port's counterpart of the Pallas kernel.
-    Instance norm always runs the hand-written CUDA kernel on the card
-    (ops/norm.py), whatever ``conv_impl``.
+  * The tensor picks the hand-written CUDA kernels, not a field: on the
+    card instance norm runs B3 (ops/norm.py), and the convs run B4 where
+    its shape gate admits them and the conv epilogue (ops/conv.py). The
+    JAX package's field that picks its conv route has no counterpart here:
+    ``from_json`` drops it with every key the port does not know, and
+    ``to_json`` writes none, so the JAX package reads its default.
   * The port's own fields, for the published CycleGAN (arXiv 1703.10593;
     the authors' pytorch-CycleGAN-and-pix2pix): ``generator`` ("unet", or
     "resnet": models/resnet.py, ``pixel_size`` filters (ngf),
@@ -126,7 +128,6 @@ class Config:
     image_pool: int = 0
 
     # ----------------------------------------------------------- performance
-    conv_impl: str = "auto"  # lax | shuffle | pallas | auto (see ops/conv.py)
     concat_elision: bool = True
     fused_diffusion: bool = True
     remat: bool = False

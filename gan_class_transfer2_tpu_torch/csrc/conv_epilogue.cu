@@ -13,6 +13,7 @@
 //   backward  gs  = g · [out > 0] (or g itself without ReLU), written NHWC;
 //             db  = Σ_{B,H,W} gs per channel, summed in float32 and written in
 //                   float32 or rounded once to T (the bias's dtype).
+//   T: float32, bfloat16 or float16 (an entry point each way for each).
 //
 // Bound on this card: bytes. Per element the forward reads y (and other) and
 // writes out, 3 or 4 bytes of bf16 a term against ~3 float ops; the backward
@@ -20,7 +21,7 @@
 // bf16) a pair's forward moves 6.4 GB, 1.9 ms at 3.35 TB/s.
 //
 // Design:
-//   * a thread owns one 16-byte vector of channels (8 bf16 or 4 float32) and
+//   * a thread owns one 16-byte vector of channels (8 bf16 or f16, 4 float32) and
 //     walks pixels; the bias is loaded once into registers, the sum is float32
 //     and rounded once to T. A block is TX lanes along the channel vectors by
 //     256 / TX pixel rows (TX the least power of 2 ≥ C / VEC, at most 32), so
@@ -38,6 +39,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace {
@@ -47,10 +49,12 @@ constexpr int UNROLL = 4;  // pixels a thread loads before it uses any
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
 __device__ __forceinline__ void from_float(float* p, float v) { *p = v; }
 __device__ __forceinline__ void from_float(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
+__device__ __forceinline__ void from_float(__half* p, float v) { *p = __float2half_rn(v); }
 
 template <typename T, int V>
 struct alignas(sizeof(T) * V) Vec {
@@ -261,6 +265,12 @@ extern "C" int gct2_epilogue_fwd_bf16(const void* y, const void* other, const vo
   return launch_fwd<__nv_bfloat16>(y, other, bias, out, P, C, vec, TX, grid_x, relu, stream);
 }
 
+extern "C" int gct2_epilogue_fwd_f16(const void* y, const void* other, const void* bias,
+                                     void* out, long long P, int C, int vec, int TX, int grid_x,
+                                     int relu, void* stream) {
+  return launch_fwd<__half>(y, other, bias, out, P, C, vec, TX, grid_x, relu, stream);
+}
+
 // Backward. g, out, gs: (P, C) contiguous in T; out null without ReLU (the
 // mask is then all ones); gs null where no input but the bias needs a
 // gradient; parts float32 (grid_x, C) scratch and db (C,), float32 where
@@ -277,4 +287,10 @@ extern "C" int gct2_epilogue_bwd_bf16(const void* g, const void* out, void* gs, 
                                       int db_f32, void* stream) {
   return launch_bwd<__nv_bfloat16>(g, out, gs, parts, db, P, C, vec, TX, grid_x, db_f32,
                                    stream);
+}
+
+extern "C" int gct2_epilogue_bwd_f16(const void* g, const void* out, void* gs, void* parts,
+                                     void* db, long long P, int C, int vec, int TX, int grid_x,
+                                     int db_f32, void* stream) {
+  return launch_bwd<__half>(g, out, gs, parts, db, P, C, vec, TX, grid_x, db_f32, stream);
 }

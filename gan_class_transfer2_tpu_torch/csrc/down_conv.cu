@@ -22,12 +22,13 @@
 // card's 132 SMs.
 //
 // What the design does about it:
-//   * bfloat16: warp-specialised wgmma. Each 128×128 output tile is one block
-//     of two consumer warpgroups (64 rows each, wgmma.mma_async m64n128k16,
-//     float32 accumulators in registers) and one producer warp, which keeps a
-//     ring of 4 stages of 64-deep K slices (128 bytes of bf16: one swizzle
-//     row) full by TMA, with full/empty mbarriers. Both operands arrive
-//     128-byte swizzled, the layout the wgmma descriptors name.
+//   * bfloat16 and float16 (one body, down_conv_16): warp-specialised wgmma.
+//     Each 128×128 output tile is one block of two consumer warpgroups (64
+//     rows each, wgmma.mma_async m64n128k16, float32 accumulators in
+//     registers) and one producer warp, which keeps a ring of 4 stages of
+//     64-deep K slices (128 bytes of a 16-bit type: one swizzle row) full by
+//     TMA, with full/empty mbarriers. Both operands arrive 128-byte
+//     swizzled, the layout the wgmma descriptors name.
 //       - A by TMA: a 4-D tiled map over x (C, W, H, B) with element strides
 //         (1, 2, 2, 1). A tile is a box of TW×TH×TB output pixels (TW·TH·TB =
 //         128, chosen by the wrapper); the slice of tap (di, dj) and channels
@@ -56,14 +57,17 @@
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 struct Shape {
   int B, H, W, C, O, Opad, H2, W2, M;
   int split, kps;  // K ranges, and K slices in each
-  int TW, TH, TB;  // bfloat16: the output box of one tile (TW·TH·TB = 128)
+  int TW, TH, TB;  // 16-bit types: the output box of one tile (TW·TH·TB = 128)
 };
 
 // Address of x[b, 2·oh−1+di, 2·ow−1+dj, c] for GEMM column k = (di·4+dj)·C + c,
@@ -110,8 +114,17 @@ __device__ __forceinline__ void cp_async_wait() {
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void store(__half* p, float v) { *p = __float2half_rn(v); }
+// two neighbouring outputs, p 4-byte aligned
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(__half* p, float a, float b) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
+}
 
 // ------------------------------------------------------------------ float32
 
@@ -217,7 +230,7 @@ down_conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// ----------------------------------------------------------------- bfloat16
+// ------------------------------------------------- bfloat16 and float16
 
 constexpr int H_BM = 128, H_BN = 128, H_BK = 64, H_STAGES = 4;
 constexpr int H_CONSUMERS = 2;                         // warpgroups, 64 rows each
@@ -309,38 +322,48 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 
 // d (64×128 float32, 64 registers a thread) += A (64×16, K-major) · B (16×128,
-// MN-major: the transpose-B bit)
+// MN-major: the transpose-B bit); AB the operands' type, "bf16" or "f16"
+#define GCT2_WGMMA_M64N128K16(AB)                                                          \
+  asm volatile(                                                                            \
+      "{\n"                                                                                \
+      ".reg .pred p;\n"                                                                    \
+      "setp.ne.b32 p, %66, 0;\n" /* scale-d: accumulate into d */                          \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." AB "." AB " "                         \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "            \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "   \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "   \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "  \
+      "%64, %65, p, 1, 1, 0, 1;\n"                                                         \
+      "}\n"                                                                                \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),            \
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),          \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),                   \
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),                   \
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),                   \
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),                   \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),                   \
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),                   \
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),                   \
+        "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),                   \
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),                   \
+        "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),                   \
+        "+f"(d[62]), "+f"(d[63])                                                           \
+      : "l"(da), "l"(db), "n"(1))
+
+template <typename T>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"  // scale-d: accumulate into d
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
-        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
-        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "n"(1));
+  if constexpr (std::is_same_v<T, __half>)
+    GCT2_WGMMA_M64N128K16("f16");
+  else
+    GCT2_WGMMA_M64N128K16("bf16");
 }
 
-__global__ void __launch_bounds__(H_THREADS, 1)
-down_conv_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
-                      const __grid_constant__ CUtensorMap tm_w,
-                      const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ y,
-                      float* __restrict__ ws, Shape s, int relu) {
+// the body of the 16-bit kernels, T __nv_bfloat16 or __half; the tensor maps
+// are the kernel's __grid_constant__ parameters
+template <typename T>
+__device__ __forceinline__ void down_conv_16(const CUtensorMap* tm_x, const CUtensorMap* tm_w,
+                                             const T* __restrict__ bias, T* __restrict__ y,
+                                             float* __restrict__ ws, const Shape& s, int relu) {
   extern __shared__ uint8_t smem_raw[];
   // the 128B swizzle pattern repeats every 1024 bytes: align the ring to it
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -375,10 +398,10 @@ down_conv_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
         const int k = (k_begin + i) * H_BK;
         const int tap = k / s.C, c0 = k - tap * s.C;
         mbar_expect_tx(&full[stage], 2 * H_TILE_BYTES);
-        tma_load_4d(sA + stage * H_TILE_BYTES, &tm_x, &full[stage], c0,
+        tma_load_4d(sA + stage * H_TILE_BYTES, tm_x, &full[stage], c0,
                     2 * ow0 - 1 + (tap & 3), 2 * oh0 - 1 + (tap >> 2), b0);
-        tma_load_2d(sB + stage * H_TILE_BYTES, &tm_w, &full[stage], n0, k);
-        tma_load_2d(sB + stage * H_TILE_BYTES + H_TILE_BYTES / 2, &tm_w, &full[stage], n0 + 64,
+        tma_load_2d(sB + stage * H_TILE_BYTES, tm_w, &full[stage], n0, k);
+        tma_load_2d(sB + stage * H_TILE_BYTES + H_TILE_BYTES / 2, tm_w, &full[stage], n0 + 64,
                     k);
         if (++stage == H_STAGES) {
           stage = 0;
@@ -404,7 +427,7 @@ down_conv_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < H_BK / 16; ++kk)
-      wgmma_m64n128k16(acc, smem_desc(a + kk * 32, 16),
+      wgmma_m64n128k16<T>(acc, smem_desc(a + kk * 32, 16),
                        smem_desc(b + kk * 16 * 128, H_TILE_BYTES / 2));
     wgmma_commit();
     wgmma_wait<1>();  // the previous slice's products are done: free its stage
@@ -437,21 +460,36 @@ down_conv_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
         continue;
       }
       if (col >= s.O) continue;
-      float t0 = v0 + __bfloat162float(bias[col]);
-      float t1 = col + 1 < s.O ? v1 + __bfloat162float(bias[col + 1]) : 0.f;
+      float t0 = v0 + to_float(bias[col]);
+      float t1 = col + 1 < s.O ? v1 + to_float(bias[col + 1]) : 0.f;
       if (relu) {
         t0 = fmaxf(t0, 0.f);
         t1 = fmaxf(t1, 0.f);
       }
-      __nv_bfloat16* out = y + static_cast<size_t>(m) * s.O + col;
+      T* out = y + static_cast<size_t>(m) * s.O + col;
       if ((s.O & 1) == 0) {
-        *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(t0, t1);
+        store2(out, t0, t1);
       } else {
-        out[0] = __float2bfloat16_rn(t0);
-        if (col + 1 < s.O) out[1] = __float2bfloat16_rn(t1);
+        store(out, t0);
+        if (col + 1 < s.O) store(out + 1, t1);
       }
     }
   }
+}
+
+__global__ void __launch_bounds__(H_THREADS, 1)
+down_conv_bf16_kernel(const __grid_constant__ CUtensorMap tm_x,
+                      const __grid_constant__ CUtensorMap tm_w,
+                      const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ y,
+                      float* __restrict__ ws, Shape s, int relu) {
+  down_conv_16(&tm_x, &tm_w, bias, y, ws, s, relu);
+}
+
+__global__ void __launch_bounds__(H_THREADS, 1)
+down_conv_f16_kernel(const __grid_constant__ CUtensorMap tm_x,
+                     const __grid_constant__ CUtensorMap tm_w, const __half* __restrict__ bias,
+                     __half* __restrict__ y, float* __restrict__ ws, Shape s, int relu) {
+  down_conv_16(&tm_x, &tm_w, bias, y, ws, s, relu);
 }
 
 // ------------------------------------------------- split-K: the fixed-order sum
@@ -525,12 +563,66 @@ bool shape_ok(const Shape& s, int bk, const void* ws) {
          (16 * s.C / bk) % s.split == 0 && (s.split == 1 || ws != nullptr);
 }
 
+// the 16-bit entry points: T's kernel, whose tensor maps hold elements of type DT
+template <typename T, CUtensorMapDataType DT, typename Kernel>
+int launch_16(Kernel kernel, const void* x, const void* w, const void* b, void* y, void* ws,
+              int B, int H, int W, int C, int O, int Opad, int relu, int split, int tw, int th,
+              int tb, void* stream) {
+  const Shape s = make_shape(B, H, W, C, O, Opad, split, tw, th, tb, H_BK);
+  if (!shape_ok(s, H_BK, ws) || tw < 1 || th < 1 || tb < 1 || tw * th * tb != H_BM ||
+      2 * tw > 256 || 2 * th > 256)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+
+  // x as a (C, W, H, B) tensor; a box of 64 channels × TW × TH × TB pixels,
+  // every second pixel along W and H: the stride-2 window of one tap
+  CUtensorMap tm_x, tm_w;
+  const cuuint64_t x_dim[4] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(W),
+                               static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  const cuuint64_t x_stride[3] = {static_cast<cuuint64_t>(C) * 2,
+                                  static_cast<cuuint64_t>(W) * C * 2,
+                                  static_cast<cuuint64_t>(H) * W * C * 2};
+  const cuuint32_t x_box[4] = {H_BK, static_cast<cuuint32_t>(2 * tw),
+                               static_cast<cuuint32_t>(2 * th), static_cast<cuuint32_t>(tb)};
+  const cuuint32_t x_step[4] = {1, 2, 2, 1};
+  CUresult r = encode(&tm_x, DT, 4, const_cast<void*>(x), x_dim, x_stride, x_box, x_step,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
+  // the (16·C, Opad) weight, row-major: boxes of 64 n × 64 k, two per stage
+  const cuuint64_t w_dim[2] = {static_cast<cuuint64_t>(Opad), static_cast<cuuint64_t>(16) * C};
+  const cuuint64_t w_stride[1] = {static_cast<cuuint64_t>(Opad) * 2};
+  const cuuint32_t w_box[2] = {64, H_BK};
+  const cuuint32_t w_step[2] = {1, 1};
+  r = encode(&tm_w, DT, 2, const_cast<void*>(w), w_dim, w_stride, w_box, w_step,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
+
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, H_SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_set = true;
+  }
+  const int tiles_m = ((s.W2 + tw - 1) / tw) * ((s.H2 + th - 1) / th) * ((B + tb - 1) / tb);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(tiles_m, s.Opad / H_BN, s.split);
+  kernel<<<grid, H_THREADS, H_SMEM, st>>>(tm_x, tm_w, static_cast<const T*>(b),
+                                          static_cast<T*>(y), static_cast<float*>(ws), s, relu);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0 || s.split == 1) return err;
+  return launch_reduce<T>(static_cast<float*>(ws), b, y, s, relu, st);
+}
+
 }  // namespace
 
 // x (B, H, W, C), y (B, H/2, W/2, O): NHWC, contiguous; w the (16·C, Opad)
 // weight, row-major. float32: tw, th and tb must be 0 (tiles are 128
-// consecutive output pixels); bfloat16: (tw, th, tb) is the output box of one
-// tile. ws: split × M × Opad float32, or null when split is 1.
+// consecutive output pixels); bfloat16 and float16: (tw, th, tb) is the output
+// box of one tile. ws: split × M × Opad float32, or null when split is 1.
 extern "C" int gct2_down_conv_f32(const void* x, const void* w, const void* b, void* y,
                                   void* ws, int B, int H, int W, int C, int O, int Opad,
                                   int relu, int split, int tw, int th, int tb, void* stream) {
@@ -550,53 +642,15 @@ extern "C" int gct2_down_conv_f32(const void* x, const void* w, const void* b, v
 extern "C" int gct2_down_conv_bf16(const void* x, const void* w, const void* b, void* y,
                                    void* ws, int B, int H, int W, int C, int O, int Opad,
                                    int relu, int split, int tw, int th, int tb, void* stream) {
-  const Shape s = make_shape(B, H, W, C, O, Opad, split, tw, th, tb, H_BK);
-  if (!shape_ok(s, H_BK, ws) || tw < 1 || th < 1 || tb < 1 || tw * th * tb != H_BM ||
-      2 * tw > 256 || 2 * th > 256)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const EncodeTiled encode = encoder();
-  if (encode == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_16<__nv_bfloat16, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16>(
+      down_conv_bf16_kernel, x, w, b, y, ws, B, H, W, C, O, Opad, relu, split, tw, th, tb,
+      stream);
+}
 
-  // x as a (C, W, H, B) tensor; a box of 64 channels × TW × TH × TB pixels,
-  // every second pixel along W and H: the stride-2 window of one tap
-  CUtensorMap tm_x, tm_w;
-  const cuuint64_t x_dim[4] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(W),
-                               static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
-  const cuuint64_t x_stride[3] = {static_cast<cuuint64_t>(C) * 2,
-                                  static_cast<cuuint64_t>(W) * C * 2,
-                                  static_cast<cuuint64_t>(H) * W * C * 2};
-  const cuuint32_t x_box[4] = {H_BK, static_cast<cuuint32_t>(2 * tw),
-                               static_cast<cuuint32_t>(2 * th), static_cast<cuuint32_t>(tb)};
-  const cuuint32_t x_step[4] = {1, 2, 2, 1};
-  CUresult r = encode(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), x_dim,
-                      x_stride, x_box, x_step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
-  // the (16·C, Opad) weight, row-major: boxes of 64 n × 64 k, two per stage
-  const cuuint64_t w_dim[2] = {static_cast<cuuint64_t>(Opad), static_cast<cuuint64_t>(16) * C};
-  const cuuint64_t w_stride[1] = {static_cast<cuuint64_t>(Opad) * 2};
-  const cuuint32_t w_box[2] = {64, H_BK};
-  const cuuint32_t w_step[2] = {1, 1};
-  r = encode(&tm_w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w), w_dim, w_stride,
-             w_box, w_step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
-
-  static bool smem_set = false;
-  if (!smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        down_conv_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, H_SMEM);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    smem_set = true;
-  }
-  const int tiles_m = ((s.W2 + tw - 1) / tw) * ((s.H2 + th - 1) / th) * ((B + tb - 1) / tb);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(tiles_m, s.Opad / H_BN, s.split);
-  down_conv_bf16_kernel<<<grid, H_THREADS, H_SMEM, st>>>(
-      tm_x, tm_w, static_cast<const __nv_bfloat16*>(b), static_cast<__nv_bfloat16*>(y),
-      static_cast<float*>(ws), s, relu);
-  const int err = static_cast<int>(cudaGetLastError());
-  if (err != 0 || s.split == 1) return err;
-  return launch_reduce<__nv_bfloat16>(static_cast<float*>(ws), b, y, s, relu, st);
+extern "C" int gct2_down_conv_f16(const void* x, const void* w, const void* b, void* y,
+                                  void* ws, int B, int H, int W, int C, int O, int Opad,
+                                  int relu, int split, int tw, int th, int tb, void* stream) {
+  return launch_16<__half, CU_TENSOR_MAP_DATA_TYPE_FLOAT16>(
+      down_conv_f16_kernel, x, w, b, y, ws, B, H, W, C, O, Opad, relu, split, tw, th, tb,
+      stream);
 }

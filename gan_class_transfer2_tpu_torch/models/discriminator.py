@@ -8,7 +8,7 @@ first, CycleGAN's convention), then ``leaky_relu(0.2)``; a 1×1 dense head
 gives PatchGAN per-patch logits or, without ``patch_discriminator``, one
 mean-pooled logit per image; with ``num_classes > 0`` a projection term
 ``<embed_y, feat>`` is added. The down convs go to the hand-written B4
-kernel under ``conv_impl="pallas"`` where its gate admits the shape, on a
+kernel where its gate admits the shape (ops/conv.py ``down_conv``), on a
 rank's output channels under tensor parallelism (``parallel/tensor``).
 
 ``Discriminator`` holds the parameters under the JAX pytree's names
@@ -114,8 +114,7 @@ def discriminator_apply(cfg, model: Discriminator, x, class_idx=None):
     h = x.to(dtype)
     for layer in model.convs:
         h = tensor.layer_apply(
-            layer, dtype, lambda x, k, b: conv_ops.down_conv(x, k, b, cfg.conv_impl, relu=False),
-            h)
+            layer, dtype, lambda x, k, b: conv_ops.down_conv(x, k, b, relu=False), h)
         if hasattr(layer, "norm"):
             h = norm_ops.apply_norm(cfg.d_norm, h, layer.norm)
         h = F.leaky_relu(h, 0.2)
@@ -142,7 +141,7 @@ def _patchgan70_apply(cfg, model, h, dtype):
     last = len(model.convs) - 1
 
     def down(x, k, b):
-        return conv_ops.down_conv(x, k, b, cfg.conv_impl, relu=False)
+        return conv_ops.down_conv(x, k, b, relu=False)
 
     def flat(x, k, b):
         return conv_ops.conv2d_padded(x, k, b, stride=1, pad=1)

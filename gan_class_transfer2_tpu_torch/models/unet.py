@@ -9,10 +9,11 @@ skip connection, with ``f_i = min(pixel_size·2^i, max_size)`` and
 ``Denoiser`` holds the parameters under the names of ``init_unet``'s pytree
 (``octaves.0.down.kernel`` ↔ ``params["octaves"][0]["down"]["kernel"]``), in
 float32, HWIO. ``unet_apply(cfg, model, x, t)`` is the forward: it reads
-``cfg`` for the compute dtype and ``conv_impl``, so one set of weights runs
-under any of them. Params are cast to ``cfg.compute_dtype`` at apply. Concat
-skips are never materialised (``concat_elision``): a level returns a
-(branch, skip) pair and each consumer splits its kernel along input channels.
+``cfg`` for the compute dtype, so one set of weights runs under any of
+them; ops/conv.py picks the conv kernels from the tensors. Params are cast
+to ``cfg.compute_dtype`` at apply. Concat skips are never materialised
+(``concat_elision``): a level returns a (branch, skip) pair and each
+consumer splits its kernel along input channels.
 The timestep is ignored unless ``per_step_output``.
 
 Under tensor parallelism (``parallel/mesh.shard_state``) a conv layer may
@@ -143,42 +144,40 @@ class Denoiser(nn.Module):
         return unet_apply(self.cfg, self, x, t)
 
 
-def _conv_relu(layers, h, dtype, impl):
+def _conv_relu(layers, h, dtype):
     for layer in layers:
-        h = tensor.layer_apply(layer, dtype, lambda x, k, b: _conv3_relu(x, k, b, impl), h)
+        h = tensor.layer_apply(layer, dtype, _conv3_relu, h)
     return h
 
 
-def _conv3_relu(x, kernel, bias, impl):
-    return conv_ops.conv2d(x, kernel, bias, stride=1, relu=True, impl=impl)
+def _conv3_relu(x, kernel, bias):
+    return conv_ops.conv2d(x, kernel, bias, stride=1, relu=True)
 
 
-def _pair_block_conv(h, layer, dtype, impl):
+def _pair_block_conv(h, layer, dtype):
     """Conv over a logical concat kept as an unmaterialised pair:
     conv(concat(a, b), K) = conv(a, K[:, :, :ca]) + conv(b, K[:, :, ca:]);
-    the sum, bias and ReLU in one epilogue (ops/conv.py ``epilogue``)."""
+    the sum, bias and ReLU in the second conv's epilogue."""
     if not isinstance(h, tuple):
-        return _conv_relu([layer], h, dtype, impl)
+        return _conv_relu([layer], h, dtype)
 
     def pair(a, b, kernel, bias):
         ca = a.shape[-1]
         ya = conv_ops.conv2d(a, kernel[:, :, :ca], None, stride=1)
-        yb = conv_ops.conv2d(b, kernel[:, :, ca:], None, stride=1)
-        return conv_ops.epilogue(yb, bias, True, impl, ya)
+        return conv_ops.conv2d(b, kernel[:, :, ca:], bias, stride=1, relu=True, other=ya)
 
     return tensor.layer_apply(layer, dtype, pair, *h)
 
 
-def _pair_up_conv(h, layer, impl, dtype, relu: bool = True):
+def _pair_up_conv(h, layer, dtype, relu: bool = True):
     if not isinstance(h, tuple):
         return tensor.layer_apply(
-            layer, dtype, lambda x, k, b: conv_ops.up_conv(x, k, b, impl, relu=relu), h)
+            layer, dtype, lambda x, k, b: conv_ops.up_conv(x, k, b, relu=relu), h)
 
     def pair(a, b, kernel, bias):
         ca = a.shape[-1]
-        ya = conv_ops.up_conv(a, kernel[:, :, :ca], None, impl, relu=False)
-        yb = conv_ops.up_conv(b, kernel[:, :, ca:], None, impl, relu=False)
-        return conv_ops.epilogue(yb, bias, relu, impl, ya)
+        ya = conv_ops.up_conv(a, kernel[:, :, :ca], None, relu=False)
+        return conv_ops.up_conv(b, kernel[:, :, ca:], bias, relu=relu, other=ya)
 
     return tensor.layer_apply(layer, dtype, pair, *h)
 
@@ -192,11 +191,10 @@ def _pair_dense(h, layer, dtype):
     return conv_ops.dense(a, kernel[:ca]) + conv_ops.dense(b, kernel[ca:], bias)
 
 
-def _blocks_after_pair(layers, h, dtype, impl):
+def _blocks_after_pair(layers, h, dtype):
     """A block whose first conv may receive a (branch, skip) pair."""
     for n, layer in enumerate(layers):
-        h = (_pair_block_conv(h, layer, dtype, impl) if n == 0
-             else _conv_relu([layer], h, dtype, impl))
+        h = _pair_block_conv(h, layer, dtype) if n == 0 else _conv_relu([layer], h, dtype)
     return h
 
 
@@ -207,18 +205,18 @@ def octave_down(cfg, level, h, dtype):
     normed = cfg.g_norm != "none"
     h = tensor.layer_apply(
         level.down, dtype,
-        lambda x, k, b: conv_ops.down_conv(x, k, b, cfg.conv_impl, relu=not normed), h)
+        lambda x, k, b: conv_ops.down_conv(x, k, b, relu=not normed), h)
     if normed:
         h = torch.relu(norm_ops.apply_norm(cfg.g_norm, h, level.down_norm))
-    return _conv_relu(level.block_in, h, dtype, cfg.conv_impl), inp
+    return _conv_relu(level.block_in, h, dtype), inp
 
 
 def octave_up(cfg, level, h, inp, dtype):
     """One octave's ascent: block_out + up conv (+ norm) + skip merge with
     ``inp``."""
-    h = _blocks_after_pair(level.block_out, h, dtype, cfg.conv_impl)
+    h = _blocks_after_pair(level.block_out, h, dtype)
     normed = cfg.g_norm != "none"
-    h = _pair_up_conv(h, level.up, cfg.conv_impl, dtype, relu=not normed)
+    h = _pair_up_conv(h, level.up, dtype, relu=not normed)
     if normed:
         h = torch.relu(norm_ops.apply_norm(cfg.g_norm, h, level.up_norm))
     if cfg.skip_mode == "concat":
@@ -233,7 +231,7 @@ def octave_up(cfg, level, h, inp, dtype):
 
 def unet_head(cfg, model, h, t, dtype):
     """post_block + Dense head (+ the vestigial per-step gather on t−1)."""
-    h = _blocks_after_pair(model.post_block, h, dtype, cfg.conv_impl)
+    h = _blocks_after_pair(model.post_block, h, dtype)
     return per_step_gather(cfg, _pair_dense(h, model.head, dtype), t)
 
 
@@ -304,7 +302,7 @@ def unet_apply(cfg, model: Denoiser, x, t=None):
     dtype = DTYPES[cfg.compute_dtype]
     stats = norm_ops.stats_names()
     with ieee_fp32(dtype, x.device):
-        h = _conv_relu(model.pre_block, x.to(dtype), dtype, cfg.conv_impl)
+        h = _conv_relu(model.pre_block, x.to(dtype), dtype)
 
         def rec(i, h):
             level = model.octaves[i]
@@ -315,7 +313,7 @@ def unet_apply(cfg, model: Denoiser, x, t=None):
                 else:
                     h = rec(i + 1, h)
             else:
-                h = _conv_relu(model.middle, h, dtype, cfg.conv_impl)
+                h = _conv_relu(model.middle, h, dtype)
             return octave_up(cfg, level, h, inp, dtype)
 
         def _inner(i, h):
@@ -323,7 +321,7 @@ def unet_apply(cfg, model: Denoiser, x, t=None):
                 return rec(i, h)
 
         h = (rec(0, h) if cfg.octaves > 0
-             else _conv_relu(model.middle, h, dtype, cfg.conv_impl))
+             else _conv_relu(model.middle, h, dtype))
         return unet_head(cfg, model, h, t, dtype)
 
 

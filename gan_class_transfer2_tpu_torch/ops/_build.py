@@ -31,6 +31,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 HOST_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared", "-Wall", "-pthread")
+SM_COUNT = 132  # H100 SXM: the SMs the kernels' launch plans fill
 
 _loaded: dict = {}
 # one build or load at a time: replicas in threads of one process (the

@@ -5,17 +5,15 @@ package; inside, each op views its operands as NCHW / OIHW for
 ``torch.nn.functional``. Transposed-conv kernels are stored HWIO in dataflow
 orientation (I = the op's input channels), as in the JAX package.
 
-``conv_impl`` selects per op:
-
-  * ``lax`` / ``auto`` — ``torch.nn.functional`` (cuDNN on the card);
-  * ``shuffle``        — the pixel-shuffle reformulations below;
-  * ``pallas``         — the hand-written CUDA k4/s2 down conv
-                         (ops/fused_down_conv.py) for the shapes its
-                         ``supported`` gate admits, the plain conv otherwise:
-                         the JAX package's shape gate, not a device fallback;
-                         and every TF-SAME conv's bias, pair sum and ReLU as
-                         the conv epilogue's kernel (ops/conv_epilogue.py)
-                         where the other routes add them in torch ops.
+One route to the hand-written kernels, chosen by the tensor alone: every
+TF-SAME conv's bias, concat-pair sum and ReLU is the conv epilogue
+(ops/conv_epilogue.py), and every k4/s2 down conv with a bias whose shape
+``fused_down_conv.supported`` admits is B4 (ops/fused_down_conv.py), the
+JAX package's shape gate; other shapes take the plain conv. Each kernel's
+wrapper picks the plain version for a CPU tensor, the torch ops under
+``torch.export`` and for fake or meta tensors, and the kernel for a CUDA
+tensor: float32, bfloat16 or float16, the model's compute dtypes (another
+dtype raises TypeError, as the wrappers do).
 
 The published CycleGAN's layers (models/resnet.py, the 70×70 PatchGAN of
 models/discriminator.py) pad explicitly and symmetrically, with zeros or
@@ -69,17 +67,24 @@ def _conv_strided_raw(x, kernel, stride: int):
     return _nhwc(F.conv2d(xn, w, stride=stride))
 
 
-def epilogue(y, bias, relu: bool, impl: str, other=None):
-    """A conv's tail ``act(other + (y + bias))``: the conv epilogue's kernel
-    on the ``pallas`` route, the torch ops on the others."""
-    if impl == "pallas":
+def _kernels_take(t) -> bool:
+    """Whether B4 and the conv epilogue take ``t``: every tensor but a meta
+    one (shapes only), which takes the torch ops."""
+    return not t.is_meta
+
+
+def _tail(y, bias, relu: bool, other):
+    """A TF-SAME conv's tail ``act(other + (y + bias))``."""
+    if _kernels_take(y):
         return conv_epilogue(y, bias, relu, other)
     return epilogue_plain(y, bias, relu, other)
 
 
-def conv2d(x, kernel, bias=None, stride: int = 1, relu: bool = False, impl: str = "auto"):
-    """TF-SAME conv. kernel HWIO."""
-    return epilogue(_conv_strided_raw(x, kernel, stride), bias, relu, impl)
+def conv2d(x, kernel, bias=None, stride: int = 1, relu: bool = False, other=None):
+    """TF-SAME conv. kernel HWIO. ``other``, a tensor of the output's shape
+    (the other half of a concat's pair, models/unet.py), is added before the
+    ReLU in the same epilogue."""
+    return _tail(_conv_strided_raw(x, kernel, stride), bias, relu, other)
 
 
 def _convt_raw(x, kernel, stride: int):
@@ -103,11 +108,10 @@ def _convt_raw(x, kernel, stride: int):
     return _nhwc(y)
 
 
-def conv2d_transpose(x, kernel, bias=None, stride: int = 2, relu: bool = False,
-                     impl: str = "auto"):
+def conv2d_transpose(x, kernel, bias=None, stride: int = 2, relu: bool = False, other=None):
     """TF Conv2DTranspose 'SAME'; kernel HWIO with I = this op's input
-    channels. Output spatial = input · stride."""
-    return epilogue(_convt_raw(x, kernel, stride), bias, relu, impl)
+    channels. Output spatial = input · stride; ``other`` as ``conv2d``'s."""
+    return _tail(_convt_raw(x, kernel, stride), bias, relu, other)
 
 
 # --------------------------------------------------------------------------
@@ -192,101 +196,18 @@ def conv2d_transpose_padded(x, kernel, bias=None, stride: int = 2, pad: int = 1,
                                     output_padding=output_pad))
 
 
-# --------------------------------------------------------------------------
-# Pixel-shuffle reformulations (k=4, s=2)
-# --------------------------------------------------------------------------
-
-
-def space_to_depth(x, block: int = 2):
-    b, h, w, c = x.shape
-    x = x.reshape(b, h // block, block, w // block, block, c)
-    return x.permute(0, 1, 3, 2, 4, 5).reshape(
-        b, h // block, w // block, block * block * c
-    )
-
-
-def depth_to_space(x, block: int = 2):
-    b, h, w, c = x.shape
-    o = c // (block * block)
-    x = x.reshape(b, h, w, block, block, o)
-    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h * block, w * block, o)
-
-
-def _transpose_shuffle_kernel(kernel):
-    """Repack a k4/s2 transposed-conv kernel (4,4,I,O) into a 3×3 kernel
-    (3,3,I,4·O) so that pad1 → conv3x3 → depth_to_space equals
-    conv2d_transpose (derivation in the JAX copy)."""
-    kf = torch.flip(kernel, (0, 1))
-    i_ch, o_ch = kernel.shape[2], kernel.shape[3]
-    out = kernel.new_zeros((3, 3, i_ch, 4, o_ch))
-    for a in (0, 1):
-        for b in (0, 1):
-            for ti in (0, 1):
-                for tj in (0, 1):
-                    out[a + ti, b + tj, :, 2 * a + b, :] = kf[a + 2 * ti, b + 2 * tj]
-    return out.reshape(3, 3, i_ch, 4 * o_ch)
-
-
-def conv2d_transpose_shuffle(x, kernel, bias=None, relu: bool = False):
-    """k=4, s=2 transposed conv as pad-1 → 3×3/s1 conv → depth_to_space."""
-    if kernel.shape[0] != 4 or kernel.shape[1] != 4:
-        raise ValueError(f"shuffle transposed conv needs a 4x4 kernel, got {tuple(kernel.shape)}")
-    k = _transpose_shuffle_kernel(kernel).to(x.dtype).permute(3, 2, 0, 1)
-    y = _nhwc(F.conv2d(_nchw(x), k, padding=1))
-    return epilogue_plain(depth_to_space(y, 2), bias, relu)
-
-
-def _down_shuffle_kernel(kernel):
-    """Repack a k4/s2 conv kernel (4,4,I,O) into a 2×2 kernel (2,2,4·I,O)
-    over the space-to-depth'd padded input."""
-    i_ch, o_ch = kernel.shape[2], kernel.shape[3]
-    out = kernel.new_zeros((2, 2, 2, 2, i_ch, o_ch))  # (ti, tj, a, b, I, O)
-    for ti in (0, 1):
-        for tj in (0, 1):
-            for a in (0, 1):
-                for b in (0, 1):
-                    out[ti, tj, a, b] = kernel[2 * ti + a, 2 * tj + b]
-    return out.reshape(2, 2, 4 * i_ch, o_ch)
-
-
-def conv2d_down_shuffle(x, kernel, bias=None, relu: bool = False):
-    """k=4, s=2 SAME conv as pad-1 → space_to_depth → 2×2/s1 conv. Even
-    spatial dims only: TF-SAME pads odd inputs (1, 2), which this
-    reformulation cannot express."""
-    if kernel.shape[0] != 4 or kernel.shape[1] != 4:
-        raise ValueError(f"shuffle down conv needs a 4x4 kernel, got {tuple(kernel.shape)}")
-    if x.shape[1] % 2 or x.shape[2] % 2:
-        raise ValueError(
-            f"impl='shuffle' needs even spatial dims, got "
-            f"{x.shape[1]}x{x.shape[2]} — use impl='lax'"
-        )
-    k = _down_shuffle_kernel(kernel).to(x.dtype).permute(3, 2, 0, 1)
-    xs = space_to_depth(F.pad(x, (0, 0, 1, 1, 1, 1)), 2)
-    y = _nhwc(F.conv2d(_nchw(xs), k))
-    return epilogue_plain(y, bias, relu)
-
-
-# --------------------------------------------------------------------------
-# Dispatch
-# --------------------------------------------------------------------------
-
-
-def down_conv(x, kernel, bias, impl: str = "auto", relu: bool = True):
-    """DownShuffle op (reference train.py:158-169): 4×4/s2 SAME conv + ReLU."""
-    if impl == "pallas" and bias is not None:
-        if fused_down_conv.supported(tuple(x.shape), tuple(kernel.shape)):
-            return fused_down_conv.down_conv_fused(x.contiguous(), kernel, bias, relu)
-        return conv2d(x, kernel, bias, stride=2, relu=relu, impl=impl)
-    if impl == "shuffle":
-        return conv2d_down_shuffle(x, kernel, bias, relu=relu)
+def down_conv(x, kernel, bias, relu: bool = True):
+    """DownShuffle op (reference train.py:158-169): 4×4/s2 SAME conv + ReLU;
+    B4 where its gate admits the shapes."""
+    if (bias is not None and _kernels_take(x)
+            and fused_down_conv.supported(tuple(x.shape), tuple(kernel.shape))):
+        return fused_down_conv.down_conv_fused(x.contiguous(), kernel, bias, relu)
     return conv2d(x, kernel, bias, stride=2, relu=relu)
 
 
-def up_conv(x, kernel, bias, impl: str = "auto", relu: bool = True):
+def up_conv(x, kernel, bias, relu: bool = True, other=None):
     """UpShuffle op (reference train.py:145-156): 4×4/s2 transposed conv + ReLU."""
-    if impl == "shuffle":
-        return conv2d_transpose_shuffle(x, kernel, bias, relu=relu)
-    return conv2d_transpose(x, kernel, bias, stride=2, relu=relu, impl=impl)
+    return conv2d_transpose(x, kernel, bias, stride=2, relu=relu, other=other)
 
 
 def dense(x, kernel, bias=None):

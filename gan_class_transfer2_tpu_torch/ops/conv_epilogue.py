@@ -18,18 +18,17 @@ reduction. Pieces, as for every kernel of the port:
     (``y + bias``, ``other + ·``, ``relu``), and ``_backward_plain``, its
     gradients as autograd forms them. The wrappers take them only for a
     tensor on the CPU; a CUDA tensor launches the kernel or raises (a
-    dtype but float32 and bfloat16: TypeError). ops/conv.py's routes
-    other than ``pallas`` call ``epilogue_plain`` directly;
+    dtype but float32, bfloat16 and float16: TypeError);
   * ``plan`` — the launch's vector width, block shape and grid, from the
     shape alone.
 
 The kernel sums in float32 and rounds once to the compute dtype, where the
 composition rounds after each op: float32 agrees bit for bit, bfloat16
-within one rounding. Each call adapts to what it is given — one branch or
-two, a bias or none, ReLU or not, the dtype, and whether autograd records
-the backward: a ``create_graph=True`` backward (R1's double backward through
-a discriminator) takes the differentiable torch ops, counted by
-``ConvEpilogue.graph_backwards``. B4's backward
+and float16 within one rounding. Each call adapts to what it is given —
+one branch or two, a bias or none, ReLU or not, the dtype, and whether
+autograd records the backward: a ``create_graph=True`` backward (R1's
+double backward through a discriminator) takes the differentiable torch
+ops, counted by ``ConvEpilogue.graph_backwards``. B4's backward
 (ops/fused_down_conv.py) is this epilogue's backward and calls
 ``epilogue_backward`` too.
 """
@@ -45,16 +44,14 @@ from torch._subclasses.fake_tensor import FakeTensor
 
 from . import _build
 
-_ENTRY = {
-    "fwd": {torch.float32: "gct2_epilogue_fwd_f32", torch.bfloat16: "gct2_epilogue_fwd_bf16"},
-    "bwd": {torch.float32: "gct2_epilogue_bwd_f32", torch.bfloat16: "gct2_epilogue_bwd_bf16"},
-}
+_ENTRY = {kind: {dt: f"gct2_epilogue_{kind}_{name}" for dt, name in
+                 ((torch.float32, "f32"), (torch.bfloat16, "bf16"), (torch.float16, "f16"))}
+          for kind in ("fwd", "bwd")}
 _ARGS = {
     "fwd": [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     "bwd": [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p],
 }
 _FNS: dict = {}
-SM_COUNT = 132  # H100 SXM
 BLOCKS_PER_SM = 8  # 256-thread blocks: 2048 threads, an SM's most
 _THREADS, _UNROLL = 256, 4  # as csrc/conv_epilogue.cu
 
@@ -83,7 +80,8 @@ def plan(pixels: int, c: int, itemsize: int, aligned: bool) -> Plan:
     tx = min(1 << max(0, (cv - 1).bit_length()), 32)
     grid_y = -(-cv // tx)
     rows = _THREADS // tx
-    grid_x = max(1, min(-(-pixels // (rows * _UNROLL)), -(-SM_COUNT * BLOCKS_PER_SM // grid_y)))
+    fill = -(-_build.SM_COUNT * BLOCKS_PER_SM // grid_y)
+    grid_x = max(1, min(-(-pixels // (rows * _UNROLL)), fill))
     return Plan(vec, tx, grid_x)
 
 
@@ -117,7 +115,7 @@ def _entry(kind, dtype):
     fn = _FNS.get(key)
     if fn is None:
         if dtype not in _ENTRY[kind]:
-            raise TypeError(f"conv_epilogue: float32 or bfloat16 only, got {dtype}")
+            raise TypeError(f"conv_epilogue: float32, bfloat16 or float16 only, got {dtype}")
         fn = _FNS[key] = getattr(_build.load("conv_epilogue"), _ENTRY[kind][dtype])
         fn.argtypes = _ARGS[kind]
         fn.restype = ctypes.c_int
@@ -142,9 +140,9 @@ def _takes(t, like) -> bool:
 def epilogue_fused(y, bias=None, relu: bool = False, other=None):
     """The forward: ``epilogue_plain`` for a CPU tensor, one launch on the
     current stream for a CUDA tensor (or an exception). ``y`` contiguous,
-    channels last, float32 or bfloat16; ``other`` the same shape, dtype and
-    layout, or None; ``bias`` (C,) on ``y``'s device (cast to its dtype), or
-    None. The checks are few and cheap: a sampler call makes eight."""
+    channels last, float32, bfloat16 or float16; ``other`` the same shape,
+    dtype and layout, or None; ``bias`` (C,) on ``y``'s device (cast to its
+    dtype), or None. The checks are few and cheap: a sampler call makes eight."""
     if y.device.type == "cpu":
         return epilogue_plain(y, bias, relu, other)
     if not _takes(y, y):
@@ -255,9 +253,9 @@ def conv_epilogue(y, bias=None, relu: bool = False, other=None):
     Differentiable in ``y``, ``bias`` and ``other``. Returns ``y`` itself
     when there is nothing to add or activate. A CUDA tensor takes the
     kernel (its operands made contiguous first), and raises TypeError
-    unless it is float32 or bfloat16; a CPU tensor takes the torch ops, and
-    so does the forward under ``torch.export`` and for a fake or meta
-    tensor (shapes only). Without a gradient to record (the sampler) the
+    unless it is float32, bfloat16 or float16; a CPU tensor takes the torch
+    ops, and so does the forward under ``torch.export`` and for a fake or
+    meta tensor (shapes only). Without a gradient to record (the sampler) the
     forward is called directly, not through the autograd Function."""
     if bias is None and other is None and not relu:
         return y

@@ -37,7 +37,6 @@ through a discriminator differentiates it again.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 from typing import NamedTuple
@@ -64,57 +63,47 @@ def supported(x_shape, kernel_shape) -> bool:
     )
 
 
-@contextlib.contextmanager
-def _native_cpu_conv(device):
-    """The plain version is the kernel's reference. On the CPU, oneDNN's
-    convolution sums the K = 16·C products in an order that loses about four
-    times the precision of PyTorch's native path (1.5e-5 against 4e-6 of a
-    float64 result at C = 128), so the reference takes the native path."""
-    if device.type != "cpu":
-        yield
-        return
-    prev = torch.backends.mkldnn.enabled
-    torch.backends.mkldnn.enabled = False
-    try:
-        yield
-    finally:
-        torch.backends.mkldnn.enabled = prev
-
-
 def down_conv_plain(x, kernel, bias, relu: bool = True):
-    """F.pad → F.conv2d(stride=2) → + bias → relu, in float32 on NCHW views
-    of the operands cast to ``x.dtype`` (as the kernel sees them); returned
-    NHWC in ``x.dtype``."""
-    w = kernel.to(x.dtype).float().permute(3, 2, 0, 1)
-    xn = F.pad(x.float().permute(0, 3, 1, 2), (1, 1, 1, 1))
-    with _native_cpu_conv(x.device):
-        y = F.conv2d(xn, w, stride=2)
-    y = y + bias.to(x.dtype).float()[None, :, None, None]
+    """The kernel's GEMM in torch ops: each output pixel's 4×4 window of the
+    SAME-padded x, rows ordered (di, dj, c) as the HWIO kernel's, times the
+    kernel read as a (16·C, O) matrix, + bias → relu. Operands cast to
+    ``x.dtype`` (as the kernel sees them), computed in float32 for a 16-bit
+    ``x`` (as the kernel sums) and in ``x.dtype`` otherwise; returned NHWC in
+    ``x.dtype``. One matmul of K = 16·C, not ``F.conv2d``: the CPU's oneDNN
+    convolution sums those products in an order that loses about four times
+    the precision (1.5e-5 against 4e-6 of a float64 result at C = 128)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    b, h, w, c = x.shape
+    o = kernel.shape[3]
+    win = F.pad(x.to(acc), (0, 0, 1, 1, 1, 1)).unfold(1, 4, 2).unfold(2, 4, 2)
+    a = win.permute(0, 1, 2, 4, 5, 3).reshape(b * (h // 2) * (w // 2), 16 * c)
+    y = a @ kernel.to(x.dtype).to(acc).reshape(16 * c, o) + bias.to(x.dtype).to(acc)
     if relu:
         y = torch.relu(y)
-    return y.permute(0, 2, 3, 1).to(x.dtype).contiguous()
+    return y.view(b, h // 2, w // 2, o).to(x.dtype)
 
 
-_ENTRY = {torch.float32: "gct2_down_conv_f32", torch.bfloat16: "gct2_down_conv_bf16"}
+_ENTRY = {torch.float32: "gct2_down_conv_f32", torch.bfloat16: "gct2_down_conv_bf16",
+          torch.float16: "gct2_down_conv_f16"}
 _FNS: dict = {}
-SM_COUNT = 132  # H100 SXM
 _TILE = 128  # output rows (pixels) and columns (channels) of one block's tile
-K_SLICE = {torch.float32: 8, torch.bfloat16: 64}  # depth of one staged K slice
+K_SLICE = {torch.float32: 8, torch.bfloat16: 64, torch.float16: 64}  # depth of one K slice
 # blocks a call should put on the card: 7/8 of one full wave, RESIDENT blocks
-# on each SM (the float32 kernel's 256 threads and 32 KB twice, the bfloat16
-# kernel's 129 KB ring once). 7/8, not all: a 128-tile layer (64²×256→512 at
+# on each SM (the float32 kernel's 256 threads and 32 KB twice, the 16-bit
+# kernels' 129 KB ring once). 7/8, not all: a 128-tile layer (64²×256→512 at
 # batch 4) runs faster unsplit on 132 SMs than split in two, whose workspace
 # and second launch cost more than the 4 idle SMs (PERF.md, Findings)
-RESIDENT = {torch.float32: 2, torch.bfloat16: 1}
-FILL_TARGET = {dt: -(-7 * n * SM_COUNT // 8) for dt, n in RESIDENT.items()}
+RESIDENT = {torch.float32: 2, torch.bfloat16: 1, torch.float16: 1}
+FILL_TARGET = {dt: -(-7 * n * _build.SM_COUNT // 8) for dt, n in RESIDENT.items()}
 
 
 class Plan(NamedTuple):
     """How the kernel cuts one call, from the shape alone.
 
-    ``box``: bfloat16 tiles are boxes of (TW, TH, TB) output pixels along
-    (W/2, H/2, B), TW·TH·TB = 128, the box the TMA map loads; float32 tiles
-    are 128 consecutive output pixels, ``box`` (0, 0, 0). ``split``: K ranges
+    ``box``: 16-bit tiles (bfloat16, float16) are boxes of (TW, TH, TB)
+    output pixels along (W/2, H/2, B), TW·TH·TB = 128, the box the TMA map
+    loads; float32 tiles are 128 consecutive output pixels, ``box`` (0, 0,
+    0). ``split``: K ranges
     per tile, each ``k_slices // split`` whole slices; ``ws_elems`` the float32
     workspace (split, M, Opad) that holds their partial sums (0 for split 1).
     """
@@ -143,7 +132,7 @@ def plan(b: int, h: int, w: int, c: int, o: int, dtype) -> Plan:
     ``FILL_TARGET[dtype]`` blocks on the card."""
     h2, w2 = h // 2, w // 2
     o_pad = -(-o // _TILE) * _TILE
-    if dtype == torch.bfloat16:
+    if dtype != torch.float32:
         tw = min(_pow2_at_least(w2), _TILE)
         th = min(_pow2_at_least(h2), _TILE // tw)
         tb = _TILE // (tw * th)
@@ -179,7 +168,7 @@ def _forward(x, kernel, bias, relu: bool):
     if dev.type != "cuda":
         raise ValueError(f"down_conv_fused: no kernel for device {dev}")
     if x.dtype not in _ENTRY:
-        raise TypeError(f"down_conv_fused: float32 or bfloat16 only, got {x.dtype}")
+        raise TypeError(f"down_conv_fused: float32, bfloat16 or float16 only, got {x.dtype}")
     if kernel.device != dev or bias.device != dev:
         raise ValueError("down_conv_fused: x, kernel and bias must share a device")
     if not x.is_contiguous() or x.data_ptr() % 16:

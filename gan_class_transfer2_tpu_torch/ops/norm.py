@@ -125,13 +125,12 @@ def instance_norm_plain(x, gamma, beta):
 
 _ENTRY = {torch.float32: "gct2_instance_norm_f32", torch.bfloat16: "gct2_instance_norm_bf16"}
 _FNS: dict = {}
-SM_COUNT = 132  # H100 SXM
 CLUSTER_MAX = 8  # portable thread-block cluster size
 CHANNELS = 32  # channels per cluster
 # blocks a norm should put on the card: 7/8 of one per SM. Larger clusters
 # that reach 132 or 256 blocks measured slower on the two big maps (PERF.md,
 # Findings)
-FILL_TARGET = -(-7 * SM_COUNT // 8)
+FILL_TARGET = -(-7 * _build.SM_COUNT // 8)
 
 
 class NormPlan(NamedTuple):

@@ -259,7 +259,7 @@ def _stage_down(cfg, sm: Stage, h, first: bool):
     dtype and applies pre_block first (unet_apply's head)."""
     dtype = unet.DTYPES[cfg.compute_dtype]
     if first:
-        h = unet._conv_relu(sm.pre_block, h.to(dtype), dtype, cfg.conv_impl)
+        h = unet._conv_relu(sm.pre_block, h.to(dtype), dtype)
     skips = []
     for level in sm.octaves:
         h, inp = unet.octave_down(cfg, level, h, dtype)
@@ -272,7 +272,7 @@ def _stage_mid(cfg, sm: Stage, h):
     band's ascents in one program."""
     dtype = unet.DTYPES[cfg.compute_dtype]
     h, skips = _stage_down(cfg, sm, h, first=False)
-    h = unet._conv_relu(sm.middle, h, dtype, cfg.conv_impl)
+    h = unet._conv_relu(sm.middle, h, dtype)
     return _stage_up(cfg, sm, h, skips)
 
 

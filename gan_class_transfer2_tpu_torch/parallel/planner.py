@@ -52,7 +52,7 @@ CALIBRATION = ("tools/bench_grid_torch.py on one NVIDIA H100 80GB HBM3, 700.00 W
                "2.11.0+cu128; its log bench_grid.jsonl")
 
 # Single-card training throughput (img/s) of the port's step through the
-# kernels (conv_impl="pallas", optimizer="adam_fused", fused diffusion), the
+# kernels (B4 and the conv epilogue, optimizer="adam_fused", fused diffusion), the
 # default widths (octaves 4 at 64², 6 elsewhere): per dtype, per size, the
 # batch ladder. Measured by tools/bench_grid_torch.py (see CALIBRATION).
 MEASURED_GRID: dict = {

@@ -7,8 +7,7 @@ takes its timestep as a float32 scalar, as the scan does, so the schedule
 algebra rounds as in the JAX package. ``model`` is a ``models.unet.Denoiser``
 or a ``models.conditional.ConditionalDenoiser``, whose ``class_idx`` ((B,)
 integers on the batch's device; class 0 when None) every entry point passes
-through; ``cfg`` supplies the sampling knobs, the compute dtype and
-``conv_impl``.
+through; ``cfg`` supplies the sampling knobs and the compute dtype.
 
   (a) ``preview``    — single-step denoise at ``test_step``   (train.py:325-361)
   (b) ``invert``     — t = 1…T ascending DDIM-style encoder   (train.py:364-413)

@@ -22,8 +22,8 @@ What differs from the JAX package, and why:
     optax-form update even under ``adam_fused`` (distill.py:222), so the
     fused Adam kernel B2 never runs here, and it draws ε unfused
     (distill.py:159-160), so B1 never runs either. B4 runs in the three
-    denoiser calls of a step (the teacher's two, the student's one) under
-    ``conv_impl="pallas"``; the student's backward goes through cuDNN
+    denoiser calls of a step (the teacher's two, the student's one) where
+    its gate admits the shape; the student's backward goes through cuDNN
     around it.
   * Over the ranks of a process group (``mesh=``, parallel/mesh.make_mesh,
     where JAX jits the step over its device mesh, distill.py:243-287): t,

@@ -186,7 +186,6 @@ def run_benchmark(cfg, steps: int = 30, warmup: int = 3, baseline_ips: float | N
             "batch_size": cfg.batch_size,
             "size": cfg.size,
             "compute_dtype": cfg.compute_dtype,
-            "conv_impl": cfg.conv_impl,
             "n_chips": n_chips,
             "backend": device.type,
             "model_tflops_per_chip": round(tflops, 3),

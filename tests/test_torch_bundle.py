@@ -45,8 +45,7 @@ TOL = 1e-4
 # a small width at which a down conv of a 2-octave U-Net passes B4's gate
 # (C % 128 == 0, a ≥ 16² input): the second, 16² × 128 channels; the first
 # (the 3-channel image) is an aten convolution, as at the default width
-GATED = dict(size=32, pixel_size=128, max_size=256, octaves=2, steps=6, conv_impl="pallas",
-             test_step=3)
+GATED = dict(size=32, pixel_size=128, max_size=256, octaves=2, steps=6, test_step=3)
 CONV_TARGETS = ("aten.conv2d.default", "aten.convolution.default")
 
 
@@ -154,7 +153,10 @@ def test_exported_graphs_hold_the_kernels_by_name(gated):
 
 
 def test_lax_bundle_has_no_custom_op(tmp_path):
-    cfg = Config(**dict(GATED, conv_impl="lax")).validate()
+    """At 64 channels B4's gate refuses every down conv: the bundle holds
+    aten convolutions only."""
+    cfg = Config(**dict(GATED, pixel_size=64, max_size=64)).validate()
+    assert _gated_downs(cfg) == (2, 0)
     out = str(tmp_path / "b")
     bundle_lib.export_bundle(cfg, trainer.init_state(cfg, device="cpu"), out,
                              programs=["denoise"])

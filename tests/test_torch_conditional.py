@@ -136,8 +136,7 @@ def test_the_embedding_reaches_only_the_first_conv_and_b4_sees_the_unconditional
     """At a width that reaches B4's gate (C = 128 into a 16² down conv) the
     down convs see the unconditional model's shapes: 3 + E channels only at
     the stem, which B4's gate refuses; the result matches JAX."""
-    kw = dict(size=32, pixel_size=128, max_size=256, octaves=2, conv_impl="pallas",
-              block_depth=1)
+    kw = dict(size=32, pixel_size=128, max_size=256, octaves=2, block_depth=1)
     jcfg, cfg = _cfgs(**kw)
     params = _jax_params(jcfg)
     model = weights.from_jax_params(cfg, params, device="cpu")

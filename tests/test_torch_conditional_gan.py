@@ -212,7 +212,7 @@ def test_drawn_targets_differ_from_the_source_and_zero_weight_terms_are_elided(m
 
 @pytest.mark.parametrize("overrides", [
     dict(),
-    dict(size=32, d_pixel_size=128, max_size=256, d_octaves=2, conv_impl="pallas"),
+    dict(size=32, d_pixel_size=128, max_size=256, d_octaves=2),
 ], ids=["tiny", "b4-reaching"])
 def test_r1_with_labels_and_its_gradient_match_jax(overrides):
     """R1 through the projection-conditioned discriminator with the class

@@ -20,6 +20,7 @@ import jax.numpy as jnp  # noqa: E402
 from gan_class_transfer2_tpu.ops import conv as jconv  # noqa: E402
 from gan_class_transfer2_tpu.ops import image as jimage  # noqa: E402
 from gan_class_transfer2_tpu.ops import pallas_conv  # noqa: E402
+from gan_class_transfer2_tpu_torch.ops import _build  # noqa: E402
 from gan_class_transfer2_tpu_torch.ops import conv  # noqa: E402
 from gan_class_transfer2_tpu_torch.ops import fused_down_conv as fdc  # noqa: E402
 from gan_class_transfer2_tpu_torch.ops import image  # noqa: E402
@@ -57,15 +58,6 @@ def test_conv2d_transpose_matches_tf_golden():
     np.testing.assert_allclose(out.numpy(), GOLDEN["y_convt"], atol=1e-4)
 
 
-def test_shuffle_variants_match_tf_golden():
-    x = T(GOLDEN["x"])
-    down = conv.conv2d_down_shuffle(x, T(GOLDEN["k_conv"]), T(GOLDEN["b_conv"]))
-    np.testing.assert_allclose(down.numpy(), GOLDEN["y_conv"], atol=1e-4)
-    k = GOLDEN["k_convt_tf"].transpose(0, 1, 3, 2)
-    up = conv.conv2d_transpose_shuffle(x, T(k), T(GOLDEN["b_convt"]))
-    np.testing.assert_allclose(up.numpy(), GOLDEN["y_convt"], atol=1e-4)
-
-
 @pytest.mark.parametrize("shape", [(2, 8, 8, 3), (1, 7, 7, 5), (1, 4, 6, 7)])
 @pytest.mark.parametrize("stride", [1, 2])
 @pytest.mark.parametrize("ksize", [3, 4])
@@ -79,38 +71,6 @@ def test_conv2d_and_transpose_match_jax(shape, stride, ksize):
         yt_ref = jconv.conv2d_transpose(jnp.asarray(x), jnp.asarray(k), jnp.asarray(b), stride=2,
                                         relu=True)
         np.testing.assert_allclose(yt.numpy(), np.asarray(yt_ref), atol=1e-5)
-
-
-@pytest.mark.parametrize("shape", [(2, 8, 8, 3), (1, 4, 4, 7)])
-def test_shuffle_variants_match_jax(shape):
-    x, k, b = _rand(1, shape, (4, 4, shape[-1], 6), (6,))
-    up = conv.conv2d_transpose_shuffle(T(x), T(k), T(b), relu=True)
-    up_ref = jconv.conv2d_transpose_shuffle(jnp.asarray(x), jnp.asarray(k), jnp.asarray(b),
-                                            relu=True)
-    np.testing.assert_allclose(up.numpy(), np.asarray(up_ref), atol=1e-5)
-    down = conv.conv2d_down_shuffle(T(x), T(k), T(b), relu=True)
-    down_ref = jconv.conv2d_down_shuffle(jnp.asarray(x), jnp.asarray(k), jnp.asarray(b),
-                                         relu=True)
-    np.testing.assert_allclose(down.numpy(), np.asarray(down_ref), atol=1e-5)
-    # and each reformulation equals the plain op
-    np.testing.assert_allclose(
-        up.numpy(), conv.conv2d_transpose(T(x), T(k), T(b), relu=True).numpy(), atol=1e-5)
-    np.testing.assert_allclose(
-        down.numpy(), conv.conv2d(T(x), T(k), T(b), stride=2, relu=True).numpy(), atol=1e-5)
-
-
-def test_shuffle_down_rejects_odd_spatial_dims():
-    x, k = _rand(2, (1, 7, 7, 4), (4, 4, 4, 8))
-    with pytest.raises(ValueError, match="even spatial"):
-        conv.conv2d_down_shuffle(T(x), T(k))
-
-
-def test_space_depth_roundtrip():
-    (x,) = _rand(3, (2, 8, 8, 3))
-    np.testing.assert_array_equal(
-        conv.depth_to_space(conv.space_to_depth(T(x), 2), 2).numpy(), x)
-    np.testing.assert_array_equal(conv.space_to_depth(T(x), 2).numpy(),
-                                  np.asarray(jconv.space_to_depth(jnp.asarray(x), 2)))
 
 
 def test_dense_matches_jax():
@@ -135,7 +95,7 @@ def test_fused_down_conv_plain_matches_pallas_interpret(x_shape, o):
     before = fdc.down_conv_fused.launches
     np.testing.assert_allclose(fdc.down_conv_plain(T(x), T(k), T(b)).numpy(), ref, atol=1e-5)
     np.testing.assert_allclose(fdc.down_conv_fused(T(x), T(k), T(b)).numpy(), ref, atol=1e-5)
-    via_dispatch = conv.down_conv(T(x), T(k), T(b), impl="pallas")
+    via_dispatch = conv.down_conv(T(x), T(k), T(b))
     np.testing.assert_allclose(via_dispatch.numpy(), ref, atol=1e-5)
     assert fdc.down_conv_fused.launches == before == 0
 
@@ -170,9 +130,23 @@ def test_plain_version_casts_operands_like_the_kernel():
     np.testing.assert_array_equal(y.float().numpy(), ref.bfloat16().float().numpy())
 
 
+def test_plain_version_keeps_float64():
+    """A float64 x is summed in float64, not float32: the plain version (and
+    so the CPU's route through B4's wrapper) equals ``F.conv2d`` in float64
+    to 1e-12."""
+    x, k, b = (torch.from_numpy(a).double() for a in _rand(8, (2, 16, 16, 128), (4, 4, 128, 256),
+                                                          (256,)))
+    y = fdc.down_conv_plain(x, k, b, relu=False)
+    want = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1), b,
+                                      stride=2, padding=1).permute(0, 2, 3, 1)
+    assert y.dtype == torch.float64
+    np.testing.assert_allclose(y.numpy(), want.numpy(), rtol=0, atol=1e-12)
+    assert torch.equal(conv.down_conv(x, k, b, relu=False), y)
+
+
 def test_down_conv_dispatch_routes_unsupported_shapes_to_conv2d():
     x, k, b = _rand(6, (1, 16, 16, 8), (4, 4, 8, 16), (16,))
-    y = conv.down_conv(T(x), T(k), T(b), impl="pallas")
+    y = conv.down_conv(T(x), T(k), T(b))
     np.testing.assert_allclose(
         y.numpy(), conv.conv2d(T(x), T(k), T(b), stride=2, relu=True).numpy(), atol=0)
 
@@ -238,14 +212,15 @@ def _k_ranges(p, c, dtype):
     return out
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("batch", [1, 4, 16])
 @pytest.mark.parametrize("shape", _B4_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}-{s[2]}")
 def test_down_conv_plan_fills_the_card(shape, batch, dtype):
     """B4's plan at the main path's shapes: the split divides the K slices,
     every slice stays within one tap, the workspace holds split × M × Opad,
     the tiles cover the output, and at least 7/8 of a full wave of blocks
-    runs (132 SMs × 2 blocks in float32, × 1 in bfloat16)."""
+    runs (132 SMs × 2 blocks in float32, × 1 in the 16-bit types, whose
+    kernels share one body and so one plan)."""
     hw, c, o = shape
     dt = getattr(torch, dtype)
     p = fdc.plan(batch, hw, hw, c, o, dt)
@@ -255,16 +230,17 @@ def test_down_conv_plan_fills_the_card(shape, batch, dtype):
     m = batch * (hw // 2) ** 2
     assert p.o_pad % 128 == 0 and o <= p.o_pad < o + 128 and p.tiles_n == p.o_pad // 128
     assert p.ws_elems == (p.split * m * p.o_pad if p.split > 1 else 0)
-    if dt == torch.bfloat16:
+    if dt != torch.float32:
+        assert p == fdc.plan(batch, hw, hw, c, o, torch.bfloat16)
         tw, th, tb = p.box
         assert tw * th * tb == 128 and 2 * tw <= 256 and 2 * th <= 256
         assert p.tiles_m * 128 >= m
     else:
         assert p.box == (0, 0, 0) and p.tiles_m == -(-m // 128)
-    assert p.blocks >= fdc.FILL_TARGET[dt] >= 7 * fdc.SM_COUNT // 8
-    # 132 blocks or more; the bfloat16 kernel (one block an SM) may stop at
-    # one wave of 128 blocks, 4 SMs idle
-    assert p.blocks >= fdc.SM_COUNT or (dt == torch.bfloat16 and p.blocks >= 128)
+    assert p.blocks >= fdc.FILL_TARGET[dt] >= 7 * _build.SM_COUNT // 8
+    # 132 blocks or more; a 16-bit kernel (one block an SM) may stop at one
+    # wave of 128 blocks, 4 SMs idle
+    assert p.blocks >= _build.SM_COUNT or (dt != torch.float32 and p.blocks >= 128)
     # the smallest such split: half of it would not fill the card
     assert p.split == 1 or p.tiles_m * p.tiles_n * p.split // 2 < fdc.FILL_TARGET[dt]
     ranges = _k_ranges(p, c, dt)

@@ -7,10 +7,11 @@ once and twice differentiated. On the card (tests marked ``cuda``) the
 kernel is held against the plain version at the train cell's six up-conv
 outputs and its first down conv's (batch 2), and at shapes that take the
 scalar route: float32 forwards bit for bit (the same float32 adds in the
-same order), bfloat16 within one output rounding of max|out| (the kernel
-rounds once where the composition rounds after each op), gs bit for bit,
-db within 1e-5 of max|db| in float32 (sums in another order) and 1e-2 in
-bfloat16 (db rounded to bf16); a float32 bias takes a float32 db whatever
+same order), bfloat16 and float16 within a few output roundings of
+max|out| (the kernel rounds once where the composition rounds after each
+op: 1e-2 and 2e-3), gs bit for bit, db within 1e-5 of max|db| in float32
+(sums in another order), 1e-2 in bfloat16 and 2e-3 in float16 (db rounded
+to the 16-bit type); a float32 bias takes a float32 db whatever
 the gradient's dtype, B4's backward included."""
 
 import numpy as np
@@ -29,8 +30,8 @@ torch.set_num_threads(1)
 CELL_SHAPES = (((256, 256, 64), True), ((128, 128, 128), True), ((64, 64, 256), True),
                ((32, 32, 512), True), ((16, 16, 512), True), ((8, 8, 512), False),
                ((128, 128, 128), False))
-FWD_RTOL = {torch.float32: 0.0, torch.bfloat16: 1e-2}
-DB_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+FWD_RTOL = {torch.float32: 0.0, torch.bfloat16: 1e-2, torch.float16: 2e-3}
+DB_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 2e-3}
 
 
 def _inputs(seed, shape, dtype, two, bias, device="cpu"):
@@ -105,8 +106,8 @@ def test_down_conv_double_backward_through_the_epilogue():
     """B4's backward takes its ReLU mask and db from ``epilogue_backward``:
     with create_graph it keeps torch ops, counts one ``graph_backwards``
     and its second-order gradients match autograd's twice through the
-    plain version within 1e-5 of the largest: the plain version convolves
-    in float32 (``down_conv_plain``), B4's backward in the input's float64."""
+    plain version within 1e-5 of the largest: on the CPU both convolve in
+    the input's float64 (``down_conv_plain``, B4's backward)."""
     r = np.random.default_rng(5)
     x, k, b = (torch.from_numpy(r.normal(size=s)) for s in ((2, 8, 8, 4), (4, 4, 4, 6), (6,)))
 
@@ -138,16 +139,17 @@ def test_wrappers_refuse_what_the_kernel_does_not_take():
     y = torch.empty((2, 4, 4, 8), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         ce.epilogue_fused(y, None, True)
-    for dtype in (torch.float16, torch.float64):  # a CUDA tensor of these raises
-        with pytest.raises(TypeError, match="float32 or bfloat16 only"):
-            ce._entry("fwd", dtype)
+    for kind in ("fwd", "bwd"):  # a float64 CUDA tensor raises
+        with pytest.raises(TypeError, match="float32, bfloat16 or float16 only"):
+            ce._entry(kind, torch.float64)
 
 
-@pytest.mark.parametrize("impl,launched", [("pallas", True), ("lax", False), ("auto", False)])
-def test_conv_routes_take_the_epilogue_by_impl(impl, launched, monkeypatch):
-    """ops/conv.py's ``pallas`` route hands a conv's tail to
-    ``conv_epilogue``, the others add it in torch ops; the value is the
-    same on the CPU."""
+@pytest.mark.parametrize("route", ["conv2d", "up_conv", "pair"])
+def test_conv_routes_take_the_epilogue_by_impl(route, monkeypatch):
+    """ops/conv.py hands every TF-SAME conv's tail to ``conv_epilogue``:
+    ``conv2d``, ``up_conv`` and a concat pair (``other``, summed in the
+    second conv's epilogue); on the CPU the value is ``epilogue_plain``'s
+    over the raw convs, bit for bit."""
     calls = []
     real = ce.conv_epilogue
 
@@ -158,12 +160,25 @@ def test_conv_routes_take_the_epilogue_by_impl(impl, launched, monkeypatch):
     monkeypatch.setattr(conv, "conv_epilogue", spy)
     x = _inputs(11, (2, 6, 6, 5), torch.float64, False, False)[0]
     kernel = torch.from_numpy(np.random.default_rng(12).normal(size=(3, 3, 5, 4)))
-    got = conv.conv2d(x, kernel, torch.ones(4, dtype=torch.float64), relu=True, impl=impl)
-    want = conv.conv2d(x, kernel, torch.ones(4, dtype=torch.float64), relu=True, impl="lax")
+    bias = torch.ones(4, dtype=torch.float64)
+    if route == "conv2d":
+        got = conv.conv2d(x, kernel, bias, relu=True)
+        want = ce.epilogue_plain(conv._conv_strided_raw(x, kernel, 1), bias, True)
+    elif route == "up_conv":
+        k4 = kernel[:2, :2].repeat(2, 2, 1, 1)
+        got = conv.up_conv(x, k4, bias, relu=True)
+        want = ce.epilogue_plain(conv._convt_raw(x, k4, 2), bias, True)
+        assert got.shape == (2, 12, 12, 4)
+    else:
+        a = x.flip(1)
+        ya = conv.conv2d(a, kernel, None)
+        got = conv.conv2d(x, kernel, bias, relu=True, other=ya)
+        want = ce.epilogue_plain(conv._conv_strided_raw(x, kernel, 1), bias, True,
+                                 conv._conv_strided_raw(a, kernel, 1))
     assert torch.equal(got, want)
-    up = conv.up_conv(x, kernel[:2, :2].repeat(2, 2, 1, 1), None, impl, relu=True)
-    assert up.shape == (2, 12, 12, 4)
-    assert len(calls) == (2 if launched else 0)
+    assert calls[-1][1] is bias and calls[-1][2] is True
+    assert len(calls) == (2 if route == "pair" else 1)
+    assert (calls[-1][3] is ya) if route == "pair" else calls[-1][3] is None
 
 
 # ------------------------------------------------------------------ card
@@ -180,7 +195,7 @@ def _rel(a, w):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_epilogue_kernel_matches_plain_on_card(dtype):
     """Forward and backward kernels against the plain version at the cell's
     shapes at batch 2 and at scalar-route shapes (C = 3, C = 12, a
@@ -224,7 +239,7 @@ def test_epilogue_kernel_matches_plain_on_card(dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_float32_bias_gradient_on_card(dtype):
     """A float32 bias gets its gradient summed and kept in float32 whatever
     the gradient's dtype: the epilogue's db, and B4's db at D's C256 input

@@ -25,7 +25,7 @@ from gan_class_transfer2_tpu_torch.utils import weights  # noqa: E402
 
 torch.set_num_threads(1)
 
-B4_REACHING = dict(size=32, d_pixel_size=128, max_size=256, d_octaves=2, conv_impl="pallas")
+B4_REACHING = dict(size=32, d_pixel_size=128, max_size=256, d_octaves=2)
 
 
 def jax_disc_params(jcfg, num_classes=0, seed=0):
@@ -66,9 +66,9 @@ def test_discriminator_apply_matches_jax(patch, d_norm):
 
 @pytest.mark.parametrize("d_norm", ["none", "instance"])
 def test_discriminator_reaches_the_down_conv_kernels_plain_version(d_norm):
-    """At 128 channels the B4 gate admits layer 1 (16²×128 → 8²×256): under
-    ``conv_impl="pallas"`` it goes through ``down_conv_fused`` with
-    ``relu=False`` (its plain version on the CPU) and still matches JAX."""
+    """At 128 channels the B4 gate admits layer 1 (16²×128 → 8²×256): it
+    goes through ``down_conv_fused`` with ``relu=False`` (its plain version
+    on the CPU) and still matches JAX."""
     jcfg = jax_tiny(d_norm=d_norm, **B4_REACHING)
     cfg = tiny_test_config(d_norm=d_norm, **B4_REACHING)
     assert fused_down_conv.supported((2, 16, 16, 128), (4, 4, 128, 256))

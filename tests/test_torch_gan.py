@@ -210,7 +210,7 @@ def test_l1_matches_jax():
 
 @pytest.mark.parametrize("overrides", [
     dict(),
-    dict(size=32, d_pixel_size=128, max_size=256, d_octaves=2, conv_impl="pallas"),
+    dict(size=32, d_pixel_size=128, max_size=256, d_octaves=2),
 ], ids=["tiny", "b4-reaching"])
 def test_r1_penalty_and_its_gradient_match_jax(overrides):
     """R1 through a normalised discriminator, and its gradient with respect
@@ -456,7 +456,7 @@ def test_cli_profile_prints_the_jax_summary_keys(model, tmp_path, capsys):
     args = ["profile", "--device", "cpu", "--model", model, *TINY, "--batch-size", "2",
             "--profile-steps", "1", "--trace-dir", str(tmp_path / "trace"), "--steps", "10"]
     if model == "gan":
-        args += ["--g-norm", "instance", "--d-norm", "instance", "--conv-impl", "pallas"]
+        args += ["--g-norm", "instance", "--d-norm", "instance"]
     assert cli.main(args) == 0
     lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("{")]
     out = json.loads(lines[-1])

@@ -192,11 +192,11 @@ def _needs_card(monkeypatch):
 def test_fused_down_conv_kernel_matches_plain_on_card(monkeypatch):
     """The CUDA kernel against its plain version, at a tile-ragged shape
     with O = 64 (padded to 128), and at full-width shapes whose plan splits
-    K (batch 1, 4 and 16) or not, in both dtypes; its launch count; and two
+    K (batch 1, 4 and 16) or not, in each dtype; its launch count; and two
     launches on the same inputs give bit-identical y (the split partials
     are summed in a fixed order). Tolerances relative to max|y|: 1e-4 in
     float32 (summation order over 16·C terms), 2e-2 in bfloat16 (one bf16
-    output rounding is ~4e-3)."""
+    output rounding is ~4e-3), 2.5e-3 in float16 (one rounding ~5e-4)."""
     _needs_card(monkeypatch)
     r = np.random.default_rng(0)
     for (bsz, h, c, o) in ((3, 18, 128, 64), (4, 32, 512, 512), (1, 16, 512, 512),
@@ -205,7 +205,8 @@ def test_fused_down_conv_kernel_matches_plain_on_card(monkeypatch):
         k = torch.from_numpy((r.normal(size=(4, 4, c, o)) / np.sqrt(16 * c)).astype(np.float32))
         b = torch.from_numpy(r.normal(size=(o,)).astype(np.float32))
         k, b = k.cuda(), b.cuda()
-        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2),
+                           (torch.float16, 2.5e-3)):
             before = fdc.down_conv_fused.launches
             with torch.inference_mode():
                 y = fdc.down_conv_fused(x.to(dtype), k, b)
@@ -283,16 +284,17 @@ def test_down_conv_gradient_matches_plain_autograd_on_card(monkeypatch):
     shape: relative to the largest gradient, 1e-5 in float32 (IEEE convs,
     other summation orders), 4e-2 in bfloat16: the plain version's gradient
     is float32 rounded once to bf16, cuDNN's bf16 dgrad rounds its partial
-    sums over 4·O = 2048 terms too (2.0e-2 seen on an H100 at dx). An output
-    whose pre-activation lies within rounding of 0 may pass one ReLU and not
-    the other; the upstream gradient is 0 there for both."""
+    sums over 4·O = 2048 terms too (2.0e-2 seen on an H100 at dx); 5e-3 in
+    float16, whose 3 more bits of mantissa make those roundings 8× finer.
+    An output whose pre-activation lies within rounding of 0 may pass one
+    ReLU and not the other; the upstream gradient is 0 there for both."""
     _needs_card(monkeypatch)
     r = np.random.default_rng(1)
     x = torch.from_numpy(r.normal(size=(4, 64, 64, 256)).astype(np.float32)).cuda()
     k = torch.from_numpy((r.normal(size=(4, 4, 256, 512)) / 64).astype(np.float32)).cuda()
     b = torch.from_numpy((r.normal(size=(512,)) * 0.1).astype(np.float32)).cuda()
     g = torch.from_numpy(r.normal(size=(4, 32, 32, 512)).astype(np.float32)).cuda()
-    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 4e-2)):
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 4e-2), (torch.float16, 5e-3)):
         leaves, ys = [], []
         for fn in (fdc.down_conv_fused, fdc.down_conv_plain):
             leaves.append([t.to(dtype).requires_grad_() for t in (x, k, b)])
@@ -447,7 +449,7 @@ def test_remat_recomputes_through_b4_in_ieee_fp32_on_card(monkeypatch):
 
     _needs_card(monkeypatch)
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
-    cfg = tiny_test_config(size=32, pixel_size=128, max_size=256, octaves=2, conv_impl="pallas")
+    cfg = tiny_test_config(size=32, pixel_size=128, max_size=256, octaves=2)
     r = np.random.default_rng(5)
     x = torch.from_numpy(r.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32))
     eps = torch.from_numpy(r.normal(size=x.shape).astype(np.float32))
@@ -461,7 +463,7 @@ def test_remat_recomputes_through_b4_in_ieee_fp32_on_card(monkeypatch):
         assert fdc.down_conv_fused.launches == (2 if remat else 1)
     assert torch.equal(out[True][0], out[False][0])
     monkeypatch.setitem(unet.DTYPES, "float32", torch.float64)
-    _, want = trainer.loss_and_grads(cfg.replace(conv_impl="lax"), model.cpu().double(),
+    _, want = trainer.loss_and_grads(cfg, model.cpu().double(),
                                      x.double(), None, t_int=t, epsilon_in=eps.double())
     for a, w in zip(out[True][1], want):
         err = (a.double().cpu() - w).abs().max().item()
@@ -693,7 +695,7 @@ def test_serve_sample_launches_b4_on_card(monkeypatch):
 
     _needs_card(monkeypatch)
     cfg = tiny_test_config(size=32, pixel_size=128, max_size=128, block_depth=1,
-                           conv_impl="pallas", sample_stride=3)
+                           sample_stride=3)
     per_call, c = 0, cfg.pixel_size if cfg.block_depth else 3
     for i in range(cfg.octaves):
         f, hw = cfg.octave_filters(i), cfg.size >> i
@@ -725,14 +727,14 @@ def test_conditional_forward_through_b4_matches_the_plain_path_on_card(monkeypat
     """The class-conditional U-Net at a width whose two down convs B4 takes
     (block_depth 1: 128 channels at 32² and 16²; the 3 + 8 embedded input
     channels reach only the pre_block conv), a mixed-class batch: the kernel
-    path against cuDNN (``conv_impl="lax"``) within 1e-4 of the output's
+    path against the same weights on the CPU within 1e-4 of the output's
     scale (IEEE float32 sums in other orders), B4 launched once per down
     conv, and the class moving the output."""
     from gan_class_transfer2_tpu_torch.models import api, conditional
 
     _needs_card(monkeypatch)
     cfg = tiny_test_config(num_classes=3, size=32, pixel_size=128, max_size=256,
-                           block_depth=1, conv_impl="pallas")
+                           block_depth=1)
     model = api.init_denoiser(cfg, device="cuda")
     assert isinstance(model, conditional.ConditionalDenoiser)
     x = torch.from_numpy(np.random.default_rng(20).uniform(-1, 1, (2, 32, 32, 3))
@@ -742,11 +744,42 @@ def test_conditional_forward_through_b4_matches_the_plain_path_on_card(monkeypat
         fdc.down_conv_fused.launches = 0
         y = api.apply_denoiser(cfg, model, x, class_idx=c)
         assert fdc.down_conv_fused.launches == 2
-        ref = api.apply_denoiser(cfg.replace(conv_impl="lax"), model, x, class_idx=c)
         other = api.apply_denoiser(cfg, model, x, class_idx=torch.ones_like(c))
+        ref = api.apply_denoiser(cfg, model.cpu(), x.cpu(), class_idx=c.cpu())
     scale = max(1.0, ref.abs().max().item())
-    assert (y - ref).abs().max().item() <= 1e-4 * scale
+    assert (y.cpu() - ref).abs().max().item() <= 1e-4 * scale
     assert (other - y).abs().max().item() > 1e-3
+
+
+@pytest.mark.cuda
+def test_float16_forward_launches_b4_and_the_epilogue_on_card(monkeypatch):
+    """A float16 denoiser on the card (a width whose two down convs B4's
+    gate admits) launches B4 and the conv epilogue as float32 does, and
+    lies within 2e-3 of the output's scale of the same weights' float32
+    forward on the CPU (float16 rounds each op to 11 bits: the CPU's own
+    float16 forward lies 2e-4 off)."""
+    from gan_class_transfer2_tpu_torch.models import api
+    from gan_class_transfer2_tpu_torch.ops import conv_epilogue as ce
+
+    _needs_card(monkeypatch)
+    cfg = tiny_test_config(size=32, pixel_size=128, max_size=256, block_depth=1)
+    model = api.init_denoiser(cfg, device="cuda")
+    x = torch.from_numpy(np.random.default_rng(21).uniform(-1, 1, (2, 32, 32, 3))
+                         .astype(np.float32)).cuda()
+    launches = {}
+    with torch.inference_mode():
+        for dtype in ("float16", "float32"):
+            fdc.down_conv_fused.launches = ce.conv_epilogue.launches = 0
+            y = api.apply_denoiser(cfg.replace(compute_dtype=dtype), model, x)
+            launches[dtype] = fdc.down_conv_fused.launches, ce.conv_epilogue.launches
+            if dtype == "float16":
+                assert y.dtype == torch.float16
+                half = y.float().cpu()
+        ref = api.apply_denoiser(cfg, model.cpu(), x.cpu())
+    assert launches["float16"] == launches["float32"]
+    assert launches["float32"][0] == 2 and launches["float32"][1] > 0
+    scale = max(1.0, ref.abs().max().item())
+    assert (half - ref).abs().max().item() <= 2e-3 * scale
 
 
 @pytest.mark.cuda
@@ -784,7 +817,7 @@ def test_bundle_sample_launches_b4_on_card(monkeypatch, tmp_path):
     from gan_class_transfer2_tpu_torch.utils import bundle as bundle_lib
 
     _needs_card(monkeypatch)
-    cfg = Config(conv_impl="pallas", sample_stride=50).validate()
+    cfg = Config(sample_stride=50).validate()
     state = trainer.init_state(cfg, device="cuda")
     bundle_lib.export_bundle(cfg, state, str(tmp_path), programs=["sample"])
     bundle = bundle_lib.load_bundle(str(tmp_path), "cuda")
@@ -838,7 +871,7 @@ def test_two_replica_service_on_card_equals_one_replica(monkeypatch):
 
     _needs_card(monkeypatch)
     cfg = tiny_test_config(size=32, pixel_size=128, max_size=128, block_depth=1,
-                           conv_impl="pallas", sample_stride=3)
+                           sample_stride=3)
     state = trainer.init_state(cfg, torch.Generator().manual_seed(0), device="cuda")
     one = ModelService(cfg, state=state, device="cuda")
     two = ModelService(cfg, state=state, mesh=mesh_lib.make_mesh(devices=["cuda:0", "cuda:0"]),

@@ -61,17 +61,21 @@ def test_compiled_stats_counts_flops_without_running():
     assert seen == ["FakeTensor"]
 
 
-@pytest.mark.parametrize("conv_impl", ["lax", "pallas"])
-def test_compiled_stats_of_a_denoiser_forward_is_the_analytic_count(conv_impl):
+@pytest.mark.parametrize("pixel_size, gated", [(64, False), (128, True)],
+                         ids=["refused", "gated"])
+def test_compiled_stats_of_a_denoiser_forward_is_the_analytic_count(pixel_size, gated):
     """A denoiser forward counts ``model_flops_per_image``·B exactly, the
-    same through cuDNN's convs and through B4 (whose custom op the counter
-    reads by its registered formula), and launches nothing."""
+    same at a width whose down convs B4's gate refuses (cuDNN's convs) and
+    at one it admits (B4's custom op, which the counter reads by its
+    registered formula), and launches nothing."""
     from gan_class_transfer2_tpu_torch.config import tiny_test_config
     from gan_class_transfer2_tpu_torch.models import api, unet
     from gan_class_transfer2_tpu_torch.ops import fused_down_conv
     from gan_class_transfer2_tpu_torch.utils.benchmark import model_flops_per_image
 
-    cfg = tiny_test_config(conv_impl=conv_impl, pixel_size=128, max_size=128, size=32)
+    cfg = tiny_test_config(pixel_size=pixel_size, max_size=pixel_size, size=32)
+    assert fused_down_conv.supported((2, 32, 32, pixel_size),
+                                     (4, 4, pixel_size, pixel_size)) == gated
     model = api.init_denoiser(cfg, device="cpu")
     before = [p.detach().clone() for p in model.parameters()]
     launches = fused_down_conv.down_conv_fused.launches

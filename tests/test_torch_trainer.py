@@ -476,20 +476,21 @@ def test_model_flops_per_image_equals_jax(overrides):
 
 def test_cli_bench_prints_the_jax_keys(capsys):
     """``bench --device cpu`` at the tiny shapes: one JSON line with every
-    key of the JAX bench; no MFU off the card."""
+    key of the JAX bench but its conv route, which the port has not; no MFU
+    off the card."""
     rc = cli.main(["bench", "--device", "cpu", "--size", "16", "--pixel-size", "4",
                    "--max-size", "8", "--octaves", "2", "--steps", "10", "--batch-size", "2",
-                   "--bench-steps", "2", "--optimizer", "adam_fused", "--conv-impl", "pallas",
+                   "--bench-steps", "2", "--optimizer", "adam_fused",
                    "--fused-diffusion", "true", "--learning-rate", "0.001"])
     assert rc == 0
     lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.strip()]
     assert len(lines) == 1
     out = json.loads(lines[0])
     want = jbench.BenchResult("m", 1.0, "u", 0.0, {k: 0 for k in (
-        "images_per_sec", "step_ms", "batch_size", "size", "compute_dtype", "conv_impl",
+        "images_per_sec", "step_ms", "batch_size", "size", "compute_dtype",
         "n_chips", "backend", "model_tflops_per_chip", "train_flops_per_image", "mfu",
         "mfu_peak_tflops", "device_kind")})
-    assert set(json.loads(want.to_json())) <= set(out)
+    assert set(json.loads(want.to_json())) <= set(out) and "conv_impl" not in out
     assert out["metric"] == "train_images_per_sec_per_chip" and out["backend"] == "cpu"
     assert out["mfu"] is None and out["device_kind"] == "cpu"
     assert out["train_flops_per_image"] == 3 * jbench.model_flops_per_image(

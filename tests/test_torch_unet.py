@@ -7,6 +7,7 @@ test_reference_parity.py holds the JAX package to); 1e-5 against the JAX
 forward at tiny widths (both IEEE float32, summation order only); 1e-4 at
 the 128-channel config whose k4/s2 sums run over 2048 terms."""
 
+import json
 import os
 
 import numpy as np
@@ -17,6 +18,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from gan_class_transfer2_tpu import config as jconfig  # noqa: E402
 from gan_class_transfer2_tpu.config import tiny_test_config as jax_tiny  # noqa: E402
 from gan_class_transfer2_tpu.models import unet as junet  # noqa: E402
 from gan_class_transfer2_tpu_torch.config import Config, tiny_test_config  # noqa: E402
@@ -69,7 +71,10 @@ def test_forward_parity_against_golden_npz():
     ids=["concat", "residual", "none", "depth1", "depth1-no-elision", "per-step", "shuffle"],
 )
 def test_from_jax_params_forward_parity(overrides):
-    jcfg, cfg = jax_tiny(**overrides), tiny_test_config(**overrides)
+    """The port's config from the JAX config's JSON; the JAX forward takes
+    the conv route its config names, the port the one route it has."""
+    jcfg = jax_tiny(**overrides)
+    cfg = Config.from_json(jcfg.to_json())
     params = jax_params(jcfg)
     model = weights.from_jax_params(cfg, params, device="cpu")
     r = np.random.default_rng(1)
@@ -82,11 +87,22 @@ def test_from_jax_params_forward_parity(overrides):
     np.testing.assert_allclose(y.numpy(), ref, atol=1e-5)
 
 
+def test_a_jax_config_naming_a_conv_route_loads_and_writes_none():
+    """The JAX package's conv route has no field in the port: its JSON
+    (here naming ``pallas``, as the benchmark's configurations do) loads
+    with the key dropped, the port writes no such key, and the JAX package
+    reads the port's JSON back at its default route."""
+    cfg = Config.from_json(jconfig.Config(conv_impl="pallas").to_json())
+    assert cfg == Config().validate()
+    assert "conv_impl" not in json.loads(cfg.to_json())
+    assert jconfig.Config.from_json(cfg.to_json()).conv_impl == jconfig.Config().conv_impl
+
+
 def test_pallas_impl_runs_the_fused_down_conv_path(monkeypatch):
     """A config wide enough for the kernel's gate (C = 128 into a 16² down
     conv): the port routes that conv to fused_down_conv (its plain version
     on the CPU, launching nothing) and matches the JAX forward."""
-    kw = dict(size=32, pixel_size=128, max_size=256, octaves=2, conv_impl="pallas")
+    kw = dict(size=32, pixel_size=128, max_size=256, octaves=2)
     jcfg, cfg = jax_tiny(**kw), tiny_test_config(**kw)
     assert fused_down_conv.supported((1, 16, 16, 128), (4, 4, 128, 256))
     params = jax_params(jcfg)
@@ -151,7 +167,7 @@ def test_refused_features_name_the_missing_piece():
     dict(g_norm="batch"),
     dict(g_norm="instance", block_depth=1, concat_elision=False),
     dict(g_norm="instance", skip_mode="residual"),
-    dict(g_norm="instance", size=32, pixel_size=128, max_size=256, conv_impl="pallas"),
+    dict(g_norm="instance", size=32, pixel_size=128, max_size=256),
 ], ids=["instance", "batch", "instance-depth1-no-elision", "instance-residual",
         "instance-pallas"])
 def test_g_norm_forward_parity(overrides):

@@ -7,7 +7,7 @@ package's TPU grid).
   * the grid: img/s of the default train step at each (size, batch) point of
     JAX's ``DEFAULT_GRID`` (tools/bench_grid.py:25-31; default widths,
     octaves 4 at 64², 6 elsewhere), in float32 and bfloat16, through the
-    kernels (``conv_impl="pallas"``, ``optimizer="adam_fused"``, fused
+    kernels (B4 and the conv epilogue, ``optimizer="adam_fused"``, fused
     diffusion): ``utils/benchmark.run_benchmark`` (warmup untimed, the
     timed loop ends in a synchronise), with ``torch.cuda.max_memory_allocated``
     over the run;
@@ -16,7 +16,7 @@ package's TPU grid).
   * remat: the peak memory and step time of one point with ``remat=True``
     beside the same point without;
   * the cycle-GAN step at 256², batch 16 a class, default GAN knobs with
-    ``conv_impl="pallas"``, in three forms (the full cycle, identity off,
+    B4, in three forms (the full cycle, identity off,
     adversarial only) against the diffusion step at the same size and
     batch, in both dtypes (``--gan``).
 
@@ -49,7 +49,7 @@ DEFAULT_GRID = ",".join(
 )
 HELD_OUT = "256:20,256:24,384:16,512:12"
 FIT_POINT, CHECK_POINT = (512, 64), (256, 16)  # JAX fits at 512² b64; the check is the default step
-KERNEL_PATH = dict(conv_impl="pallas", optimizer="adam_fused", fused_diffusion=True)
+KERNEL_PATH = dict(optimizer="adam_fused", fused_diffusion=True)
 
 
 def _card() -> str:
@@ -97,8 +97,7 @@ def _gan_point(size: int, batch: int, dtype: str, steps: int, warmup: int, devic
 
     weights = {"full": {}, "identity_off": {"identity_weight": 0.0},
                "adversarial_only": {"identity_weight": 0.0, "cycle_weight": 0.0}}[form]
-    cfg = Config(size=size, batch_size=batch, compute_dtype=dtype, conv_impl="pallas",
-                 **weights).validate()
+    cfg = Config(size=size, batch_size=batch, compute_dtype=dtype, **weights).validate()
     state = gan.init_gan_state(cfg, device=device)
     step = gan.make_gan_train_step(cfg)
     gen = torch.Generator(device=device).manual_seed(0)

@@ -12,8 +12,7 @@ same weights, t and ε:
 
   * data 2 × model 2 (``parallel/mesh.make_mesh(data=2, model=2)``): each
     conv's output channels split over the model pair, B4 on the local
-    shapes (``conv_impl="pallas"``), the gradients averaged over the data
-    pair;
+    shapes, the gradients averaged over the data pair;
   * data 2 × spatial 2 (``parallel/spatial_train.make_dp_spatial_mesh``):
     the batch over the data pair, every activation's height over the
     spatial pair, the gradients summed over all four.
@@ -74,9 +73,9 @@ def _config(tiny: bool):
 
     if tiny:
         return tiny_test_config(size=32, batch_size=BATCH, optimizer="adam_tf",
-                                lr_schedule="constant", learning_rate=LR, conv_impl="pallas")
+                                lr_schedule="constant", learning_rate=LR)
     return Config().replace(batch_size=BATCH, optimizer="adam_tf", lr_schedule="constant",
-                            learning_rate=LR, conv_impl="pallas").validate()
+                            learning_rate=LR).validate()
 
 
 def _rank(rank: int, port: int, device: str, tiny: bool, queue) -> None:

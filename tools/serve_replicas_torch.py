@@ -135,8 +135,7 @@ def main(argv=None) -> int:
     print(cards.strip())
     card = cards.splitlines()[0].strip()
     _build.build_all()
-    cfg = Config(sample_stride=50, conv_impl="pallas", seed=args.seed,
-                 checkpoint_dir="").validate()
+    cfg = Config(sample_stride=50, seed=args.seed, checkpoint_dir="").validate()
     real_devices, serial = mesh_lib.local_devices, mesh_lib._on_replicas
     if args.replicas_on_card0:
         replicas = [torch.device("cuda", 0)] * args.replicas_on_card0
